@@ -1,0 +1,133 @@
+"""Quantization-aware dense / embedding layers.
+
+Counterpart of ``repro.nn.linear``. A layer's ``kernel`` (or ``table``)
+is either a plain frozen parameter or a :class:`QuantKernel` holding a
+:class:`LutqState`; matmuls with a quantized kernel go through
+:func:`repro_torch.kernels.ops.lutq_dot`, so serve-form leaves run the
+fused CUDA kernels and the decoded weight is never materialized.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.actquant import fake_quant, fake_quant_frozen
+from repro_torch.core.lutq import LutqState, decode_any, index_of
+from repro_torch.kernels.ops import lutq_dot
+from repro_torch.kernels.ref import unpack4_kin
+from repro_torch.nn.tree import leaf
+
+
+class Linear(nn.Module):
+    def __init__(self, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(kernel, requires_grad=False)
+        if bias is not None:
+            self.bias = nn.Parameter(bias, requires_grad=False)
+
+
+class Embedding(nn.Module):
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        self.table = nn.Parameter(table, requires_grad=False)
+
+
+def materialize(kernel, dtype=None) -> torch.Tensor:
+    """Decoded (quantized) or raw kernel, cast for compute."""
+    if isinstance(kernel, LutqState):
+        a = kernel.a
+        if a.dtype == torch.uint8:  # packed 4-bit pairs (serve_view pack4)
+            a = unpack4_kin(a)
+        k = decode_any(kernel.d, a)
+        if kernel.w is not None:
+            k = k.to(kernel.w.dtype)
+    else:
+        k = kernel
+    return k.to(dtype) if dtype is not None and k.dtype != dtype else k
+
+
+def _quant_act(x: torch.Tensor, kernel, act_bits: int) -> torch.Tensor:
+    """Activation quantization at the matmul boundary (the regime)."""
+    if isinstance(kernel, LutqState):
+        if kernel.d.dtype == torch.int8:
+            return x  # pow2 planes quantize inside their backend
+        if kernel.act is not None:
+            return fake_quant_frozen(x, kernel.act)
+    if act_bits < 32:
+        return fake_quant(x, act_bits)
+    return x
+
+
+def dot_kernel(x: torch.Tensor, kernel, *, dtype=None, backend: str = "auto",
+               transpose_rhs: bool = False, act_bits: int = 32) -> torch.Tensor:
+    """``x @ kernel`` (or ``x @ kernel.T``) with LUT-Q-aware dispatch."""
+    x = _quant_act(x, kernel, act_bits)
+    if isinstance(kernel, LutqState):
+        return lutq_dot(x, kernel, backend=backend,
+                        transpose_rhs=transpose_rhs,
+                        out_dtype=dtype or x.dtype)
+    k = materialize(kernel, dtype or x.dtype)
+    return torch.matmul(x, k.transpose(-1, -2) if transpose_rhs else k)
+
+
+def linear_init(generator: Optional[torch.Generator], in_dim: int,
+                out_dim: int, *, bias: bool = False,
+                dtype=torch.float32, device=None,
+                scale: Optional[float] = None) -> Linear:
+    if scale is None:
+        scale = in_dim ** -0.5
+    kernel = (torch.randn((in_dim, out_dim), generator=generator,
+                          device=device) * scale).to(dtype)
+    b = torch.zeros((out_dim,), dtype=dtype, device=device) if bias else None
+    return Linear(kernel, b)
+
+
+def linear_apply(p: Linear, x: torch.Tensor, *, dtype=None,
+                 backend: str = "auto", act_bits: int = 32) -> torch.Tensor:
+    y = dot_kernel(x, leaf(p, "kernel"), dtype=dtype, backend=backend,
+                   act_bits=act_bits)
+    if hasattr(p, "bias"):
+        y = y + p.bias.to(y.dtype)
+    return y
+
+
+def embedding_init(generator: Optional[torch.Generator], vocab: int,
+                   dim: int, *, dtype=torch.float32, device=None) -> Embedding:
+    table = (torch.randn((vocab, dim), generator=generator, device=device)
+             * 0.02).to(dtype)
+    return Embedding(table)
+
+
+def embedding_apply(p: Embedding, ids: torch.Tensor, *, dtype=None
+                    ) -> torch.Tensor:
+    """Rows ``ids`` of the (decoded) table.
+
+    A quantized table gathers the assignment rows first and decodes only
+    those (``d[a[ids]] == d[a][ids]``); a packed table takes row r's
+    nibble from packed row ``r // 2``. The full table is never decoded.
+    """
+    t = leaf(p, "table")
+    ids = ids.long()
+    if not isinstance(t, LutqState):
+        return materialize(t, dtype)[ids]
+    if t.d.ndim != 1:
+        raise ValueError("embedding_apply: one dictionary per table expected")
+    if t.a.dtype == torch.uint8:
+        byte = t.a[ids // 2]                               # (..., D)
+        shift = ((ids % 2) * 4).to(torch.uint8)[..., None]
+        idx = ((byte >> shift) & 0xF).long()
+    else:
+        idx = index_of(t.a[ids])
+    rows = t.d[idx]
+    if t.w is not None:
+        rows = rows.to(t.w.dtype)
+    return rows.to(dtype) if dtype is not None else rows
+
+
+def embedding_logits(p: Embedding, x: torch.Tensor, *, backend: str = "auto",
+                     act_bits: int = 32) -> torch.Tensor:
+    """Tied-softmax readout: x @ table.T."""
+    return dot_kernel(x, leaf(p, "table"), backend=backend,
+                      transpose_rhs=True, act_bits=act_bits)
