@@ -8,10 +8,15 @@ Phases, each fatal on failure (nothing here catches a phase's error):
 1. setup: the card's name, count and power limit; build the CUDA
    kernels from src/repro_torch/kernels/csrc and print the build time.
 2. kernels against their plain versions on the card, at h2o-danube-1.8b
-   shapes, bf16 and f32 x, plus a ragged case and (fused) a K=256 case
-   with indices >= 128. Error is max|kernel - plain| over max|plain|:
-   at most 1e-4 for f32 x (f32 accumulation in another order) and 1e-3
-   for bf16 x (tensor-core bf16 products accumulated in f32).
+   shapes. The GEMMs: bf16 and f32 x, plus a ragged case and (fused) a
+   K=256 case with indices >= 128; error is max|kernel - plain| over
+   max|plain|: at most 1e-4 for f32 x (f32 accumulation in another
+   order) and 1e-3 for bf16 x (tensor-core bf16 products accumulated in
+   f32). kmeans_stats: every leaf shape of the model with a 4-bit pow2
+   dictionary (K=16) and with K=256, a ragged N and a dictionary whose
+   midpoints are weights; assignments equal byte for byte, counts
+   exactly equal, each entry's sum within 1e-5 of sum|w| over the entry
+   (f32 in another order).
 3. serve: full-width h2o-danube-1.8b (24 layers, random weights from a
    seed), 4-bit LUT-Q (QuantSpec(bits=4, min_size=1024)), 8-bit
    activations, batch 4, prompt 128, 16 generated tokens, through
@@ -21,10 +26,23 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    its kernel 7 * 24 + 1 times and run no plain version. Then the
    reduced config served on the card must give the tokens it gives on
    the CPU through the plain versions.
-4. timing of each kernel at the decode (M=4) and prefill (M=512) shapes
-   with CUDA events, beside its bound, its plain version and a
+3b. train: full-width h2o-danube-1.8b (vocab 32000, random f32 masters
+   from a seed) through the training CLI's build path and TrainLoop,
+   with its default spec (4-bit pow2, kmeans_iters=1, min_size=4096)
+   and 8-bit activations, B=4, S=512, 3 steps of AdamW. Each step must
+   launch kmeans_stats (kmeans_iters + 1) x (quantized leaves) times
+   and run no plain version; losses finite; afterwards every dictionary
+   sorted with power-of-two nonzero entries and the masters moved. One
+   more step is profiled (device-idle share, kmeans_stats share). Then
+   the reduced config trains 3 steps on the card and on the CPU from
+   the same initial state and batches with kmeans_impl="stats": losses
+   within 1e-4 relative, dictionaries within 1e-5.
+4. timing of each GEMM kernel at the decode (M=4) and prefill (M=512)
+   shapes with CUDA events, beside its bound, its plain version and a
    torch.matmul on the pre-decoded bf16 weight (a yardstick the port
-   never calls).
+   never calls); kmeans_stats over every leaf shape of one training
+   step (two passes), beside its byte bound and its plain version (no
+   single PyTorch call computes what it does).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout,
@@ -55,6 +73,15 @@ HEAD_SHAPE = (2560, 32000)
 N_LAYERS = 24
 CALLS_PER_FORWARD = 7 * N_LAYERS + 1
 
+# danube's quantized leaves (rows, cols) with their count in one model
+TRAIN_LEAVES = {"q/o": ((2560, 2560), 2 * N_LAYERS),
+                "k/v": ((2560, 640), 2 * N_LAYERS),
+                "wi/wg": ((2560, 6912), 2 * N_LAYERS),
+                "wo": ((6912, 2560), N_LAYERS),
+                "embed/head": ((32000, 2560), 2)}
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 512
+KMEANS_SUM_TOL = 1e-5  # of sum|w| over the entry
+
 KERNELS = {
     "lutq_matmul": dict(route="cuda",
                         source="src/repro_torch/kernels/csrc/lutq_matmul.cu",
@@ -63,6 +90,9 @@ KERNELS = {
     "lutq_gemv_packed": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/lutq_gemv_packed.cu",
         replaces="src/repro/kernels/lutq_gemv_packed.py:48", packed=True),
+    "kmeans_stats": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/kmeans_stats.cu",
+        replaces="src/repro/kernels/kmeans_tpu.py:51"),
 }
 
 
@@ -175,40 +205,110 @@ def kernel_checks():
     return worst
 
 
+def _pow2_dict(w, K):
+    """A sorted 4-bit pow2 dictionary fit to w, as the training spec's
+    init makes it (K=16), or a sorted random one (other K)."""
+    import torch
+
+    from repro_torch.core.lutq import init_dictionary
+    from repro_torch.core.spec import QuantSpec
+
+    if K == 16:
+        return init_dictionary(w[: 1 << 20], QuantSpec(bits=4,
+                                                       constraint="pow2"))
+    g = torch.Generator(device=w.device).manual_seed(K)
+    return torch.sort(torch.randn(K, generator=g, device=w.device)
+                      * w.std()).values
+
+
+def kmeans_checks():
+    """kmeans_stats against its plain version; returns the largest
+    |sums - plain sums| seen."""
+    import torch
+
+    from repro_torch.kernels.kmeans_stats import kmeans_stats
+    from repro_torch.kernels.ref import kmeans_stats_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [(r * c, K, False) for (r, c), _ in TRAIN_LEAVES.values()
+             for K in (16, 256)]
+    cases += [(1_000_003, 16, False), (1_000_003, 256, False),
+              (4_000_037, 16, True), (1_000_003, 256, True)]
+    worst = 0.0
+    for N, K, ties in cases:
+        w = torch.randn(N, generator=gen, device=dev) * 0.02
+        if ties:  # every midpoint of d is a weight, many times over
+            d = torch.arange(K, dtype=torch.float32, device=dev) - (K - 1) / 2
+            w = (torch.randint(0, 2 * K, (N,), generator=gen, device=dev)
+                 - K) * 0.5
+        else:
+            d = _pow2_dict(w, K)
+        a, sums, counts = kmeans_stats(w, d)
+        torch.cuda.synchronize()
+        a0, s0, c0 = kmeans_stats_ref(w, d)
+        torch.cuda.synchronize()
+        idx = a0.view(torch.uint8).long()
+        mag = torch.zeros(K, dtype=torch.float64, device=dev).index_add_(
+            0, idx, w.abs().double()).float()
+        err = (sums - s0).abs()
+        rel = (err / mag.clamp(min=1e-30)).max().item()
+        n_bad = int((a != a0).sum())
+        on_mid = int(torch.isin(w, (d[:-1] + d[1:]) * 0.5).sum())
+        log(f"check kmeans_stats N={N} K={K}: {on_mid} weights on a "
+            f"midpoint, assignments differing {n_bad}, counts equal "
+            f"{bool(torch.equal(counts, c0))}, sums max err "
+            f"{err.max().item():.3e} ({rel:.2e} of sum|w|, tol "
+            f"{KMEANS_SUM_TOL:.0e})")
+        check(n_bad == 0, f"kmeans_stats assignments differ at N={N} K={K}")
+        check(bool(torch.equal(counts, c0)), f"kmeans_stats counts differ "
+              f"at N={N} K={K}")
+        check(bool((err <= KMEANS_SUM_TOL * mag).all()),
+              f"kmeans_stats sums off at N={N} K={K}")
+        if K == 256:
+            check(bool((a < 0).any()), "K=256: no index >= 128 seen")
+        worst = max(worst, err.max().item())
+        del w, a, a0
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
-def _reset_counts():
-    from repro_torch.kernels import lutq_gemv_packed, lutq_matmul, ops
+def _count_dicts():
+    from repro_torch.kernels import (kmeans_stats, lutq_gemv_packed,
+                                     lutq_matmul, ops)
 
-    for counts in (lutq_matmul.COUNTS, lutq_gemv_packed.COUNTS, ops.COUNTS):
+    return (lutq_matmul.COUNTS, lutq_gemv_packed.COUNTS, kmeans_stats.COUNTS,
+            ops.COUNTS)
+
+
+def _reset_counts():
+    for counts in _count_dicts():
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts():
-    from repro_torch.kernels import lutq_gemv_packed, lutq_matmul, ops
-
-    return {"lutq_matmul": lutq_matmul.COUNTS["launches"],
-            "lutq_gemv_packed": lutq_gemv_packed.COUNTS["launches"],
-            "plain": lutq_matmul.COUNTS["plain"]
-            + lutq_gemv_packed.COUNTS["plain"],
-            "decode": ops.COUNTS["decode"]}
+    mm, gp, km, ops = _count_dicts()
+    return {"lutq_matmul": mm["launches"], "lutq_gemv_packed": gp["launches"],
+            "kmeans_stats": km["launches"],
+            "plain": mm["plain"] + gp["plain"] + km["plain"],
+            "decode": ops["decode"]}
 
 
-def profile_generate(view, cfg, toks):
-    """Device-busy share of one generate, from torch.profiler: the sum of
-    kernel device time over the host wall time, and the top kernels."""
+def profile_run(fn, what: str):
+    """Device-busy share of ``fn()`` (which ends in a synchronize), from
+    torch.profiler: the sum of kernel device time over the host wall
+    time. Returns (wall ms, busy ms, [(ms, count, kernel name)])."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.runtime.serving import generate
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
-        generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN, device="cuda")
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an aten op's row repeats its kernels' device time
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
@@ -216,11 +316,24 @@ def profile_generate(view, cfg, toks):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in rows)
-    log(f"  profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms * 100:.1f}%), idle "
+    check(busy_ms > 0, f"profile of {what}: no device time recorded")
+    log(f"  profile {what}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / wall_ms * 100:.1f}%), idle "
         f"{(1 - busy_ms / wall_ms) * 100:.1f}%")
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {ms:9.3f} ms  x{count:<6d} {key[:90]}")
+    return wall_ms, busy_ms, rows
+
+
+def profile_generate(view, cfg, toks):
+    import torch
+
+    from repro_torch.runtime.serving import generate
+
+    def run():
+        generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN, device="cuda")
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, _ = profile_run(run, "generate")
     return wall_ms, busy_ms
 
 
@@ -333,17 +446,177 @@ def reduced_reference():
 
 
 # ---------------------------------------------------------------------------
+# phase 3b
+# ---------------------------------------------------------------------------
+
+def _train_args(*flags):
+    import torch
+
+    from repro_torch.launch import train as train_cli
+
+    args = train_cli.parser().parse_args(["--arch", "h2o-danube-1.8b",
+                                          *flags])
+    args.device = torch.device(args.device)
+    return args
+
+
+def _leaves(model):
+    from repro_torch.nn.tree import QuantKernel
+
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, QuantKernel)]
+
+
+def train_full_width():
+    """Full-width danube trained 3 steps through the CLI's build path and
+    TrainLoop; returns the phase's numbers."""
+    import torch
+
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import kmeans_stats
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import api
+    from repro_torch.runtime.loop import TrainLoop
+
+    args = _train_args("--steps", str(TRAIN_STEPS), "--batch",
+                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                       "--vocab", "0", "--device", "cuda")
+    t0 = time.perf_counter()
+    cfg, state, step_fn = train_cli.build(args)
+    torch.cuda.synchronize()
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+           cfg.vocab) == (N_LAYERS, 2560, 32, 8, 6912, 32000),
+          f"not full-width danube: {cfg}")
+    spec = cfg.quant
+    leaves = _leaves(state.model)
+    n_leaves = len(leaves)
+    per_step = (spec.kmeans_iters + 1) * n_leaves
+    log(f"train {cfg.name}: init + quantize {time.perf_counter() - t0:.1f} s"
+        f" | {n_leaves} quantized leaves | spec bits={spec.bits} "
+        f"{spec.constraint} kmeans_iters={spec.kmeans_iters} | act_bits "
+        f"{cfg.act_bits} | B={args.batch} S={args.seq} | remat {cfg.remat}")
+    check(n_leaves == 7 * N_LAYERS + 2, f"{n_leaves} quantized leaves")
+    watch = {n: m.w.detach().clone() for n, m in
+             (leaves[0], leaves[n_leaves // 2], leaves[-1])}
+    lm = MarkovLM(cfg.vocab, seed=args.data_seed)
+    launches = []
+
+    def counted_step(st, batch):
+        before = kmeans_stats.COUNTS["launches"]
+        out = step_fn(st, batch)
+        launches.append(kmeans_stats.COUNTS["launches"] - before)
+        return out
+
+    loop = TrainLoop(counted_step, train_cli.batch_fn(lm, args, args.device),
+                     log_every=1, log_fn=log,
+                     quant_policy=api.resolved_policy(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    state, step = loop.run(state, TRAIN_STEPS, handle_signals=False)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(step == TRAIN_STEPS, f"trained {step} steps")
+    ms = [h["dt"] * 1e3 for h in loop.history]
+    losses = [h["loss"] for h in loop.history]
+    tok_s = [TRAIN_BATCH * TRAIN_SEQ / (t / 1e3) for t in ms]
+    log(f"train steps: ms {['%.1f' % t for t in ms]} | tokens/s "
+        f"{['%.0f' % t for t in tok_s]} | loss {['%.4f' % x for x in losses]}"
+        f" | grad_norm {['%.3f' % h['grad_norm'] for h in loop.history]} | "
+        f"peak {peak:.2f} GiB | launches {counts} per step {launches}")
+    check(all(math.isfinite(x) for x in losses), f"loss not finite: {losses}")
+    check(launches == [per_step] * TRAIN_STEPS,
+          f"kmeans_stats launched {launches} per step, expected {per_step}")
+    check(counts["plain"] == 0, f"a plain version ran: {counts}")
+    check(counts["lutq_matmul"] == 0 and counts["lutq_gemv_packed"] == 0,
+          f"train-form leaves reached a serve kernel: {counts}")
+    for name, mod in leaves:
+        d = mod.d
+        check(bool((d[1:] >= d[:-1]).all()), f"{name}: dictionary unsorted")
+        mant, _ = torch.frexp(d[d != 0])
+        check(bool((mant.abs() == 0.5).all()),
+              f"{name}: a dictionary entry is not a power of two: {d}")
+    moved = {n: float((dict(leaves)[n].w.detach() - w0).abs().max())
+             for n, w0 in watch.items()}
+    log(f"masters moved (max |w - w0|): {moved}")
+    check(all(v > 0 for v in moved.values()), "the masters did not move")
+
+    batch = loop.make_batch(TRAIN_STEPS)
+
+    def one_step():
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+    wall, busy, rows = profile_run(one_step, "one training step")
+    km_ms = sum(r[0] for r in rows if "kmeans" in r[2])
+    log(f"  kmeans_stats in the profiled step: {km_ms:.2f} ms = "
+        f"{km_ms / wall * 100:.2f}% of the step, "
+        f"{km_ms / busy * 100:.2f}% of device time")
+    out = dict(launches=counts["kmeans_stats"], n_leaves=n_leaves,
+               per_step=per_step, ms=ms, tok_s=tok_s, peak_gib=peak,
+               idle=1 - busy / wall, kmeans_share=km_ms / wall)
+    del state, loop, step_fn, watch
+    torch.cuda.empty_cache()
+    return out
+
+
+def reduced_train_card_vs_cpu():
+    """The reduced config trained 3 steps on the card and on the CPU from
+    one initial state and the same batches, kmeans_impl="stats" forced.
+    Activations stay f32 here: the point is the kernel path, and an
+    8-bit activation grid turns a one-ulp matmul difference into a
+    ~1e-5 loss difference."""
+    import torch
+
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch import train as train_cli
+
+    args = _train_args("--reduced", "--steps", "3", "--batch", "4",
+                       "--seq", "32", "--act-bits", "32", "--device", "cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cfg, state, step_fn = train_cli.build(args, kmeans_impl="stats")
+        state.model.to(dev)
+        state.opt_state = {k: {n: t.to(dev) for n, t in v.items()}
+                           for k, v in state.opt_state.items()}
+        make_batch = train_cli.batch_fn(MarkovLM(cfg.vocab, seed=0), args,
+                                        torch.device(dev))
+        _reset_counts()
+        losses = []
+        for s in range(3):
+            state, m = step_fn(state, make_batch(s))
+            losses.append(float(m["loss"]))
+        runs[dev] = (losses, {n: m.d.cpu() for n, m in _leaves(state.model)},
+                     _read_counts())
+    n_leaves = len(runs["cpu"][1])
+    want = 3 * 2 * n_leaves
+    (lc, dc, cc), (lg, dg, cg) = runs["cpu"], runs["cuda"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    derr = max(float((dg[n] - dc[n]).abs().max() / dc[n].abs().max())
+               for n in dc)
+    log(f"reduced train card vs cpu: losses {lg} vs {lc} (max rel "
+        f"{rel:.2e}), dictionaries max rel {derr:.2e} | card {cg} | cpu {cc}")
+    check(cg["kmeans_stats"] == want and cg["plain"] == 0,
+          f"card run: {cg}, expected {want} kmeans_stats launches")
+    check(cc["kmeans_stats"] == 0 and cc["plain"] == want,
+          f"cpu run: {cc}, expected {want} plain passes")
+    check(rel <= 1e-4, "reduced training: card and CPU losses disagree")
+    check(derr <= 1e-5, "reduced training: dictionaries disagree")
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, arg_sets, iters: int):
+def time_ms(fn, arg_sets, iters: int, graph: bool = True):
     """(device ms, host-loop ms) per call over ``iters`` calls cycling
     through ``arg_sets`` (distinct operand copies, so weights come from
     device memory, not L2, as on the serve path), after a warm-up.
 
     Device time replays the calls captured in a CUDA graph, so the
     wrapper's host work is out of it; the host-loop time is the same
-    calls issued from Python, as the serve path issues them."""
+    calls made from Python, as the serve path makes them. With
+    ``graph=False`` (a function that synchronizes, such as the k-means
+    plain version's ``bincount``) both are the host-loop time."""
     import torch
 
     for i in range(3):
@@ -357,6 +630,8 @@ def time_ms(fn, arg_sets, iters: int):
     end.record()
     torch.cuda.synchronize()
     loop = start.elapsed_time(end) / iters
+    if not graph:
+        return loop, loop
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(iters):
@@ -450,6 +725,54 @@ def timings(card: str):
     return table
 
 
+def kmeans_timings(card: str):
+    """kmeans_stats over every leaf shape of one training step (two
+    passes each), against its byte bound: each pass reads 4 B of w and
+    writes 1 B of a per weight, plus the (K,) dictionary in and sums and
+    counts out. The work per weight (an 8-step binary search and two
+    adds) is far below the f32 rate, so bytes bound it."""
+    import torch
+
+    from repro_torch.kernels.kmeans_stats import kmeans_stats
+    from repro_torch.kernels.ref import kmeans_stats_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    agg = dict(ms=0.0, loop_ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    passes = 2  # kmeans_iters = 1, plus the final assignment
+    for label, ((r, c), count) in TRAIN_LEAVES.items():
+        N = r * c
+        w = torch.randn(N, generator=gen, device=dev) * 0.02
+        d = _pow2_dict(w, 16)
+        n = _copies(N * 4)
+        sets = [(w.clone(), d) for _ in range(n)]
+        t, t_loop = time_ms(kmeans_stats, sets, iters=max(20, 2 * n))
+        tp, _ = time_ms(kmeans_stats_ref, sets[:2], iters=4, graph=False)
+        tb = (N * 5 + 16 * 4 * 3) / HBM_BYTES_PER_S * 1e3
+        to = N * 6 / PEAK_FLOPS["float32"] * 1e3
+        log(f"time kmeans_stats {label} N={N}: kernel {t * 1e3:.1f} us "
+            f"(host loop {t_loop * 1e3:.1f} us) | bound {tb * 1e3:.1f} us "
+            f"(bytes) = {tb / t * 100:.1f}% | plain {tp * 1e3:.1f} us | "
+            f"{card}")
+        k = passes * count
+        agg["ms"] += k * t
+        agg["loop_ms"] += k * t_loop
+        agg["plain_ms"] += k * tp
+        agg["bytes_ms"] += k * tb
+        agg["ops_ms"] += k * to
+        del sets, w
+    agg["bound_ms"] = max(agg["bytes_ms"], agg["ops_ms"])
+    agg["bound_by"] = "bytes" if agg["bytes_ms"] >= agg["ops_ms"] else \
+        "operations"
+    n_calls = passes * sum(c for _, c in TRAIN_LEAVES.values())
+    log(f"time kmeans_stats one training step ({n_calls} calls): kernel "
+        f"{agg['ms']:.3f} ms (host loop {agg['loop_ms']:.3f} ms) | bound "
+        f"{agg['bound_ms']:.3f} ms ({agg['bound_by']}) = "
+        f"{agg['bound_ms'] / agg['ms'] * 100:.1f}% | plain "
+        f"{agg['plain_ms']:.3f} ms | library: none | {card}")
+    return agg
+
+
 def main() -> int:
     try:
         import torch
@@ -460,20 +783,26 @@ def main() -> int:
     t_start = time.perf_counter()
     name, count, card = setup()
     worst = kernel_checks()
+    worst["kmeans_stats"] = kmeans_checks()
     launches, _ = serve_full_width()
     reduced_reference()
-    table = timings(card)
+    trained = train_full_width()
+    launches["kmeans_stats"] = trained["launches"]
+    reduced_train_card_vs_cpu()
+    table = {k: v[4] for k, v in timings(card).items()}
+    table["kmeans_stats"] = dict(kmeans_timings(card), library_ms=None)
     records = []
     for kname, meta in KERNELS.items():
-        dec = table[kname][4]
+        t = table[kname]
         records.append({
             "name": kname, "route": meta["route"], "source": meta["source"],
             "replaces": meta["replaces"], "launches": launches[kname],
             "max_abs_err": worst[kname],
-            # one decode forward at B=4: the 169 calls of the serve path
-            "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-            "library_ms": dec["library_ms"]})
+            # GEMMs: one decode forward at B=4, the 169 calls of the serve
+            # path; kmeans_stats: one training step, its 340 calls
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,10 @@
 """LUT-Q: dictionary + assignment quantization with iterative k-means.
 
-PyTorch counterpart of ``repro.core.lutq`` for the serving slice:
-decode, the dictionary constraints, nearest-entry assignment and the
-k-means step that ``init_state`` runs once at quantization time.
+PyTorch counterpart of ``repro.core.lutq`` (the paper's Table 1):
+
+  step 1   Q = d[A]                      -> :func:`decode`
+  step 2/3 STE forward + master update   -> :func:`quantize_ste`
+  step 4   M k-means iterations on (A,d) -> :func:`update_state`
 
 Assignment is 1-D nearest-neighbour search against a *sorted*
 dictionary, done by bucketizing against the K-1 midpoints
@@ -60,6 +62,43 @@ def index_of(a: torch.Tensor) -> torch.Tensor:
 def decode(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Q = d[A] (paper step 1)."""
     return d[index_of(a)]
+
+
+# ---------------------------------------------------------------------------
+# steps 2/3: straight-through estimator
+# ---------------------------------------------------------------------------
+
+class _SteExact(torch.autograd.Function):
+    """Forward: exactly ``d[A]`` in w's dtype. Backward: dC/dW = dC/dQ
+    (paper step 3); d and A get no gradient."""
+
+    @staticmethod
+    def forward(ctx, w, d, a):
+        return decode_any(d, a).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def quantize_ste(w: torch.Tensor, d: torch.Tensor, a: torch.Tensor
+                 ) -> torch.Tensor:
+    """Forward value is *exactly* Q = d[A]; the gradient flows straight
+    to w.
+
+    Bit-exactness of the forward value matters for the multiplier-less
+    claims (decoded weights must be exact dictionary entries), hence an
+    autograd Function instead of the ``w + (q - w).detach()`` trick,
+    which rounds ``w + (q - w)`` back to something other than q.
+    """
+    return _SteExact.apply(w, d, a)
+
+
+def quantize_ste_any(w: torch.Tensor, d: torch.Tensor, a: torch.Tensor
+                     ) -> torch.Tensor:
+    """:func:`quantize_ste` of any leaf (the port's leaves are per layer,
+    so there are no stacked dictionaries to map over)."""
+    return quantize_ste(w, d, a)
 
 
 def decode_any(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -229,7 +268,94 @@ def kmeans_update_segsum(w: torch.Tensor, d: torch.Tensor, spec: QuantSpec
     return d, assign_ids(d).to(torch.int8)
 
 
+def kmeans_update_stats(w: torch.Tensor, d: torch.Tensor, spec: QuantSpec
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kmeans_update` through the ``kmeans_stats`` kernel.
+
+    One fused pass per iteration computes assignments and per-entry sums
+    and counts (one read of w, one int8 write of a), and one more pass
+    gives the final assignments: ``kmeans_iters + 1`` launches per leaf.
+    What the kernel cannot express is composed around its stats, as in
+    the reference: fixed dictionaries take its assignment and recenter
+    with :func:`_fixed_scale_update`; prune masks move each pruned
+    weight's contribution from its kernel-assigned entry to the zero
+    entry with K masked corrections; the constraints run on the (K,)
+    dictionary.
+    """
+    from repro_torch.kernels import ops  # local: kernels.ops imports us
+
+    K = spec.K
+    flat = w.reshape(-1).float()
+    pmask = (_prune_mask(w, spec.prune_frac).reshape(-1)
+             if spec.prune_frac > 0.0 else None)
+
+    def stats(d):
+        a, sums, counts = ops.kmeans_stats(flat, d)
+        if pmask is None:
+            return a, sums, counts
+        zi = torch.argmin(d.abs())
+        ai = index_of(a)
+        zero = torch.zeros((), dtype=torch.float32, device=w.device)
+        m = [pmask & (ai == k) for k in range(K)]
+        csum = torch.stack([torch.where(mk, flat, zero).sum() for mk in m])
+        ccnt = torch.stack([mk.float().sum() for mk in m])
+        sums = (sums - csum).index_add(0, zi[None], csum.sum()[None])
+        counts = (counts - ccnt).index_add(0, zi[None], ccnt.sum()[None])
+        return torch.where(pmask, zi.to(torch.int8), a), sums, counts
+
+    for _ in range(spec.kmeans_iters):
+        a, sums, counts = stats(d)
+        if spec.fixed_dictionary:
+            d = _fixed_scale_update(d, flat, a, spec)
+        else:
+            d = _recenter(d, sums, counts, spec)
+    a, _, _ = stats(d)
+    return d, a.reshape(w.shape)
+
+
 _SEGSUM_THRESHOLD = 1 << 16
+
+_KMEANS_IMPLS = {
+    "dense": kmeans_update,
+    "segsum": kmeans_update_segsum,
+    "stats": kmeans_update_stats,
+}
+
+
+def resolve_kmeans_impl(n: int, impl: Optional[str] = None,
+                        device=None) -> str:
+    """Structural step-4 implementation for an n-element leaf on
+    ``device``.
+
+    ``None`` resolves as the reference does: dense one-hot below
+    ``_SEGSUM_THRESHOLD``; above it the fused ``kmeans_stats`` kernel
+    on a CUDA device (the reference's "on TPU"), and the masked-
+    reduction ``segsum`` form elsewhere. Explicit names force a path
+    (tests, benches); ``"stats"`` on a CPU tensor runs the kernel's
+    plain version.
+    """
+    if impl is not None:
+        if impl not in _KMEANS_IMPLS:
+            raise ValueError(
+                f"unknown kmeans impl {impl!r}; expected one of "
+                f"{tuple(_KMEANS_IMPLS)}")
+        return impl
+    if n < _SEGSUM_THRESHOLD:
+        return "dense"
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    return "stats" if on_cuda else "segsum"
+
+
+def update_state(state: LutqState, spec: QuantSpec,
+                 impl: Optional[str] = None) -> LutqState:
+    """Paper step 4 applied to a LutqState (after the optimizer touched
+    w). ``impl``: force "dense" | "segsum" | "stats"; default structural
+    (:func:`resolve_kmeans_impl`). Returns new (d, a); nothing is
+    written in place here."""
+    w = state.w.detach()
+    fn = _KMEANS_IMPLS[resolve_kmeans_impl(w.numel(), impl, w.device)]
+    d, a = fn(w, state.d, spec)
+    return LutqState(w=state.w, d=d, a=a, sid=state.sid, act=state.act)
 
 
 # ---------------------------------------------------------------------------

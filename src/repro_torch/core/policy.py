@@ -1,10 +1,13 @@
 """Quantization policy application over a module tree.
 
-Counterpart of ``repro.core.policy`` for the serving slice:
-:func:`quantize_tree` installs a :class:`LutqState` on every eligible
-kernel, :func:`serve_view` keeps only the dictionary and the int8 or
-packed 4-bit assignments, :func:`backend_manifest` records which kernel
-each leaf resolves to, and the report helpers feed the serve CLI.
+Counterpart of ``repro.core.policy``: :func:`quantize_tree` installs a
+:class:`LutqState` on every eligible kernel, :func:`kmeans_tree` runs
+the paper's step 4 on every quantized leaf under its rule,
+:func:`split_trainable` / :func:`merge_trainable` separate the trained
+masters from the static state, :func:`serve_view` keeps only the
+dictionary and the int8 or packed 4-bit assignments,
+:func:`backend_manifest` records which kernel each leaf resolves to,
+and the report helpers feed the serve CLI.
 
 Leaves are resolved against the reference's *stacked* path
 (:func:`repro_torch.nn.tree.logical_path`): per-layer leaves of one
@@ -22,9 +25,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.core.lutq import LutqState, init_state
+from repro_torch.core.lutq import LutqState, init_state, update_state
 from repro_torch.core.rules import QuantLike, QuantPolicy, as_policy
-from repro_torch.nn.tree import (clone_structure, logical_path,
+from repro_torch.core.spec import QuantSpec
+from repro_torch.nn.tree import (QuantKernel, clone_structure, logical_path,
                                  map_with_path, tree_paths)
 
 # Parameters that never get quantized regardless of size (norm gains,
@@ -78,6 +82,69 @@ def quantize_tree(model: nn.Module, quant: QuantLike,
                                             device=leaf.device))
 
     return map_with_path(convert, model)
+
+
+def _resolve_for_state(policy: QuantPolicy, path) -> Optional[QuantSpec]:
+    """Spec governing an existing LutqState leaf (path re-resolution).
+
+    Size floors are ignored: the leaf is already quantized, so the rule's
+    spec applies regardless of how the floor would gate fresh conversion.
+    """
+    i = policy.match(path)
+    if i is None:
+        return None
+    return policy.rules[i].spec
+
+
+def kmeans_tree(model: nn.Module, quant: QuantLike,
+                impl: Optional[str] = None) -> nn.Module:
+    """Paper step 4 over every train-form quantized leaf, honoring each
+    leaf's rule; returns model.
+
+    ``impl`` forces the per-leaf k-means implementation ("dense" |
+    "segsum" | "stats"); default is the structural choice of
+    :func:`repro_torch.core.lutq.resolve_kmeans_impl`. Runs under
+    ``torch.no_grad()`` and writes the new ``d`` and ``a`` into each
+    leaf's buffers in place (the reference returns a new tree). A leaf
+    no rule covers keeps its (d, A) frozen.
+    """
+    policy = as_policy(quant)
+    if policy is None:
+        return model
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if not isinstance(mod, QuantKernel) or mod.w is None:
+                continue
+            lpath, _ = logical_path(tuple(name.split(".")))
+            spec = _resolve_for_state(policy, lpath)
+            if spec is None:
+                continue
+            new = update_state(mod.state, spec, impl=impl)
+            mod.d.copy_(new.d)
+            mod.a.copy_(new.a)
+    return model
+
+
+def split_trainable(model: nn.Module):
+    """(trainable, static) views of a model, keyed by state-dict name.
+
+    trainable: the parameters that require grad: the LUT-Q masters
+    (``....kernel.w``, the paper's W) and the float leaves. static: the
+    buffers: dictionaries, assignments, rule ids, activation pairs. The
+    tensors are the model's own, not copies; :func:`merge_trainable`
+    writes such views back into a model.
+    """
+    trainable = {n: p for n, p in model.named_parameters()
+                 if p.requires_grad}
+    static = dict(model.named_buffers())
+    return trainable, static
+
+
+def merge_trainable(model: nn.Module, trainable, static) -> nn.Module:
+    """Copy a (trainable, static) pair into ``model`` by name, in place;
+    every parameter and buffer must be given. Returns model."""
+    model.load_state_dict({**trainable, **static}, strict=True)
+    return model
 
 
 def _leaf_rule(pol: Optional[QuantPolicy], path):

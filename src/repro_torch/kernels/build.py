@@ -29,11 +29,21 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: argtypes of every launcher: device, x, x_bf16, a, vec, d, n_dict, y,
-#: part, M, N, Kin, splits, kchunk, stream
+_LL = ctypes.c_longlong
+#: argtypes of the two GEMM launchers: device, x, x_bf16, a, vec, d,
+#: n_dict, y, part, M, N, Kin, splits, kchunk, stream
 LAUNCH_ARGTYPES = [_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
                    _P]
-LAUNCHERS = ("lutq_matmul_launch", "lutq_gemv_packed_launch")
+#: argtypes of the k-means launcher: device, w, n, d, n_dict, a,
+#: part_sums, part_counts, blocks, sums, counts, stream
+KMEANS_ARGTYPES = [_I, _P, _LL, _P, _I, _P, _P, _P, _I, _P, _P, _P]
+#: every C entry point of the library and its argtypes (all return int)
+SIGNATURES = {
+    "lutq_matmul_launch": LAUNCH_ARGTYPES,
+    "lutq_gemv_packed_launch": LAUNCH_ARGTYPES,
+    "kmeans_stats_launch": KMEANS_ARGTYPES,
+    "kmeans_stats_blocks": [_LL, _I, _I],  # n, n_dict, SMs -> grid size
+}
 
 _LIB: Optional[ctypes.CDLL] = None
 #: {"seconds": build time (0 when loaded from an earlier build),
@@ -105,9 +115,9 @@ def load_library() -> ctypes.CDLL:
         (out.parent / "ptxas.txt").write_text(report)
     seconds = time.perf_counter() - t0 if report else 0.0
     lib = ctypes.CDLL(str(out))
-    for name in LAUNCHERS:
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = LAUNCH_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     BUILD_INFO.update(seconds=seconds, path=str(out), ptxas=report)
     _LIB = lib
@@ -115,7 +125,7 @@ def load_library() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
-# launching (shared by the two kernel wrappers)
+# launching (shared by the two GEMM wrappers)
 # ---------------------------------------------------------------------------
 
 BN, BK = 128, 32  # the kernels' output-column and reduction tiles
@@ -139,7 +149,7 @@ def plan_splits(M: int, N: int, Kin: int, sms: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -167,7 +177,7 @@ def launch_gemm(launcher: str, x, a, d, N: int, vec_bytes: int):
     M, Kin = x.shape
     if M == 0 or N == 0 or Kin == 0:
         raise ValueError(f"{launcher}: empty product {(M, Kin, N)}")
-    splits, kchunk = plan_splits(M, N, Kin, _sm_count(x.device))
+    splits, kchunk = plan_splits(M, N, Kin, sm_count(x.device))
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
             if splits > 1 else None)

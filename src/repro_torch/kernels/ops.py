@@ -1,12 +1,15 @@
-"""Kernel execution-backend layer: the ``lutq_dot`` entry point.
+"""Kernel execution-backend layer: ``lutq_dot`` and the k-means stats.
 
 Counterpart of ``repro.kernels.ops``: :func:`lutq_dot` resolves a
 backend per quantized leaf, flattens leading dims, handles the
-transposed (tied-readout) case and dispatches to the kernel wrappers.
+transposed (tied-readout) case and dispatches to the kernel wrappers;
+:func:`kmeans_stats` and :func:`kmeans_step_fused` are training step 4's
+entry points to the ``kmeans_stats`` kernel.
 
 Backends
 --------
-``decode``   dense: ``x @ d[A]`` with the decoded weight materialized.
+``decode``   dense: ``x @ d[A]`` with the decoded weight materialized
+             (through the STE on a train-form leaf).
 ``fused``    :mod:`repro_torch.kernels.lutq_matmul` over int8 assignments.
 ``packed4``  :mod:`repro_torch.kernels.lutq_gemv_packed` over packed
              4-bit pairs.
@@ -21,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.lutq import LutqState, decode_any
+from repro_torch.core.lutq import LutqState, decode_any, quantize_ste_any
+from repro_torch.kernels import kmeans_stats as _kmeans_stats
 from repro_torch.kernels.lutq_gemv_packed import lutq_gemv_packed
 from repro_torch.kernels.lutq_matmul import lutq_matmul
 from repro_torch.kernels.ref import unpack4_kin
@@ -31,6 +35,22 @@ BACKENDS = ("auto", "decode", "fused", "packed4", "pow2")
 
 #: calls that took the dense ``decode`` path
 COUNTS = {"decode": 0}
+
+
+def kmeans_stats(w: torch.Tensor, d: torch.Tensor):
+    """(assignments int8 like w, sums f32 (K,), counts f32 (K,)) of one
+    assignment pass of w against sorted d; any shape of w."""
+    return _kmeans_stats.kmeans_stats(w, d)
+
+
+def kmeans_step_fused(w_flat: torch.Tensor, d: torch.Tensor):
+    """One full k-means iteration through the stats kernel: assign +
+    recenter (empty clusters keep their centroid). Returns (a, sorted
+    new d)."""
+    a, sums, counts = kmeans_stats(w_flat, d)
+    new_d = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), d)
+    return a, torch.sort(new_d).values
+
 
 _POW2_TODO = ("the pow2 shift-add backend is not ported yet "
               "(ROADMAP queue 1 item 4, queue 2 kernel 4)")
@@ -79,9 +99,10 @@ def lutq_dot(x: torch.Tensor, state: LutqState, *, backend: str = "auto",
         a = state.a
         if a.dtype == torch.uint8:
             a = unpack4_kin(a)
-        w = decode_any(state.d, a)
         if state.w is not None:
-            w = w.to(state.w.dtype)
+            w = quantize_ste_any(state.w, state.d, a)
+        else:
+            w = decode_any(state.d, a)
         w = w.to(x.dtype)
         if transpose_rhs:
             w = w.transpose(-1, -2)

@@ -2,6 +2,7 @@
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)
+    loss_fn(model, cfg, batch)                 -> (loss, metrics)
     serve_state(cfg, seed=, pack4=, device=)   -> serve model [, manifest]
     prefill(model, cfg, batch, lengths=)       -> (logits, cache)
     decode_step(model, cfg, token, cache)      -> (logits, cache)
@@ -68,6 +69,12 @@ def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
     qmodel = quantize(init(cfg, seed=seed, device=device), cfg)
     return serve_view(qmodel, pack4=pack4, policy=resolved_policy(cfg),
                       with_manifest=with_manifest)
+
+
+def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
+    """Training loss of a batch (tokens, labels): (loss, metrics)."""
+    _dense_only(cfg)
+    return m_lm.lm_loss(model, cfg, batch)
 
 
 def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):

@@ -7,15 +7,18 @@ stacked layer axis; here the layers are an ``nn.ModuleList`` walked by a
 Python loop, and the cache holds one dict per layer.
 
 Entry points:
+  lm_forward      (B, S) tokens -> logits (training forward) + aux
+  lm_loss         next-token cross-entropy of a batch
   lm_prefill      (B, S) prompt -> last logits + per-layer K/V
   lm_decode_step  (B, 1) token  -> logits + updated cache
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.nn.attention import decode_attention, flash_attention
@@ -233,6 +236,57 @@ def _readout(model: LM, cfg: ModelConfig, h):
     if cfg.tie_embeddings:
         return embedding_logits(model.embed, h, backend=cfg.kernel_backend)
     return linear_apply(model.lm_head, h, backend=cfg.kernel_backend)
+
+
+def _layer_train(p: Layer, cfg: ModelConfig, h, positions):
+    return layer_forward(p, cfg, h, positions)[0]
+
+
+def lm_forward(model: LM, cfg: ModelConfig, tokens):
+    """Full forward -> (logits (B, S, V), aux). tokens: (B, S).
+
+    With ``cfg.remat`` each layer is recomputed in the backward pass
+    (``torch.utils.checkpoint``), as the reference's ``remat_wrap``
+    recomputes its scan body: only the residual stream between layers
+    is kept. The dense family has no auxiliary loss (aux = 0).
+    """
+    _check_dense(cfg)
+    remat = (cfg.remat and cfg.remat_policy != "none"
+             and torch.is_grad_enabled())
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported yet; the "
+            f"port recomputes whole layers ('full') or none")
+    h = _embed_tokens(model, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for layer in model.layers:
+        if remat:
+            h = checkpoint(_layer_train, layer, cfg, h, positions,
+                           use_reentrant=False)
+        else:
+            h = _layer_train(layer, cfg, h, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _readout(model, cfg, h), aux
+
+
+def lm_loss(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE over f32 logits. batch: tokens (B, S), labels (B, S)
+    with -100 (any negative) = ignore. Returns (loss + aux_weight * aux,
+    {"loss", "aux", "ntok"})."""
+    logits, aux = lm_forward(model, cfg, batch["tokens"])
+    labels = batch["labels"].long()
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    ce = (logz - gold) * mask
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    loss = ce.sum() / ntok
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux, "ntok": ntok}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None

@@ -1,10 +1,13 @@
 """Quantization-aware dense / embedding layers.
 
 Counterpart of ``repro.nn.linear``. A layer's ``kernel`` (or ``table``)
-is either a plain frozen parameter or a :class:`QuantKernel` holding a
-:class:`LutqState`; matmuls with a quantized kernel go through
-:func:`repro_torch.kernels.ops.lutq_dot`, so serve-form leaves run the
-fused CUDA kernels and the decoded weight is never materialized.
+is either a plain parameter or a :class:`QuantKernel` holding a
+:class:`LutqState`. A train-form leaf (master ``w`` present) decodes
+through the STE (:func:`repro_torch.core.lutq.quantize_ste_any`), so
+the forward sees exactly ``d[A]`` and the gradient reaches ``w``;
+matmuls with a serve-form leaf go through
+:func:`repro_torch.kernels.ops.lutq_dot`, so they run the fused CUDA
+kernels and the decoded weight is never materialized.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.actquant import fake_quant, fake_quant_frozen
-from repro_torch.core.lutq import LutqState, decode_any, index_of
+from repro_torch.core.lutq import (LutqState, decode_any, index_of,
+                                   quantize_ste_any)
 from repro_torch.kernels.ops import lutq_dot
 from repro_torch.kernels.ref import unpack4_kin
 from repro_torch.nn.tree import leaf
@@ -23,26 +27,28 @@ from repro_torch.nn.tree import leaf
 class Linear(nn.Module):
     def __init__(self, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None):
         super().__init__()
-        self.kernel = nn.Parameter(kernel, requires_grad=False)
+        self.kernel = nn.Parameter(kernel)
         if bias is not None:
-            self.bias = nn.Parameter(bias, requires_grad=False)
+            self.bias = nn.Parameter(bias)
 
 
 class Embedding(nn.Module):
     def __init__(self, table: torch.Tensor):
         super().__init__()
-        self.table = nn.Parameter(table, requires_grad=False)
+        self.table = nn.Parameter(table)
 
 
 def materialize(kernel, dtype=None) -> torch.Tensor:
-    """Decoded (quantized) or raw kernel, cast for compute."""
+    """Decoded (quantized, STE on a train-form leaf) or raw kernel, cast
+    for compute."""
     if isinstance(kernel, LutqState):
         a = kernel.a
         if a.dtype == torch.uint8:  # packed 4-bit pairs (serve_view pack4)
             a = unpack4_kin(a)
-        k = decode_any(kernel.d, a)
-        if kernel.w is not None:
-            k = k.to(kernel.w.dtype)
+        if kernel.w is None:
+            k = decode_any(kernel.d, a)
+        else:
+            k = quantize_ste_any(kernel.w, kernel.d, a)
     else:
         k = kernel
     return k.to(dtype) if dtype is not None and k.dtype != dtype else k
@@ -104,13 +110,15 @@ def embedding_apply(p: Embedding, ids: torch.Tensor, *, dtype=None
                     ) -> torch.Tensor:
     """Rows ``ids`` of the (decoded) table.
 
-    A quantized table gathers the assignment rows first and decodes only
-    those (``d[a[ids]] == d[a][ids]``); a packed table takes row r's
-    nibble from packed row ``r // 2``. The full table is never decoded.
+    A train-form table decodes through the STE and then gathers, as the
+    reference does, so the gradient reaches the master. A serve-form
+    table gathers the assignment rows first and decodes only those
+    (``d[a[ids]] == d[a][ids]``); a packed table takes row r's nibble
+    from packed row ``r // 2``: there the full table is never decoded.
     """
     t = leaf(p, "table")
     ids = ids.long()
-    if not isinstance(t, LutqState):
+    if not isinstance(t, LutqState) or t.w is not None:
         return materialize(t, dtype)[ids]
     if t.d.ndim != 1:
         raise ValueError("embedding_apply: one dictionary per table expected")
@@ -121,8 +129,6 @@ def embedding_apply(p: Embedding, ids: torch.Tensor, *, dtype=None
     else:
         idx = index_of(t.a[ids])
     rows = t.d[idx]
-    if t.w is not None:
-        rows = rows.to(t.w.dtype)
     return rows.to(dtype) if dtype is not None else rows
 
 

@@ -8,7 +8,7 @@ from torch import nn
 class RMSNorm(nn.Module):
     def __init__(self, scale: torch.Tensor):
         super().__init__()
-        self.scale = nn.Parameter(scale, requires_grad=False)
+        self.scale = nn.Parameter(scale)
 
 
 def rmsnorm_init(dim: int, *, device=None) -> RMSNorm:

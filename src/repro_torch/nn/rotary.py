@@ -26,9 +26,12 @@ def _rope_tables(head_dim: int, theta: float):
 @functools.lru_cache(maxsize=64)
 def _rope_tables_on(head_dim: int, theta: float, device: torch.device):
     """The host tables, copied to ``device`` once (a copy from pageable
-    host memory waits for the device, so it must not run per call)."""
-    return tuple(torch.from_numpy(t).to(device)
-                 for t in _rope_tables(head_dim, theta))
+    host memory waits for the device, so it must not run per call).
+    Made outside inference mode, so that a cache first filled while
+    serving still serves a forward that autograd records."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device)
+                     for t in _rope_tables(head_dim, theta))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -5,7 +5,11 @@ them in ``nn.Module``s whose attribute names are the reference's dict
 keys, so a state-dict key is the reference's pytree path with dots
 (``layers.0.attn.q.kernel``). A leaf is either a tensor (parameter or
 buffer) or a :class:`QuantKernel`, the module that holds one
-:class:`LutqState` as buffers (``....kernel.d``, ``....kernel.a``).
+:class:`LutqState`: its fp master ``w`` as a parameter, ``d``, ``a``,
+``sid`` and ``act`` as buffers (``....kernel.w``, ``....kernel.d``).
+Float leaves are trainable parameters, as the reference's
+``split_trainable`` puts them in the trainable tree; a serve-form state
+(``w`` None) holds no parameter.
 
 The reference stacks the layers along a leading axis; the port keeps one
 module per layer in an ``nn.ModuleList``. :func:`logical_path` maps a
@@ -29,11 +33,14 @@ STACKS = frozenset({"layers"})
 
 
 class QuantKernel(nn.Module):
-    """One quantized weight: a :class:`LutqState` held as buffers."""
+    """One quantized weight: the master ``w`` (a parameter, or None in
+    the serve form) and ``d``, ``a``, ``sid``, ``act`` as buffers."""
 
     def __init__(self, state: LutqState):
         super().__init__()
-        for name in LutqState._fields:
+        self.register_parameter(
+            "w", None if state.w is None else nn.Parameter(state.w))
+        for name in LutqState._fields[1:]:
             self.register_buffer(name, getattr(state, name))
 
     @property
@@ -68,14 +75,17 @@ def _parent(module: nn.Module, path: Path) -> nn.Module:
 
 
 def set_leaf(module: nn.Module, path: Path, value) -> None:
-    """Store a tensor (as a frozen parameter) or a LutqState at ``path``."""
+    """Store a LutqState, a float tensor (as a trainable parameter) or
+    another tensor (as a buffer) at ``path``."""
     parent, name = _parent(module, path), path[-1]
     if hasattr(parent, name):
         delattr(parent, name)
     if isinstance(value, LutqState):
         setattr(parent, name, QuantKernel(value))
+    elif value.is_floating_point():
+        setattr(parent, name, nn.Parameter(value))
     else:
-        setattr(parent, name, nn.Parameter(value, requires_grad=False))
+        parent.register_buffer(name, value)
 
 
 def map_with_path(fn: Callable, module: nn.Module) -> nn.Module:
@@ -98,16 +108,22 @@ def clone_structure(module: nn.Module) -> nn.Module:
     return copy.deepcopy(module, memo)
 
 
-def logical_path(path: Path) -> Tuple[Path, int]:
-    """(reference path, number of stack axes) of a per-layer path.
+def layer_split(path: Path) -> Tuple[Path, Optional[int]]:
+    """(reference path, layer index or None) of a per-layer path.
 
-    ``("layers", "3", "attn", "q", "kernel")`` is the reference's stacked
-    leaf ``("layers", "attn", "q", "kernel")`` with one stack axis.
+    ``("layers", "3", "attn", "q", "kernel")`` is slice 3 of the
+    reference's stacked leaf ``("layers", "attn", "q", "kernel")``.
     """
     for i, k in enumerate(path[:-1]):
         if k in STACKS and path[i + 1].isdigit():
-            return path[:i + 1] + path[i + 2:], 1
-    return path, 0
+            return path[:i + 1] + path[i + 2:], int(path[i + 1])
+    return path, None
+
+
+def logical_path(path: Path) -> Tuple[Path, int]:
+    """(reference path, number of stack axes) of a per-layer path."""
+    lpath, i = layer_split(path)
+    return lpath, int(i is not None)
 
 
 def module_device(module: nn.Module) -> Optional[torch.device]:

@@ -6,16 +6,18 @@ that has only the port's dependencies:
 
     PYTHONPATH=src:tests python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance, relative to the output's scale: 1e-4 for f32 x (f32
-accumulation in another order), 1e-3 for bf16 x (tensor-core bf16
-products accumulated in f32).
+Tolerance of the GEMMs, relative to the output's scale: 1e-4 for f32 x
+(f32 accumulation in another order), 1e-3 for bf16 x (tensor-core bf16
+products accumulated in f32). ``kmeans_stats``: assignments equal byte
+for byte and counts exactly equal; each entry's sum within 1e-5 of the
+sum of |w| over that entry (f32 accumulation in another order).
 """
 import pytest
 import torch
 
-from repro_torch.kernels import lutq_gemv_packed, lutq_matmul
-from repro_torch.kernels.ref import (lutq_gemv_packed_ref, lutq_matmul_ref,
-                                     pack4_kin)
+from repro_torch.kernels import kmeans_stats, lutq_gemv_packed, lutq_matmul
+from repro_torch.kernels.ref import (kmeans_stats_ref, lutq_gemv_packed_ref,
+                                     lutq_matmul_ref, pack4_kin)
 
 
 @pytest.fixture
@@ -65,3 +67,33 @@ def test_cuda_fused_k256_reads_unsigned_bytes(cuda_device):
                                   d.to(cuda_device))
     torch.cuda.synchronize()
     assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max()
+
+
+def _kmeans_case(N, K, ties, g):
+    w = torch.randn(N, generator=g) * 0.05
+    if ties:  # a dictionary whose midpoints are exactly weights
+        d = torch.arange(K, dtype=torch.float32) - (K - 1) / 2.0
+        w = (torch.randint(0, 2 * K, (N,), generator=g) - K) * 0.5
+        w[: K - 1] = (d[:-1] + d[1:]) * 0.5
+    else:
+        d = torch.sort(torch.randn(K, generator=g) * 0.05).values
+    return w, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,ties", [(2560 * 6912, 16, False),
+                                      (2560 * 6912, 256, False),
+                                      (1_000_003, 16, False),
+                                      (4099, 16, True), (70_001, 256, True)])
+def test_cuda_kmeans_stats_matches_plain(cuda_device, N, K, ties):
+    w, d = _kmeans_case(N, K, ties, torch.Generator().manual_seed(N + K))
+    a0, s0, c0 = kmeans_stats_ref(w, d)
+    a1, s1, c1 = kmeans_stats.kmeans_stats(w.to(cuda_device),
+                                           d.to(cuda_device))
+    torch.cuda.synchronize()
+    assert a1.dtype == torch.int8 and a1.shape == (N,)
+    assert torch.equal(a1.cpu(), a0)
+    assert torch.equal(c1.cpu(), c0)
+    idx = a0.view(torch.uint8).long()
+    mag = torch.zeros(K).index_add_(0, idx, w.abs())
+    assert ((s1.cpu() - s0).abs() <= 1e-5 * mag).all()
