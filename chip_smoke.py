@@ -26,6 +26,36 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    its kernel 7 * 24 + 1 times and run no plain version. Then the
    reduced config served on the card must give the tokens it gives on
    the CPU through the plain versions.
+2c. paged attention: both variants of the CUDA kernel (score row in
+   shared memory; score row in a global workspace, forced with
+   smem_budget_bytes=0) against the plain version (gather, dequantize,
+   attend) at full-width decode shapes (B=8, Hkv=8, G=4, dh=80, page
+   64, NB=69, lengths 1..4416) and reduced ones (dh=16, G=2, page 8/16,
+   an empty row), bf16/f32 queries, bf16/f32/int8 pages, window none,
+   24 or 4096. Error over max|plain|: at most one bf16 ulp of the
+   largest output (2^-7) for bf16 queries (bf16 output, bf16 scores
+   that may round the other way where the f32 sums differ in their last
+   bits), 1e-5 for f32 queries. Every dead or behind-window block entry
+   is then pointed at a page of NaN: the output must keep its bits.
+   Rows with cache_len 0 must be 0.
+3c. paged engine: full-width h2o-danube-1.8b (the phase-3 serve views)
+   through Engine(kv_pages=...), page 64, 8-bit activations: (a) 24
+   synthetic requests (prompts 128-512, 8-64 new tokens) on 8 slots,
+   160 pages, int8 KV, packed4; (b) 16 requests sharing a 256-token
+   system prompt (tails 1-64, 4-32 new) on 8 slots, bf16 KV, fused,
+   prefix hits asserted; (c) one 4352-token prompt and 64 new tokens on
+   1 slot, int8 KV, 80 pages: 17 prefill chunks of 256, the row past
+   the 4096 window (at least 4 blocks released, their device entries
+   0). Counts are zeroed just before each run and read just after: the
+   paged kernel launches 24 x decode steps (the workspace variant for
+   (c)'s 4096-wide score rows, the shared-memory one otherwise), the
+   GEMM kernel 169 x (decode steps + prefill chunks), no plain version;
+   every request ends at max_new; the allocator's invariants hold with
+   only prefix-cache pages held. Prints decode tok/s, goodput, TTFT
+   p50/p99, latency p50/p95, pages peak, prefix hit rate, peak memory
+   and the card's idle share over one profiled decode step.
+3d. the reduced config through the paged engine (int8 and f32 pages)
+   and the slot engine: the same tokens on the card and on the CPU.
 3b. train: full-width h2o-danube-1.8b (vocab 32000, random f32 masters
    from a seed) through the training CLI's build path and TrainLoop,
    with its default spec (4-bit pow2, kmeans_iters=1, min_size=4096)
@@ -42,7 +72,11 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    torch.matmul on the pre-decoded bf16 weight (a yardstick the port
    never calls); kmeans_stats over every leaf shape of one training
    step (two passes), beside its byte bound and its plain version (no
-   single PyTorch call computes what it does).
+   single PyTorch call computes what it does); the paged-attention
+   kernel, both variants, at run (a)'s decode geometry and at run (c)'s
+   longest row, beside its byte bound (live pages), its plain version
+   and scaled_dot_product_attention on a pre-gathered, pre-dequantized
+   row (a yardstick the port never calls).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout,
@@ -65,6 +99,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2**20
 STEPS_GEN, BATCH, PROMPT = 16, 4, 128
 TOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# paged attention, of max|plain|: one bf16 ulp of the largest output
+# (2^-7) for bf16 q, whose output rounds to bf16 and whose bf16 scores
+# may round the other way where the two f32 sums differ in their last
+# bits; 1e-5 for f32 q (f32 sums in another order)
+PAGED_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 
 # danube's (Kin, N) per layer, with calls per forward, and the head
 LAYER_SHAPES = {"q/o": ((2560, 2560), 2), "k/v": ((2560, 640), 2),
@@ -80,6 +119,9 @@ TRAIN_LEAVES = {"q/o": ((2560, 2560), 2 * N_LAYERS),
                 "wo": ((6912, 2560), N_LAYERS),
                 "embed/head": ((32000, 2560), 2)}
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 512
+# phase 3c: the paged engine's page, run (a)'s queue, run (c)'s request
+ENGINE_PAGE, ENGINE_QUEUE = 64, 24
+LONG_PROMPT, LONG_GEN = 4352, 64
 KMEANS_SUM_TOL = 1e-5  # of sum|w| over the entry
 
 KERNELS = {
@@ -93,6 +135,12 @@ KERNELS = {
     "kmeans_stats": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/kmeans_stats.cu",
         replaces="src/repro/kernels/kmeans_tpu.py:51"),
+    "paged_attention": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attn.py:253"),
+    "paged_attention_multipass": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_attn.cu",
+        replaces="src/repro/kernels/paged_attn.py:342"),
 }
 
 
@@ -123,6 +171,9 @@ def setup():
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32 throughout (the plain versions'
+    # bf16 einsums included), as the reference's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -273,15 +324,124 @@ def kmeans_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2c
+# ---------------------------------------------------------------------------
+
+def _paged_case(B, Hkv, G, dh, page, NB, lens, q_dtype, kv_dtype, window,
+                gen, dev):
+    """One decode step's operands: q, pools with a zero trash page 0, a
+    block table of distinct pages, and a second block table whose dead
+    entries (past each row's live pages, or wholly behind the window)
+    point at a poison page of NaN (float pools) or NaN scales (int8)."""
+    import torch
+
+    from repro_torch.kernels.paged_attn import TRASH_PAGE
+
+    P = 2 + B * NB
+    poison = P - 1
+    shape = (P, page, Hkv, dh)
+    quant = kv_dtype == torch.int8
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        ks = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+              ).to(torch.bfloat16)
+        vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.05
+              ).to(torch.bfloat16)
+        for t in (kp, vp, ks, vs):
+            t[TRASH_PAGE] = 0
+        ks[poison] = float("nan")
+        vs[poison] = float("nan")
+    else:
+        kp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+        vp = torch.randn(shape, generator=gen, device=dev).to(kv_dtype)
+        for t in (kp, vp):
+            t[TRASH_PAGE] = 0
+            t[poison] = float("nan")
+        ks = vs = None
+    q = torch.randn((B, 1, Hkv * G, dh), generator=gen,
+                    device=dev).to(q_dtype)
+    perm = 1 + torch.randperm(B * NB, generator=gen, device=dev)
+    full = perm.reshape(B, NB).to(torch.int32)
+    block, poisoned = full.clone(), full.clone()
+    for b, L in enumerate(lens):
+        first = 0 if window is None else max(0, (L - window) // page)
+        last = (min(L, NB * page) - 1) // page if L > 0 else -1
+        for j in range(NB):
+            if not first <= j <= last:
+                block[b, j] = TRASH_PAGE
+                poisoned[b, j] = poison
+    cl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, ks, vs, block, poisoned, cl
+
+
+def paged_kernel_checks():
+    """Both paged-attention variants against the plain version, at the
+    full-width decode shapes and the reduced ones. Returns the largest
+    |kernel - plain| of each variant."""
+    import torch
+
+    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    full_lens = [1, 63, 64, 65, 577, 2048, 4101, 69 * 64]
+    cases = [(8, 8, 4, 80, 64, 69, full_lens, q, kv, w)
+             for q, kv in ((bf16, bf16), (bf16, i8), (f32, i8))
+             for w in (None, 4096)]
+    cases += [(6, 1, 2, 16, page, 4, [0, 1, page - 1, page, 3 * page + 1,
+                                      4 * page], q, kv, w)
+              for page in (8, 16) for q in (f32, bf16)
+              for kv in (f32, bf16, i8) for w in (None, 24)]
+    worst = {name: 0.0 for name in paged_attn.VARIANTS}
+    for B, Hkv, G, dh, page, NB, lens, qdt, kvdt, window in cases:
+        q, kp, vp, ks, vs, block, poisoned, cl = _paged_case(
+            B, Hkv, G, dh, page, NB, lens, qdt, kvdt, window, gen, dev)
+        want = paged_attention_ref(q, kp, vp, block, cl, window=window,
+                                   k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        tol = PAGED_TOL[str(qdt).split(".")[-1]]
+        for name, budget in (("paged_attention", paged_attn.MAX_SMEM),
+                             ("paged_attention_multipass", 0)):
+            got = paged_attn.paged_attention(
+                q, kp, vp, block, cl, window=window, k_scale=ks,
+                v_scale=vs, smem_budget_bytes=budget)
+            again = paged_attn.paged_attention(
+                q, kp, vp, poisoned, cl, window=window, k_scale=ks,
+                v_scale=vs, smem_budget_bytes=budget)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / max(want.float().abs().max().item(), 1e-30)
+            same = bool(torch.equal(got, again))
+            zero_rows = [b for b, L in enumerate(lens) if L == 0]
+            zeros = all(bool((got[b] == 0).all()) for b in zero_rows)
+            log(f"check {name} B={B} Hkv={Hkv} G={G} dh={dh} page={page} "
+                f"NB={NB} q {qdt} pool {kvdt} window {window}: max_abs_err "
+                f"{err:.3e} rel {rel:.2e} (tol {tol:.1e}) | poisoned dead "
+                f"entries give the same bits {same} | empty rows 0 {zeros}")
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} produced non-finite values")
+            check(rel <= tol, f"{name} disagrees with its plain version")
+            check(same, f"{name} read a dead or behind-window page")
+            check(zeros, f"{name}: a row with cache_len 0 is not 0")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
 def _count_dicts():
     from repro_torch.kernels import (kmeans_stats, lutq_gemv_packed,
-                                     lutq_matmul, ops)
+                                     lutq_matmul, ops, paged_attn)
 
     return (lutq_matmul.COUNTS, lutq_gemv_packed.COUNTS, kmeans_stats.COUNTS,
-            ops.COUNTS)
+            ops.COUNTS, paged_attn.COUNTS, paged_attn.VARIANTS)
 
 
 def _reset_counts():
@@ -291,10 +451,10 @@ def _reset_counts():
 
 
 def _read_counts():
-    mm, gp, km, ops = _count_dicts()
+    mm, gp, km, ops, pa, variants = _count_dicts()
     return {"lutq_matmul": mm["launches"], "lutq_gemv_packed": gp["launches"],
-            "kmeans_stats": km["launches"],
-            "plain": mm["plain"] + gp["plain"] + km["plain"],
+            "kmeans_stats": km["launches"], **variants,
+            "plain": mm["plain"] + gp["plain"] + km["plain"] + pa["plain"],
             "decode": ops["decode"]}
 
 
@@ -405,9 +565,8 @@ def serve_full_width():
                                 profiled_busy_ms=busy_ms)
     same = bool((tokens["lutq_matmul"] == tokens["lutq_gemv_packed"]).all())
     log(f"packed4 and fused runs give the same tokens: {same}")
-    del views
-    torch.cuda.empty_cache()
-    return launches, stats_out
+    # the views serve phase 3c; main() drops them before training
+    return launches, stats_out, {k: v for k, (v, _) in views.items()}, cfg
 
 
 def reduced_reference():
@@ -443,6 +602,195 @@ def reduced_reference():
             f"{err:.2e}, tokens equal {bool((tc == tg.cpu()).all())}")
         check(err <= 1e-4, "reduced logits: card and CPU disagree")
         check(bool((tc == tg.cpu()).all()), "reduced tokens differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 3c / 3d
+# ---------------------------------------------------------------------------
+
+def _shared_prefix_requests(vocab):
+    """Run (b)'s queue: a 256-token system prompt shared by 16 requests,
+    each with its own tail of 1-64 tokens and max_new of 4-32."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    sys_prompt = rng.integers(0, vocab, 256)
+    return [{"tokens": np.concatenate([sys_prompt, rng.integers(
+                0, vocab, int(rng.integers(1, 65)))]).astype(np.int32),
+             "max_new": int(rng.integers(4, 33))} for _ in range(16)]
+
+
+def engine_runs(views, cfg):
+    """Phase 3c: the paged engine at full width through its three runs.
+    Returns per-run numbers, launches included."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import paged_attn
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    long_req = {"tokens": np.random.default_rng(8).integers(
+        0, cfg.vocab, LONG_PROMPT).astype(np.int32), "max_new": LONG_GEN}
+    runs = {
+        "a": dict(view="lutq_gemv_packed", backend="auto", kv_bits=8,
+                  capacity=8, kv_pages=160, max_len=512 + 64,
+                  requests=synthetic_requests(cfg, ENGINE_QUEUE,
+                                              max_prompt=512, max_new=64,
+                                              seed=0)),
+        "b": dict(view="lutq_matmul", backend="fused", kv_bits=16,
+                  capacity=8, kv_pages=64, max_len=256 + 64 + 32,
+                  requests=_shared_prefix_requests(cfg.vocab)),
+        "c": dict(view="lutq_gemv_packed", backend="auto", kv_bits=8,
+                  capacity=1, kv_pages=80, max_len=LONG_PROMPT + LONG_GEN,
+                  requests=[long_req]),
+    }
+    out = {}
+    for name, r in runs.items():
+        run_cfg = cfg.replace(kernel_backend=r["backend"],
+                              kv_cache_bits=r["kv_bits"])
+        eng = Engine(views[r["view"]], run_cfg, capacity=r["capacity"],
+                     max_len=r["max_len"], kv_pages=r["kv_pages"],
+                     page_size=ENGINE_PAGE, device="cuda")
+        for req in r["requests"]:
+            eng.submit(req["tokens"], max_new=req["max_new"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        profiled, freed = None, 0
+        while not eng.idle:  # Engine.run, one step at a time
+            live = sum(x is not None for x in eng.slots)
+            # profile the first step that only decodes: every slot live,
+            # or nothing left to admit
+            if profiled is None and live and not eng.prefilling and (
+                    live == r["capacity"] or not eng.queue):
+                def one_step():
+                    eng.step()
+                    torch.cuda.synchronize()
+                profiled = profile_run(one_step, f"one decode step, run "
+                                       f"({name}), {live} live slots")
+            else:
+                eng.step()
+            if name == "c" and eng.slots[0] is not None:
+                row = eng.pkv.rows[0]
+                dead = [j for j, p in enumerate(row) if p == 0]
+                block = eng.cache["block"][0].cpu()
+                check(all(int(block[j]) == 0 for j in dead),
+                      "a released block entry still points at a page")
+                freed = max(freed, len(dead))
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        st = eng.stats()
+        res = [eng.results[i] for i in sorted(eng.results)]
+        steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
+        gemm = "lutq_gemv_packed" if r["view"] == "lutq_gemv_packed" \
+            else "lutq_matmul"
+        plan = paged_attn.smem_plan(eng.n_blocks, ENGINE_PAGE,
+                                    cfg.resolved_head_dim,
+                                    cfg.n_heads // cfg.n_kv_heads,
+                                    window=cfg.window)
+        variant = ("paged_attention_multipass" if plan["multipass"]
+                   else "paged_attention")
+        wall_ms, busy_ms, rows = profiled
+        pa_ms = sum(x[0] for x in rows if "paged_decode" in x[2])
+        log(f"engine run ({name}) [{st['backend']}, {r['kv_bits']}-bit KV, "
+            f"capacity {r['capacity']}, {len(res)} requests]: decode "
+            f"{st['decode_tok_s']:.1f} tok/s | goodput "
+            f"{st['goodput_tok_s']:.1f} tok/s | TTFT p50 "
+            f"{st['ttft_p50_s'] * 1e3:.0f} ms p99 "
+            f"{st['ttft_p99_s'] * 1e3:.0f} ms | latency p50 "
+            f"{st['p50_latency_s'] * 1e3:.0f} ms p95 "
+            f"{st['p95_latency_s'] * 1e3:.0f} ms | {steps} decode steps, "
+            f"{chunks} prefill chunks, prefill {st['t_prefill_s']:.2f} s, "
+            f"decode {st['t_decode_s']:.2f} s, wall {st['wall_s']:.2f} s | "
+            f"pages peak {st['pages_peak']} of {st['kv_pages'] - 1} | prefix "
+            f"hits {st['prefix_hits']}/{st['prefix_queries']} "
+            f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB | "
+            f"card idle {(1 - busy_ms / wall_ms) * 100:.1f}% of a decode "
+            f"step ({wall_ms:.1f} ms, paged kernel {pa_ms:.3f} ms) | "
+            f"launches {counts}")
+        check(counts[variant] == N_LAYERS * steps and
+              counts["paged_attention"] + counts["paged_attention_multipass"]
+              == N_LAYERS * steps,
+              f"run ({name}): {counts} paged launches, expected "
+              f"{N_LAYERS} x {steps} decode steps of {variant}")
+        check(counts["plain"] == 0 and counts["decode"] == 0,
+              f"run ({name}) ran a plain version: {counts}")
+        check(counts[gemm] == CALLS_PER_FORWARD * (steps + chunks),
+              f"run ({name}): {counts[gemm]} {gemm} launches, expected "
+              f"{CALLS_PER_FORWARD} x ({steps} steps + {chunks} chunks)")
+        for req, got in zip(r["requests"], res):
+            check(got["n_new"] == req["max_new"] and got["finish"] == "length",
+                  f"run ({name}) request {got['rid']}: {got['n_new']} of "
+                  f"{req['max_new']} tokens, {got['finish']}")
+            check(bool(((got["tokens"] >= 0) & (got["tokens"] < cfg.vocab)
+                        ).all()), "tokens out of range")
+        eng.pkv.alloc.check()
+        held = {n.page for n in eng.pkv.prefix._nodes.values()}
+        check(eng.pkv.alloc.pages_in_use == len(held),
+              f"run ({name}): {eng.pkv.alloc.pages_in_use} pages still held, "
+              f"{len(held)} by the prefix cache")
+        if name == "b":
+            check(st["prefix_hits"] > 0, "run (b): no prefix hit")
+        if name == "c":
+            check(chunks == LONG_PROMPT // 256, f"run (c): {chunks} chunks")
+            check(freed >= 4, f"run (c): {freed} blocks released behind the "
+                  f"window, expected >= 4")
+            log(f"  run (c): {freed} blocks of the row released behind the "
+                f"window, their device entries 0")
+        out[name] = dict(st, peak_gib=peak, idle=1 - busy_ms / wall_ms,
+                         launches={k: counts[k] for k in
+                                   ("paged_attention",
+                                    "paged_attention_multipass")},
+                         profiled_step_ms=wall_ms)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def reduced_engine_card_vs_cpu():
+    """Phase 3d: the reduced config through the paged engine (int8 and
+    f32 pools) and the slot engine, on the card and on the CPU through
+    the plain versions: the same tokens."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    base = reduced(get_config("h2o-danube-1.8b")).replace(
+        quant=QuantSpec(bits=4, min_size=512), act_bits=32)
+    reqs = synthetic_requests(base, 6, max_prompt=30, max_new=8, seed=1)
+    model = serve_view(api.quantize(api.init(base, seed=0, device="cpu"),
+                                    base), pack4=True,
+                       policy=api.resolved_policy(base))
+    for label, kv_bits, kw in (
+            ("paged int8", 8, dict(kv_pages=24, page_size=8,
+                                   prefill_pack=False)),
+            ("paged f32", 16, dict(kv_pages=24, page_size=8,
+                                   prefill_pack=False)),
+            ("slot", 16, {})):
+        cfg = base.replace(kv_cache_bits=kv_bits)
+        toks, counts = {}, {}
+        for dev in ("cpu", "cuda"):
+            eng = Engine(model.to(dev), cfg, capacity=2, max_len=38,
+                         device=dev, **kw)
+            for r in reqs:
+                eng.submit(r["tokens"], max_new=r["max_new"])
+            _reset_counts()
+            toks[dev] = [r["tokens"].tolist() for r in eng.run()]
+            counts[dev] = _read_counts()
+        same = toks["cpu"] == toks["cuda"]
+        log(f"reduced engine {label}: card vs cpu tokens equal {same} | "
+            f"card {counts['cuda']} | cpu {counts['cpu']}")
+        check(same, f"reduced engine {label}: card and CPU tokens differ")
+        check(counts["cuda"]["plain"] == 0, "card run took a plain version")
+        if kw:
+            check(counts["cuda"]["paged_attention"] > 0
+                  and counts["cpu"]["paged_attention"] == 0,
+                  f"reduced engine {label}: paged kernel launches wrong")
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +1121,89 @@ def kmeans_timings(card: str):
     return agg
 
 
+def paged_timings(card: str, run_a_lens):
+    """The paged-attention kernel at run (a)'s decode geometry (8 rows,
+    lengths mid-generation) and at run (c)'s longest row, int8 pages,
+    both variants, with pools rotated through more than twice the L2;
+    beside its byte bound (the live pages' K/V rows and scales, q and
+    out once), its plain version and scaled_dot_product_attention on a
+    pre-gathered, pre-dequantized row with the same mask (a yardstick
+    the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.nn.attention import gather_pages
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    Hkv, G, dh, page, window = 8, 4, 80, 64, 4096
+    geometries = {"a": (run_a_lens, -(-(512 + 64) // page)),
+                  "c": ([LONG_PROMPT + LONG_GEN - 1],
+                        -(-(LONG_PROMPT + LONG_GEN) // page))}
+    out = {}
+    for label, (lens, NB) in geometries.items():
+        B = len(lens)
+        q, kp, vp, ks, vs, block, _, cl = _paged_case(
+            B, Hkv, G, dh, page, NB, lens, torch.bfloat16, torch.int8,
+            window, gen, dev)
+        n = _copies(2 * (kp.numel() + ks.numel() * 2))
+        sets = [(q, kp.clone(), vp.clone(), block, cl, ks.clone(), vs.clone())
+                for _ in range(n)]
+        live = sum(paged_attn.live_pages(L, page, NB, window) for L in lens)
+        valid = sum(min(L, NB * page) - max(0, L - window) for L in lens)
+        nbytes = (live * page * Hkv * (2 * dh + 2 * 2) + 2 * q.numel() * 2
+                  + block.numel() * 4 + B * 4)
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        to = 4 * Hkv * G * dh * valid / PEAK_FLOPS["float32"] * 1e3
+        b, by = max(tb, to), ("bytes" if tb >= to else "operations")
+        times = {}
+        for variant, budget in (("paged_attention", paged_attn.MAX_SMEM),
+                                ("paged_attention_multipass", 0)):
+            def fn(q, kp, vp, blk, cl, ks, vs, budget=budget):
+                return paged_attn.paged_attention(
+                    q, kp, vp, blk, cl, window=window, k_scale=ks,
+                    v_scale=vs, smem_budget_bytes=budget)
+            times[variant] = time_ms(fn, sets, iters=max(40, 2 * n))
+
+        def plain(q, kp, vp, blk, cl, ks, vs):
+            return paged_attention_ref(q, kp, vp, blk, cl, window=window,
+                                       k_scale=ks, v_scale=vs)
+        tp, _ = time_ms(plain, sets[:2], iters=4, graph=False)
+        pos = torch.arange(NB * page, device=dev)
+        mask = ((pos[None] < cl[:, None]) & (pos[None] >= cl[:, None] - window)
+                )[:, None, None, :]
+        lsets = []
+        for _, kpc, vpc, blk, _, ksc, vsc in sets[:_copies(
+                4 * B * NB * page * Hkv * dh)]:
+            kc = (gather_pages(kpc, blk).to(torch.bfloat16)
+                  * gather_pages(ksc, blk)[..., None]).transpose(1, 2)
+            vc = (gather_pages(vpc, blk).to(torch.bfloat16)
+                  * gather_pages(vsc, blk)[..., None]).transpose(1, 2)
+            lsets.append((q.transpose(1, 2), kc.contiguous(), vc.contiguous(),
+                          mask))
+
+        def library(qt, kc, vc, m):
+            return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=m,
+                                                  enable_gqa=True)
+        tl, _ = time_ms(library, lsets, iters=max(40, 2 * len(lsets)),
+                        graph=False)
+        for variant, (t, t_loop) in times.items():
+            log(f"time {variant} run ({label}) geometry B={B} Hkv={Hkv} G={G} "
+                f"dh={dh} page={page} NB={NB} int8 pages, {live} live pages"
+                f": kernel {t * 1e3:.1f} us (host loop {t_loop * 1e3:.1f} us)"
+                f" | bound {b * 1e3:.2f} us ({by}) = {b / t * 100:.1f}% | "
+                f"plain {tp * 1e3:.1f} us | sdpa on the gathered row "
+                f"{tl * 1e3:.1f} us | x{N_LAYERS} per engine decode step = "
+                f"{t * N_LAYERS:.3f} ms | {card}")
+        out[label] = dict(times=times, plain_ms=tp, library_ms=tl,
+                          bound_ms=b, bound_by=by)
+        del sets, lsets
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -784,13 +1215,33 @@ def main() -> int:
     name, count, card = setup()
     worst = kernel_checks()
     worst["kmeans_stats"] = kmeans_checks()
-    launches, _ = serve_full_width()
+    worst.update(paged_kernel_checks())
+    launches, _, views, cfg = serve_full_width()
     reduced_reference()
+    engine = engine_runs(views, cfg)
+    del views
+    torch.cuda.empty_cache()
+    for variant in ("paged_attention", "paged_attention_multipass"):
+        launches[variant] = sum(r["launches"][variant]
+                                for r in engine.values())
+    reduced_engine_card_vs_cpu()
     trained = train_full_width()
     launches["kmeans_stats"] = trained["launches"]
     reduced_train_card_vs_cpu()
     table = {k: v[4] for k, v in timings(card).items()}
     table["kmeans_stats"] = dict(kmeans_timings(card), library_ms=None)
+    from repro_torch.runtime.engine import synthetic_requests
+
+    run_a = synthetic_requests(cfg, 8, max_prompt=512, max_new=64, seed=0)
+    paged = paged_timings(card, [len(r["tokens"]) + r["max_new"] // 2
+                                 for r in run_a])
+    for variant, geometry in (("paged_attention", "a"),
+                              ("paged_attention_multipass", "c")):
+        g = paged[geometry]
+        table[variant] = dict(ms=g["times"][variant][0],
+                              plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+                              bound_by=g["bound_by"],
+                              library_ms=g["library_ms"])
     records = []
     for kname, meta in KERNELS.items():
         t = table[kname]
@@ -799,7 +1250,9 @@ def main() -> int:
             "replaces": meta["replaces"], "launches": launches[kname],
             "max_abs_err": worst[kname],
             # GEMMs: one decode forward at B=4, the 169 calls of the serve
-            # path; kmeans_stats: one training step, its 340 calls
+            # path; kmeans_stats: one training step, its 340 calls; paged
+            # attention: one call at run (a)'s geometry (shared-memory
+            # variant) and at run (c)'s longest row (workspace variant)
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

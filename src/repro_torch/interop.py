@@ -7,6 +7,12 @@ leading axis. :func:`from_jax` loads such a tree, handed over as numpy
 the port's modules, splitting each ``(L, ...)`` stack per layer;
 :func:`to_numpy` goes the other way.
 
+A paged KV cache crosses with :func:`paged_cache_from_jax` /
+:func:`paged_cache_to_numpy`: the reference stacks each pool leaf over
+the layers, ``{"pool": {"k", "v"[, "k_scale", "v_scale"]}: (L, P,
+page, Hkv[, dh]), "block", "len"}``; the port keeps one pool dict per
+layer.
+
 A train state crosses in the reference's ``state_flat`` layout
 (``{"trainable", "static", "opt_state", "step"}``, what its checkpoints
 hold): :func:`train_state_to_numpy` builds it from a port
@@ -122,6 +128,28 @@ def to_numpy(model: nn.Module) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[lpath[-1]] = merge(leaves, stacked[lpath])
     return out
+
+
+def paged_cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
+                         ) -> Dict[str, Any]:
+    """A reference paged cache (as numpy) in the port's layout: the
+    stacked pool split into one dict per layer; block and len as int32
+    tensors."""
+    pool = [{key: _tensor(np.asarray(leaf)[i], device)
+             for key, leaf in cache["pool"].items()}
+            for i in range(cfg.n_layers)]
+    return {"pool": pool,
+            "block": _tensor(np.asarray(cache["block"], np.int32), device),
+            "len": _tensor(np.asarray(cache["len"], np.int32), device)}
+
+
+def paged_cache_to_numpy(cache) -> Dict[str, Any]:
+    """The port's paged cache in the reference's layout, as numpy: pool
+    leaves restacked over the layers."""
+    keys = cache["pool"][0].keys()
+    return {"pool": {k: np.stack([_numpy(c[k]) for c in cache["pool"]])
+                     for k in keys},
+            "block": _numpy(cache["block"]), "len": _numpy(cache["len"])}
 
 
 # ---------------------------------------------------------------------------

@@ -37,12 +37,18 @@ LAUNCH_ARGTYPES = [_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
 #: argtypes of the k-means launcher: device, w, n, d, n_dict, a,
 #: part_sums, part_counts, blocks, sums, counts, stream
 KMEANS_ARGTYPES = [_I, _P, _LL, _P, _I, _P, _P, _P, _I, _P, _P, _P]
+#: argtypes of the paged-attention launcher: device, q, q dtype, k pool,
+#: v pool, pool dtype, k scale, v scale, block, cache_len, out, workspace,
+#: B, Hkv, G, dh, page, NB, window, span, scale, vec, global scores, stream
+PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                  _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 #: every C entry point of the library and its argtypes (all return int)
 SIGNATURES = {
     "lutq_matmul_launch": LAUNCH_ARGTYPES,
     "lutq_gemv_packed_launch": LAUNCH_ARGTYPES,
     "kmeans_stats_launch": KMEANS_ARGTYPES,
     "kmeans_stats_blocks": [_LL, _I, _I],  # n, n_dict, SMs -> grid size
+    "paged_attention_launch": PAGED_ARGTYPES,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,10 +1,12 @@
-"""Kernel execution-backend layer: ``lutq_dot`` and the k-means stats.
+"""Kernel execution-backend layer: ``lutq_dot``, the k-means stats and
+paged attention.
 
 Counterpart of ``repro.kernels.ops``: :func:`lutq_dot` resolves a
 backend per quantized leaf, flattens leading dims, handles the
 transposed (tied-readout) case and dispatches to the kernel wrappers;
 :func:`kmeans_stats` and :func:`kmeans_step_fused` are training step 4's
-entry points to the ``kmeans_stats`` kernel.
+entry points to the ``kmeans_stats`` kernel; :func:`paged_attention` is
+paged decode's entry point to the ``paged_attn`` kernels.
 
 Backends
 --------
@@ -26,9 +28,10 @@ import torch
 
 from repro_torch.core.lutq import LutqState, decode_any, quantize_ste_any
 from repro_torch.kernels import kmeans_stats as _kmeans_stats
+from repro_torch.kernels import paged_attn as _paged_attn
 from repro_torch.kernels.lutq_gemv_packed import lutq_gemv_packed
 from repro_torch.kernels.lutq_matmul import lutq_matmul
-from repro_torch.kernels.ref import unpack4_kin
+from repro_torch.kernels.ref import paged_attention_ref, unpack4_kin
 
 #: Backend names accepted by ``lutq_dot`` / policy rules / CLI flags.
 BACKENDS = ("auto", "decode", "fused", "packed4", "pow2")
@@ -118,3 +121,41 @@ def lutq_dot(x: torch.Tensor, state: LutqState, *, backend: str = "auto",
     else:
         y = lutq_gemv_packed(x2, state.a, state.d)
     return y.reshape(*lead, y.shape[-1]).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged attention (decode)
+# ---------------------------------------------------------------------------
+
+#: dispatch names accepted by :func:`paged_attention`
+PAGED_BACKENDS = ("auto", "kernel", "gather")
+
+
+def paged_attention(q, k_pool, v_pool, block, cache_len, *, window=None,
+                    scale=None, k_scale=None, v_scale=None, backend="auto",
+                    smem_budget_bytes=None):
+    """One-token decode attention over a paged KV pool.
+
+    q: (B, 1, H, dh); k_pool/v_pool: (P, page, Hkv, dh); block: (B, NB)
+    int32 block table; cache_len: (B,) or scalar valid lengths. int8
+    pools carry bf16 per-token scale planes (P, page, Hkv).
+
+    ``"kernel"`` and ``"auto"`` walk the block table in the CUDA kernel
+    on a CUDA tensor (:mod:`repro_torch.kernels.paged_attn`, variant by
+    ``smem_budget_bytes``) and run its plain version on a CPU tensor;
+    ``"gather"`` is the plain version (gather, dequantize, attend) on
+    any device. The reference's ``mesh`` and autotuned ``auto`` are not
+    ported yet (ROADMAP queue 1 items 8 and 9).
+    """
+    if backend not in PAGED_BACKENDS:
+        raise ValueError(f"backend={backend!r} not in {PAGED_BACKENDS}")
+    if backend == "gather":
+        cl = torch.as_tensor(cache_len, device=q.device).reshape(-1)
+        return paged_attention_ref(q, k_pool, v_pool, block,
+                                   cl.expand(q.shape[0]), window=window,
+                                   scale=scale, k_scale=k_scale,
+                                   v_scale=v_scale)
+    return _paged_attn.paged_attention(
+        q, k_pool, v_pool, block, cache_len, window=window, scale=scale,
+        k_scale=k_scale, v_scale=v_scale,
+        smem_budget_bytes=smem_budget_bytes)

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the kernels, and the 4-bit packing layout.
 
-``lutq_matmul_ref``, ``lutq_gemv_packed_ref`` and ``kmeans_stats_ref``
-are what the kernel wrappers run for a tensor on the CPU, and what the
-kernels are held against on the card. Like the TPU kernels the GEMMs
+``lutq_matmul_ref``, ``lutq_gemv_packed_ref``, ``kmeans_stats_ref`` and
+``paged_attention_ref`` are what the kernel wrappers run for a tensor on
+the CPU, and what the kernels are held against on the card. Like the TPU kernels the GEMMs
 cast each decoded weight
 to ``x.dtype`` before the product and accumulate in float32: the matmul
 runs on float32 copies of the operands, which holds every bf16 value
@@ -67,3 +67,22 @@ def kmeans_stats_ref(w: torch.Tensor, d: torch.Tensor):
     sums.index_add_(0, idx, w.double())
     counts = torch.bincount(idx, minlength=K).float()
     return idx.to(torch.int8), sums.float(), counts
+
+
+def paged_attention_ref(q, k_pool, v_pool, block, cache_len, *, window=None,
+                        scale=None, k_scale=None, v_scale=None):
+    """Paged decode attention as the reference's gather oracle computes
+    it (``repro.kernels.ops.paged_attention_reference``): gather each
+    row through the block table, dequantize int8 pages once as a bf16
+    product, then :func:`repro_torch.nn.attention.decode_attention`.
+    Positions past ``cache_len`` read whatever their pages hold and are
+    masked; a row with ``cache_len = 0`` averages its gathered row (0
+    when it points at a zero trash page)."""
+    from repro_torch.nn.attention import decode_attention, gather_pages
+
+    kc = gather_pages(k_pool, block)
+    vc = gather_pages(v_pool, block)
+    if k_scale is not None:
+        kc = kc.to(torch.bfloat16) * gather_pages(k_scale, block)[..., None]
+        vc = vc.to(torch.bfloat16) * gather_pages(v_scale, block)[..., None]
+    return decode_attention(q, kc, vc, cache_len, window=window, scale=scale)

@@ -1,20 +1,29 @@
-"""Serving CLI: batched prefill + greedy decode with LUT-Q weights.
+"""Serving CLI: LUT-Q weights served as a static batch or through the
+continuous-batching engine (slot pool or paged KV).
 
-Counterpart of ``repro.launch.serve`` without the engine, mesh,
-checkpoint, autotune and speculative options. On the card:
+Counterpart of ``repro.launch.serve`` without the mesh, checkpoint,
+autotune and speculative options. On the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --batch 4 --prompt-len 128 --gen 16 --pack4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --engine --kv-pages 160 --page-size 64 --max-batch 8 --queue 16 \
+        --prompt-len 512 --gen 64 --pack4
 
 On the CPU, through the kernels' plain versions, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --batch 2 --prompt-len 16 --gen 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
+        --queue 4 --prompt-len 30 --gen 8 --device cpu
 
 Serves the paper's deployment form (serve_view: dictionary + int8 or
 packed assignments, no fp masters), reports the weight footprint both
 ways, the per-rule breakdown, the backend of each quantized leaf, the
-prefill time and decode rate, and how many times each kernel launched.
+prefill time and decode rate (with ``--engine``: goodput, latency and
+TTFT percentiles, and the paged cache's pages and prefix hits), and how
+many times each kernel launched.
 """
 from __future__ import annotations
 
@@ -31,11 +40,12 @@ from repro_torch.core.policy import (backend_manifest, effective_bits,
 from repro_torch.core.rules import get_policy
 from repro_torch.core.spec import QuantSpec
 from repro_torch.device import resolve_device
-from repro_torch.kernels import lutq_gemv_packed, lutq_matmul
+from repro_torch.kernels import lutq_gemv_packed, lutq_matmul, paged_attn
 from repro_torch.kernels.ops import BACKENDS
 from repro_torch.models import api
 from repro_torch.models.reduce import reduced
 from repro_torch.nn.tree import tree_paths
+from repro_torch.runtime.engine import Engine, synthetic_requests
 from repro_torch.runtime.serving import generate
 
 
@@ -51,11 +61,64 @@ def footprint_bytes(model) -> int:
 def kernel_report(dev: torch.device) -> str:
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
+    plain = sum(m.COUNTS["plain"]
+                for m in (lutq_matmul, lutq_gemv_packed, paged_attn))
     return (f"[serve] kernel launches: lutq_matmul "
             f"{lutq_matmul.COUNTS['launches']}, lutq_gemv_packed "
-            f"{lutq_gemv_packed.COUNTS['launches']} | plain versions: "
-            f"{lutq_matmul.COUNTS['plain'] + lutq_gemv_packed.COUNTS['plain']}"
+            f"{lutq_gemv_packed.COUNTS['launches']}, paged_attention "
+            f"{paged_attn.COUNTS['launches']} | plain versions: {plain}"
             f" | device {name}")
+
+
+def run_engine(model, cfg, *, capacity: int, n_requests: int,
+               prompt_len: int, gen: int, seed: int = 0,
+               temperature: float = 0.0, kv_pages=None, page_size: int = 64,
+               prefix_cache: bool = True, requests=None, device="cuda"):
+    """Serve a ragged queue through the continuous-batching engine and
+    return its stats dict (the CLI's and the smoke test's fields).
+
+    ``kv_pages`` switches onto the paged KV cache. ``requests``
+    overrides the synthetic workload with a list of ``Engine.submit``
+    kwargs dicts. Packed prefill is not ported, so a paged engine
+    prefills every prompt in chunks."""
+    eng = Engine(model, cfg, capacity=capacity, max_len=prompt_len + gen,
+                 temperature=temperature, seed=seed, kv_pages=kv_pages,
+                 page_size=page_size, prefix_cache=prefix_cache,
+                 prefill_pack=False, device=device)
+    if requests is None:
+        requests = synthetic_requests(cfg, n_requests, max_prompt=prompt_len,
+                                      max_new=gen, seed=seed)
+    for req in requests:
+        req = dict(req)
+        req.pop("arrival_s", None)
+        eng.submit(**req)
+    eng.run()
+    return eng.stats()
+
+
+def format_engine_stats(stats) -> str:
+    out = (f"[serve] engine: {stats['completed']}/{stats['admitted']} requests "
+           f"on {stats['capacity']} slots | decode[{stats['backend']}]: "
+           f"{stats['decode_tok_s']:.1f} tok/s | goodput "
+           f"{stats['goodput_tok_s']:.1f} tok/s | latency p50 "
+           f"{stats['p50_latency_s']*1e3:.0f} ms p95 "
+           f"{stats['p95_latency_s']*1e3:.0f} ms | ttft p50 "
+           f"{stats['ttft_p50_s']*1e3:.0f} ms p99 "
+           f"{stats['ttft_p99_s']*1e3:.0f} ms | "
+           f"{stats['decode_steps']} decode steps, "
+           f"prefill {stats['t_prefill_s']:.2f} s, "
+           f"decode {stats['t_decode_s']:.2f} s")
+    if stats.get("paged"):
+        out += (f"\n[serve] paged KV: {stats['pages_in_use']}/"
+                f"{stats['kv_pages'] - 1} pages in use "
+                f"(peak {stats['pages_peak']}) x {stats['page_size']} tokens"
+                f" | {stats['kv_bytes_per_token']} KV bytes/token")
+        if "prefix_hit_rate" in stats:
+            out += (f" | prefix cache: {stats['prefix_hits']}/"
+                    f"{stats['prefix_queries']} page hits "
+                    f"({stats['prefix_hit_rate']*100:.0f}%), "
+                    f"{stats['prefix_evictions']} evictions")
+    return out
 
 
 def main(argv=None):
@@ -77,6 +140,24 @@ def main(argv=None):
                          "per leaf (int8 -> fused, packed -> packed4); "
                          "decode forces the dense-materialize path; "
                          "packed4 implies --pack4")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a ragged FIFO queue through the "
+                         "continuous-batching engine instead of one static "
+                         "batch")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="engine slot-pool capacity (decode batch width)")
+    ap.add_argument("--queue", type=int, default=16,
+                    help="number of ragged requests to enqueue with --engine")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="serve through the paged KV cache with this many "
+                         "pool pages (block-table slots, prefix sharing, "
+                         "chunked prefill)")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per KV page (power of two)")
+    ap.add_argument("--prefix-cache", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="share identical prompt-prefix pages across "
+                         "requests (--no-prefix-cache disables)")
     ap.add_argument("--act-bits", type=int, default=8, choices=(8, 32),
                     help="activation fake-quant bits (32 disables)")
     ap.add_argument("--seed", type=int, default=0)
@@ -111,6 +192,16 @@ def main(argv=None):
     counts = Counter(m["backend"] for m in manifest.values())
     print(f"[serve] kernel backends (requested {args.kernel_backend!r}): "
           + ", ".join(f"{k}: {v} leaves" for k, v in sorted(counts.items())))
+
+    if args.engine:
+        stats = run_engine(smodel, cfg, capacity=args.max_batch,
+                           n_requests=args.queue, prompt_len=args.prompt_len,
+                           gen=args.gen, seed=args.seed,
+                           kv_pages=args.kv_pages, page_size=args.page_size,
+                           prefix_cache=args.prefix_cache, device=dev)
+        print(format_engine_stats(stats))
+        print(kernel_report(dev))
+        return 0
 
     B, P = args.batch, args.prompt_len
     gen = torch.Generator().manual_seed(args.seed + 1)

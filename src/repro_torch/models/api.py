@@ -7,6 +7,9 @@
     prefill(model, cfg, batch, lengths=)       -> (logits, cache)
     decode_step(model, cfg, token, cache)      -> (logits, cache)
     init_cache(cfg, batch, max_len, device=)   -> cache
+    paged_supported(cfg)                       -> bool
+    init_paged_cache(cfg, batch, n_pages, page_size, n_blocks, device=)
+    paged_decode_step(model, cfg, token, cache) -> (logits, cache)
 
 Every entry point that creates tensors runs on ``device="cuda"`` unless
 the caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -92,3 +95,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda"):
     _dense_only(cfg)
     return m_lm.init_cache(cfg, batch, max_len, device=resolve_device(device))
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """Configs the paged KV cache serves: dense attention without MLA,
+    experts, prefix layers or a modality prefix. The reference also
+    pages encdec; the port serves the dense family only so far."""
+    return (cfg.family == "dense" and not cfg.use_mla and cfg.n_experts == 0
+            and cfg.first_dense == 0 and cfg.n_prefix_tokens == 0)
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
+                     page_size: int, n_blocks: int, *, device="cuda"):
+    if not paged_supported(cfg):
+        raise ValueError(f"paged KV unsupported for family={cfg.family} "
+                         "(use api.paged_supported to gate)")
+    return m_lm.init_paged_cache(cfg, batch, n_pages, page_size, n_blocks,
+                                 device=resolve_device(device))
+
+
+def paged_decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
+    _dense_only(cfg)
+    return m_lm.lm_paged_decode_step(model, cfg, token, cache)

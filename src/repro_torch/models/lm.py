@@ -11,6 +11,7 @@ Entry points:
   lm_loss         next-token cross-entropy of a batch
   lm_prefill      (B, S) prompt -> last logits + per-layer K/V
   lm_decode_step  (B, 1) token  -> logits + updated cache
+and the paged-KV entry points of the engine (``lm_paged_*``, below).
 """
 from __future__ import annotations
 
@@ -21,7 +22,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.attention import decode_attention, flash_attention
+from repro_torch.kernels import ops
+from repro_torch.nn.attention import (decode_attention, flash_attention,
+                                      gather_pages, scatter_token_pages)
 from repro_torch.nn.linear import (embedding_apply, embedding_init,
                                    embedding_logits, linear_apply,
                                    linear_init)
@@ -352,3 +355,180 @@ def lm_decode_step(model: LM, cfg: ModelConfig, token, cache):
         new_caches.append(c)
     logits = _readout(model, cfg, h)
     return logits, {"layers": new_caches, "len": cache_len + 1}
+
+
+# ---------------------------------------------------------------------------
+# paged serving (block-table KV; see runtime/paged_kv.py)
+# ---------------------------------------------------------------------------
+#
+# The paged layout replaces per-slot (B, max_len, ...) caches with a
+# global page pool (P, page, Hkv, dh) per layer plus an int32 block
+# table (B, NB). Decode scatters the new K/V entry through the block
+# table and attends through it with ``ops.paged_attention`` (the CUDA
+# kernel on the card). Chunked prefill never attends quantized pages:
+# chunks write fp K/V into a transient workspace of one request and
+# attend it via ``flash_attention(..., q_offset=start)``; int8
+# quantization happens once, in ``lm_paged_splice``, where the slot
+# path's ``adapt_prefill_cache`` quantizes. The pool, workspace and
+# block table are updated in place (the reference returns new arrays).
+
+
+def _paged_quant(cfg: ModelConfig) -> bool:
+    return cfg.kv_cache_bits == 8
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
+                     page_size: int, n_blocks: int, *, device=None
+                     ) -> Dict[str, Any]:
+    """Paged decode cache: {"pool", "block", "len"}. ``pool`` holds one
+    dict per layer: K/V (P, page, Hkv, dh) (+ (P, page, Hkv) bf16 scales
+    for int8 KV). block: (B, NB) int32, all zero = every entry points at
+    the trash page."""
+    _check_dense(cfg)
+    dh = cfg.resolved_head_dim
+    quant = _paged_quant(cfg)
+    kv_dt = torch.int8 if quant else cfg.dtype
+    shape = (n_pages, page_size, cfg.n_kv_heads, dh)
+
+    def one():
+        c = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
+             "v": torch.zeros(shape, dtype=kv_dt, device=device)}
+        if quant:
+            for key in ("k_scale", "v_scale"):
+                c[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                     device=device)
+        return c
+
+    return {"pool": [one() for _ in range(cfg.n_layers)],
+            "block": torch.zeros((batch, n_blocks), dtype=torch.int32,
+                                 device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def init_paged_workspace(cfg: ModelConfig, wws: int, *, device=None):
+    """fp chunk-prefill workspace of one request: per layer, K/V
+    (1, wws, Hkv, dh) in the working dtype."""
+    shape = (1, wws, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+def paged_attn_decode(p: Attention, cfg: ModelConfig, x, pool, block,
+                      cache_len):
+    """One-token decode against one layer's page pool.
+
+    Dead slots keep ``cache_len`` at 0 with an all-trash block row, so
+    their scatter lands on the trash page and their output is discarded
+    by the engine. The new entry is written into the pool in place.
+    """
+    B = x.shape[0]
+    pos = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+    pos = pos.expand(B).reshape(B, 1)
+    q, k, v = _qkv(p, cfg, x, pos)
+    idx = pos[:, 0]
+    quant = _paged_quant(cfg)
+    if quant:
+        k, k_s = _kv_quant(k, 8)
+        v, v_s = _kv_quant(v, 8)
+        scatter_token_pages(pool["k_scale"], block, idx, k_s[:, 0])
+        scatter_token_pages(pool["v_scale"], block, idx, v_s[:, 0])
+    scatter_token_pages(pool["k"], block, idx, k[:, 0])
+    scatter_token_pages(pool["v"], block, idx, v[:, 0])
+    o = ops.paged_attention(q, pool["k"], pool["v"], block, idx + 1,
+                            window=cfg.window, k_scale=pool.get("k_scale"),
+                            v_scale=pool.get("v_scale"))
+    return linear_apply(p.o, o.reshape(B, 1, -1), backend=cfg.kernel_backend,
+                        act_bits=cfg.act_bits)
+
+
+def lm_paged_decode_step(model: LM, cfg: ModelConfig, token, cache):
+    """token: (B, 1) -> (logits (B, 1, V), cache with len + 1)."""
+    _check_dense(cfg)
+    h = _embed_tokens(model, cfg, token)
+    cache_len, block = cache["len"], cache["block"]
+    for layer, pool in zip(model.layers, cache["pool"]):
+        h = h + paged_attn_decode(layer.attn, cfg,
+                                  rmsnorm_apply(layer.ln1, h), pool, block,
+                                  cache_len)
+        h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
+    logits = _readout(model, cfg, h)
+    return logits, {"pool": cache["pool"], "block": block,
+                    "len": cache_len + 1}
+
+
+def lm_paged_prefill_chunk(model: LM, cfg: ModelConfig, tokens, ws,
+                           start: int, n_real: int):
+    """One prompt chunk. tokens: (1, C); ws: the workspace, holding K/V
+    of positions [0, start) (earlier chunks or a prefix-cache hydrate).
+
+    Writes the chunk's K/V at [start, start + C) and returns (logits
+    (1, 1, V) at chunk row ``n_real - 1``, ws). Rows past ``n_real`` are
+    padding: their logits are not read and the splice skips them.
+    """
+    _check_dense(cfg)
+    C = tokens.shape[1]
+    wws = ws[0]["k"].shape[1]
+    if start + C > wws:
+        raise ValueError(f"chunk [{start}, {start + C}) overruns the "
+                         f"workspace of {wws} positions")
+    h = _embed_tokens(model, cfg, tokens)
+    positions = start + torch.arange(C, device=h.device)[None, :]
+    for layer, w in zip(model.layers, ws):
+        q, k, v = _qkv(layer.attn, cfg, rmsnorm_apply(layer.ln1, h),
+                       positions)
+        w["k"][:, start:start + C] = k.to(w["k"].dtype)
+        w["v"][:, start:start + C] = v.to(w["v"].dtype)
+        o = flash_attention(q, w["k"], w["v"], window=cfg.window,
+                            q_block=cfg.attn_q_block,
+                            kv_block=cfg.attn_kv_block, q_offset=start)
+        h = h + linear_apply(layer.attn.o, o.reshape(1, C, -1),
+                             backend=cfg.kernel_backend,
+                             act_bits=cfg.act_bits)
+        h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
+    return _readout(model, cfg, h[:, n_real - 1:n_real]), ws
+
+
+def lm_paged_splice(cfg: ModelConfig, pool, ws, block_row, start: int,
+                    length: int):
+    """Commit workspace positions [start, length) to the page pool
+    through ``block_row`` (NB,) int32. ``start`` is the prefix-cache hit
+    length: shared hit pages already hold their content and are live
+    for other slots, so they are never rewritten. int8 KV quantizes
+    here, per entry, with the slot path's ``_kv_quant``."""
+    if length <= start:
+        return pool
+    page = pool[0]["k"].shape[1]
+    dev = pool[0]["k"].device
+    pos = torch.arange(start, length, device=dev)
+    row = torch.as_tensor(block_row, device=dev).long()
+    phys, off = row[pos // page], pos % page
+    quant = _paged_quant(cfg)
+    for c, w in zip(pool, ws):
+        for key in ("k", "v"):
+            val = w[key][0, start:length]
+            if quant:
+                val, sc = _kv_quant(val, 8)
+                c[f"{key}_scale"][phys, off] = sc
+            c[key][phys, off] = val.to(c[key].dtype)
+    return pool
+
+
+def lm_paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len: int, ws):
+    """Rebuild the workspace prefix [0, hist_len) from cached pages (a
+    prefix-cache hit), zero beyond. Exact for fp pools; for int8 pools
+    the hydrated prefix is the dequantized cache."""
+    dev = pool[0]["k"].device
+    row = torch.as_tensor(block_row, device=dev)[None]
+    quant = _paged_quant(cfg)
+    for c, w in zip(pool, ws):
+        for key in ("k", "v"):
+            w[key].zero_()
+            if hist_len <= 0:
+                continue
+            val = gather_pages(c[key], row)[0, :hist_len]
+            if quant:
+                sc = gather_pages(c[f"{key}_scale"], row)[0, :hist_len]
+                val = val.to(torch.bfloat16) * sc[..., None]
+            w[key][0, :hist_len] = val.to(w[key].dtype)
+    return ws

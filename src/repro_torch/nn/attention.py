@@ -1,12 +1,16 @@
-"""Attention: blocked online-softmax prefill and one-token decode.
+"""Attention: blocked online-softmax prefill, one-token decode, pages.
 
-Counterpart of ``repro.nn.attention.flash_attention`` (the causal path
-with an optional sliding window) and ``decode_attention``, as plain
-torch ops: the prefill walks (q-block, kv-block) pairs with an online
-softmax, and under a window each q-block reads a fixed-width KV slab,
-as the reference does. GQA folds query heads into (kv_head, group) so
-no KV head is replicated. The hand-written attention kernels come in
-later slices.
+Counterpart of ``repro.nn.attention``: ``flash_attention`` (the causal
+path with an optional sliding window and a ``q_offset`` for chunked
+prefill against a workspace), ``decode_attention``, and the block-table
+helpers ``gather_pages`` / ``scatter_token_pages`` of the paged KV
+cache, as plain torch ops. The prefill walks (q-block, kv-block) pairs
+with an online softmax, and under a window each q-block reads a
+fixed-width KV slab, as the reference does. GQA folds query heads into
+(kv_head, group) so no KV head is replicated. The reference's packed
+multi-sequence overrides of ``flash_attention`` (per-token positions
+and segments) are not ported yet (ROADMAP queue 1). The paged decode
+kernel is ``kernels/paged_attn.py``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,12 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """``q * scale`` as jnp computes it: the Python scalar takes q's
+    dtype first (bf16 rounds 80**-0.5), then the product rounds once."""
+    return q * torch.tensor(scale, dtype=q.dtype)
 
 
 def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -26,14 +36,21 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = 512,
-                    kv_block: int = 512) -> torch.Tensor:
+                    kv_block: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Causal attention. q: (B,S,H,Dh); k,v: (B,Skv,Hkv,Dh[v]) ->
-    (B,S,H,Dv)."""
+    (B,S,H,Dv).
+
+    ``q_offset``: position of q's first row within the KV sequence.
+    Chunked prefill attends a chunk of queries against the whole
+    workspace with ``q_offset=start``, so the causal and window masks
+    see global positions.
+    """
     B, S, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = H // Hkv
     scale = Dh ** -0.5
+    q_offset = int(q_offset)
     q_block = min(q_block, S)
     kv_block = min(kv_block, Skv)
     S0, Skv0 = S, Skv
@@ -47,7 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
         Skv += pad_kv
     nq = S // q_block
-    qr = q.reshape(B, nq, q_block, Hkv, G, Dh) * scale
+    qr = scaled(q.reshape(B, nq, q_block, Hkv, G, Dh), scale)
 
     if window is not None:
         # static KV slab wide enough to cover [q_end - window, q_end)
@@ -63,7 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for qi in range(nq):
         qblk = qr[:, qi]  # (B, bq, Hkv, G, Dh)
-        q_start = qi * q_block
+        q_start = q_offset + qi * q_block
         start = (min(max(q_start + q_block - slab, 0), Skv - slab)
                  if slab < Skv else 0)
         q_pos = q_start + torch.arange(q_block, device=dev)
@@ -100,15 +117,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """One-token decode. q: (B,1,H,Dh); caches: (B,Skv,Hkv,Dh[v]).
 
     cache_len: (B,) or scalar, the number of valid cache positions.
+    Scores are formed in the operands' promoted dtype (bf16 x bf16 gives
+    bf16 scores, as jnp's einsum does) and softmaxed in float32.
     """
     B, _, H, Dh = q.shape
     Skv, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
-    qr = q.reshape(B, Hkv, G, Dh) * Dh ** -0.5
+    if scale is None:
+        scale = Dh ** -0.5
+    qr = scaled(q.reshape(B, Hkv, G, Dh), scale)
     s = _f32_einsum("bhgd,bkhd->bhgk", qr, k_cache)
     pos = torch.arange(Skv, device=q.device)[None, :]
     cl = torch.as_tensor(cache_len, device=q.device).reshape(-1)
@@ -120,3 +142,36 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p.float(), v_cache.float())
     return o.reshape(B, 1, H, -1).to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """Per-slot linear views of a paged pool.
+
+    pool: (P, page, ...) physical pages; block: (B, NB) int32 block
+    table -> (B, NB*page, ...), where row b's position p reads
+    ``pool[block[b, p // page], p % page]``. Empty entries point at the
+    trash page (0); consumers mask positions ``>= cache_len``.
+    """
+    P, page = pool.shape[:2]
+    B, NB = block.shape
+    flat = pool.reshape((P * page,) + tuple(pool.shape[2:]))
+    idx = (block.long() * page)[:, :, None] + torch.arange(
+        page, device=block.device)
+    return flat[idx.reshape(B, NB * page)]
+
+
+def scatter_token_pages(pool: torch.Tensor, block: torch.Tensor,
+                        idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Write one token's K or V through the block table, in place.
+
+    pool: (P, page, ...); block: (B, NB); idx: (B,) logical position to
+    write; val: (B, ...). Dead slots keep ``idx`` at 0 with an all-trash
+    block row, so their writes land on the trash page. Returns ``pool``.
+    (The reference returns a new array.)
+    """
+    page = pool.shape[1]
+    NB = block.shape[1]
+    col = torch.clamp(idx.long() // page, 0, NB - 1)
+    phys = torch.take_along_dim(block.long(), col[:, None], dim=1)[:, 0]
+    pool[phys, idx.long() % page] = val.to(pool.dtype)
+    return pool

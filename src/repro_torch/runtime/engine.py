@@ -1,0 +1,578 @@
+"""Continuous-batching serving engine: slot pool, FIFO queue, paged KV.
+
+Counterpart of ``repro.runtime.engine``. A fixed-capacity **slot pool**:
+every decode step advances all ``capacity`` slots through one decode
+step and per-slot sampling, while a FIFO queue prefills new requests
+into free slots mid-flight and EOS / max-token retirement frees slots
+the same step.
+
+Lifecycle per request (``docs/serving.md``)::
+
+  submit -> [queue] -> admit: requests taken the same step share ONE
+                              batched prefill (per-stream ``lengths``)
+                              -> adapt_prefill_cache -> cache rows
+         -> decode: one token per engine step, per-slot position and
+                    sampling generator
+         -> retire: EOS or max_new reached; slot freed the same step
+
+With ``kv_pages`` the slots' caches become block-table rows over a
+global page pool (``runtime/paged_kv.py``): admission reserves pages
+(FIFO deferral on a shortfall, evicting cold prefixes first), long
+prompts prefill in chunks of at most ``max_chunk`` tokens, one chunk per
+engine step, prompt pages are published to a prefix cache that later
+requests hit, and pages that slide behind the attention window are
+released mid-generation. Decode attends through the block table in the
+``paged_attn`` CUDA kernel (``kernels/paged_attn.py``).
+
+Sampling: greedy is an argmax. With a temperature each request owns a
+``torch.Generator`` on the engine's device, seeded from (engine seed,
+rid) or from ``submit(seed=)``, so its samples depend on its own
+generator only and a solo run reproduces them. The numbers are not
+``jax.random``'s.
+
+What the reference's jit machinery did has no counterpart here, since
+PyTorch runs eagerly: ``warmup`` is accepted and does nothing
+(``stats()["t_warmup_s"]`` is 0), and instead of ``paged_trace_counts``
+the kernel wrappers' launch counts (``COUNTS`` in ``kernels/``) show
+which kernels a run went through. Not ported yet, and raising
+``NotImplementedError``: speculative decoding (ROADMAP queue 1 item 5),
+``mesh`` (item 8), encdec / vlm requests (``frames`` /
+``prefix_embeds``, item 6) and packed prefill (``prefill_pack`` where it
+would be active: a paged engine with ``act_bits >= 32``; item 3's
+residue).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import api
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import init_paged_workspace
+from repro_torch.nn.tree import module_device
+from repro_torch.runtime import paged_kv
+from repro_torch.runtime.serving import (adapt_prefill_cache, paged_chunk,
+                                         paged_hydrate, paged_splice)
+
+
+def synthetic_requests(cfg: ModelConfig, n: int, *, max_prompt: int,
+                       max_new: int, seed: int = 0, rate: float = 0.0):
+    """Deterministic ragged workload, the reference's for the same seed:
+    ``n`` requests with prompt lengths uniform in [max(2, max_prompt//4),
+    max_prompt], max_new uniform in [max(1, max_new//8), max_new], and
+    (``rate > 0``) Poisson arrival offsets at ``rate`` requests/s.
+    Returns kwargs dicts for ``Engine.submit`` plus ``arrival_s``."""
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    reqs = []
+    for _ in range(n):
+        L = int(rng.integers(max(2, max_prompt // 4), max_prompt + 1))
+        g = int(rng.integers(max(1, max_new // 8), max_new + 1))
+        reqs.append({
+            "tokens": rng.integers(0, cfg.vocab, size=(L,)).astype(np.int32),
+            "max_new": g,
+            "arrival_s": t,
+        })
+        if rate > 0:
+            t += float(rng.exponential(1.0 / rate))
+    return reqs
+
+
+def request_seed(engine_seed: int, rid: int) -> int:
+    """The sampling seed of request ``rid`` of an engine seeded with
+    ``engine_seed`` (what ``submit`` uses unless given ``seed=``)."""
+    return int(np.random.SeedSequence([engine_seed, rid]).generate_state(1)[0])
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: np.ndarray                      # (L,) int32 prompt
+    max_new: int
+    eos_id: Optional[int]
+    gen: Optional[torch.Generator]          # sampling generator (temperature)
+    out: List[int] = dataclasses.field(default_factory=list)
+    pstart: int = 0   # index into the engine's pending-token list
+    kv_pages: int = 0  # pages reserved at admission (paged engines)
+    finish: str = ""
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+
+
+class Engine:
+    """Fixed-capacity continuous-batching engine.
+
+    Usage::
+
+        eng = Engine(model, cfg, capacity=8, max_len=128, device="cuda")
+        eng.submit(prompt_tokens, max_new=32, eos_id=2)
+        for result in eng.run(stream=True):
+            ...                      # per-request dict as it retires
+        print(eng.stats())
+
+    ``capacity``: decode slots (the fixed decode batch). ``max_len``:
+    per-slot context in tokens (prompt + new). ``kv_pages``: serve through the paged KV cache with this many pages
+    of ``page_size`` tokens (``prefix_cache`` shares prompt pages).
+    ``device``: where the engine's state lives and the run happens; the
+    model must already be there.
+    """
+
+    def __init__(self, model: nn.Module, cfg: ModelConfig, *,
+                 capacity: int = 8, max_len: int = 128,
+                 temperature: float = 0.0, seed: int = 0,
+                 backend: Optional[str] = None, mesh=None, kv_pages: Optional[int] = None,
+                 page_size: int = 64, prefix_cache: bool = True,
+                 max_chunk: int = 256, prefill_pack: bool = True,
+                 warmup: bool = True, speculative: int = 0,
+                 device="cuda"):
+        del warmup  # nothing to compile ahead: PyTorch runs eagerly
+        if speculative:
+            raise NotImplementedError("speculative decoding is not ported "
+                                      "yet (ROADMAP queue 1 item 5)")
+        if mesh is not None:
+            raise NotImplementedError("meshed serving is not ported yet "
+                                      "(ROADMAP queue 1 item 8)")
+        if backend is not None:
+            cfg = cfg.replace(kernel_backend=backend)
+        self.device = resolve_device(device)
+        have = module_device(model)
+        if have is not None and have.type != self.device.type:
+            raise ValueError(f"Engine(device={str(self.device)!r}) but the "
+                             f"model lives on {have}")
+        self.cfg = cfg
+        self.model = model
+        self.capacity = int(capacity)
+        self.max_len = int(max_len)
+        self.temperature = float(temperature)
+        self.greedy = self.temperature <= 0
+        self.seed = int(seed)
+        self.paged = kv_pages is not None and api.paged_supported(cfg)
+        if self.paged and prefill_pack and cfg.act_bits >= 32:
+            raise NotImplementedError(
+                "packed prefill is not ported yet (ROADMAP queue 1 item 3); "
+                "pass prefill_pack=False (it is off anyway under "
+                "act_bits < 32)")
+        self._chunking: Optional[Dict[str, Any]] = None
+        self.n_chunk_calls = 0
+        dev = self.device
+        if self.paged:
+            self.page_size = int(page_size)
+            self.n_blocks = -(-self.max_len // self.page_size)
+            self.n_pages = int(kv_pages)
+            self.pkv = paged_kv.PagedKV(self.n_pages, self.page_size,
+                                        self.n_blocks, self.capacity,
+                                        prefix_cache=prefix_cache)
+            self.cache = api.init_paged_cache(cfg, self.capacity,
+                                              self.n_pages, self.page_size,
+                                              self.n_blocks, device=dev)
+            self.max_chunk = min(int(max_chunk),
+                                 paged_kv.next_pow2(self.max_len))
+            self.wws = paged_kv.workspace_len(self.max_len, self.n_blocks,
+                                              self.page_size)
+            self.ws = init_paged_workspace(cfg, self.wws, device=dev)
+        else:
+            self.cache = api.init_cache(cfg, self.capacity, self.max_len,
+                                        device=dev)
+        self.tok = torch.zeros((self.capacity, 1), dtype=torch.int32,
+                               device=dev)
+        self.slots: List[Optional[Request]] = [None] * self.capacity
+        self.queue: deque = deque()
+        self._pending: List[torch.Tensor] = []  # un-synced decode tokens
+        self.results: Dict[int, Dict[str, Any]] = {}
+        self._next_rid = 0
+        self.n_decode_steps = 0
+        self.n_admitted = 0
+        self.t_prefill = 0.0
+        self.t_decode = 0.0
+        self._t_start: Optional[float] = None
+
+    # ------------------------------------------------------------- queue
+
+    def _new_request(self, tokens, max_new, eos_id, seed, t_submit):
+        rid = self._next_rid
+        self._next_rid += 1
+        gen = None
+        if not self.greedy:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(request_seed(self.seed, rid) if seed is None
+                            else int(seed))
+        return Request(rid, tokens, int(max_new), eos_id, gen,
+                       t_submit=t_submit)
+
+    def submit(self, tokens, *, max_new: int, eos_id: Optional[int] = None,
+               seed: Optional[int] = None, frames=None,
+               prefix_embeds=None) -> int:
+        """Enqueue one request; returns its rid (FIFO admission order).
+
+        ``seed``: the request's sampling seed (default
+        ``request_seed(engine seed, rid)``). To reproduce a temperature
+        stream of one engine in another, submit it with the same seed.
+        """
+        if frames is not None or prefix_embeds is not None:
+            raise NotImplementedError("encdec and vlm requests are not "
+                                      "ported yet (ROADMAP queue 1 item 6)")
+        if isinstance(tokens, torch.Tensor):
+            tokens = tokens.cpu().numpy()
+        prompt = np.asarray(tokens, np.int32).reshape(-1)
+        if len(prompt) == 0:
+            raise ValueError("empty prompt")
+        if len(prompt) + int(max_new) > self.max_len:
+            raise ValueError(f"prompt {len(prompt)} + max_new {max_new} "
+                             f"exceeds engine max_len {self.max_len}")
+        if self.paged:
+            n_need = self.pkv.n_pages_for(len(prompt) + int(max_new))
+            if n_need > self.n_pages - 1:
+                raise ValueError(
+                    f"request needs {n_need} KV pages but the pool only has "
+                    f"{self.n_pages - 1} allocatable pages")
+        req = self._new_request(prompt, max_new, eos_id, seed,
+                                time.perf_counter())
+        self.queue.append(req)
+        return req.rid
+
+    # ---------------------------------------------------------- sampling
+
+    def _sample(self, logits, reqs: List[Optional[Request]]) -> torch.Tensor:
+        """Per-row sampling: logits (n, 1, V) -> (n,) int32. Greedy rows
+        take the first maximum; with a temperature, row i draws from its
+        request's generator (rows without a request give 0)."""
+        lg = logits[:, -1].float()
+        if self.greedy:
+            return torch.argmax(lg, dim=-1).to(torch.int32)
+        probs = torch.softmax(lg / max(self.temperature, 1e-6), dim=-1)
+        out = torch.zeros(lg.shape[0], dtype=torch.int32, device=lg.device)
+        for i, req in enumerate(reqs):
+            if req is not None:
+                out[i] = torch.multinomial(probs[i], 1,
+                                           generator=req.gen)[0].to(torch.int32)
+        return out
+
+    # --------------------------------------------------------- admission
+
+    def _admit_group(self, slots: List[int], reqs: List[Request]):
+        """Prefill a group of requests with ONE batched call and write
+        each row into its slot."""
+        t0 = time.perf_counter()
+        cfg, dev = self.cfg, self.device
+        m = len(reqs)
+        Ls = [len(r.tokens) for r in reqs]
+        toks = np.zeros((m, max(Ls)), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, :Ls[i]] = r.tokens
+        lengths = torch.tensor(Ls, dtype=torch.int32, device=dev)
+        logits, pcache = api.prefill(self.model, cfg,
+                                     {"tokens": torch.from_numpy(toks).to(dev)},
+                                     lengths=lengths)
+        grp = adapt_prefill_cache(cfg, pcache, m, self.max_len,
+                                  lengths=lengths)
+        idx = torch.tensor(slots, device=dev)
+        for c, g in zip(self.cache["layers"], grp["layers"]):
+            for key, t in c.items():
+                t[idx] = g[key].to(t.dtype)
+        self.cache["len"][idx] = lengths
+        firsts = self._sample(logits, reqs)
+        self.tok[idx, 0] = firsts
+        firsts = firsts.cpu().tolist()  # one sync per group
+        now = time.perf_counter()
+        for slot, req, first in zip(slots, reqs, firsts):
+            req.t_admit = t0
+            req.t_first = now
+            req.out = [first]
+            req.pstart = len(self._pending)  # earlier pending rows belong
+            self.slots[slot] = req           # to the slot's prior occupant
+            self.n_admitted += 1
+            self._maybe_retire(slot)
+        self.t_prefill += now - t0
+
+    def _maybe_retire(self, slot: int):
+        req = self.slots[slot]
+        done_eos = req.eos_id is not None and req.out[-1] == req.eos_id
+        done_len = len(req.out) >= req.max_new
+        if not (done_eos or done_len):
+            return
+        req.finish = "eos" if done_eos else "length"
+        req.t_done = time.perf_counter()
+        self.slots[slot] = None
+        # pin the freed slot's position and token so its dead-slot
+        # decode writes stay inside the slot until the next admission
+        self.cache["len"][slot] = 0
+        self.tok[slot] = 0
+        if self.paged and self.pkv.rows[slot] is not None:
+            # release the refcounts AND zero the device block row: the
+            # freed pages may be handed out at once, and a stale row would
+            # let this dead slot's writes corrupt them
+            self.pkv.release_slot(slot)
+            self.cache["block"][slot] = 0
+        self.results[req.rid] = {
+            "rid": req.rid,
+            "tokens": np.asarray(req.out, np.int32),
+            "prompt_len": len(req.tokens),
+            "n_new": len(req.out),
+            "finish": req.finish,
+            "t_queue_s": req.t_admit - req.t_submit,
+            "t_first_token_s": req.t_first - req.t_submit,
+            "t_total_s": req.t_done - req.t_submit,
+            "kv_pages": req.kv_pages,
+        }
+
+    # ---------------------------------------------------- paged admission
+
+    def _paged_admit(self):
+        """Advance the in-flight chunked prefill (one chunk per engine
+        step: decode slots keep stepping between chunks), or FIFO-admit
+        the queue head into a free slot if its pages can be reserved; a
+        shortfall defers the head (FIFO kept) until retirements or
+        prefix-cache eviction free pages."""
+        if self._chunking is None:
+            if not self.queue or None not in self.slots:
+                return
+            req = self.queue[0]
+            slot = self.slots.index(None)
+            got = self.pkv.admit(slot, req.tokens,
+                                 len(req.tokens) + req.max_new)
+            if got is None:
+                return  # deferred: not enough pages even after eviction
+            self.queue.popleft()
+            row, hit = got
+            req.t_admit = time.perf_counter()
+            req.kv_pages = len(self.pkv.rows[slot])
+            self._start_chunking(slot, req, row, hit)
+        self._chunk_step()
+
+    def _start_chunking(self, slot: int, req: Request, row: np.ndarray,
+                        hit_tokens: int):
+        """Begin a chunked prefill. The device block row stays all-trash
+        until the prefill finishes, so the slot's dead decode writes land
+        in the trash page meanwhile. The workspace is always hydrated:
+        from cached pages on a prefix hit, zeros otherwise."""
+        t0 = time.perf_counter()
+        row_d = torch.from_numpy(row).to(self.device)
+        paged_hydrate(self.cfg, self.cache["pool"], row_d, hit_tokens,
+                      self.ws)
+        self._chunking = {
+            "req": req, "slot": slot, "row": row_d, "hit": hit_tokens,
+            "plan": paged_kv.chunk_plan(len(req.tokens), hit_tokens,
+                                        self.max_chunk),
+            "i": 0,
+        }
+        self.t_prefill += time.perf_counter() - t0
+
+    def _chunk_step(self):
+        st = self._chunking
+        t0 = time.perf_counter()
+        start, width, n_real = st["plan"][st["i"]]
+        req = st["req"]
+        toks = np.zeros((1, width), np.int32)
+        toks[0, :n_real] = req.tokens[start:start + n_real]
+        logits, self.ws = paged_chunk(self.model, self.cfg,
+                                      torch.from_numpy(toks).to(self.device),
+                                      self.ws, start, n_real)
+        self.n_chunk_calls += 1
+        st["i"] += 1
+        self.t_prefill += time.perf_counter() - t0
+        if st["i"] == len(st["plan"]):
+            self._finish_chunking(logits)
+
+    def _finish_chunking(self, logits):
+        """Commit the finished prefill: splice workspace KV [hit, L) to
+        the pages (never rewriting shared prefix-hit pages), install the
+        block row and length, publish the prompt to the prefix cache and
+        sample the first token."""
+        st, self._chunking = self._chunking, None
+        req, slot = st["req"], st["slot"]
+        t0 = time.perf_counter()
+        L = len(req.tokens)
+        paged_splice(self.cfg, self.cache["pool"], self.ws, st["row"],
+                     st["hit"], L)
+        self.cache["block"][slot] = st["row"]
+        self.cache["len"][slot] = L
+        self.pkv.insert_prefix(slot, req.tokens)
+        first = self._sample(logits, [req])
+        self.tok[slot, 0] = first[0]
+        now = time.perf_counter()
+        req.t_first = now
+        req.out = [int(first[0])]
+        req.pstart = len(self._pending)
+        self.slots[slot] = req
+        self.n_admitted += 1
+        self.pkv.lens[slot] = L
+        self._maybe_retire(slot)
+        self.t_prefill += now - t0
+
+    def _release_window_pages(self):
+        """Sliding-window decode never reads KV behind ``len - window``:
+        free those pages (shared prefix pages keep their other holders)
+        and zero their device block entries."""
+        rows, cols = [], []
+        for slot, r in enumerate(self.slots):
+            if r is None:
+                continue
+            for j in self.pkv.release_behind_window(slot, self.cfg.window):
+                rows.append(slot)
+                cols.append(j)
+        if rows:
+            self.cache["block"][torch.tensor(rows, device=self.device),
+                                torch.tensor(cols, device=self.device)] = 0
+
+    # ------------------------------------------------------ static batch
+
+    @torch.inference_mode()
+    def preload(self, batch: Dict[str, torch.Tensor], steps: int, *,
+                lengths=None, eos_id: Optional[int] = None):
+        """Admit a whole padded batch with ONE batched prefill: the
+        static-batch path of ``serving.generate``. The engine must be
+        idle and ``batch["tokens"]`` must have ``capacity`` rows; row i
+        becomes request i, as a solo ``submit`` of it would."""
+        if self.queue or any(s is not None for s in self.slots):
+            raise RuntimeError("preload requires an idle engine")
+        if self.paged:
+            raise RuntimeError("preload is a slot-pool fast path; submit "
+                               "requests individually on a paged engine")
+        toks = torch.as_tensor(batch["tokens"]).cpu().numpy().astype(np.int32)
+        B, P = toks.shape
+        if B != self.capacity:
+            raise ValueError(f"batch {B} != capacity {self.capacity}")
+        lens = (np.full(B, P) if lengths is None else np.broadcast_to(
+            torch.as_tensor(lengths).cpu().numpy().reshape(-1), (B,)))
+        t0 = time.perf_counter()
+        reqs = [self._new_request(toks[i, :int(lens[i])], steps, eos_id,
+                                  None, t0) for i in range(B)]
+        self._admit_group(list(range(B)), reqs)
+
+    # -------------------------------------------------------------- loop
+
+    def _materialize(self):
+        """Pull all pending decode tokens to the host in one sync and
+        run the retirement checks they unlock."""
+        if not self._pending:
+            return
+        vals = torch.stack(self._pending).cpu().numpy()  # (k, capacity)
+        k = len(self._pending)
+        self._pending = []
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            req.out.extend(int(v) for v in vals[req.pstart:k, slot])
+            req.pstart = 0
+        for slot in range(self.capacity):
+            if self.slots[slot] is not None:
+                self._maybe_retire(slot)
+
+    @torch.inference_mode()
+    def step(self) -> List[Dict[str, Any]]:
+        """One engine iteration: admit into free slots, then advance all
+        slots one decode step. Returns the requests retired this step.
+
+        Sampled tokens stay on the device as pending handles and are
+        pulled to the host in one sync only when a retirement decision
+        needs them: every step while a live request carries an
+        ``eos_id``, otherwise on the step where some request reaches
+        ``max_new`` (host-predictable)."""
+        if self._t_start is None:
+            self._t_start = time.perf_counter()
+        before = set(self.results)
+        if self.paged:
+            self._paged_admit()
+        elif self.queue and None in self.slots:
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            take = [self.queue.popleft()
+                    for _ in range(min(len(free), len(self.queue)))]
+            self._admit_group(free[:len(take)], take)
+        active = [r for r in self.slots if r is not None]
+        if active:
+            t0 = time.perf_counter()
+            step = api.paged_decode_step if self.paged else api.decode_step
+            logits, self.cache = step(self.model, self.cfg, self.tok,
+                                      self.cache)
+            self.tok = self._sample(logits, self.slots)[:, None]
+            self._pending.append(self.tok[:, 0])
+            if self.paged:
+                for i, r in enumerate(self.slots):
+                    if r is not None:
+                        self.pkv.lens[i] += 1
+                if self.cfg.window is not None:
+                    self._release_window_pages()
+            n_pend = len(self._pending)
+            if (any(r.eos_id is not None for r in active)
+                    or any(len(r.out) + n_pend - r.pstart >= r.max_new
+                           for r in active)):
+                self._materialize()
+            self.t_decode += time.perf_counter() - t0
+            self.n_decode_steps += 1
+        return [self.results[r] for r in sorted(set(self.results) - before)]
+
+    @property
+    def prefilling(self) -> bool:
+        """A chunked prefill is in flight (its slot is not live yet)."""
+        return self._chunking is not None
+
+    @property
+    def idle(self) -> bool:
+        return (not self.queue and not self.prefilling
+                and all(s is None for s in self.slots))
+
+    def run(self, stream: bool = False):
+        """Drive the engine until every request retires.
+
+        ``stream=True`` yields per-request result dicts as they finish;
+        otherwise returns the full list ordered by rid."""
+
+        def _gen():
+            while not self.idle:
+                yield from self.step()
+
+        if stream:
+            return _gen()
+        for _ in _gen():
+            pass
+        return [self.results[rid] for rid in sorted(self.results)]
+
+    # ------------------------------------------------------------- stats
+
+    def stats(self) -> Dict[str, Any]:
+        done = list(self.results.values())
+        new_toks = sum(r["n_new"] for r in done)
+        # first tokens come from prefill; decode produced the rest
+        decoded = sum(max(r["n_new"] - 1, 0) for r in done)
+        lat = sorted(r["t_total_s"] for r in done) or [0.0]
+        ttft = sorted(r["t_first_token_s"] for r in done) or [0.0]
+        wall = ((time.perf_counter() - self._t_start)
+                if self._t_start is not None else 0.0)
+        out = {
+            "capacity": self.capacity,
+            "max_len": self.max_len,
+            "backend": self.cfg.kernel_backend,
+            "mesh": None,
+            "admitted": self.n_admitted,
+            "completed": len(done),
+            "decode_steps": self.n_decode_steps,
+            "new_tokens": new_toks,
+            "t_prefill_s": self.t_prefill,
+            "t_decode_s": self.t_decode,
+            "wall_s": wall,
+            "decode_tok_s": decoded / max(self.t_decode, 1e-9),
+            "goodput_tok_s": new_toks / max(wall, 1e-9),
+            "tokens_per_engine_step": decoded / max(self.n_decode_steps, 1),
+            "p50_latency_s": float(np.percentile(lat, 50)),
+            "p95_latency_s": float(np.percentile(lat, 95)),
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "paged": self.paged,
+        }
+        if self.paged:
+            out.update(self.pkv.stats())
+            out["kv_bytes_per_token"] = paged_kv.kv_bytes_per_token(self.cfg)
+            out["t_warmup_s"] = 0.0
+            out["prefill_chunk_calls"] = self.n_chunk_calls
+            out["packed_groups"] = 0
+            out["packed_requests"] = 0
+        return out

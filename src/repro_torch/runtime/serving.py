@@ -1,28 +1,30 @@
-"""Serving: prefill-cache adaptation and static-batch greedy generation.
+"""Serving: prefill-cache adaptation, paged entry points, generation.
 
 Counterpart of ``repro.runtime.serving``:
   * ``ring_from_linear``: re-lay a linear KV cache into the SWA ring
     (slot = position % window) so decode can continue a long prompt;
   * ``grow_cache``: right-pad linear caches to max_len;
   * ``adapt_prefill_cache``: prefill cache -> decode-ready cache;
-  * ``generate``: prefill, adapt the cache, argmax, then ``steps - 1``
-    decode steps. It does for a static batch what the reference's
-    ``Engine.preload`` plus ``run`` do; the engine, temperature
-    sampling, ``eos_id`` and speculative decoding are not ported yet and
-    raise.
+  * ``paged_chunk`` / ``paged_splice`` / ``paged_hydrate``: the paged
+    engine's chunked prefill, workspace -> pages commit and prefix-hit
+    rebuild (plain functions where the reference keeps jit caches);
+  * ``generate``: static-batch generation, a thin wrapper over
+    ``runtime.engine.Engine`` (one batched prefill through ``preload``,
+    then the engine's decode/retire loop), so sampling, EOS retirement
+    and stats are one code path for static and continuous batching.
+    Speculative decoding is not ported yet and raises.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.models import lm as m_lm
 from repro_torch.models.config import ModelConfig
-from repro_torch.nn.tree import module_device
 
 
 def ring_from_linear(lin: torch.Tensor, prompt_len, window: int
@@ -97,70 +99,64 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
     return out
 
 
-def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    """logits (B, 1, V) -> (B, 1) int32 argmax (first maximum on ties)."""
-    return torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(torch.int32)
+# ---------------------------------------------------------------------------
+# paged entry points (block-table KV; see runtime/paged_kv.py)
+# ---------------------------------------------------------------------------
+
+def paged_chunk(model: nn.Module, cfg: ModelConfig, tokens, ws, start: int,
+                n_real: int):
+    """One prefill chunk into the workspace: (last logits, ws)."""
+    return m_lm.lm_paged_prefill_chunk(model, cfg, tokens, ws, start, n_real)
 
 
-def _sync(dev: torch.device):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def paged_splice(cfg: ModelConfig, pool, ws, block_row, start: int,
+                 length: int):
+    """Commit workspace positions [start, length) to the pages."""
+    return m_lm.lm_paged_splice(cfg, pool, ws, block_row, start, length)
+
+
+def paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len: int, ws):
+    """Rebuild the workspace prefix [0, hist_len) from cached pages."""
+    return m_lm.lm_paged_hydrate(cfg, pool, block_row, hist_len, ws)
 
 
 def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              *, steps: int, lengths=None, max_len: Optional[int] = None,
-             temperature: float = 0.0, eos_id: Optional[int] = None,
-             return_stats: bool = False, speculative: int = 0,
-             device="cuda"):
-    """Prefill the prompt then decode greedily: returns (B, steps) int32.
+             temperature: float = 0.0, seed: int = 0,
+             eos_id: Optional[int] = None, return_stats: bool = False,
+             speculative: int = 0, device="cuda"):
+    """Prefill the prompt then decode ``steps`` tokens: (B, steps) int32.
 
-    ``device`` is where the run happens ("cuda" unless asked for "cpu");
-    the model must already live there. ``lengths``: per-stream prompt
-    lengths for right-padded batches. The kernel backend is
-    ``cfg.kernel_backend``. ``return_stats=True`` also returns
-    {"t_prefill_s", "t_decode_s", "decode_tok_s", "backend"}, timed on
-    the host clock around work that ends in a device synchronize.
+    A thin static-batch wrapper over ``runtime.engine.Engine``: the whole
+    batch is preloaded into a capacity-B slot pool with one batched
+    prefill, then decoded by the engine's loop. ``device`` is where the
+    run happens ("cuda" unless asked for "cpu"); the model must already
+    live there. ``lengths``: per-stream prompt lengths for right-padded
+    batches. ``eos_id``: streams retire at their EOS and are right-padded
+    with it. ``temperature`` > 0 samples stream i from the generator
+    that a solo ``Engine(seed=seed)`` gives its request i. The kernel
+    backend is ``cfg.kernel_backend``. ``return_stats=True`` also
+    returns {"t_prefill_s", "t_decode_s", "decode_tok_s", "backend"},
+    timed on the host clock (each ends in a device read).
     """
-    if temperature != 0.0:
-        raise NotImplementedError("temperature sampling is not ported yet "
-                                  "(ROADMAP queue 1 item 2)")
-    if eos_id is not None:
-        raise NotImplementedError("eos_id is not ported yet (ROADMAP "
-                                  "queue 1 item 2)")
+    from repro_torch.runtime.engine import Engine
+
     if speculative:
         raise NotImplementedError("speculative decoding is not ported yet "
                                   "(ROADMAP queue 1 item 5)")
-    dev = resolve_device(device)
-    have = module_device(model)
-    if have is not None and have.type != dev.type:
-        raise ValueError(f"generate(device={str(dev)!r}) but the model "
-                         f"lives on {have}")
-    toks = batch["tokens"].to(dev)
-    B, P = toks.shape
-    max_len = max_len or (P + steps)
-    if lengths is not None:
-        lengths = torch.as_tensor(lengths, device=dev).reshape(-1).expand(B)
-
-    with torch.inference_mode():
-        _sync(dev)
-        t0 = time.perf_counter()
-        logits, cache = api.prefill(model, cfg, {"tokens": toks},
-                                    lengths=lengths)
-        cache = adapt_prefill_cache(cfg, cache, B, max_len, lengths=lengths)
-        tok = _greedy(logits)
-        out = [tok]
-        _sync(dev)
-        t1 = time.perf_counter()
-        for _ in range(steps - 1):
-            logits, cache = api.decode_step(model, cfg, tok, cache)
-            tok = _greedy(logits)
-            out.append(tok)
-        gen = torch.cat(out, dim=1)
-        _sync(dev)
-        t2 = time.perf_counter()
+    B, P = batch["tokens"].shape
+    eng = Engine(model, cfg, capacity=B, max_len=max_len or (P + steps),
+                 temperature=temperature, seed=seed, device=device)
+    eng.preload(batch, steps, lengths=lengths, eos_id=eos_id)
+    results = eng.run()
+    gen = np.full((B, steps), 0 if eos_id is None else eos_id, np.int32)
+    for r in results:
+        gen[r["rid"], :len(r["tokens"])] = r["tokens"]
+    gen = torch.from_numpy(gen).to(eng.device)
     if not return_stats:
         return gen
-    decoded = B * (steps - 1)
-    return gen, {"t_prefill_s": t1 - t0, "t_decode_s": t2 - t1,
-                 "decode_tok_s": decoded / max(t2 - t1, 1e-9),
+    stats = eng.stats()
+    return gen, {"t_prefill_s": stats["t_prefill_s"],
+                 "t_decode_s": stats["t_decode_s"],
+                 "decode_tok_s": stats["decode_tok_s"],
                  "backend": cfg.kernel_backend}

@@ -11,13 +11,20 @@ Tolerance of the GEMMs, relative to the output's scale: 1e-4 for f32 x
 products accumulated in f32). ``kmeans_stats``: assignments equal byte
 for byte and counts exactly equal; each entry's sum within 1e-5 of the
 sum of |w| over that entry (f32 accumulation in another order).
+Paged attention, relative to max|plain|: 1e-5 for f32 queries (f32
+sums in another order), 2^-7 for bf16 queries (one bf16 ulp of the
+largest output: the output rounds to bf16, and a bf16 score may round
+the other way where the two f32 sums differ in their last bits).
 """
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import kmeans_stats, lutq_gemv_packed, lutq_matmul
+from repro_torch.kernels import (build, kmeans_stats, lutq_gemv_packed,
+                                 lutq_matmul, paged_attn)
 from repro_torch.kernels.ref import (kmeans_stats_ref, lutq_gemv_packed_ref,
-                                     lutq_matmul_ref, pack4_kin)
+                                     lutq_matmul_ref, pack4_kin,
+                                     paged_attention_ref)
 
 
 @pytest.fixture
@@ -97,3 +104,149 @@ def test_cuda_kmeans_stats_matches_plain(cuda_device, N, K, ties):
     idx = a0.view(torch.uint8).long()
     mag = torch.zeros(K).index_add_(0, idx, w.abs())
     assert ((s1.cpu() - s0).abs() <= 1e-5 * mag).all()
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+# ---------------------------------------------------------------------------
+
+#: (B, Hkv, G, dh, page, NB, lengths, window): reduced danube's decode
+#: shape, and full-width danube's at capacity 8 with a 69-page row
+PAGED_SHAPES = {
+    "reduced": (6, 1, 2, 16, 8, 4, [0, 1, 7, 8, 25, 32], 24),
+    "full": (8, 8, 4, 80, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
+             4096),
+}
+PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _paged_operands(shape, q_dtype, kv_dtype, dev, seed=0):
+    """q, pools with a zero trash page 0 and distinct live pages, the
+    block table (dead entries on page 0), lengths and the window."""
+    B, Hkv, G, dh, page, NB, lens, window = PAGED_SHAPES[shape]
+    g = torch.Generator().manual_seed(seed)
+    P = 1 + B * NB
+    if kv_dtype == torch.int8:
+        kp = torch.randint(-127, 128, (P, page, Hkv, dh), generator=g,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, (P, page, Hkv, dh), generator=g,
+                           dtype=torch.int8)
+        ks = (torch.rand(P, page, Hkv, generator=g) * 0.05).to(torch.bfloat16)
+        vs = (torch.rand(P, page, Hkv, generator=g) * 0.05).to(torch.bfloat16)
+        ks[0] = 0
+        vs[0] = 0
+    else:
+        kp = torch.randn(P, page, Hkv, dh, generator=g).to(kv_dtype)
+        vp = torch.randn(P, page, Hkv, dh, generator=g).to(kv_dtype)
+        ks = vs = None
+    kp[0] = 0
+    vp[0] = 0
+    q = torch.randn(B, 1, Hkv * G, dh, generator=g).to(q_dtype)
+    block = (1 + torch.randperm(B * NB, generator=g)).reshape(B, NB).int()
+    for b, L in enumerate(lens):
+        block[b, -(-L // page):] = 0
+    cl = torch.tensor(lens, dtype=torch.int32)
+    moved = [None if t is None else t.to(dev)
+             for t in (q, kp, vp, block, cl, ks, vs)]
+    return moved + [window]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.int8),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("shape", ["reduced", "full"])
+@pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
+def test_cuda_paged_attention_matches_plain(cuda_device, budget, shape,
+                                            q_dtype, kv_dtype):
+    """Both variants (the default plan, and the score row forced into the
+    workspace) against the plain version on the same card tensors."""
+    q, kp, vp, block, cl, ks, vs, window = _paged_operands(
+        shape, q_dtype, kv_dtype, cuda_device)
+    for w in (None, window):
+        want = paged_attention_ref(q, kp, vp, block, cl, window=w,
+                                   k_scale=ks, v_scale=vs)
+        got = paged_attn.paged_attention(q, kp, vp, block, cl, window=w,
+                                         k_scale=ks, v_scale=vs,
+                                         smem_budget_bytes=budget)
+        torch.cuda.synchronize()
+        assert got.dtype == q_dtype and got.shape == q.shape
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= PAGED_TOL[q_dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_launches_and_never_runs_plain(cuda_device):
+    q, kp, vp, block, cl, ks, vs, window = _paged_operands(
+        "full", torch.bfloat16, torch.int8, cuda_device)
+    before = dict(paged_attn.COUNTS)
+    variants = dict(paged_attn.VARIANTS)
+    paged_attn.paged_attention(q, kp, vp, block, cl, window=window,
+                               k_scale=ks, v_scale=vs)
+    paged_attn.paged_attention(q, kp, vp, block, cl, window=window,
+                               k_scale=ks, v_scale=vs,
+                               smem_budget_bytes=paged_attn.MAX_SMEM)
+    torch.cuda.synchronize()
+    assert paged_attn.COUNTS["plain"] == before["plain"]
+    assert paged_attn.COUNTS["launches"] == before["launches"] + 2
+    # a 4096-wide window row holds 64 KiB of scores: past the default
+    # 48 KiB budget it takes the workspace, within sm_90's the other
+    assert (paged_attn.VARIANTS["paged_attention_multipass"]
+            == variants["paged_attention_multipass"] + 1)
+    assert (paged_attn.VARIANTS["paged_attention"]
+            == variants["paged_attention"] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_raises_instead_of_falling_back(cuda_device,
+                                                             monkeypatch):
+    q, kp, vp, block, cl, ks, vs, window = _paged_operands(
+        "reduced", torch.float32, torch.float32, cuda_device)
+    plain = paged_attn.COUNTS["plain"]
+
+    class FailedLaunch:
+        @staticmethod
+        def paged_attention_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def failed_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(build, "load_library", lambda: FailedLaunch)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        paged_attn.paged_attention(q, kp, vp, block, cl)
+    monkeypatch.setattr(build, "load_library", failed_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        paged_attn.paged_attention(q, kp, vp, block, cl)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        paged_attn.paged_attention(q.repeat(1, 1, 5, 1), kp, vp, block, cl)
+    assert paged_attn.COUNTS["plain"] == plain
+
+
+@pytest.mark.cuda
+def test_cuda_paged_engine_matches_cpu(cuda_device):
+    """Reduced danube through the paged engine (int8 pages): the card's
+    tokens are the CPU's, and the card ran the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    cfg = reduced(get_config("h2o-danube-1.8b")).replace(
+        quant=QuantSpec(bits=4, min_size=512), act_bits=32, kv_cache_bits=8)
+    model = serve_view(api.quantize(api.init(cfg, seed=0, device="cpu"), cfg),
+                       pack4=True, policy=api.resolved_policy(cfg))
+    reqs = synthetic_requests(cfg, 4, max_prompt=30, max_new=8, seed=1)
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(model.to(dev), cfg, capacity=2, max_len=38, kv_pages=16,
+                     page_size=8, prefill_pack=False, device=dev)
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"])
+        launches = paged_attn.COUNTS["launches"]
+        toks[dev] = [r["tokens"] for r in eng.run()]
+        assert (paged_attn.COUNTS["launches"] > launches) == (dev == "cuda")
+    for a, b in zip(toks["cpu"], toks["cuda"]):
+        np.testing.assert_array_equal(a, b)

@@ -105,13 +105,18 @@ def test_cli_runs_on_cpu_and_launches_nothing(capsys, flags):
 
 
 def test_generate_refuses_unported_options(jq):
+    """Speculative decoding is not ported; temperature and eos_id are
+    (tests/test_torch_engine.py holds them to the serving contract)."""
     _, tcfg = cfg_pair()
     model = interop.from_jax(to_np(jq), tcfg)
     toks = torch.from_numpy(tokens(tcfg, B, P))
-    for kw in (dict(temperature=0.7), dict(eos_id=3), dict(speculative=2)):
-        with pytest.raises(NotImplementedError):
-            tserving.generate(model, tcfg, {"tokens": toks}, steps=2,
-                              device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tserving.generate(model, tcfg, {"tokens": toks}, steps=2,
+                          device="cpu", speculative=2)
+    for kw in (dict(temperature=0.7), dict(eos_id=3)):
+        out = tserving.generate(model, tcfg, {"tokens": toks}, steps=2,
+                                device="cpu", **kw)
+        assert out.shape == (B, 2) and out.dtype == torch.int32
 
 
 def test_ragged_lengths_match_per_stream_runs(jq):
