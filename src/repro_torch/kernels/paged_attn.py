@@ -11,9 +11,11 @@ variants of the hand-written CUDA kernel in ``csrc/paged_attn.cu``:
 
 :func:`smem_plan` is the counterpart of ``vmem_plan``: plain host
 arithmetic that picks the variant from the score row's bytes against
-``smem_budget_bytes`` (default :data:`DEFAULT_SMEM_BUDGET`, the 48 KiB a
-block gets without opting in to more; full-width danube's rows up to
-its 4096 window need 64 KiB and take the workspace). On a CUDA tensor
+``smem_budget_bytes`` (default :data:`DEFAULT_SMEM_BUDGET`, all that a
+block can opt into on sm_90, so the workspace variant runs only for a
+score row that cannot fit: full-width danube's rows, at most 64 KiB of
+scores under its 4096 window, never do; ``smem_budget_bytes=0`` forces
+the workspace). On a CUDA tensor
 :func:`paged_attention` launches the kernel or raises; on a CPU tensor
 it runs the plain version, :func:`repro_torch.kernels.ref.
 paged_attention_ref`.
@@ -38,10 +40,12 @@ COUNTS = {"launches": 0, "plain": 0}
 #: launches of each variant (they sum to COUNTS["launches"])
 VARIANTS = {"paged_attention": 0, "paged_attention_multipass": 0}
 
-#: default shared-memory budget of the score row (bytes)
-DEFAULT_SMEM_BUDGET = 48 * 1024
 #: dynamic shared memory a block can opt into on sm_90
 MAX_SMEM = 232448
+#: default shared-memory budget of the score row (bytes): the score row
+#: stays in shared memory wherever the block fits, since the workspace
+#: variant, which reads its scores back from L2, is slower on the same row
+DEFAULT_SMEM_BUDGET = MAX_SMEM
 # the kernel's block shape (csrc/paged_attn.cu): warps, most query heads
 # per KV head, most head-dim columns
 _WARPS, _MAX_GROUP, _MAX_DH = 8, 8, 128
@@ -77,22 +81,6 @@ def smem_plan(nb: int, page: int, dh: int, g: int, *,
             "smem_bytes": fixed + (0 if multipass else score_bytes)}
 
 
-def pages_read_per_step(cache_len: int, page: int, nb: int,
-                        window: Optional[int] = None) -> int:
-    """The reference's model of the distinct KV pages its kernel streams
-    for one row's decode step (the gather oracle always reads ``nb``):
-    the live span, plus the trash page once when any entry is dead. The
-    CUDA kernel never reads the trash page; :func:`live_pages` counts
-    what it reads."""
-    if cache_len <= 0:
-        return 1
-    first = 0 if window is None else max(0, (cache_len - window) // page)
-    last = (min(cache_len, nb * page) - 1) // page
-    live = max(0, last - first + 1)
-    dead = nb - live
-    return live + (1 if dead else 0)
-
-
 def live_pages(cache_len: int, page: int, nb: int,
                window: Optional[int] = None) -> int:
     """Pages holding a valid position of a row: what the CUDA kernel
@@ -102,6 +90,19 @@ def live_pages(cache_len: int, page: int, nb: int,
     first = 0 if window is None else max(0, (cache_len - window) // page)
     last = (min(cache_len, nb * page) - 1) // page
     return max(0, last - first + 1)
+
+
+def pages_read_per_step(cache_len: int, page: int, nb: int,
+                        window: Optional[int] = None) -> int:
+    """The reference's model of the distinct KV pages its kernel streams
+    for one row's decode step (the gather oracle always reads ``nb``):
+    the live span, plus the trash page once when any entry is dead. The
+    CUDA kernel never reads the trash page; :func:`live_pages` counts
+    what it reads."""
+    if cache_len <= 0:
+        return 1
+    live = live_pages(cache_len, page, nb, window)
+    return live + (1 if live < nb else 0)
 
 
 def _check(name, t, ref):

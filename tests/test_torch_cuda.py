@@ -117,7 +117,18 @@ PAGED_SHAPES = {
     "full": (8, 8, 4, 80, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
              4096),
 }
+#: largest |kernel - plain| of each (sequence, query head) row over that
+#: row's largest |plain|: one bf16 ulp (2^-7) of the row for bf16 q (bf16
+#: output, bf16 scores that may round the other way where the f32 sums
+#: differ in their last bits), 1e-5 for f32 q (f32 sums in another order)
 PAGED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _rows_within(got, want, tol):
+    """Each (sequence, query head) row of got within tol of that row's
+    own largest |want| (an all-zero row, cache_len 0, exactly)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return bool((err <= tol * want.float().abs().amax(-1)).all())
 
 
 def _paged_operands(shape, q_dtype, kv_dtype, dev, seed=0):
@@ -171,8 +182,7 @@ def test_cuda_paged_attention_matches_plain(cuda_device, budget, shape,
                                          smem_budget_bytes=budget)
         torch.cuda.synchronize()
         assert got.dtype == q_dtype and got.shape == q.shape
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= PAGED_TOL[q_dtype] * want.float().abs().max().item()
+        assert _rows_within(got, want, PAGED_TOL[q_dtype])
 
 
 @pytest.mark.cuda
@@ -184,13 +194,12 @@ def test_cuda_paged_attention_launches_and_never_runs_plain(cuda_device):
     paged_attn.paged_attention(q, kp, vp, block, cl, window=window,
                                k_scale=ks, v_scale=vs)
     paged_attn.paged_attention(q, kp, vp, block, cl, window=window,
-                               k_scale=ks, v_scale=vs,
-                               smem_budget_bytes=paged_attn.MAX_SMEM)
+                               k_scale=ks, v_scale=vs, smem_budget_bytes=0)
     torch.cuda.synchronize()
     assert paged_attn.COUNTS["plain"] == before["plain"]
     assert paged_attn.COUNTS["launches"] == before["launches"] + 2
-    # a 4096-wide window row holds 64 KiB of scores: past the default
-    # 48 KiB budget it takes the workspace, within sm_90's the other
+    # a 4096-wide window row holds 64 KiB of scores: within the default
+    # budget it stays in shared memory, a zero budget forces the workspace
     assert (paged_attn.VARIANTS["paged_attention_multipass"]
             == variants["paged_attention_multipass"] + 1)
     assert (paged_attn.VARIANTS["paged_attention"]

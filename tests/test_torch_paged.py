@@ -138,18 +138,23 @@ def test_paged_attention_rejects_unknown_backend():
 
 
 def test_smem_plan_properties():
-    """The default 48 KiB budget keeps test-sized rows and full-width
-    rows of up to 576 positions in shared memory and sends danube's
-    4096-wide window rows (64 KiB of scores) to the workspace; the score
-    row's width is the window where that is shorter than the row;
-    shrinking the budget moves a row to the workspace and never back;
-    the single-pass block always fits what sm_90 allows."""
+    """The default budget (all the shared memory sm_90 lets a block opt
+    into) keeps test-sized rows and every full-width danube row, up to
+    its 4096-wide window (64 KiB of scores), in shared memory; rows
+    past what a block can hold (a 16384-position row without a window)
+    take the workspace; the score row's width is the window where that
+    is shorter than the row; shrinking the budget moves a row to the
+    workspace and never back; the single-pass block always fits what
+    sm_90 allows."""
     p = paged_attn.smem_plan(3, 8, 16, 2)
     assert not p["multipass"] and p["span"] == 24
     assert paged_attn.smem_plan(69, 64, 80, 4, window=4096)["span"] == 4096
     assert paged_attn.smem_plan(9, 64, 80, 4, window=4096)["span"] == 576
     assert not paged_attn.smem_plan(9, 64, 80, 4, window=4096)["multipass"]
-    assert paged_attn.smem_plan(69, 64, 80, 4, window=4096)["multipass"]
+    assert not paged_attn.smem_plan(69, 64, 80, 4, window=4096)["multipass"]
+    assert paged_attn.smem_plan(69, 64, 80, 4, window=4096,
+                                budget_bytes=48 * 1024)["multipass"]
+    assert paged_attn.smem_plan(256, 64, 80, 4)["multipass"]
     last = False
     for budget in (4096, 400, 200, 192, 100, 0):
         p = paged_attn.smem_plan(3, 8, 16, 2, budget_bytes=budget)
