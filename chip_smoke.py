@@ -39,6 +39,13 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    an empty row exactly 0. Every dead or behind-window block entry
    is then pointed at a page of NaN: the output must keep its bits.
    Rows with cache_len 0 must be 0.
+2d. lutq_shift (the shift-add kernel of the multiplier-less pow2 path)
+   against its plain version on the card, bit for bit (torch.equal, no
+   tolerance: int32 sums): danube's seven body shapes at M = 1, 4, 130,
+   512, a ragged shape (Kin 2000, N 700, M 3 and 130), K = 2, 16, 256
+   (indices >= 128 stored as negative int8), zero entries, both signs,
+   and operands at the overflow guard's limit (7 + span + ceil(log2
+   Kin) = 31, every term at its largest).
 3c. paged engine: full-width h2o-danube-1.8b (the phase-3 serve views)
    through Engine(kv_pages=...), page 64, 8-bit activations: (a) 24
    synthetic requests (prompts 128-512, 8-64 new tokens) on 8 slots,
@@ -58,6 +65,18 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    and the card's idle share over one profiled decode step.
 3d. the reduced config through the paged engine (int8 and f32 pages)
    and the slot engine: the same tokens on the card and on the CPU.
+3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
+   api.serve_state: init, quantize (4-bit pow2 body, float embeddings
+   and head), calibrate the frozen activation scales on 2 x 64 tokens,
+   serve_view. All 168 body leaves must be pow2-encoded with frozen
+   scales; the largest 7 + span + ceil(log2 Kin) is printed. generate
+   (B=4, prompt 128, 16 tokens) must launch lutq_shift 168 times a
+   forward and no other GEMM kernel or plain version; the prefill
+   logits of the integer decode oracle (kernel_backend="decode", plain
+   torch on the card) must equal the kernel's bit for bit, and the
+   greedy tokens must be identical. Then one paged engine run over
+   phase 3c run (a)'s queue (24 requests, 8 slots, 160 pages, int8 KV),
+   with run (a)'s checks and lutq_shift at 168 x (steps + chunks).
 3b. train: full-width h2o-danube-1.8b (vocab 32000, random f32 masters
    from a seed) through the training CLI's build path and TrainLoop,
    with its default spec (4-bit pow2, kmeans_iters=1, min_size=4096)
@@ -74,7 +93,10 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    torch.matmul on the pre-decoded bf16 weight (a yardstick the port
    never calls); kmeans_stats over every leaf shape of one training
    step (two passes), beside its byte bound and its plain version (no
-   single PyTorch call computes what it does); the paged-attention
+   single PyTorch call computes what it does); lutq_shift at the 168
+   body shapes of one forward (M = 4 and 512) beside its bound, its plain
+   version and torch._int_mm on the pre-decoded int8 weight (a yardstick
+   the port never calls, exact where |wsh| <= 64); the paged-attention
    kernel, both variants, at run (a)'s decode geometry and at run (c)'s
    longest row, with the K/V bytes a call reads rotated through more
    than twice the L2, beside its byte bound (the valid positions' K/V
@@ -116,6 +138,10 @@ LAYER_SHAPES = {"q/o": ((2560, 2560), 2), "k/v": ((2560, 640), 2),
 HEAD_SHAPE = (2560, 32000)
 N_LAYERS = 24
 CALLS_PER_FORWARD = 7 * N_LAYERS + 1
+# serving_pow2 keeps the head in floating point: 7 body matmuls a layer
+SHIFT_CALLS_PER_FORWARD = 7 * N_LAYERS
+CALIB_BATCH, CALIB_LEN = 2, 64
+INT8_OPS = 1979e12  # int8 tensor-core rate, the table's rate for int8 data
 
 # danube's quantized leaves (rows, cols) with their count in one model
 TRAIN_LEAVES = {"q/o": ((2560, 2560), 2 * N_LAYERS),
@@ -140,6 +166,9 @@ KERNELS = {
     "kmeans_stats": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/kmeans_stats.cu",
         replaces="src/repro/kernels/kmeans_tpu.py:51"),
+    "lutq_shift": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lutq_shift.cu",
+        replaces="src/repro/kernels/lutq_shift.py:58"),
     "paged_attention": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attn.cu",
         replaces="src/repro/kernels/paged_attn.py:253"),
@@ -329,6 +358,87 @@ def kmeans_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2d
+# ---------------------------------------------------------------------------
+
+def _shift_operands(M, Kin, N, K, gen, dev, span=9, extreme=False):
+    """xq int8, a int8 and wsh int32 of a pow2 dictionary of K codes: a
+    zero code, both signs, nonzero magnitudes 1..span+1 (so the shifted
+    entries reach 2^span). K=256 draws every byte, so half the indices
+    are stored as negative int8. ``extreme``: every weight the largest
+    entry and every xq ±127 with its sign, |acc| = 127 * 2^span * Kin."""
+    import torch
+
+    from repro_torch.kernels.ref import pow2_shift_weights
+
+    mag = torch.randint(1, span + 2, (K,), generator=gen, device=dev)
+    mag[0], mag[-1] = 1, span + 1
+    sign = torch.randint(0, 2, (K,), generator=gen, device=dev) * 2 - 1
+    code = mag * sign
+    if K > 2:
+        code[1] = 0
+    wsh = pow2_shift_weights(code.to(torch.int8))
+    if extreme:
+        a = torch.full((Kin, N), K - 1, dtype=torch.int8, device=dev)
+        xq = torch.full((M, Kin), 127, dtype=torch.int8, device=dev)
+        return xq * int(torch.sign(wsh[K - 1])), a, wsh
+    a = torch.randint(-128, 128, (Kin, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    if K < 256:
+        a = (a.view(torch.uint8) % K).view(torch.int8)
+    xq = torch.randint(-127, 128, (M, Kin), generator=gen, device=dev,
+                       dtype=torch.int8)
+    return xq, a, wsh
+
+
+def shift_checks():
+    """lutq_shift against its plain version on the card, bit for bit
+    (torch.equal): danube's seven body shapes at M = 1, 4, 130, 512, a
+    ragged shape, K = 2, 16, 256 (indices >= 128 as negative int8), and
+    operands at the overflow guard's limit, 7 + span + ceil(log2 Kin) =
+    31 with every term at its largest. Returns max |kernel - plain| (0)."""
+    import torch
+
+    from repro_torch.kernels.lutq_shift import lutq_shift
+    from repro_torch.kernels.ref import lutq_shift_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    leaves = {"q/o": (2560, 2560), "k/v": (2560, 640),
+              "wi/wg": (2560, 6912), "wo": (6912, 2560)}
+    cases = [(f"{name} M={M}", M, Kin, N, 16, 9, False)
+             for name, (Kin, N) in leaves.items() for M in (1, 4, 130, 512)]
+    cases += [("ragged", M, 2000, 700, 16, 9, False) for M in (3, 130)]
+    cases += [(f"K={K}", M, 2560, 640, K, 9, False) for K in (2, 256)
+              for M in (4, 130)]
+    for Kin, N in ((2560, 6912), (6912, 2560)):
+        span = 31 - 7 - math.ceil(math.log2(Kin))
+        cases += [(f"guard limit span={span}", M, Kin, N, 16, span, True)
+                  for M in (4, 512)]
+    worst = 0
+    for label, M, Kin, N, K, span, extreme in cases:
+        xq, a, wsh = _shift_operands(M, Kin, N, K, gen, dev, span, extreme)
+        got = lutq_shift(xq, a, wsh)
+        torch.cuda.synchronize()
+        want = lutq_shift_ref(xq, a, wsh)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        log(f"check lutq_shift {label} M={M} Kin={Kin} N={N} K={K}: equal "
+            f"{bool(torch.equal(got, want))} | max |acc| "
+            f"{int(want.abs().max())} | max |wsh| {int(wsh.abs().max())}")
+        check(torch.equal(got, want), f"lutq_shift differs from its plain "
+              f"version ({label}, M={M} Kin={Kin} N={N} K={K})")
+        if extreme:
+            check(int(want.abs().min()) == 127 * 2 ** span * Kin,
+                  "guard-limit case did not reach its largest sum")
+        if K == 256:
+            check(bool((a < 0).any()), "K=256: no index >= 128 seen")
+        worst = max(worst, err)
+        del xq, a, got, want
+    return float(worst)
+
+
+# ---------------------------------------------------------------------------
 # phase 2c
 # ---------------------------------------------------------------------------
 
@@ -449,10 +559,11 @@ def paged_kernel_checks():
 
 def _count_dicts():
     from repro_torch.kernels import (kmeans_stats, lutq_gemv_packed,
-                                     lutq_matmul, ops, paged_attn)
+                                     lutq_matmul, lutq_shift, ops, paged_attn)
 
     return (lutq_matmul.COUNTS, lutq_gemv_packed.COUNTS, kmeans_stats.COUNTS,
-            ops.COUNTS, paged_attn.COUNTS, paged_attn.VARIANTS)
+            ops.COUNTS, paged_attn.COUNTS, paged_attn.VARIANTS,
+            lutq_shift.COUNTS)
 
 
 def _reset_counts():
@@ -462,10 +573,11 @@ def _reset_counts():
 
 
 def _read_counts():
-    mm, gp, km, ops, pa, variants = _count_dicts()
+    mm, gp, km, ops, pa, variants, sh = _count_dicts()
     return {"lutq_matmul": mm["launches"], "lutq_gemv_packed": gp["launches"],
-            "kmeans_stats": km["launches"], **variants,
-            "plain": mm["plain"] + gp["plain"] + km["plain"] + pa["plain"],
+            "lutq_shift": sh["launches"], "kmeans_stats": km["launches"],
+            **variants, "plain": (mm["plain"] + gp["plain"] + sh["plain"]
+                                  + km["plain"] + pa["plain"]),
             "decode": ops["decode"]}
 
 
@@ -635,10 +747,8 @@ def engine_runs(views, cfg):
     """Phase 3c: the paged engine at full width through its three runs.
     Returns per-run numbers, launches included."""
     import numpy as np
-    import torch
 
-    from repro_torch.kernels import paged_attn
-    from repro_torch.runtime.engine import Engine, synthetic_requests
+    from repro_torch.runtime.engine import synthetic_requests
 
     long_req = {"tokens": np.random.default_rng(8).integers(
         0, cfg.vocab, LONG_PROMPT).astype(np.int32), "max_new": LONG_GEN}
@@ -657,104 +767,121 @@ def engine_runs(views, cfg):
     }
     out = {}
     for name, r in runs.items():
-        run_cfg = cfg.replace(kernel_backend=r["backend"],
-                              kv_cache_bits=r["kv_bits"])
-        eng = Engine(views[r["view"]], run_cfg, capacity=r["capacity"],
-                     max_len=r["max_len"], kv_pages=r["kv_pages"],
-                     page_size=ENGINE_PAGE, device="cuda")
-        for req in r["requests"]:
-            eng.submit(req["tokens"], max_new=req["max_new"])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        profiled, freed = None, 0
-        while not eng.idle:  # Engine.run, one step at a time
-            live = sum(x is not None for x in eng.slots)
-            # profile the first step that only decodes: every slot live,
-            # or nothing left to admit
-            if profiled is None and live and not eng.prefilling and (
-                    live == r["capacity"] or not eng.queue):
-                def one_step():
-                    eng.step()
-                    torch.cuda.synchronize()
-                profiled = profile_run(one_step, f"one decode step, run "
-                                       f"({name}), {live} live slots")
-            else:
-                eng.step()
-            if name == "c" and eng.slots[0] is not None:
-                row = eng.pkv.rows[0]
-                dead = [j for j, p in enumerate(row) if p == 0]
-                block = eng.cache["block"][0].cpu()
-                check(all(int(block[j]) == 0 for j in dead),
-                      "a released block entry still points at a page")
-                freed = max(freed, len(dead))
-        counts = _read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        st = eng.stats()
-        res = [eng.results[i] for i in sorted(eng.results)]
-        steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
         gemm = "lutq_gemv_packed" if r["view"] == "lutq_gemv_packed" \
             else "lutq_matmul"
-        plan = paged_attn.smem_plan(eng.n_blocks, ENGINE_PAGE,
-                                    cfg.resolved_head_dim,
-                                    cfg.n_heads // cfg.n_kv_heads,
-                                    window=cfg.window)
-        variant = ("paged_attention_multipass" if plan["multipass"]
-                   else "paged_attention")
-        wall_ms, busy_ms, rows = profiled
-        pa_ms = sum(x[0] for x in rows if "paged_decode" in x[2])
-        log(f"engine run ({name}) [{st['backend']}, {r['kv_bits']}-bit KV, "
-            f"capacity {r['capacity']}, {len(res)} requests]: decode "
-            f"{st['decode_tok_s']:.1f} tok/s | goodput "
-            f"{st['goodput_tok_s']:.1f} tok/s | TTFT p50 "
-            f"{st['ttft_p50_s'] * 1e3:.0f} ms p99 "
-            f"{st['ttft_p99_s'] * 1e3:.0f} ms | latency p50 "
-            f"{st['p50_latency_s'] * 1e3:.0f} ms p95 "
-            f"{st['p95_latency_s'] * 1e3:.0f} ms | {steps} decode steps, "
-            f"{chunks} prefill chunks, prefill {st['t_prefill_s']:.2f} s, "
-            f"decode {st['t_decode_s']:.2f} s, wall {st['wall_s']:.2f} s | "
-            f"pages peak {st['pages_peak']} of {st['kv_pages'] - 1} | prefix "
-            f"hits {st['prefix_hits']}/{st['prefix_queries']} "
-            f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB | "
-            f"card idle {(1 - busy_ms / wall_ms) * 100:.1f}% of a decode "
-            f"step ({wall_ms:.1f} ms, paged kernel {pa_ms:.3f} ms) | "
-            f"launches {counts}")
-        check(counts[variant] == N_LAYERS * steps and
-              counts["paged_attention"] + counts["paged_attention_multipass"]
-              == N_LAYERS * steps,
-              f"run ({name}): {counts} paged launches, expected "
-              f"{N_LAYERS} x {steps} decode steps of {variant}")
-        check(counts["plain"] == 0 and counts["decode"] == 0,
-              f"run ({name}) ran a plain version: {counts}")
-        check(counts[gemm] == CALLS_PER_FORWARD * (steps + chunks),
-              f"run ({name}): {counts[gemm]} {gemm} launches, expected "
-              f"{CALLS_PER_FORWARD} x ({steps} steps + {chunks} chunks)")
-        for req, got in zip(r["requests"], res):
-            check(got["n_new"] == req["max_new"] and got["finish"] == "length",
-                  f"run ({name}) request {got['rid']}: {got['n_new']} of "
-                  f"{req['max_new']} tokens, {got['finish']}")
-            check(bool(((got["tokens"] >= 0) & (got["tokens"] < cfg.vocab)
-                        ).all()), "tokens out of range")
-        eng.pkv.alloc.check()
-        held = {n.page for n in eng.pkv.prefix._nodes.values()}
-        check(eng.pkv.alloc.pages_in_use == len(held),
-              f"run ({name}): {eng.pkv.alloc.pages_in_use} pages still held, "
-              f"{len(held)} by the prefix cache")
-        if name == "b":
-            check(st["prefix_hits"] > 0, "run (b): no prefix hit")
-        if name == "c":
-            check(chunks == LONG_PROMPT // 256, f"run (c): {chunks} chunks")
-            check(freed >= 4, f"run (c): {freed} blocks released behind the "
-                  f"window, expected >= 4")
-            log(f"  run (c): {freed} blocks of the row released behind the "
-                f"window, their device entries 0")
-        out[name] = dict(st, peak_gib=peak, idle=1 - busy_ms / wall_ms,
-                         launches={k: counts[k] for k in
-                                   ("paged_attention",
-                                    "paged_attention_multipass")},
-                         profiled_step_ms=wall_ms)
-        del eng
-        torch.cuda.empty_cache()
+        out[name] = engine_run(name, views[r["view"]], cfg, r, gemm,
+                               CALLS_PER_FORWARD)
+    return out
+
+
+def engine_run(name, view, cfg, r, gemm, calls_per_forward):
+    """One paged-engine run over ``r``'s queue: counts zeroed just before
+    and read just after, one decode step profiled, the checks of phase
+    3c. Returns the run's numbers."""
+    import torch
+
+    from repro_torch.kernels import paged_attn
+    from repro_torch.runtime.engine import Engine
+
+    run_cfg = cfg.replace(kernel_backend=r["backend"],
+                          kv_cache_bits=r["kv_bits"])
+    eng = Engine(view, run_cfg, capacity=r["capacity"],
+                 max_len=r["max_len"], kv_pages=r["kv_pages"],
+                 page_size=ENGINE_PAGE, device="cuda")
+    for req in r["requests"]:
+        eng.submit(req["tokens"], max_new=req["max_new"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    profiled, freed = None, 0
+    while not eng.idle:  # Engine.run, one step at a time
+        live = sum(x is not None for x in eng.slots)
+        # profile the first step that only decodes: every slot live,
+        # or nothing left to admit
+        if profiled is None and live and not eng.prefilling and (
+                live == r["capacity"] or not eng.queue):
+            def one_step():
+                eng.step()
+                torch.cuda.synchronize()
+            profiled = profile_run(one_step, f"one decode step, run "
+                                   f"({name}), {live} live slots")
+        else:
+            eng.step()
+        if name == "c" and eng.slots[0] is not None:
+            row = eng.pkv.rows[0]
+            dead = [j for j, p in enumerate(row) if p == 0]
+            block = eng.cache["block"][0].cpu()
+            check(all(int(block[j]) == 0 for j in dead),
+                  "a released block entry still points at a page")
+            freed = max(freed, len(dead))
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = eng.stats()
+    res = [eng.results[i] for i in sorted(eng.results)]
+    steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
+    plan = paged_attn.smem_plan(eng.n_blocks, ENGINE_PAGE,
+                                cfg.resolved_head_dim,
+                                cfg.n_heads // cfg.n_kv_heads,
+                                window=cfg.window)
+    variant = ("paged_attention_multipass" if plan["multipass"]
+               else "paged_attention")
+    wall_ms, busy_ms, rows = profiled
+    pa_ms = sum(x[0] for x in rows if "paged_decode" in x[2])
+    log(f"engine run ({name}) [{st['backend']}, {r['kv_bits']}-bit KV, "
+        f"capacity {r['capacity']}, {len(res)} requests]: decode "
+        f"{st['decode_tok_s']:.1f} tok/s | goodput "
+        f"{st['goodput_tok_s']:.1f} tok/s | TTFT p50 "
+        f"{st['ttft_p50_s'] * 1e3:.0f} ms p99 "
+        f"{st['ttft_p99_s'] * 1e3:.0f} ms | latency p50 "
+        f"{st['p50_latency_s'] * 1e3:.0f} ms p95 "
+        f"{st['p95_latency_s'] * 1e3:.0f} ms | {steps} decode steps, "
+        f"{chunks} prefill chunks, prefill {st['t_prefill_s']:.2f} s, "
+        f"decode {st['t_decode_s']:.2f} s, wall {st['wall_s']:.2f} s | "
+        f"pages peak {st['pages_peak']} of {st['kv_pages'] - 1} | prefix "
+        f"hits {st['prefix_hits']}/{st['prefix_queries']} "
+        f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB | "
+        f"card idle {(1 - busy_ms / wall_ms) * 100:.1f}% of a decode "
+        f"step ({wall_ms:.1f} ms, paged kernel {pa_ms:.3f} ms) | "
+        f"launches {counts}")
+    check(counts[variant] == N_LAYERS * steps and
+          counts["paged_attention"] + counts["paged_attention_multipass"]
+          == N_LAYERS * steps,
+          f"run ({name}): {counts} paged launches, expected "
+          f"{N_LAYERS} x {steps} decode steps of {variant}")
+    check(counts["plain"] == 0 and counts["decode"] == 0,
+          f"run ({name}) ran a plain version: {counts}")
+    check(counts[gemm] == calls_per_forward * (steps + chunks),
+          f"run ({name}): {counts[gemm]} {gemm} launches, expected "
+          f"{calls_per_forward} x ({steps} steps + {chunks} chunks)")
+    others = [k for k in ("lutq_matmul", "lutq_gemv_packed", "lutq_shift")
+              if k != gemm and counts[k]]
+    check(not others, f"run ({name}) launched another GEMM: {counts}")
+    for req, got in zip(r["requests"], res):
+        check(got["n_new"] == req["max_new"] and got["finish"] == "length",
+              f"run ({name}) request {got['rid']}: {got['n_new']} of "
+              f"{req['max_new']} tokens, {got['finish']}")
+        check(bool(((got["tokens"] >= 0) & (got["tokens"] < cfg.vocab)
+                    ).all()), "tokens out of range")
+    eng.pkv.alloc.check()
+    held = {n.page for n in eng.pkv.prefix._nodes.values()}
+    check(eng.pkv.alloc.pages_in_use == len(held),
+          f"run ({name}): {eng.pkv.alloc.pages_in_use} pages still held, "
+          f"{len(held)} by the prefix cache")
+    if name == "b":
+        check(st["prefix_hits"] > 0, "run (b): no prefix hit")
+    if name == "c":
+        check(chunks == LONG_PROMPT // 256, f"run (c): {chunks} chunks")
+        check(freed >= 4, f"run (c): {freed} blocks released behind the "
+              f"window, expected >= 4")
+        log(f"  run (c): {freed} blocks of the row released behind the "
+            f"window, their device entries 0")
+    out = dict(st, peak_gib=peak, idle=1 - busy_ms / wall_ms,
+               launches={k: counts[k] for k in
+                         ("paged_attention", "paged_attention_multipass",
+                          gemm)},
+               profiled_step_ms=wall_ms)
+    del eng
+    torch.cuda.empty_cache()
     return out
 
 
@@ -802,6 +929,127 @@ def reduced_engine_card_vs_cpu():
             check(counts["cuda"]["paged_attention"] > 0
                   and counts["cpu"]["paged_attention"] == 0,
                   f"reduced engine {label}: paged kernel launches wrong")
+
+
+# ---------------------------------------------------------------------------
+# phase 3e
+# ---------------------------------------------------------------------------
+
+def _pow2_guard_report(view):
+    """(body leaves, leaves pow2-encoded with frozen scales, largest
+    7 + span + ceil(log2 Kin) over the logical leaves)."""
+    from collections import defaultdict
+
+    import torch
+
+    from repro_torch.core.lutq import LutqState
+    from repro_torch.core.policy import pow2_guard_bits
+    from repro_torch.nn.tree import logical_path, tree_paths
+
+    groups = defaultdict(list)
+    for path, leaf in tree_paths(view):
+        if isinstance(leaf, LutqState):
+            groups[logical_path(path)[0]].append(leaf)
+    leaves = [x for g in groups.values() for x in g]
+    encoded = [x for x in leaves
+               if x.d.dtype == torch.int8 and x.act is not None]
+    bits = {"/".join(p): pow2_guard_bits(torch.stack([x.d for x in g]),
+                                         g[0].a.shape[0])
+            for p, g in groups.items() if g[0].d.dtype == torch.int8}
+    return len(leaves), len(encoded), bits
+
+
+def serve_pow2_full_width():
+    """Phase 3e: full-width danube under serving_pow2, calibrated, served
+    through generate and one paged engine run. Returns its numbers."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.runtime.engine import synthetic_requests
+    from repro_torch.runtime.serving import generate
+
+    cfg = get_config("h2o-danube-1.8b").replace(quant=serving_pow2(),
+                                                act_bits=8)
+    calib = torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                          generator=torch.Generator().manual_seed(5))
+    t0 = time.perf_counter()
+    view, manifest = api.serve_state(cfg, seed=0, with_manifest=True,
+                                     calib_batch={"tokens": calib.cuda()},
+                                     device="cuda")
+    torch.cuda.synchronize()
+    n_leaves, n_encoded, bits = _pow2_guard_report(view)
+    kinds = Counter((m["backend"], m["encoding"], m["act_frozen"])
+                    for m in manifest.values())
+    log(f"serving_pow2 {cfg.name}: init + quantize + calibrate ({CALIB_BATCH}"
+        f" x {CALIB_LEN} tokens) + serve view {time.perf_counter() - t0:.1f}"
+        f" s | manifest (backend, encoding, act_frozen): {dict(kinds)} | "
+        f"{n_encoded} of {n_leaves} body leaves pow2-encoded with frozen "
+        f"scales | largest 7 + span + ceil(log2 Kin) = "
+        f"{max(bits.values())} ({bits})")
+    check(n_leaves == SHIFT_CALLS_PER_FORWARD == n_encoded,
+          f"{n_encoded} of {n_leaves} body leaves pow2-encoded with frozen "
+          f"scales, expected all {SHIFT_CALLS_PER_FORWARD}")
+    check(all(m["backend"] == "pow2" for m in manifest.values()),
+          f"not every leaf resolves to pow2: {manifest}")
+    check(max(bits.values()) <= 31, f"guard bits {bits}")
+
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen)
+    oracle_cfg = cfg.replace(kernel_backend="decode")
+    with torch.inference_mode():
+        logits = {be: api.prefill(view, cfg.replace(kernel_backend=be),
+                                  {"tokens": toks.cuda()})[0]
+                  for be in ("decode", "auto")}
+    same_logits = bool(torch.equal(logits["decode"], logits["auto"]))
+    check(bool(torch.isfinite(logits["auto"]).all())
+          and logits["auto"].shape == (BATCH, 1, cfg.vocab),
+          "pow2 prefill logits not finite or of the wrong shape")
+    generate(view, cfg, {"tokens": toks}, steps=2, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    out, stats = generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
+                          return_stats=True, device="cuda")
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    oracle = generate(view, oracle_cfg, {"tokens": toks}, steps=STEPS_GEN,
+                      device="cuda")
+    expected = STEPS_GEN * SHIFT_CALLS_PER_FORWARD
+    log(f"serve [pow2] B={BATCH} P={PROMPT} gen={STEPS_GEN}: prefill "
+        f"{stats['t_prefill_s'] * 1e3:.1f} ms | decode "
+        f"{stats['decode_tok_s']:.1f} tok/s | peak {peak:.2f} GiB | "
+        f"launches {counts} | prefill logits of the decode oracle and the "
+        f"kernel bit-identical {same_logits} | greedy tokens identical "
+        f"{bool(torch.equal(out, oracle))}")
+    log(f"  sample tokens {out[0, :8].tolist()}")
+    check(counts["lutq_shift"] == expected, f"lutq_shift: "
+          f"{counts['lutq_shift']} launches in the serve run, expected "
+          f"{expected}")
+    check(counts["lutq_matmul"] == 0 and counts["lutq_gemv_packed"] == 0
+          and counts["plain"] == 0 and counts["decode"] == 0,
+          f"the pow2 run went through another path: {counts}")
+    check(same_logits, "pow2 prefill logits: kernel and oracle differ")
+    check(torch.equal(out, oracle), "pow2 tokens: kernel and oracle differ")
+    check(out.shape == (BATCH, STEPS_GEN) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), "pow2 tokens out of range")
+    wall_ms, busy_ms = profile_generate(view, cfg, toks)
+
+    run = dict(backend="auto", kv_bits=8, capacity=8, kv_pages=160,
+               max_len=512 + 64,
+               requests=synthetic_requests(cfg, ENGINE_QUEUE, max_prompt=512,
+                                           max_new=64, seed=0))
+    eng = engine_run("pow2", view, cfg, run, "lutq_shift",
+                     SHIFT_CALLS_PER_FORWARD)
+    del view
+    torch.cuda.empty_cache()
+    return dict(stats, launches=counts["lutq_shift"]
+                + eng["launches"]["lutq_shift"], peak_gib=peak,
+                profiled_wall_ms=wall_ms, profiled_busy_ms=busy_ms,
+                engine=eng, guard_bits=max(bits.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -1084,6 +1332,100 @@ def timings(card: str):
     return table
 
 
+def shift_timings(card: str):
+    """lutq_shift at the 168 body shapes of one forward, decode (M=4) and
+    prefill (M=512), with the assignments rotated through more than twice
+    the L2, beside its bound, its plain version and torch._int_mm on the
+    pre-decoded int8 weight (a yardstick the port never calls; exact
+    here because the timing dictionary's |wsh| <= 64, M padded to the 32
+    rows _int_mm takes at least). Bound: A at 1 byte a weight, xq, the
+    int32 output and wsh at the HBM rate; operations at the int8
+    tensor-core rate."""
+    import torch
+
+    from repro_torch.core.lutq import index_of
+    from repro_torch.kernels.lutq_shift import lutq_shift
+    from repro_torch.kernels.ref import lutq_shift_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    per_m = {}
+    for M in (4, 512):
+        agg = dict(ms=0.0, loop_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   bytes_ms=0.0, ops_ms=0.0)
+        for label, ((Kin, N), calls) in LAYER_SHAPES.items():
+            xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=6)
+            n = _copies(a.numel())
+            sets = [(xq, a.clone(), wsh) for _ in range(n)]
+            t, t_loop = time_ms(lutq_shift, sets, iters=max(40, 2 * n))
+            tp, _ = time_ms(lutq_shift_ref, sets[:2], iters=4)
+            tl = _int_mm_ms(xq, a, wsh, n)
+            del sets
+            tb = (Kin * N + M * Kin + M * N * 4 + 16 * 4) / HBM_BYTES_PER_S \
+                * 1e3
+            to = 2 * M * N * Kin / INT8_OPS * 1e3
+            b, by = max(tb, to), ("bytes" if tb >= to else "operations")
+            log(f"time lutq_shift M={M} {label} Kin={Kin} N={N}: kernel "
+                f"{t * 1e3:.1f} us (host loop {t_loop * 1e3:.1f} us) | bound "
+                f"{b * 1e3:.1f} us ({by}) = {b / t * 100:.1f}% | plain "
+                f"{tp * 1e3:.1f} us | torch._int_mm "
+                f"{'n/a' if tl is None else '%.1f us' % (tl * 1e3)} | {card}")
+            per_fwd = calls * N_LAYERS
+            agg["ms"] += per_fwd * t
+            agg["loop_ms"] += per_fwd * t_loop
+            agg["plain_ms"] += per_fwd * tp
+            agg["library_ms"] = (None if tl is None or agg["library_ms"]
+                                 is None else agg["library_ms"]
+                                 + per_fwd * tl)
+            agg["bytes_ms"] += per_fwd * tb
+            agg["ops_ms"] += per_fwd * to
+        agg["bound_ms"] = max(agg["bytes_ms"], agg["ops_ms"])
+        agg["bound_by"] = ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
+                           else "operations")
+        per_m[M] = agg
+        lib = agg["library_ms"]
+        log(f"time lutq_shift M={M} one forward ({SHIFT_CALLS_PER_FORWARD} "
+            f"calls): kernel {agg['ms']:.3f} ms (host loop "
+            f"{agg['loop_ms']:.3f} ms) | bound {agg['bound_ms']:.3f} ms "
+            f"({agg['bound_by']}) = {agg['bound_ms'] / agg['ms'] * 100:.1f}% "
+            f"| plain {agg['plain_ms']:.3f} ms | torch._int_mm "
+            f"{'n/a' if lib is None else '%.3f ms' % lib} | {card}")
+    return per_m
+
+
+def _int_mm_ms(xq, a, wsh, n):
+    """Time of torch._int_mm on the pre-decoded int8 weight wsh[a] (exact
+    where every |wsh| <= 64), x padded to the 32 rows it takes at least,
+    after checking that it gives the plain version's sums; None (logged)
+    where this PyTorch refuses the shapes or layout."""
+    import torch
+
+    from repro_torch.core.lutq import index_of
+    from repro_torch.kernels.ref import lutq_shift_ref
+
+    check(bool((wsh.abs() <= 64).all()), "yardstick needs |wsh| <= 64")
+    M, Kin = xq.shape
+    xpad = torch.zeros((max(M, 32), Kin), dtype=torch.int8, device=xq.device)
+    xpad[:M] = xq
+    w8 = wsh[index_of(a)].to(torch.int8)
+    want = lutq_shift_ref(xq, a, wsh)
+    for layout, w in (("row-major", w8), ("column-major",
+                                          w8.t().contiguous().t())):
+        try:
+            got = torch._int_mm(xpad, w)[:M]
+        except RuntimeError as exc:
+            log(f"  torch._int_mm refuses {layout} {tuple(w.shape)}: "
+                f"{str(exc).splitlines()[0][:120]}")
+            continue
+        check(torch.equal(got, want),
+              "the _int_mm yardstick does not compute the same sums")
+        sets = [(xpad, w.clone(memory_format=torch.preserve_format))
+                for _ in range(n)]
+        t, _ = time_ms(torch._int_mm, sets, iters=max(40, 2 * n))
+        return t
+    return None
+
+
 def kmeans_timings(card: str):
     """kmeans_stats over every leaf shape of one training step (two
     passes each), against its byte bound: each pass reads 4 B of w and
@@ -1230,6 +1572,7 @@ def main() -> int:
     worst = kernel_checks()
     worst["kmeans_stats"] = kmeans_checks()
     worst.update(paged_kernel_checks())
+    worst["lutq_shift"] = shift_checks()
     launches, _, views, cfg = serve_full_width()
     reduced_reference()
     engine = engine_runs(views, cfg)
@@ -1239,11 +1582,14 @@ def main() -> int:
         launches[variant] = sum(r["launches"][variant]
                                 for r in engine.values())
     reduced_engine_card_vs_cpu()
+    pow2 = serve_pow2_full_width()
+    launches["lutq_shift"] = pow2["launches"]
     trained = train_full_width()
     launches["kmeans_stats"] = trained["launches"]
     reduced_train_card_vs_cpu()
     table = {k: v[4] for k, v in timings(card).items()}
     table["kmeans_stats"] = dict(kmeans_timings(card), library_ms=None)
+    table["lutq_shift"] = shift_timings(card)[4]
     from repro_torch.runtime.engine import synthetic_requests
 
     run_a = synthetic_requests(cfg, 8, max_prompt=512, max_new=64, seed=0)
@@ -1264,7 +1610,9 @@ def main() -> int:
             "replaces": meta["replaces"], "launches": launches[kname],
             "max_abs_err": worst[kname],
             # GEMMs: one decode forward at B=4, the 169 calls of the serve
-            # path; kmeans_stats: one training step, its 340 calls; paged
+            # path (lutq_shift: the 168 body calls of serving_pow2, with
+            # launches over its generate and engine runs); kmeans_stats:
+            # one training step, its 340 calls; paged
             # attention: one call at run (a)'s geometry (shared-memory
             # variant) and at run (c)'s longest row (workspace variant,
             # forced: on the engine's path danube's rows never need it)

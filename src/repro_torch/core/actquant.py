@@ -1,15 +1,30 @@
-"""Uniform activation fake-quantization with a straight-through gradient.
+"""Uniform activation fake-quantization with a straight-through gradient,
+and calibration of frozen activation scales.
 
-Counterpart of ``repro.core.actquant.fake_quant`` and
-``fake_quant_frozen``. Symmetric per-tensor uniform quantization in the
-working dtype, in the reference's op order: amax, ``/ qmax``, round half
-to even, clip. The value is ``x + (q - x).detach()``, as the reference's
-``x + stop_gradient(q - x)``: it rounds exactly as the reference's does,
-and its gradient to x is the identity. Calibration is not ported yet.
+Counterpart of ``repro.core.actquant``. Symmetric per-tensor uniform
+quantization in the working dtype, in the reference's op order: amax,
+``/ qmax``, round half to even, clip. The value is
+``x + (q - x).detach()``, as the reference's ``x + stop_gradient(q -
+x)``: it rounds exactly as the reference's does, and its gradient to x
+is the identity.
+
+Calibration: :func:`tag_act_capture` gives a view of a model whose
+quantized leaves carry their logical (stacked) path as a tag; inside
+:func:`capture_act_scales`, the matmul boundary
+(``nn.linear.dot_kernel``) folds max|x| of every call into one running
+maximum per tag (:func:`record_amax`), so the layers of one logical leaf
+share one maximum, as the slices of the reference's stacked leaf do;
+:func:`apply_act_scales` freezes the maxima into ``[scale, qmax]``
+pairs.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Dict, NamedTuple, Optional
+
 import torch
+
+from repro_torch.core.lutq import LutqState
 
 
 def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
@@ -31,3 +46,105 @@ def fake_quant_frozen(x: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
     s = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = (torch.clamp(torch.round(x.float() / s), -qmax, qmax) * s).to(x.dtype)
     return x + (q - x).detach()
+
+
+# ---------------------------------------------------------------------------
+# calibration: capture per-leaf activation maxima, freeze [scale, qmax]
+# ---------------------------------------------------------------------------
+
+class TaggedLutqState(NamedTuple):
+    """A :class:`LutqState` carrying its logical path as a tag.
+
+    Calibration-only: ``nn.tree.leaf`` hands one out for a quantized
+    leaf of a :func:`tag_act_capture` view, ``nn.linear.dot_kernel``
+    records the activation under the tag and unwraps it, and it never
+    leaves the calibration forward.
+    """
+
+    state: LutqState
+    tag: str
+
+
+# Active capture record: {tag: running max |x|}. None == not capturing.
+_CAPTURE: Optional[Dict[str, torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def capture_act_scales():
+    """Context manager yielding the ``{tag: amax}`` record dict.
+
+    Run calibration forwards inside the block, on a view made by
+    :func:`tag_act_capture`. While the block runs the maxima are
+    0-dim device tensors (no host sync per call); on leaving it they
+    are read in one transfer and the dict holds Python floats.
+    """
+    global _CAPTURE
+    prev, _CAPTURE = _CAPTURE, {}
+    rec = _CAPTURE
+    try:
+        yield rec
+    finally:
+        _CAPTURE = prev
+        if rec:
+            vals = torch.stack([v.float() for v in rec.values()]).tolist()
+            rec.update(zip(list(rec), vals))
+
+
+def record_amax(tag: str, x: torch.Tensor) -> None:
+    """Fold max|x| into the active capture record (no-op when inactive).
+
+    Every call with the same tag, from any layer, folds into one maximum:
+    calibration is per logical leaf, not per layer.
+    """
+    rec = _CAPTURE
+    if rec is None:
+        return
+    amax = x.detach().abs().amax().float()
+    prev = rec.get(tag)
+    rec[tag] = amax if prev is None else torch.maximum(prev, amax)
+
+
+def tag_act_capture(model: torch.nn.Module) -> torch.nn.Module:
+    """A view of ``model`` (sharing every tensor) whose quantized leaves
+    are tagged with their logical path for calibration capture."""
+    from repro_torch.nn.tree import QuantKernel, clone_structure, logical_path
+
+    view = clone_structure(model)
+    for name, mod in view.named_modules():
+        if isinstance(mod, QuantKernel):
+            mod.tag = "/".join(logical_path(tuple(name.split(".")))[0])
+    return view
+
+
+def apply_act_scales(model: torch.nn.Module, record: Dict[str, float],
+                     quant=None) -> torch.nn.Module:
+    """Freeze captured maxima into each quantized leaf's ``act`` pair, in
+    place; returns ``model``.
+
+    Only leaves whose governing rule (under ``quant``, a QuantPolicy /
+    QuantSpec / None) has ``act_frozen=True`` and ``act_bits < 32`` are
+    filled: ``act = [amax / qmax, qmax]`` with ``qmax = 2^(act_bits-1)
+    - 1`` (clamped to the int8 range by the pow2 consumers), the same
+    pair on every layer of a logical leaf. Others keep theirs.
+    """
+    from repro_torch.core.rules import as_policy
+    from repro_torch.nn.tree import QuantKernel, logical_path
+
+    pol = as_policy(quant)
+    if pol is None:
+        return model
+    for name, mod in model.named_modules():
+        if not isinstance(mod, QuantKernel):
+            continue
+        lpath = logical_path(tuple(name.split(".")))[0]
+        i = pol.match(lpath)
+        spec = pol.rules[i].spec if i is not None else None
+        if spec is None or spec.act_bits >= 32 or not spec.act_frozen:
+            continue
+        amax = record.get("/".join(lpath))
+        if amax is None or amax <= 0.0:
+            continue
+        qmax = float(2.0 ** (spec.act_bits - 1) - 1.0)
+        mod.act = torch.tensor([amax / qmax, qmax], dtype=torch.float32,
+                               device=mod.d.device)
+    return model

@@ -102,14 +102,12 @@ def quantize_ste_any(w: torch.Tensor, d: torch.Tensor, a: torch.Tensor
 
 
 def decode_any(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """decode() of a serve-form leaf: an int8 ``d`` is a pow2
-    sign+exponent plane, which is not ported yet. (The reference also
-    takes stacked (L, K) dictionaries here; the port's leaves are
-    per layer.)"""
+    """decode() of any leaf: an int8 ``d`` is a pow2 sign+exponent plane
+    (serve-form convention) and decodes to exact ±2^k floats first. (The
+    reference also takes stacked (L, K) dictionaries here; the port's
+    leaves are per layer.)"""
     if d.dtype == torch.int8:
-        raise NotImplementedError(
-            "pow2 sign+exponent dictionaries are not ported yet "
-            "(ROADMAP queue 1 item 4)")
+        d = pow2_decode(d)
     return decode(d, a)
 
 
@@ -117,6 +115,8 @@ def decode_any(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 # dictionary constraints
 # ---------------------------------------------------------------------------
 
+# Exponent window shared by pow2_round and the sign+exponent plane
+# encoding below. 30 = (POW2_MAX_EXP - POW2_MIN_EXP + 1) codes fit int8.
 POW2_MIN_EXP = -14
 POW2_MAX_EXP = 15
 
@@ -134,6 +134,39 @@ def pow2_round(x: torch.Tensor, min_exp: int = POW2_MIN_EXP,
     p = torch.exp2(e)
     return torch.where(mag > 0, torch.sign(x) * p,
                        torch.zeros_like(x)).to(x.dtype)
+
+
+def exact_exp2(e: torch.Tensor) -> torch.Tensor:
+    """float32 2^e for integer e in [-126, 127], built from its bits, so
+    every value is exactly a power of two on any device (the reference's
+    ``jnp.exp2`` is not exact at every integer on every CPU: ROADMAP
+    queue 3)."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def pow2_encode(d: torch.Tensor) -> torch.Tensor:
+    """Encode a pow2-constrained dictionary as an int8 sign+exponent plane.
+
+    Per entry: code 0 for an exact zero (pruning slot); otherwise
+    ``sign(entry) * (exponent - POW2_MIN_EXP + 1)`` with the exponent
+    in [POW2_MIN_EXP, POW2_MAX_EXP], so |code| is in [1, 30]. Same shape
+    as the input. Inverse: :func:`pow2_decode` (exact round-trip for
+    in-range pow2 entries).
+    """
+    mag = d.abs().float()
+    safe = torch.where(mag > 0, mag, torch.ones_like(mag))
+    e = torch.clamp(torch.round(torch.log2(safe)), POW2_MIN_EXP, POW2_MAX_EXP)
+    code = torch.sign(d).to(torch.int32) * (e.to(torch.int32)
+                                            - POW2_MIN_EXP + 1)
+    return torch.where(mag > 0, code, torch.zeros_like(code)).to(torch.int8)
+
+
+def pow2_decode(code: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Decode an int8 sign+exponent plane back to exact ±2^k / 0 floats."""
+    mag = code.to(torch.int32).abs()
+    val = (exact_exp2(torch.clamp(mag, min=1) - 1 + POW2_MIN_EXP)
+           * torch.sign(code).to(torch.float32))
+    return torch.where(mag > 0, val, torch.zeros_like(val)).to(dtype)
 
 
 def _fixed_dictionary(spec: QuantSpec, dtype=torch.float32,

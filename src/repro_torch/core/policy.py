@@ -25,7 +25,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.core.lutq import LutqState, init_state, update_state
+from repro_torch.core.lutq import (LutqState, init_state, pow2_encode,
+                                   update_state)
 from repro_torch.core.rules import QuantLike, QuantPolicy, as_policy
 from repro_torch.core.spec import QuantSpec
 from repro_torch.nn.tree import (QuantKernel, clone_structure, logical_path,
@@ -36,11 +37,6 @@ from repro_torch.nn.tree import (QuantKernel, clone_structure, logical_path,
 _EXCLUDE = re.compile(
     r"(bias|scale|ln|norm|router|A_log|dt_bias|^D$|w0|^u$|mix_|conv_b|gamma|beta)"
 )
-
-_POW2_TODO = ("backend='pow2' serving (sign+exponent dictionary planes and "
-              "the shift-add kernel) is not ported yet: ROADMAP queue 1 "
-              "item 4, queue 2 kernel 4")
-
 
 def default_predicate(path: Tuple[str, ...], leaf) -> bool:
     name = path[-1] if path else ""
@@ -171,6 +167,56 @@ def _record(leaf: LutqState, backend: str, requested: str, nstack: int):
     }
 
 
+def pow2_guard_bits(code: torch.Tensor, kin: int) -> int:
+    """Bits the shift-add int32 accumulator needs: ``7 + span +
+    ceil(log2 Kin)``, span the largest max-min nonzero exponent spread
+    of the sign+exponent planes ``code`` (..., K) over their leading
+    axes (|acc| <= 127 * 2^span * Kin)."""
+    mag = code.to(torch.int32).abs()
+    has = (mag > 0).any(-1)
+    mx = mag.max(-1).values
+    mn = torch.where(mag > 0, mag, torch.full_like(mag, 2**31 - 1)
+                     ).min(-1).values
+    span = int(torch.where(has, mx - mn, torch.zeros_like(mx)).max())
+    return 7 + span + math.ceil(math.log2(max(kin, 2)))
+
+
+def _pow2_encodable(d: torch.Tensor, kin: int):
+    """(int8 plane, fits) for pow2 serve encoding of the dictionaries
+    ``d`` (L, K) of every layer of one logical leaf.
+
+    ``fits`` is the shift-add int32 overflow guard,
+    :func:`pow2_guard_bits` <= 31, decided over all layers at once as
+    the reference decides it over a stacked leaf: either every layer of
+    a logical leaf is encoded or none is.
+    """
+    code = pow2_encode(d)
+    return code, pow2_guard_bits(code, kin) <= 31
+
+
+def _pow2_planes(model: nn.Module, pol: Optional[QuantPolicy]):
+    """{per-layer path: int8 plane} of every leaf whose rule asks for
+    the pow2 backend on a pow2 dictionary and whose logical leaf passes
+    the overflow guard."""
+    groups: Dict[Tuple[str, ...], List] = defaultdict(list)
+    for path, leaf in tree_paths(model):
+        if isinstance(leaf, LutqState):
+            groups[logical_path(path)[0]].append((path, leaf))
+    planes = {}
+    for lpath, items in groups.items():
+        spec, requested = _leaf_rule(pol, lpath)
+        a = items[0][1].a
+        if (requested != "pow2" or a.dtype == torch.uint8 or spec is None
+                or spec.constraint != "pow2" or a.ndim < 2):
+            continue
+        code, fits = _pow2_encodable(torch.stack([x.d for _, x in items]),
+                                     int(a.shape[-2]))
+        if fits:
+            planes.update((path, code[i]) for i, (path, _) in
+                          enumerate(items))
+    return planes
+
+
 def serve_view(model: nn.Module, *, pack4: bool = False,
                policy: Optional[QuantLike] = None,
                with_manifest: bool = False):
@@ -182,15 +228,21 @@ def serve_view(model: nn.Module, *, pack4: bool = False,
     packed kernel streams (uint8 == packed; int8 == raw). ``policy``
     gates packing per leaf as in the reference: a rule asking for
     ``fused``/``decode`` keeps int8, a rule asking for ``packed4`` packs
-    even without the flag. A rule asking for ``pow2`` raises
-    NotImplementedError. ``with_manifest=True`` also returns the
-    ``{path: {backend, requested, packed, ...}}`` record.
+    even without the flag. A rule asking for ``pow2`` on a pow2
+    dictionary stores it as its int8 sign+exponent plane (int8 ``d`` ==
+    pow2-encoded, the twin of uint8 ``a`` == packed) with int8
+    assignments, when the shift-add accumulator provably cannot
+    overflow (:func:`_pow2_encodable`, decided per logical leaf);
+    otherwise the float dictionary stays and the leaf resolves to fused.
+    ``with_manifest=True`` also returns the ``{path: {backend,
+    requested, packed, encoding, act_frozen, ...}}`` record.
     """
     from repro_torch.kernels.ops import resolve_backend
     from repro_torch.kernels.ref import pack4_kin
 
     pol = as_policy(policy)
     manifest: Dict[str, Dict] = {}
+    planes = _pow2_planes(model, pol)
 
     def conv(path, leaf):
         if not isinstance(leaf, LutqState):
@@ -201,19 +253,18 @@ def serve_view(model: nn.Module, *, pack4: bool = False,
         spec, requested = _leaf_rule(pol, lpath)
         packable = (a.dtype != torch.uint8 and K <= 16
                     and a.ndim >= 2 and a.shape[-2] % 2 == 0)
-        if requested == "pow2":
-            raise NotImplementedError(_POW2_TODO)
         if requested == "packed4":
             pack = packable
-        elif requested in ("fused", "decode"):
-            pack = False
+        elif requested in ("fused", "decode", "pow2"):
+            pack = False  # pow2 planes carry int8 assignments
         else:  # auto
             pack = packable and pack4
             if pack and pol is not None:
                 pack = spec is not None and spec.index_bits <= 4
         if pack:
             a = pack4_kin(a)
-        out = LutqState(w=None, d=leaf.d, a=a, sid=leaf.sid, act=leaf.act)
+        out = LutqState(w=None, d=planes.get(path, leaf.d), a=a,
+                        sid=leaf.sid, act=leaf.act)
         if with_manifest:
             manifest["/".join(lpath)] = _record(
                 out, resolve_backend(out, "auto"), requested, nstack)

@@ -236,6 +236,16 @@ def load_train_state(state, tree) -> None:
     through :func:`repro_torch.core.policy.merge_trainable`, the
     optimizer moments, and the step."""
     model = state.model
+    # a calibrated tree's act pairs land in a model that has none yet
+    for name, mod in model.named_modules():
+        if isinstance(mod, QuantKernel) and mod.act is None:
+            path, i = layer_split(tuple(name.split(".")) + ("__lutq_act",))
+            try:
+                act = _fetch(tree["static"], path, i)
+            except (KeyError, TypeError):
+                continue
+            mod.act = torch.empty(act.shape, dtype=torch.float32,
+                                  device=mod.d.device)
     keys = _ref_keys(model)
     parts: Dict[str, Dict[str, torch.Tensor]] = {"trainable": {},
                                                  "static": {}}

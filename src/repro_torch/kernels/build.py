@@ -42,10 +42,14 @@ KMEANS_ARGTYPES = [_I, _P, _LL, _P, _I, _P, _P, _P, _I, _P, _P, _P]
 #: B, Hkv, G, dh, page, NB, window, span, scale, vec, global scores, stream
 PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                   _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+#: argtypes of the shift-add launcher: device, xq, a, align, wsh, n_dict,
+#: y, M, N, Kin, splits, kchunk, stream
+SHIFT_ARGTYPES = [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P]
 #: every C entry point of the library and its argtypes (all return int)
 SIGNATURES = {
     "lutq_matmul_launch": LAUNCH_ARGTYPES,
     "lutq_gemv_packed_launch": LAUNCH_ARGTYPES,
+    "lutq_shift_launch": SHIFT_ARGTYPES,
     "kmeans_stats_launch": KMEANS_ARGTYPES,
     "kmeans_stats_blocks": [_LL, _I, _I],  # n, n_dict, SMs -> grid size
     "paged_attention_launch": PAGED_ARGTYPES,

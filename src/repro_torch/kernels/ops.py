@@ -15,8 +15,12 @@ Backends
 ``fused``    :mod:`repro_torch.kernels.lutq_matmul` over int8 assignments.
 ``packed4``  :mod:`repro_torch.kernels.lutq_gemv_packed` over packed
              4-bit pairs.
-``pow2``     not ported yet (ROADMAP queue 1 item 4): a pow2-encoded
-             dictionary raises.
+``pow2``     :mod:`repro_torch.kernels.lutq_shift` over a pow2 dictionary
+             stored as an int8 sign+exponent plane: int8-quantized
+             activations times the dictionary lowered to integer
+             shifts, accumulated in int32; the only float multiply is
+             the O(M*N) epilogue scale. Bit-identical to its integer
+             decode oracle (the ``decode`` backend of an encoded leaf).
 ``auto``     per-leaf structural resolution (:func:`resolve_backend`).
 
 The kernels take any shape and mask their own ragged edges, so the
@@ -25,13 +29,17 @@ reference's zero-padding onto TPU tiles has no counterpart here.
 from __future__ import annotations
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.lutq import LutqState, decode_any, quantize_ste_any
 from repro_torch.kernels import kmeans_stats as _kmeans_stats
+from repro_torch.kernels import lutq_shift as _lutq_shift
 from repro_torch.kernels import paged_attn as _paged_attn
 from repro_torch.kernels.lutq_gemv_packed import lutq_gemv_packed
 from repro_torch.kernels.lutq_matmul import lutq_matmul
-from repro_torch.kernels.ref import paged_attention_ref, unpack4_kin
+from repro_torch.kernels.ref import (lutq_shift_ref, paged_attention_ref,
+                                     pow2_shift_scale, pow2_shift_weights,
+                                     unpack4_kin)
 
 #: Backend names accepted by ``lutq_dot`` / policy rules / CLI flags.
 BACKENDS = ("auto", "decode", "fused", "packed4", "pow2")
@@ -55,19 +63,25 @@ def kmeans_step_fused(w_flat: torch.Tensor, d: torch.Tensor):
     return a, torch.sort(new_d).values
 
 
-_POW2_TODO = ("the pow2 shift-add backend is not ported yet "
-              "(ROADMAP queue 1 item 4, queue 2 kernel 4)")
+def lutq_shift(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor
+               ) -> torch.Tensor:
+    """int32 ``xq @ wsh[a]``: the shift-add kernel on a CUDA tensor, its
+    plain version on a CPU tensor."""
+    return _lutq_shift.lutq_shift(xq, a, wsh)
 
 
 def resolve_backend(state: LutqState, backend: str = "auto", *,
                     transpose_rhs: bool = False) -> str:
-    """Concrete backend ("decode" | "fused" | "packed4") for one leaf.
+    """Concrete backend ("decode" | "fused" | "packed4" | "pow2") for one
+    leaf.
 
     Same ladder as the reference: train-form leaves (``w`` present) and
-    non-2-D assignments -> decode; packed uint8 -> packed4 unless
-    transposed or K > 16; int8 with K <= 256 -> fused. The port's
-    leaves are per layer, so the reference's per-slice resolution of a
-    stacked leaf is the only one there is.
+    non-2-D assignments -> decode; a pow2-encoded dictionary (int8
+    ``d``) -> pow2 unless its assignments are packed or K > 256; packed
+    uint8 -> packed4 unless transposed or K > 16; int8 with K <= 256 ->
+    fused. A request for pow2 on a float dictionary degrades to fused.
+    The port's leaves are per layer, so the reference's per-slice
+    resolution of a stacked leaf is the only one there is.
     """
     if backend not in BACKENDS:
         raise ValueError(
@@ -77,13 +91,101 @@ def resolve_backend(state: LutqState, backend: str = "auto", *,
     if backend == "decode":
         return "decode"
     K = state.d.shape[-1]
-    if state.d.dtype == torch.int8:
-        raise NotImplementedError(_POW2_TODO)
+    if state.d.dtype == torch.int8:  # pow2 sign+exponent plane
+        if state.a.dtype == torch.uint8 or K > 256:
+            return "decode"
+        return "pow2"
     if state.a.dtype == torch.uint8:
         if transpose_rhs or K > 16:
             return "decode"
         return "packed4"
     return "fused" if K <= 256 else "decode"
+
+
+#: values derived from a serve leaf's constant tensors, per tensor
+_DERIVED = WeakIdKeyDictionary()
+
+
+def _derived(t: torch.Tensor, fn):
+    """``fn(t)``, computed once per tensor: a serve leaf's sign+exponent
+    plane and frozen pair are constants, so their shifted dictionary and
+    scales are made on the first call, not on every one (the reference
+    folds them under jit). Recomputed after ``t`` is written in place."""
+    version = None if t.is_inference() else t._version
+    per = _DERIVED.setdefault(t, {})
+    hit = per.get(fn)
+    if hit is None or hit[0] != version:
+        hit = per[fn] = (version, fn(t))
+    return hit[1]
+
+
+def _positive(s: torch.Tensor) -> torch.Tensor:
+    return torch.where(s > 0, s, torch.ones_like(s))
+
+
+def _frozen_pair(act: torch.Tensor):
+    """(scale, -qmax, qmax) of a frozen ``[scale, qmax]`` pair."""
+    qmax = torch.clamp(act[..., 1].float(), max=127.0)
+    return _positive(act[..., 0].float()), -qmax, qmax
+
+
+def _shift_dictionary(code: torch.Tensor):
+    """(shifted-integer dictionary, its epilogue scale) of a plane."""
+    return pow2_shift_weights(code), pow2_shift_scale(code)
+
+
+def _pow2_act_quant(x2: torch.Tensor, act):
+    """int8-quantize activations for the shift-add path.
+
+    ``act`` is the leaf's frozen calibration pair ``[scale, qmax]`` or
+    None for a dynamic per-call scale, ``max|x| / 127`` over every row
+    of ``x2``. Returns (xq int8, scale float32 0-dim tensor). The order
+    is the reference's: float32 copy, divide by the scale (a tensor on
+    x's device: PyTorch multiplies by the reciprocal of a Python-number
+    divisor on the card), round half to even, clip to
+    ``±min(qmax, 127)``; a scale <= 0 becomes 1.
+    """
+    xf = x2.float()
+    if act is not None:
+        s, lo, hi = _derived(act, _frozen_pair)
+    else:
+        hi = torch.full((), 127.0, device=x2.device)
+        lo = -hi
+        s = _positive(xf.detach().abs().max() / hi)
+    xq = torch.clamp(torch.round(xf / s), lo, hi).to(torch.int8)
+    return xq, s
+
+
+def _pow2_dot_acc(x2: torch.Tensor, code: torch.Tensor, a: torch.Tensor,
+                  act, *, transpose_rhs: bool = False,
+                  use_kernel: bool = True):
+    """(int32 accumulator (M, N), float32 epilogue scale) of the pow2 path.
+
+    Shared by the ``pow2`` backend (``use_kernel=True``: the shift-add
+    kernel) and the integer decode oracle (``use_kernel=False``: its
+    plain version on any device): the same quantization, shifted
+    dictionary and int32 sums, so the two are bit-identical.
+    """
+    if transpose_rhs:
+        a = a.T
+    if a.shape[0] != x2.shape[1]:
+        raise ValueError(f"pow2: Kin mismatch {tuple(x2.shape)} @ "
+                         f"{tuple(a.shape)}")
+    # (K,) int32 shifts, an O(K) exponent add, and 2^e_min
+    wsh, shift_scale = _derived(code, _shift_dictionary)
+    xq, s = _pow2_act_quant(x2, act)
+    scale = s * shift_scale  # the one float multiply factor
+    if not use_kernel:
+        return lutq_shift_ref(xq, a, wsh), scale
+    return lutq_shift(xq, a.contiguous(), wsh), scale
+
+
+def _is_encoded(state: LutqState) -> bool:
+    """A serve-form leaf with a pow2 sign+exponent plane and int8
+    (unpacked) 2-D assignments: what the integer path reads."""
+    return (state.d.dtype == torch.int8 and state.w is None
+            and state.d.ndim == 1 and state.a.ndim == 2
+            and state.a.dtype != torch.uint8)
 
 
 def lutq_dot(x: torch.Tensor, state: LutqState, *, backend: str = "auto",
@@ -92,10 +194,24 @@ def lutq_dot(x: torch.Tensor, state: LutqState, *, backend: str = "auto",
 
     x: (..., Kin); leading dims are flattened for the kernels and
     restored on return. Returns (..., N) in ``out_dtype`` (default
-    x.dtype). The kernels return float32, cast here.
+    x.dtype). The float kernels return float32 and the pow2 epilogue
+    forms float32 (``acc * (act_scale * 2^e_min)``), cast here. The
+    ``decode`` backend of a pow2-encoded leaf runs the integer oracle, so
+    it gives the ``pow2`` backend's bits.
     """
     be = resolve_backend(state, backend, transpose_rhs=transpose_rhs)
     out_dtype = out_dtype or x.dtype
+
+    if be == "pow2" or (be == "decode" and _is_encoded(state)):
+        if be == "decode":
+            COUNTS["decode"] += 1
+        lead = x.shape[:-1]
+        acc, scale = _pow2_dot_acc(x.reshape(-1, x.shape[-1]), state.d,
+                                   state.a, state.act,
+                                   transpose_rhs=transpose_rhs,
+                                   use_kernel=be == "pow2")
+        y = acc.float() * scale
+        return y.reshape(*lead, y.shape[-1]).to(out_dtype)
 
     if be == "decode":
         COUNTS["decode"] += 1

@@ -1,19 +1,21 @@
-"""Plain PyTorch versions of the kernels, and the 4-bit packing layout.
+"""Plain PyTorch versions of the kernels, the 4-bit packing layout and
+the pow2 shift-add dictionary.
 
-``lutq_matmul_ref``, ``lutq_gemv_packed_ref``, ``kmeans_stats_ref`` and
-``paged_attention_ref`` are what the kernel wrappers run for a tensor on
-the CPU, and what the kernels are held against on the card. Like the TPU kernels the GEMMs
-cast each decoded weight
-to ``x.dtype`` before the product and accumulate in float32: the matmul
-runs on float32 copies of the operands, which holds every bf16 value
-exactly (``jnp``'s ``x @ w`` in the reference oracle rounds a bf16
-product to bf16 instead).
+``lutq_matmul_ref``, ``lutq_gemv_packed_ref``, ``lutq_shift_ref``,
+``kmeans_stats_ref`` and ``paged_attention_ref`` are what the kernel
+wrappers run for a tensor on the CPU, and what the kernels are held
+against on the card. Like the TPU kernels the float GEMMs cast each
+decoded weight to ``x.dtype`` before the product and accumulate in
+float32: the matmul runs on float32 copies of the operands, which holds
+every bf16 value exactly (``jnp``'s ``x @ w`` in the reference oracle
+rounds a bf16 product to bf16 instead).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.lutq import _bucketize, decode
+from repro_torch.core.lutq import (POW2_MIN_EXP, _bucketize, decode,
+                                   exact_exp2, index_of)
 
 
 def lutq_matmul_ref(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor
@@ -47,6 +49,59 @@ def lutq_gemv_packed_ref(x: torch.Tensor, packed: torch.Tensor,
                          d: torch.Tensor) -> torch.Tensor:
     """y = x @ d[unpack(packed)] in float32. packed: (Kin/2, N) uint8."""
     return lutq_matmul_ref(x, unpack4_kin(packed), d)
+
+
+def _pow2_min_mag(code: torch.Tensor, keepdim: bool):
+    """(|code| as int32, smallest nonzero |code| over the last axis, 1
+    where a dictionary has no nonzero entry)."""
+    mag = code.to(torch.int32).abs()
+    big = torch.where(mag > 0, mag, torch.full_like(mag, 2**31 - 1))
+    minm = torch.where((mag > 0).any(-1, keepdim=keepdim),
+                       big.min(-1, keepdim=keepdim).values,
+                       torch.ones((), dtype=torch.int32, device=code.device))
+    return mag, minm
+
+
+def pow2_shift_weights(code: torch.Tensor) -> torch.Tensor:
+    """Shifted-integer dictionary of the shift-add path.
+
+    ``code`` is an int8 sign+exponent plane
+    (:func:`repro_torch.core.lutq.pow2_encode`) of shape (..., K).
+    Returns int32 ``sign * (1 << (|code| - minm))`` per entry (0 stays
+    0), where ``minm`` is the smallest nonzero magnitude over the last
+    axis: every entry becomes an integer left shift relative to the
+    smallest exponent. The matching epilogue scale is
+    :func:`pow2_shift_scale`.
+    """
+    mag, minm = _pow2_min_mag(code, keepdim=True)
+    shift = torch.where(mag > 0, mag - minm, torch.zeros_like(mag))
+    return torch.sign(code.to(torch.int32)) * (torch.ones_like(shift) << shift)
+
+
+def pow2_shift_scale(code: torch.Tensor) -> torch.Tensor:
+    """float32 epilogue scale matching :func:`pow2_shift_weights`:
+    ``2^(minm - 1 + POW2_MIN_EXP)`` per dictionary (shape
+    ``code.shape[:-1]``), the one float multiply of the whole matmul."""
+    _, minm = _pow2_min_mag(code, keepdim=False)
+    return exact_exp2(minm - 1 + POW2_MIN_EXP)
+
+
+def lutq_shift_ref(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor
+                   ) -> torch.Tensor:
+    """Integer decode oracle of the shift-add kernel: the exact int32
+    accumulator ``xq @ wsh[a]``.
+
+    xq: (M, Kin) int8; a: (Kin, N) int8 assignments (read as unsigned
+    bytes, as the reference's ``jnp.take`` wraps negative indices);
+    wsh: (K,) int32 (:func:`pow2_shift_weights`). The product runs on
+    float64 copies, which PyTorch multiplies on the CPU and the card
+    alike: every product and partial sum is an integer below 2^53, so
+    the sum is exact in any order wherever the int32 result does not
+    overflow, which the serve-time guard (``7 + span + ceil(log2 Kin)
+    <= 31``) makes sure of.
+    """
+    w = wsh[index_of(a)].to(torch.float64)
+    return torch.matmul(xq.to(torch.float64), w).to(torch.int32)
 
 
 def kmeans_stats_ref(w: torch.Tensor, d: torch.Tensor):

@@ -10,20 +10,28 @@ autotune and speculative options. On the card:
         --engine --kv-pages 160 --page-size 64 --max-batch 8 --queue 16 \
         --prompt-len 512 --gen 64 --pack4
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --quant-policy serving_pow2 --batch 4 --prompt-len 128 --gen 16
+
 On the CPU, through the kernels' plain versions, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --batch 2 --prompt-len 16 --gen 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --reduced --quant-policy serving_pow2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
         --queue 4 --prompt-len 30 --gen 8 --device cpu
 
 Serves the paper's deployment form (serve_view: dictionary + int8 or
-packed assignments, no fp masters), reports the weight footprint both
-ways, the per-rule breakdown, the backend of each quantized leaf, the
-prefill time and decode rate (with ``--engine``: goodput, latency and
-TTFT percentiles, and the paged cache's pages and prefix hits), and how
-many times each kernel launched.
+packed assignments, no fp masters; under ``serving_pow2`` pow2
+dictionaries as int8 sign+exponent planes through the shift-add kernel,
+with activation scales taken per call, as the reference CLI serves it
+without calibration), reports the weight footprint both ways, the
+per-rule breakdown, the backend of each quantized leaf and how many are
+pow2-encoded, the prefill time and decode rate (with ``--engine``:
+goodput, latency and TTFT percentiles, and the paged cache's pages and
+prefix hits), and how many times each kernel launched.
 """
 from __future__ import annotations
 
@@ -40,7 +48,9 @@ from repro_torch.core.policy import (backend_manifest, effective_bits,
 from repro_torch.core.rules import get_policy
 from repro_torch.core.spec import QuantSpec
 from repro_torch.device import resolve_device
-from repro_torch.kernels import lutq_gemv_packed, lutq_matmul, paged_attn
+from repro_torch.core.lutq import LutqState
+from repro_torch.kernels import (lutq_gemv_packed, lutq_matmul, lutq_shift,
+                                 paged_attn)
 from repro_torch.kernels.ops import BACKENDS
 from repro_torch.models import api
 from repro_torch.models.reduce import reduced
@@ -61,11 +71,12 @@ def footprint_bytes(model) -> int:
 def kernel_report(dev: torch.device) -> str:
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    plain = sum(m.COUNTS["plain"]
-                for m in (lutq_matmul, lutq_gemv_packed, paged_attn))
+    plain = sum(m.COUNTS["plain"] for m in (lutq_matmul, lutq_gemv_packed,
+                                            lutq_shift, paged_attn))
     return (f"[serve] kernel launches: lutq_matmul "
             f"{lutq_matmul.COUNTS['launches']}, lutq_gemv_packed "
-            f"{lutq_gemv_packed.COUNTS['launches']}, paged_attention "
+            f"{lutq_gemv_packed.COUNTS['launches']}, lutq_shift "
+            f"{lutq_shift.COUNTS['launches']}, paged_attention "
             f"{paged_attn.COUNTS['launches']} | plain versions: {plain}"
             f" | device {name}")
 
@@ -192,6 +203,12 @@ def main(argv=None):
     counts = Counter(m["backend"] for m in manifest.values())
     print(f"[serve] kernel backends (requested {args.kernel_backend!r}): "
           + ", ".join(f"{k}: {v} leaves" for k, v in sorted(counts.items())))
+    states = [x for _, x in tree_paths(smodel) if isinstance(x, LutqState)]
+    n_pow2 = sum(x.d.dtype == torch.int8 for x in states)
+    if n_pow2 or any(m["requested"] == "pow2" for m in manifest.values()):
+        frozen = all(x.act is not None for x in states)
+        print(f"[serve] pow2-encoded leaves: {n_pow2} of {len(states)} "
+              f"(activation scales {'frozen' if frozen else 'per call'})")
 
     if args.engine:
         stats = run_engine(smodel, cfg, capacity=args.max_batch,

@@ -2,8 +2,10 @@
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)
+    calibrate(model, cfg, batch, lengths=)     -> model (in place)
     loss_fn(model, cfg, batch)                 -> (loss, metrics)
-    serve_state(cfg, seed=, pack4=, device=)   -> serve model [, manifest]
+    serve_state(cfg, seed=, pack4=, calib_batch=, device=)
+                                               -> serve model [, manifest]
     prefill(model, cfg, batch, lengths=)       -> (logits, cache)
     decode_step(model, cfg, token, cache)      -> (logits, cache)
     init_cache(cfg, batch, max_len, device=)   -> cache
@@ -62,14 +64,43 @@ def quantize(model: nn.Module, cfg: ModelConfig) -> nn.Module:
     return quantize_tree(model, policy)
 
 
+def calibrate(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None
+              ) -> nn.Module:
+    """Freeze activation scales from one short calibration batch, in
+    place; returns ``model``.
+
+    Runs a prefill forward of a tagged view of the model under
+    :func:`repro_torch.core.actquant.capture_act_scales` (max|x| at each
+    matmul boundary, one maximum per logical leaf), then installs
+    ``[scale, qmax]`` pairs into the ``act`` of every leaf whose rule has
+    ``act_frozen=True`` and ``act_bits < 32``. The pairs persist through
+    ``serve_view`` and checkpoints; the pow2 backend quantizes
+    activations with them instead of a per-call max.
+    """
+    from repro_torch.core.actquant import (apply_act_scales,
+                                           capture_act_scales,
+                                           tag_act_capture)
+
+    tagged = tag_act_capture(model)
+    with torch.no_grad(), capture_act_scales() as record:
+        prefill(tagged, cfg, batch, lengths=lengths)
+    return apply_act_scales(model, record, quant=resolved_policy(cfg))
+
+
 def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
-                with_manifest: bool = False, device="cuda"):
-    """init -> quantize -> serve_view. Returns the serve model (plus the
-    backend manifest with ``with_manifest=True``); the fp masters are
-    dropped with the quantized tree."""
+                with_manifest: bool = False, calib_batch=None,
+                device="cuda"):
+    """init -> quantize [-> calibrate] -> serve_view. Returns the serve
+    model (plus the backend manifest with ``with_manifest=True``); the
+    fp masters are dropped with the quantized tree. ``calib_batch``: a
+    prefill batch (``{"tokens": ...}``) run through :func:`calibrate`
+    before the serve view, freezing activation scales for
+    ``act_frozen`` rules (the ``serving_pow2`` preset)."""
     from repro_torch.core.policy import serve_view
 
     qmodel = quantize(init(cfg, seed=seed, device=device), cfg)
+    if calib_batch is not None:
+        qmodel = calibrate(qmodel, cfg, calib_batch)
     return serve_view(qmodel, pack4=pack4, policy=resolved_policy(cfg),
                       with_manifest=with_manifest)
 

@@ -24,6 +24,7 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.core.actquant import TaggedLutqState
 from repro_torch.core.lutq import LutqState
 
 Path = Tuple[str, ...]
@@ -34,7 +35,11 @@ STACKS = frozenset({"layers"})
 
 class QuantKernel(nn.Module):
     """One quantized weight: the master ``w`` (a parameter, or None in
-    the serve form) and ``d``, ``a``, ``sid``, ``act`` as buffers."""
+    the serve form) and ``d``, ``a``, ``sid``, ``act`` as buffers.
+    ``tag`` is set only on the calibration view
+    (:func:`repro_torch.core.actquant.tag_act_capture`)."""
+
+    tag: Optional[str] = None
 
     def __init__(self, state: LutqState):
         super().__init__()
@@ -49,9 +54,12 @@ class QuantKernel(nn.Module):
 
 
 def leaf(module: nn.Module, name: str):
-    """The tensor or :class:`LutqState` stored under ``name``."""
+    """The tensor or :class:`LutqState` stored under ``name`` (a
+    :class:`TaggedLutqState` on a calibration view)."""
     v = getattr(module, name)
-    return v.state if isinstance(v, QuantKernel) else v
+    if not isinstance(v, QuantKernel):
+        return v
+    return v.state if v.tag is None else TaggedLutqState(v.state, v.tag)
 
 
 def tree_paths(module: nn.Module, prefix: Path = ()

@@ -209,8 +209,25 @@ def test_serve_view_byte_for_byte(quantized, pack4):
 
 
 def test_pow2_rule_raises_not_implemented(quantized):
-    _, tcfg, jq = quantized
+    """serve_view under a pow2 backend rule, against the reference: a
+    pow2 spec stores every leaf's dictionary as its int8 sign+exponent
+    plane (pow2-rounded) and the leaves resolve to pow2; a rule that asks
+    for the pow2 backend with a spec that is not pow2-constrained keeps
+    the float dictionaries, which resolve to fused (as does a leaf whose
+    overflow guard fails:
+    ``test_torch_pow2.py::test_overflow_guard_decided_per_logical_leaf``)."""
+    jcfg, tcfg, jq = quantized
     model = interop.from_jax(to_np(jq), tcfg)
-    pol = trules.uniform(TSpec(bits=4, constraint="pow2", backend="pow2"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        t_serve_view(model, policy=pol)
+    for constraint, encoding, backend in (("pow2", "pow2", "pow2"),
+                                          ("none", "float", "fused")):
+        tpol = trules.QuantPolicy(rules=(trules.QuantRule(
+            "*", TSpec(bits=4, constraint=constraint), backend="pow2"),))
+        jpol = jrules.QuantPolicy(rules=(jrules.QuantRule(
+            "*", JSpec(bits=4, constraint=constraint), backend="pow2"),))
+        ts, tm = t_serve_view(model, policy=tpol, with_manifest=True)
+        js, jm = j_serve_view(jq, policy=jpol, with_manifest=True)
+        assert_trees_equal(interop.to_numpy(ts), to_np(js))
+        assert (json.dumps(tm, sort_keys=True)
+                == json.dumps(jm, sort_keys=True))
+        assert all(m["encoding"] == encoding and m["backend"] == backend
+                   and m["requested"] == "pow2" for m in tm.values())

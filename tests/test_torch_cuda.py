@@ -15,16 +15,19 @@ Paged attention, relative to max|plain|: 1e-5 for f32 queries (f32
 sums in another order), 2^-7 for bf16 queries (one bf16 ulp of the
 largest output: the output rounds to bf16, and a bf16 score may round
 the other way where the two f32 sums differ in their last bits).
+``lutq_shift``: equal to its plain version bit for bit (int32 sums), and
+the pow2 path's logits equal those of its integer decode oracle.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (build, kmeans_stats, lutq_gemv_packed,
-                                 lutq_matmul, paged_attn)
+                                 lutq_matmul, lutq_shift, paged_attn)
 from repro_torch.kernels.ref import (kmeans_stats_ref, lutq_gemv_packed_ref,
-                                     lutq_matmul_ref, pack4_kin,
-                                     paged_attention_ref)
+                                     lutq_matmul_ref, lutq_shift_ref,
+                                     pack4_kin, paged_attention_ref,
+                                     pow2_shift_weights)
 
 
 @pytest.fixture
@@ -74,6 +77,127 @@ def test_cuda_fused_k256_reads_unsigned_bytes(cuda_device):
                                   d.to(cuda_device))
     torch.cuda.synchronize()
     assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max()
+
+
+def _shift_operands(M, Kin, N, K, g, span=9, extreme=False, offset=0):
+    """xq, a (at ``offset`` bytes into its buffer) and wsh of a pow2
+    dictionary of K codes with nonzero magnitudes 1..span+1, a zero code
+    and both signs. ``extreme``: every xq at ±127 with the sign of its
+    row's weights, the largest |acc| the guard allows."""
+    code = torch.randint(1, span + 2, (K,), generator=g, dtype=torch.int32)
+    code[0], code[-1] = 1, span + 1
+    code = code * (torch.randint(0, 2, (K,), generator=g) * 2 - 1)
+    if K > 2:
+        code[1] = 0
+    wsh = pow2_shift_weights(code.to(torch.int8))
+    buf = torch.randint(-128, 128, (Kin * N + offset,), generator=g,
+                        dtype=torch.int8)
+    if K < 256:
+        buf = buf.view(torch.uint8) % K
+    a = buf[offset:].view(torch.int8).view(Kin, N)
+    if extreme:
+        a = torch.full((Kin, N), K - 1, dtype=torch.int8)
+        xq = torch.where(wsh[K - 1] > 0, 127, -127) * torch.ones(
+            (M, Kin), dtype=torch.int32)
+        return xq.to(torch.int8), a, wsh
+    xq = torch.randint(-127, 128, (M, Kin), generator=g, dtype=torch.int8)
+    return xq, a, wsh
+
+
+#: (M, Kin, N, K, offset): decode and prefill shapes, ragged N, M and
+#: Kin, unaligned assignment rows (byte loads), K = 2, 16 and 256 (indices
+#: >= 128 stored as negative int8)
+SHIFT_CASES = [(1, 96, 211, 16, 0), (4, 2560, 640, 16, 0),
+               (3, 2000, 700, 2, 0), (8, 64, 130, 256, 0),
+               (4, 130, 96, 16, 1), (9, 128, 257, 16, 0),
+               (130, 300, 97, 256, 0), (64, 512, 640, 16, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kin,N,K,offset", SHIFT_CASES)
+def test_cuda_lutq_shift_matches_plain_bit_exact(cuda_device, M, Kin, N, K,
+                                                 offset):
+    g = torch.Generator().manual_seed(M * 7 + K)
+    xq, a, wsh = _shift_operands(M, Kin, N, K, g, offset=offset)
+    want = lutq_shift_ref(xq, a, wsh)
+    before = dict(lutq_shift.COUNTS)
+    got = lutq_shift.lutq_shift(xq.to(cuda_device), a.to(cuda_device),
+                                wsh.to(cuda_device))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert lutq_shift.COUNTS["launches"] == before["launches"] + 1
+    assert lutq_shift.COUNTS["plain"] == before["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kin,N", [(4, 2560, 640), (4, 6912, 256),
+                                     (96, 2560, 128)])
+def test_cuda_lutq_shift_at_the_guard_limit(cuda_device, M, Kin, N):
+    """7 + span + ceil(log2 Kin) = 31 and every term at its largest: the
+    int32 sums reach ~2^31 - 2^24 without overflowing."""
+    import math
+
+    span = 31 - 7 - math.ceil(math.log2(Kin))
+    xq, a, wsh = _shift_operands(M, Kin, N, 16, torch.Generator(), span=span,
+                                 extreme=True)
+    want = lutq_shift_ref(xq, a, wsh)
+    assert want.abs().min() == 127 * 2 ** span * Kin > 2 ** 30
+    got = lutq_shift.lutq_shift(xq.to(cuda_device), a.to(cuda_device),
+                                wsh.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_lutq_shift_raises_instead_of_falling_back(cuda_device,
+                                                        monkeypatch):
+    xq, a, wsh = _shift_operands(4, 64, 96, 16, torch.Generator())
+    xq, a, wsh = xq.to(cuda_device), a.to(cuda_device), wsh.to(cuda_device)
+    plain = lutq_shift.COUNTS["plain"]
+
+    class FailedLaunch:
+        @staticmethod
+        def lutq_shift_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(build, "load_library", lambda: FailedLaunch)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        lutq_shift.lutq_shift(xq, a, wsh)
+    with pytest.raises(ValueError, match="xq's CUDA device"):
+        lutq_shift.lutq_shift(xq, a.cpu(), wsh)
+    assert lutq_shift.COUNTS["plain"] == plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("calibrated", [True, False])
+def test_cuda_pow2_serving_oracle_equals_kernel(cuda_device, calibrated):
+    """Reduced danube under serving_pow2 on the card, with scales frozen
+    by calibration or taken per call: prefill logits through the
+    shift-add kernel equal the integer decode oracle's bit for bit, and
+    the greedy tokens are equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.serving import generate
+
+    cfg = reduced(get_config("h2o-danube-1.8b")).replace(
+        quant=serving_pow2(), act_bits=8)
+    toks = torch.randint(0, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(3))
+    model = api.serve_state(cfg, seed=0, device="cuda", calib_batch={
+        "tokens": toks.cuda()} if calibrated else None)
+    out = {}
+    for be in ("decode", "auto"):
+        run = cfg.replace(kernel_backend=be)
+        launches = lutq_shift.COUNTS["launches"]
+        with torch.inference_mode():
+            logits, _ = api.prefill(model, run, {"tokens": toks.cuda()})
+        out[be] = (logits, generate(model, run, {"tokens": toks}, steps=6,
+                                    device="cuda"))
+        assert (lutq_shift.COUNTS["launches"] > launches) == (be == "auto")
+    assert torch.equal(out["decode"][0], out["auto"][0])
+    assert torch.equal(out["decode"][1], out["auto"][1])
 
 
 def _kmeans_case(N, K, ties, g):

@@ -16,11 +16,13 @@ import pytest
 import torch
 from torch_port_helpers import one_thread
 
+from repro.core import lutq as jl
 from repro.core.lutq import LutqState as JState
 from repro.core.lutq import init_state as j_init_state
 from repro.core.spec import QuantSpec as JSpec
 from repro.kernels import ops as jops
 from repro.kernels.ref import pack4_kin as j_pack4_kin
+from repro_torch.core import lutq as tl
 from repro_torch.core.lutq import LutqState as TState
 from repro_torch.kernels import build, lutq_gemv_packed, lutq_matmul, ops
 from repro_torch.kernels.ref import pack4_kin
@@ -122,8 +124,22 @@ def test_resolve_backend_ladder():
     assert ops.resolve_backend(packed, transpose_rhs=True) == "decode"
     assert ops.resolve_backend(st, "decode") == "decode"
     assert ops.resolve_backend(st._replace(w=torch.zeros(64, 48))) == "decode"
-    with pytest.raises(NotImplementedError, match="pow2"):
-        ops.resolve_backend(st._replace(d=st.d.to(torch.int8)))
+    # the pow2 rung (the reference's TestResolution): an int8 sign+exponent
+    # plane takes the shift-add path, transposed use included; packed
+    # assignments or K > 256 fall to decode; a pow2 request on a float
+    # dictionary degrades to fused
+    enc = st._replace(d=tl.pow2_encode(tl.pow2_round(st.d)))
+    jenc = JState(w=None, d=jl.pow2_encode(jl.pow2_round(jnp.asarray(
+        st.d.numpy()))), a=jnp.asarray(st.a.numpy()))
+    for kw in ({}, {"backend": "pow2"}, {"transpose_rhs": True},
+               {"backend": "decode"}):
+        assert ops.resolve_backend(enc, **kw) == jops.resolve_backend(
+            jenc, **kw)
+    assert ops.resolve_backend(enc) == "pow2"
+    assert ops.resolve_backend(enc, transpose_rhs=True) == "pow2"
+    assert ops.resolve_backend(enc, "decode") == "decode"
+    assert ops.resolve_backend(enc._replace(a=packed.a)) == "decode"
+    assert ops.resolve_backend(st, "pow2") == "fused"
 
 
 def test_cpu_tensors_take_plain_versions_and_count_no_launch():

@@ -29,14 +29,14 @@ import numpy as np
 import pytest
 import torch
 from torch_port_helpers import (cfg_pair, jax_quantized, jax_reference,
-                                one_thread, to_np, tokens)
+                                one_thread, port_teacher_forced, to_np,
+                                tokens)
 
 from repro.core.policy import serve_view as j_serve_view
 from repro.models import api as japi
 from repro_torch import interop
 from repro_torch.core.policy import serve_view as t_serve_view
 from repro_torch.models import api as tapi
-from repro_torch.runtime import serving as tserving
 
 B, P, STEPS = 2, 30, 4
 
@@ -51,20 +51,6 @@ def _torch_one_thread():
 @pytest.fixture(scope="module")
 def jq():
     return jax_quantized(cfg_pair()[0])
-
-
-def port_teacher_forced(tcfg, model, toks, ref_tokens):
-    """The port's logits along the JAX token sequence."""
-    steps = ref_tokens.shape[1]
-    max_len = toks.shape[1] + steps
-    logits, cache = tapi.prefill(model, tcfg, {"tokens": torch.from_numpy(toks)})
-    cache = tserving.adapt_prefill_cache(tcfg, cache, toks.shape[0], max_len)
-    outs = [logits[:, -1].float().numpy()]
-    for t in range(1, steps):
-        tok = torch.from_numpy(ref_tokens[:, t - 1:t].copy())
-        logits, cache = tapi.decode_step(model, tcfg, tok, cache)
-        outs.append(logits[:, -1].float().numpy())
-    return outs
 
 
 RTOL = {"float32": 1e-4, "bfloat16": 2.0 ** -9}

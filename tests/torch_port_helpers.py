@@ -90,3 +90,23 @@ def one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     return n
+
+
+def port_teacher_forced(tcfg, model, toks, ref_tokens):
+    """The port's logits along the JAX token sequence: prefill, then one
+    decode step per reference token; per-step logits (B, V) as float32
+    numpy, as :func:`jax_reference` returns them."""
+    from repro_torch.models import api as tapi
+    from repro_torch.runtime import serving as tserving
+
+    steps = ref_tokens.shape[1]
+    max_len = toks.shape[1] + steps
+    logits, cache = tapi.prefill(model, tcfg,
+                                 {"tokens": torch.from_numpy(toks)})
+    cache = tserving.adapt_prefill_cache(tcfg, cache, toks.shape[0], max_len)
+    outs = [logits[:, -1].float().numpy()]
+    for t in range(1, steps):
+        tok = torch.from_numpy(ref_tokens[:, t - 1:t].copy())
+        logits, cache = tapi.decode_step(model, tcfg, tok, cache)
+        outs.append(logits[:, -1].float().numpy())
+    return outs
