@@ -76,7 +76,9 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    torch on the card) must equal the kernel's bit for bit, and the
    greedy tokens must be identical. Then one paged engine run over
    phase 3c run (a)'s queue (24 requests, 8 slots, 160 pages, int8 KV),
-   with run (a)'s checks and lutq_shift at 168 x (steps + chunks).
+   with run (a)'s checks and lutq_shift at 168 x (steps + chunks); the
+   same queue through the engine with the decode oracle must give the
+   same tokens, request by request.
 3b. train: full-width h2o-danube-1.8b (vocab 32000, random f32 masters
    from a seed) through the training CLI's build path and TrainLoop,
    with its default spec (4-bit pow2, kmeans_iters=1, min_size=4096)
@@ -393,7 +395,8 @@ def _shift_operands(M, Kin, N, K, gen, dev, span=9, extreme=False):
 
 def shift_checks():
     """lutq_shift against its plain version on the card, bit for bit
-    (torch.equal): danube's seven body shapes at M = 1, 4, 130, 512, a
+    (torch.equal): danube's seven body shapes at M = 1, 2, 4, 8, 130, 512
+    (every decode tile instance; M = 8 is the engine's decode step), a
     ragged shape, K = 2, 16, 256 (indices >= 128 as negative int8), and
     operands at the overflow guard's limit, 7 + span + ceil(log2 Kin) =
     31 with every term at its largest. Returns max |kernel - plain| (0)."""
@@ -406,8 +409,8 @@ def shift_checks():
     gen = torch.Generator(device=dev).manual_seed(10)
     leaves = {"q/o": (2560, 2560), "k/v": (2560, 640),
               "wi/wg": (2560, 6912), "wo": (6912, 2560)}
-    cases = [(f"{name} M={M}", M, Kin, N, 16, 9, False)
-             for name, (Kin, N) in leaves.items() for M in (1, 4, 130, 512)]
+    cases = [(name, M, Kin, N, 16, 9, False) for name, (Kin, N)
+             in leaves.items() for M in (1, 2, 4, 8, 130, 512)]
     cases += [("ragged", M, 2000, 700, 16, 9, False) for M in (3, 130)]
     cases += [(f"K={K}", M, 2560, 640, K, 9, False) for K in (2, 256)
               for M in (4, 130)]
@@ -879,7 +882,7 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
                launches={k: counts[k] for k in
                          ("paged_attention", "paged_attention_multipass",
                           gemm)},
-               profiled_step_ms=wall_ms)
+               profiled_step_ms=wall_ms, tokens=[x["tokens"] for x in res])
     del eng
     torch.cuda.empty_cache()
     return out
@@ -969,7 +972,7 @@ def serve_pow2_full_width():
     from repro_torch.configs import get_config
     from repro_torch.core.rules import serving_pow2
     from repro_torch.models import api
-    from repro_torch.runtime.engine import synthetic_requests
+    from repro_torch.runtime.engine import Engine, synthetic_requests
     from repro_torch.runtime.serving import generate
 
     cfg = get_config("h2o-danube-1.8b").replace(quant=serving_pow2(),
@@ -1044,7 +1047,24 @@ def serve_pow2_full_width():
                                            max_new=64, seed=0))
     eng = engine_run("pow2", view, cfg, run, "lutq_shift",
                      SHIFT_CALLS_PER_FORWARD)
-    del view
+    # the engine's decode steps run lutq_shift at M = capacity: the same
+    # queue through the integer decode oracle must give the same tokens
+    t0 = time.perf_counter()
+    oracle_eng = Engine(view, oracle_cfg.replace(kv_cache_bits=run["kv_bits"]),
+                        capacity=run["capacity"], max_len=run["max_len"],
+                        kv_pages=run["kv_pages"], page_size=ENGINE_PAGE,
+                        device="cuda")
+    for req in run["requests"]:
+        oracle_eng.submit(req["tokens"], max_new=req["max_new"])
+    oracle_toks = [x["tokens"] for x in oracle_eng.run()]
+    same = [torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+            for x, y in zip(eng.pop("tokens"), oracle_toks)]
+    log(f"engine run (pow2) against the decode oracle's engine run "
+        f"({time.perf_counter() - t0:.1f} s): tokens identical in "
+        f"{sum(same)} of {len(same)} requests")
+    check(len(same) == len(run["requests"]) and all(same),
+          "pow2 engine tokens: kernel and oracle differ")
+    del view, oracle_eng
     torch.cuda.empty_cache()
     return dict(stats, launches=counts["lutq_shift"]
                 + eng["launches"]["lutq_shift"], peak_gib=peak,

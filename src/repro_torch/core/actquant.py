@@ -8,19 +8,18 @@ quantization in the working dtype, in the reference's op order: amax,
 x)``: it rounds exactly as the reference's does, and its gradient to x
 is the identity.
 
-Calibration: :func:`tag_act_capture` gives a view of a model whose
-quantized leaves carry their logical (stacked) path as a tag; inside
-:func:`capture_act_scales`, the matmul boundary
-(``nn.linear.dot_kernel``) folds max|x| of every call into one running
-maximum per tag (:func:`record_amax`), so the layers of one logical leaf
-share one maximum, as the slices of the reference's stacked leaf do;
+Calibration: inside :func:`capture_act_scales` (model), the matmul
+boundary (``nn.linear.dot_kernel``) folds max|x| of every call into one
+running maximum per logical (stacked) path of the model's quantized
+leaves (:func:`record_amax`), so the layers of one logical leaf share one
+maximum, as the slices of the reference's stacked leaf do;
 :func:`apply_act_scales` freezes the maxima into ``[scale, qmax]``
 pairs.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,35 +51,29 @@ def fake_quant_frozen(x: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
 # calibration: capture per-leaf activation maxima, freeze [scale, qmax]
 # ---------------------------------------------------------------------------
 
-class TaggedLutqState(NamedTuple):
-    """A :class:`LutqState` carrying its logical path as a tag.
-
-    Calibration-only: ``nn.tree.leaf`` hands one out for a quantized
-    leaf of a :func:`tag_act_capture` view, ``nn.linear.dot_kernel``
-    records the activation under the tag and unwraps it, and it never
-    leaves the calibration forward.
-    """
-
-    state: LutqState
-    tag: str
-
-
-# Active capture record: {tag: running max |x|}. None == not capturing.
-_CAPTURE: Optional[Dict[str, torch.Tensor]] = None
+# Active capture: ({id(d): logical path of the leaf}, {path: running
+# max |x|}). None == not capturing.
+_CAPTURE: Optional[Tuple[Dict[int, str], Dict[str, torch.Tensor]]] = None
 
 
 @contextlib.contextmanager
-def capture_act_scales():
-    """Context manager yielding the ``{tag: amax}`` record dict.
+def capture_act_scales(model: torch.nn.Module):
+    """Context manager yielding the ``{logical path: amax}`` record dict.
 
-    Run calibration forwards inside the block, on a view made by
-    :func:`tag_act_capture`. While the block runs the maxima are
-    0-dim device tensors (no host sync per call); on leaving it they
-    are read in one transfer and the dict holds Python floats.
+    Run calibration forwards of ``model`` inside the block; a quantized
+    leaf is known by its dictionary tensor ``d``. While the block runs
+    the maxima are 0-dim device tensors (no host sync per call); on
+    leaving it they are read in one transfer and the dict holds Python
+    floats.
     """
+    from repro_torch.nn.tree import QuantKernel, logical_path
+
     global _CAPTURE
-    prev, _CAPTURE = _CAPTURE, {}
-    rec = _CAPTURE
+    paths = {id(mod.d): "/".join(logical_path(tuple(name.split(".")))[0])
+             for name, mod in model.named_modules()
+             if isinstance(mod, QuantKernel)}
+    prev, _CAPTURE = _CAPTURE, (paths, {})
+    rec = _CAPTURE[1]
     try:
         yield rec
     finally:
@@ -90,30 +83,22 @@ def capture_act_scales():
             rec.update(zip(list(rec), vals))
 
 
-def record_amax(tag: str, x: torch.Tensor) -> None:
-    """Fold max|x| into the active capture record (no-op when inactive).
+def record_amax(kernel: LutqState, x: torch.Tensor) -> None:
+    """Fold max|x| into the active capture record under ``kernel``'s
+    logical path (no-op when inactive or for a leaf of another model).
 
-    Every call with the same tag, from any layer, folds into one maximum:
-    calibration is per logical leaf, not per layer.
+    Every call of one logical leaf, from any layer, folds into one
+    maximum: calibration is per logical leaf, not per layer.
     """
-    rec = _CAPTURE
-    if rec is None:
+    if _CAPTURE is None:
+        return
+    paths, rec = _CAPTURE
+    path = paths.get(id(kernel.d))
+    if path is None:
         return
     amax = x.detach().abs().amax().float()
-    prev = rec.get(tag)
-    rec[tag] = amax if prev is None else torch.maximum(prev, amax)
-
-
-def tag_act_capture(model: torch.nn.Module) -> torch.nn.Module:
-    """A view of ``model`` (sharing every tensor) whose quantized leaves
-    are tagged with their logical path for calibration capture."""
-    from repro_torch.nn.tree import QuantKernel, clone_structure, logical_path
-
-    view = clone_structure(model)
-    for name, mod in view.named_modules():
-        if isinstance(mod, QuantKernel):
-            mod.tag = "/".join(logical_path(tuple(name.split(".")))[0])
-    return view
+    prev = rec.get(path)
+    rec[path] = amax if prev is None else torch.maximum(prev, amax)
 
 
 def apply_act_scales(model: torch.nn.Module, record: Dict[str, float],

@@ -37,7 +37,7 @@ class QuantSpec:
         ``fake_quant`` calls.
       act_frozen: freeze the activation scale from a calibration batch
         (``core/actquant.capture_act_scales`` →
-        ``policy.apply_act_scales``) instead of recomputing the max-abs
+        ``actquant.apply_act_scales``) instead of recomputing the max-abs
         scale per call. Required for deployment and for the integer
         ``pow2`` kernel path under K-sharded SPMD.
     """

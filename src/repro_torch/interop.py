@@ -240,10 +240,12 @@ def load_train_state(state, tree) -> None:
     for name, mod in model.named_modules():
         if isinstance(mod, QuantKernel) and mod.act is None:
             path, i = layer_split(tuple(name.split(".")) + ("__lutq_act",))
-            try:
-                act = _fetch(tree["static"], path, i)
-            except (KeyError, TypeError):
+            node = tree["static"]
+            for k in path[:-1]:
+                node = node[k]
+            if "__lutq_act" not in node:  # not calibrated
                 continue
+            act = _fetch(node, path[-1:], i)
             mod.act = torch.empty(act.shape, dtype=torch.float32,
                                   device=mod.d.device)
     keys = _ref_keys(model)

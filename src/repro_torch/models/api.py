@@ -69,7 +69,7 @@ def calibrate(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None
     """Freeze activation scales from one short calibration batch, in
     place; returns ``model``.
 
-    Runs a prefill forward of a tagged view of the model under
+    Runs a prefill forward of the model under
     :func:`repro_torch.core.actquant.capture_act_scales` (max|x| at each
     matmul boundary, one maximum per logical leaf), then installs
     ``[scale, qmax]`` pairs into the ``act`` of every leaf whose rule has
@@ -77,13 +77,10 @@ def calibrate(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None
     ``serve_view`` and checkpoints; the pow2 backend quantizes
     activations with them instead of a per-call max.
     """
-    from repro_torch.core.actquant import (apply_act_scales,
-                                           capture_act_scales,
-                                           tag_act_capture)
+    from repro_torch.core.actquant import apply_act_scales, capture_act_scales
 
-    tagged = tag_act_capture(model)
-    with torch.no_grad(), capture_act_scales() as record:
-        prefill(tagged, cfg, batch, lengths=lengths)
+    with torch.no_grad(), capture_act_scales(model) as record:
+        prefill(model, cfg, batch, lengths=lengths)
     return apply_act_scales(model, record, quant=resolved_policy(cfg))
 
 

@@ -16,8 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core.actquant import (TaggedLutqState, fake_quant,
-                                       fake_quant_frozen, record_amax)
+from repro_torch.core.actquant import (fake_quant, fake_quant_frozen,
+                                       record_amax)
 from repro_torch.core.lutq import (LutqState, decode_any, index_of,
                                    quantize_ste_any)
 from repro_torch.kernels.ops import lutq_dot
@@ -42,8 +42,6 @@ class Embedding(nn.Module):
 def materialize(kernel, dtype=None) -> torch.Tensor:
     """Decoded (quantized, STE on a train-form leaf) or raw kernel, cast
     for compute."""
-    if isinstance(kernel, TaggedLutqState):  # calibration view
-        kernel = kernel.state
     if isinstance(kernel, LutqState):
         a = kernel.a
         if a.dtype == torch.uint8:  # packed 4-bit pairs (serve_view pack4)
@@ -73,12 +71,12 @@ def dot_kernel(x: torch.Tensor, kernel, *, dtype=None, backend: str = "auto",
                transpose_rhs: bool = False, act_bits: int = 32) -> torch.Tensor:
     """``x @ kernel`` (or ``x @ kernel.T``) with LUT-Q-aware dispatch.
 
-    On a calibration view the activation's max|x| is recorded under the
-    leaf's tag first, before it is quantized (as in the reference).
+    Under :func:`repro_torch.core.actquant.capture_act_scales` the
+    activation's max|x| is recorded for the leaf first, before it is
+    quantized (as in the reference).
     """
-    if isinstance(kernel, TaggedLutqState):
-        record_amax(kernel.tag, x)
-        kernel = kernel.state
+    if isinstance(kernel, LutqState):
+        record_amax(kernel, x)
     x = _quant_act(x, kernel, act_bits)
     if isinstance(kernel, LutqState):
         return lutq_dot(x, kernel, backend=backend,
@@ -127,8 +125,6 @@ def embedding_apply(p: Embedding, ids: torch.Tensor, *, dtype=None
     from packed row ``r // 2``: there the full table is never decoded.
     """
     t = leaf(p, "table")
-    if isinstance(t, TaggedLutqState):  # calibration view
-        t = t.state
     ids = ids.long()
     if not isinstance(t, LutqState) or t.w is not None:
         return materialize(t, dtype)[ids]

@@ -24,7 +24,6 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.core.actquant import TaggedLutqState
 from repro_torch.core.lutq import LutqState
 
 Path = Tuple[str, ...]
@@ -35,11 +34,7 @@ STACKS = frozenset({"layers"})
 
 class QuantKernel(nn.Module):
     """One quantized weight: the master ``w`` (a parameter, or None in
-    the serve form) and ``d``, ``a``, ``sid``, ``act`` as buffers.
-    ``tag`` is set only on the calibration view
-    (:func:`repro_torch.core.actquant.tag_act_capture`)."""
-
-    tag: Optional[str] = None
+    the serve form) and ``d``, ``a``, ``sid``, ``act`` as buffers."""
 
     def __init__(self, state: LutqState):
         super().__init__()
@@ -54,12 +49,9 @@ class QuantKernel(nn.Module):
 
 
 def leaf(module: nn.Module, name: str):
-    """The tensor or :class:`LutqState` stored under ``name`` (a
-    :class:`TaggedLutqState` on a calibration view)."""
+    """The tensor or :class:`LutqState` stored under ``name``."""
     v = getattr(module, name)
-    if not isinstance(v, QuantKernel):
-        return v
-    return v.state if v.tag is None else TaggedLutqState(v.state, v.tag)
+    return v.state if isinstance(v, QuantKernel) else v
 
 
 def tree_paths(module: nn.Module, prefix: Path = ()

@@ -79,22 +79,20 @@ def test_cuda_fused_k256_reads_unsigned_bytes(cuda_device):
     assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max()
 
 
-def _shift_operands(M, Kin, N, K, g, span=9, extreme=False, offset=0):
-    """xq, a (at ``offset`` bytes into its buffer) and wsh of a pow2
-    dictionary of K codes with nonzero magnitudes 1..span+1, a zero code
-    and both signs. ``extreme``: every xq at ±127 with the sign of its
-    row's weights, the largest |acc| the guard allows."""
+def _shift_operands(M, Kin, N, K, g, span=9, extreme=False):
+    """xq, a and wsh of a pow2 dictionary of K codes with nonzero
+    magnitudes 1..span+1, a zero code and both signs. ``extreme``: every
+    xq at ±127 with the sign of its row's weights, the largest |acc| the
+    guard allows."""
     code = torch.randint(1, span + 2, (K,), generator=g, dtype=torch.int32)
     code[0], code[-1] = 1, span + 1
     code = code * (torch.randint(0, 2, (K,), generator=g) * 2 - 1)
     if K > 2:
         code[1] = 0
     wsh = pow2_shift_weights(code.to(torch.int8))
-    buf = torch.randint(-128, 128, (Kin * N + offset,), generator=g,
-                        dtype=torch.int8)
+    a = torch.randint(-128, 128, (Kin, N), generator=g, dtype=torch.int8)
     if K < 256:
-        buf = buf.view(torch.uint8) % K
-    a = buf[offset:].view(torch.int8).view(Kin, N)
+        a = (a.view(torch.uint8) % K).view(torch.int8)
     if extreme:
         a = torch.full((Kin, N), K - 1, dtype=torch.int8)
         xq = torch.where(wsh[K - 1] > 0, 127, -127) * torch.ones(
@@ -118,10 +116,16 @@ SHIFT_CASES = [(1, 96, 211, 16, 0), (4, 2560, 640, 16, 0),
 def test_cuda_lutq_shift_matches_plain_bit_exact(cuda_device, M, Kin, N, K,
                                                  offset):
     g = torch.Generator().manual_seed(M * 7 + K)
-    xq, a, wsh = _shift_operands(M, Kin, N, K, g, offset=offset)
+    xq, a, wsh = _shift_operands(M, Kin, N, K, g)
     want = lutq_shift_ref(xq, a, wsh)
+    # a at ``offset`` bytes into a buffer on the card: its rows are
+    # unaligned unless offset and N allow wider loads
+    buf = torch.zeros(Kin * N + offset, dtype=torch.int8, device=cuda_device)
+    a_card = buf[offset:].view(Kin, N)
+    a_card.copy_(a)
+    assert a_card.data_ptr() % 4 == offset % 4
     before = dict(lutq_shift.COUNTS)
-    got = lutq_shift.lutq_shift(xq.to(cuda_device), a.to(cuda_device),
+    got = lutq_shift.lutq_shift(xq.to(cuda_device), a_card,
                                 wsh.to(cuda_device))
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
