@@ -46,6 +46,27 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    (indices >= 128 stored as negative int8), zero entries, both signs,
    and operands at the overflow guard's limit (7 + span + ceil(log2
    Kin) = 31, every term at its largest).
+2e. flash attention (the counterpart of the TPU kernel
+   flash_attention_tpu) against its plain version on the card: the
+   shapes of tests/test_flash_kernel.py (S, D, bq, bk in (256, 64, 128,
+   128), (512, 128, 128, 128), (256, 64, 64, 128), (384, 32, 128, 128),
+   BH=3), causal and full, f32 and bf16; danube's prefill geometry in the
+   GQA layout (B=4, S=512, 32 query heads over 8 KV heads repeated per
+   group, D=80: BH=128) and one 4096-token row (BH=32, D=80), bf16,
+   causal. Error of each query row over that row's max|plain|: at most
+   1e-5 for f32 (f32 sums in another order), 2^-7 for bf16 (one bf16
+   ulp of the row). K/V rows [S/2, S) of the danube geometry set to NaN
+   with bq = S/2 and bk = 128 (the kernel's largest kv tile): rows [0,
+   S/2) must keep their bits (skipped blocks are never read). The same
+   geometry against the port's own prefill attention
+   (nn.attention.flash_attention, window 4096): 1e-5 in f32; 2^-5 in
+   bf16, where that path rounds q * scale and its scores to bf16 (the
+   errors of both against f64 attention are printed). Every call
+   launches the kernel; no plain version runs.
+2f. the card divides where the reference divides: fake_quant (8 and 16
+   bits) on (4, 128, 2560) activations and _kv_quant on (4, 128, 8, 80)
+   K/V, f32 and bf16, with maxima where amax * f32(1/127) != amax / 127,
+   equal the CPU's bit for bit (int8 bytes and bf16 scales included).
 3c. paged engine: full-width h2o-danube-1.8b (the phase-3 serve views)
    through Engine(kv_pages=...), page 64, 8-bit activations: (a) 24
    synthetic requests (prompts 128-512, 8-64 new tokens) on 8 slots,
@@ -104,7 +125,13 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    than twice the L2, beside its byte bound (the valid positions' K/V
    rows and scales, q, out and the block table), its plain version
    and scaled_dot_product_attention on a pre-gathered, pre-dequantized
-   row (a yardstick the port never calls).
+   row (a yardstick the port never calls); flash attention at phase
+   2e's danube geometry and 4096-token row, operands rotated through
+   more than twice the L2, beside its bound (the larger of q, k, v and
+   out at the HBM rate and 4 BH D S(S+1)/2 causal bf16 operations at
+   the tensor-core peak), its plain version and
+   scaled_dot_product_attention(..., is_causal=True) on the same tensors
+   viewed as (B, H, S, D) (a yardstick the port never calls).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout,
@@ -133,6 +160,24 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # two f32 sums differ in their last bits; 1e-5 for f32 q (f32 sums in
 # another order)
 PAGED_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# flash attention, per (row, query) of that query row's max|plain|: one
+# bf16 ulp of the row (2^-7) for bf16, 1e-5 for f32 (f32 sums in another
+# order). Against the port's prefill attention (nn.attention.flash_
+# attention, the reference's jnp path): 1e-5 in f32; in bf16 that path
+# scales q in bf16 and rounds its scores to bf16 (jnp's bf16 einsum), which
+# alone puts it ~2^-6 of the row max from exact attention at danube's
+# geometry, three times as far as the kernel's function (phase 2e logs
+# both against f64 attention), so the bound there is 2^-5
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+FLASH_PREFILL_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+# danube's prefill attention at phase 3's batch in the GQA layout of
+# tests/test_flash_kernel.py, and one 4096-token row
+FLASH_DANUBE = dict(B=4, S=512, H=32, Hkv=8, D=80)
+FLASH_LONG = dict(B=1, S=4096, H=32, Hkv=8, D=80)
+# float32 maxima where amax * f32(1/127) != amax / 127 (found with numpy)
+RECIPROCAL_MISSES = [float.fromhex(h) for h in (
+    "0x1.7166ecp+2", "0x1.499822p+1", "0x1.968e02p+0", "0x1.d6c39ap-1",
+    "0x1.69f1eep-11", "0x1.4bc9bap+7")]
 
 # danube's (Kin, N) per layer, with calls per forward, and the head
 LAYER_SHAPES = {"q/o": ((2560, 2560), 2), "k/v": ((2560, 640), 2),
@@ -177,6 +222,9 @@ KERNELS = {
     "paged_attention_multipass": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attn.cu",
         replaces="src/repro/kernels/paged_attn.py:342"),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn.py:73"),
 }
 
 
@@ -442,6 +490,196 @@ def shift_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2e
+# ---------------------------------------------------------------------------
+
+def _flash_gqa(g, dtype, dev, B, S, H, Hkv, D):
+    """(B, S, H, D) queries and (B, S, Hkv, D) keys and values, and the
+    kernel's (B*H, S, D) operands with each KV head repeated for its
+    query heads, as tests/test_flash_kernel.py lays out GQA."""
+    import torch
+
+    G = H // Hkv
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
+    qf = q.reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(-1, S, D)
+    kf = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).reshape(-1, S, D)
+    vf = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).reshape(-1, S, D)
+    return (q, k, v), (qf.contiguous(), kf.contiguous(), vf.contiguous())
+
+
+def _flash_rows(got, want):
+    """(max |got - want|, worst row error over that row's own max|want|,
+    per-row errors, per-row maxima)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    ref = want.float().abs().amax(-1)
+    rel = err / ref.clamp_min(1e-30)
+    return err.max().item(), rel.max().item(), err, ref
+
+
+def _exact_attention(q, k, v):
+    """Causal softmax attention of (BH, S, D) operands in float64."""
+    import torch
+
+    S = q.shape[1]
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) \
+        * q.shape[-1] ** -0.5
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).triu(1)
+    s = s.masked_fill(mask, float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=-1), v.double())
+
+
+def flash_checks():
+    """Kernel 5 against its plain version on the card: the JAX test's
+    shapes (f32 and bf16, causal and not), danube's prefill geometry in
+    the GQA layout and one 4096-token row (bf16, causal); NaN-poisoned
+    skipped blocks; the danube geometry against the port's own prefill
+    attention. Returns the largest |kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.nn.attention import flash_attention as prefill_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(3, S, D, bq, bk, causal, dt)
+             for S, D, bq, bk in ((256, 64, 128, 128), (512, 128, 128, 128),
+                                  (256, 64, 64, 128), (384, 32, 128, 128))
+             for causal in (True, False) for dt in (f32, bf16)]
+    cases.append((FLASH_LONG["B"] * FLASH_LONG["H"], FLASH_LONG["S"],
+                  FLASH_LONG["D"], 128, 128, True, bf16))
+    worst = 0.0
+    flash_attn.COUNTS.update(launches=0, plain=0)
+    for BH, S, D, bq, bk, causal, dt in cases:
+        q, k, v = (torch.randn((BH, S, D), generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        want = flash_attention_ref(q, k, v, causal=causal, bq=bq, bk=bk)
+        got = flash_attn.flash_attention(q, k, v, causal=causal, bq=bq,
+                                         bk=bk)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dt).split(".")[-1]]
+        err, rel, row_err, ref = _flash_rows(got, want)
+        log(f"check flash_attention BH={BH} S={S} D={D} bq={bq} bk={bk} "
+            f"causal={causal} {dt}: max_abs_err {err:.3e} | worst row "
+            f"{rel:.2e} of its own max (tol {tol:.1e})")
+        check(got.dtype == dt and got.shape == q.shape,
+              "flash_attention: wrong output dtype or shape")
+        check(bool(torch.isfinite(got).all()),
+              "flash_attention produced non-finite values")
+        check(bool((row_err <= tol * ref).all()),
+              "flash_attention disagrees with its plain version")
+        worst = max(worst, err)
+        del q, k, v, want, got
+    # danube's geometry: skipped blocks are never read, and the kernel
+    # computes the port's own prefill attention (window 4096 > S)
+    geo = FLASH_DANUBE
+    B, S, H, Hkv, D = (geo[x] for x in ("B", "S", "H", "Hkv", "D"))
+    (q, k, v), (qf, kf, vf) = _flash_gqa(g, bf16, dev, **geo)
+    half = S // 2
+    clean = flash_attn.flash_attention(qf, kf, vf, bq=half, bk=128)
+    kp, vp = kf.clone(), vf.clone()
+    kp[:, half:], vp[:, half:] = float("nan"), float("nan")
+    poisoned = flash_attn.flash_attention(qf, kp, vp, bq=half, bk=128)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(poisoned[:, :half], clean[:, :half]))
+    log(f"check flash_attention NaN in K/V rows [{half}, {S}), bq={half} "
+        f"bk=128 (the kernel's largest kv tile): rows [0, {half}) keep "
+        f"their bits {same}")
+    check(same, "flash_attention read a kv block that the reference skips")
+    flat = flash_attn.flash_attention(qf, kf, vf)
+    plain = flash_attention_ref(qf, kf, vf)
+    torch.cuda.synchronize()
+    err, rel, row_err, ref = _flash_rows(flat, plain)
+    log(f"check flash_attention danube prefill B={B} S={S} H={H} Hkv={Hkv} "
+        f"D={D} (BH={B * H}, GQA layout) bf16 causal: max_abs_err "
+        f"{err:.3e} | worst row {rel:.2e} of its own max (tol "
+        f"{FLASH_TOL['bfloat16']:.1e})")
+    check(bool((row_err <= FLASH_TOL["bfloat16"] * ref).all()),
+          "flash_attention disagrees with its plain version")
+    worst = max(worst, err)
+    # the same inputs in f32 run the kernel's f32 path
+    operands = {bf16: (q, k, v, flat),
+                f32: (q.float(), k.float(), v.float(),
+                      flash_attn.flash_attention(qf.float(), kf.float(),
+                                                 vf.float()))}
+    for dt, (qd, kd, vd, fd) in operands.items():
+        got = fd.reshape(B, Hkv, H // Hkv, S, D).permute(0, 3, 1, 2, 4)
+        got = got.reshape(B, S, H, D)
+        want = prefill_attention(qd, kd, vd, window=4096)
+        torch.cuda.synchronize()
+        err, rel, row_err, ref = _flash_rows(got, want)
+        tol = FLASH_PREFILL_TOL[str(dt).split(".")[-1]]
+        if dt == bf16:
+            exact = _exact_attention(qf, kf, vf).reshape(
+                B, Hkv, H // Hkv, S, D).permute(0, 3, 1, 2, 4).reshape(
+                    B, S, H, D)
+            log(f"  against f64 attention of the same bf16 inputs, worst row "
+                f"over its own max: kernel {_flash_rows(got, exact)[1]:.2e}"
+                f" | the port's prefill attention "
+                f"{_flash_rows(want, exact)[1]:.2e}")
+            del exact
+        log(f"check flash_attention vs the port's prefill attention "
+            f"(nn.attention.flash_attention, window 4096) B={B} S={S} "
+            f"H={H} Hkv={Hkv} D={D} {dt}: max_abs_err {err:.3e} | worst row "
+            f"{rel:.2e} of its own max (tol {tol:.1e})")
+        check(bool((row_err <= tol * ref).all()),
+              "flash_attention disagrees with the port's prefill attention")
+    counts = dict(flash_attn.COUNTS)
+    log(f"flash_attention counts {counts}")
+    check(counts["launches"] == len(cases) + 4 and counts["plain"] == 0,
+          f"flash_attention did not launch its kernel every call: {counts}")
+    return float(worst)
+
+
+# ---------------------------------------------------------------------------
+# phase 2f
+# ---------------------------------------------------------------------------
+
+def quant_divide_checks():
+    """The activation and KV quantizers on the card equal the CPU's bit
+    for bit at danube's full-width shapes, with maxima where a reciprocal
+    multiply would miss the scale by an ulp."""
+    import torch
+
+    from repro_torch.core.actquant import fake_quant
+    from repro_torch.models.lm import _kv_quant
+
+    g = torch.Generator().manual_seed(13)
+    for dt in (torch.float32, torch.bfloat16):
+        for amax in RECIPROCAL_MISSES:
+            x = (torch.rand((BATCH, PROMPT, 2560), generator=g) * 2 - 1) \
+                * (0.99 * amax)
+            x[0, 0, 0] = -amax
+            x = x.to(dt)
+            for bits in (8, 16):
+                want = fake_quant(x, bits)
+                got = fake_quant(x.cuda(), bits).cpu()
+                check(torch.equal(got, want), f"fake_quant on the card "
+                      f"differs from the CPU ({dt}, {bits} bits, amax "
+                      f"{amax!r})")
+        misses = torch.tensor(RECIPROCAL_MISSES)
+        shape = (BATCH, PROMPT, 8, 80)
+        rows = shape[0] * shape[1] * shape[2]
+        amax = misses.repeat(-(-rows // len(misses)))[:rows].reshape(
+            shape[:-1])
+        t = (torch.rand(shape, generator=g) * 2 - 1) * (0.99 * amax[..., None])
+        t[..., 0] = -amax
+        t = t.to(dt)
+        want_q, want_s = _kv_quant(t, 8)
+        got_q, got_s = _kv_quant(t.cuda(), 8)
+        check(torch.equal(got_q.cpu(), want_q) and
+              torch.equal(got_s.cpu(), want_s),
+              f"_kv_quant on the card differs from the CPU ({dt})")
+        log(f"check fake_quant (B={BATCH}, S={PROMPT}, 2560; 8 and 16 bits) "
+            f"and _kv_quant ({', '.join(map(str, shape))}) {dt}: card equals "
+            f"CPU bit for bit at {len(RECIPROCAL_MISSES)} maxima where "
+            f"amax * f32(1/127) != amax / 127")
+
+
+# ---------------------------------------------------------------------------
 # phase 2c
 # ---------------------------------------------------------------------------
 
@@ -561,12 +799,13 @@ def paged_kernel_checks():
 # ---------------------------------------------------------------------------
 
 def _count_dicts():
-    from repro_torch.kernels import (kmeans_stats, lutq_gemv_packed,
-                                     lutq_matmul, lutq_shift, ops, paged_attn)
+    from repro_torch.kernels import (flash_attn, kmeans_stats,
+                                     lutq_gemv_packed, lutq_matmul,
+                                     lutq_shift, ops, paged_attn)
 
     return (lutq_matmul.COUNTS, lutq_gemv_packed.COUNTS, kmeans_stats.COUNTS,
             ops.COUNTS, paged_attn.COUNTS, paged_attn.VARIANTS,
-            lutq_shift.COUNTS)
+            lutq_shift.COUNTS, flash_attn.COUNTS)
 
 
 def _reset_counts():
@@ -576,11 +815,12 @@ def _reset_counts():
 
 
 def _read_counts():
-    mm, gp, km, ops, pa, variants, sh = _count_dicts()
+    mm, gp, km, ops, pa, variants, sh, fa = _count_dicts()
     return {"lutq_matmul": mm["launches"], "lutq_gemv_packed": gp["launches"],
             "lutq_shift": sh["launches"], "kmeans_stats": km["launches"],
+            "flash_attention": fa["launches"],
             **variants, "plain": (mm["plain"] + gp["plain"] + sh["plain"]
-                                  + km["plain"] + pa["plain"]),
+                                  + km["plain"] + pa["plain"] + fa["plain"]),
             "decode": ops["decode"]}
 
 
@@ -684,6 +924,9 @@ def serve_full_width():
             logits, _ = api.prefill(view, run_cfg, {"tokens": toks.cuda()})
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
         launches[kname] = counts[kname]
+        # the prefill's attention is plain torch, as the reference's is
+        launches["flash_attention"] = (launches.get("flash_attention", 0)
+                                       + counts["flash_attention"])
         tokens[kname] = out.cpu()
         log(f"  sample tokens {out[0, :8].tolist()}")
         wall_ms, busy_ms = profile_generate(view, run_cfg, toks)
@@ -1580,6 +1823,57 @@ def paged_timings(card: str, run_a_lens):
     return out
 
 
+def flash_timings(card: str):
+    """Kernel 5 at danube's prefill geometry (GQA layout, bf16, causal)
+    and at one 4096-token row, operands rotated through more than twice
+    the L2, beside its bound (the larger of q, k, v and out at the HBM
+    rate and 4·BH·D·S(S+1)/2 causal bf16 operations at the tensor-core
+    peak), its plain version and scaled_dot_product_attention(...,
+    is_causal=True) on the same tensors (a yardstick the port never
+    calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for label, geo in (("danube", FLASH_DANUBE), ("4096", FLASH_LONG)):
+        _, (q, k, v) = _flash_gqa(g, torch.bfloat16, dev, **geo)
+        BH, S, D = q.shape
+        nbytes = 4 * q.numel() * 2
+        n = _copies(nbytes)
+        sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
+        t, t_loop = time_ms(flash_attn.flash_attention, sets,
+                            iters=max(40, 2 * n))
+        tp, _ = time_ms(flash_attention_ref, sets[:2], iters=2, graph=False)
+
+        # the same tensors as (B, H, S, D) views: PyTorch's fused
+        # attention backends take 4-d operands (3-d ones run its math path)
+        heads = (geo["B"], geo["H"], S, D)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(
+                q.view(heads), k.view(heads), v.view(heads), is_causal=True)
+        tl, _ = time_ms(library, sets, iters=max(40, 2 * n))
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        to = 4 * BH * D * S * (S + 1) / 2 / PEAK_FLOPS["bfloat16"] * 1e3
+        b, by = max(tb, to), ("bytes" if tb >= to else "operations")
+        log(f"time flash_attention {label} BH={BH} S={S} D={D} bf16 causal: "
+            f"kernel {t * 1e3:.1f} us (host loop {t_loop * 1e3:.1f} us) | "
+            f"bound {b * 1e3:.2f} us ({by}; bytes {tb * 1e3:.2f} us, "
+            f"operations {to * 1e3:.2f} us) = {b / t * 100:.1f}% | plain "
+            f"{tp * 1e3:.1f} us | sdpa {tl * 1e3:.1f} us (the kernel takes "
+            f"{t / tl:.2f}x its time) | {card}")
+        out[label] = dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
+                          bound_by=by)
+        del sets, q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1593,6 +1887,8 @@ def main() -> int:
     worst["kmeans_stats"] = kmeans_checks()
     worst.update(paged_kernel_checks())
     worst["lutq_shift"] = shift_checks()
+    worst["flash_attention"] = flash_checks()
+    quant_divide_checks()
     launches, _, views, cfg = serve_full_width()
     reduced_reference()
     engine = engine_runs(views, cfg)
@@ -1622,6 +1918,8 @@ def main() -> int:
                               plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
                               bound_by=g["bound_by"],
                               library_ms=g["library_ms"])
+    # kernel 5: danube's prefill geometry (the 4096 row is logged)
+    table["flash_attention"] = flash_timings(card)["danube"]
     records = []
     for kname, meta in KERNELS.items():
         t = table[kname]
@@ -1635,7 +1933,9 @@ def main() -> int:
             # one training step, its 340 calls; paged
             # attention: one call at run (a)'s geometry (shared-memory
             # variant) and at run (c)'s longest row (workspace variant,
-            # forced: on the engine's path danube's rows never need it)
+            # forced: on the engine's path danube's rows never need it);
+            # flash attention: one call at danube's prefill geometry (no
+            # path of the reference or the port reaches it: 0 launches)
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.lutq import LutqState
+from repro_torch.device import scalar_like
 
 
 def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
@@ -32,7 +33,9 @@ def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     if bits >= 32:
         return x
     qmax = 2.0 ** (bits - 1) - 1.0
-    scale = torch.clamp(x.detach().abs().max(), min=1e-8) / qmax
+    # the quotient in float32, rounded once to x's dtype, as on the CPU
+    amax = torch.clamp(x.detach().abs().max(), min=1e-8)
+    scale = (amax / scalar_like(qmax, x)).to(x.dtype)
     q = torch.clamp(torch.round(x / scale), -qmax - 1.0, qmax) * scale
     return x + (q - x).detach()
 

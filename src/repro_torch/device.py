@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the divisor form
+that the card divides by."""
 from __future__ import annotations
 
 import torch
@@ -16,3 +17,14 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (CLI: --device cpu) to run on the CPU")
     return dev
+
+
+def scalar_like(c: float, t: torch.Tensor) -> torch.Tensor:
+    """``c`` as a 0-dim float32 tensor on ``t``'s device.
+
+    Dividing by it divides on the card as on the CPU, as the reference
+    divides: PyTorch multiplies a CUDA tensor by the float32 reciprocal
+    of a Python-number divisor, which misses the quotient by an ulp for
+    a few percent of dividends (and ``number / tensor`` is a reciprocal
+    times the number on every device)."""
+    return torch.full((), c, dtype=torch.float32, device=t.device)

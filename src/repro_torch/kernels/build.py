@@ -45,6 +45,10 @@ PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
 #: argtypes of the shift-add launcher: device, xq, a, align, wsh, n_dict,
 #: y, M, N, Kin, splits, kchunk, stream
 SHIFT_ARGTYPES = [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+#: argtypes of the flash-attention launcher: device, q, k, v, out, dtype,
+#: BH, S, Skv, D, bk, causal, scale, stream
+FLASH_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                  ctypes.c_float, _P]
 #: every C entry point of the library and its argtypes (all return int)
 SIGNATURES = {
     "lutq_matmul_launch": LAUNCH_ARGTYPES,
@@ -53,6 +57,7 @@ SIGNATURES = {
     "kmeans_stats_launch": KMEANS_ARGTYPES,
     "kmeans_stats_blocks": [_LL, _I, _I],  # n, n_dict, SMs -> grid size
     "paged_attention_launch": PAGED_ARGTYPES,
+    "flash_attention_launch": FLASH_ARGTYPES,
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -2,7 +2,8 @@
 the pow2 shift-add dictionary.
 
 ``lutq_matmul_ref``, ``lutq_gemv_packed_ref``, ``lutq_shift_ref``,
-``kmeans_stats_ref`` and ``paged_attention_ref`` are what the kernel
+``kmeans_stats_ref``, ``paged_attention_ref`` and
+``flash_attention_ref`` are what the kernel
 wrappers run for a tensor on the CPU, and what the kernels are held
 against on the card. Like the TPU kernels the float GEMMs cast each
 decoded weight to ``x.dtype`` before the product and accumulate in
@@ -141,3 +142,56 @@ def paged_attention_ref(q, k_pool, v_pool, block, cache_len, *, window=None,
         kc = kc.to(torch.bfloat16) * gather_pages(k_scale, block)[..., None]
         vc = vc.to(torch.bfloat16) * gather_pages(v_scale, block)[..., None]
     return decode_attention(q, kc, vc, cache_len, window=window, scale=scale)
+
+
+FLASH_NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal=True, scale=None, bq=128, bk=128):
+    """Blocked online-softmax attention as the reference's
+    ``repro.kernels.flash_attn._kernel`` computes it, block by block.
+
+    q: (BH, S, D); k, v: (BH, Skv, D), all float32 or all bfloat16.
+    For each q block i and kv block j (kv innermost): scores ``q @ k^T``
+    in float32 times ``scale``; under ``causal`` the scores where
+    ``i*bq + r < j*bk + c`` become -1e30 (no offset when ``Skv != S``)
+    and the kv blocks with ``j*bk >= (i+1)*bq`` are skipped, never read;
+    the running max, ``p = exp(s - m_new)``, ``alpha = exp(m_prev -
+    m_new)``, ``l = l*alpha + sum(p)`` and ``acc = acc*alpha + p.to(v's
+    dtype) @ v`` in float32; the output is ``acc / max(l, 1e-30)`` in
+    q's dtype. Products run on float32 copies (every bf16 product is
+    exact in float32). The caller checks shapes and block sizes.
+    """
+    BH, S, D = q.shape
+    Skv = k.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    bq, bk = min(bq, S), min(bk, Skv)
+    dev = q.device
+    out = torch.empty_like(q)
+    for i in range(S // bq):
+        qi = q[:, i * bq:(i + 1) * bq].float()
+        q_pos = i * bq + torch.arange(bq, device=dev)
+        m = torch.full((BH, bq, 1), FLASH_NEG_INF, device=dev)
+        l = torch.zeros((BH, bq, 1), device=dev)
+        acc = torch.zeros((BH, bq, D), device=dev)
+        for j in range(Skv // bk):
+            if causal and j * bk >= (i + 1) * bq:
+                continue  # strictly above the diagonal: never read
+            kj = k[:, j * bk:(j + 1) * bk].float()
+            vj = v[:, j * bk:(j + 1) * bk]
+            s = torch.matmul(qi, kj.transpose(1, 2)) * scale
+            if causal:
+                k_pos = j * bk + torch.arange(bk, device=dev)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
+                                torch.full_like(s, FLASH_NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p.to(vj.dtype).float(),
+                                             vj.float())
+            m = m_new
+        out[:, i * bq:(i + 1) * bq] = (acc / torch.clamp(l, min=1e-30)
+                                       ).to(q.dtype)
+    return out

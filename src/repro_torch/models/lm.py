@@ -21,6 +21,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import scalar_like
 from repro_torch.models.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.nn.attention import (decode_attention, flash_attention,
@@ -116,7 +117,7 @@ def attn_forward(p: Attention, cfg: ModelConfig, x, positions):
 def _kv_quant(t, bits):
     """Per-(batch, pos, head) symmetric int8 quant of KV entries."""
     amax = t.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) / scalar_like(127.0, t)
     q = torch.clamp(torch.round(t / scale), -127, 127).to(torch.int8)
     return q, scale[..., 0].to(torch.bfloat16)
 

@@ -20,6 +20,8 @@ from typing import Callable, Dict, NamedTuple, Union
 import numpy as np
 import torch
 
+from repro_torch.device import scalar_like
+
 Schedule = Union[float, Callable[[int], float]]
 Named = Dict[str, torch.Tensor]
 
@@ -94,10 +96,10 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         torch._foreach_add_(v, gg)
         del gg
         # upd = (m / c1) / (sqrt(v / c2) + eps) + wd * p
-        den = torch._foreach_div(v, c2)
+        den = torch._foreach_div(v, scalar_like(c2, v[0]))
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
-        upd = torch._foreach_div(m, c1)
+        upd = torch._foreach_div(m, scalar_like(c1, m[0]))
         torch._foreach_div_(upd, den)
         del den
         if weight_decay:
@@ -117,7 +119,8 @@ def clip_by_global_norm(grads: Named, max_norm: float):
     gs = list(grads.values())
     norms = torch._foreach_norm([g.float() for g in gs])
     gn = torch.sqrt(torch.stack(norms).square().sum())
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    scale = torch.clamp(scalar_like(max_norm, gn) / torch.clamp(gn, min=1e-12),
+                        max=1.0)
     torch._foreach_mul_(gs, scale)
     return grads, gn
 

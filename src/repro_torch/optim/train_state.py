@@ -21,6 +21,7 @@ from torch import nn
 
 from repro_torch.core.policy import kmeans_tree, split_trainable
 from repro_torch.models.config import ModelConfig
+from repro_torch.device import scalar_like
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
 _MESH_TODO = ("is not ported yet: multi-GPU training, ROADMAP queue 1 "
@@ -92,7 +93,7 @@ def make_train_step(
                 l, _ = loss_fn(model, cfg, mb)
                 l.backward()  # accumulates into .grad: the sum of parts
                 losses.append(l.detach())
-            loss = sum(losses) / microbatches
+            loss = sum(losses) / scalar_like(microbatches, losses[0])
             metrics = {}
         else:
             loss, metrics = loss_fn(model, cfg, batch)
@@ -101,7 +102,8 @@ def make_train_step(
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in trainable.items()}
         if microbatches > 1:
-            torch._foreach_div_(list(grads.values()), float(microbatches))
+            gs = list(grads.values())
+            torch._foreach_div_(gs, scalar_like(microbatches, gs[0]))
 
         gn = torch.zeros((), dtype=torch.float32, device=loss.device)
         if clip_norm is not None:

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, scalar_like
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import init_paged_workspace
@@ -248,7 +248,8 @@ class Engine:
         lg = logits[:, -1].float()
         if self.greedy:
             return torch.argmax(lg, dim=-1).to(torch.int32)
-        probs = torch.softmax(lg / max(self.temperature, 1e-6), dim=-1)
+        temp = scalar_like(max(self.temperature, 1e-6), lg)
+        probs = torch.softmax(lg / temp, dim=-1)
         out = torch.zeros(lg.shape[0], dtype=torch.int32, device=lg.device)
         for i, req in enumerate(reqs):
             if req is not None:

@@ -172,6 +172,54 @@ def test_fake_quant_matches_reference(bits, dtype):
                                   np.asarray(want.astype(jnp.float32)))
 
 
+#: float32 maxima where ``amax * f32(1/127) != amax / 127`` (found with
+#: numpy; tests/test_torch_cuda.py holds the card to the CPU on them)
+RECIPROCAL_MISSES = [float.fromhex(h) for h in (
+    "0x1.7166ecp+2", "0x1.499822p+1", "0x1.968e02p+0", "0x1.d6c39ap-1",
+    "0x1.69f1eep-11", "0x1.4bc9bap+7")]
+
+
+def test_reciprocal_misses_are_misses():
+    inv = np.float32(1) / np.float32(127)
+    for amax in np.asarray(RECIPROCAL_MISSES, np.float32):
+        assert amax * inv != amax / np.float32(127), amax
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_fake_quant_divides_at_reciprocal_misses(bits, dtype):
+    """At maxima where a reciprocal multiply misses the scale, the port
+    gives the reference's bits: both divide."""
+    rng = np.random.RandomState(5)
+    for amax in RECIPROCAL_MISSES:
+        x = (rng.uniform(-0.99, 0.99, (6, 96)) * amax).astype(np.float32)
+        x[2, 7] = -amax
+        want = j_fake_quant(jnp.asarray(x, getattr(jnp, dtype)), bits)
+        got = t_fake_quant(torch.from_numpy(x).to(getattr(torch, dtype)),
+                           bits)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_quant_divides_at_reciprocal_misses(dtype):
+    """Int8 bytes and bf16 scales of the KV quantizer equal the
+    reference's, with every (pos, head) row's max at such a value."""
+    from repro.models.lm import _kv_quant as j_kv_quant
+    from repro_torch.models.lm import _kv_quant as t_kv_quant
+
+    rng = np.random.RandomState(6)
+    amax = np.resize(np.asarray(RECIPROCAL_MISSES, np.float32), (2, 5, 4))
+    t = (rng.uniform(-0.99, 0.99, (2, 5, 4, 32)) * amax[..., None]).astype(
+        np.float32)
+    t[..., 3] = amax
+    jq, js = j_kv_quant(jnp.asarray(t, getattr(jnp, dtype)), 8)
+    tq, ts = t_kv_quant(torch.from_numpy(t).to(getattr(torch, dtype)), 8)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.float().numpy(),
+                                  np.asarray(js.astype(jnp.float32)))
+
+
 # ---------------------------------------------------------------------------
 # packing and serve views
 # ---------------------------------------------------------------------------

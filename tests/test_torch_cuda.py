@@ -17,17 +17,26 @@ largest output: the output rounds to bf16, and a bf16 score may round
 the other way where the two f32 sums differ in their last bits).
 ``lutq_shift``: equal to its plain version bit for bit (int32 sums), and
 the pow2 path's logits equal those of its integer decode oracle.
+Flash attention, per (row, query) over that query row's max|plain|:
+1e-5 for f32 (f32 sums in another order), 2^-7 for bf16 (one bf16 ulp
+of the row: the output rounds to bf16 after f32 sums in another order).
+The activation and KV quantizers, and the optimizer's divides, equal the
+CPU's bit for bit (the card divides where the reference divides).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (build, kmeans_stats, lutq_gemv_packed,
-                                 lutq_matmul, lutq_shift, paged_attn)
-from repro_torch.kernels.ref import (kmeans_stats_ref, lutq_gemv_packed_ref,
-                                     lutq_matmul_ref, lutq_shift_ref,
-                                     pack4_kin, paged_attention_ref,
-                                     pow2_shift_weights)
+from repro_torch.core.actquant import fake_quant
+from repro_torch.kernels import (build, flash_attn, kmeans_stats,
+                                 lutq_gemv_packed, lutq_matmul, lutq_shift,
+                                 paged_attn)
+from repro_torch.kernels.ref import (flash_attention_ref, kmeans_stats_ref,
+                                     lutq_gemv_packed_ref, lutq_matmul_ref,
+                                     lutq_shift_ref, pack4_kin,
+                                     paged_attention_ref, pow2_shift_weights)
+from repro_torch.models.lm import _kv_quant
+from repro_torch.device import scalar_like
 
 
 @pytest.fixture
@@ -387,3 +396,162 @@ def test_cuda_paged_engine_matches_cpu(cuda_device):
         assert (paged_attn.COUNTS["launches"] > launches) == (dev == "cuda")
     for a, b in zip(toks["cpu"], toks["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernel 5)
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+#: (BH, S, Skv, D, bq, bk, causal): the JAX test's shapes, a ragged S of
+#: one q block (S = bq = 40), Skv != S, and danube's head dim
+FLASH_CASES = [(3, 256, 256, 64, 128, 128, True),
+               (3, 512, 512, 128, 128, 128, False),
+               (3, 256, 256, 64, 64, 128, True),
+               (3, 384, 384, 32, 128, 128, True),
+               (2, 40, 48, 16, 128, 16, True),
+               (2, 128, 256, 80, 64, 32, False),
+               (4, 192, 192, 80, 64, 64, True)]
+
+
+def _flash_operands(BH, S, Skv, D, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(BH, S, D, generator=g).to(dtype)
+    k = torch.randn(BH, Skv, D, generator=g).to(dtype)
+    v = torch.randn(BH, Skv, D, generator=g).to(dtype)
+    return q.to(dev), k.to(dev), v.to(dev)
+
+
+def _flash_within(got, want, tol):
+    """Each query row of got within tol of that row's own max|want|."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return bool((err <= tol * want.float().abs().amax(-1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("BH,S,Skv,D,bq,bk,causal", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda_device, BH, S, Skv, D, bq,
+                                            bk, causal, dtype):
+    q, k, v = _flash_operands(BH, S, Skv, D, dtype, cuda_device)
+    want = flash_attention_ref(q, k, v, causal=causal, bq=bq, bk=bk)
+    before = dict(flash_attn.COUNTS)
+    got = flash_attn.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    assert _flash_within(got, want, FLASH_TOL[dtype])
+    assert flash_attn.COUNTS["launches"] == before["launches"] + 1
+    assert flash_attn.COUNTS["plain"] == before["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_never_reads_skipped_blocks(cuda_device, dtype):
+    """K/V rows [S/2, S) hold NaN and bq = bk = S/2: the first q block
+    never reads them, so its rows keep the bits of a clean run."""
+    S, b = 256, 128
+    q, k, v = _flash_operands(2, S, S, 80, dtype, cuda_device, seed=7)
+    clean = flash_attn.flash_attention(q, k, v, bq=b, bk=b)
+    k[:, b:], v[:, b:] = float("nan"), float("nan")
+    poisoned = flash_attn.flash_attention(q, k, v, bq=b, bk=b)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned[:, :b], clean[:, :b])
+    assert bool(torch.isnan(poisoned[:, b:]).any())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_raises_instead_of_falling_back(cuda_device,
+                                                             monkeypatch):
+    q, k, v = _flash_operands(2, 128, 128, 64, torch.bfloat16, cuda_device)
+    plain = flash_attn.COUNTS["plain"]
+
+    class FailedLaunch:
+        @staticmethod
+        def flash_attention_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    def failed_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(build, "load_library", lambda: FailedLaunch)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        flash_attn.flash_attention(q, k, v)
+    monkeypatch.setattr(build, "load_library", failed_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        flash_attn.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attn.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), bq=64, bk=64)
+    assert flash_attn.COUNTS["plain"] == plain
+
+
+# ---------------------------------------------------------------------------
+# the card divides where the reference divides
+# ---------------------------------------------------------------------------
+
+#: float32 maxima where ``amax * f32(1/127) != amax / 127``: a card that
+#: multiplied by the reciprocal would miss these scales by an ulp
+#: (found with numpy; tests/test_torch_core.py pins the same values to
+#: the JAX reference on the CPU)
+RECIPROCAL_MISSES = [float.fromhex(h) for h in (
+    "0x1.7166ecp+2", "0x1.499822p+1", "0x1.968e02p+0", "0x1.d6c39ap-1",
+    "0x1.69f1eep-11", "0x1.4bc9bap+7")]
+
+
+def _with_amax(shape, amax, g):
+    """Uniform values in (-amax, amax) with |x| = amax at one place of
+    each last-axis row (amax broadcast over the leading axes)."""
+    x = (torch.rand(shape, generator=g, dtype=torch.float64) * 2 - 1) * 0.99
+    x = x * amax[..., None]
+    x[..., 0] = -amax
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_cuda_fake_quant_equals_cpu_bits(cuda_device, dtype, bits):
+    g = torch.Generator().manual_seed(bits)
+    for amax in RECIPROCAL_MISSES:
+        x = _with_amax((8, 96), torch.full((8,), amax, dtype=torch.float64),
+                       g).to(dtype)
+        want = fake_quant(x, bits)
+        got = fake_quant(x.to(cuda_device), bits)
+        assert got.dtype == dtype and torch.equal(got.cpu(), want), amax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_kv_quant_equals_cpu_bits(cuda_device, dtype):
+    g = torch.Generator().manual_seed(3)
+    amax = torch.tensor(RECIPROCAL_MISSES, dtype=torch.float64)
+    amax = amax.repeat(4 * 5)[:4 * 5 * 4].reshape(4, 5, 4)
+    t = _with_amax((4, 5, 4, 80), amax, g).to(dtype)
+    want_q, want_s = _kv_quant(t, 8)
+    got_q, got_s = _kv_quant(t.to(cuda_device), 8)
+    assert torch.equal(got_q.cpu(), want_q)
+    assert got_s.dtype == torch.bfloat16 and torch.equal(got_s.cpu(), want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_cuda_optimizer_divisors_equal_cpu_bits(cuda_device, step):
+    """AdamW's bias corrections 1 - b^t and a microbatch count of 3 are
+    no powers of two: the optimizer's divides by them (through
+    ``scalar_like``) give the CPU's bits on the card. (A whole AdamW
+    update does not: the card's sqrt is not correctly rounded.)"""
+    b1, b2 = 0.9, 0.95
+    t = np.float32(step) + np.float32(1.0)
+    divisors = [float(np.float32(1.0) - np.float32(b) ** t) for b in (b1, b2)]
+    g = torch.Generator().manual_seed(step)
+    ts = [torch.randn(s, generator=g).abs() for s in ((64, 33), (33,))]
+    for c in divisors + [3.0]:
+        want = torch._foreach_div(ts, scalar_like(c, ts[0]))
+        card = [x.to(cuda_device) for x in ts]
+        got = torch._foreach_div(card, scalar_like(c, card[0]))
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), c
