@@ -26,19 +26,24 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    its kernel 7 * 24 + 1 times and run no plain version. Then the
    reduced config served on the card must give the tokens it gives on
    the CPU through the plain versions.
-2c. paged attention: both variants of the CUDA kernel (score row in
-   shared memory; score row in a global workspace, forced with
+2c. paged attention: both variants of the CUDA kernel (each split's
+   scores in shared memory; in a global workspace, forced with
    smem_budget_bytes=0) against the plain version (gather, dequantize,
    attend) at full-width decode shapes (B=8, Hkv=8, G=4, dh=80, page
-   64, NB=69, lengths 1..4416) and reduced ones (dh=16, G=2, page 8/16,
-   an empty row), bf16/f32 queries, bf16/f32/int8 pages, window none,
-   24 or 4096. Error of each (sequence, query head) row over that
-   row's own max|plain|: at most one bf16 ulp of the row (2^-7) for
-   bf16 queries (bf16 output, bf16 scores that may round the other way
-   where the f32 sums differ in their last bits), 1e-5 for f32 queries;
-   an empty row exactly 0. Every dead or behind-window block entry
-   is then pointed at a page of NaN: the output must keep its bits.
-   Rows with cache_len 0 must be 0.
+   64, NB=69, lengths 1..4416; B=16 with lengths on the split edges of
+   this card's split plans, rows shorter than one split, one-position
+   rows and window rows whose first valid position is on no page or
+   split edge; a batch of empty rows) and reduced ones (dh=16, G=2,
+   page 8/16, an empty row), bf16/f32 queries, bf16/f32/int8 pages,
+   window none, 24 or 4096. Error of each (sequence, query head) row
+   over that row's own max|plain|: at most one bf16 ulp of the row
+   (2^-7) for bf16 queries (bf16 output, bf16 scores that may round the
+   other way where the f32 sums differ in their last bits), 1e-5 for
+   f32 queries; an empty row exactly 0. A second call must give the
+   same bits; every dead or behind-window block entry is then pointed
+   at a page of NaN: the output must keep its bits. One call of each
+   variant captured in a CUDA graph and replayed twice must equal the
+   eager call, with the merge tickets back at 0.
 2d. lutq_shift (the shift-add kernel of the multiplier-less pow2 path)
    against its plain version on the card, bit for bit (torch.equal, no
    tolerance: int32 sums): danube's seven body shapes at M = 1, 4, 130,
@@ -67,6 +72,12 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    bits) on (4, 128, 2560) activations and _kv_quant on (4, 128, 8, 80)
    K/V, f32 and bf16, with maxima where amax * f32(1/127) != amax / 127,
    equal the CPU's bit for bit (int8 bytes and bf16 scales included).
+   AdamW: the elements of 2^24 float32 values where torch.sqrt,
+   _foreach_sqrt_ and the bias-correction divide on the card differ
+   from the CPU are counted; one whole AdamW step (weight decay 0.1) of
+   danube's leaf shapes (2560, 6912), (2560, 640) and (2560,) from a
+   seeded state must equal the CPU's bit for bit (parameters and both
+   moments).
 3c. paged engine: full-width h2o-danube-1.8b (the phase-3 serve views)
    through Engine(kv_pages=...), page 64, 8-bit activations: (a) 24
    synthetic requests (prompts 128-512, 8-64 new tokens) on 8 slots,
@@ -77,8 +88,8 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    the 4096 window (at least 4 blocks released, their device entries
    0). Counts are zeroed just before each run and read just after: the
    paged kernel launches 24 x decode steps, all in the variant
-   smem_plan picks (the shared-memory one: danube's score rows, at most
-   4096 wide, fit; the workspace variant runs only for longer rows), the
+   smem_plan picks (the shared-memory one: a split of danube's rows
+   holds at most a few hundred positions' scores), the
    GEMM kernel 169 x (decode steps + prefill chunks), no plain version;
    every request ends at max_new; the allocator's invariants hold with
    only prefix-cache pages held. Prints decode tok/s, goodput, TTFT
@@ -107,7 +118,10 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    launch kmeans_stats (kmeans_iters + 1) x (quantized leaves) times
    and run no plain version; losses finite; afterwards every dictionary
    sorted with power-of-two nonzero entries and the masters moved. One
-   more step is profiled (device-idle share, kmeans_stats share). Then
+   more step is profiled (device-idle share, kmeans_stats share), and
+   AdamW's square roots over every second moment are timed both ways
+   (float64 rounded once, as the optimizer takes them; one float32
+   _foreach_sqrt_ pass). Then
    the reduced config trains 3 steps on the card and on the CPU from
    the same initial state and batches with kmeans_impl="stats": losses
    within 1e-4 relative, dictionaries within 1e-5.
@@ -125,7 +139,8 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    than twice the L2, beside its byte bound (the valid positions' K/V
    rows and scales, q, out and the block table), its plain version
    and scaled_dot_product_attention on a pre-gathered, pre-dequantized
-   row (a yardstick the port never calls); flash attention at phase
+   row (a yardstick the port never calls), and swept over the split
+   plan's target of 1, 2, 4 and 8 blocks an SM; flash attention at phase
    2e's danube geometry and 4096-token row, operands rotated through
    more than twice the L2, beside its bound (the larger of q, k, v and
    out at the HBM rate and 4 BH D S(S+1)/2 causal bf16 operations at
@@ -274,9 +289,14 @@ def setup():
     build.load_library()
     log(f"kernels built in {build.BUILD_INFO['seconds']:.1f} s -> "
         f"{build.BUILD_INFO['path']}")
+    for src, sec in build.BUILD_INFO.get("sources", {}).items():
+        log(f"  nvcc {src}: {sec:.1f} s")
+    entry = ""
     for line in str(build.BUILD_INFO["ptxas"]).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas {line.strip()}")
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {entry[:72]}: {line.strip()}")
     return name, count, card
 
 
@@ -679,6 +699,65 @@ def quant_divide_checks():
             f"amax * f32(1/127) != amax / 127")
 
 
+def adamw_checks():
+    """Phase 2f, the optimizer: which float32 op of AdamW's update misses
+    the CPU's bits on the card (the root alone, through torch.sqrt and
+    _foreach_sqrt_, and the bias-correction divide before it, counted
+    over 2^24 values), then one whole AdamW step at danube's full-width
+    leaf shapes on the card and on the CPU from the same seeded state:
+    parameters and both moments equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import scalar_like
+    from repro_torch.optim.optimizers import adamw
+
+    g = torch.Generator().manual_seed(17)
+    n = 1 << 24
+    x = torch.rand(n, generator=g) * torch.exp2(
+        torch.randint(-40, 20, (n,), generator=g).float())
+    c2 = float(np.float32(1.0) - np.float32(0.95) ** np.float32(3.0))
+    misses = {
+        "torch.sqrt": torch.sqrt(x.cuda()).cpu() != torch.sqrt(x),
+        "_foreach_sqrt_": torch._foreach_sqrt([x.cuda()])[0].cpu()
+        != torch.sqrt(x),
+        "v / c2": torch._foreach_div([x.cuda()], scalar_like(
+            c2, x.cuda()))[0].cpu() != torch._foreach_div(
+                [x], scalar_like(c2, x))[0],
+    }
+    log("adamw ops on the card against the CPU, float32, 2^24 values: "
+        + ", ".join(f"{k} {int(v.sum())} differ" for k, v in misses.items()))
+    shapes = {"wi": (2560, 6912), "k": (2560, 640), "norm": (2560,)}
+    state = {}
+    for name, shape in shapes.items():
+        p = torch.randn(shape, generator=g)
+        gr = torch.randn(shape, generator=g) * 1e-2
+        m = torch.randn(shape, generator=g) * 1e-3
+        v = torch.rand(shape, generator=g) * 1e-5
+        state[name] = (p, gr, m, v)
+    opt = adamw(lambda step: 3e-4, weight_decay=0.1)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = {k: t[0].clone().to(dev) for k, t in state.items()}
+        grads = {k: t[1].to(dev) for k, t in state.items()}
+        st = {"m": {k: t[2].clone().to(dev) for k, t in state.items()},
+              "v": {k: t[3].clone().to(dev) for k, t in state.items()}}
+        opt.update(grads, st, params, 2)
+        out[dev] = (params, st)
+    diff = {k: int((out["cuda"][0][k].cpu() != out["cpu"][0][k]).sum())
+            for k in shapes}
+    moments = all(torch.equal(out["cuda"][1][mv][k].cpu(),
+                              out["cpu"][1][mv][k])
+                  for mv in ("m", "v") for k in shapes)
+    leaves = ", ".join(f"{k} {s}" for k, s in shapes.items())
+    log(f"check one AdamW step (leaves {leaves}; "
+        f"{sum(math.prod(s) for s in shapes.values())} elements) card "
+        f"against CPU: parameters differing {diff} | moments equal "
+        f"{moments}")
+    check(not any(diff.values()) and moments,
+          "an AdamW step on the card differs from the CPU's")
+
+
 # ---------------------------------------------------------------------------
 # phase 2c
 # ---------------------------------------------------------------------------
@@ -739,10 +818,10 @@ def paged_kernel_checks():
     |kernel - plain| of each variant."""
     import torch
 
-    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels import build, paged_attn
     from repro_torch.kernels.ref import paged_attention_ref
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(6)
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     full_lens = [1, 63, 64, 65, 577, 2048, 4101, 69 * 64]
@@ -753,6 +832,21 @@ def paged_kernel_checks():
                                       4 * page], q, kv, w)
               for page in (8, 16) for q in (f32, bf16)
               for kv in (f32, bf16, i8) for w in (None, 24)]
+    # lengths on the split edges of both full-width plans at this card's
+    # SM count: one position, rows shorter than one split, each edge
+    # +- 1, window rows whose first valid position is on no page or split
+    # edge; then a batch of empty rows
+    sms = build.sm_count(dev)
+    edges = [1]
+    for w in (4096, None):
+        c = paged_attn.split_plan(16, 8, 69, 64, w, sms=sms)["chunk"]
+        edges += [c // 2, c - 1, c, c + 1, 2 * c + 1]
+    edges = sorted({min(x, 69 * 64) for x in edges + [4097, 4193, 69 * 64]})
+    edges = (edges * 16)[:16]
+    cases += [(16, 8, 4, 80, 64, 69, edges, q, kv, w)
+              for q, kv in ((bf16, i8), (f32, i8), (bf16, bf16))
+              for w in (None, 4096)]
+    cases += [(4, 8, 4, 80, 64, 69, [0] * 4, bf16, i8, 4096)]
     worst = {name: 0.0 for name in paged_attn.VARIANTS}
     for B, Hkv, G, dh, page, NB, lens, qdt, kvdt, window in cases:
         q, kp, vp, ks, vs, block, poisoned, cl = _paged_case(
@@ -770,6 +864,9 @@ def paged_kernel_checks():
             again = paged_attn.paged_attention(
                 q, kp, vp, poisoned, cl, window=window, k_scale=ks,
                 v_scale=vs, smem_budget_bytes=budget)
+            twice = paged_attn.paged_attention(
+                q, kp, vp, block, cl, window=window, k_scale=ks,
+                v_scale=vs, smem_budget_bytes=budget)
             torch.cuda.synchronize()
             row_err = (got.float() - want.float()).abs().amax(-1)
             err = row_err.max().item()
@@ -777,20 +874,56 @@ def paged_kernel_checks():
                               row_err)
             at = int(rel.amax(-1).reshape(-1).argmax())
             same = bool(torch.equal(got, again))
+            stable = bool(torch.equal(got, twice))
             zero_rows = [b for b, L in enumerate(lens) if L == 0]
             zeros = all(bool((got[b] == 0).all()) for b in zero_rows)
+            split = paged_attn.split_plan(B, Hkv, NB, page, window, sms=sms)
             log(f"check {name} B={B} Hkv={Hkv} G={G} dh={dh} page={page} "
-                f"NB={NB} q {qdt} pool {kvdt} window {window}: max_abs_err "
+                f"NB={NB} q {qdt} pool {kvdt} window {window} (nsplit "
+                f"{split['nsplit']}, chunk {split['chunk']}): max_abs_err "
                 f"{err:.3e} | worst row {rel.max().item():.2e} of its own "
                 f"max (len {lens[at]}, tol {tol:.1e}) | poisoned dead "
-                f"entries give the same bits {same} | empty rows 0 {zeros}")
+                f"entries give the same bits {same} | two calls the same "
+                f"bits {stable} | empty rows 0 {zeros}")
             check(bool(torch.isfinite(got).all()),
                   f"{name} produced non-finite values")
             check(bool((row_err <= tol * ref).all()),
                   f"{name} disagrees with its plain version")
             check(same, f"{name} read a dead or behind-window page")
+            check(stable, f"{name}: two calls gave different bits")
             check(zeros, f"{name}: a row with cache_len 0 is not 0")
             worst[name] = max(worst[name], err)
+    # one call of each variant captured in a CUDA graph, replayed twice
+    q, kp, vp, ks, vs, block, _, cl = _paged_case(
+        16, 8, 4, 80, 64, 69, edges, bf16, i8, 4096, gen, dev)
+    for name, budget in (("paged_attention", None),
+                         ("paged_attention_multipass", 0)):
+        def call():
+            return paged_attn.paged_attention(
+                q, kp, vp, block, cl, window=4096, k_scale=ks, v_scale=vs,
+                smem_budget_bytes=budget)
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        replays = []
+        for _ in range(2):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(bool(torch.equal(captured, eager)))
+        tickets = not bool(paged_attn._TICKETS[dev.index].any())
+        log(f"check {name} in a CUDA graph (B=16, split edges): two "
+            f"replays equal the eager call {replays} | merge tickets back "
+            f"at 0 {tickets}")
+        check(all(replays) and tickets,
+              f"{name}: a CUDA graph replay differs from the eager call")
+        del graph
     return worst
 
 
@@ -1026,7 +1159,7 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
     3c. Returns the run's numbers."""
     import torch
 
-    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels import build, paged_attn
     from repro_torch.runtime.engine import Engine
 
     run_cfg = cfg.replace(kernel_backend=r["backend"],
@@ -1065,10 +1198,11 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
     st = eng.stats()
     res = [eng.results[i] for i in sorted(eng.results)]
     steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
-    plan = paged_attn.smem_plan(eng.n_blocks, ENGINE_PAGE,
-                                cfg.resolved_head_dim,
-                                cfg.n_heads // cfg.n_kv_heads,
-                                window=cfg.window)
+    plan = paged_attn.launch_plan(
+        r["capacity"], cfg.n_kv_heads, eng.n_blocks, ENGINE_PAGE,
+        cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads,
+        window=cfg.window, itemsize=1 if r["kv_bits"] == 8 else 2,
+        sms=build.sm_count(torch.device("cuda", torch.cuda.current_device())))
     variant = ("paged_attention_multipass" if plan["multipass"]
                else "paged_attention")
     wall_ms, busy_ms, rows = profiled
@@ -1087,8 +1221,9 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
         f"hits {st['prefix_hits']}/{st['prefix_queries']} "
         f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB | "
         f"card idle {(1 - busy_ms / wall_ms) * 100:.1f}% of a decode "
-        f"step ({wall_ms:.1f} ms, paged kernel {pa_ms:.3f} ms) | "
-        f"launches {counts}")
+        f"step ({wall_ms:.1f} ms, paged kernel {pa_ms:.3f} ms; "
+        f"{plan['nsplit']} splits of {plan['chunk']} positions, "
+        f"{plan['blocks']} blocks) | launches {counts}")
     check(counts[variant] == N_LAYERS * steps and
           counts["paged_attention"] + counts["paged_attention_multipass"]
           == N_LAYERS * steps,
@@ -1421,10 +1556,33 @@ def train_full_width():
     log(f"  kmeans_stats in the profiled step: {km_ms:.2f} ms = "
         f"{km_ms / wall * 100:.2f}% of the step, "
         f"{km_ms / busy * 100:.2f}% of device time")
+    # AdamW's roots over every second moment of the step: float64 and
+    # rounded once (optimizers.sqrt_rn_) against one float32 pass
+    from repro_torch.optim.optimizers import sqrt_rn_
+
+    moments = list(state.opt_state["v"].values())
+    roots = {}
+    for name, fn in (("float32 _foreach_sqrt_", torch._foreach_sqrt_),
+                     ("float64 sqrt_rn_", sqrt_rn_)):
+        xs = [v.clone() for v in moments]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn(xs)
+        end.record()
+        torch.cuda.synchronize()
+        roots[name] = (start.elapsed_time(end), (time.perf_counter() - t0) * 1e3)
+        del xs
+    log(f"  AdamW's roots over {len(moments)} moments "
+        f"({sum(v.numel() for v in moments)} elements) a step: "
+        + ", ".join(f"{k} {d:.2f} ms on the stream ({h:.2f} ms host wall)"
+                    for k, (d, h) in roots.items()))
     out = dict(launches=counts["kmeans_stats"], n_leaves=n_leaves,
                per_step=per_step, ms=ms, tok_s=tok_s, peak_gib=peak,
                idle=1 - busy / wall, kmeans_share=km_ms / wall)
-    del state, loop, step_fn, watch
+    del state, loop, step_fn, watch, moments
     torch.cuda.empty_cache()
     return out
 
@@ -1748,11 +1906,11 @@ def paged_timings(card: str, run_a_lens):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels import build, paged_attn
     from repro_torch.kernels.ref import paged_attention_ref
     from repro_torch.nn.attention import gather_pages
 
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(9)
     Hkv, G, dh, page, window = 8, 4, 80, 64, 4096
     geometries = {"a": (run_a_lens, -(-(512 + 64) // page)),
@@ -1785,6 +1943,32 @@ def paged_timings(card: str, run_a_lens):
                     q, kp, vp, blk, cl, window=window, k_scale=ks,
                     v_scale=vs, smem_budget_bytes=budget)
             times[variant] = time_ms(fn, sets, iters=max(40, 2 * n))
+        # the split plan's target of blocks per SM, swept (the default,
+        # paged_attn.BLOCKS_PER_SM, is what every other call used)
+        default = paged_attn.BLOCKS_PER_SM
+        sweep = {}
+        try:
+            for per_sm in (1, 2, 4, 8):
+                paged_attn.BLOCKS_PER_SM = per_sm
+                for variant, budget in (("paged_attention", None),
+                                        ("paged_attention_multipass", 0)):
+                    def fn(q, kp, vp, blk, cl, ks, vs, budget=budget):
+                        return paged_attn.paged_attention(
+                            q, kp, vp, blk, cl, window=window, k_scale=ks,
+                            v_scale=vs, smem_budget_bytes=budget)
+                    sweep[per_sm, variant] = time_ms(
+                        fn, sets, iters=max(40, 2 * n))[0]
+        finally:
+            paged_attn.BLOCKS_PER_SM = default
+        split = paged_attn.split_plan(B, Hkv, NB, page, window,
+                                      sms=build.sm_count(dev))
+        for per_sm in (1, 2, 4, 8):
+            sp = paged_attn.split_plan(B, Hkv, NB, page, window,
+                                       sms=build.sm_count(dev), per_sm=per_sm)
+            log(f"  run ({label}) at {per_sm} blocks an SM ({sp['nsplit']} "
+                f"splits of {sp['chunk']}, {sp['blocks']} blocks): "
+                + ", ".join(f"{v} {sweep[per_sm, v] * 1e3:.1f} us"
+                            for v in times))
 
         def plain(q, kp, vp, blk, cl, ks, vs):
             return paged_attention_ref(q, kp, vp, blk, cl, window=window,
@@ -1810,12 +1994,14 @@ def paged_timings(card: str, run_a_lens):
                         graph=False)
         for variant, (t, t_loop) in times.items():
             log(f"time {variant} run ({label}) geometry B={B} Hkv={Hkv} G={G} "
-                f"dh={dh} page={page} NB={NB} int8 pages, {live} live pages"
-                f": kernel {t * 1e3:.1f} us (host loop {t_loop * 1e3:.1f} us)"
-                f" | bound {b * 1e3:.2f} us ({by}) = {b / t * 100:.1f}% | "
-                f"plain {tp * 1e3:.1f} us | sdpa on the gathered row "
-                f"{tl * 1e3:.1f} us | x{N_LAYERS} per engine decode step = "
-                f"{t * N_LAYERS:.3f} ms | {card}")
+                f"dh={dh} page={page} NB={NB} int8 pages, {live} live pages, "
+                f"{split['nsplit']} splits of {split['chunk']} positions "
+                f"({split['blocks']} blocks): kernel {t * 1e3:.1f} us (host "
+                f"loop {t_loop * 1e3:.1f} us) | bound {b * 1e3:.2f} us ({by})"
+                f" = {b / t * 100:.1f}% | plain {tp * 1e3:.1f} us | sdpa on "
+                f"the gathered row {tl * 1e3:.1f} us (the kernel takes "
+                f"{t / tl:.2f}x its time) | x{N_LAYERS} per engine decode "
+                f"step = {t * N_LAYERS:.3f} ms | {card}")
         out[label] = dict(times=times, plain_ms=tp, library_ms=tl,
                           bound_ms=b, bound_by=by)
         del sets, lsets
@@ -1889,6 +2075,7 @@ def main() -> int:
     worst["lutq_shift"] = shift_checks()
     worst["flash_attention"] = flash_checks()
     quant_divide_checks()
+    adamw_checks()
     launches, _, views, cfg = serve_full_width()
     reduced_reference()
     engine = engine_runs(views, cfg)

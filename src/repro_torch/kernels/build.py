@@ -39,9 +39,11 @@ LAUNCH_ARGTYPES = [_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
 KMEANS_ARGTYPES = [_I, _P, _LL, _P, _I, _P, _P, _P, _I, _P, _P, _P]
 #: argtypes of the paged-attention launcher: device, q, q dtype, k pool,
 #: v pool, pool dtype, k scale, v scale, block, cache_len, out, workspace,
-#: B, Hkv, G, dh, page, NB, window, span, scale, vec, global scores, stream
-PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                  _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+#: partials, tickets, B, Hkv, G, dh, page, NB, window, span, chunk,
+#: nsplit, scale, vec, svec, global scores, stream
+PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                  _I, _I, _I, _P]
 #: argtypes of the shift-add launcher: device, xq, a, align, wsh, n_dict,
 #: y, M, N, Kin, splits, kchunk, stream
 SHIFT_ARGTYPES = [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P]
@@ -62,7 +64,9 @@ SIGNATURES = {
 
 _LIB: Optional[ctypes.CDLL] = None
 #: {"seconds": build time (0 when loaded from an earlier build),
-#:  "path": library path, "ptxas": register/shared-memory report}
+#:  "path": library path, "ptxas": register/shared-memory report,
+#:  "sources": {source: seconds from the start of the build until its
+#:  nvcc ended} (only when built)}
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -93,21 +97,31 @@ def _compile(out: Path) -> str:
     tmp = out.parent / f"tmp-{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.perf_counter()
     for src in sorted(CSRC.glob("*.cu")):
         obj = tmp / (src.stem + ".o")
+        log = open(tmp / (src.stem + ".log"), "w+")
         cmd = [nvcc, *CFLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        procs.append((src.name, cmd, obj, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    seconds = {}
+    while len(seconds) < len(procs):  # each source's own compile time
+        for name, _, _, _, proc in procs:
+            if name not in seconds and proc.poll() is not None:
+                seconds[name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    BUILD_INFO["sources"] = seconds
     report = []
-    for cmd, obj, proc in procs:
-        text, _ = proc.communicate()
+    for name, cmd, obj, log, proc in procs:
+        log.seek(0)
+        text = log.read()
+        log.close()
         report.append(text)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{text}")
     lib_tmp = tmp / out.name
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib_tmp),
-            *[str(obj) for _, obj, _ in procs]]
+            *[str(obj) for _, _, obj, _, _ in procs]]
     done = subprocess.run(link, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{done.stdout}{done.stderr}")

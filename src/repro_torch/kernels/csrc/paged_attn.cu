@@ -2,20 +2,22 @@
 // the KV cache through a block table, with the reference's exact softmax.
 //
 // Replaces the TPU kernels src/repro/kernels/paged_attn.py::
-// paged_attention_tpu (body _decode_kernel) and
-// _paged_attention_multipass (body _decode_kernel_multipass), reached
-// from every layer of every paged decode step (models/lm.py
-// paged_attn_decode -> kernels/ops.paged_attention).
+// paged_attention_tpu (:253, body _decode_kernel: the score row in VMEM)
+// and _paged_attention_multipass (:342, body _decode_kernel_multipass:
+// the score row outside fast memory), reached from every layer of every
+// paged decode step (models/lm.py paged_attn_decode ->
+// kernels/ops.paged_attention).
 //
 // Function, per (sequence b, KV head h), for the G query heads of h:
 //   q_s  = round_q(q * scale)                          (q's dtype)
 //   k, v = pool[block[b, pos / page], pos % page, h]   int8 pages are
 //          dequantized as round_bf16(int8 * bf16 scale), as the
 //          reference's bf16 product does
-//   s    = q_s . k, accumulated in f32, rounded to bf16 when q and the
-//          dequantized pages are both bf16 (jnp's einsum gives bf16
-//          scores there), then held in f32
-//   p    = softmax over the valid positions [max(0, len - window), len)
+//   s    = q_s . k, accumulated in f32 over the head dim in order,
+//          rounded to bf16 when q and the dequantized pages are both
+//          bf16 (jnp's einsum gives bf16 scores there), then held in f32
+//   p    = softmax over the valid positions [lo, hi) = [max(0, len -
+//          window), min(len, NB * page))
 //   o    = sum p * v in f32, written in q's dtype; 0 where len = 0
 // Positions outside the valid range have weight exactly 0 in the
 // reference (exp(-1e30 - max) == 0 in f32), so they are skipped, and
@@ -24,30 +26,60 @@
 //
 // Bound on the H100: decode reads each live K/V row once (dh bytes
 // int8 or 2 dh bytes bf16, plus a bf16 scale) and does 4 G dh flops on
-// it, a few flops per byte, so device-memory bytes bound it (the live
-// pages at 3.35 TB/s).
+// it, a few flops per byte, so device-memory bytes bound it: the valid
+// positions' K/V rows at 3.35 TB/s (1.61 us for one 4096-position row
+// of danube's 8 KV heads in int8, 1.02 us for the engine's 8-slot
+// decode batch). One block per (b, h) row would fill 8 of 132 SMs at
+// such a row and stream it through one SM's loads: far from the bound.
 //
-// What the design does about it: one block per (b, h) stages the G
-// scaled query rows and the row's block-table entries in shared memory
-// (so no K/V load waits on a block-table load from device memory) and
-// makes three passes over the valid range. Pass A: each thread takes
-// whole positions and loads their K rows 16 bytes at a time, four loads
-// in flight, writing G scores into the score row.
-// The score row lives in shared memory (single-pass variant, the
-// counterpart of _decode_kernel) or, for a row whose score row outgrows
-// the shared-memory budget, in a global f32 workspace (B, Hkv, G, span)
-// that stays in L2 (the counterpart of _decode_kernel_multipass, whose
-// phase A and B are the same passes; its dh chunking was a VMEM
-// artifact and has no counterpart here). Softmax: the max and the
-// exponent sum are block reductions in a fixed order, so a run gives
-// the same bits every time; probabilities replace the scores in place.
-// Pass B: each warp takes every 8th position, its lanes the head-dim
-// columns, and loads eight rows and their weights before it uses any
-// (no branch between the loads) to accumulate p * v in registers; the
-// eight warp partials are added in warp order. No atomics. A row is
-// never split across blocks (B x Hkv blocks; 64 at the full-width
-// decode batch of 8): splitting it while keeping the exact softmax is
-// later work.
+// What the design does about it:
+// - Split. The grid is (Hkv, B, nsplit): split s of row (b, h) owns the
+//   positions [lo + s * chunk, min(hi, lo + (s + 1) * chunk)). The host
+//   picks nsplit and chunk from static shapes only (NB, page, window, B,
+//   Hkv and the SM count; kernels/paged_attn.py split_plan), never from
+//   the lengths, so a launch needs no device-to-host read and can be
+//   captured in a CUDA graph. A split with no valid position reads
+//   nothing and reports an empty partial (m = -inf, l = 0).
+// - Async page loads. A split streams its positions in tiles of kTile
+//   rows through a ring of kStages shared-memory stages, first its K
+//   tiles, then its V tiles: one thread per 16-byte piece of a row
+//   issues cp.async.cg (the scale's aligned 4-byte word rides in the
+//   same stage), so up to kStages - 1 tiles are in flight while one is
+//   consumed, and the V tiles arrive while the scores are formed. Where
+//   16-byte copies are not possible (unaligned pools, dh * itemsize not
+//   a multiple of 16) the stage is filled by ordinary loads; no page is
+//   ever touched outside the split's valid positions.
+// - Order of operations, per split: the score of every valid position,
+//   each K row's 16-byte pieces cut into at most kMaxParts groups, one
+//   thread per (position, group) forming every head's partial dot
+//   product over its group in head-dim order (each element dequantized
+//   once), the partials then added in order by one thread per
+//   (position, head) (rows that cannot be read 16 bytes at a time: one
+//   thread per (position, head), the head dim in order); the scores
+//   stored in shared memory (single-pass variant, the counterpart of
+//   _decode_kernel) or in a global f32 workspace (B, Hkv, G, span) at
+//   the split's offsets (the workspace variant, the counterpart of
+//   _decode_kernel_multipass; forced by a zero shared-memory budget);
+//   the split's max m_s and exponent sum l_s = sum exp(s - m_s) as block
+//   reductions in a fixed order; the unnormalised acc_s = sum exp(s -
+//   m_s) * v, each warp taking every 8th position and its lanes the
+//   head-dim columns, the eight warp partials added in warp order. All
+//   partials stay in f32.
+// - Merge. With one split the block writes acc / l. Otherwise each
+//   split writes (m_s, l_s, acc_s) to the partials buffer, fences, and
+//   takes an integer ticket for its row; the block that draws the last
+//   ticket loads every (m_s, l_s) at once and, per head (one warp, its
+//   lanes taking every 32nd split, combined by a fixed shuffle tree),
+//   takes m = max m_s, w_s = exp(m_s - m) (0 for an empty split, whose
+//   acc it never reads) and L = sum w_s l_s; then sum w_s acc_s over the
+//   splits s = j, j + J, ... of each of J groups (so that many loads are
+//   in flight), the groups added in order, o = that sum / L (0 where
+//   L = 0: len = 0); it writes o and resets the ticket to 0 for the next
+//   call or graph replay. No float atomics: a run gives the same bits
+//   every time.
+// - Compile-time shapes. (G, dh) = (4, 80), danube's, is instantiated
+//   for every dtype pair, with its loops fully unrolled; every other
+//   shape (G <= 8, dh <= 128) runs one generic instantiation.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -59,10 +91,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroup = 8;   // query heads per KV head
-constexpr int kMaxCols = 4;    // head-dim columns per lane in pass B: dh <= 128
-constexpr int kInFlight = 4;   // 16-byte chunks in flight per thread (pass A)
-constexpr int kRowsB = 8;      // rows in flight per warp (pass B)
+constexpr int kMaxGroup = 8;    // query heads per KV head
+constexpr int kMaxCols = 4;     // head-dim columns per lane in the PV pass: dh <= 128
+constexpr int kTile = 64;       // positions per ring stage
+constexpr int kStages = 4;      // ring depth
+constexpr int kMaxSplits = 64;  // splits of one row
+constexpr int kMaxMergeGroups = 8;  // groups of splits a merge sums apart
+constexpr int kMaxParts = 8;        // partial dot products of a K row
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can opt into
 constexpr int kMaxDevices = 16;
 
@@ -94,30 +129,39 @@ __device__ __forceinline__ float dequant(TKV x, float s) {
   else return to_f(x);
 }
 
-// Adds q_s[g, d0 + e] * k[e] for the E = 16 / sizeof(TKV) elements of
-// one 16-byte chunk into acc[g].
-template <typename TKV>
-__device__ __forceinline__ void dot_chunk(const uint4& u, float s, const float* qs,
-                                          int dh, int d0, int G,
-                                          float (&acc)[kMaxGroup]) {
-  constexpr int E = 16 / sizeof(TKV);
-  const TKV* x = reinterpret_cast<const TKV*>(&u);
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const float kv = dequant<TKV>(x[e], s);
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < G) acc[g] = fmaf(qs[g * dh + d0 + e], kv, acc[g]);
-  }
+// The bf16 scale of a staged row: the stage holds the aligned 4-byte
+// word around it, whose half `half` (the row index's parity) it is.
+__device__ __forceinline__ float scale_of(uint32_t word, int half) {
+  return __uint_as_float((word >> (16 * half)) << 16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Block-wide max (is_max) or sum of v[g] for g < G; lane 0 of each warp
 // holds its warp's result, warps combine in order. out[g] for all threads.
-__device__ __forceinline__ void block_reduce(float (&v)[kMaxGroup], int G, bool is_max,
+template <int GM>
+__device__ __forceinline__ void block_reduce(float (&v)[GM], int G, bool is_max,
                                              float* red, float* out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
+  for (int g = 0; g < GM; ++g) {
     if (g >= G) break;
     float x = v[g];
 #pragma unroll
@@ -138,176 +182,409 @@ __device__ __forceinline__ void block_reduce(float (&v)[kMaxGroup], int G, bool 
   __syncthreads();
 }
 
-template <typename TQ, typename TKV, bool GLOBAL>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
+// Partial dot products a position's K row is cut into: its 16-byte
+// pieces in at most kMaxParts groups of equal size.
+__host__ __device__ constexpr int score_parts(int rowbytes) {
+  const int nc = rowbytes / 16 > 0 ? rowbytes / 16 : 1;
+  const int cpt = (nc + kMaxParts - 1) / kMaxParts;
+  return (nc + cpt - 1) / cpt;
+}
+
+// Byte offsets of a block's shared memory, every region 16-byte
+// aligned: the scaled queries; the ring (kStages stages of kTile rows,
+// later the PV pass's warp partials and the merge's group sums); the
+// staged scales (int8 pools); the reduction slots with the split's max
+// and sum and the ticket's verdict; every split's max (then weight) and
+// sum for the merge (nsplit > 1); the split's block-table entries; a
+// tile's partial scores; (single-pass) the split's score rows.
+// kernels/paged_attn.py's smem_plan repeats this.
+struct Smem {
+  int ring, sc, red, wts, blk, sp, srow, total, stage;
+  __host__ __device__ Smem(int G, int dh, int isz, int chunk, int nsplit, int nbs,
+                           bool quant, bool global_scores) {
+    stage = align16(kTile * dh * isz);
+    int ring_bytes = kStages * stage;
+    if (ring_bytes < kWarps * G * dh * 4) ring_bytes = kWarps * G * dh * 4;
+    ring = align16(G * dh * 4);
+    sc = ring + align16(ring_bytes);
+    red = sc + (quant ? kStages * kTile * 4 : 0);
+    wts = red + align16(((kWarps + 2) * kMaxGroup + 1) * 4);
+    blk = wts + align16(nsplit > 1 ? nsplit * G * 8 : 0);
+    sp = blk + align16(nbs * 4);
+    srow = sp + align16(kTile * score_parts(dh * isz) * G * 4);
+    total = srow + (global_scores ? 0 : align16(G * chunk * 4));
+  }
+};
+
+__host__ __device__ inline int split_pages(int chunk, int page, int NB) {
+  const int n = chunk / page + 2;  // pages a chunk of positions can touch
+  return n < NB ? n : NB;
+}
+
+template <typename TQ, typename TKV, bool GLOBAL, int KG, int KDH>
+__global__ void __launch_bounds__(kThreads, 2)
 paged_decode(const TQ* __restrict__ q, const TKV* __restrict__ kpool,
              const TKV* __restrict__ vpool, const __nv_bfloat16* __restrict__ kscale,
              const __nv_bfloat16* __restrict__ vscale, const int* __restrict__ block,
              const int* __restrict__ lens, TQ* __restrict__ out, float* __restrict__ ws,
-             int Hkv, int G, int dh, int page, int NB, int window, int span,
-             float scale, int vec) {
+             float* __restrict__ part, int* __restrict__ ticket, int Hkv, int g_rt,
+             int dh_rt, int page, int NB, int window, int span, int chunk, float scale,
+             int vec, int svec) {
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr bool kScoreBf16 =
       std::is_same<TQ, __nv_bfloat16>::value && !std::is_same<TKV, float>::value;
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
+  constexpr int GM = KG ? KG : kMaxGroup;                // bound of the head loops
+  constexpr int CM = KDH ? (KDH + 31) / 32 : kMaxCols;   // columns per lane (PV)
+  constexpr int E = 16 / sizeof(TKV);                    // elements of 16 bytes
+  const int G = KG ? KG : g_rt;
+  const int dh = KDH ? KDH : dh_rt;
+  const int h = blockIdx.x, b = blockIdx.y, s = blockIdx.z, nsplit = gridDim.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = b * Hkv + h;
   const int H = Hkv * G;
   const size_t head0 = ((size_t)b * H + (size_t)h * G) * dh;  // q / out row of (b, h, g=0)
+  const int rowbytes = dh * (int)sizeof(TKV);
+  const bool v16 = KDH ? (KDH * sizeof(TKV)) % 16 == 0 : rowbytes % 16 == 0;
+  const int nbs = split_pages(chunk, page, NB);
+  const Smem lay(G, dh, (int)sizeof(TKV), chunk, nsplit, nbs, kQuant, GLOBAL);
 
-  float* qs = smem;                           // G * dh
-  float* red = qs + G * dh;                   // kWarps * kMaxGroup
-  float* stat = red + kWarps * kMaxGroup;     // kMaxGroup
-  float* part = stat + kMaxGroup;             // kWarps * G * dh
-  float* srow = GLOBAL ? ws + ((size_t)b * Hkv + h) * G * span
-                       : part + kWarps * G * dh;  // G * span
-  int* blk = reinterpret_cast<int*>(part + kWarps * G * dh + (GLOBAL ? 0 : G * span));
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);                       // G * dh
+  unsigned char* ring = smem + lay.ring;
+  uint32_t* sc = reinterpret_cast<uint32_t*>(smem + lay.sc);        // kStages * kTile
+  float* red = reinterpret_cast<float*>(smem + lay.red);            // kWarps * kMaxGroup
+  float* mrow = red + kWarps * kMaxGroup;                            // kMaxGroup
+  float* lrow = mrow + kMaxGroup;                                    // kMaxGroup
+  int* last = reinterpret_cast<int*>(lrow + kMaxGroup);             // 1
+  float* wts = reinterpret_cast<float*>(smem + lay.wts);            // nsplit * G * 2
+  int* blk = reinterpret_cast<int*>(smem + lay.blk);                // nbs
+  float* sp = reinterpret_cast<float*>(smem + lay.sp);              // kTile x parts x G
+  const int sstride = GLOBAL ? span : chunk;
+  float* srow = GLOBAL ? ws + (size_t)row * G * span + (size_t)s * chunk
+                       : reinterpret_cast<float*>(smem + lay.srow);  // G x sstride
 
   const int len = lens[b];
+  // the scaled queries: their loads overlap the length's
+  for (int t = tid; t < G * dh; t += kThreads)
+    qs[t] = round_to<TQ>(to_f(q[head0 + t]) * scale);
   const int hi = min(len, NB * page);
   const int lo = window > 0 ? max(0, len - window) : 0;
-  if (hi <= lo) {  // no valid position (len = 0): the row is 0
+  const int c0 = lo + s * chunk;
+  const int c1 = min(hi, c0 + chunk);
+  const int n = c1 - c0;  // valid positions of this split (<= 0: none)
+
+  if (n > 0) {
+    const int p0 = c0 / page;
+    const int np = (c1 - 1) / page - p0 + 1;
+    for (int t = tid; t < np; t += kThreads) blk[t] = block[(size_t)b * NB + p0 + t];
+    __syncthreads();
+
+    const int nt = (n + kTile - 1) / kTile;  // tiles of K, then as many of V
+    // stage k of the ring: K tile k (k < nt) or V tile k - nt, into slot
+    // k % kStages; one commit group per stage, empty past the last
+    auto issue = [&](int k) {
+      if (k < 2 * nt) {
+        const bool is_v = k >= nt;
+        const int i0 = c0 + (is_v ? k - nt : k) * kTile;
+        const int cnt = min(kTile, c1 - i0);
+        unsigned char* dst = ring + (k % kStages) * lay.stage;
+        uint32_t* dsc = sc + (k % kStages) * kTile;
+        const TKV* pool = is_v ? vpool : kpool;
+        if (vec) {
+          const int cpr = rowbytes / 16;
+          for (int idx = tid; idx < cnt * cpr; idx += kThreads) {
+            const int t = idx / cpr, c = idx - t * cpr;
+            const int i = i0 + t, j = i / page;
+            const size_t pr = ((size_t)blk[j - p0] * page + (i - j * page)) * Hkv + h;
+            cp_async16(dst + t * rowbytes + c * 16,
+                       reinterpret_cast<const unsigned char*>(pool + pr * dh) + c * 16);
+          }
+        } else {
+          TKV* d = reinterpret_cast<TKV*>(dst);
+          for (int idx = tid; idx < cnt * dh; idx += kThreads) {
+            const int t = idx / dh, e = idx - t * dh;
+            const int i = i0 + t, j = i / page;
+            const size_t pr = ((size_t)blk[j - p0] * page + (i - j * page)) * Hkv + h;
+            d[idx] = pool[pr * dh + e];
+          }
+        }
+        if constexpr (kQuant) {
+          const __nv_bfloat16* spl = is_v ? vscale : kscale;
+          for (int t = tid; t < cnt; t += kThreads) {
+            const int i = i0 + t, j = i / page;
+            const size_t pr = ((size_t)blk[j - p0] * page + (i - j * page)) * Hkv + h;
+            if (svec) {
+              cp_async4(dsc + t, spl + (pr & ~(size_t)1));
+            } else {
+              const uint32_t bits = __bfloat16_as_ushort(spl[pr]);
+              dsc[t] = bits | (bits << 16);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    // svec: Hkv is even, so a row's parity is h's
+    const int half = h & 1;
+
+    float acc[CM][GM];
+#pragma unroll
+    for (int c = 0; c < CM; ++c)
+#pragma unroll
+      for (int g = 0; g < GM; ++g) acc[c][g] = 0.f;
+
+#pragma unroll
+    for (int k = 0; k < kStages - 1; ++k) issue(k);
+    for (int k = 0; k < 2 * nt; ++k) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();          // stage k landed for every thread; slot of k - 1 free
+      issue(k + kStages - 1);
+      const unsigned char* st = ring + (k % kStages) * lay.stage;
+      const uint32_t* ssc = sc + (k % kStages) * kTile;
+      if (k < nt) {
+        // ---- scores of K tile k ----------------------------------------------
+        const int t0 = k * kTile, cnt = min(kTile, n - t0);
+        if (v16) {
+          // one task per (position, group of up to `cpt` 16-byte pieces of
+          // its K row): every head's partial dot product over those pieces,
+          // in head-dim order, each element dequantized once; then one
+          // thread per (position, head) adds the np partials in order
+          const int nc = rowbytes / 16, cpt = (nc + kMaxParts - 1) / kMaxParts;
+          const int np = (nc + cpt - 1) / cpt;
+          for (int task = tid; task < cnt * np; task += kThreads) {
+            // neighbouring threads take neighbouring positions of one group:
+            // their query reads are one broadcast, their K rows distinct banks
+            const int p = task / cnt, t = task - p * cnt;
+            const float sk = kQuant ? scale_of(ssc[t], half) : 1.f;
+            const uint4* kr = reinterpret_cast<const uint4*>(st + t * rowbytes);
+            float a[GM];
+#pragma unroll
+            for (int g = 0; g < GM; ++g) a[g] = 0.f;
+            const int cend = min(nc, (p + 1) * cpt);
+            for (int c = p * cpt; c < cend; ++c) {
+              const uint4 u = kr[c];
+              const TKV* x = reinterpret_cast<const TKV*>(&u);
+#pragma unroll
+              for (int e = 0; e < E; e += 4) {
+                const float k0 = dequant<TKV>(x[e], sk), k1 = dequant<TKV>(x[e + 1], sk);
+                const float k2 = dequant<TKV>(x[e + 2], sk), k3 = dequant<TKV>(x[e + 3], sk);
+#pragma unroll
+                for (int g = 0; g < GM; ++g) {
+                  if (g >= G) break;
+                  const float4 qq = *reinterpret_cast<const float4*>(qs + g * dh + c * E + e);
+                  a[g] = fmaf(qq.x, k0, a[g]);
+                  a[g] = fmaf(qq.y, k1, a[g]);
+                  a[g] = fmaf(qq.z, k2, a[g]);
+                  a[g] = fmaf(qq.w, k3, a[g]);
+                }
+              }
+            }
+#pragma unroll
+            for (int g = 0; g < GM; ++g)
+              if (g < G) sp[(t * np + p) * G + g] = a[g];
+          }
+          __syncthreads();
+          for (int task = tid; task < cnt * G; task += kThreads) {
+            const int t = task / G, g = task - t * G;
+            float a = sp[t * np * G + g];
+            for (int p = 1; p < np; ++p) a += sp[(t * np + p) * G + g];
+            srow[g * sstride + t0 + t] = kScoreBf16 ? round_bf16(a) : a;
+          }
+        } else {
+          // one thread per (position, head), the head dim in order
+          const int ppr = kThreads / G;  // positions per round
+          const int g = tid % G, ti = tid / G;
+          if (ti < ppr) {
+            const float* qg = qs + g * dh;
+            for (int t = ti; t < cnt; t += ppr) {
+              const float sk = kQuant ? scale_of(ssc[t], half) : 1.f;
+              const TKV* kr = reinterpret_cast<const TKV*>(st + t * rowbytes);
+              float a = 0.f;
+              for (int d = 0; d < dh; ++d) a = fmaf(qg[d], dequant<TKV>(kr[d], sk), a);
+              srow[g * sstride + t0 + t] = kScoreBf16 ? round_bf16(a) : a;
+            }
+          }
+        }
+        continue;
+      }
+      if (k == nt) {
+        // ---- the split's softmax statistics; exponents replace scores ------
+        // (the barrier above ordered every score write before these reads)
+        float r[GM];
+#pragma unroll
+        for (int g = 0; g < GM; ++g) r[g] = -CUDART_INF_F;
+        for (int t = tid; t < n; t += kThreads) {
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            if (g < G) r[g] = fmaxf(r[g], srow[g * sstride + t]);
+        }
+        block_reduce<GM>(r, G, true, red, mrow);
+        float pm[GM];
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          pm[g] = g < G ? mrow[g] : 0.f;
+          r[g] = 0.f;
+        }
+        for (int t = tid; t < n; t += kThreads) {
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            if (g < G) {
+              const float e = expf(srow[g * sstride + t] - pm[g]);
+              srow[g * sstride + t] = e;
+              r[g] += e;
+            }
+        }
+        block_reduce<GM>(r, G, false, red, lrow);  // ends in a barrier
+      }
+      // ---- acc += exp(s - m) * v over V tile k - nt --------------------------
+      const int t0 = (k - nt) * kTile, cnt = min(kTile, n - t0);
+#pragma unroll 4
+      for (int t = warp; t < cnt; t += kWarps) {
+        const float sv = kQuant ? scale_of(ssc[t], half) : 1.f;
+        const TKV* vr = reinterpret_cast<const TKV*>(st + t * rowbytes);
+        float pp[GM];
+#pragma unroll
+        for (int g = 0; g < GM; ++g) pp[g] = g < G ? srow[g * sstride + t0 + t] : 0.f;
+#pragma unroll
+        for (int c = 0; c < CM; ++c) {
+          const int d = lane + 32 * c;
+          if (d < dh) {
+            const float v = dequant<TKV>(vr[d], sv);
+#pragma unroll
+            for (int g = 0; g < GM; ++g)
+              if (g < G) acc[c][g] = fmaf(pp[g], v, acc[c][g]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free: it takes the warp partials
+
+    float* wpart = reinterpret_cast<float*>(ring);  // kWarps x G x dh
+#pragma unroll
+    for (int c = 0; c < CM; ++c) {
+      const int d = lane + 32 * c;
+      if (d < dh) {
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+          if (g < G) wpart[(warp * G + g) * dh + d] = acc[c][g];
+      }
+    }
+    __syncthreads();
+    if (nsplit == 1) {
+      for (int t = tid; t < G * dh; t += kThreads) {
+        float o = wpart[t];
+        for (int w = 1; w < kWarps; ++w) o += wpart[w * G * dh + t];
+        out[head0 + t] = from_f<TQ>(o / lrow[t / dh]);
+      }
+      return;
+    }
+    float* po = part + ((size_t)row * nsplit + s) * G * dh;
+    for (int t = tid; t < G * dh; t += kThreads) {
+      float o = wpart[t];
+      for (int w = 1; w < kWarps; ++w) o += wpart[w * G * dh + t];
+      po[t] = o;
+    }
+  } else if (nsplit == 1) {  // no valid position (len = 0): the row is 0
     for (int t = tid; t < G * dh; t += kThreads) out[head0 + t] = from_f<TQ>(0.f);
     return;
   }
-  const int n = hi - lo;
 
-  for (int t = tid; t < G * dh; t += kThreads)
-    qs[t] = round_to<TQ>(to_f(q[head0 + t]) * scale);
-  for (int t = tid; t < NB; t += kThreads) blk[t] = block[(size_t)b * NB + t];
+  // ---- nsplit > 1: publish (m_s, l_s), draw a ticket; the last merges -----
+  float* pml = part + (size_t)gridDim.y * Hkv * nsplit * G * dh;  // (B*Hkv, nsplit, G, 2)
+  if (tid < G) {
+    float* ml = pml + (((size_t)row * nsplit + s) * G + tid) * 2;
+    ml[0] = n > 0 ? mrow[tid] : -CUDART_INF_F;
+    ml[1] = n > 0 ? lrow[tid] : 0.f;
+  }
+  __threadfence();  // this block's partials are visible device-wide ...
+  __syncthreads();  // ... before its ticket is drawn
+  if (tid == 0) *last = atomicAdd(ticket + row, 1) == nsplit - 1;
   __syncthreads();
+  if (!*last) return;
+  __threadfence();  // the other splits' partials, read below from L2
 
-  // ---- pass A: scores -----------------------------------------------------
-  for (int i = lo + tid; i < hi; i += kThreads) {
-    const int j = i / page;
-    const size_t row = ((size_t)blk[j] * page + (i - j * page)) * Hkv + h;
-    const TKV* kr = kpool + row * dh;
-    const float s = kQuant ? __bfloat162float(kscale[row]) : 1.f;
-    float acc[kMaxGroup];
+  // every split's (m_s, l_s) into shared memory at once; then per head m,
+  // the weights w_s (replacing m_s) and L, in split order
+  const float* mlr = pml + (size_t)row * nsplit * G * 2;
+  for (int t = tid; t < nsplit * G * 2; t += kThreads) wts[t] = __ldcg(mlr + t);
+  __syncthreads();
+  if (warp < G) {  // warp g: lane i takes the splits i, i + 32, ...
+    const int g = warp;
+    float m = -CUDART_INF_F;
+    for (int i = lane; i < nsplit; i += 32) m = fmaxf(m, wts[(i * G + g) * 2]);
 #pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
-    if (vec) {
-      constexpr int E = 16 / sizeof(TKV);
-      const int nch = dh / E;
-      const uint4* kc = reinterpret_cast<const uint4*>(kr);
-      for (int c0 = 0; c0 < nch; c0 += kInFlight) {
-        uint4 u[kInFlight];
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float L = 0.f;
+    for (int i = lane; i < nsplit; i += 32) {
+      const float mi = wts[(i * G + g) * 2];
+      const float w = mi == -CUDART_INF_F ? 0.f : expf(mi - m);
+      L = fmaf(w, wts[(i * G + g) * 2 + 1], L);
+      wts[(i * G + g) * 2] = w;
+    }
 #pragma unroll
-        for (int c = 0; c < kInFlight; ++c)
-          if (c0 + c < nch) u[c] = kc[c0 + c];
-#pragma unroll
-        for (int c = 0; c < kInFlight; ++c)
-          if (c0 + c < nch) dot_chunk<TKV>(u[c], s, qs, dh, (c0 + c) * E, G, acc);
+    for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
+    if (lane == 0) lrow[g] = L;
+  }
+  __syncthreads();
+  // sum_s w_s acc_s: each task takes V-wide columns of the G x dh sums
+  // and the splits s = j, j + J, ... (J groups of splits, so that many
+  // independent loads are in flight); the groups are added in order
+  const int V = dh % 4 == 0 ? 4 : 1;
+  const int cols = G * dh / V;
+  const int J = min(kMaxMergeGroups, max(1, kThreads / cols));
+  float* grp = reinterpret_cast<float*>(ring);  // J x G x dh (the ring is free)
+  const float* por = part + (size_t)row * nsplit * G * dh;
+  for (int task = tid; task < cols * J; task += kThreads) {
+    const int c = task % cols, j = task / cols;
+    const int g = c * V / dh;
+    if (V == 4) {
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int i = j; i < nsplit; i += J) {
+        const float w = wts[(i * G + g) * 2];
+        const float4 x =
+            w != 0.f ? __ldcg(reinterpret_cast<const float4*>(por + (size_t)i * G * dh) + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        o.x = fmaf(w, x.x, o.x);
+        o.y = fmaf(w, x.y, o.y);
+        o.z = fmaf(w, x.z, o.z);
+        o.w = fmaf(w, x.w, o.w);
       }
+      reinterpret_cast<float4*>(grp + (size_t)j * G * dh)[c] = o;
     } else {
-      for (int d = 0; d < dh; ++d) {
-        const float kv = dequant<TKV>(kr[d], s);
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g)
-          if (g < G) acc[g] = fmaf(qs[g * dh + d], kv, acc[g]);
+      float o = 0.f;
+#pragma unroll 8
+      for (int i = j; i < nsplit; i += J) {
+        const float w = wts[(i * G + g) * 2];
+        const float x = w != 0.f ? __ldcg(por + (size_t)i * G * dh + c) : 0.f;
+        o = fmaf(w, x, o);
       }
-    }
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < G) srow[g * span + (i - lo)] = kScoreBf16 ? round_bf16(acc[g]) : acc[g];
-  }
-  __syncthreads();
-
-  // ---- softmax over [lo, hi), in place --------------------------------------
-  float r[kMaxGroup];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) r[g] = -CUDART_INF_F;
-  for (int t = tid; t < n; t += kThreads) {
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < G) r[g] = fmaxf(r[g], srow[g * span + t]);
-  }
-  block_reduce(r, G, true, red, stat);
-  float m[kMaxGroup];
-#pragma unroll
-  for (int g = 0; g < kMaxGroup; ++g) {
-    m[g] = g < G ? stat[g] : 0.f;
-    r[g] = 0.f;
-  }
-  __syncthreads();  // stat is rewritten by the next reduction
-  for (int t = tid; t < n; t += kThreads) {
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < G) {
-        const float e = expf(srow[g * span + t] - m[g]);
-        srow[g * span + t] = e;
-        r[g] += e;
-      }
-  }
-  block_reduce(r, G, false, red, stat);
-  for (int t = tid; t < n; t += kThreads) {
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g)
-      if (g < G) srow[g * span + t] = srow[g * span + t] / stat[g];
-  }
-  __syncthreads();
-
-  // ---- pass B: o = sum p * v --------------------------------------------------
-  float acc[kMaxCols][kMaxGroup];
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c)
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) acc[c][g] = 0.f;
-  for (int base = lo + warp; base < hi; base += kWarps * kRowsB) {
-    // all loads first, without branches: a row past hi re-reads the
-    // last valid row (finite) and is skipped below
-    float vv[kRowsB][kMaxCols];
-    float pp[kRowsB][kMaxGroup];
-#pragma unroll
-    for (int u = 0; u < kRowsB; ++u) {
-      const int i = min(base + u * kWarps, hi - 1);
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) pp[u][g] = g < G ? srow[g * span + (i - lo)] : 0.f;
-      const int j = i / page;
-      const size_t row = ((size_t)blk[j] * page + (i - j * page)) * Hkv + h;
-      const TKV* vr = vpool + row * dh;
-      const float s = kQuant ? __bfloat162float(vscale[row]) : 1.f;
-#pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
-        const int d = lane + 32 * c;
-        vv[u][c] = d < dh ? dequant<TKV>(vr[d], s) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kRowsB; ++u) {
-      const int i = base + u * kWarps;
-      if (i >= hi) break;  // the same for the whole warp
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g >= G) break;
-#pragma unroll
-        for (int c = 0; c < kMaxCols; ++c) acc[c][g] = fmaf(pp[u][g], vv[u][c], acc[c][g]);
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    const int d = lane + 32 * c;
-    if (d < dh) {
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < G) part[(warp * G + g) * dh + d] = acc[c][g];
+      grp[(size_t)j * G * dh + c] = o;
     }
   }
   __syncthreads();
   for (int t = tid; t < G * dh; t += kThreads) {
-    float o = part[t];
-    for (int w = 1; w < kWarps; ++w) o += part[w * G * dh + t];
-    out[head0 + t] = from_f<TQ>(o);
+    float o = grp[t];
+    for (int j = 1; j < J; ++j) o += grp[(size_t)j * G * dh + t];
+    const float L = lrow[t / dh];
+    out[head0 + t] = from_f<TQ>(L > 0.f ? o / L : 0.f);
+  }
+  if (tid == 0) {
+    __threadfence();
+    ticket[row] = 0;  // for the next call (or graph replay) on this row
   }
 }
 
-template <typename TQ, typename TKV, bool GLOBAL>
+template <typename TQ, typename TKV, bool GLOBAL, int KG, int KDH>
 int launch_one(int device, const void* q, const void* kp, const void* vp, const void* ks,
                const void* vs, const int* block, const int* lens, void* out, float* ws,
-               int B, int Hkv, int G, int dh, int page, int NB, int window, int span,
-               float scale, int vec, size_t smem, cudaStream_t stream) {
-  auto kernel = paged_decode<TQ, TKV, GLOBAL>;
+               float* part, int* ticket, int B, int Hkv, int G, int dh, int page, int NB,
+               int window, int span, int chunk, int nsplit, float scale, int vec, int svec,
+               size_t smem, cudaStream_t stream) {
+  auto kernel = paged_decode<TQ, TKV, GLOBAL, KG, KDH>;
   // opt in to more than 48 KB once per device and size (not a stream
   // operation, so it stays out of a CUDA graph being captured)
   static size_t opted[kMaxDevices] = {};
@@ -317,97 +594,99 @@ int launch_one(int device, const void* q, const void* kp, const void* vp, const 
     if (attr != cudaSuccess) return (int)attr;
     if (device < kMaxDevices) opted[device] = smem;
   }
-  kernel<<<dim3(Hkv, B), kThreads, smem, stream>>>(
+  kernel<<<dim3(Hkv, B, nsplit), kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp), static_cast<const TKV*>(vp),
       static_cast<const __nv_bfloat16*>(ks), static_cast<const __nv_bfloat16*>(vs), block,
-      lens, static_cast<TQ*>(out), ws, Hkv, G, dh, page, NB, window, span, scale, vec);
+      lens, static_cast<TQ*>(out), ws, part, ticket, Hkv, G, dh, page, NB, window, span,
+      chunk, scale, vec, svec);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, bool GLOBAL>
-int launch_kv(int device, int kv_dtype, const void* q, const void* kp, const void* vp,
-              const void* ks, const void* vs, const int* block, const int* lens,
-              void* out, float* ws, int B, int Hkv, int G, int dh, int page, int NB,
-              int window, int span, float scale, int vec, size_t smem,
-              cudaStream_t stream) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_one<TQ, float, GLOBAL>(device, q, kp, vp, ks, vs, block, lens, out, ws, B,
-                                           Hkv, G, dh, page, NB, window, span, scale,
-                                           vec, smem, stream);
-    case 1:
-      return launch_one<TQ, __nv_bfloat16, GLOBAL>(device, q, kp, vp, ks, vs, block, lens, out,
-                                                   ws, B, Hkv, G, dh, page, NB, window,
-                                                   span, scale, vec, smem, stream);
-    case 2:
-      return launch_one<TQ, int8_t, GLOBAL>(device, q, kp, vp, ks, vs, block, lens, out, ws, B,
-                                            Hkv, G, dh, page, NB, window, span, scale,
-                                            vec, smem, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+struct Args {
+  int device;
+  const void *q, *kp, *vp, *ks, *vs;
+  const int *block, *lens;
+  void* out;
+  float *ws, *part;
+  int* ticket;
+  int B, Hkv, G, dh, page, NB, window, span, chunk, nsplit;
+  float scale;
+  int vec, svec;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, bool GLOBAL, int KG, int KDH>
+int launch_shape(const Args& a) {
+  return launch_one<TQ, TKV, GLOBAL, KG, KDH>(
+      a.device, a.q, a.kp, a.vp, a.ks, a.vs, a.block, a.lens, a.out, a.ws, a.part, a.ticket,
+      a.B, a.Hkv, a.G, a.dh, a.page, a.NB, a.window, a.span, a.chunk, a.nsplit, a.scale,
+      a.vec, a.svec, a.smem, a.stream);
 }
 
-// Shared-memory bytes of one block: the scaled queries, the reduction
-// scratch, the warp partials of pass B, (single-pass) the score row and
-// the row's block-table entries.
-// kernels/paged_attn.py's smem_plan repeats this sum.
-long long smem_bytes(int G, int dh, int span, int NB, int global_scores) {
-  long long words = (long long)G * dh + kWarps * kMaxGroup + kMaxGroup +
-                    (long long)kWarps * G * dh + NB;
-  if (!global_scores) words += (long long)G * span;
-  return words * 4;
+// danube's (G, dh) = (4, 80) at compile time, every other shape generic
+template <typename TQ, typename TKV, bool GLOBAL>
+int launch_dims(const Args& a) {
+  if (a.G == 4 && a.dh == 80) return launch_shape<TQ, TKV, GLOBAL, 4, 80>(a);
+  return launch_shape<TQ, TKV, GLOBAL, 0, 0>(a);
+}
+
+template <typename TQ, bool GLOBAL>
+int launch_kv(int kv_dtype, const Args& a) {
+  switch (kv_dtype) {
+    case 0: return launch_dims<TQ, float, GLOBAL>(a);
+    case 1: return launch_dims<TQ, __nv_bfloat16, GLOBAL>(a);
+    case 2: return launch_dims<TQ, int8_t, GLOBAL>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // dtypes: q 0 = f32, 1 = bf16; pools 0 = f32, 1 = bf16, 2 = int8 (with
 // bf16 scale planes). window <= 0 means none. span: the score row's
-// width, >= the valid range of every row. ws: (B, Hkv, G, span) f32
-// when global_scores, else unused. vec: K rows may be read 16 bytes at a
-// time (16-byte aligned pool, dh * itemsize a multiple of 16). Returns
-// the first CUDA error of the launch (0 on success); the current device
-// is set from the wrapper's device index (the library links its own
-// CUDA runtime).
+// width, >= the valid range of every row; the row is split into nsplit
+// chunks of `chunk` positions (nsplit * chunk >= span). ws: (B, Hkv, G,
+// span) f32 when global_scores, else unused. part: B * Hkv * nsplit * G
+// * (dh + 2) f32 and ticket: B * Hkv int32, zero on entry (and left
+// zero), when nsplit > 1, else unused. vec: K/V rows may be copied 16
+// bytes at a time (16-byte aligned pools, dh * itemsize a multiple of
+// 16); svec: scales may be copied as aligned 4-byte words (4-byte
+// aligned planes, Hkv even). Returns the first CUDA error of the launch
+// (0 on success); the current device is set from the wrapper's device
+// index (the library links its own CUDA runtime).
 extern "C" int paged_attention_launch(int device, const void* q, int q_dtype,
                                       const void* k_pool, const void* v_pool,
                                       int kv_dtype, const void* k_scale,
                                       const void* v_scale, const void* block,
-                                      const void* lens, void* out, void* ws, int B,
-                                      int Hkv, int G, int dh, int page, int NB,
-                                      int window, int span, float scale, int vec,
+                                      const void* lens, void* out, void* ws, void* part,
+                                      void* ticket, int B, int Hkv, int G, int dh,
+                                      int page, int NB, int window, int span, int chunk,
+                                      int nsplit, float scale, int vec, int svec,
                                       int global_scores, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (B < 1 || Hkv < 1 || G < 1 || G > kMaxGroup || dh < 1 || dh > 32 * kMaxCols ||
-      page < 1 || NB < 1 || span < 1 || (global_scores && ws == nullptr) ||
-      (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr)))
+      page < 1 || NB < 1 || span < 1 || chunk < 1 || nsplit < 1 || nsplit > kMaxSplits ||
+      (long long)nsplit * chunk < span || (global_scores && ws == nullptr) ||
+      (nsplit > 1 && (part == nullptr || ticket == nullptr)) ||
+      (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr)) ||
+      (svec && Hkv % 2))
     return (int)cudaErrorInvalidValue;
-  const long long smem = smem_bytes(G, dh, span, NB, global_scores);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* blk = static_cast<const int*>(block);
-  const int* ln = static_cast<const int*>(lens);
-  float* w = static_cast<float*>(ws);
-  if (q_dtype == 0) {
-    return global_scores
-               ? launch_kv<float, true>(device, kv_dtype, q, k_pool, v_pool, k_scale, v_scale, blk,
-                                        ln, out, w, B, Hkv, G, dh, page, NB, window, span,
-                                        scale, vec, (size_t)smem, s)
-               : launch_kv<float, false>(device, kv_dtype, q, k_pool, v_pool, k_scale, v_scale,
-                                         blk, ln, out, w, B, Hkv, G, dh, page, NB, window,
-                                         span, scale, vec, (size_t)smem, s);
-  }
-  if (q_dtype == 1) {
-    return global_scores
-               ? launch_kv<__nv_bfloat16, true>(device, kv_dtype, q, k_pool, v_pool, k_scale,
-                                                v_scale, blk, ln, out, w, B, Hkv, G, dh,
-                                                page, NB, window, span, scale, vec,
-                                                (size_t)smem, s)
-               : launch_kv<__nv_bfloat16, false>(device, kv_dtype, q, k_pool, v_pool, k_scale,
-                                                 v_scale, blk, ln, out, w, B, Hkv, G, dh,
-                                                 page, NB, window, span, scale, vec,
-                                                 (size_t)smem, s);
-  }
+  const int isz = kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1;
+  const Smem lay(G, dh, isz, chunk, nsplit, split_pages(chunk, page, NB), kv_dtype == 2,
+                 global_scores != 0);
+  if (lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  Args a{device, q, k_pool, v_pool, k_scale, v_scale, static_cast<const int*>(block),
+         static_cast<const int*>(lens), out, static_cast<float*>(ws),
+         static_cast<float*>(part), static_cast<int*>(ticket), B, Hkv, G, dh, page, NB,
+         window, span, chunk, nsplit, scale, vec, svec, (size_t)lay.total,
+         static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0)
+    return global_scores ? launch_kv<float, true>(kv_dtype, a)
+                         : launch_kv<float, false>(kv_dtype, a);
+  if (q_dtype == 1)
+    return global_scores ? launch_kv<__nv_bfloat16, true>(kv_dtype, a)
+                         : launch_kv<__nv_bfloat16, false>(kv_dtype, a);
   return (int)cudaErrorInvalidValue;
 }

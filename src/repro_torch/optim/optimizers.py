@@ -11,7 +11,10 @@ through ``torch._foreach_*`` ops, and not ``torch.optim``, whose rounding
 differs. Parameters and moments are updated in place: the port keeps
 one copy of each, where the reference returns new trees. Schedules and
 the bias corrections are float32 scalars computed on the host, so a
-step needs no device synchronisation.
+step needs no device synchronisation. Square roots are taken in float64
+and rounded once to float32 (:func:`sqrt_rn_`): correctly rounded, as
+the reference's ``jnp.sqrt`` is on the CPU, where the card's float32
+root is not.
 """
 from __future__ import annotations
 
@@ -42,6 +45,22 @@ class Optimizer(NamedTuple):
 
 def _lists(names, *dicts):
     return [[d[n] for n in names] for d in dicts]
+
+
+#: elements of one float64 chunk in :func:`sqrt_rn_` (32 MiB)
+SQRT_CHUNK = 1 << 22
+
+
+@torch.no_grad()
+def sqrt_rn_(tensors) -> None:
+    """Replace each float32 tensor by its correctly rounded square root,
+    in place: the root of the float64 copy (exact to 53 bits) rounded
+    once to float32, which is correctly rounded since 53 >= 2 * 24 + 2.
+    Taken in chunks of :data:`SQRT_CHUNK` elements, so no float64 copy
+    of a whole leaf is made."""
+    for t in tensors:
+        for part in t.view(-1).split(SQRT_CHUNK):
+            part.copy_(part.double().sqrt_())
 
 
 def sgd(lr: Schedule, momentum: float = 0.9, weight_decay: float = 0.0,
@@ -97,7 +116,7 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         del gg
         # upd = (m / c1) / (sqrt(v / c2) + eps) + wd * p
         den = torch._foreach_div(v, scalar_like(c2, v[0]))
-        torch._foreach_sqrt_(den)
+        sqrt_rn_(den)
         torch._foreach_add_(den, eps)
         upd = torch._foreach_div(m, scalar_like(c1, m[0]))
         torch._foreach_div_(upd, den)
@@ -118,7 +137,8 @@ def clip_by_global_norm(grads: Named, max_norm: float):
     0-dim tensor on the gradients' device."""
     gs = list(grads.values())
     norms = torch._foreach_norm([g.float() for g in gs])
-    gn = torch.sqrt(torch.stack(norms).square().sum())
+    gn = torch.stack(norms).square().sum()
+    sqrt_rn_([gn])
     scale = torch.clamp(scalar_like(max_norm, gn) / torch.clamp(gn, min=1e-12),
                         max=1.0)
     torch._foreach_mul_(gs, scale)

@@ -20,8 +20,11 @@ the pow2 path's logits equal those of its integer decode oracle.
 Flash attention, per (row, query) over that query row's max|plain|:
 1e-5 for f32 (f32 sums in another order), 2^-7 for bf16 (one bf16 ulp
 of the row: the output rounds to bf16 after f32 sums in another order).
-The activation and KV quantizers, and the optimizer's divides, equal the
-CPU's bit for bit (the card divides where the reference divides).
+The activation and KV quantizers, the optimizer's divides and a whole
+AdamW step equal the CPU's bit for bit (the card divides where the
+reference divides; the optimizer's roots are taken in float64 and
+rounded once). Paged attention also gives the same bits on a second
+call, with dead block entries on a page of NaN, and in a CUDA graph.
 """
 import numpy as np
 import pytest
@@ -248,12 +251,31 @@ def test_cuda_kmeans_stats_matches_plain(cuda_device, N, K, ties):
 # ---------------------------------------------------------------------------
 
 #: (B, Hkv, G, dh, page, NB, lengths, window): reduced danube's decode
-#: shape, and full-width danube's at capacity 8 with a 69-page row
+#: shape, full-width danube's at capacity 8 with a 69-page row, the same
+#: with lengths on the kernel's split edges (filled in from the card's
+#: split plan by _paged_operands), and a batch of empty rows
 PAGED_SHAPES = {
     "reduced": (6, 1, 2, 16, 8, 4, [0, 1, 7, 8, 25, 32], 24),
     "full": (8, 8, 4, 80, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
              4096),
+    "splits": (12, 8, 4, 80, 64, 69, None, 4096),
+    "empty": (4, 8, 4, 80, 64, 69, [0, 0, 0, 0], 4096),
 }
+
+
+def _split_edge_lengths(B, Hkv, NB, page, window, dev):
+    """Lengths on the split edges of both plans (with and without the
+    window) at this card's SM count: one position, a row shorter than
+    one split, each first edge +- 1, window rows whose first valid
+    position is on no page or split edge, the whole table."""
+    sms = build.sm_count(dev)
+    lens = [1]
+    for w in (window, None):
+        chunk = paged_attn.split_plan(B, Hkv, NB, page, w, sms=sms)["chunk"]
+        lens += [chunk // 2, chunk - 1, chunk, chunk + 1, 2 * chunk + 1]
+    lens += [window + 1, window + 3 * 64 // 2 + 1, NB * page]
+    lens = sorted({min(x, NB * page) for x in lens})
+    return (lens * B)[:B]
 #: largest |kernel - plain| of each (sequence, query head) row over that
 #: row's largest |plain|: one bf16 ulp (2^-7) of the row for bf16 q (bf16
 #: output, bf16 scores that may round the other way where the f32 sums
@@ -268,12 +290,15 @@ def _rows_within(got, want, tol):
     return bool((err <= tol * want.float().abs().amax(-1)).all())
 
 
-def _paged_operands(shape, q_dtype, kv_dtype, dev, seed=0):
+def _paged_operands(shape, q_dtype, kv_dtype, dev, seed=0, poison=False):
     """q, pools with a zero trash page 0 and distinct live pages, the
-    block table (dead entries on page 0), lengths and the window."""
+    block table (dead entries on page 0, or with ``poison`` on a last
+    page of NaN: NaN scales for int8 pools), lengths and the window."""
     B, Hkv, G, dh, page, NB, lens, window = PAGED_SHAPES[shape]
+    if lens is None:
+        lens = _split_edge_lengths(B, Hkv, NB, page, window, dev)
     g = torch.Generator().manual_seed(seed)
-    P = 1 + B * NB
+    P = 2 + B * NB
     if kv_dtype == torch.int8:
         kp = torch.randint(-127, 128, (P, page, Hkv, dh), generator=g,
                            dtype=torch.int8)
@@ -289,10 +314,15 @@ def _paged_operands(shape, q_dtype, kv_dtype, dev, seed=0):
         ks = vs = None
     kp[0] = 0
     vp[0] = 0
+    for t in (kp, vp) if ks is None else (ks, vs):
+        t[P - 1] = float("nan")
     q = torch.randn(B, 1, Hkv * G, dh, generator=g).to(q_dtype)
     block = (1 + torch.randperm(B * NB, generator=g)).reshape(B, NB).int()
     for b, L in enumerate(lens):
-        block[b, -(-L // page):] = 0
+        live = torch.arange(NB)
+        first = max(0, (L - window) // page) if poison and window else 0
+        dead = (live >= -(-L // page)) | (live < first)
+        block[b, dead] = P - 1 if poison else 0
     cl = torch.tensor(lens, dtype=torch.int32)
     moved = [None if t is None else t.to(dev)
              for t in (q, kp, vp, block, cl, ks, vs)]
@@ -303,12 +333,13 @@ def _paged_operands(shape, q_dtype, kv_dtype, dev, seed=0):
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.int8),
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)])
-@pytest.mark.parametrize("shape", ["reduced", "full"])
+@pytest.mark.parametrize("shape", ["reduced", "full", "splits", "empty"])
 @pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
 def test_cuda_paged_attention_matches_plain(cuda_device, budget, shape,
                                             q_dtype, kv_dtype):
-    """Both variants (the default plan, and the score row forced into the
-    workspace) against the plain version on the same card tensors."""
+    """Both variants (the default plan, and each split's scores forced
+    into the workspace) against the plain version on the same card
+    tensors, lengths on the split edges and all-empty rows included."""
     q, kp, vp, block, cl, ks, vs, window = _paged_operands(
         shape, q_dtype, kv_dtype, cuda_device)
     for w in (None, window):
@@ -320,6 +351,58 @@ def test_cuda_paged_attention_matches_plain(cuda_device, budget, shape,
         torch.cuda.synchronize()
         assert got.dtype == q_dtype and got.shape == q.shape
         assert _rows_within(got, want, PAGED_TOL[q_dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.int8)])
+@pytest.mark.parametrize("shape", ["reduced", "splits"])
+@pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
+def test_cuda_paged_attention_is_deterministic_and_skips_dead_pages(
+        cuda_device, budget, shape, q_dtype, kv_dtype):
+    """Two calls give the same bits (a fixed merge order, no float
+    atomics), and pointing every dead or behind-window block entry at a
+    page of NaN keeps them: no such page is read."""
+    args = _paged_operands(shape, q_dtype, kv_dtype, cuda_device)
+    q, kp, vp, block, cl, ks, vs, window = args
+    poisoned = _paged_operands(shape, q_dtype, kv_dtype, cuda_device,
+                               poison=True)[3]
+    outs = [paged_attn.paged_attention(q, kp, vp, blk, cl, window=window,
+                                       k_scale=ks, v_scale=vs,
+                                       smem_budget_bytes=budget)
+            for blk in (block, block, poisoned)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
+def test_cuda_paged_attention_replays_in_a_cuda_graph(cuda_device, budget):
+    """One call captured in a CUDA graph and replayed twice equals the
+    eager call: the launch reads nothing back from the card, and the
+    merge tickets are left at zero for the next replay."""
+    q, kp, vp, block, cl, ks, vs, window = _paged_operands(
+        "splits", torch.bfloat16, torch.int8, cuda_device)
+
+    def call():
+        return paged_attn.paged_attention(q, kp, vp, block, cl, window=window,
+                                          k_scale=ks, v_scale=vs,
+                                          smem_budget_bytes=budget)
+    eager = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert not paged_attn._TICKETS[q.device.index].any()
 
 
 @pytest.mark.cuda
@@ -335,8 +418,8 @@ def test_cuda_paged_attention_launches_and_never_runs_plain(cuda_device):
     torch.cuda.synchronize()
     assert paged_attn.COUNTS["plain"] == before["plain"]
     assert paged_attn.COUNTS["launches"] == before["launches"] + 2
-    # a 4096-wide window row holds 64 KiB of scores: within the default
-    # budget it stays in shared memory, a zero budget forces the workspace
+    # a split's scores stay in shared memory within the default budget;
+    # a zero budget forces the workspace
     assert (paged_attn.VARIANTS["paged_attention_multipass"]
             == variants["paged_attention_multipass"] + 1)
     assert (paged_attn.VARIANTS["paged_attention"]
@@ -543,8 +626,7 @@ def test_cuda_kv_quant_equals_cpu_bits(cuda_device, dtype):
 def test_cuda_optimizer_divisors_equal_cpu_bits(cuda_device, step):
     """AdamW's bias corrections 1 - b^t and a microbatch count of 3 are
     no powers of two: the optimizer's divides by them (through
-    ``scalar_like``) give the CPU's bits on the card. (A whole AdamW
-    update does not: the card's sqrt is not correctly rounded.)"""
+    ``scalar_like``) give the CPU's bits on the card."""
     b1, b2 = 0.9, 0.95
     t = np.float32(step) + np.float32(1.0)
     divisors = [float(np.float32(1.0) - np.float32(b) ** t) for b in (b1, b2)]
@@ -555,3 +637,33 @@ def test_cuda_optimizer_divisors_equal_cpu_bits(cuda_device, step):
         card = [x.to(cuda_device) for x in ts]
         got = torch._foreach_div(card, scalar_like(c, card[0]))
         assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [0, 4])
+def test_cuda_adamw_step_equals_cpu_bits(cuda_device, step):
+    """One whole AdamW step (weight decay on) over a few float32 leaves,
+    1.26 M elements, from moments drawn from a seed: the card's
+    parameters and moments equal the CPU's bit for bit (both roots
+    correctly rounded)."""
+    from repro_torch.optim.optimizers import adamw
+
+    g = torch.Generator().manual_seed(step)
+    shapes = {"w": (1024, 1152), "k": (512, 160), "b": (1152,)}
+    state = {k: (torch.randn(s, generator=g),
+                 torch.randn(s, generator=g) * 1e-2,
+                 torch.randn(s, generator=g) * 1e-3,
+                 torch.rand(s, generator=g) * 1e-5)
+             for k, s in shapes.items()}
+    opt = adamw(lambda s: 3e-4, weight_decay=0.1)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        params = {k: t[0].clone().to(dev) for k, t in state.items()}
+        grads = {k: t[1].to(dev) for k, t in state.items()}
+        st = {"m": {k: t[2].clone().to(dev) for k, t in state.items()},
+              "v": {k: t[3].clone().to(dev) for k, t in state.items()}}
+        opt.update(grads, st, params, step)
+        runs[str(dev)] = [params, st["m"], st["v"]]
+    for want, got in zip(runs["cpu"], runs[str(cuda_device)]):
+        for k in shapes:
+            assert torch.equal(got[k].cpu(), want[k]), k

@@ -138,34 +138,228 @@ def test_paged_attention_rejects_unknown_backend():
 
 
 def test_smem_plan_properties():
-    """The default budget (all the shared memory sm_90 lets a block opt
-    into) keeps test-sized rows and every full-width danube row, up to
-    its 4096-wide window (64 KiB of scores), in shared memory; rows
-    past what a block can hold (a 16384-position row without a window)
-    take the workspace; the score row's width is the window where that
-    is shorter than the row; shrinking the budget moves a row to the
-    workspace and never back; the single-pass block always fits what
-    sm_90 allows."""
+    """A split's scores (``g x chunk`` f32) live in shared memory under
+    the default budget (all the shared memory sm_90 lets a block opt
+    into) for test-sized rows and every danube chunk the split plan
+    makes, run (c)'s 4096-wide row included; an unsplit row past what a
+    block can hold (16384 positions) takes the workspace; the score
+    row's width is the window where that is shorter than the row;
+    shrinking the budget moves a chunk to the workspace and never back;
+    the block's bytes are the kernel's layout (csrc/paged_attn.cu
+    ``Smem``) and always fit what sm_90 allows."""
     p = paged_attn.smem_plan(3, 8, 16, 2)
-    assert not p["multipass"] and p["span"] == 24
+    assert not p["multipass"] and p["span"] == p["chunk"] == 24
     assert paged_attn.smem_plan(69, 64, 80, 4, window=4096)["span"] == 4096
     assert paged_attn.smem_plan(9, 64, 80, 4, window=4096)["span"] == 576
-    assert not paged_attn.smem_plan(9, 64, 80, 4, window=4096)["multipass"]
-    assert not paged_attn.smem_plan(69, 64, 80, 4, window=4096)["multipass"]
-    assert paged_attn.smem_plan(69, 64, 80, 4, window=4096,
-                                budget_bytes=48 * 1024)["multipass"]
+    for B, nb in ((1, 69), (8, 9), (8, 69)):
+        split = paged_attn.split_plan(B, 8, nb, 64, 4096, sms=132)
+        plan = paged_attn.smem_plan(nb, 64, 80, 4, window=4096,
+                                    chunk=split["chunk"],
+                                    nsplit=split["nsplit"], itemsize=1)
+        assert not plan["multipass"] and plan["ws_bytes"] == 0
     assert paged_attn.smem_plan(256, 64, 80, 4)["multipass"]
+    # run (c): q 1280 + ring max(4 x 5120, 8 x 4 x 80 x 4) + int8 scales
+    # 1024 + reductions 336 + the splits' maxima and sums 32 x 4 x 8 + 4
+    # block entries (16) + a tile's partial scores 64 x 5 x 4 x 4 + scores
+    # 4 x 128 x 4
+    c = paged_attn.smem_plan(69, 64, 80, 4, window=4096, chunk=128,
+                             nsplit=32, itemsize=1)
+    assert c["smem_bytes"] == (1280 + 20480 + 1024 + 336 + 1024 + 16 + 5120
+                               + 2048)
     last = False
     for budget in (4096, 400, 200, 192, 100, 0):
-        p = paged_attn.smem_plan(3, 8, 16, 2, budget_bytes=budget)
-        assert p["score_bytes"] == 4 * 2 * 24
+        p = paged_attn.smem_plan(3, 8, 16, 2, chunk=8, nsplit=3,
+                                 budget_bytes=budget)
+        assert p["score_bytes"] == 4 * 2 * 8
         assert p["multipass"] == (p["score_bytes"] > budget)
+        assert p["ws_bytes"] == (4 * 2 * 24 if p["multipass"] else 0)
         assert p["multipass"] or not last
         last = p["multipass"]
     for nb in (1, 64, 512, 4096):
-        p = paged_attn.smem_plan(nb, 64, 128, 8,
-                                 budget_bytes=paged_attn.MAX_SMEM)
-        assert p["smem_bytes"] <= paged_attn.MAX_SMEM
+        for itemsize in (1, 2, 4):
+            p = paged_attn.smem_plan(nb, 64, 128, 8, itemsize=itemsize,
+                                     budget_bytes=paged_attn.MAX_SMEM)
+            assert p["smem_bytes"] <= paged_attn.MAX_SMEM
+
+
+# (B, hkv, nb, page, window, sms): the paged test's reduced rows, danube's
+# run (a) and run (c) geometries, and plans with one split
+SPLIT_GEOMETRIES = [(5, 1, 3, 8, None, 132), (5, 1, 3, 8, 12, 132),
+                    (6, 1, 4, 16, 24, 3), (8, 8, 9, 64, 4096, 132),
+                    (1, 8, 69, 64, 4096, 132), (1, 1, 69, 64, 4096, 132),
+                    (2, 2, 69, 64, None, 7), (3, 2, 12, 16, 100, 1)]
+
+
+@pytest.mark.parametrize("B,hkv,nb,page,window,sms", SPLIT_GEOMETRIES)
+def test_split_plan_covers_every_position_once(B, hkv, nb, page, window,
+                                               sms):
+    """Every valid position of a row falls in exactly one split, in
+    order, for lengths 0, 1, a page +- 1, the split edges +- 1, the
+    whole table, and window rows whose first valid position is not on
+    a page or split edge; no split owns more than ``chunk``."""
+    plan = paged_attn.split_plan(B, hkv, nb, page, window, sms=sms)
+    chunk, nsplit, span = plan["chunk"], plan["nsplit"], plan["span"]
+    assert nsplit * chunk >= span > (nsplit - 1) * chunk
+    assert chunk >= min(page, span) and nsplit <= paged_attn.MAX_SPLITS
+    full = nb * page
+    lens = {0, 1, page - 1, page, page + 1, full - 1, full}
+    for k in range(1, nsplit + 1):
+        lens |= {k * chunk - 1, k * chunk, k * chunk + 1}
+    if window:
+        lens |= {window + 1, window + page + 3, window + chunk + 1}
+    for L in sorted(x for x in lens if 0 <= x <= full):
+        lo = max(0, L - window) if window else 0
+        bounds = paged_attn.split_bounds(L, nb, page, window, chunk, nsplit)
+        assert len(bounds) == nsplit
+        owned = [i for c0, c1 in bounds for i in range(c0, c1)]
+        assert owned == list(range(lo, min(L, full))), L
+        assert all(c1 - c0 <= chunk for c0, c1 in bounds)
+
+
+def test_split_plan_reads_static_shapes_only():
+    """The plan takes no length (a launch reads nothing back from the
+    card), gives danube's run (c) row ~2 blocks an SM in chunks of two
+    ring stages and run (a)'s batch five splits a row, and its scratch
+    is as stated: the partials are each split's g x dh sum plus its g
+    maxima and exponent sums (f32), the workspace g x span f32 a row,
+    and a plan with one split needs no partials."""
+    import inspect
+
+    assert set(inspect.signature(paged_attn.split_plan).parameters) == {
+        "B", "hkv", "nb", "page", "window", "sms", "per_sm"}
+    c = paged_attn.split_plan(1, 8, 69, 64, 4096, sms=132)
+    assert (c["chunk"], c["nsplit"], c["blocks"]) == (128, 32, 256)
+    a = paged_attn.split_plan(8, 8, 9, 64, 4096, sms=132)
+    assert (a["chunk"], a["nsplit"], a["blocks"]) == (128, 5, 320)
+    assert paged_attn.split_plan(8, 8, 9, 64, 4096, sms=132,
+                                 per_sm=1)["nsplit"] == 3
+    for budget in (None, 0):
+        p = paged_attn.launch_plan(8, 8, 9, 64, 80, 4, window=4096,
+                                   itemsize=1, sms=132, budget_bytes=budget)
+        assert p["part_bytes"] == 4 * 8 * 8 * 5 * 4 * (80 + 2)
+        assert p["ws_bytes"] == (4 * 8 * 8 * 4 * 576 if budget == 0 else 0)
+    one = paged_attn.launch_plan(5, 1, 3, 8, 16, 2, sms=1)
+    assert one["nsplit"] == 1 and one["part_bytes"] == 0
+
+
+def _split_merge(q, kp, vp, ks, vs, block, cl, window, chunk, nsplit):
+    """Float32 emulation of the CUDA kernel's order of operations (f32
+    queries): each split of each (sequence, KV head) row forms its
+    scores over the positions ``split_bounds`` gives it, its max m_s,
+    l_s = sum exp(s - m_s) and acc_s = sum exp(s - m_s) v; the merge
+    takes m = max m_s, w_s = exp(m_s - m) (0 for an empty split), L =
+    sum w_s l_s and o = sum w_s acc_s / L in split order (0 where L =
+    0)."""
+    B, _, H, dh = q.shape
+    _, page, hkv, _ = kp.shape
+    nb = block.shape[1]
+    g = H // hkv
+    if ks is not None:  # int8 pages dequantized as a bf16 product
+        kp = kp.to(torch.bfloat16) * ks[..., None]
+        vp = vp.to(torch.bfloat16) * vs[..., None]
+    kp, vp = kp.float(), vp.float()
+    qs = q.float().reshape(B, hkv, g, dh) * dh ** -0.5
+    out = torch.zeros(B, hkv, g, dh)
+    for b in range(B):
+        bounds = paged_attn.split_bounds(int(cl[b]), nb, page, window,
+                                         chunk, nsplit)
+        for h in range(hkv):
+            parts = []
+            for c0, c1 in bounds:
+                if c1 <= c0:
+                    parts.append(None)
+                    continue
+                pos = torch.arange(c0, c1)
+                rows = block[b, pos // page].long()
+                k = kp[rows, pos % page, h]
+                v = vp[rows, pos % page, h]
+                s = qs[b, h] @ k.T
+                m = s.amax(-1)
+                e = torch.exp(s - m[:, None])
+                parts.append((m, e.sum(-1), e @ v))
+            live = [p for p in parts if p is not None]
+            if not live:
+                continue
+            m = torch.stack([p[0] for p in live]).amax(0)
+            L = torch.zeros(g)
+            o = torch.zeros(g, dh)
+            for mi, li, acc in live:
+                w = torch.exp(mi - m)
+                L = L + w * li
+                o = o + w[:, None] * acc
+            out[b, h] = o / L[:, None]
+    return out.reshape(B, 1, H, dh)
+
+
+#: (pool, window, g) -> the gather oracle's output and the Pallas
+#: kernel's on its single-pass and multipass plans
+_JAX_OUTPUTS: dict = {}
+
+
+@pytest.mark.parametrize("sms", [132, 8, 1])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("window", [None, 12, 24])
+@pytest.mark.parametrize("pool", ["f32", "bf16", "int8"])
+def test_split_merge_order_matches_jax(pool, window, g, sms):
+    """The kernel's split-and-merge order, emulated in f32 at the split
+    plan of ``sms`` SMs (many one-page splits, a few, one), against the
+    reference's gather oracle and its Pallas kernel in interpret mode on
+    both its single-pass and its multipass plan (a 1-byte VMEM budget
+    forces the latter): within 1e-5 of each row's max."""
+    page = 8
+    q, kp, vp, ks, vs, block, cl = _attn_case(page * 7 + g, page, g, pool)
+    (jq_, jk, jv, jb, jc), (jks, jvs) = _jax_operands(
+        q, kp, vp, ks, vs, block, cl, pool)
+    (tq, tk, tv, tb, tc), (tks, tvs) = _port_operands(
+        q, kp, vp, ks, vs, block, cl, pool)
+    B, nb, hkv = q.shape[0], block.shape[1], kp.shape[2]
+    plan = paged_attn.split_plan(B, hkv, nb, page, window, sms=sms)
+    got = _split_merge(tq, tk, tv, tks, tvs, tb, tc, window, plan["chunk"],
+                       plan["nsplit"]).numpy()
+    key = (pool, window, g)
+    if key not in _JAX_OUTPUTS:  # the same operands for every sms
+        _JAX_OUTPUTS[key] = [np.asarray(j_ops.paged_attention_reference(
+            jq_, jk, jv, jb, jc, window=window, k_scale=jks, v_scale=jvs))] + [
+            np.asarray(paged_attention_tpu(
+                jq_, jk, jv, jb, jc, window=window, k_scale=jks, v_scale=jvs,
+                interpret=True, vmem_budget_bytes=budget))
+            for budget in (None, 1)]
+    want = _JAX_OUTPUTS[key]
+    tol = 1e-5 * np.abs(want[0]).max(-1, keepdims=True)
+    for i, ref in enumerate(want):
+        assert np.all(np.abs(got - ref) <= tol), i
+
+
+def test_split_merge_order_matches_jax_long_row():
+    """One danube-shaped long row (Hkv 1, G 4, dh 80, page 64, int8
+    pages, len 4415 past a 4096 window: the first valid position is not
+    on a page edge) in 64 one-page splits and in 2, against the gather
+    oracle within 1e-5 of each row's max."""
+    rng = np.random.RandomState(17)
+    page, nb, dh, g, L, window = 64, 69, 80, 4, 4415, 4096
+    P = 1 + nb
+    kp = rng.randint(-127, 128, (P, page, 1, dh)).astype(np.int8)
+    vp = rng.randint(-127, 128, (P, page, 1, dh)).astype(np.int8)
+    ks = (np.abs(rng.randn(P, page, 1)) * 0.05).astype(np.float32)
+    vs = (np.abs(rng.randn(P, page, 1)) * 0.05).astype(np.float32)
+    for a in (kp, vp, ks, vs):
+        a[0] = 0
+    q = rng.randn(1, 1, g, dh).astype(np.float32)
+    block = (1 + rng.permutation(nb)).reshape(1, nb).astype(np.int32)
+    cl = np.array([L], np.int32)
+    (jq_, jk, jv, jb, jc), (jks, jvs) = _jax_operands(
+        q, kp, vp, ks, vs, block, cl, "int8")
+    (tq, tk, tv, tb, tc), (tks, tvs) = _port_operands(
+        q, kp, vp, ks, vs, block, cl, "int8")
+    want = np.asarray(j_ops.paged_attention_reference(
+        jq_, jk, jv, jb, jc, window=window, k_scale=jks, v_scale=jvs))
+    tol = 1e-5 * np.abs(want).max(-1, keepdims=True)
+    for sms, nsplit in ((132, 64), (1, 2)):
+        plan = paged_attn.split_plan(1, 1, nb, page, window, sms=sms)
+        assert plan["nsplit"] == nsplit
+        got = _split_merge(tq, tk, tv, tks, tvs, tb, tc, window,
+                           plan["chunk"], plan["nsplit"]).numpy()
+        assert np.all(np.abs(got - want) <= tol), sms
 
 
 @pytest.mark.parametrize("window", [None, 24])

@@ -259,6 +259,31 @@ def test_training_after_serving_in_one_process(jq):
     assert np.isfinite(float(m["loss"]))
 
 
+@pytest.mark.parametrize("chunk", [topt.SQRT_CHUNK, 1000])
+def test_sqrt_rn_keeps_the_cpu_bits(monkeypatch, chunk):
+    """The optimizer's float64 root rounded once to float32 (in chunks,
+    a leaf larger than one included) gives the CPU's float32 root and
+    the reference's ``jnp.sqrt`` bit for bit: zeros, a subnormal (not
+    held against XLA, which flushes it to zero), the largest float,
+    infinity and values across 80 binades."""
+    monkeypatch.setattr(topt, "SQRT_CHUNK", chunk)
+    rng = np.random.RandomState(5)
+    x = (rng.rand(20000) * np.exp2(rng.randint(-60, 20, 20000))
+         ).astype(np.float32)
+    x[:6] = [0.0, -0.0, 1e-45, 1.2e-38, np.finfo(np.float32).max, np.inf]
+    t = torch.from_numpy(x.copy())
+    gn = torch.tensor(float(x[100]))
+    topt.sqrt_rn_([t, gn])
+    want = np.sqrt(x)
+    np.testing.assert_array_equal(t.numpy().view(np.int32),
+                                  want.view(np.int32))
+    normal = np.arange(len(x)) != 2
+    np.testing.assert_array_equal(
+        t.numpy().view(np.int32)[normal],
+        np.asarray(jnp.sqrt(jnp.asarray(x))).view(np.int32)[normal])
+    assert gn.dtype == torch.float32 and gn.item() == want[100]
+
+
 def test_cli_trains_on_cpu(capsys):
     assert t_train_cli.main(["--arch", "h2o-danube-1.8b", "--reduced",
                              "--steps", "3", "--batch", "2", "--seq", "16",
