@@ -2,17 +2,26 @@
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM timings of
+        # the checkout at DIR (say the parent commit, from git archive)
+        # and of this one, in turns DIR, this, this, DIR
 
 Phases, each fatal on failure (nothing here catches a phase's error):
 
 1. setup: the card's name, count and power limit; build the CUDA
    kernels from src/repro_torch/kernels/csrc and print the build time.
 2. kernels against their plain versions on the card, at h2o-danube-1.8b
-   shapes. The GEMMs: bf16 and f32 x, plus a ragged case and (fused) a
-   K=256 case with indices >= 128; error is max|kernel - plain| over
-   max|plain|: at most 1e-4 for f32 x (f32 accumulation in another
-   order) and 1e-3 for bf16 x (tensor-core bf16 products accumulated in
-   f32). kmeans_stats: every leaf shape of the model with a 4-bit pow2
+   shapes. The GEMMs: danube's five products at M = 1, 4, 8, 9, 16, 17,
+   64, 65, 128, 129, 130, 256 and 512 (decode, the engine's 8 slots and
+   256-token chunks, generate's 512-token prefill and every tile edge),
+   bf16 and f32 x, plus ragged N, a ragged Kin, assignments at an odd
+   byte offset, K = 2 and (fused) K = 17 and K = 256 with indices >=
+   128; error is max|kernel - plain| over max|plain|: at most 1e-4 for
+   f32 x (f32 accumulation in another order) and 1e-3 for bf16 x
+   (tensor-core bf16 products accumulated in f32). At split decode and
+   prefill shapes a second call, and one call captured in a CUDA graph
+   and replayed twice, must give the first call's bits, with the merge
+   tickets back at 0. kmeans_stats: every leaf shape of the model with a 4-bit pow2
    dictionary (K=16) and with K=256, a ragged N and a dictionary whose
    midpoints are weights; assignments equal byte for byte, counts
    exactly equal, each entry's sum within 1e-5 of sum|w| over the entry
@@ -128,7 +137,8 @@ Phases, each fatal on failure (nothing here catches a phase's error):
 4. timing of each GEMM kernel at the decode (M=4) and prefill (M=512)
    shapes with CUDA events, beside its bound, its plain version and a
    torch.matmul on the pre-decoded bf16 weight (a yardstick the port
-   never calls); kmeans_stats over every leaf shape of one training
+   never calls), both regimes in the kernels' record (M=512 under
+   "prefill", as for lutq_shift); kmeans_stats over every leaf shape of one training
    step (two passes), beside its byte bound and its plain version (no
    single PyTorch call computes what it does); lutq_shift at the 168
    body shapes of one forward (M = 4 and 512) beside its bound, its plain
@@ -304,7 +314,10 @@ def setup():
 # phase 2
 # ---------------------------------------------------------------------------
 
-def _operands(M, Kin, N, K, dtype, gen, dev, packed):
+def _operands(M, Kin, N, K, dtype, gen, dev, packed, offset=0):
+    """x, the assignments (int8, or packed 4-bit) and d; with ``offset``
+    the assignments sit that many bytes into a buffer on the card, so
+    their rows are not 16-byte aligned."""
     import torch
 
     from repro_torch.kernels.ref import pack4_kin
@@ -314,33 +327,103 @@ def _operands(M, Kin, N, K, dtype, gen, dev, packed):
     a = torch.randint(lo, lo + K, (Kin, N), generator=gen, device=dev,
                       dtype=torch.int8)
     d = torch.sort(torch.randn(K, generator=gen, device=dev)).values
-    return x, (pack4_kin(a) if packed else a), d
+    a = pack4_kin(a) if packed else a
+    if offset:
+        buf = torch.zeros(a.numel() + offset, dtype=a.dtype, device=dev)
+        shifted = buf[offset:].view(a.shape)
+        shifted.copy_(a)
+        a = shifted
+    return x, a, d
+
+
+#: phase 2's M for the GEMMs at danube's shapes: decode (generate's 4,
+#: the engine's 8 slots, 1), the engine's 256-token prefill chunk,
+#: generate's 512-token prefill, and each tile's edges (8 | 9, 16 | 17,
+#: 64 | 65, 128 | 129, 130)
+GEMM_CHECK_M = (1, 4, 8, 9, 16, 17, 64, 65, 128, 129, 130, 256, 512)
+#: (M, Kin, N, K, byte offset of the assignments) beyond those: ragged N
+#: (unaligned rows, plain loads), a ragged Kin (x rows not 16-byte
+#: aligned), assignments at an odd byte offset, K = 2, and for the int8
+#: kernel K = 17 and 256 (the shared-table dictionary; indices >= 128
+#: stored as negative int8)
+GEMM_EXTRA_CASES = [(3, 2560, 211, 16, 0), (130, 2002, 211, 16, 0),
+                    (4, 2560, 640, 16, 1), (256, 2560, 640, 16, 3),
+                    (8, 2560, 640, 2, 0), (512, 2560, 640, 2, 0)]
+GEMM_INT8_CASES = [(4, 2560, 2560, 256, 0), (8, 2560, 640, 17, 0),
+                   (512, 2560, 2560, 256, 0), (129, 2002, 211, 256, 1)]
+#: (M, Kin, N): a second call and a CUDA-graph replay must give the same
+#: bits (decode and prefill with split reductions, prefill without)
+GEMM_REPEAT_CASES = [(4, 2560, 2560), (8, 2560, 640), (512, 2560, 640),
+                     (512, 2560, 32000)]
+
+
+def _gemm_fns():
+    from repro_torch.kernels import lutq_gemv_packed, lutq_matmul
+    from repro_torch.kernels.ref import lutq_gemv_packed_ref, lutq_matmul_ref
+
+    return {"lutq_matmul": (lutq_matmul.lutq_matmul, lutq_matmul_ref),
+            "lutq_gemv_packed": (lutq_gemv_packed.lutq_gemv_packed,
+                                 lutq_gemv_packed_ref)}
+
+
+def _gemm_repeats(kname, fn, gen, dev):
+    """A second call, and one call captured in a CUDA graph and replayed
+    twice, equal the first call bit for bit; the merge tickets are back
+    at 0 afterwards."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    for M, Kin, N in GEMM_REPEAT_CASES:
+        x, a, d = _operands(M, Kin, N, 16, torch.bfloat16, gen, dev,
+                            KERNELS[kname]["packed"])
+        first = fn(x, a, d)
+        second = fn(x, a, d)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(x, a, d)  # warm-up on the capture stream
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = fn(x, a, d)
+        same = [torch.equal(first, second)]
+        for _ in range(2):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(torch.equal(captured, first))
+        tickets = build._GEMM_TICKETS.get(str(x.device))
+        plan = build.plan_splits(M, N, Kin, build.sm_count(x.device))
+        log(f"check {kname} M={M} Kin={Kin} N={N} bf16 repeat: second call "
+            f"{'same' if same[0] else 'DIFFERENT'} bits, graph replays "
+            f"{'same' if all(same[1:]) else 'DIFFERENT'} bits (plan "
+            f"{plan['bm']}x{plan['bn']}, {plan['splits']} splits)")
+        check(all(same), f"{kname} is not deterministic at M={M} Kin={Kin} "
+              f"N={N}")
+        check(tickets is None or not bool(tickets.any()),
+              f"{kname} left a merge ticket set")
+        del graph
 
 
 def kernel_checks():
     import torch
 
-    from repro_torch.kernels import lutq_gemv_packed, lutq_matmul
-    from repro_torch.kernels.ref import lutq_gemv_packed_ref, lutq_matmul_ref
-
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    fns = {"lutq_matmul": (lutq_matmul.lutq_matmul, lutq_matmul_ref),
-           "lutq_gemv_packed": (lutq_gemv_packed.lutq_gemv_packed,
-                                lutq_gemv_packed_ref)}
     shapes = [s for s, _ in LAYER_SHAPES.values()] + [HEAD_SHAPE]
     worst = {}
-    for kname, (fn, plain) in fns.items():
+    for kname, (fn, plain) in _gemm_fns().items():
         packed = KERNELS[kname]["packed"]
-        cases = [(M, Kin, N, 16) for (Kin, N) in shapes
-                 for M in ((1, 4, 512) if packed else (4, 512))]
-        cases.append((3, 2560, 211, 16))
+        cases = [(M, Kin, N, 16, 0) for (Kin, N) in shapes
+                 for M in GEMM_CHECK_M] + GEMM_EXTRA_CASES
         if not packed:
-            cases.append((4, 2560, 2560, 256))
+            cases += GEMM_INT8_CASES
         worst[kname] = 0.0
-        for M, Kin, N, K in cases:
+        for M, Kin, N, K, offset in cases:
             for dtype in (torch.bfloat16, torch.float32):
-                x, a, d = _operands(M, Kin, N, K, dtype, gen, dev, packed)
+                x, a, d = _operands(M, Kin, N, K, dtype, gen, dev, packed,
+                                    offset)
                 got = fn(x, a, d)
                 torch.cuda.synchronize()
                 want = plain(x, a, d)
@@ -349,14 +432,16 @@ def kernel_checks():
                 scale = want.abs().max().item()
                 dname = str(dtype).split(".")[-1]
                 rel = err / max(scale, 1e-30)
-                log(f"check {kname} M={M} Kin={Kin} N={N} K={K} {dname}: "
-                    f"max_abs_err {err:.3e} rel {rel:.2e} (tol "
-                    f"{TOL[dname]:.0e})")
+                log(f"check {kname} M={M} Kin={Kin} N={N} K={K} "
+                    f"offset={offset} {dname}: max_abs_err {err:.3e} rel "
+                    f"{rel:.2e} (tol {TOL[dname]:.0e})")
                 check(bool(torch.isfinite(got).all()),
                       f"{kname} produced non-finite values")
                 check(rel <= TOL[dname], f"{kname} disagrees with its "
                       f"plain version at M={M} Kin={Kin} N={N} {dname}")
                 worst[kname] = max(worst[kname], err)
+                del x, a, d, got, want
+        _gemm_repeats(kname, fn, gen, dev)
     return worst
 
 
@@ -1694,18 +1779,13 @@ def timings(card: str):
     import torch
 
     from repro_torch.core.lutq import decode
-    from repro_torch.kernels import lutq_gemv_packed, lutq_matmul
-    from repro_torch.kernels.ref import (lutq_gemv_packed_ref,
-                                         lutq_matmul_ref, unpack4_kin)
+    from repro_torch.kernels.ref import unpack4_kin
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    fns = {"lutq_matmul": (lutq_matmul.lutq_matmul, lutq_matmul_ref),
-           "lutq_gemv_packed": (lutq_gemv_packed.lutq_gemv_packed,
-                                lutq_gemv_packed_ref)}
     shapes = dict(LAYER_SHAPES, head=(HEAD_SHAPE, 1))
     table = {}
-    for kname, (fn, plain) in fns.items():
+    for kname, (fn, plain) in _gemm_fns().items():
         packed = KERNELS[kname]["packed"]
         per_m = {}
         for M in (4, 512):
@@ -2060,6 +2140,49 @@ def flash_timings(card: str):
     return out
 
 
+def ab_timings(parent: str) -> int:
+    """Phase 4's GEMM timings (``timings``) of another checkout (say the
+    parent commit, unpacked with git archive) and of this one, in turns
+    (other, this, this, other), each in a fresh process that builds that
+    checkout's kernels, on this one card. Prints each run's per-forward
+    lines and a summary; no ok line."""
+    other = Path(parent).resolve()
+    check((other / "chip_smoke.py").is_file(), f"{other}: no chip_smoke.py")
+    code = ("import json, sys; sys.path.insert(0, {root!r}); "
+            "import chip_smoke as c; _, _, card = c.setup(); "
+            "t = c.timings(card); print('AB ' + json.dumps({{k: {{str(m): v "
+            "for m, v in per.items()}} for k, per in t.items()}}))")
+    runs = []
+    for label, root in (("parent", other), ("change", ROOT),
+                        ("change", ROOT), ("parent", other)):
+        log(f"A/B run {len(runs) + 1}: {label} ({root})")
+        proc = subprocess.run([sys.executable, "-c",
+                               code.format(root=str(root))], cwd=root,
+                              capture_output=True, text=True, timeout=1500)
+        result = None
+        for line in proc.stdout.splitlines():
+            if line.startswith("AB "):
+                result = json.loads(line[3:])
+            else:
+                print(line, flush=True)
+        check(proc.returncode == 0 and result is not None,
+              f"A/B run of {root} failed:\n{proc.stderr[-4000:]}")
+        runs.append((label, result))
+    for kname in runs[0][1]:
+        for m in runs[0][1][kname]:
+            ms = {lab: [r[kname][m]["ms"] for l2, r in runs if l2 == lab]
+                  for lab in ("parent", "change")}
+            ref = runs[0][1][kname][m]
+            log(f"A/B {kname} M={m} one forward: parent "
+                f"{ms['parent'][0]:.3f} / {ms['parent'][1]:.3f} ms, change "
+                f"{ms['change'][0]:.3f} / {ms['change'][1]:.3f} ms | bound "
+                f"{ref['bound_ms']:.3f} ms ({ref['bound_by']}) | "
+                f"torch.matmul {ref['library_ms']:.3f} ms")
+    print(json.dumps({"ab": [{"run": lab, "timings": r} for lab, r in runs]}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2067,6 +2190,9 @@ def main() -> int:
         die("torch is not importable")
     if not torch.cuda.is_available():
         die("no CUDA device: torch.cuda.is_available() is False")
+    if sys.argv[1:2] == ["--ab-timings"]:
+        check(len(sys.argv) == 3, "usage: chip_smoke.py --ab-timings DIR")
+        return ab_timings(sys.argv[2])
     t_start = time.perf_counter()
     name, count, card = setup()
     worst = kernel_checks()
@@ -2090,9 +2216,14 @@ def main() -> int:
     trained = train_full_width()
     launches["kmeans_stats"] = trained["launches"]
     reduced_train_card_vs_cpu()
-    table = {k: v[4] for k, v in timings(card).items()}
+    # the GEMMs and lutq_shift at decode (M = 4, the record's top level)
+    # and at prefill (M = 512, its "prefill" entry)
+    table, prefill = {}, {}
+    for kname, per_m in timings(card).items():
+        table[kname], prefill[kname] = per_m[4], per_m[512]
+    shift = shift_timings(card)
+    table["lutq_shift"], prefill["lutq_shift"] = shift[4], shift[512]
     table["kmeans_stats"] = dict(kmeans_timings(card), library_ms=None)
-    table["lutq_shift"] = shift_timings(card)[4]
     from repro_torch.runtime.engine import synthetic_requests
 
     run_a = synthetic_requests(cfg, 8, max_prompt=512, max_new=64, seed=0)
@@ -2126,6 +2257,12 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if kname in prefill:  # one prefill forward at B=4 x 128 (M=512)
+            p = prefill[kname]
+            records[-1]["prefill"] = {
+                "M": 512, "ms": p["ms"], "plain_ms": p["plain_ms"],
+                "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+                "library_ms": p["library_ms"]}
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

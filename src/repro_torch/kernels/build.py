@@ -30,10 +30,10 @@ CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-#: argtypes of the two GEMM launchers: device, x, x_bf16, a, vec, d,
-#: n_dict, y, part, M, N, Kin, splits, kchunk, stream
-LAUNCH_ARGTYPES = [_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                   _P]
+#: argtypes of the two GEMM launchers: device, x, x_bf16, a, avec, xvec,
+#: d, n_dict, y, part, ticket, M, N, Kin, bm, bn, splits, kchunk, stream
+LAUNCH_ARGTYPES = [_I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I,
+                   _I, _I, _I, _I, _P]
 #: argtypes of the k-means launcher: device, w, n, d, n_dict, a,
 #: part_sums, part_counts, blocks, sums, counts, stream
 KMEANS_ARGTYPES = [_I, _P, _LL, _P, _I, _P, _P, _P, _I, _P, _P, _P]
@@ -157,24 +157,65 @@ def load_library() -> ctypes.CDLL:
 # launching (shared by the two GEMM wrappers)
 # ---------------------------------------------------------------------------
 
-BN, BK = 128, 32  # the kernels' output-column and reduction tiles
+BK = 64  # reduction rows of one pipeline stage of the GEMM kernels
+#: (largest M, BM, BN, resident blocks an SM, most splits) of the GEMM
+#: kernels' output tiles, by M: decode tiles for M <= 16, prefill tiles
+#: above (None: every larger M). csrc/lutq_gemm.cuh instantiates exactly
+#: these tiles (128 x 256 on wgmma) and sizes each one's registers for
+#: that many blocks an SM; the split plan aims at that many blocks an SM,
+#: with at most that many splits (the last block of a tile merges them:
+#: a 128 x 256 f32 partial is 128 KB). Measured on the H100: decode at 2
+#: blocks an SM and at most 8 splits beat 1 or 4 blocks and 64 splits at
+#: M = 8, and tied at M = 4.
+GEMM_TILES = ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (64, 64, 128, 2, 8),
+              (None, 128, 256, 1, 4))
+#: per device: the output tiles' merge tickets, zero between calls (the
+#: kernel's last block of a tile resets its ticket)
+_GEMM_TICKETS: Dict[str, torch.Tensor] = {}
 
 
-def plan_splits(M: int, N: int, Kin: int, sms: int):
-    """(splits, kchunk): reduction split for a (M, N, Kin) product.
+def plan_splits(M: int, N: int, Kin: int, sms: int) -> dict:
+    """How a (M, Kin) @ (Kin, N) product is tiled and split, from static
+    shapes and the SM count only (never the data).
 
-    With fewer output tiles than SMs (decode shapes) the reduction is
-    split so that about two blocks per SM read assignments; each split
-    covers ``kchunk`` rows, a multiple of the kernels' 32-row step.
+    The tile follows M (``GEMM_TILES``). With fewer tiles than the
+    tile's resident blocks an SM times ``sms``, the reduction is split,
+    up to the tile's most splits, so that about that many blocks run
+    (decode shapes, and prefill of narrow products); each split covers ``kchunk`` rows, a multiple of ``BK``. Returns bm, bn,
+    grid (m tiles, n tiles, splits), splits, kchunk, and the workspace a
+    call needs: ``tickets`` int32 (one a tile) and ``partials`` f32
+    (splits * M * N), both 0 without a split.
     """
-    bm = 16 if M <= 16 else 64
-    tiles = -(-N // BN) * -(-M // bm)
+    bm, bn, per_sm, most = next(t[1:] for t in GEMM_TILES
+                                if t[0] is None or M <= t[0])
+    grid_m, grid_n = -(-M // bm), -(-N // bn)
+    tiles = grid_m * grid_n
     steps = -(-Kin // BK)
-    if tiles >= sms:
-        return 1, steps * BK
-    want = min(steps, -(-2 * sms // tiles))
+    want = max(1, min(steps, most, per_sm * sms // tiles))
     kchunk = -(-steps // want) * BK
-    return -(-Kin // kchunk), kchunk
+    splits = -(-Kin // kchunk)
+    split = splits > 1
+    return dict(bm=bm, bn=bn, grid=(grid_m, grid_n, splits), splits=splits,
+                kchunk=kchunk, tickets=tiles if split else 0,
+                partials=splits * M * N if split else 0)
+
+
+def gemm_workspace(plan: dict, device: torch.device):
+    """(partials, tickets) for a call under ``plan``: a fresh f32 buffer
+    of ``plan["partials"]`` and the device's zeroed tickets (at least
+    ``plan["tickets"]``, made once and grown rarely: the kernel leaves
+    them zero, so a call, or a CUDA graph replaying one, needs no reset);
+    (None, None) without a split."""
+    if plan["splits"] == 1:
+        return None, None
+    part = torch.empty(plan["partials"], dtype=torch.float32, device=device)
+    key = str(device)
+    t = _GEMM_TICKETS.get(key)
+    if t is None or t.numel() < plan["tickets"]:
+        t = torch.zeros(max(plan["tickets"], 4096), dtype=torch.int32,
+                        device=device)
+        _GEMM_TICKETS[key] = t
+    return part, t
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,12 +223,13 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_gemm(launcher: str, x, a, d, N: int, vec_bytes: int):
-    """Run one decode-GEMM launcher on CUDA tensors; returns y (M, N) f32.
+def launch_gemm(launcher: str, x, a, d, N: int):
+    """Run one LUT-decode GEMM launcher (prefill or decode, the plan picks
+    the tile) on CUDA tensors; returns y (M, N) f32.
 
     ``a`` is the (Kin, N) int8 or (Kin/2, N) packed assignment matrix;
-    the launcher reads it with ``vec_bytes``-wide loads where alignment
-    allows.
+    the kernel copies x and a with 16-byte cp.async where their rows are
+    16-byte aligned, and with plain loads otherwise.
     """
     for name, t in (("x", x), ("a", a), ("d", d)):
         if t.device.type != "cuda":
@@ -206,18 +248,19 @@ def launch_gemm(launcher: str, x, a, d, N: int, vec_bytes: int):
     M, Kin = x.shape
     if M == 0 or N == 0 or Kin == 0:
         raise ValueError(f"{launcher}: empty product {(M, Kin, N)}")
-    splits, kchunk = plan_splits(M, N, Kin, sm_count(x.device))
+    plan = plan_splits(M, N, Kin, sm_count(x.device))
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
-    vec = int(a.data_ptr() % vec_bytes == 0 and N % vec_bytes == 0)
+    part, ticket = gemm_workspace(plan, x.device)
+    avec = int(a.data_ptr() % 16 == 0 and N % 16 == 0)
+    xvec = int(x.data_ptr() % 16 == 0 and (Kin * x.element_size()) % 16 == 0)
     fn = getattr(load_library(), launcher)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.device.index, x.data_ptr(), int(x.dtype == torch.bfloat16),
-            a.data_ptr(), vec, d.data_ptr(), d.numel(), y.data_ptr(),
-            None if part is None else part.data_ptr(), M, N, Kin, splits,
-            kchunk, stream)
+            a.data_ptr(), avec, xvec, d.data_ptr(), d.numel(), y.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if ticket is None else ticket.data_ptr(), M, N, Kin,
+            plan["bm"], plan["bn"], plan["splits"], plan["kchunk"], stream)
     if rc != 0:
         raise RuntimeError(f"{launcher}: CUDA error {rc} at launch "
-                           f"(M={M}, N={N}, Kin={Kin}, splits={splits})")
+                           f"(M={M}, N={N}, Kin={Kin}, plan={plan})")
     return y

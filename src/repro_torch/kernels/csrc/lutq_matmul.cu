@@ -3,25 +3,29 @@
 // Replaces the TPU kernel src/repro/kernels/lutq_matmul.py::lutq_matmul
 // (body _kernel), the `fused` backend of kernels/ops.lutq_dot.
 //
-// Bound on the H100: at decode (M = 4) the kernel reads 1 byte per weight
-// and does 2 * M flops on it, far below the ~295 flops per byte where
-// bf16 tensor cores become the limit, so device-memory bytes bound it
-// (Kin * N index bytes at 3.35 TB/s). At prefill (M = 512) it does 1024
-// flops per index byte and bf16 tensor-core throughput bounds it.
+// Bound on the H100: at decode (M = 4 or 8) the kernel reads 1 byte per
+// weight and does 2 M flops on it, far below the ~295 flops per byte
+// where bf16 tensor cores become the limit, so device-memory bytes bound
+// it (Kin * N index bytes at 3.35 TB/s). At prefill (M = 512) it does
+// 1024 flops per index byte and bf16 tensor-core throughput bounds it.
 //
-// What the design does about it: the assignments stream from device
-// memory once, as int8, coalesced 16 bytes a thread; the decode to
-// bf16/f32 happens in shared memory against a shared-memory dictionary,
-// so no decoded weight is ever written back. Decode shapes, which have
-// few output tiles, split the reduction over more blocks to keep all
-// SMs reading (fixed-order second pass); prefill shapes use 64 x 128
-// tiles on WMMA bf16 tensor-core products. See lutq_gemm.cuh.
+// What the design does about it (lutq_gemm.cuh): the assignments stream
+// from device memory once, as bytes, through a cp.async ring; each warp
+// decodes its bytes straight into tensor-core A fragments in registers
+// (K <= 16: two rows' indices merged into one byte select a bf16 pair
+// from a per-lane shared table; K = 256: a 512-byte shared table of bf16
+// entries), so no decoded weight is written anywhere. Prefill runs 64 x
+// 128 output tiles on mma.sync and 128 x 256 tiles on wgmma; decode runs
+// 8 x 256 or 16 x 256 tiles with the reduction split over enough blocks
+// to keep every SM's bytes in flight, the splits merged inside the
+// kernel by the last block of each tile (integer ticket, fixed order):
+// one launch a call.
 #include "lutq_gemm.cuh"
 
 extern "C" int lutq_matmul_launch(int device, const void* x, int x_bf16, const void* a,
-                                  int vec, const void* d, int n_dict,
-                                  void* y, void* part, int M, int N, int Kin,
-                                  int splits, int kchunk, void* stream) {
-  return launch<false>(device, x, x_bf16, a, vec, d, n_dict, y, part, M, N, Kin,
-                       splits, kchunk, static_cast<cudaStream_t>(stream));
+                                  int avec, int xvec, const void* d, int n_dict, void* y,
+                                  void* part, void* ticket, int M, int N, int Kin, int bm,
+                                  int bn, int splits, int kchunk, void* stream) {
+  return launch<false>(device, x, x_bf16, a, avec, xvec, d, n_dict, y, part, ticket, M, N,
+                       Kin, bm, bn, splits, kchunk, static_cast<cudaStream_t>(stream));
 }

@@ -39,6 +39,6 @@ def lutq_gemv_packed(x: torch.Tensor, packed: torch.Tensor,
         COUNTS["plain"] += 1
         return lutq_gemv_packed_ref(x, packed, d)
     y = build.launch_gemm("lutq_gemv_packed_launch", x, packed, d,
-                          N=packed.shape[1], vec_bytes=8)
+                          N=packed.shape[1])
     COUNTS["launches"] += 1
     return y

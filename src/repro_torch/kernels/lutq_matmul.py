@@ -33,7 +33,6 @@ def lutq_matmul(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor
     if x.device.type == "cpu":
         COUNTS["plain"] += 1
         return lutq_matmul_ref(x, a, d)
-    y = build.launch_gemm("lutq_matmul_launch", x, a, d, N=a.shape[1],
-                          vec_bytes=16)
+    y = build.launch_gemm("lutq_matmul_launch", x, a, d, N=a.shape[1])
     COUNTS["launches"] += 1
     return y

@@ -52,17 +52,25 @@ def cuda_device():
     return torch.device("cuda")
 
 
-CUDA_CASES = [(1, 96, 211), (3, 2560, 640), (17, 64, 130), (96, 128, 257)]
+#: (M, Kin, N, offset): decode (M <= 16: 8 x 256 and 16 x 256 tiles,
+#: the reduction split) and prefill (64 x 128 and 128 x 256 tiles) at
+#: each tile's edges, generate's M = 4 and 512 and the engine's M = 8 and
+#: 256 at danube's k/v width, ragged N (unaligned assignment rows), a
+#: ragged Kin (unaligned x rows) and assignments at an odd byte offset
+CUDA_CASES = [(1, 96, 211, 0), (3, 2560, 640, 0), (17, 64, 130, 0),
+              (96, 128, 257, 0), (4, 2560, 640, 0), (8, 2560, 640, 0),
+              (9, 256, 384, 0), (16, 192, 256, 0), (64, 128, 256, 0),
+              (65, 320, 136, 0), (128, 256, 128, 0), (129, 130, 130, 0),
+              (130, 2002, 211, 0), (256, 2560, 640, 0), (512, 640, 384, 0),
+              (4, 256, 640, 1), (129, 256, 640, 3)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,Kin,N", CUDA_CASES)
-@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed"])
-def test_cuda_kernel_matches_plain(cuda_device, kernel, M, Kin, N, dtype):
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn(M, Kin, generator=g).to(getattr(torch, dtype))
-    K = 16
+def _gemm_operands(kernel, M, Kin, N, dtype, device, offset=0, K=16,
+                   seed=0):
+    """x, the assignments on ``device`` (``offset`` bytes into a buffer)
+    and d, with the matching wrapper and plain version."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, Kin, generator=g).to(dtype)
     a = torch.randint(0, K, (Kin, N), generator=g, dtype=torch.int8)
     d = torch.sort(torch.randn(K, generator=g)).values
     if kernel == "lutq_matmul":
@@ -70,12 +78,110 @@ def test_cuda_kernel_matches_plain(cuda_device, kernel, M, Kin, N, dtype):
     else:
         fn, plain, idx = (lutq_gemv_packed.lutq_gemv_packed,
                           lutq_gemv_packed_ref, pack4_kin(a))
-    want = plain(x, idx, d)
-    got = fn(x.to(cuda_device), idx.to(cuda_device), d.to(cuda_device))
+    buf = torch.zeros(idx.numel() + offset, dtype=idx.dtype, device=device)
+    idx_card = buf[offset:].view(idx.shape)
+    idx_card.copy_(idx)
+    return fn, plain, (x, idx, d), (x.to(device), idx_card, d.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,Kin,N,offset", CUDA_CASES)
+@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed"])
+def test_cuda_kernel_matches_plain(cuda_device, kernel, M, Kin, N, offset,
+                                   dtype):
+    fn, plain, cpu_args, card_args = _gemm_operands(
+        kernel, M, Kin, N, getattr(torch, dtype), cuda_device, offset)
+    assert card_args[1].data_ptr() % 16 == offset
+    want = plain(*cpu_args)
+    counts = (lutq_matmul.COUNTS if kernel == "lutq_matmul"
+              else lutq_gemv_packed.COUNTS)
+    before = dict(counts)
+    got = fn(*card_args)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == "float32" else 1e-3
     err = (got.cpu() - want).abs().max().item()
     assert err <= tol * want.abs().max().item(), err
+    assert counts["launches"] == before["launches"] + 1
+    assert counts["plain"] == before["plain"]
+
+
+#: (M, Kin, N): decode and prefill shapes whose plans split the reduction
+GEMM_REPEAT_CASES = [(4, 2560, 2560), (8, 2560, 640), (512, 2560, 640)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kin,N", GEMM_REPEAT_CASES)
+@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed"])
+def test_cuda_gemm_is_deterministic(cuda_device, kernel, M, Kin, N):
+    """Two calls give the same bits: the splits are merged in a fixed
+    order by an integer ticket, with no float atomics."""
+    assert build.plan_splits(M, N, Kin,
+                             build.sm_count(cuda_device))["splits"] > 1
+    fn, _, _, args = _gemm_operands(kernel, M, Kin, N, torch.bfloat16,
+                                    cuda_device)
+    first, second = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not build._GEMM_TICKETS[str(args[0].device)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kin,N", GEMM_REPEAT_CASES)
+@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed"])
+def test_cuda_gemm_replays_in_a_cuda_graph(cuda_device, kernel, M, Kin, N):
+    """One call captured in a CUDA graph and replayed twice equals the
+    eager call, and the merge tickets are left at zero for the next
+    replay."""
+    fn, _, _, args = _gemm_operands(kernel, M, Kin, N, torch.bfloat16,
+                                    cuda_device, seed=1)
+    eager = fn(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*args)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert not build._GEMM_TICKETS[str(args[0].device)].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed"])
+def test_cuda_gemm_raises_instead_of_falling_back(cuda_device, kernel,
+                                                  monkeypatch):
+    fn, _, _, (x, a, d) = _gemm_operands(kernel, 4, 256, 640,
+                                         torch.bfloat16, cuda_device)
+    counts = (lutq_matmul.COUNTS if kernel == "lutq_matmul"
+              else lutq_gemv_packed.COUNTS)
+    before = dict(counts)
+    launcher = f"{kernel}_launch"
+
+    class FailedLaunch:
+        pass
+
+    setattr(FailedLaunch, launcher, staticmethod(lambda *args: 1))
+
+    def failed_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(build, "load_library", lambda: FailedLaunch)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        fn(x, a, d)
+    monkeypatch.setattr(build, "load_library", failed_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fn(x, a, d)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        fn(x, a.cpu(), d)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x.t().contiguous().t(), a, d)
+    assert counts == before
 
 
 @pytest.mark.cuda

@@ -164,12 +164,72 @@ def test_wrappers_check_shapes():
         lutq_gemv_packed.lutq_gemv_packed(torch.zeros(2, 128), st.a, st.d)
 
 
+#: danube's (Kin, N) products: q/o, k/v, wi/wg, wo and the head
+DANUBE_PRODUCTS = [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560),
+                   (2560, 32000)]
+
+
+def _cover(extent, starts, width):
+    """How many times each of ``extent`` positions is covered by the
+    intervals [s, min(extent, s + width))."""
+    n = np.zeros(extent, dtype=np.int64)
+    for s in starts:
+        n[s:min(extent, s + width)] += 1
+    return n
+
+
 @pytest.mark.parametrize("M,N,Kin,sms", [(4, 2560, 2560, 132),
                                          (4, 32000, 2560, 132),
                                          (512, 640, 2560, 132),
                                          (3, 211, 96, 132),
-                                         (1, 8, 6912, 132)])
+                                         (1, 8, 6912, 132)]
+                         + [(M, N, Kin, 132) for M in (1, 4, 8, 130, 256, 512)
+                            for Kin, N in DANUBE_PRODUCTS]
+                         + [(17, 257, 2002, 132), (129, 130, 130, 132),
+                            (64, 640, 64, 132), (16, 32000, 6912, 114)])
 def test_plan_splits_covers_the_reduction(M, N, Kin, sms):
-    splits, kchunk = build.plan_splits(M, N, Kin, sms)
+    """Every output tile and every reduction row is covered exactly once,
+    the split count is one the ticket merge takes, the tile is the one
+    GEMM_TILES gives M, and the plan is a function of shapes only."""
+    plan = build.plan_splits(M, N, Kin, sms)
+    bm, bn, splits, kchunk = (plan["bm"], plan["bn"], plan["splits"],
+                              plan["kchunk"])
+    grid_m, grid_n, grid_z = plan["grid"]
+    top, want_bm, want_bn, per_sm, most = next(
+        t for t in build.GEMM_TILES if t[0] is None or M <= t[0])
+    assert grid_z == splits and 1 <= splits <= most
     assert kchunk % build.BK == 0
     assert (splits - 1) * kchunk < Kin <= splits * kchunk
+    assert (_cover(M, range(0, grid_m * bm, bm), bm) == 1).all()
+    assert (_cover(N, range(0, grid_n * bn, bn), bn) == 1).all()
+    assert (_cover(Kin, range(0, splits * kchunk, kchunk), kchunk) == 1).all()
+    assert (bm, bn) == (want_bm, want_bn)
+    # decode tiles for M <= 16, prefill tiles above
+    assert (bm <= 16) == (M <= 16)
+    tiles = grid_m * grid_n
+    if splits > 1:
+        # split only while the tiles leave SMs idle, and never below one
+        # pipeline step a split
+        assert tiles * splits <= per_sm * sms
+        assert tiles < per_sm * sms
+    assert build.plan_splits(M, N, Kin, sms) == plan
+
+
+@pytest.mark.parametrize("M,N,Kin", [(4, 2560, 2560), (8, 640, 2560),
+                                     (512, 2560, 6912), (512, 32000, 2560),
+                                     (3, 211, 96)])
+def test_gemm_workspace_matches_the_grid(M, N, Kin):
+    """The wrapper's partial buffer holds splits x M x N f32 and its
+    tickets one int32 a tile, zero; none without a split."""
+    plan = build.plan_splits(M, N, Kin, 132)
+    part, ticket = build.gemm_workspace(plan, torch.device("cpu"))
+    grid_m, grid_n, splits = plan["grid"]
+    if splits == 1:
+        assert part is None and ticket is None
+        assert plan["partials"] == plan["tickets"] == 0
+        return
+    assert part.dtype == torch.float32 and part.numel() == splits * M * N
+    assert plan["partials"] == part.numel()
+    assert plan["tickets"] == grid_m * grid_n
+    assert ticket.dtype == torch.int32
+    assert ticket.numel() >= grid_m * grid_n and not ticket.any()
