@@ -2,9 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM timings of
-        # the checkout at DIR (say the parent commit, from git archive)
-        # and of this one, in turns DIR, this, this, DIR
+    python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM and
+        # lutq_shift timings of the checkout at DIR (say the parent
+        # commit, from git archive) and of this one, in turns DIR, this,
+        # this, DIR
 
 Phases, each fatal on failure (nothing here catches a phase's error):
 
@@ -55,11 +56,19 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    eager call, with the merge tickets back at 0.
 2d. lutq_shift (the shift-add kernel of the multiplier-less pow2 path)
    against its plain version on the card, bit for bit (torch.equal, no
-   tolerance: int32 sums): danube's seven body shapes at M = 1, 4, 130,
-   512, a ragged shape (Kin 2000, N 700, M 3 and 130), K = 2, 16, 256
-   (indices >= 128 stored as negative int8), zero entries, both signs,
-   and operands at the overflow guard's limit (7 + span + ceil(log2
-   Kin) = 31, every term at its largest).
+   tolerance: int32 sums): danube's seven body shapes at M = 1, 2, 4, 8,
+   130, 512 (a two-digit-plane dictionary) and at M = 4, 8, 9, 16, 17,
+   64, 256, 512 (one plane, as danube's leaves: every tile edge, the
+   engine's 8-slot step and 256-row chunk), a ragged shape (Kin 2000, N
+   700, M 3 and 130), K = 2, 16, 256 (indices >= 128 stored as negative
+   int8) at decode and prefill M, zero entries, both signs, and operands
+   at the overflow guard's limit (7 + span + ceil(log2 Kin) = 31, every
+   term at its largest): two planes at danube's Kin, three and four at
+   small Kin. A second call and two replays of a call captured in a CUDA
+   graph give the first call's bits at split and unsplit shapes, one
+   launch a call, the merge tickets back at 0; the profiler's kernel list
+   over calls at split decode and prefill shapes holds the kernel once a
+   call and no memset.
 2e. flash attention (the counterpart of the TPU kernel
    flash_attention_tpu) against its plain version on the card: the
    shapes of tests/test_flash_kernel.py (S, D, bq, bk in (256, 64, 128,
@@ -112,7 +121,9 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    serve_view. All 168 body leaves must be pow2-encoded with frozen
    scales; the largest 7 + span + ceil(log2 Kin) is printed. generate
    (B=4, prompt 128, 16 tokens) must launch lutq_shift 168 times a
-   forward and no other GEMM kernel or plain version; the prefill
+   forward and no other GEMM kernel or plain version, and in a profiled
+   generate the card must run one lutq_shift kernel a call and no more
+   memsets than the same generate through the decode oracle; the prefill
    logits of the integer decode oracle (kernel_backend="decode", plain
    torch on the card) must equal the kernel's bit for bit, and the
    greedy tokens must be identical. Then one paged engine run over
@@ -141,9 +152,11 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    "prefill", as for lutq_shift); kmeans_stats over every leaf shape of one training
    step (two passes), beside its byte bound and its plain version (no
    single PyTorch call computes what it does); lutq_shift at the 168
-   body shapes of one forward (M = 4 and 512) beside its bound, its plain
-   version and torch._int_mm on the pre-decoded int8 weight (a yardstick
-   the port never calls, exact where |wsh| <= 64); the paged-attention
+   body shapes of one forward (M = 4, 8 and 512; M = 8 is logged) beside
+   its bound, its plain version and torch._int_mm on the pre-decoded int8
+   weight (a yardstick the port never calls, exact where |wsh| <= 64;
+   every layout it accepts is timed and the fastest reported); the
+   paged-attention
    kernel, both variants, at run (a)'s decode geometry and at run (c)'s
    longest row, with the K/V bytes a call reads rotated through more
    than twice the L2, beside its byte bound (the valid positions' K/V
@@ -534,7 +547,8 @@ def _shift_operands(M, Kin, N, K, gen, dev, span=9, extreme=False):
         code[1] = 0
     wsh = pow2_shift_weights(code.to(torch.int8))
     if extreme:
-        a = torch.full((Kin, N), K - 1, dtype=torch.int8, device=dev)
+        a = torch.full((Kin, N), K - 1, dtype=torch.uint8,
+                       device=dev).view(torch.int8)
         xq = torch.full((M, Kin), 127, dtype=torch.int8, device=dev)
         return xq * int(torch.sign(wsh[K - 1])), a, wsh
     a = torch.randint(-128, 128, (Kin, N), generator=gen, device=dev,
@@ -546,17 +560,98 @@ def _shift_operands(M, Kin, N, K, gen, dev, span=9, extreme=False):
     return xq, a, wsh
 
 
+#: (M, Kin, N): a second call and two CUDA-graph replays of lutq_shift
+#: must give the first call's bits (decode and prefill shapes that split
+#: the reduction, and one that does not)
+SHIFT_REPEAT_CASES = [(4, 2560, 2560), (8, 2560, 640), (512, 2560, 640),
+                      (512, 2560, 6912)]
+#: (span, Kin, K): dictionaries of 2, 3 and 4 digit planes (span // 7 +
+#: 1), each at the guard's limit 7 + span + ceil(log2 Kin) = 31
+SHIFT_PLANE_CASES = [(17, 128, 16), (14, 1024, 256), (20, 16, 16),
+                     (21, 8, 256), (23, 2, 16)]
+
+
+def _shift_repeats(gen, dev):
+    """A second call, and one call captured in a CUDA graph and replayed
+    twice, equal the first call bit for bit, one launch a call; the merge
+    tickets are back at 0. Then the profiler's kernel list over calls at
+    a split decode and a split prefill shape: the kernel once a call and
+    no memset."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build, lutq_shift
+    from repro_torch.kernels.ref import shift_planes
+
+    for M, Kin, N in SHIFT_REPEAT_CASES:
+        xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=5)
+        planes = shift_planes(wsh)
+        launches = lutq_shift.COUNTS["launches"]
+        first = lutq_shift.lutq_shift(xq, a, wsh, planes)
+        second = lutq_shift.lutq_shift(xq, a, wsh, planes)
+        calls = lutq_shift.COUNTS["launches"] - launches
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            lutq_shift.lutq_shift(xq, a, wsh, planes)  # warm-up
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = lutq_shift.lutq_shift(xq, a, wsh, planes)
+        same = [torch.equal(first, second)]
+        for _ in range(2):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(torch.equal(captured, first))
+        tickets = build._GEMM_TICKETS.get(str(xq.device))
+        plan = lutq_shift.plan_splits(M, N, Kin, build.sm_count(xq.device))
+        log(f"check lutq_shift M={M} Kin={Kin} N={N} repeat: second call "
+            f"{'same' if same[0] else 'DIFFERENT'} bits, graph replays "
+            f"{'same' if all(same[1:]) else 'DIFFERENT'} bits, {calls} "
+            f"launches for 2 calls (plan {plan['bm']}x{plan['bn']}, "
+            f"{plan['splits']} splits)")
+        check(all(same), f"lutq_shift is not deterministic at M={M} "
+              f"Kin={Kin} N={N}")
+        check(calls == 2, f"lutq_shift: {calls} launches for 2 calls")
+        check(tickets is None or not bool(tickets.any()),
+              "lutq_shift left a merge ticket set")
+        del graph
+    for M, Kin, N in SHIFT_REPEAT_CASES[:3:2]:
+        xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=5)
+        lutq_shift.lutq_shift(xq, a, wsh, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                lutq_shift.lutq_shift(xq, a, wsh, 1)
+            torch.cuda.synchronize()
+        rows = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        log(f"check lutq_shift M={M} Kin={Kin} N={N}: 4 calls, profiler "
+            f"kernels {rows}")
+        check(not any("emset" in k for k in rows),
+              f"lutq_shift put a memset on the stream: {rows}")
+        check(len(rows) == 1 and "lutq_shift" in next(iter(rows))
+              and next(iter(rows.values())) == 4,
+              f"lutq_shift is not one launch a call: {rows}")
+
+
 def shift_checks():
     """lutq_shift against its plain version on the card, bit for bit
-    (torch.equal): danube's seven body shapes at M = 1, 2, 4, 8, 130, 512
-    (every decode tile instance; M = 8 is the engine's decode step), a
-    ragged shape, K = 2, 16, 256 (indices >= 128 as negative int8), and
-    operands at the overflow guard's limit, 7 + span + ceil(log2 Kin) =
-    31 with every term at its largest. Returns max |kernel - plain| (0)."""
+    (torch.equal): danube's four body shapes at M = 1, 2, 4, 8, 130, 512
+    with a two-plane dictionary (span 9), and at M = 4, 8, 9, 16, 17, 64,
+    256, 512 (every tile edge, the engine's 8-slot step and 256-row chunk)
+    with a one-plane one (span 5, as danube's leaves), a ragged shape,
+    K = 2, 16, 256 (indices >= 128 as negative int8) at decode and
+    prefill M, operands at the overflow guard's limit, 7 + span +
+    ceil(log2 Kin) = 31 with every term at its largest (two planes at
+    danube's Kin, three and four at small Kin), then the repeat, graph and
+    one-launch checks of ``_shift_repeats``. Returns max |kernel - plain|
+    (0)."""
     import torch
 
     from repro_torch.kernels.lutq_shift import lutq_shift
-    from repro_torch.kernels.ref import lutq_shift_ref
+    from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
@@ -564,26 +659,36 @@ def shift_checks():
               "wi/wg": (2560, 6912), "wo": (6912, 2560)}
     cases = [(name, M, Kin, N, 16, 9, False) for name, (Kin, N)
              in leaves.items() for M in (1, 2, 4, 8, 130, 512)]
+    cases += [(name, M, Kin, N, 16, 5, False) for name, (Kin, N)
+              in leaves.items() for M in (4, 8, 9, 16, 17, 64, 256, 512)]
     cases += [("ragged", M, 2000, 700, 16, 9, False) for M in (3, 130)]
     cases += [(f"K={K}", M, 2560, 640, K, 9, False) for K in (2, 256)
-              for M in (4, 130)]
+              for M in (4, 130, 512)]
     for Kin, N in ((2560, 6912), (6912, 2560)):
         span = 31 - 7 - math.ceil(math.log2(Kin))
         cases += [(f"guard limit span={span}", M, Kin, N, 16, span, True)
                   for M in (4, 512)]
+    cases += [(f"guard limit span={span}", M, Kin, 640, K, span, extreme)
+              for span, Kin, K in SHIFT_PLANE_CASES for M in (4, 130)
+              for extreme in (False, True)]
     worst = 0
+    seen_planes = set()
     for label, M, Kin, N, K, span, extreme in cases:
         xq, a, wsh = _shift_operands(M, Kin, N, K, gen, dev, span, extreme)
+        planes = shift_planes(wsh)
+        seen_planes.add(planes)
         got = lutq_shift(xq, a, wsh)
         torch.cuda.synchronize()
         want = lutq_shift_ref(xq, a, wsh)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         log(f"check lutq_shift {label} M={M} Kin={Kin} N={N} K={K}: equal "
-            f"{bool(torch.equal(got, want))} | max |acc| "
-            f"{int(want.abs().max())} | max |wsh| {int(wsh.abs().max())}")
+            f"{bool(torch.equal(got, want))} | {planes} digit planes | max "
+            f"|acc| {int(want.abs().max())} | max |wsh| "
+            f"{int(wsh.abs().max())}")
         check(torch.equal(got, want), f"lutq_shift differs from its plain "
               f"version ({label}, M={M} Kin={Kin} N={N} K={K})")
+        check(planes == span // 7 + 1, f"{planes} planes for span {span}")
         if extreme:
             check(int(want.abs().min()) == 127 * 2 ** span * Kin,
                   "guard-limit case did not reach its largest sum")
@@ -591,6 +696,8 @@ def shift_checks():
             check(bool((a < 0).any()), "K=256: no index >= 128 seen")
         worst = max(worst, err)
         del xq, a, got, want
+    check(seen_planes == {1, 2, 3, 4}, f"digit planes seen: {seen_planes}")
+    _shift_repeats(gen, dev)
     return float(worst)
 
 
@@ -1502,7 +1609,32 @@ def serve_pow2_full_width():
     check(torch.equal(out, oracle), "pow2 tokens: kernel and oracle differ")
     check(out.shape == (BATCH, STEPS_GEN) and bool(
         ((out >= 0) & (out < cfg.vocab)).all()), "pow2 tokens out of range")
-    wall_ms, busy_ms = profile_generate(view, cfg, toks)
+
+    def profiled(run_cfg):
+        def run():
+            generate(view, run_cfg, {"tokens": toks}, steps=STEPS_GEN,
+                     device="cuda")
+            torch.cuda.synchronize()
+        return run
+    _reset_counts()
+    wall_ms, busy_ms, rows = profile_run(profiled(cfg), "generate")
+    calls = _read_counts()["lutq_shift"]
+    _, _, oracle_rows = profile_run(profiled(oracle_cfg),
+                                    "generate (integer decode oracle)")
+    kernels = sum(c for _, c, k in rows if "lutq_shift" in k)
+    memsets = [sum(c for _, c, k in r if "emset" in k)
+               for r in (rows, oracle_rows)]
+    log(f"  profiled pow2 generate: {calls} lutq_shift calls, {kernels} "
+        f"lutq_shift kernels on the card "
+        f"({sum(ms for ms, _, k in rows if 'lutq_shift' in k):.3f} ms), "
+        f"{memsets[0]} memsets in the run ({memsets[1]} in the same "
+        f"generate through the decode oracle, which launches no kernel of "
+        f"the port)")
+    check(calls == expected and kernels == calls,
+          f"lutq_shift: {kernels} kernels for {calls} calls, expected one "
+          f"each, {expected} in all")
+    check(memsets[0] <= memsets[1],
+          f"lutq_shift adds memsets to a pow2 generate: {memsets}")
 
     run = dict(backend="auto", kv_bits=8, capacity=8, kv_pages=160,
                max_len=512 + 64,
@@ -1833,33 +1965,41 @@ def timings(card: str):
     return table
 
 
+#: phase 4's M for lutq_shift: generate's decode rows, the engine's
+#: 8-slot decode step, generate's 512-row prefill
+SHIFT_TIMING_M = (4, 8, 512)
+
+
 def shift_timings(card: str):
-    """lutq_shift at the 168 body shapes of one forward, decode (M=4) and
-    prefill (M=512), with the assignments rotated through more than twice
-    the L2, beside its bound, its plain version and torch._int_mm on the
-    pre-decoded int8 weight (a yardstick the port never calls; exact
-    here because the timing dictionary's |wsh| <= 64, M padded to the 32
-    rows _int_mm takes at least). Bound: A at 1 byte a weight, xq, the
-    int32 output and wsh at the HBM rate; operations at the int8
-    tensor-core rate."""
+    """lutq_shift at the 168 body shapes of one forward, at each M of
+    SHIFT_TIMING_M (decode 4 and 8, prefill 512), with the assignments
+    rotated through more than twice the L2, beside its bound, its plain
+    version and torch._int_mm on the pre-decoded int8 weight (a yardstick
+    the port never calls, its fastest layout; exact here because the
+    timing dictionary's |wsh| <= 64, M padded to the 32 rows _int_mm
+    takes at least). Bound: A at 1 byte a weight, xq, the int32 output
+    and wsh at the HBM rate; operations at the int8 tensor-core rate."""
     import torch
 
-    from repro_torch.core.lutq import index_of
     from repro_torch.kernels.lutq_shift import lutq_shift
-    from repro_torch.kernels.ref import lutq_shift_ref
+    from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     per_m = {}
-    for M in (4, 512):
+    for M in SHIFT_TIMING_M:
         agg = dict(ms=0.0, loop_ms=0.0, plain_ms=0.0, library_ms=0.0,
                    bytes_ms=0.0, ops_ms=0.0)
         for label, ((Kin, N), calls) in LAYER_SHAPES.items():
             xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=6)
             n = _copies(a.numel())
-            sets = [(xq, a.clone(), wsh) for _ in range(n)]
+            # the digit planes as the serving path hands them in: derived
+            # once, not in the captured calls
+            planes = shift_planes(wsh)
+            sets = [(xq, a.clone(), wsh, planes) for _ in range(n)]
             t, t_loop = time_ms(lutq_shift, sets, iters=max(40, 2 * n))
-            tp, _ = time_ms(lutq_shift_ref, sets[:2], iters=4)
+            tp, _ = time_ms(lutq_shift_ref, [z[:3] for z in sets[:2]],
+                            iters=4)
             tl = _int_mm_ms(xq, a, wsh, n)
             del sets
             tb = (Kin * N + M * Kin + M * N * 4 + 16 * 4) / HBM_BYTES_PER_S \
@@ -1896,9 +2036,10 @@ def shift_timings(card: str):
 
 def _int_mm_ms(xq, a, wsh, n):
     """Time of torch._int_mm on the pre-decoded int8 weight wsh[a] (exact
-    where every |wsh| <= 64), x padded to the 32 rows it takes at least,
-    after checking that it gives the plain version's sums; None (logged)
-    where this PyTorch refuses the shapes or layout."""
+    where every |wsh| <= 64), x padded to the 32 rows it takes at least:
+    each layout of the weight it accepts is checked against the plain
+    version's sums, timed and logged, and the fastest is returned; None
+    (logged) where this PyTorch refuses every layout."""
     import torch
 
     from repro_torch.core.lutq import index_of
@@ -1910,6 +2051,7 @@ def _int_mm_ms(xq, a, wsh, n):
     xpad[:M] = xq
     w8 = wsh[index_of(a)].to(torch.int8)
     want = lutq_shift_ref(xq, a, wsh)
+    best = None
     for layout, w in (("row-major", w8), ("column-major",
                                           w8.t().contiguous().t())):
         try:
@@ -1923,8 +2065,11 @@ def _int_mm_ms(xq, a, wsh, n):
         sets = [(xpad, w.clone(memory_format=torch.preserve_format))
                 for _ in range(n)]
         t, _ = time_ms(torch._int_mm, sets, iters=max(40, 2 * n))
-        return t
-    return None
+        log(f"  torch._int_mm {layout} M={M} {tuple(w.shape)}: "
+            f"{t * 1e3:.1f} us")
+        best = t if best is None else min(best, t)
+        del sets
+    return best
 
 
 def kmeans_timings(card: str):
@@ -2141,8 +2286,9 @@ def flash_timings(card: str):
 
 
 def ab_timings(parent: str) -> int:
-    """Phase 4's GEMM timings (``timings``) of another checkout (say the
-    parent commit, unpacked with git archive) and of this one, in turns
+    """Phase 4's GEMM and lutq_shift timings (``timings``,
+    ``shift_timings``) of another checkout (say the parent commit,
+    unpacked with git archive) and of this one, in turns
     (other, this, this, other), each in a fresh process that builds that
     checkout's kernels, on this one card. Prints each run's per-forward
     lines and a summary; no ok line."""
@@ -2150,7 +2296,8 @@ def ab_timings(parent: str) -> int:
     check((other / "chip_smoke.py").is_file(), f"{other}: no chip_smoke.py")
     code = ("import json, sys; sys.path.insert(0, {root!r}); "
             "import chip_smoke as c; _, _, card = c.setup(); "
-            "t = c.timings(card); print('AB ' + json.dumps({{k: {{str(m): v "
+            "t = c.timings(card); t['lutq_shift'] = c.shift_timings(card); "
+            "print('AB ' + json.dumps({{k: {{str(m): v "
             "for m, v in per.items()}} for k, per in t.items()}}))")
     runs = []
     for label, root in (("parent", other), ("change", ROOT),
@@ -2169,15 +2316,20 @@ def ab_timings(parent: str) -> int:
               f"A/B run of {root} failed:\n{proc.stderr[-4000:]}")
         runs.append((label, result))
     for kname in runs[0][1]:
+        lib = "torch._int_mm" if kname == "lutq_shift" else "torch.matmul"
         for m in runs[0][1][kname]:
+            if not all(m in r[kname] for _, r in runs):
+                continue  # an M only one side times
             ms = {lab: [r[kname][m]["ms"] for l2, r in runs if l2 == lab]
                   for lab in ("parent", "change")}
+            libs = [r[kname][m]["library_ms"] for _, r in runs]
             ref = runs[0][1][kname][m]
             log(f"A/B {kname} M={m} one forward: parent "
                 f"{ms['parent'][0]:.3f} / {ms['parent'][1]:.3f} ms, change "
                 f"{ms['change'][0]:.3f} / {ms['change'][1]:.3f} ms | bound "
-                f"{ref['bound_ms']:.3f} ms ({ref['bound_by']}) | "
-                f"torch.matmul {ref['library_ms']:.3f} ms")
+                f"{ref['bound_ms']:.3f} ms ({ref['bound_by']}) | {lib} "
+                + " / ".join("n/a" if x is None else f"{x:.3f}"
+                             for x in libs) + " ms")
     print(json.dumps({"ab": [{"run": lab, "timings": r} for lab, r in runs]}),
           flush=True)
     return 0

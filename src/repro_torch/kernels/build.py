@@ -44,9 +44,11 @@ KMEANS_ARGTYPES = [_I, _P, _LL, _P, _I, _P, _P, _P, _I, _P, _P, _P]
 PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                   _I, _I, _I, _P]
-#: argtypes of the shift-add launcher: device, xq, a, align, wsh, n_dict,
-#: y, M, N, Kin, splits, kchunk, stream
-SHIFT_ARGTYPES = [_I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+#: argtypes of the shift-add launcher: device, xq, a, avec, xvec, wsh,
+#: n_dict, planes, y, sums, ticket, M, N, Kin, bm, bn, splits, kchunk,
+#: stream
+SHIFT_ARGTYPES = [_I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
+                  _I, _I, _I, _I, _P]
 #: argtypes of the flash-attention launcher: device, q, k, v, out, dtype,
 #: BH, S, Skv, D, bk, causal, scale, stream
 FLASH_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -174,48 +176,57 @@ GEMM_TILES = ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (64, 64, 128, 2, 8),
 _GEMM_TICKETS: Dict[str, torch.Tensor] = {}
 
 
-def plan_splits(M: int, N: int, Kin: int, sms: int) -> dict:
+def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
+                bk: int = BK) -> dict:
     """How a (M, Kin) @ (Kin, N) product is tiled and split, from static
     shapes and the SM count only (never the data).
 
-    The tile follows M (``GEMM_TILES``). With fewer tiles than the
-    tile's resident blocks an SM times ``sms``, the reduction is split,
-    up to the tile's most splits, so that about that many blocks run
-    (decode shapes, and prefill of narrow products); each split covers ``kchunk`` rows, a multiple of ``BK``. Returns bm, bn,
-    grid (m tiles, n tiles, splits), splits, kchunk, and the workspace a
-    call needs: ``tickets`` int32 (one a tile) and ``partials`` f32
-    (splits * M * N), both 0 without a split.
+    The tile follows M (``tiles``: ``GEMM_TILES``, or the shift-add
+    kernel's ``lutq_shift.SHIFT_TILES``, in the same form). With fewer
+    tiles than the tile's resident blocks an SM times ``sms``, the
+    reduction is split, up to the tile's most splits, so that about that
+    many blocks run (decode shapes, and prefill of narrow products); each
+    split covers ``kchunk`` rows, a multiple of ``bk`` (the kernel's
+    rows a pipeline stage). Returns bm, bn, grid (m tiles, n tiles,
+    splits), splits, kchunk, and the workspace a call needs: ``tickets``
+    int32 (one a tile) and ``partials`` f32 (splits * M * N), both 0
+    without a split.
     """
-    bm, bn, per_sm, most = next(t[1:] for t in GEMM_TILES
+    bm, bn, per_sm, most = next(t[1:] for t in tiles
                                 if t[0] is None or M <= t[0])
     grid_m, grid_n = -(-M // bm), -(-N // bn)
-    tiles = grid_m * grid_n
-    steps = -(-Kin // BK)
-    want = max(1, min(steps, most, per_sm * sms // tiles))
-    kchunk = -(-steps // want) * BK
+    n_tiles = grid_m * grid_n
+    steps = -(-Kin // bk)
+    want = max(1, min(steps, most, per_sm * sms // n_tiles))
+    kchunk = -(-steps // want) * bk
     splits = -(-Kin // kchunk)
     split = splits > 1
     return dict(bm=bm, bn=bn, grid=(grid_m, grid_n, splits), splits=splits,
-                kchunk=kchunk, tickets=tiles if split else 0,
+                kchunk=kchunk, tickets=n_tiles if split else 0,
                 partials=splits * M * N if split else 0)
+
+
+def merge_tickets(n: int, device: torch.device) -> torch.Tensor:
+    """The device's zeroed merge tickets, at least ``n`` (one a tile),
+    shared by every kernel that merges splits: made once and grown
+    rarely, since the kernels leave them zero, so a call, or a CUDA graph
+    replaying one, needs no reset."""
+    key = str(device)
+    t = _GEMM_TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _GEMM_TICKETS[key] = t
+    return t
 
 
 def gemm_workspace(plan: dict, device: torch.device):
     """(partials, tickets) for a call under ``plan``: a fresh f32 buffer
-    of ``plan["partials"]`` and the device's zeroed tickets (at least
-    ``plan["tickets"]``, made once and grown rarely: the kernel leaves
-    them zero, so a call, or a CUDA graph replaying one, needs no reset);
-    (None, None) without a split."""
+    of ``plan["partials"]`` and the device's zeroed tickets
+    (:func:`merge_tickets`); (None, None) without a split."""
     if plan["splits"] == 1:
         return None, None
     part = torch.empty(plan["partials"], dtype=torch.float32, device=device)
-    key = str(device)
-    t = _GEMM_TICKETS.get(key)
-    if t is None or t.numel() < plan["tickets"]:
-        t = torch.zeros(max(plan["tickets"], 4096), dtype=torch.int32,
-                        device=device)
-        _GEMM_TICKETS[key] = t
-    return part, t
+    return part, merge_tickets(plan["tickets"], device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,6 @@
 // LUT-decode GEMM shared by lutq_matmul.cu (int8 assignments) and
-// lutq_gemv_packed.cu (two 4-bit assignments per byte), for sm_90a.
+// lutq_gemv_packed.cu (two 4-bit assignments per byte), for sm_90a. Its
+// copy, TMA, wgmma and lookup helpers also serve lutq_shift.cu.
 //
 // y (M, N) f32 = x (M, Kin) @ d[A]; A (Kin, N) int8 read as unsigned
 // bytes, or packed (Kin/2, N) uint8 with row 2i in the low nibble and
@@ -712,9 +713,11 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
 // host side
 // ---------------------------------------------------------------------------
 
-// x (M, Kin) bf16 as a TMA tensor map: boxes of 64 values x 128 rows,
-// 128-byte swizzle, zero fill past the edges. 0 on success.
-int x_tensor_map(CUtensorMap* map, const void* x, int M, int Kin) {
+// x (M, Kin) bf16 (elem 2) or int8 (elem 1, lutq_shift.cu) as a TMA
+// tensor map: boxes of one 128-byte row segment (64 or 128 values) x
+// rows, 128-byte swizzle, zero fill past the edges. 0 on success.
+int x_tensor_map(CUtensorMap* map, const void* x, int M, int Kin, int elem = 2,
+                 int rows = 128) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
@@ -726,10 +729,12 @@ int x_tensor_map(CUtensorMap* map, const void* x, int M, int Kin) {
     }
   }
   const cuuint64_t dims[2] = {(cuuint64_t)Kin, (cuuint64_t)M};
-  const cuuint64_t strides[1] = {(cuuint64_t)Kin * 2};
-  const cuuint32_t box[2] = {kBK, 128};
+  const cuuint64_t strides[1] = {(cuuint64_t)Kin * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)rows};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
+  const CUresult r = encode(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                            2, const_cast<void*>(x),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -39,7 +39,7 @@ from repro_torch.kernels.lutq_gemv_packed import lutq_gemv_packed
 from repro_torch.kernels.lutq_matmul import lutq_matmul
 from repro_torch.kernels.ref import (lutq_shift_ref, paged_attention_ref,
                                      pow2_shift_scale, pow2_shift_weights,
-                                     unpack4_kin)
+                                     shift_planes, unpack4_kin)
 
 #: Backend names accepted by ``lutq_dot`` / policy rules / CLI flags.
 BACKENDS = ("auto", "decode", "fused", "packed4", "pow2")
@@ -63,11 +63,12 @@ def kmeans_step_fused(w_flat: torch.Tensor, d: torch.Tensor):
     return a, torch.sort(new_d).values
 
 
-def lutq_shift(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor
-               ) -> torch.Tensor:
-    """int32 ``xq @ wsh[a]``: the shift-add kernel on a CUDA tensor, its
-    plain version on a CPU tensor."""
-    return _lutq_shift.lutq_shift(xq, a, wsh)
+def lutq_shift(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor,
+               planes: int = None) -> torch.Tensor:
+    """int32 ``xq @ wsh[a]``: the shift-add kernel on a CUDA tensor (over
+    ``planes`` digit planes of wsh, derived when None), its plain
+    version on a CPU tensor."""
+    return _lutq_shift.lutq_shift(xq, a, wsh, planes)
 
 
 def resolve_backend(state: LutqState, backend: str = "auto", *,
@@ -130,8 +131,11 @@ def _frozen_pair(act: torch.Tensor):
 
 
 def _shift_dictionary(code: torch.Tensor):
-    """(shifted-integer dictionary, its epilogue scale) of a plane."""
-    return pow2_shift_weights(code), pow2_shift_scale(code)
+    """(shifted-integer dictionary, its epilogue scale, the kernel's digit
+    planes of it) of a sign+exponent plane. The plane count is a host
+    read, made here once a leaf and never a call."""
+    wsh = pow2_shift_weights(code)
+    return wsh, pow2_shift_scale(code), shift_planes(wsh)
 
 
 def _pow2_act_quant(x2: torch.Tensor, act):
@@ -171,13 +175,14 @@ def _pow2_dot_acc(x2: torch.Tensor, code: torch.Tensor, a: torch.Tensor,
     if a.shape[0] != x2.shape[1]:
         raise ValueError(f"pow2: Kin mismatch {tuple(x2.shape)} @ "
                          f"{tuple(a.shape)}")
-    # (K,) int32 shifts, an O(K) exponent add, and 2^e_min
-    wsh, shift_scale = _derived(code, _shift_dictionary)
+    # (K,) int32 shifts, an O(K) exponent add, 2^e_min and the digit
+    # planes the kernel runs
+    wsh, shift_scale, planes = _derived(code, _shift_dictionary)
     xq, s = _pow2_act_quant(x2, act)
     scale = s * shift_scale  # the one float multiply factor
     if not use_kernel:
         return lutq_shift_ref(xq, a, wsh), scale
-    return lutq_shift(xq, a.contiguous(), wsh), scale
+    return lutq_shift(xq, a.contiguous(), wsh, planes), scale
 
 
 def _is_encoded(state: LutqState) -> bool:

@@ -5,11 +5,13 @@ the pow2 shift-add dictionary.
 ``kmeans_stats_ref``, ``paged_attention_ref`` and
 ``flash_attention_ref`` are what the kernel
 wrappers run for a tensor on the CPU, and what the kernels are held
-against on the card. Like the TPU kernels the float GEMMs cast each
-decoded weight to ``x.dtype`` before the product and accumulate in
-float32: the matmul runs on float32 copies of the operands, which holds
-every bf16 value exactly (``jnp``'s ``x @ w`` in the reference oracle
-rounds a bf16 product to bf16 instead).
+against on the card; ``lutq_shift_planes_ref`` emulates the shift-add
+kernel's digit-plane arithmetic beside its plain version. Like the TPU
+kernels the float GEMMs cast each decoded weight to ``x.dtype`` before
+the product and accumulate in float32: the matmul runs on float32
+copies of the operands, which holds every bf16 value exactly (``jnp``'s
+``x @ w`` in the reference oracle rounds a bf16 product to bf16
+instead).
 """
 from __future__ import annotations
 
@@ -103,6 +105,50 @@ def lutq_shift_ref(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor
     """
     w = wsh[index_of(a)].to(torch.float64)
     return torch.matmul(xq.to(torch.float64), w).to(torch.int32)
+
+
+#: bits of one digit plane of the shift-add kernel (base 2^7: s8 digits)
+SHIFT_DIGIT_BITS = 7
+
+
+def shift_planes(wsh: torch.Tensor) -> int:
+    """Digit planes of base 2^7 the shift-add kernel takes for ``wsh``:
+    ceil(bit length of max |wsh| / 7), at least 1 (a pow2 dictionary of
+    span s: s // 7 + 1). A host read: the caller derives it once a
+    dictionary."""
+    big = int(wsh.to(torch.int64).abs().max())
+    return max(1, -(-big.bit_length() // SHIFT_DIGIT_BITS))
+
+
+def shift_digits(wsh: torch.Tensor, planes: int) -> torch.Tensor:
+    """(planes, K) int8 digit planes of ``wsh``, sign-magnitude in base
+    2^7: plane p holds sign(v) * ((|v| >> 7p) & 127), so that
+    ``wsh = sum_p digit_p << 7p`` and every digit fits s8."""
+    v = wsh.to(torch.int64)
+    shifts = SHIFT_DIGIT_BITS * torch.arange(planes, device=wsh.device)
+    mag = (v.abs()[None, :] >> shifts[:, None]) & 127
+    return (torch.sign(v)[None, :] * mag).to(torch.int8)
+
+
+def lutq_shift_planes_ref(xq: torch.Tensor, a: torch.Tensor,
+                          wsh: torch.Tensor, planes: int = None
+                          ) -> torch.Tensor:
+    """The shift-add kernel's arithmetic in plain torch: one s8 x s8 ->
+    s32 product a digit plane (:func:`shift_digits`), combined by
+    Horner from the highest plane down, ``acc = (acc << 7) + plane``,
+    modulo 2^32 as the kernel's unsigned shifts and adds are. Equals
+    :func:`lutq_shift_ref` bit for bit for every dictionary the
+    serve-time guard admits; no plane's sum leaves int32 (asserted)."""
+    planes = shift_planes(wsh) if planes is None else planes
+    idx = index_of(a)
+    x = xq.to(torch.float64)
+    acc = torch.zeros((xq.shape[0], a.shape[1]), dtype=torch.int64,
+                      device=xq.device)
+    for dig in shift_digits(wsh, planes).flip(0):  # the highest first
+        part = torch.matmul(x, dig[idx].to(torch.float64)).to(torch.int64)
+        assert bool((part.abs() < 2**31).all()), "a plane's sum overflows"
+        acc = ((acc << SHIFT_DIGIT_BITS) + part) & 0xFFFFFFFF
+    return (acc - ((acc >> 31) << 32)).to(torch.int32)
 
 
 def kmeans_stats_ref(w: torch.Tensor, d: torch.Tensor):

@@ -212,7 +212,7 @@ def _shift_operands(M, Kin, N, K, g, span=9, extreme=False):
     if K < 256:
         a = (a.view(torch.uint8) % K).view(torch.int8)
     if extreme:
-        a = torch.full((Kin, N), K - 1, dtype=torch.int8)
+        a = torch.full((Kin, N), K - 1, dtype=torch.uint8).view(torch.int8)
         xq = torch.where(wsh[K - 1] > 0, 127, -127) * torch.ones(
             (M, Kin), dtype=torch.int32)
         return xq.to(torch.int8), a, wsh
@@ -222,11 +222,18 @@ def _shift_operands(M, Kin, N, K, g, span=9, extreme=False):
 
 #: (M, Kin, N, K, offset): decode and prefill shapes, ragged N, M and
 #: Kin, unaligned assignment rows (byte loads), K = 2, 16 and 256 (indices
-#: >= 128 stored as negative int8)
+#: >= 128 stored as negative int8); the tile edges M = 8 | 9, 16 | 17,
+#: the engine's 8-slot step and 256-row chunk, and K = 16 and 256 at
+#: generate's prefill M
 SHIFT_CASES = [(1, 96, 211, 16, 0), (4, 2560, 640, 16, 0),
                (3, 2000, 700, 2, 0), (8, 64, 130, 256, 0),
                (4, 130, 96, 16, 1), (9, 128, 257, 16, 0),
-               (130, 300, 97, 256, 0), (64, 512, 640, 16, 3)]
+               (130, 300, 97, 256, 0), (64, 512, 640, 16, 3),
+               (8, 2560, 640, 16, 0), (9, 2560, 640, 16, 0),
+               (16, 2560, 640, 16, 0), (17, 2560, 640, 16, 0),
+               (64, 2560, 640, 16, 0), (256, 2560, 640, 16, 0),
+               (512, 2560, 640, 16, 0), (512, 2560, 640, 256, 0),
+               (17, 200, 33, 256, 5)]
 
 
 @pytest.mark.cuda
@@ -268,6 +275,101 @@ def test_cuda_lutq_shift_at_the_guard_limit(cuda_device, M, Kin, N):
                                 wsh.to(cuda_device))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+#: (span, Kin, K): dictionaries that take 2, 3 and 4 digit planes of base
+#: 2^7 (span // 7 + 1), each at the guard's limit 7 + span + ceil(log2
+#: Kin) = 31 (small Kin for the wide spans)
+SHIFT_PLANE_CASES = [(12, 2560, 16), (11, 6912, 256), (17, 128, 16),
+                     (14, 1024, 256), (20, 16, 16), (21, 8, 256), (23, 2, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("M", [4, 130])
+@pytest.mark.parametrize("span,Kin,K", SHIFT_PLANE_CASES)
+def test_cuda_lutq_shift_digit_planes(cuda_device, span, Kin, K, M, extreme):
+    """Wide dictionaries run as several s8 digit planes combined by
+    Horner: the plain version's bits, random and with every term at its
+    largest."""
+    from repro_torch.kernels.ref import shift_planes
+
+    g = torch.Generator().manual_seed(span * 31 + M)
+    xq, a, wsh = _shift_operands(M, Kin, 96, K, g, span=span,
+                                 extreme=extreme)
+    assert shift_planes(wsh) == span // 7 + 1 >= 2
+    want = lutq_shift_ref(xq, a, wsh)
+    got = lutq_shift.lutq_shift(xq.to(cuda_device), a.to(cuda_device),
+                                wsh.to(cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if extreme:
+        assert int(want.abs().min()) == 127 * 2 ** span * Kin
+
+
+#: (M, Kin, N): decode and prefill shapes that split the reduction, and
+#: one that does not
+SHIFT_REPEAT_CASES = [(4, 2560, 2560), (8, 2560, 640), (512, 2560, 640),
+                      (512, 2560, 6912)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kin,N", SHIFT_REPEAT_CASES)
+def test_cuda_lutq_shift_repeats_and_replays(cuda_device, M, Kin, N):
+    """A second call and two replays of one call captured in a CUDA graph
+    give the first call's bits, each call one launch, and the merge
+    tickets are back at zero."""
+    from repro_torch.kernels.ref import shift_planes
+
+    plan = lutq_shift.plan_splits(M, N, Kin, build.sm_count(cuda_device))
+    assert (plan["splits"] > 1) == (N != 6912)
+    xq, a, wsh = (t.to(cuda_device) for t in _shift_operands(
+        M, Kin, N, 16, torch.Generator().manual_seed(M)))
+    planes = shift_planes(wsh)  # derived before the capture: a host read
+    launches = lutq_shift.COUNTS["launches"]
+    first, second = (lutq_shift.lutq_shift(xq, a, wsh) for _ in range(2))
+    assert lutq_shift.COUNTS["launches"] == launches + 2
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        lutq_shift.lutq_shift(xq, a, wsh, planes)  # warm-up on that stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = lutq_shift.lutq_shift(xq, a, wsh, planes)
+    assert torch.equal(first, second)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    tickets = build._GEMM_TICKETS.get(str(xq.device))
+    assert tickets is None or not tickets.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kin,N", [(4, 2560, 2560), (512, 2560, 640)])
+def test_cuda_lutq_shift_one_launch_no_memset(cuda_device, M, Kin, N):
+    """A split call is one kernel on the stream: the profiler lists the
+    kernel once a call and no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xq, a, wsh = (t.to(cuda_device) for t in _shift_operands(
+        M, Kin, N, 16, torch.Generator().manual_seed(1), span=5))
+    want = lutq_shift.lutq_shift(xq, a, wsh, 1)  # tickets made before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = [lutq_shift.lutq_shift(xq, a, wsh, 1) for _ in range(3)]
+        torch.cuda.synchronize()
+    assert all(torch.equal(y, want) for y in got)
+    assert torch.equal(want.cpu(), lutq_shift_ref(xq.cpu(), a.cpu(),
+                                                  wsh.cpu()))
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert not [n for n in names if "emset" in n], names
+    shift = [n for n in names if "lutq_shift" in n]
+    assert len(shift) == 1 and counts[shift[0]] == 3, names
 
 
 @pytest.mark.cuda

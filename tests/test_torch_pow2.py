@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis_compat import given, settings, st
 from torch_port_helpers import (ARCH, jax_reference, one_thread,
                                 port_teacher_forced, to_np)
 
@@ -237,14 +238,88 @@ def test_lutq_shift_plain_matches_jax(M, Kin, N, K):
                                      (3, 700, 2000), (512, 6912, 2560),
                                      (130, 640, 2560), (2, 24, 20)])
 def test_lutq_shift_plan_covers_the_reduction(M, N, Kin):
-    """The card kernel's split of Kin: chunks of whole 32-row steps (or
-    all of a short Kin) that cover it exactly once, a decode block's
-    chunk within the 512 rows of xq it holds."""
-    splits, kchunk = lutq_shift.plan_splits(M, N, Kin, sms=132)
+    """The card kernel's plan: the tile SHIFT_TILES gives M, splits of
+    whole 128-row steps that cover Kin exactly once, at most the tile's
+    most splits, and a workspace of one ticket a tile and every split's
+    whole int32 tile when it splits."""
+    plan = lutq_shift.plan_splits(M, N, Kin, sms=132)
+    splits, kchunk = plan["splits"], plan["kchunk"]
     assert (splits - 1) * kchunk < Kin <= splits * kchunk
-    assert kchunk % lutq_shift.SPLIT_STEP == 0 or kchunk == Kin
-    if M <= 8:
-        assert kchunk <= lutq_shift.GEMV_MAX_ROWS
+    assert kchunk % lutq_shift.BK == 0
+    _, bm, bn, _, most = next(t for t in lutq_shift.SHIFT_TILES
+                              if t[0] is None or M <= t[0])
+    assert (plan["bm"], plan["bn"]) == (bm, bn) and (bm <= 16) == (M <= 16)
+    assert plan["grid"] == (-(-M // bm), -(-N // bn), splits)
+    assert 1 <= splits <= most
+    tiles = plan["grid"][0] * plan["grid"][1]
+    assert plan["tickets"] == (tiles if splits > 1 else 0)
+    assert plan["partials"] == (tiles * splits * bm * bn if splits > 1
+                                else 0)
+    assert lutq_shift.plan_splits(M, N, Kin, sms=132) == plan
+
+
+@settings(max_examples=40, deadline=None)
+@given(span=st.integers(0, 23), K=st.sampled_from([2, 16, 256]),
+       seed=st.integers(0, 2**16), extreme=st.booleans())
+def test_lutq_shift_digit_planes_give_the_plain_bits(span, K, seed, extreme):
+    """The kernel's arithmetic, emulated in plain torch: base-2^7 digit
+    planes of the shifted dictionary (span // 7 + 1 of them), one s8 x s8
+    -> s32 product a plane, combined by Horner modulo 2^32, give the
+    plain version's int32 bits (and JAX's) for every dictionary the
+    serve-time guard admits, up to its limit (``extreme``: every term at
+    its largest)."""
+    rng = np.random.RandomState(seed)
+    Kin = min(int(rng.randint(1, 97)), 2 ** (24 - span))  # guard <= 31
+    M, N = int(rng.randint(1, 6)), int(rng.randint(1, 40))
+    mag = rng.randint(1, span + 2, K)
+    mag[0], mag[-1] = 1, span + 1
+    code = (mag * rng.choice([-1, 1], K)).astype(np.int8)
+    if K > 2:
+        code[1] = 0
+    wsh = tref.pow2_shift_weights(_port(code))
+    if extreme:
+        a = np.full((Kin, N), K - 1, np.uint8).view(np.int8)
+        xq = np.full((M, Kin), 127 if wsh[K - 1] > 0 else -127, np.int8)
+    else:
+        a = rng.randint(0, K, (Kin, N)).astype(np.uint8).view(np.int8)
+        xq = rng.randint(-127, 128, (M, Kin)).astype(np.int8)
+    assert pow2_guard_bits(_port(code), Kin) <= 31
+    planes = tref.shift_planes(wsh)
+    assert planes == span // 7 + 1
+    digits = tref.shift_digits(wsh, planes)
+    assert digits.dtype == torch.int8 and int(digits.abs().max()) <= 64
+    assert torch.equal((digits.long() << (7 * torch.arange(planes)[:, None])
+                        ).sum(0), wsh.long())
+    want = tref.lutq_shift_ref(_port(xq), _port(a), wsh)
+    got = tref.lutq_shift_planes_ref(_port(xq), _port(a), wsh, planes)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jref.lutq_shift_ref(
+        jnp.asarray(xq), jnp.asarray(a), jnp.asarray(wsh.numpy()))))
+    if extreme:
+        assert int(want.abs().min()) == 127 * 2 ** span * Kin
+
+
+def test_pow2_dot_passes_the_leafs_derived_planes(monkeypatch):
+    """The serving path derives a leaf's digit planes once (with its
+    shifted dictionary) and hands them to the kernel wrapper; no call
+    derives them again."""
+    seen = []
+
+    def spy(xq, a, wsh, planes=None):
+        seen.append(planes)
+        return tref.lutq_shift_ref(xq, a, wsh)
+
+    monkeypatch.setattr(ops._lutq_shift, "lutq_shift", spy)
+    rng = np.random.RandomState(2)
+    code = _port(np.array([1, -3, 0, 16, -9, 2], np.int8))  # span 15
+    a = _port(rng.randint(0, 6, (40, 12)).astype(np.int8))
+    x = _port(rng.randn(3, 40).astype(np.float32))
+    calls = []
+    monkeypatch.setattr(ops, "shift_planes",
+                        lambda w: calls.append(1) or tref.shift_planes(w))
+    for _ in range(3):
+        ops._pow2_dot_acc(x, code, a, None)
+    assert seen == [3, 3, 3] and len(calls) == 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
