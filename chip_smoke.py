@@ -2,10 +2,10 @@
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM and
-        # lutq_shift timings of the checkout at DIR (say the parent
-        # commit, from git archive) and of this one, in turns DIR, this,
-        # this, DIR
+    python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM,
+        # lutq_shift and flash-attention timings of the checkout at DIR
+        # (say the parent commit, from git archive) and of this one, in
+        # turns DIR, this, this, DIR
 
 Phases, each fatal on failure (nothing here catches a phase's error):
 
@@ -73,19 +73,24 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    flash_attention_tpu) against its plain version on the card: the
    shapes of tests/test_flash_kernel.py (S, D, bq, bk in (256, 64, 128,
    128), (512, 128, 128, 128), (256, 64, 64, 128), (384, 32, 128, 128),
-   BH=3), causal and full, f32 and bf16; danube's prefill geometry in the
-   GQA layout (B=4, S=512, 32 query heads over 8 KV heads repeated per
-   group, D=80: BH=128) and one 4096-token row (BH=32, D=80), bf16,
-   causal. Error of each query row over that row's max|plain|: at most
-   1e-5 for f32 (f32 sums in another order), 2^-7 for bf16 (one bf16
-   ulp of the row). K/V rows [S/2, S) of the danube geometry set to NaN
-   with bq = S/2 and bk = 128 (the kernel's largest kv tile): rows [0,
-   S/2) must keep their bits (skipped blocks are never read). The same
+   BH=3), causal and full, f32 and bf16; q blocks of 32 and 48 rows
+   (bf16, the calls flash_attn.plan leaves on the mma.sync kernel);
+   danube's prefill geometry in the GQA layout (B=4, S=512, 32 query
+   heads over 8 KV heads repeated per group, D=80: BH=128) and one
+   4096-token row (BH=32, D=80), bf16, causal. Each line names the
+   kernel that ran (flash_wgmma, flash_bf16 or flash_f32). Error of each
+   query row over that row's max|plain|: at most 1e-5 for f32 (f32 sums
+   in another order), 2^-7 for bf16 (one bf16 ulp of the row). K/V rows
+   [b, S) of the danube geometry set to NaN with bq = b = S/2 and b = 64
+   (one warpgroup), bk = min(b, 128): rows [0, b) must keep their bits
+   (skipped blocks are never read). A second call and two replays of a
+   call captured in a CUDA graph keep the first call's bits. The same
    geometry against the port's own prefill attention
    (nn.attention.flash_attention, window 4096): 1e-5 in f32; 2^-5 in
    bf16, where that path rounds q * scale and its scores to bf16 (the
    errors of both against f64 attention are printed). Every call
-   launches the kernel; no plain version runs.
+   launches the kernel that flash_attn.plan names; no plain version
+   runs.
 2f. the card divides where the reference divides: fake_quant (8 and 16
    bits) on (4, 128, 2560) activations and _kv_quant on (4, 128, 8, 80)
    K/V, f32 and bf16, with maxima where amax * f32(1/127) != amax / 127,
@@ -165,9 +170,10 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    row (a yardstick the port never calls), and swept over the split
    plan's target of 1, 2, 4 and 8 blocks an SM; flash attention at phase
    2e's danube geometry and 4096-token row, operands rotated through
-   more than twice the L2, beside its bound (the larger of q, k, v and
-   out at the HBM rate and 4 BH D S(S+1)/2 causal bf16 operations at
-   the tensor-core peak), its plain version and
+   more than twice the L2, the planned kernel (flash_wgmma) beside the
+   mma.sync kernel flash_bf16 forced on the same operands, its bound (the
+   larger of q, k, v and out at the HBM rate and 4 BH D S(S+1)/2 causal
+   bf16 operations at the tensor-core peak), its plain version and
    scaled_dot_product_attention(..., is_causal=True) on the same tensors
    viewed as (B, H, S, D) (a yardstick the port never calls).
 
@@ -761,22 +767,28 @@ def flash_checks():
              for S, D, bq, bk in ((256, 64, 128, 128), (512, 128, 128, 128),
                                   (256, 64, 64, 128), (384, 32, 128, 128))
              for causal in (True, False) for dt in (f32, bf16)]
+    # q blocks of 32 and 48 rows: the bf16 calls that stay on flash_bf16
+    cases += [(3, 256, 80, 32, 128, True, bf16),
+              (3, 384, 32, 48, 64, False, bf16)]
     cases.append((FLASH_LONG["B"] * FLASH_LONG["H"], FLASH_LONG["S"],
                   FLASH_LONG["D"], 128, 128, True, bf16))
     worst = 0.0
-    flash_attn.COUNTS.update(launches=0, plain=0)
+    flash_attn.COUNTS.update({k: 0 for k in flash_attn.COUNTS})
+    planned = {k: 0 for k in flash_attn.KERNEL_CODES}
     for BH, S, D, bq, bk, causal, dt in cases:
         q, k, v = (torch.randn((BH, S, D), generator=g, device=dev).to(dt)
                    for _ in range(3))
         want = flash_attention_ref(q, k, v, causal=causal, bq=bq, bk=bk)
+        kernel = flash_attn.plan(S, S, D, bq, bk, dt)
+        planned[kernel] += 1
         got = flash_attn.flash_attention(q, k, v, causal=causal, bq=bq,
                                          bk=bk)
         torch.cuda.synchronize()
         tol = FLASH_TOL[str(dt).split(".")[-1]]
         err, rel, row_err, ref = _flash_rows(got, want)
         log(f"check flash_attention BH={BH} S={S} D={D} bq={bq} bk={bk} "
-            f"causal={causal} {dt}: max_abs_err {err:.3e} | worst row "
-            f"{rel:.2e} of its own max (tol {tol:.1e})")
+            f"causal={causal} {dt} ({kernel}): max_abs_err {err:.3e} | "
+            f"worst row {rel:.2e} of its own max (tol {tol:.1e})")
         check(got.dtype == dt and got.shape == q.shape,
               "flash_attention: wrong output dtype or shape")
         check(bool(torch.isfinite(got).all()),
@@ -790,18 +802,50 @@ def flash_checks():
     geo = FLASH_DANUBE
     B, S, H, Hkv, D = (geo[x] for x in ("B", "S", "H", "Hkv", "D"))
     (q, k, v), (qf, kf, vf) = _flash_gqa(g, bf16, dev, **geo)
-    half = S // 2
-    clean = flash_attn.flash_attention(qf, kf, vf, bq=half, bk=128)
-    kp, vp = kf.clone(), vf.clone()
-    kp[:, half:], vp[:, half:] = float("nan"), float("nan")
-    poisoned = flash_attn.flash_attention(qf, kp, vp, bq=half, bk=128)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(poisoned[:, :half], clean[:, :half]))
-    log(f"check flash_attention NaN in K/V rows [{half}, {S}), bq={half} "
-        f"bk=128 (the kernel's largest kv tile): rows [0, {half}) keep "
-        f"their bits {same}")
-    check(same, "flash_attention read a kv block that the reference skips")
+    # rows of the first q block keep their bits with NaN past it, at bq =
+    # S / 2 and at bq = 64 (one warpgroup), bk = min(bq, 128) (the largest
+    # kv tile that holds no NaN row the reference reads)
+    for b in (S // 2, 64):
+        bk = min(b, 128)
+        clean = flash_attn.flash_attention(qf, kf, vf, bq=b, bk=bk)
+        kp, vp = kf.clone(), vf.clone()
+        kp[:, b:], vp[:, b:] = float("nan"), float("nan")
+        poisoned = flash_attn.flash_attention(qf, kp, vp, bq=b, bk=bk)
+        torch.cuda.synchronize()
+        kernel = flash_attn.plan(S, S, D, b, bk, bf16)
+        planned[kernel] += 2
+        same = bool(torch.equal(poisoned[:, :b], clean[:, :b]))
+        log(f"check flash_attention NaN in K/V rows [{b}, {S}), bq={b} "
+            f"bk={bk} ({kernel}): rows [0, {b}) keep their bits {same}")
+        check(same, "flash_attention read a kv block that the reference "
+              "skips")
+        del kp, vp, clean, poisoned
     flat = flash_attn.flash_attention(qf, kf, vf)
+    planned[flash_attn.plan(S, S, D, 128, 128, bf16)] += 1
+    # a second call, and two replays of a call captured in a CUDA graph
+    # (the kernel's TMA maps travel in the captured launch), keep the bits
+    again = flash_attn.flash_attention(qf, kf, vf)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attn.flash_attention(qf, kf, vf)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash_attn.flash_attention(qf, kf, vf)
+    replays = []
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append(bool(torch.equal(captured, flat)))
+    same = bool(torch.equal(again, flat)) and all(replays)
+    planned[flash_attn.plan(S, S, D, 128, 128, bf16)] += 3
+    log(f"check flash_attention danube prefill: a second call and two CUDA-"
+        f"graph replays give the first call's bits {same}")
+    check(same, "flash_attention changed its bits on a second call or in a "
+          "CUDA graph")
+    del again, captured, graph
     plain = flash_attention_ref(qf, kf, vf)
     torch.cuda.synchronize()
     err, rel, row_err, ref = _flash_rows(flat, plain)
@@ -817,6 +861,7 @@ def flash_checks():
                 f32: (q.float(), k.float(), v.float(),
                       flash_attn.flash_attention(qf.float(), kf.float(),
                                                  vf.float()))}
+    planned["flash_f32"] += 1
     for dt, (qd, kd, vd, fd) in operands.items():
         got = fd.reshape(B, Hkv, H // Hkv, S, D).permute(0, 3, 1, 2, 4)
         got = got.reshape(B, S, H, D)
@@ -840,9 +885,11 @@ def flash_checks():
         check(bool((row_err <= tol * ref).all()),
               "flash_attention disagrees with the port's prefill attention")
     counts = dict(flash_attn.COUNTS)
-    log(f"flash_attention counts {counts}")
-    check(counts["launches"] == len(cases) + 4 and counts["plain"] == 0,
-          f"flash_attention did not launch its kernel every call: {counts}")
+    log(f"flash_attention counts {counts}, planned {planned}")
+    check(counts["launches"] == len(cases) + 9 and counts["plain"] == 0
+          and all(counts[k] == n for k, n in planned.items()),
+          f"flash_attention did not launch the planned kernel every call: "
+          f"{counts}")
     return float(worst)
 
 
@@ -2237,11 +2284,12 @@ def paged_timings(card: str, run_a_lens):
 def flash_timings(card: str):
     """Kernel 5 at danube's prefill geometry (GQA layout, bf16, causal)
     and at one 4096-token row, operands rotated through more than twice
-    the L2, beside its bound (the larger of q, k, v and out at the HBM
-    rate and 4·BH·D·S(S+1)/2 causal bf16 operations at the tensor-core
-    peak), its plain version and scaled_dot_product_attention(...,
-    is_causal=True) on the same tensors (a yardstick the port never
-    calls)."""
+    the L2: the kernel the plan names (flash_wgmma) beside the mma.sync
+    kernel flash_bf16 forced on the same operands, its bound (the larger
+    of q, k, v and out at the HBM rate and 4·BH·D·S(S+1)/2 causal bf16
+    operations at the tensor-core peak), its plain version and
+    scaled_dot_product_attention(..., is_causal=True) on the same tensors
+    (a yardstick the port never calls)."""
     import torch
     import torch.nn.functional as F
 
@@ -2254,11 +2302,17 @@ def flash_timings(card: str):
     for label, geo in (("danube", FLASH_DANUBE), ("4096", FLASH_LONG)):
         _, (q, k, v) = _flash_gqa(g, torch.bfloat16, dev, **geo)
         BH, S, D = q.shape
+        kernel = flash_attn.plan(S, S, D, 128, 128, q.dtype)
         nbytes = 4 * q.numel() * 2
         n = _copies(nbytes)
         sets = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
-        t, t_loop = time_ms(flash_attn.flash_attention, sets,
-                            iters=max(40, 2 * n))
+        iters = max(40, 2 * n)
+
+        def forced(q, k, v):
+            return flash_attn.launch("flash_bf16", q, k, v, causal=True,
+                                     scale=D ** -0.5, bk=128)
+        t, t_loop = time_ms(flash_attn.flash_attention, sets, iters=iters)
+        t_bf16, _ = time_ms(forced, sets, iters=iters)
         tp, _ = time_ms(flash_attention_ref, sets[:2], iters=2, graph=False)
 
         # the same tensors as (B, H, S, D) views: PyTorch's fused
@@ -2268,35 +2322,38 @@ def flash_timings(card: str):
         def library(q, k, v):
             return F.scaled_dot_product_attention(
                 q.view(heads), k.view(heads), v.view(heads), is_causal=True)
-        tl, _ = time_ms(library, sets, iters=max(40, 2 * n))
+        tl, _ = time_ms(library, sets, iters=iters)
         tb = nbytes / HBM_BYTES_PER_S * 1e3
         to = 4 * BH * D * S * (S + 1) / 2 / PEAK_FLOPS["bfloat16"] * 1e3
         b, by = max(tb, to), ("bytes" if tb >= to else "operations")
         log(f"time flash_attention {label} BH={BH} S={S} D={D} bf16 causal: "
-            f"kernel {t * 1e3:.1f} us (host loop {t_loop * 1e3:.1f} us) | "
-            f"bound {b * 1e3:.2f} us ({by}; bytes {tb * 1e3:.2f} us, "
-            f"operations {to * 1e3:.2f} us) = {b / t * 100:.1f}% | plain "
-            f"{tp * 1e3:.1f} us | sdpa {tl * 1e3:.1f} us (the kernel takes "
-            f"{t / tl:.2f}x its time) | {card}")
-        out[label] = dict(ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
-                          bound_by=by)
+            f"kernel ({kernel}) {t * 1e3:.1f} us (host loop "
+            f"{t_loop * 1e3:.1f} us) | flash_bf16 (mma.sync) forced "
+            f"{t_bf16 * 1e3:.1f} us | bound {b * 1e3:.2f} us ({by}; bytes "
+            f"{tb * 1e3:.2f} us, operations {to * 1e3:.2f} us) = "
+            f"{b / t * 100:.1f}% | plain {tp * 1e3:.1f} us | sdpa "
+            f"{tl * 1e3:.1f} us (the kernel takes {t / tl:.2f}x its time) "
+            f"| {card}")
+        out[label] = dict(ms=t, flash_bf16_ms=t_bf16, plain_ms=tp,
+                          library_ms=tl, bound_ms=b, bound_by=by)
         del sets, q, k, v
         torch.cuda.empty_cache()
     return out
 
 
 def ab_timings(parent: str) -> int:
-    """Phase 4's GEMM and lutq_shift timings (``timings``,
-    ``shift_timings``) of another checkout (say the parent commit,
-    unpacked with git archive) and of this one, in turns
-    (other, this, this, other), each in a fresh process that builds that
-    checkout's kernels, on this one card. Prints each run's per-forward
-    lines and a summary; no ok line."""
+    """Phase 4's GEMM, lutq_shift and flash-attention timings
+    (``timings``, ``shift_timings``, ``flash_timings``) of another
+    checkout (say the parent commit, unpacked with git archive) and of
+    this one, in turns (other, this, this, other), each in a fresh
+    process that builds that checkout's kernels, on this one card.
+    Prints each run's per-forward lines and a summary; no ok line."""
     other = Path(parent).resolve()
     check((other / "chip_smoke.py").is_file(), f"{other}: no chip_smoke.py")
     code = ("import json, sys; sys.path.insert(0, {root!r}); "
             "import chip_smoke as c; _, _, card = c.setup(); "
             "t = c.timings(card); t['lutq_shift'] = c.shift_timings(card); "
+            "t['flash_attention'] = c.flash_timings(card); "
             "print('AB ' + json.dumps({{k: {{str(m): v "
             "for m, v in per.items()}} for k, per in t.items()}}))")
     runs = []
@@ -2316,7 +2373,9 @@ def ab_timings(parent: str) -> int:
               f"A/B run of {root} failed:\n{proc.stderr[-4000:]}")
         runs.append((label, result))
     for kname in runs[0][1]:
-        lib = "torch._int_mm" if kname == "lutq_shift" else "torch.matmul"
+        lib = {"lutq_shift": "torch._int_mm",
+               "flash_attention": "sdpa"}.get(kname, "torch.matmul")
+        what = "one call" if kname == "flash_attention" else "one forward"
         for m in runs[0][1][kname]:
             if not all(m in r[kname] for _, r in runs):
                 continue  # an M only one side times
@@ -2324,12 +2383,19 @@ def ab_timings(parent: str) -> int:
                   for lab in ("parent", "change")}
             libs = [r[kname][m]["library_ms"] for _, r in runs]
             ref = runs[0][1][kname][m]
-            log(f"A/B {kname} M={m} one forward: parent "
-                f"{ms['parent'][0]:.3f} / {ms['parent'][1]:.3f} ms, change "
-                f"{ms['change'][0]:.3f} / {ms['change'][1]:.3f} ms | bound "
-                f"{ref['bound_ms']:.3f} ms ({ref['bound_by']}) | {lib} "
-                + " / ".join("n/a" if x is None else f"{x:.3f}"
-                             for x in libs) + " ms")
+            f = ".4f" if kname == "flash_attention" else ".3f"
+            forced = [r[kname][m]["flash_bf16_ms"] for _, r in runs
+                      if "flash_bf16_ms" in r[kname][m]]
+            at = m if kname == "flash_attention" else f"M={m}"
+            log(f"A/B {kname} {at} {what}: parent "
+                f"{ms['parent'][0]:{f}} / {ms['parent'][1]:{f}} ms, change "
+                f"{ms['change'][0]:{f}} / {ms['change'][1]:{f}} ms | bound "
+                f"{ref['bound_ms']:{f}} ms ({ref['bound_by']}) | {lib} "
+                + " / ".join("n/a" if x is None else f"{x:{f}}"
+                             for x in libs) + " ms"
+                + (" | flash_bf16 forced in the change's runs "
+                   + " / ".join(f"{x:{f}}" for x in forced) + " ms"
+                   if forced else ""))
     print(json.dumps({"ab": [{"run": lab, "timings": r} for lab, r in runs]}),
           flush=True)
     return 0

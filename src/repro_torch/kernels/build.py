@@ -49,8 +49,8 @@ PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
 #: stream
 SHIFT_ARGTYPES = [_I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
                   _I, _I, _I, _I, _P]
-#: argtypes of the flash-attention launcher: device, q, k, v, out, dtype,
-#: BH, S, Skv, D, bk, causal, scale, stream
+#: argtypes of the flash-attention launcher: device, q, k, v, out, kernel
+#: (flash_attn.KERNEL_CODES), BH, S, Skv, D, bk, causal, scale, stream
 FLASH_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                   ctypes.c_float, _P]
 #: every C entry point of the library and its argtypes (all return int)

@@ -1,6 +1,7 @@
 // LUT-decode GEMM shared by lutq_matmul.cu (int8 assignments) and
 // lutq_gemv_packed.cu (two 4-bit assignments per byte), for sm_90a. Its
-// copy, TMA, wgmma and lookup helpers also serve lutq_shift.cu.
+// copy and lookup helpers (and hopper.cuh's TMA and wgmma helpers) also
+// serve lutq_shift.cu.
 //
 // y (M, N) f32 = x (M, Kin) @ d[A]; A (Kin, N) int8 read as unsigned
 // bytes, or packed (Kin/2, N) uint8 with row 2i in the low nibble and
@@ -63,18 +64,15 @@
 // every call and CUDA-graph replay.
 #pragma once
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBK = 64;        // reduction rows per pipeline stage
 constexpr int kMaxDict = 256;  // dictionary entries
-constexpr int kMaxDevices = 16;
 
 template <typename T, int BM, int BN, bool PACKED>
 struct Tile {
@@ -101,10 +99,6 @@ struct Tile {
   static_assert(kBf16 || kR * kTM == BM, "f32 thread tiling");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16-byte asynchronous copy; valid = false fills the 16 bytes with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -122,19 +116,6 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
 // c += a (16x16, row) * b (16x8, col), bf16 inputs, f32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -145,57 +126,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// shared-memory writes of this thread (cp.async, st.shared) become
-// visible to the tensor cores' reads (the async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// mbarrier of one ring stage's x tile, completed by the TMA copy's bytes
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// TMA: the (64 x 128 rows) box of x at (k0, m0) into dst, under the
-// 128-byte swizzle, zero past Kin and M; bar counts its bytes
-__device__ __forceinline__ void tma_load_x(void* dst, const CUtensorMap* map, int k0, int m0,
-                                           uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(m0), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// keeps a register's value where it is until this point (wgmma reads and
-// writes its operands asynchronously)
-__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-
 // wgmma descriptor of a K-major bf16 tile of 128-byte rows (64 values)
 // under the 128-byte swizzle (chunk c of row r at c ^ (r % 8), 8-row
 // groups 1024 bytes apart, the tile 1024-byte aligned); addr may step
@@ -203,30 +133,6 @@ __device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"m
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d (64 x 128 f32 of the warpgroup) += a (64 x 16 bf16, registers; warp
-// w holds rows 16 w .. 16 w + 15 as an mma.m16n8k16 A fragment) x b (16 x
-// 128 bf16 in shared memory, K-major, 128-byte swizzle, descriptor desc)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // 16-byte chunk c of raw row r sits at chunk c ^ raw_swz(r): the four
@@ -567,8 +473,8 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
         A[kk][1][0] = p[2], A[kk][1][1] = p[3], A[kk][1][2] = r[2], A[kk][1][3] = r[3];
         const uint64_t desc = sw128_desc(smem_u32(st) + 32 * kk);
         wgmma_fence();
-        wgmma_m64n128k16(acc[0], A[kk][0], desc);
-        wgmma_m64n128k16(acc[1], A[kk][1], desc);
+        WgmmaRS<128>::mma<0>(acc[0], A[kk][0], desc, 1);
+        WgmmaRS<128>::mma<0>(acc[1], A[kk][1], desc, 1);
         wgmma_commit();
       }
     }
@@ -718,16 +624,9 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
 // rows, 128-byte swizzle, zero fill past the edges. 0 on success.
 int x_tensor_map(CUtensorMap* map, const void* x, int M, int Kin, int elem = 2,
                  int rows = 128) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t got = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &found);
-    if (got != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      encode = nullptr;
-      return got != cudaSuccess ? (int)got : (int)cudaErrorNotSupported;
-    }
-  }
+  int rc;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder(&rc);
+  if (encode == nullptr) return rc;
   const cuuint64_t dims[2] = {(cuuint64_t)Kin, (cuuint64_t)M};
   const cuuint64_t strides[1] = {(cuuint64_t)Kin * elem};
   const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)rows};

@@ -6,7 +6,9 @@ the pow2 shift-add dictionary.
 ``flash_attention_ref`` are what the kernel
 wrappers run for a tensor on the CPU, and what the kernels are held
 against on the card; ``lutq_shift_planes_ref`` emulates the shift-add
-kernel's digit-plane arithmetic beside its plain version. Like the TPU
+kernel's digit-plane arithmetic beside its plain version, and
+``flash_attention_exp2_ref`` the base-2 softmax order of the bf16
+flash-attention kernel on tensor cores (tests only). Like the TPU
 kernels the float GEMMs cast each decoded weight to ``x.dtype`` before
 the product and accumulate in float32: the matmul runs on float32
 copies of the operands, which holds every bf16 value exactly (``jnp``'s
@@ -208,17 +210,37 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, bq=128, bk=128):
     q's dtype. Products run on float32 copies (every bf16 product is
     exact in float32). The caller checks shapes and block sizes.
     """
+    return _flash_blocks(q, k, v, causal, scale, bq, bk, exp2=False)
+
+
+def flash_attention_exp2_ref(q, k, v, *, causal=True, scale=None, bq=128,
+                             bk=128):
+    """:func:`flash_attention_ref` in the arithmetic order of the bf16
+    kernel on tensor cores (``flash_wgmma``), for tests: the running max
+    ``m`` over the raw scores ``q @ k^T`` (masked ones -inf),
+    ``p = 2^(fma(s, c, -m*c))`` with ``c = scale * log2(e)`` in float32
+    (the fused multiply-add emulated in float64, rounded once) and
+    ``alpha = 2^(m_prev*c - m*c)``; ``m*c`` is 0 for a row with no score
+    yet. Since ``scale > 0`` the max moves where the reference's moves.
+    """
+    return _flash_blocks(q, k, v, causal, scale, bq, bk, exp2=True)
+
+
+def _flash_blocks(q, k, v, causal, scale, bq, bk, *, exp2):
     BH, S, D = q.shape
     Skv = k.shape[1]
     if scale is None:
         scale = D ** -0.5
     bq, bk = min(bq, S), min(bk, Skv)
     dev = q.device
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    masked = float("-inf") if exp2 else FLASH_NEG_INF
     out = torch.empty_like(q)
     for i in range(S // bq):
         qi = q[:, i * bq:(i + 1) * bq].float()
         q_pos = i * bq + torch.arange(bq, device=dev)
-        m = torch.full((BH, bq, 1), FLASH_NEG_INF, device=dev)
+        m = torch.full((BH, bq, 1), masked, device=dev)
         l = torch.zeros((BH, bq, 1), device=dev)
         acc = torch.zeros((BH, bq, D), device=dev)
         for j in range(Skv // bk):
@@ -226,14 +248,24 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, bq=128, bk=128):
                 continue  # strictly above the diagonal: never read
             kj = k[:, j * bk:(j + 1) * bk].float()
             vj = v[:, j * bk:(j + 1) * bk]
-            s = torch.matmul(qi, kj.transpose(1, 2)) * scale
+            s = torch.matmul(qi, kj.transpose(1, 2))
+            if not exp2:
+                s = s * scale
             if causal:
                 k_pos = j * bk + torch.arange(bk, device=dev)
                 s = torch.where(q_pos[:, None] >= k_pos[None, :], s,
-                                torch.full_like(s, FLASH_NEG_INF))
+                                torch.full_like(s, masked))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp(s - m_new)
-            alpha = torch.exp(m - m_new)
+            if exp2:
+                cd = c.to(dev)
+                ms = torch.where(m_new == float("-inf"),
+                                 torch.zeros_like(m_new), m_new * cd)
+                p = torch.exp2((s.double() * cd.double() - ms.double())
+                               .float())
+                alpha = torch.exp2(m * cd - ms)
+            else:
+                p = torch.exp(s - m_new)
+                alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             acc = acc * alpha + torch.matmul(p.to(vj.dtype).float(),
                                              vj.float())

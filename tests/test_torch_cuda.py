@@ -695,14 +695,20 @@ def test_cuda_paged_engine_matches_cpu(cuda_device):
 
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 #: (BH, S, Skv, D, bq, bk, causal): the JAX test's shapes, a ragged S of
-#: one q block (S = bq = 40), Skv != S, and danube's head dim
+#: one q block (S = bq = 40), Skv != S, danube's head dim, q blocks of 32
+#: and 48 rows (flash_bf16: a 64-row warpgroup would span two), and a
+#: ragged causal S at bq = 64 whose last block's second warpgroup lies
+#: past S (flash_wgmma's 128-row blocks)
 FLASH_CASES = [(3, 256, 256, 64, 128, 128, True),
                (3, 512, 512, 128, 128, 128, False),
                (3, 256, 256, 64, 64, 128, True),
                (3, 384, 384, 32, 128, 128, True),
                (2, 40, 48, 16, 128, 16, True),
                (2, 128, 256, 80, 64, 32, False),
-               (4, 192, 192, 80, 64, 64, True)]
+               (4, 192, 192, 80, 64, 64, True),
+               (3, 256, 256, 80, 32, 128, True),
+               (2, 384, 384, 96, 48, 64, True),
+               (2, 320, 320, 112, 64, 32, True)]
 
 
 def _flash_operands(BH, S, Skv, D, dtype, dev, seed=0):
@@ -727,6 +733,7 @@ def test_cuda_flash_attention_matches_plain(cuda_device, BH, S, Skv, D, bq,
                                             bk, causal, dtype):
     q, k, v = _flash_operands(BH, S, Skv, D, dtype, cuda_device)
     want = flash_attention_ref(q, k, v, causal=causal, bq=bq, bk=bk)
+    kernel = flash_attn.plan(S, Skv, D, bq, bk, dtype)
     before = dict(flash_attn.COUNTS)
     got = flash_attn.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk)
     torch.cuda.synchronize()
@@ -734,6 +741,8 @@ def test_cuda_flash_attention_matches_plain(cuda_device, BH, S, Skv, D, bq,
     assert bool(torch.isfinite(got).all())
     assert _flash_within(got, want, FLASH_TOL[dtype])
     assert flash_attn.COUNTS["launches"] == before["launches"] + 1
+    for name in flash_attn.KERNEL_CODES:  # exactly the kernel plan names
+        assert flash_attn.COUNTS[name] == before[name] + (name == kernel)
     assert flash_attn.COUNTS["plain"] == before["plain"]
 
 
@@ -751,6 +760,56 @@ def test_cuda_flash_attention_never_reads_skipped_blocks(cuda_device, dtype):
     torch.cuda.synchronize()
     assert torch.equal(poisoned[:, :b], clean[:, :b])
     assert bool(torch.isnan(poisoned[:, b:]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_flash_attention_never_reads_skipped_blocks_at_bq64(cuda_device,
+                                                                 dtype):
+    """bq = bk = 64 (bf16: flash_wgmma, whose 128-row blocks hold two
+    64-row warpgroups): K/V rows [64, S) hold NaN, and the first q block
+    keeps the bits of a clean run."""
+    S, b = 256, 64
+    assert flash_attn.plan(S, S, 80, b, b, dtype) == (
+        "flash_wgmma" if dtype == torch.bfloat16 else "flash_f32")
+    q, k, v = _flash_operands(2, S, S, 80, dtype, cuda_device, seed=8)
+    clean = flash_attn.flash_attention(q, k, v, bq=b, bk=b)
+    k[:, b:], v[:, b:] = float("nan"), float("nan")
+    poisoned = flash_attn.flash_attention(q, k, v, bq=b, bk=b)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned[:, :b], clean[:, :b])
+    assert bool(torch.isnan(poisoned[:, b:]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bq", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 32),
+                                      (torch.float32, 128)],
+                         ids=["wgmma", "bf16", "f32"])
+def test_cuda_flash_attention_same_bits_again_and_in_graph(cuda_device, dtype,
+                                                           bq):
+    """A second call and two replays of a call captured in a CUDA graph
+    (the TMA maps travel in the captured launch) give the first call's
+    bits."""
+    q, k, v = _flash_operands(4, 256, 256, 80, dtype, cuda_device, seed=9)
+    first = flash_attn.flash_attention(q, k, v, bq=bq, bk=64)
+    again = flash_attn.flash_attention(q, k, v, bq=bq, bk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(again, first)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        flash_attn.flash_attention(q, k, v, bq=bq, bk=64)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = flash_attn.flash_attention(q, k, v, bq=bq, bk=64)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
 
 
 @pytest.mark.cuda
