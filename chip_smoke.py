@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM,
-        # lutq_shift and flash-attention timings of the checkout at DIR
-        # (say the parent commit, from git archive) and of this one, in
-        # turns DIR, this, this, DIR
+        # lutq_shift, flash-attention and kmeans_stats timings of the
+        # checkout at DIR (say the parent commit, from git archive) and of
+        # this one, in turns DIR, this, this, DIR
 
 Phases, each fatal on failure (nothing here catches a phase's error):
 
@@ -23,10 +23,15 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    prefill shapes a second call, and one call captured in a CUDA graph
    and replayed twice, must give the first call's bits, with the merge
    tickets back at 0. kmeans_stats: every leaf shape of the model with a 4-bit pow2
-   dictionary (K=16) and with K=256, a ragged N and a dictionary whose
-   midpoints are weights; assignments equal byte for byte, counts
-   exactly equal, each entry's sum within 1e-5 of sum|w| over the entry
-   (f32 in another order).
+   dictionary (K=16) and with K=256, a ragged N, a dictionary whose
+   midpoints are weights, N = 1, 3, 5 (below one float4) with K = 1, 2
+   and 17, and w at element offsets 1-3 into a buffer (a misaligned
+   head); assignments equal byte for byte, counts exactly equal, each
+   entry's sum within 1e-5 of sum|w| over the entry (f32 in another
+   order). A second call and two replays of a call captured in a CUDA
+   graph give the first call's bits, one launch a call, the merge ticket
+   back at 0, and write_a=False the same sums and counts; the profiler's
+   kernel list holds the kernel once a call and no memset.
 3. serve: full-width h2o-danube-1.8b (24 layers, random weights from a
    seed), 4-bit LUT-Q (QuantSpec(bits=4, min_size=1024)), 8-bit
    activations, batch 4, prompt 128, 16 generated tokens, through
@@ -155,8 +160,10 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    torch.matmul on the pre-decoded bf16 weight (a yardstick the port
    never calls), both regimes in the kernels' record (M=512 under
    "prefill", as for lutq_shift); kmeans_stats over every leaf shape of one training
-   step (two passes), beside its byte bound and its plain version (no
-   single PyTorch call computes what it does); lutq_shift at the 168
+   step (two passes, both writing a), beside its byte bound and its plain
+   version (no single PyTorch call computes what it does), then the step
+   as the trainer makes it (the iteration pass with write_a=False)
+   beside its own bound; lutq_shift at the 168
    body shapes of one forward (M = 4, 8 and 512; M = 8 is logged) beside
    its bound, its plain version and torch._int_mm on the pre-decoded int8
    weight (a yardstick the port never calls, exact where |wsh| <= 64;
@@ -476,8 +483,9 @@ def _pow2_dict(w, K):
         return init_dictionary(w[: 1 << 20], QuantSpec(bits=4,
                                                        constraint="pow2"))
     g = torch.Generator(device=w.device).manual_seed(K)
+    scale = w.std() if w.numel() > 1 else 0.02
     return torch.sort(torch.randn(K, generator=g, device=w.device)
-                      * w.std()).values
+                      * scale).values
 
 
 def kmeans_checks():
@@ -490,12 +498,17 @@ def kmeans_checks():
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    cases = [(r * c, K, False) for (r, c), _ in TRAIN_LEAVES.values()
+    # (N, K, ties, offset of w in elements into a buffer)
+    cases = [(r * c, K, False, 0) for (r, c), _ in TRAIN_LEAVES.values()
              for K in (16, 256)]
-    cases += [(1_000_003, 16, False), (1_000_003, 256, False),
-              (4_000_037, 16, True), (1_000_003, 256, True)]
+    cases += [(1_000_003, 16, False, 0), (1_000_003, 256, False, 0),
+              (4_000_037, 16, True, 0), (1_000_003, 256, True, 0)]
+    cases += [(N, K, False, 0) for N in (1, 3, 5) for K in (1, 2, 17)]
+    cases += [(N, K, ties, off) for off in (1, 2, 3) for N, K, ties in
+              ((2560 * 640, 16, False), (4099, 17, False), (5, 2, False),
+               (70_001, 256, True))]
     worst = 0.0
-    for N, K, ties in cases:
+    for N, K, ties, off in cases:
         w = torch.randn(N, generator=gen, device=dev) * 0.02
         if ties:  # every midpoint of d is a weight, many times over
             d = torch.arange(K, dtype=torch.float32, device=dev) - (K - 1) / 2
@@ -503,6 +516,11 @@ def kmeans_checks():
                  - K) * 0.5
         else:
             d = _pow2_dict(w, K)
+        if off:
+            buf = torch.zeros(N + off, device=dev)
+            buf[off:] = w
+            w = buf[off:]
+            check((w.data_ptr() // 4) % 4 == off, "offset buffer misplaced")
         a, sums, counts = kmeans_stats(w, d)
         torch.cuda.synchronize()
         a0, s0, c0 = kmeans_stats_ref(w, d)
@@ -514,7 +532,8 @@ def kmeans_checks():
         rel = (err / mag.clamp(min=1e-30)).max().item()
         n_bad = int((a != a0).sum())
         on_mid = int(torch.isin(w, (d[:-1] + d[1:]) * 0.5).sum())
-        log(f"check kmeans_stats N={N} K={K}: {on_mid} weights on a "
+        log(f"check kmeans_stats N={N} K={K} offset {off}: {on_mid} "
+            f"weights on a "
             f"midpoint, assignments differing {n_bad}, counts equal "
             f"{bool(torch.equal(counts, c0))}, sums max err "
             f"{err.max().item():.3e} ({rel:.2e} of sum|w|, tol "
@@ -528,7 +547,83 @@ def kmeans_checks():
             check(bool((a < 0).any()), "K=256: no index >= 128 seen")
         worst = max(worst, err.max().item())
         del w, a, a0
+    _kmeans_repeats(gen, dev)
     return worst
+
+
+def _kmeans_repeats(gen, dev):
+    """A second call, and one call captured in a CUDA graph and replayed
+    twice, equal the first call bit for bit, one launch a call and no
+    plain call; the merge ticket is back at 0; write_a=False gives the
+    same sums and counts and no assignments. Then the profiler's kernel
+    list over calls at a leaf shape and at K = 256: the kernel once a
+    call and no memset."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build, kmeans_stats as km
+
+    for N, K in ((2560 * 640, 16), (32000 * 2560, 16), (1_000_003, 256),
+                 (5, 2)):
+        w = torch.randn(N, generator=gen, device=dev) * 0.02
+        d = _pow2_dict(w, K)
+        before = dict(km.COUNTS)
+        first = km.kmeans_stats(w, d)
+        second = km.kmeans_stats(w, d)
+        calls = km.COUNTS["launches"] - before["launches"]
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            km.kmeans_stats(w, d)  # warm-up
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = km.kmeans_stats(w, d)
+        same = [all(torch.equal(x, y) for x, y in zip(first, second))]
+        for _ in range(2):
+            for x in captured:
+                x.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            same.append(all(torch.equal(x, y)
+                            for x, y in zip(captured, first)))
+        a, sums, counts = km.kmeans_stats(w, d, write_a=False)
+        no_a = (a is None and torch.equal(sums, first[1])
+                and torch.equal(counts, first[2]))
+        tickets = not bool(build.merge_tickets(1, w.device).any())
+        plain = km.COUNTS["plain"] - before["plain"]
+        p = km.plan(N, K, build.sm_count(dev))
+        log(f"check kmeans_stats N={N} K={K} repeat: second call "
+            f"{'same' if same[0] else 'DIFFERENT'} bits, graph replays "
+            f"{'same' if all(same[1:]) else 'DIFFERENT'} bits, write_a="
+            f"False {'same' if no_a else 'DIFFERENT'} sums and counts, "
+            f"{calls} launches for 2 calls, {plain} plain, ticket back at "
+            f"0 {tickets} (plan {p['blocks']} blocks x {p['threads']}, "
+            f"chunk {p['chunk']} vectors)")
+        check(all(same) and no_a, f"kmeans_stats is not deterministic at "
+              f"N={N} K={K}")
+        check(calls == 2 and plain == 0,
+              f"kmeans_stats: {calls} launches, {plain} plain for 2 calls")
+        check(tickets, "kmeans_stats left its merge ticket set")
+        del graph, captured, first, second, w
+    for N, K in ((2560 * 2560, 16), (70_001, 256)):
+        w = torch.randn(N, generator=gen, device=dev) * 0.02
+        d = _pow2_dict(w, K)
+        km.kmeans_stats(w, d)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                km.kmeans_stats(w, d)
+            torch.cuda.synchronize()
+        rows = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        log(f"check kmeans_stats N={N} K={K}: 4 calls, profiler kernels "
+            f"{rows}")
+        check(not any("emset" in k for k in rows),
+              f"kmeans_stats put a memset on the stream: {rows}")
+        check(len(rows) == 1 and "kmeans_stats" in next(iter(rows))
+              and next(iter(rows.values())) == 4,
+              f"kmeans_stats is not one launch a call: {rows}")
 
 
 # ---------------------------------------------------------------------------
@@ -2121,10 +2216,12 @@ def _int_mm_ms(xq, a, wsh, n):
 
 def kmeans_timings(card: str):
     """kmeans_stats over every leaf shape of one training step (two
-    passes each), against its byte bound: each pass reads 4 B of w and
-    writes 1 B of a per weight, plus the (K,) dictionary in and sums and
-    counts out. The work per weight (an 8-step binary search and two
-    adds) is far below the f32 rate, so bytes bound it."""
+    passes each, both writing a), against its byte bound: each pass reads
+    4 B of w and writes 1 B of a per weight, plus the (K,) dictionary in
+    and sums and counts out. The work per weight (15 compares against the
+    midpoints and two adds) is far below the f32 rate, so bytes bound it.
+    Then the step as the trainer makes it: the iteration pass with
+    write_a=False (4 B a weight), the final pass writing a."""
     import torch
 
     from repro_torch.kernels.kmeans_stats import kmeans_stats
@@ -2132,7 +2229,8 @@ def kmeans_timings(card: str):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    agg = dict(ms=0.0, loop_ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+    agg = dict(ms=0.0, loop_ms=0.0, plain_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+               trainer_ms=0.0, trainer_bound_ms=0.0)
     passes = 2  # kmeans_iters = 1, plus the final assignment
     for label, ((r, c), count) in TRAIN_LEAVES.items():
         N = r * c
@@ -2142,12 +2240,20 @@ def kmeans_timings(card: str):
         sets = [(w.clone(), d) for _ in range(n)]
         t, t_loop = time_ms(kmeans_stats, sets, iters=max(20, 2 * n))
         tp, _ = time_ms(kmeans_stats_ref, sets[:2], iters=4, graph=False)
+        tn, _ = time_ms(lambda w_, d_: kmeans_stats(w_, d_, write_a=False),
+                        sets, iters=max(20, 2 * n))
         tb = (N * 5 + 16 * 4 * 3) / HBM_BYTES_PER_S * 1e3
+        tbn = (N * 4 + 16 * 4 * 3) / HBM_BYTES_PER_S * 1e3
         to = N * 6 / PEAK_FLOPS["float32"] * 1e3
         log(f"time kmeans_stats {label} N={N}: kernel {t * 1e3:.1f} us "
             f"(host loop {t_loop * 1e3:.1f} us) | bound {tb * 1e3:.1f} us "
             f"(bytes) = {tb / t * 100:.1f}% | plain {tp * 1e3:.1f} us | "
             f"{card}")
+        log(f"time kmeans_stats {label} N={N} write_a=False: kernel "
+            f"{tn * 1e3:.1f} us | bound {tbn * 1e3:.1f} us (bytes) = "
+            f"{tbn / tn * 100:.1f}% | {card}")
+        agg["trainer_ms"] += count * (tn + t)
+        agg["trainer_bound_ms"] += count * (tbn + tb)
         k = passes * count
         agg["ms"] += k * t
         agg["loop_ms"] += k * t_loop
@@ -2164,6 +2270,10 @@ def kmeans_timings(card: str):
         f"{agg['bound_ms']:.3f} ms ({agg['bound_by']}) = "
         f"{agg['bound_ms'] / agg['ms'] * 100:.1f}% | plain "
         f"{agg['plain_ms']:.3f} ms | library: none | {card}")
+    log(f"time kmeans_stats one training step as the trainer makes it "
+        f"(iteration pass write_a=False): kernel {agg['trainer_ms']:.3f} ms "
+        f"| bound {agg['trainer_bound_ms']:.3f} ms (bytes) = "
+        f"{agg['trainer_bound_ms'] / agg['trainer_ms'] * 100:.1f}% | {card}")
     return agg
 
 
@@ -2342,36 +2452,53 @@ def flash_timings(card: str):
 
 
 def ab_timings(parent: str) -> int:
-    """Phase 4's GEMM, lutq_shift and flash-attention timings
-    (``timings``, ``shift_timings``, ``flash_timings``) of another
-    checkout (say the parent commit, unpacked with git archive) and of
-    this one, in turns (other, this, this, other), each in a fresh
-    process that builds that checkout's kernels, on this one card.
-    Prints each run's per-forward lines and a summary; no ok line."""
+    """Phase 4's GEMM, lutq_shift, flash-attention and kmeans_stats
+    timings (``timings``, ``shift_timings``, ``flash_timings``,
+    ``kmeans_timings``) of another checkout (say the parent commit,
+    unpacked with git archive) and of this one, in turns (other, this,
+    this, other), each in a fresh process that builds that checkout's
+    kernels, on this one card. Prints each run's per-forward lines and a
+    summary; no ok line. kmeans_stats' per-shape and per-step numbers
+    are read from its log lines, whose form both sides share."""
     other = Path(parent).resolve()
     check((other / "chip_smoke.py").is_file(), f"{other}: no chip_smoke.py")
     code = ("import json, sys; sys.path.insert(0, {root!r}); "
             "import chip_smoke as c; _, _, card = c.setup(); "
             "t = c.timings(card); t['lutq_shift'] = c.shift_timings(card); "
             "t['flash_attention'] = c.flash_timings(card); "
+            "c.kmeans_timings(card); "
             "print('AB ' + json.dumps({{k: {{str(m): v "
             "for m, v in per.items()}} for k, per in t.items()}}))")
-    runs = []
+    import re
+
+    km_shape = re.compile(r"time kmeans_stats (\S+) N=(\d+): kernel "
+                          r"([\d.]+) us .*bound ([\d.]+) us")
+    km_step = re.compile(r"time kmeans_stats one training step \((\d+) "
+                         r"calls\): kernel ([\d.]+) ms .*bound ([\d.]+) ms")
+    runs, km_runs = [], []
     for label, root in (("parent", other), ("change", ROOT),
                         ("change", ROOT), ("parent", other)):
         log(f"A/B run {len(runs) + 1}: {label} ({root})")
         proc = subprocess.run([sys.executable, "-c",
                                code.format(root=str(root))], cwd=root,
                               capture_output=True, text=True, timeout=1500)
-        result = None
+        result, km = None, {}
         for line in proc.stdout.splitlines():
             if line.startswith("AB "):
                 result = json.loads(line[3:])
-            else:
-                print(line, flush=True)
+                continue
+            print(line, flush=True)
+            m = km_shape.search(line)
+            if m:
+                km[m[1]] = (float(m[3]), float(m[4]), "us")
+            m = km_step.search(line)
+            if m:
+                km[f"one training step ({m[1]} calls)"] = (
+                    float(m[2]), float(m[3]), "ms")
         check(proc.returncode == 0 and result is not None,
               f"A/B run of {root} failed:\n{proc.stderr[-4000:]}")
         runs.append((label, result))
+        km_runs.append((label, km))
     for kname in runs[0][1]:
         lib = {"lutq_shift": "torch._int_mm",
                "flash_attention": "sdpa"}.get(kname, "torch.matmul")
@@ -2396,7 +2523,17 @@ def ab_timings(parent: str) -> int:
                 + (" | flash_bf16 forced in the change's runs "
                    + " / ".join(f"{x:{f}}" for x in forced) + " ms"
                    if forced else ""))
-    print(json.dumps({"ab": [{"run": lab, "timings": r} for lab, r in runs]}),
+    for what, (_, bound_, unit) in km_runs[0][1].items():
+        if not all(what in km for _, km in km_runs):
+            continue
+        ms = {lab: [km[what][0] for l2, km in km_runs if l2 == lab]
+              for lab in ("parent", "change")}
+        log(f"A/B kmeans_stats {what}: parent {ms['parent'][0]:.3f} / "
+            f"{ms['parent'][1]:.3f} {unit}, change {ms['change'][0]:.3f} / "
+            f"{ms['change'][1]:.3f} {unit} | bound {bound_:.3f} {unit} "
+            f"(bytes) | library: none")
+    print(json.dumps({"ab": [{"run": lab, "timings": r, "kmeans_stats": km}
+                             for (lab, r), (_, km) in zip(runs, km_runs)]}),
           flush=True)
     return 0
 

@@ -308,6 +308,8 @@ def kmeans_update_stats(w: torch.Tensor, d: torch.Tensor, spec: QuantSpec
     One fused pass per iteration computes assignments and per-entry sums
     and counts (one read of w, one int8 write of a), and one more pass
     gives the final assignments: ``kmeans_iters + 1`` launches per leaf.
+    An iteration's assignments are read only by the prune correction and
+    the fixed dictionary's update; without those its pass writes none.
     What the kernel cannot express is composed around its stats, as in
     the reference: fixed dictionaries take its assignment and recenter
     with :func:`_fixed_scale_update`; prune masks move each pruned
@@ -322,8 +324,8 @@ def kmeans_update_stats(w: torch.Tensor, d: torch.Tensor, spec: QuantSpec
     pmask = (_prune_mask(w, spec.prune_frac).reshape(-1)
              if spec.prune_frac > 0.0 else None)
 
-    def stats(d):
-        a, sums, counts = ops.kmeans_stats(flat, d)
+    def stats(d, write_a=True):
+        a, sums, counts = ops.kmeans_stats(flat, d, write_a)
         if pmask is None:
             return a, sums, counts
         zi = torch.argmin(d.abs())
@@ -336,8 +338,9 @@ def kmeans_update_stats(w: torch.Tensor, d: torch.Tensor, spec: QuantSpec
         counts = (counts - ccnt).index_add(0, zi[None], ccnt.sum()[None])
         return torch.where(pmask, zi.to(torch.int8), a), sums, counts
 
+    keep_a = pmask is not None or spec.fixed_dictionary
     for _ in range(spec.kmeans_iters):
-        a, sums, counts = stats(d)
+        a, sums, counts = stats(d, keep_a)
         if spec.fixed_dictionary:
             d = _fixed_scale_update(d, flat, a, spec)
         else:

@@ -34,9 +34,11 @@ _LL = ctypes.c_longlong
 #: d, n_dict, y, part, ticket, M, N, Kin, bm, bn, splits, kchunk, stream
 LAUNCH_ARGTYPES = [_I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I,
                    _I, _I, _I, _I, _P]
-#: argtypes of the k-means launcher: device, w, n, d, n_dict, a,
-#: part_sums, part_counts, blocks, sums, counts, stream
-KMEANS_ARGTYPES = [_I, _P, _LL, _P, _I, _P, _P, _P, _I, _P, _P, _P]
+#: argtypes of the k-means launcher: device, w, head, nvec, tail, chunk,
+#: blocks, threads, lanes, slices, d, n_dict, a, part, ticket, sums,
+#: counts, stream
+KMEANS_ARGTYPES = [_I, _P, _LL, _LL, _LL, _LL, _I, _I, _I, _I, _P, _I, _P,
+                   _P, _P, _P, _P, _P]
 #: argtypes of the paged-attention launcher: device, q, q dtype, k pool,
 #: v pool, pool dtype, k scale, v scale, block, cache_len, out, workspace,
 #: partials, tickets, B, Hkv, G, dh, page, NB, window, span, chunk,
@@ -59,7 +61,6 @@ SIGNATURES = {
     "lutq_gemv_packed_launch": LAUNCH_ARGTYPES,
     "lutq_shift_launch": SHIFT_ARGTYPES,
     "kmeans_stats_launch": KMEANS_ARGTYPES,
-    "kmeans_stats_blocks": [_LL, _I, _I],  # n, n_dict, SMs -> grid size
     "paged_attention_launch": PAGED_ARGTYPES,
     "flash_attention_launch": FLASH_ARGTYPES,
 }

@@ -788,19 +788,6 @@ __global__ void __launch_bounds__(WgTile<D, BK>::kThreads, 1)
   }
 }
 
-// opt in to more than 48 KB of dynamic shared memory once per device and
-// size (not a stream operation, so it stays out of a CUDA graph being
-// captured)
-template <typename Kernel>
-int opt_in(Kernel kernel, int device, size_t smem, size_t* opted) {
-  if (smem <= 48 * 1024 || (device < kMaxDevices && smem <= opted[device])) return 0;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  if (device < kMaxDevices) opted[device] = smem;
-  return 0;
-}
-
 template <int D>
 int launch_bf16(int device, const void* q, const void* k, const void* v, void* out, int BH,
                 int S, int Skv, int bk, int causal, float scale, cudaStream_t stream) {

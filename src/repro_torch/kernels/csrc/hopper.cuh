@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // addresses, ldmatrix, the wgmma fence / commit / wait and bf16 wgmma
-// with A in registers, mbarriers, TMA loads, register pins and the
-// tensor-map encoder. Included by lutq_gemm.cuh (kernels 1, 2, and
-// through it lutq_shift.cu) and flash_attn.cu.
+// with A in registers, mbarriers, TMA loads, register pins, the
+// shared-memory opt-in and the tensor-map encoder. Included by
+// lutq_gemm.cuh (kernels 1, 2, and through it lutq_shift.cu),
+// flash_attn.cu and kmeans_stats.cu.
 #pragma once
 
 #include <cuda.h>
@@ -285,6 +286,19 @@ struct WgmmaRS<128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(TB), "r"(scale_d));
   }
 };
+
+// opt in to more than 48 KB of dynamic shared memory once per device and
+// size (not a stream operation, so it stays out of a CUDA graph being
+// captured)
+template <typename Kernel>
+int opt_in(Kernel kernel, int device, size_t smem, size_t* opted) {
+  if (smem <= 48 * 1024 || (device < kMaxDevices && smem <= opted[device])) return 0;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  if (device < kMaxDevices) opted[device] = smem;
+  return 0;
+}
 
 // cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
 // query; nullptr (and the error in *rc) where it is missing

@@ -48,10 +48,11 @@ BACKENDS = ("auto", "decode", "fused", "packed4", "pow2")
 COUNTS = {"decode": 0}
 
 
-def kmeans_stats(w: torch.Tensor, d: torch.Tensor):
+def kmeans_stats(w: torch.Tensor, d: torch.Tensor, write_a: bool = True):
     """(assignments int8 like w, sums f32 (K,), counts f32 (K,)) of one
-    assignment pass of w against sorted d; any shape of w."""
-    return _kmeans_stats.kmeans_stats(w, d)
+    assignment pass of w against sorted d; any shape of w. With
+    ``write_a=False`` the assignments are None and not written."""
+    return _kmeans_stats.kmeans_stats(w, d, write_a)
 
 
 def kmeans_step_fused(w_flat: torch.Tensor, d: torch.Tensor):

@@ -6,9 +6,10 @@ the pow2 shift-add dictionary.
 ``flash_attention_ref`` are what the kernel
 wrappers run for a tensor on the CPU, and what the kernels are held
 against on the card; ``lutq_shift_planes_ref`` emulates the shift-add
-kernel's digit-plane arithmetic beside its plain version, and
+kernel's digit-plane arithmetic beside its plain version,
 ``flash_attention_exp2_ref`` the base-2 softmax order of the bf16
-flash-attention kernel on tensor cores (tests only). Like the TPU
+flash-attention kernel on tensor cores, and ``kmeans_stats_order_ref``
+the k-means kernel's f32 summation order (tests only). Like the TPU
 kernels the float GEMMs cast each decoded weight to ``x.dtype`` before
 the product and accumulate in float32: the matmul runs on float32
 copies of the operands, which holds every bf16 value exactly (``jnp``'s
@@ -153,7 +154,7 @@ def lutq_shift_planes_ref(xq: torch.Tensor, a: torch.Tensor,
     return (acc - ((acc >> 31) << 32)).to(torch.int32)
 
 
-def kmeans_stats_ref(w: torch.Tensor, d: torch.Tensor):
+def kmeans_stats_ref(w: torch.Tensor, d: torch.Tensor, write_a: bool = True):
     """One assignment pass over flat w against sorted d.
 
     Returns (assignments int8 (N,), sums (K,) f32, counts (K,) f32):
@@ -163,14 +164,84 @@ def kmeans_stats_ref(w: torch.Tensor, d: torch.Tensor):
     ``astype(int8)`` does. Counts are exact integers rounded to f32
     once; sums accumulate in float64 and round to f32 once, so the plain
     version is the accurate side of a comparison (an f32 ``index_add_``
-    over millions of weights drifts by ~1e-4 of the sum).
+    over millions of weights drifts by ~1e-4 of the sum). With
+    ``write_a=False`` the assignments are None, as the kernel then
+    writes none.
     """
     idx = _bucketize(w, d)
     K = d.shape[0]
     sums = torch.zeros(K, dtype=torch.float64, device=w.device)
     sums.index_add_(0, idx, w.double())
     counts = torch.bincount(idx, minlength=K).float()
-    return idx.to(torch.int8), sums.float(), counts
+    return idx.to(torch.int8) if write_a else None, sums.float(), counts
+
+
+def kmeans_thread_elements(plan: dict) -> torch.Tensor:
+    """(blocks, threads, S) int64: the elements each thread of the
+    ``kmeans_stats`` kernel takes under ``plan``
+    (:func:`repro_torch.kernels.kmeans_stats.plan`), in the order it adds
+    them, -1 where it has none: its float4 vectors t, t + threads, ...
+    of its block's range, four elements each, then block 0's threads
+    0 .. head + tail - 1 one head or tail element each."""
+    T, B, chunk = plan["threads"], plan["blocks"], plan["chunk"]
+    head, nvec, tail = plan["head"], plan["nvec"], plan["tail"]
+    b = torch.arange(B)[:, None, None]
+    v = (b * chunk + torch.arange(T)[None, :, None]
+         + torch.arange(-(-chunk // T))[None, None, :] * T)
+    ok = v < torch.clamp((b + 1) * chunk, max=nvec)
+    e = head + 4 * v[..., None] + torch.arange(4)
+    e = torch.where(ok[..., None], e, -1).reshape(B, T, -1)
+    extra = torch.full((B, T, 1), -1, dtype=torch.int64)
+    tt = torch.arange(head + tail)
+    extra[0, : head + tail, 0] = torch.where(tt < head, tt,
+                                             4 * nvec + tt)
+    return torch.cat([e, extra], dim=2)
+
+
+def kmeans_stats_order_ref(w: torch.Tensor, d: torch.Tensor, plan: dict):
+    """The ``kmeans_stats`` kernel's f32 summation order in plain torch
+    (CPU, tests only), under ``plan``. Each thread adds its weights into
+    its private (sum, count) column of their entry in the order it takes
+    them (:func:`kmeans_thread_elements`); a block folds its columns, lane
+    l of an entry adding columns l, l + lanes, ... in turn, then the lanes
+    by an adjacent-pairs tree (the kernel's xor-shuffle butterfly); the
+    last block adds the partial rows in block order, slice s of
+    ceil(blocks / slices) rows at a time, then the slices by a halving
+    tree. Counts are exact. Returns what :func:`kmeans_stats_ref` does,
+    with the kernel's sums."""
+    w = w.reshape(-1).float()
+    K = d.shape[0]
+    idx = _bucketize(w, d)
+    E = kmeans_thread_elements(plan)
+    B, T, _ = E.shape
+    cols = torch.zeros(B, T, K)
+    cnt = torch.zeros(B, T, K, dtype=torch.int64)
+    for s in range(E.shape[2]):
+        e = E[:, :, s]
+        ok = e >= 0
+        ec = e.clamp(min=0)
+        hot = torch.nn.functional.one_hot(idx[ec], K).bool() & ok[..., None]
+        cols = torch.where(hot, cols + w[ec][..., None], cols)
+        cnt += hot
+    L = plan["lanes"]
+    v = cols.view(B, T // L, L, K)
+    part = torch.zeros(B, L, K)
+    for m in range(T // L):
+        part = part + v[:, m]
+    while part.shape[1] > 1:
+        part = part[:, 0::2] + part[:, 1::2]
+    rows = part[:, 0]
+    S = plan["slices"]
+    rps = -(-B // S)
+    acc = torch.zeros(S, K)
+    for r in range(rps):
+        rr = torch.arange(S) * rps + r
+        acc = torch.where((rr < B)[:, None],
+                          acc + rows[rr.clamp(max=B - 1)], acc)
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    return idx.to(torch.int8), acc[0], cnt.sum((0, 1)).float()
 
 
 def paged_attention_ref(q, k_pool, v_pool, block, cache_len, *, window=None,

@@ -10,7 +10,8 @@ Tolerance of the GEMMs, relative to the output's scale: 1e-4 for f32 x
 (f32 accumulation in another order), 1e-3 for bf16 x (tensor-core bf16
 products accumulated in f32). ``kmeans_stats``: assignments equal byte
 for byte and counts exactly equal; each entry's sum within 1e-5 of the
-sum of |w| over that entry (f32 accumulation in another order).
+sum of |w| over that entry (f32 accumulation in another order); a second
+call and CUDA-graph replays give the same bits.
 Paged attention, relative to max|plain|: 1e-5 for f32 queries (f32
 sums in another order), 2^-7 for bf16 queries (one bf16 ulp of the
 largest output: the output rounds to bf16, and a bf16 score may round
@@ -435,16 +436,30 @@ def _kmeans_case(N, K, ties, g):
     return w, d
 
 
+#: danube's quantized leaf sizes (q/o, k/v, wi/wg and wo, embed/head)
+TRAIN_LEAF_SIZES = [2560 * 2560, 2560 * 640, 2560 * 6912, 32000 * 2560]
+#: (N, K, ties, offset): leaf shapes, K = 256 (indices >= 128), a ragged
+#: N, midpoints that are weights, N below one vector with K = 1, 2 and 17,
+#: and w at element offsets 1-3 into a larger buffer (a misaligned head)
+KMEANS_CASES = ([(2560 * 6912, 256, False, 0), (1_000_003, 16, False, 0),
+                 (4099, 16, True, 0), (70_001, 256, True, 0)]
+                + [(N, 16, False, 0) for N in TRAIN_LEAF_SIZES]
+                + [(N, K, False, 0) for N in (1, 3, 5) for K in (1, 2, 17)]
+                + [(N, K, False, off) for off in (1, 2, 3)
+                   for N, K in ((1_000_003, 16), (4099, 17), (5, 2))]
+                + [(70_001, 256, True, 3)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,K,ties", [(2560 * 6912, 16, False),
-                                      (2560 * 6912, 256, False),
-                                      (1_000_003, 16, False),
-                                      (4099, 16, True), (70_001, 256, True)])
-def test_cuda_kmeans_stats_matches_plain(cuda_device, N, K, ties):
+@pytest.mark.parametrize("N,K,ties,offset", KMEANS_CASES)
+def test_cuda_kmeans_stats_matches_plain(cuda_device, N, K, ties, offset):
     w, d = _kmeans_case(N, K, ties, torch.Generator().manual_seed(N + K))
     a0, s0, c0 = kmeans_stats_ref(w, d)
-    a1, s1, c1 = kmeans_stats.kmeans_stats(w.to(cuda_device),
-                                           d.to(cuda_device))
+    buf = torch.zeros(N + offset, device=cuda_device)
+    buf[offset:] = w.to(cuda_device)
+    wc = buf[offset:]
+    assert (wc.data_ptr() // 4) % 4 == offset
+    a1, s1, c1 = kmeans_stats.kmeans_stats(wc, d.to(cuda_device))
     torch.cuda.synchronize()
     assert a1.dtype == torch.int8 and a1.shape == (N,)
     assert torch.equal(a1.cpu(), a0)
@@ -452,6 +467,86 @@ def test_cuda_kmeans_stats_matches_plain(cuda_device, N, K, ties):
     idx = a0.view(torch.uint8).long()
     mag = torch.zeros(K).index_add_(0, idx, w.abs())
     assert ((s1.cpu() - s0).abs() <= 1e-5 * mag).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(2560 * 640, 16), (1_000_003, 256), (5, 2)])
+def test_cuda_kmeans_stats_repeats_and_replays(cuda_device, N, K):
+    """A second call and two replays of one call captured in a CUDA graph
+    give the first call's bits, one launch a call and no plain call, and
+    the merge tickets are back at zero; write_a=False gives the same
+    sums and counts and no assignments."""
+    w, d = (t.to(cuda_device) for t in _kmeans_case(
+        N, K, False, torch.Generator().manual_seed(K)))
+    before = dict(kmeans_stats.COUNTS)
+    first, second = (kmeans_stats.kmeans_stats(w, d) for _ in range(2))
+    assert kmeans_stats.COUNTS["launches"] == before["launches"] + 2
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        kmeans_stats.kmeans_stats(w, d)  # warm-up on that stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kmeans_stats.kmeans_stats(w, d)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    for _ in range(2):
+        for x in captured:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(captured, first):
+            assert torch.equal(x, y)
+    assert not build.merge_tickets(1, w.device).any()
+    a, sums, counts = kmeans_stats.kmeans_stats(w, d, write_a=False)
+    assert a is None
+    assert torch.equal(sums, first[1]) and torch.equal(counts, first[2])
+    assert kmeans_stats.COUNTS["launches"] == before["launches"] + 5
+    assert kmeans_stats.COUNTS["plain"] == before["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(2560 * 2560, 16), (70_001, 256)])
+def test_cuda_kmeans_stats_one_launch_no_memset(cuda_device, N, K):
+    """A call is one kernel on the stream: the profiler lists the kernel
+    once a call and no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w, d = (t.to(cuda_device) for t in _kmeans_case(
+        N, K, False, torch.Generator().manual_seed(2)))
+    want = kmeans_stats.kmeans_stats(w, d)  # tickets made before
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = [kmeans_stats.kmeans_stats(w, d) for _ in range(3)]
+        torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for g in got for x, y in zip(g, want))
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert not [n for n in names if "emset" in n], names
+    assert len(names) == 1 and "kmeans_stats" in names[0], names
+    assert counts[names[0]] == 3, counts
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_stats_raises_instead_of_falling_back(cuda_device,
+                                                          monkeypatch):
+    w, d = (t.to(cuda_device) for t in _kmeans_case(
+        4099, 16, False, torch.Generator()))
+    before = dict(kmeans_stats.COUNTS)
+
+    class FailedLaunch:
+        @staticmethod
+        def kmeans_stats_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(build, "load_library", lambda: FailedLaunch)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        kmeans_stats.kmeans_stats(w, d)
+    with pytest.raises(ValueError, match="w's CUDA device"):
+        kmeans_stats.kmeans_stats(w, d.cpu())
+    assert kmeans_stats.COUNTS == before
 
 
 # ---------------------------------------------------------------------------

@@ -143,6 +143,151 @@ def test_kmeans_update_stats_runs_the_kernel_path():
     assert tks.COUNTS["plain"] - before == spec.kmeans_iters + 1
 
 
+#: danube's quantized leaf sizes (q/o, k/v, wi/wg and wo, embed/head)
+TRAIN_LEAF_SIZES = [2560 * 2560, 2560 * 640, 2560 * 6912, 32000 * 2560]
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 4099, 1_000_003]
+                         + TRAIN_LEAF_SIZES)
+def test_kmeans_plan_covers_every_element_and_row_once(n):
+    """The CUDA kernel's plan, from shapes and the SM count only: the
+    scalar head ends on a 16-byte boundary, the block ranges tile the
+    float4 vectors with no gap, overlap or empty block, one partial row a
+    block, and (up to 1e6 weights, element by element) every weight is
+    taken by exactly one thread."""
+    from repro_torch.kernels.ref import kmeans_thread_elements
+
+    for K in (1, 2, 16, 17, 256):
+        for sms in (1, 132):
+            for off in range(4):
+                p = tks.plan(n, K, sms, off)
+                T = p["threads"]
+                assert p == tks.plan(n, K, sms, off)
+                assert p["head"] + 4 * p["nvec"] + p["tail"] == n
+                assert p["head"] < 4 and p["tail"] < 4
+                assert p["head"] == n or (off + p["head"]) % 4 == 0
+                assert p["head"] + p["tail"] <= T
+                assert T == tks.threads_for(K) and T * K * 8 <= 64 * 1024
+                assert p["chunk"] % 32 == 0
+                ranges = tks.block_ranges(p)
+                assert len(ranges) == p["blocks"] == p["rows"]
+                assert p["blocks"] <= sms * tks.blocks_per_sm(K)
+                assert ranges[0][0] == 0 and ranges[-1][1] == p["nvec"]
+                assert all(e == b for (_, e), (b, _) in zip(ranges,
+                                                            ranges[1:]))
+                assert p["nvec"] == 0 or all(b < e for b, e in ranges)
+                for key in ("lanes", "slices"):
+                    x = p[key]
+                    assert x & (x - 1) == 0 and 1 <= x <= tks.MAX_LANES
+                    assert K * x <= T or x == 1
+                assert p["slices"] * K <= 256
+                if n <= 1_000_003 and (K == 16 or n < 5000):
+                    E = kmeans_thread_elements(p)
+                    assert E.shape[:2] == (p["blocks"], T)
+                    c = torch.bincount(E[E >= 0], minlength=n)
+                    assert c.numel() == n and bool((c == 1).all())
+
+
+@pytest.mark.parametrize("case", STATS_CASES, ids=lambda c: f"N{c[0]}-K{c[1]}"
+                         f"{'-ties' if c[2] else ''}")
+def test_kmeans_kernel_order_matches_jax(jax_stats, case):
+    """A plain-torch f32 emulation of the CUDA kernel's summation order
+    (per-thread sequential, fixed fold, block-ordered merge), under the
+    plans of 1 and 132 SMs and every misalignment of w, against the
+    Pallas kernel (interpret mode) and the JAX reference: assignments
+    and counts equal, each entry's sum within the card's tolerance of
+    1e-5 of sum|w| over the entry."""
+    from repro_torch.kernels.ref import kmeans_stats_order_ref
+
+    w, d, refs = jax_stats[case]
+    K = d.shape[0]
+    for sms in (1, 132):
+        for off in range(4):
+            a, sums, counts = kmeans_stats_order_ref(
+                torch.from_numpy(w), torch.from_numpy(d),
+                tks.plan(w.size, K, sms, off))
+            for ja, js, jc in refs:
+                np.testing.assert_array_equal(a.numpy(), ja)
+                np.testing.assert_array_equal(counts.numpy(), jc)
+                mag = np.zeros(K, np.float64)
+                np.add.at(mag, ja.view(np.uint8), np.abs(w))
+                assert (np.abs(sums.numpy() - js) <= 1e-5 * mag).all()
+
+
+def test_kmeans_kernel_order_many_blocks_matches_plain():
+    """The emulated order over a grid of more blocks than merge slices
+    (several rows a slice) and a ragged head, against the plain
+    version."""
+    from repro_torch.kernels.ref import (kmeans_stats_order_ref,
+                                         kmeans_stats_ref)
+
+    w, d = _case(4_000_037, 16, False, 9)
+    w, d = torch.from_numpy(w), torch.from_numpy(d)
+    p = tks.plan(w.numel(), 16, 132, 1)
+    assert p["blocks"] > 2 * p["slices"] and p["head"] == 3
+    a0, s0, c0 = kmeans_stats_ref(w, d)
+    a, sums, counts = kmeans_stats_order_ref(w, d, p)
+    assert torch.equal(a, a0) and torch.equal(counts, c0)
+    mag = torch.zeros(16).index_add_(0, a0.long(), w.abs())
+    assert bool(((sums - s0).abs() <= 1e-5 * mag).all())
+
+
+def test_kmeans_stats_without_assignments():
+    """write_a=False: no assignments (None), the same sums and counts,
+    one plain call counted as with them."""
+    w, d = _case(10_007, 16, False, 10)
+    w, d = torch.from_numpy(w), torch.from_numpy(d)
+    a0, s0, c0 = tops.kmeans_stats(w, d)
+    before = dict(tks.COUNTS)
+    a, sums, counts = tops.kmeans_stats(w, d, write_a=False)
+    assert a is None and torch.equal(sums, s0) and torch.equal(counts, c0)
+    assert tks.COUNTS["plain"] == before["plain"] + 1
+    assert tks.COUNTS["launches"] == before["launches"]
+
+
+@pytest.mark.parametrize("spec_name", ["none", "pow2", "prune"])
+def test_kmeans_update_stats_skips_only_unread_assignments(monkeypatch,
+                                                           spec_name):
+    """An iteration pass writes no assignments unless the prune
+    correction reads them; (d, a) equal those with every pass writing,
+    kmeans_iters + 1 passes either way, and the JAX update_state's."""
+    kw = dict(SPECS[spec_name], kmeans_iters=3)
+    ts, js = TSpec(min_size=1, **kw), JSpec(min_size=1, **kw)
+    r = np.random.RandomState(11)
+    w = (r.randn(96, 80) * 0.05).astype(np.float32)
+    d0 = np.array(jl.init_dictionary(jnp.asarray(w), js))
+    w2 = w + (r.randn(*w.shape) * 0.01).astype(np.float32)
+    seen = []
+    real = tops.kmeans_stats
+
+    def spy(flat, d, write_a=True):
+        seen.append(write_a)
+        return real(flat, d, write_a)
+
+    def always(flat, d, write_a=True):
+        seen.append(True)
+        return real(flat, d, True)
+
+    out = {}
+    for name, fn in (("skip", spy), ("always", always)):
+        monkeypatch.setattr(tops, "kmeans_stats", fn)
+        seen.clear()
+        out[name] = tl.kmeans_update_stats(torch.from_numpy(w2),
+                                           torch.from_numpy(d0), ts)
+        out[name + "_writes"] = list(seen)
+    keep = spec_name == "prune"
+    assert out["skip_writes"] == [keep] * ts.kmeans_iters + [True]
+    assert len(out["always_writes"]) == ts.kmeans_iters + 1
+    for x, y in zip(out["skip"], out["always"]):
+        assert torch.equal(x, y)
+    a0 = np.array(jl.assign(jnp.asarray(w), jnp.asarray(d0)))
+    jst = jl.update_state(jl.LutqState(jnp.asarray(w2), jnp.asarray(d0),
+                                       jnp.asarray(a0)), js, impl="stats")
+    np.testing.assert_array_equal(out["skip"][1].numpy(), np.asarray(jst.a))
+    np.testing.assert_allclose(out["skip"][0].numpy(), np.asarray(jst.d),
+                               rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("n,device,want", [
     (1000, "cpu", "dense"), (1 << 16, "cpu", "segsum"),
     (1 << 16, "cuda", "stats"), (1000, "cuda", "dense")])
