@@ -36,11 +36,15 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    seed), 4-bit LUT-Q (QuantSpec(bits=4, min_size=1024)), 8-bit
    activations, batch 4, prompt 128, 16 generated tokens, through
    (a) the packed 4-bit serve view (packed4 kernel) and (b) the int8
-   serve view with kernel_backend="fused". Kernel counts are zeroed just
-   before each generate and read just after: each forward must launch
-   its kernel 7 * 24 + 1 times and run no plain version. Then the
-   reduced config served on the card must give the tokens it gives on
-   the CPU through the plain versions.
+   serve view with kernel_backend="fused". Each generate runs twice:
+   its engine replaying the decode step it captured at the first step,
+   and stepping eagerly inside disable_graphs(); both must give the same
+   tokens and counts. Kernel counts are zeroed just before each generate
+   and read just after: each forward must launch its kernel 7 * 24 + 1
+   times and run no plain version. Each mode logs prefill ms, decode
+   tok/s, the capture's ms, peak memory and a profiled generate. Then
+   the reduced config served on the card must give the tokens it gives
+   on the CPU through the plain versions.
 2c. paged attention: both variants of the CUDA kernel (each split's
    scores in shared memory; in a global workspace, forced with
    smem_budget_bytes=0) against the plain version (gather, dequantize,
@@ -120,9 +124,16 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    holds at most a few hundred positions' scores), the
    GEMM kernel 169 x (decode steps + prefill chunks), no plain version;
    every request ends at max_new; the allocator's invariants hold with
-   only prefix-cache pages held. Prints decode tok/s, goodput, TTFT
-   p50/p99, latency p50/p95, pages peak, prefix hit rate, peak memory
-   and the card's idle share over one profiled decode step.
+   only prefix-cache pages held. Each run serves its queue twice: an
+   engine that captured its decode step at construction replays it (its
+   decode graphs 1 after the warmup and after the serve), then an engine
+   made and stepped inside disable_graphs() runs the same step eagerly;
+   the tokens and counts of the two must be equal. Prints, for both,
+   decode tok/s, goodput, TTFT p50/p99, latency p50/p95, the warmup's
+   seconds, pages peak, prefix hit rate, peak memory (allocated and
+   reserved), the card's idle share over one profiled decode step and
+   the wall of the next decode step without the profiler, then both
+   side by side.
 3d. the reduced config through the paged engine (int8 and f32 pages)
    and the slot engine: the same tokens on the card and on the CPU.
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
@@ -136,11 +147,13 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    memsets than the same generate through the decode oracle; the prefill
    logits of the integer decode oracle (kernel_backend="decode", plain
    torch on the card) must equal the kernel's bit for bit, and the
-   greedy tokens must be identical. Then one paged engine run over
-   phase 3c run (a)'s queue (24 requests, 8 slots, 160 pages, int8 KV),
-   with run (a)'s checks and lutq_shift at 168 x (steps + chunks); the
-   same queue through the engine with the decode oracle must give the
-   same tokens, request by request.
+   greedy tokens must be identical; all of it with graphs and eagerly,
+   the two giving the same tokens and counts. Then one paged engine run
+   over phase 3c run (a)'s queue (24 requests, 8 slots, 160 pages, int8
+   KV), in both modes as in phase 3c, with run (a)'s checks and
+   lutq_shift at 168 x (steps + chunks); the same queue through the
+   engine with the decode oracle must give the same tokens, request by
+   request.
 3b. train: full-width h2o-danube-1.8b (vocab 32000, random f32 masters
    from a seed) through the training CLI's build path and TrainLoop,
    with its default spec (4-bit pow2, kmeans_iters=1, min_size=4096)
@@ -1266,13 +1279,9 @@ def paged_kernel_checks():
 # ---------------------------------------------------------------------------
 
 def _count_dicts():
-    from repro_torch.kernels import (flash_attn, kmeans_stats,
-                                     lutq_gemv_packed, lutq_matmul,
-                                     lutq_shift, ops, paged_attn)
+    from repro_torch.kernels import ops
 
-    return (lutq_matmul.COUNTS, lutq_gemv_packed.COUNTS, kmeans_stats.COUNTS,
-            ops.COUNTS, paged_attn.COUNTS, paged_attn.VARIANTS,
-            lutq_shift.COUNTS, flash_attn.COUNTS)
+    return ops.count_dicts()
 
 
 def _reset_counts():
@@ -1282,7 +1291,7 @@ def _reset_counts():
 
 
 def _read_counts():
-    mm, gp, km, ops, pa, variants, sh, fa = _count_dicts()
+    mm, gp, sh, km, pa, variants, fa, ops = _count_dicts()
     return {"lutq_matmul": mm["launches"], "lutq_gemv_packed": gp["launches"],
             "lutq_shift": sh["launches"], "kmeans_stats": km["launches"],
             "flash_attention": fa["launches"],
@@ -1316,6 +1325,19 @@ def profile_run(fn, what: str):
     for ms, count, key in sorted(rows, reverse=True)[:8]:
         log(f"    {ms:9.3f} ms  x{count:<6d} {key[:90]}")
     return wall_ms, busy_ms, rows
+
+
+#: the two ways phases 3, 3c and 3e serve: replaying each engine's
+#: captured decode step, and stepping eagerly inside disable_graphs()
+MODES = ("graph", "eager")
+
+
+def _mode(mode: str):
+    import contextlib
+
+    from repro_torch.runtime.engine import disable_graphs
+
+    return disable_graphs() if mode == "eager" else contextlib.nullcontext()
 
 
 def profile_generate(view, cfg, toks):
@@ -1365,40 +1387,54 @@ def serve_full_width():
         generate(view, run_cfg, {"tokens": toks}, steps=2,
                  device="cuda")  # warm-up, outside the counted run
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts()
-        out, stats = generate(view, run_cfg, {"tokens": toks},
-                              steps=STEPS_GEN, return_stats=True,
-                              device="cuda")
-        counts = _read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        expected = STEPS_GEN * CALLS_PER_FORWARD
-        other = ("lutq_matmul" if kname == "lutq_gemv_packed"
-                 else "lutq_gemv_packed")
-        log(f"serve [{want_be}] B={BATCH} P={PROMPT} gen={STEPS_GEN}: "
-            f"prefill {stats['t_prefill_s'] * 1e3:.1f} ms | decode "
-            f"{stats['decode_tok_s']:.1f} tok/s | peak "
-            f"{peak:.2f} GiB | launches {counts}")
-        check(counts[kname] == expected, f"{kname}: {counts[kname]} "
-              f"launches in the serve run, expected {expected}")
-        check(counts[other] == 0 and counts["plain"] == 0
-              and counts["decode"] == 0,
-              f"{kname} run went through another path: {counts}")
-        check(out.shape == (BATCH, STEPS_GEN), f"tokens shape {out.shape}")
-        check(bool(((out >= 0) & (out < cfg.vocab)).all()),
-              "tokens out of range")
+        per_mode = {}
+        for mode in MODES:
+            with _mode(mode):
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                out, stats = generate(view, run_cfg, {"tokens": toks},
+                                      steps=STEPS_GEN, return_stats=True,
+                                      device="cuda")
+                counts = _read_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                expected = STEPS_GEN * CALLS_PER_FORWARD
+                other = ("lutq_matmul" if kname == "lutq_gemv_packed"
+                         else "lutq_gemv_packed")
+                log(f"serve [{want_be}] B={BATCH} P={PROMPT} gen={STEPS_GEN}"
+                    f" ({mode}): prefill {stats['t_prefill_s'] * 1e3:.1f} ms"
+                    f" | decode {stats['decode_tok_s']:.1f} tok/s | warmup "
+                    f"{stats['t_warmup_s'] * 1e3:.1f} ms | peak {peak:.2f} "
+                    f"GiB | launches {counts}")
+                check(counts[kname] == expected, f"{kname} ({mode}): "
+                      f"{counts[kname]} launches in the serve run, expected "
+                      f"{expected}")
+                check(counts[other] == 0 and counts["plain"] == 0
+                      and counts["decode"] == 0,
+                      f"{kname} run ({mode}) went through another path: "
+                      f"{counts}")
+                check(out.shape == (BATCH, STEPS_GEN),
+                      f"tokens shape {out.shape}")
+                check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+                      "tokens out of range")
+                log(f"  sample tokens {out[0, :8].tolist()}")
+                wall_ms, busy_ms = profile_generate(view, run_cfg, toks)
+            per_mode[mode] = dict(stats, peak_gib=peak, counts=counts,
+                                  tokens=out.cpu(), profiled_wall_ms=wall_ms,
+                                  profiled_busy_ms=busy_ms)
+        graph, eager = per_mode["graph"], per_mode["eager"]
+        check(torch.equal(graph["tokens"], eager["tokens"]),
+              f"{kname}: graph and eager serves give other tokens")
+        check(graph["counts"] == eager["counts"],
+              f"{kname}: graph and eager serves launch other counts")
         with torch.inference_mode():
             logits, _ = api.prefill(view, run_cfg, {"tokens": toks.cuda()})
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
-        launches[kname] = counts[kname]
+        launches[kname] = graph["counts"][kname]
         # the prefill's attention is plain torch, as the reference's is
         launches["flash_attention"] = (launches.get("flash_attention", 0)
-                                       + counts["flash_attention"])
-        tokens[kname] = out.cpu()
-        log(f"  sample tokens {out[0, :8].tolist()}")
-        wall_ms, busy_ms = profile_generate(view, run_cfg, toks)
-        stats_out[kname] = dict(stats, peak_gib=peak, profiled_wall_ms=wall_ms,
-                                profiled_busy_ms=busy_ms)
+                                       + graph["counts"]["flash_attention"])
+        tokens[kname] = graph["tokens"]
+        stats_out[kname] = per_mode
     same = bool((tokens["lutq_matmul"] == tokens["lutq_gemv_packed"]).all())
     log(f"packed4 and fused runs give the same tokens: {same}")
     # the views serve phase 3c; main() drops them before training
@@ -1488,9 +1524,44 @@ def engine_runs(views, cfg):
 
 
 def engine_run(name, view, cfg, r, gemm, calls_per_forward):
-    """One paged-engine run over ``r``'s queue: counts zeroed just before
-    and read just after, one decode step profiled, the checks of phase
-    3c. Returns the run's numbers."""
+    """One paged-engine run over ``r``'s queue, served twice: replaying
+    the decode step the engine captured at construction, then stepping
+    eagerly inside disable_graphs(). Both passes must give the same
+    tokens and launch counts. Returns the graph pass's numbers, with the
+    eager pass's under "eager"."""
+    import numpy as np
+
+    out = {mode: _engine_pass(name, mode, view, cfg, r, gemm,
+                              calls_per_forward) for mode in MODES}
+    graph, eager = out["graph"], out["eager"]
+    same = all(np.array_equal(a, b)
+               for a, b in zip(graph["tokens"], eager["tokens"]))
+    log(f"engine run ({name}) graph | eager: decode "
+        f"{graph['decode_tok_s']:.1f} | {eager['decode_tok_s']:.1f} tok/s, "
+        f"goodput {graph['goodput_tok_s']:.1f} | "
+        f"{eager['goodput_tok_s']:.1f} tok/s, TTFT p50 "
+        f"{graph['ttft_p50_s'] * 1e3:.0f} | {eager['ttft_p50_s'] * 1e3:.0f}"
+        f" ms, p99 {graph['ttft_p99_s'] * 1e3:.0f} | "
+        f"{eager['ttft_p99_s'] * 1e3:.0f} ms, profiled step "
+        f"{graph['profiled_step_ms']:.2f} | {eager['profiled_step_ms']:.2f}"
+        f" ms, idle {graph['idle'] * 100:.1f} | {eager['idle'] * 100:.1f} "
+        f"%, step without the profiler {graph['timed_step_ms']:.2f} | "
+        f"{eager['timed_step_ms']:.2f} ms, peak {graph['peak_gib']:.2f} | "
+        f"{eager['peak_gib']:.2f} GiB (reserved "
+        f"{graph['reserved_gib']:.2f} | {eager['reserved_gib']:.2f}), "
+        f"warmup {graph['t_warmup_s']:.3f} | {eager['t_warmup_s']:.3f} s | "
+        f"tokens equal {same}, counts equal "
+        f"{graph['counts'] == eager['counts']}")
+    check(same, f"run ({name}): graph and eager passes give other tokens")
+    check(graph["counts"] == eager["counts"],
+          f"run ({name}): graph and eager passes launch other counts")
+    return dict(graph, eager=eager)
+
+
+def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
+    """One pass of the paged engine over ``r``'s queue in ``mode``:
+    counts zeroed just before and read just after, one decode step
+    profiled, the checks of phase 3c. Returns the pass's numbers."""
     import torch
 
     from repro_torch.kernels import build, paged_attn
@@ -1498,37 +1569,25 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
 
     run_cfg = cfg.replace(kernel_backend=r["backend"],
                           kv_cache_bits=r["kv_bits"])
-    eng = Engine(view, run_cfg, capacity=r["capacity"],
-                 max_len=r["max_len"], kv_pages=r["kv_pages"],
-                 page_size=ENGINE_PAGE, device="cuda")
-    for req in r["requests"]:
-        eng.submit(req["tokens"], max_new=req["max_new"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    profiled, freed = None, 0
-    while not eng.idle:  # Engine.run, one step at a time
-        live = sum(x is not None for x in eng.slots)
-        # profile the first step that only decodes: every slot live,
-        # or nothing left to admit
-        if profiled is None and live and not eng.prefilling and (
-                live == r["capacity"] or not eng.queue):
-            def one_step():
-                eng.step()
-                torch.cuda.synchronize()
-            profiled = profile_run(one_step, f"one decode step, run "
-                                   f"({name}), {live} live slots")
-        else:
-            eng.step()
-        if name == "c" and eng.slots[0] is not None:
-            row = eng.pkv.rows[0]
-            dead = [j for j, p in enumerate(row) if p == 0]
-            block = eng.cache["block"][0].cpu()
-            check(all(int(block[j]) == 0 for j in dead),
-                  "a released block entry still points at a page")
-            freed = max(freed, len(dead))
+    with _mode(mode):
+        eng = Engine(view, run_cfg, capacity=r["capacity"],
+                     max_len=r["max_len"], kv_pages=r["kv_pages"],
+                     page_size=ENGINE_PAGE, device="cuda")
+        traces = eng.paged_trace_counts()
+        check(traces == {"decode": int(mode == "graph")},
+              f"run ({name}, {mode}): {traces} decode graphs after warmup")
+        for req in r["requests"]:
+            eng.submit(req["tokens"], max_new=req["max_new"])
+        torch.cuda.synchronize()
+        _reset_counts()
+        profiled, timed_ms, freed = _serve_pass(name, mode, eng, r)
+    check(eng.paged_trace_counts() == traces,
+          f"run ({name}, {mode}): the serve captured more graphs")
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
     st = eng.stats()
     res = [eng.results[i] for i in sorted(eng.results)]
     steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
@@ -1541,8 +1600,8 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
                else "paged_attention")
     wall_ms, busy_ms, rows = profiled
     pa_ms = sum(x[0] for x in rows if "paged_decode" in x[2])
-    log(f"engine run ({name}) [{st['backend']}, {r['kv_bits']}-bit KV, "
-        f"capacity {r['capacity']}, {len(res)} requests]: decode "
+    log(f"engine run ({name}, {mode}) [{st['backend']}, {r['kv_bits']}-bit "
+        f"KV, capacity {r['capacity']}, {len(res)} requests]: decode "
         f"{st['decode_tok_s']:.1f} tok/s | goodput "
         f"{st['goodput_tok_s']:.1f} tok/s | TTFT p50 "
         f"{st['ttft_p50_s'] * 1e3:.0f} ms p99 "
@@ -1553,7 +1612,8 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
         f"decode {st['t_decode_s']:.2f} s, wall {st['wall_s']:.2f} s | "
         f"pages peak {st['pages_peak']} of {st['kv_pages'] - 1} | prefix "
         f"hits {st['prefix_hits']}/{st['prefix_queries']} "
-        f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB | "
+        f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB "
+        f"({reserved:.2f} reserved) | warmup {st['t_warmup_s']:.3f} s | "
         f"card idle {(1 - busy_ms / wall_ms) * 100:.1f}% of a decode "
         f"step ({wall_ms:.1f} ms, paged kernel {pa_ms:.3f} ms; "
         f"{plan['nsplit']} splits of {plan['chunk']} positions, "
@@ -1561,7 +1621,7 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
     check(counts[variant] == N_LAYERS * steps and
           counts["paged_attention"] + counts["paged_attention_multipass"]
           == N_LAYERS * steps,
-          f"run ({name}): {counts} paged launches, expected "
+          f"run ({name}, {mode}): {counts} paged launches, expected "
           f"{N_LAYERS} x {steps} decode steps of {variant}")
     check(counts["plain"] == 0 and counts["decode"] == 0,
           f"run ({name}) ran a plain version: {counts}")
@@ -1590,14 +1650,59 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
               f"window, expected >= 4")
         log(f"  run (c): {freed} blocks of the row released behind the "
             f"window, their device entries 0")
-    out = dict(st, peak_gib=peak, idle=1 - busy_ms / wall_ms,
+    out = dict(st, peak_gib=peak, reserved_gib=reserved,
+               idle=1 - busy_ms / wall_ms, timed_step_ms=timed_ms,
                launches={k: counts[k] for k in
                          ("paged_attention", "paged_attention_multipass",
-                          gemm)},
+                          gemm)}, counts=counts,
                profiled_step_ms=wall_ms, tokens=[x["tokens"] for x in res])
     del eng
     torch.cuda.empty_cache()
     return out
+
+
+def _serve_pass(name, mode, eng, r):
+    """Engine.run, one step at a time. The first step that only decodes
+    (every slot live, or nothing left to admit) is profiled and the next
+    such step timed without the profiler, each between synchronizes. Run
+    (c) keeps each step's device block row (a copy on the card, no sync)
+    and checks after the run that the blocks released behind the window
+    read 0. Returns (the profile, the unprofiled step's ms, the most
+    blocks released)."""
+    import torch
+
+    profiled, timed_ms, rows = None, None, []
+    while not eng.idle:
+        live = sum(x is not None for x in eng.slots)
+        decode_only = live and not eng.prefilling and (
+            live == r["capacity"] or not eng.queue)
+        if decode_only and profiled is None:
+            def one_step():
+                eng.step()
+                torch.cuda.synchronize()
+            profiled = profile_run(one_step, f"one decode step, run ({name},"
+                                   f" {mode}), {live} live slots")
+        elif decode_only and timed_ms is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            timed_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            eng.step()
+        if name == "c" and eng.slots[0] is not None:
+            rows.append(([j for j, p in enumerate(eng.pkv.rows[0]) if p == 0],
+                         eng.cache["block"][0].clone()))
+    freed = 0
+    for dead, block in rows:
+        check(not block[dead].any(),
+              "a released block entry still points at a page")
+        freed = max(freed, len(dead))
+    check(timed_ms is not None, f"run ({name}, {mode}): no second "
+          f"decode-only step to time")
+    log(f"  one decode step, run ({name}, {mode}), without the profiler: "
+        f"{timed_ms:.2f} ms")
+    return profiled, timed_ms, freed
 
 
 def reduced_engine_card_vs_cpu():
@@ -1725,58 +1830,13 @@ def serve_pow2_full_width():
           "pow2 prefill logits not finite or of the wrong shape")
     generate(view, cfg, {"tokens": toks}, steps=2, device="cuda")  # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    out, stats = generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
-                          return_stats=True, device="cuda")
-    counts = _read_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    oracle = generate(view, oracle_cfg, {"tokens": toks}, steps=STEPS_GEN,
-                      device="cuda")
-    expected = STEPS_GEN * SHIFT_CALLS_PER_FORWARD
-    log(f"serve [pow2] B={BATCH} P={PROMPT} gen={STEPS_GEN}: prefill "
-        f"{stats['t_prefill_s'] * 1e3:.1f} ms | decode "
-        f"{stats['decode_tok_s']:.1f} tok/s | peak {peak:.2f} GiB | "
-        f"launches {counts} | prefill logits of the decode oracle and the "
-        f"kernel bit-identical {same_logits} | greedy tokens identical "
-        f"{bool(torch.equal(out, oracle))}")
-    log(f"  sample tokens {out[0, :8].tolist()}")
-    check(counts["lutq_shift"] == expected, f"lutq_shift: "
-          f"{counts['lutq_shift']} launches in the serve run, expected "
-          f"{expected}")
-    check(counts["lutq_matmul"] == 0 and counts["lutq_gemv_packed"] == 0
-          and counts["plain"] == 0 and counts["decode"] == 0,
-          f"the pow2 run went through another path: {counts}")
-    check(same_logits, "pow2 prefill logits: kernel and oracle differ")
-    check(torch.equal(out, oracle), "pow2 tokens: kernel and oracle differ")
-    check(out.shape == (BATCH, STEPS_GEN) and bool(
-        ((out >= 0) & (out < cfg.vocab)).all()), "pow2 tokens out of range")
-
-    def profiled(run_cfg):
-        def run():
-            generate(view, run_cfg, {"tokens": toks}, steps=STEPS_GEN,
-                     device="cuda")
-            torch.cuda.synchronize()
-        return run
-    _reset_counts()
-    wall_ms, busy_ms, rows = profile_run(profiled(cfg), "generate")
-    calls = _read_counts()["lutq_shift"]
-    _, _, oracle_rows = profile_run(profiled(oracle_cfg),
-                                    "generate (integer decode oracle)")
-    kernels = sum(c for _, c, k in rows if "lutq_shift" in k)
-    memsets = [sum(c for _, c, k in r if "emset" in k)
-               for r in (rows, oracle_rows)]
-    log(f"  profiled pow2 generate: {calls} lutq_shift calls, {kernels} "
-        f"lutq_shift kernels on the card "
-        f"({sum(ms for ms, _, k in rows if 'lutq_shift' in k):.3f} ms), "
-        f"{memsets[0]} memsets in the run ({memsets[1]} in the same "
-        f"generate through the decode oracle, which launches no kernel of "
-        f"the port)")
-    check(calls == expected and kernels == calls,
-          f"lutq_shift: {kernels} kernels for {calls} calls, expected one "
-          f"each, {expected} in all")
-    check(memsets[0] <= memsets[1],
-          f"lutq_shift adds memsets to a pow2 generate: {memsets}")
+    per_mode = {mode: _pow2_generate(mode, view, cfg, oracle_cfg, toks,
+                                     same_logits) for mode in MODES}
+    graph, eager = per_mode["graph"], per_mode["eager"]
+    check(torch.equal(graph["tokens"], eager["tokens"])
+          and graph["counts"] == eager["counts"],
+          "pow2 generate: graph and eager serves differ")
+    stats, counts = graph, graph["counts"]
 
     run = dict(backend="auto", kv_bits=8, capacity=8, kv_pages=160,
                max_len=512 + 64,
@@ -1804,9 +1864,76 @@ def serve_pow2_full_width():
     del view, oracle_eng
     torch.cuda.empty_cache()
     return dict(stats, launches=counts["lutq_shift"]
-                + eng["launches"]["lutq_shift"], peak_gib=peak,
-                profiled_wall_ms=wall_ms, profiled_busy_ms=busy_ms,
-                engine=eng, guard_bits=max(bits.values()))
+                + eng["launches"]["lutq_shift"], eager=eager, engine=eng,
+                guard_bits=max(bits.values()))
+
+
+def _pow2_generate(mode, view, cfg, oracle_cfg, toks, same_logits):
+    """Phase 3e's generate in ``mode``: its launch counts, the oracle's
+    tokens, and one lutq_shift kernel a call and no more memsets than the
+    oracle's generate in the profiler's list. Returns its numbers."""
+    import torch
+
+    from repro_torch.runtime.serving import generate
+
+    with _mode(mode):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        out, stats = generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
+                              return_stats=True, device="cuda")
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        oracle = generate(view, oracle_cfg, {"tokens": toks},
+                          steps=STEPS_GEN, device="cuda")
+    expected = STEPS_GEN * SHIFT_CALLS_PER_FORWARD
+    log(f"serve [pow2] B={BATCH} P={PROMPT} gen={STEPS_GEN} ({mode}): "
+        f"prefill {stats['t_prefill_s'] * 1e3:.1f} ms | decode "
+        f"{stats['decode_tok_s']:.1f} tok/s | warmup "
+        f"{stats['t_warmup_s'] * 1e3:.1f} ms | peak {peak:.2f} GiB | "
+        f"launches {counts} | prefill logits of the decode oracle and the "
+        f"kernel bit-identical {same_logits} | greedy tokens identical "
+        f"{bool(torch.equal(out, oracle))}")
+    log(f"  sample tokens {out[0, :8].tolist()}")
+    check(counts["lutq_shift"] == expected, f"lutq_shift ({mode}): "
+          f"{counts['lutq_shift']} launches in the serve run, expected "
+          f"{expected}")
+    check(counts["lutq_matmul"] == 0 and counts["lutq_gemv_packed"] == 0
+          and counts["plain"] == 0 and counts["decode"] == 0,
+          f"the pow2 run ({mode}) went through another path: {counts}")
+    check(same_logits, "pow2 prefill logits: kernel and oracle differ")
+    check(torch.equal(out, oracle), "pow2 tokens: kernel and oracle differ")
+    check(out.shape == (BATCH, STEPS_GEN) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), "pow2 tokens out of range")
+
+    def profiled(run_cfg):
+        def run():
+            generate(view, run_cfg, {"tokens": toks}, steps=STEPS_GEN,
+                     device="cuda")
+            torch.cuda.synchronize()
+        return run
+    with _mode(mode):
+        _reset_counts()
+        wall_ms, busy_ms, rows = profile_run(profiled(cfg),
+                                             f"generate ({mode})")
+        calls = _read_counts()["lutq_shift"]
+        _, _, oracle_rows = profile_run(
+            profiled(oracle_cfg), f"generate (integer decode oracle, {mode})")
+    kernels = sum(c for _, c, k in rows if "lutq_shift" in k)
+    memsets = [sum(c for _, c, k in r if "emset" in k)
+               for r in (rows, oracle_rows)]
+    log(f"  profiled pow2 generate ({mode}): {calls} lutq_shift calls, "
+        f"{kernels} lutq_shift kernels on the card "
+        f"({sum(ms for ms, _, k in rows if 'lutq_shift' in k):.3f} ms), "
+        f"{memsets[0]} memsets in the run ({memsets[1]} in the same "
+        f"generate through the decode oracle, which launches no kernel of "
+        f"the port)")
+    check(calls == expected and kernels == calls,
+          f"lutq_shift ({mode}): {kernels} kernels for {calls} calls, "
+          f"expected one each, {expected} in all")
+    check(memsets[0] <= memsets[1],
+          f"lutq_shift adds memsets to a pow2 generate ({mode}): {memsets}")
+    return dict(stats, peak_gib=peak, counts=counts, tokens=out.cpu(),
+                profiled_wall_ms=wall_ms, profiled_busy_ms=busy_ms)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ is saved as the reference's ``state_flat`` tree
 keys, ``__lutq_d`` / ``__lutq_a`` static keys), so a JAX run restores it
 and the port restores a JAX run's. Writes go to ``.tmp`` and are renamed
 when complete; ``keep_n`` prunes old steps. Sharded (per-host) writes,
-meshes and tuning caches are not ported (ROADMAP queue 1 items 8, 9).
+meshes and tuning caches are not ported (ROADMAP queue 1, multi-GPU;
+tuning and benches).
 """
 from __future__ import annotations
 

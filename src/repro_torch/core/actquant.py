@@ -86,6 +86,12 @@ def capture_act_scales(model: torch.nn.Module):
             rec.update(zip(list(rec), vals))
 
 
+def capturing() -> bool:
+    """A :func:`capture_act_scales` block is active: forwards must run
+    eagerly, since a replayed CUDA graph would record nothing."""
+    return _CAPTURE is not None
+
+
 def record_amax(kernel: LutqState, x: torch.Tensor) -> None:
     """Fold max|x| into the active capture record under ``kernel``'s
     logical path (no-op when inactive or for a leaf of another model).

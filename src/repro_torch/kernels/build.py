@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -175,6 +175,9 @@ GEMM_TILES = ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (64, 64, 128, 2, 8),
 #: per device: the output tiles' merge tickets, zero between calls (the
 #: kernel's last block of a tile resets its ticket)
 _GEMM_TICKETS: Dict[str, torch.Tensor] = {}
+#: ticket buffers that a larger one replaced, never freed: a CUDA graph
+#: captured before the growth still launches its kernels on them
+_OUTGROWN: List[torch.Tensor] = []
 
 
 def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
@@ -212,11 +215,20 @@ def merge_tickets(n: int, device: torch.device) -> torch.Tensor:
     shared by every kernel that merges splits: made once and grown
     rarely, since the kernels leave them zero, so a call, or a CUDA graph
     replaying one, needs no reset."""
-    key = str(device)
-    t = _GEMM_TICKETS.get(key)
+    return zeroed_tickets(_GEMM_TICKETS, str(device), n, device)
+
+
+def zeroed_tickets(table: dict, key, n: int, device: torch.device
+                   ) -> torch.Tensor:
+    """``table[key]``: at least ``n`` zeroed int32 tickets on ``device``,
+    made or grown here. A buffer that is grown out is kept, not freed,
+    since a graph that captured it replays on it."""
+    t = table.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _OUTGROWN.append(t)
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _GEMM_TICKETS[key] = t
+        table[key] = t
     return t
 
 

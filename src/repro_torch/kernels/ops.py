@@ -32,7 +32,10 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.lutq import LutqState, decode_any, quantize_ste_any
+from repro_torch.kernels import flash_attn as _flash_attn
 from repro_torch.kernels import kmeans_stats as _kmeans_stats
+from repro_torch.kernels import lutq_gemv_packed as _lutq_gemv_packed
+from repro_torch.kernels import lutq_matmul as _lutq_matmul
 from repro_torch.kernels import lutq_shift as _lutq_shift
 from repro_torch.kernels import paged_attn as _paged_attn
 from repro_torch.kernels.lutq_gemv_packed import lutq_gemv_packed
@@ -46,6 +49,40 @@ BACKENDS = ("auto", "decode", "fused", "packed4", "pow2")
 
 #: calls that took the dense ``decode`` path
 COUNTS = {"decode": 0}
+
+
+def count_dicts():
+    """Every kernel wrapper's count dict (launches and plain-version
+    calls; the paged kernel's launches per variant) and this module's."""
+    return (_lutq_matmul.COUNTS, _lutq_gemv_packed.COUNTS,
+            _lutq_shift.COUNTS, _kmeans_stats.COUNTS, _paged_attn.COUNTS,
+            _paged_attn.VARIANTS, _flash_attn.COUNTS, COUNTS)
+
+
+def read_counts():
+    """A copy of every count, in :func:`count_dicts` order."""
+    return [dict(c) for c in count_dicts()]
+
+
+def set_counts(counts) -> None:
+    """Put back counts taken by :func:`read_counts`."""
+    for c, v in zip(count_dicts(), counts):
+        c.update(v)
+
+
+def count_delta(before):
+    """What the counts grew by since ``before`` (:func:`read_counts`)."""
+    return [{k: c[k] - b[k] for k in c} for c, b in zip(count_dicts(),
+                                                        before)]
+
+
+def add_counts(delta) -> None:
+    """Add a :func:`count_delta` to the counts. A captured CUDA graph's
+    launches are counted while it is captured, not when it replays: the
+    capture's delta is added on every replay instead."""
+    for c, d in zip(count_dicts(), delta):
+        for k, v in d.items():
+            c[k] += v
 
 
 def kmeans_stats(w: torch.Tensor, d: torch.Tensor, write_a: bool = True):
@@ -267,7 +304,7 @@ def paged_attention(q, k_pool, v_pool, block, cache_len, *, window=None,
     ``smem_budget_bytes``) and run its plain version on a CPU tensor;
     ``"gather"`` is the plain version (gather, dequantize, attend) on
     any device. The reference's ``mesh`` and autotuned ``auto`` are not
-    ported yet (ROADMAP queue 1 items 8 and 9).
+    ported yet (ROADMAP queue 1, multi-GPU; tuning and benches).
     """
     if backend not in PAGED_BACKENDS:
         raise ValueError(f"backend={backend!r} not in {PAGED_BACKENDS}")

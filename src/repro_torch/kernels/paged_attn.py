@@ -308,8 +308,4 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     """The device's merge tickets (int32, zero between calls), at least
     ``n`` of them. Made once and grown rarely: the kernel leaves them
     zero, so a call, or a CUDA graph replaying one, needs no reset."""
-    t = _TICKETS.get(device.index)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _TICKETS[device.index] = t
-    return t
+    return build.zeroed_tickets(_TICKETS, device.index, n, device)

@@ -118,7 +118,8 @@ def format_engine_stats(stats) -> str:
            f"{stats['ttft_p99_s']*1e3:.0f} ms | "
            f"{stats['decode_steps']} decode steps, "
            f"prefill {stats['t_prefill_s']:.2f} s, "
-           f"decode {stats['t_decode_s']:.2f} s")
+           f"decode {stats['t_decode_s']:.2f} s, "
+           f"warmup {stats['t_warmup_s']:.2f} s")
     if stats.get("paged"):
         out += (f"\n[serve] paged KV: {stats['pages_in_use']}/"
                 f"{stats['kv_pages'] - 1} pages in use "
@@ -228,6 +229,7 @@ def main(argv=None):
                           device=dev)
     print(f"[serve] prefill {P} toks x{B}: {stats['t_prefill_s']*1e3:.1f} ms | "
           f"decode[{stats['backend']}]: {stats['decode_tok_s']:.1f} tok/s | "
+          f"warmup {stats['t_warmup_s'] * 1e3:.1f} ms | "
           f"sample: {out[0, :8].tolist()}")
     print(kernel_report(dev))
     return 0

@@ -67,13 +67,13 @@ def build(args, *, kmeans_impl=None):
     """
     if args.mesh:
         raise NotImplementedError("--mesh is not ported yet: multi-GPU "
-                                  "training, ROADMAP queue 1 item 8")
+                                  "training, ROADMAP queue 1, multi-GPU")
     if args.grad_compress:
         raise NotImplementedError("--grad-compress is not ported yet: "
-                                  "ROADMAP queue 1 item 8")
+                                  "ROADMAP queue 1, multi-GPU")
     if args.autotune != "off":
         raise NotImplementedError("--autotune is not ported yet: ROADMAP "
-                                  "queue 1 item 9")
+                                  "queue 1, tuning and benches")
     cfg = _train_cfg(args)
     model = api.quantize(api.init(cfg, seed=args.seed, device=args.device),
                          cfg)
@@ -125,12 +125,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data-seed", type=int, default=0)
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="not ported yet (ROADMAP queue 1 item 8): raises")
+                    help="not ported yet (ROADMAP queue 1, multi-GPU): "
+                    "raises")
     ap.add_argument("--grad-compress", default=None, choices=("ef", "ring"),
-                    help="not ported yet (ROADMAP queue 1 item 8): raises")
+                    help="not ported yet (ROADMAP queue 1, multi-GPU): "
+                    "raises")
     ap.add_argument("--autotune", default="off",
                     choices=("off", "cache", "search"),
-                    help="only 'off' is ported (ROADMAP queue 1 item 9)")
+                    help="only 'off' is ported (ROADMAP queue 1, tuning "
+                    "and benches)")
     ap.add_argument("--tuning-cache", default=None, metavar="PATH")
     ap.add_argument("--autotune-batch", type=int, default=8)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

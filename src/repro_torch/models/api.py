@@ -31,8 +31,8 @@ from repro_torch.models.config import ModelConfig
 def _dense_only(cfg: ModelConfig):
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1 "
-            f"item 6); the port serves the dense family")
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
+            f"other LM families); the port serves the dense family")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:

@@ -71,8 +71,8 @@ def _check_dense(cfg: ModelConfig):
             or cfg.use_qk_norm):
         raise NotImplementedError(
             f"the port serves dense GQA attention without qkv bias or qk "
-            f"norm so far (config {cfg.name!r}); see ROADMAP queue 1 "
-            f"item 6")
+            f"norm so far (config {cfg.name!r}); see ROADMAP queue 1, "
+            f"other LM families")
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,11 @@ def _rope_tables(head_dim: int, theta: float):
     return inv2, sign
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _rope_tables_on(head_dim: int, theta: float, device: torch.device):
     """The host tables, copied to ``device`` once (a copy from pageable
-    host memory waits for the device, so it must not run per call).
+    host memory waits for the device, so it must not run per call) and
+    never dropped (a captured CUDA graph reads them where they are).
     Made outside inference mode, so that a cache first filled while
     serving still serves a forward that autograd records."""
     with torch.inference_mode(False):

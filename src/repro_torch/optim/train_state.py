@@ -24,8 +24,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.device import scalar_like
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
-_MESH_TODO = ("is not ported yet: multi-GPU training, ROADMAP queue 1 "
-              "item 8")
+_MESH_TODO = ("is not ported yet: multi-GPU training, ROADMAP queue 1, "
+              "multi-GPU")
 
 
 @dataclasses.dataclass

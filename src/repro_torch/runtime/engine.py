@@ -30,19 +30,29 @@ rid) or from ``submit(seed=)``, so its samples depend on its own
 generator only and a solo run reproduces them. The numbers are not
 ``jax.random``'s.
 
-What the reference's jit machinery did has no counterpart here, since
-PyTorch runs eagerly: ``warmup`` is accepted and does nothing
-(``stats()["t_warmup_s"]`` is 0), and instead of ``paged_trace_counts``
-the kernel wrappers' launch counts (``COUNTS`` in ``kernels/``) show
-which kernels a run went through. Not ported yet, and raising
-``NotImplementedError``: speculative decoding (ROADMAP queue 1 item 5),
-``mesh`` (item 8), encdec / vlm requests (``frames`` /
-``prefix_embeds``, item 6) and packed prefill (``prefill_pack`` where it
-would be active: a paged engine with ``act_bits >= 32``; item 3's
-residue).
+The decode step (forward, the new KV entries, ``len + 1`` and, greedy,
+the argmax) is one function over the engine's own buffers; on the CPU
+it is called, and on CUDA it is captured once per engine as a CUDA graph
+and replayed, the counterpart of the reference's jit of ``decode_step +
+sample``, keyed as that is on the engine's geometry: (capacity, max_len,
+greedy) for the slot pool, (capacity, n_pages, page_size, n_blocks,
+greedy) for the paged engine. A paged engine built with ``warmup`` runs
+the step once over its dead slots and captures it at construction, as
+the reference's ``_warm_paged`` compiles it (``stats()["t_warmup_s"]``);
+other engines capture at their first decode step, as a lazy jit traces.
+``paged_trace_counts`` counts the graphs an engine captured and
+:func:`disable_graphs` is the counterpart of ``jax.disable_jit``.
+Temperature sampling, prefill, chunked prefill, hydrate and splice run
+eagerly. The kernel wrappers' launch counts (``COUNTS`` in ``kernels/``)
+count a replay as the eager step it stands for. Not ported yet, and
+raising ``NotImplementedError``: speculative decoding, ``mesh``,
+encdec / vlm requests (``frames`` / ``prefix_embeds``) and packed
+prefill (``prefill_pack`` where it would be active: a paged engine with
+``act_bits >= 32``); each message names its ROADMAP queue 1 item.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -52,7 +62,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import actquant
 from repro_torch.device import resolve_device, scalar_like
+from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import init_paged_workspace
@@ -60,6 +72,23 @@ from repro_torch.nn.tree import module_device
 from repro_torch.runtime import paged_kv
 from repro_torch.runtime.serving import (adapt_prefill_cache, paged_chunk,
                                          paged_hydrate, paged_splice)
+
+
+#: open :func:`disable_graphs` blocks
+_GRAPHS_OFF = 0
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Counterpart of ``jax.disable_jit()``: engine decode steps taken
+    inside the block run the step function eagerly on CUDA too, with no
+    capture and no replay (an engine's graph, if it has one, is kept)."""
+    global _GRAPHS_OFF
+    _GRAPHS_OFF += 1
+    try:
+        yield
+    finally:
+        _GRAPHS_OFF -= 1
 
 
 def synthetic_requests(cfg: ModelConfig, n: int, *, max_prompt: int,
@@ -123,7 +152,9 @@ class Engine:
     per-slot context in tokens (prompt + new). ``kv_pages``: serve through the paged KV cache with this many pages
     of ``page_size`` tokens (``prefix_cache`` shares prompt pages).
     ``device``: where the engine's state lives and the run happens; the
-    model must already be there.
+    model must already be there. ``warmup``: a paged engine runs its
+    decode step once at construction and, on CUDA, captures it there
+    (others capture at their first decode step).
     """
 
     def __init__(self, model: nn.Module, cfg: ModelConfig, *,
@@ -134,13 +165,13 @@ class Engine:
                  max_chunk: int = 256, prefill_pack: bool = True,
                  warmup: bool = True, speculative: int = 0,
                  device="cuda"):
-        del warmup  # nothing to compile ahead: PyTorch runs eagerly
         if speculative:
             raise NotImplementedError("speculative decoding is not ported "
-                                      "yet (ROADMAP queue 1 item 5)")
+                                      "yet (ROADMAP queue 1, speculative "
+                                      "decoding)")
         if mesh is not None:
             raise NotImplementedError("meshed serving is not ported yet "
-                                      "(ROADMAP queue 1 item 8)")
+                                      "(ROADMAP queue 1, multi-GPU)")
         if backend is not None:
             cfg = cfg.replace(kernel_backend=backend)
         self.device = resolve_device(device)
@@ -158,7 +189,8 @@ class Engine:
         self.paged = kv_pages is not None and api.paged_supported(cfg)
         if self.paged and prefill_pack and cfg.act_bits >= 32:
             raise NotImplementedError(
-                "packed prefill is not ported yet (ROADMAP queue 1 item 3); "
+                "packed prefill is not ported yet (ROADMAP queue 1, packed "
+                "prefill); "
                 "pass prefill_pack=False (it is off anyway under "
                 "act_bits < 32)")
         self._chunking: Optional[Dict[str, Any]] = None
@@ -184,6 +216,11 @@ class Engine:
                                         device=dev)
         self.tok = torch.zeros((self.capacity, 1), dtype=torch.int32,
                                device=dev)
+        self.logits = torch.zeros((self.capacity, 1, cfg.vocab),
+                                  dtype=torch.float32, device=dev)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_counts = None  # kernel launches a replay stands for
+        self.t_warmup = 0.0
         self.slots: List[Optional[Request]] = [None] * self.capacity
         self.queue: deque = deque()
         self._pending: List[torch.Tensor] = []  # un-synced decode tokens
@@ -194,6 +231,8 @@ class Engine:
         self.t_prefill = 0.0
         self.t_decode = 0.0
         self._t_start: Optional[float] = None
+        if self.paged and warmup:
+            self._warm()
 
     # ------------------------------------------------------------- queue
 
@@ -219,7 +258,8 @@ class Engine:
         """
         if frames is not None or prefix_embeds is not None:
             raise NotImplementedError("encdec and vlm requests are not "
-                                      "ported yet (ROADMAP queue 1 item 6)")
+                                      "ported yet (ROADMAP queue 1, other "
+                                      "LM families)")
         if isinstance(tokens, torch.Tensor):
             tokens = tokens.cpu().numpy()
         prompt = np.asarray(tokens, np.int32).reshape(-1)
@@ -449,6 +489,90 @@ class Engine:
                                   None, t0) for i in range(B)]
         self._admit_group(list(range(B)), reqs)
 
+    # ------------------------------------------------------- decode step
+
+    def _decode_step(self):
+        """The decode step over the engine's own buffers: reads ``tok``,
+        ``cache["len"]`` (and ``cache["block"]``) and the pools or rings;
+        writes the new K/V entries, ``len + 1``, the logits (into
+        ``self.logits``) and, greedy, their argmax (into ``tok``), all in
+        place, so that a CUDA graph of it replays on the same addresses."""
+        step = api.paged_decode_step if self.paged else api.decode_step
+        logits, cache = step(self.model, self.cfg, self.tok, self.cache)
+        self.cache["len"].copy_(cache["len"])
+        self.logits.copy_(logits)
+        if self.greedy:
+            self.tok.copy_(torch.argmax(self.logits[:, -1], dim=-1)[:, None])
+
+    def _graphs_on(self) -> bool:
+        """Decode steps replay a graph: on CUDA, outside
+        :func:`disable_graphs` and outside a calibration block (whose
+        maxima a replay would not record)."""
+        return (self.device.type == "cuda" and not _GRAPHS_OFF
+                and not actquant.capturing())
+
+    def _capture(self) -> float:
+        """Run the decode step eagerly on a side stream (it builds the
+        kernels' libraries and makes every lazily made buffer outside
+        the graph's pool), then capture it. The eager run is a real step;
+        the capture runs nothing, and the launches it counted are taken
+        back and added on every replay. Returns the capture's seconds."""
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._decode_step()
+            main.wait_stream(side)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = ops.read_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._decode_step()
+            self._graph_counts = ops.count_delta(before)
+            ops.set_counts(before)
+        self._graph = graph
+        return time.perf_counter() - t0
+
+    def _run_decode_step(self) -> float:
+        """One decode step: called, captured or replayed. Returns the
+        seconds spent capturing (0 but on a capturing step)."""
+        if not self._graphs_on():
+            self._decode_step()
+        elif self._graph is None:
+            return self._capture()
+        else:
+            self._graph.replay()
+            ops.add_counts(self._graph_counts)
+        return 0.0
+
+    def _warm(self):
+        """The paged engine's warmup, as the reference's ``_warm_paged``:
+        one decode step over the dead slots (``len`` 0 and all-trash
+        block rows, so its K/V writes land on the trash page only),
+        captured on CUDA; then ``len``, ``tok`` and the logits are zeroed
+        again and the step's launches are not counted."""
+        t0 = time.perf_counter()
+        before = ops.read_counts()
+        with torch.inference_mode():
+            self._run_decode_step()
+            self.cache["len"].zero_()
+            self.tok.zero_()
+            self.logits.zero_()
+        ops.set_counts(before)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.t_warmup = time.perf_counter() - t0
+
+    def paged_trace_counts(self) -> Dict[str, int]:
+        """Counterpart of the reference's jit-cache counts: the decode-step
+        graphs this engine captured. A warmed paged engine on CUDA holds
+        1 from construction on and a serve must not change it; on the
+        CPU nothing is captured (0). Prefill, hydrate, splice and the
+        sampler run eagerly and have nothing to count."""
+        return {"decode": int(self._graph is not None)}
+
     # -------------------------------------------------------------- loop
 
     def _materialize(self):
@@ -491,11 +615,11 @@ class Engine:
         active = [r for r in self.slots if r is not None]
         if active:
             t0 = time.perf_counter()
-            step = api.paged_decode_step if self.paged else api.decode_step
-            logits, self.cache = step(self.model, self.cfg, self.tok,
-                                      self.cache)
-            self.tok = self._sample(logits, self.slots)[:, None]
-            self._pending.append(self.tok[:, 0])
+            t_capture = self._run_decode_step()
+            if not self.greedy:
+                self.tok.copy_(self._sample(self.logits, self.slots)[:, None])
+            # a copy: the next step overwrites tok in place
+            self._pending.append(self.tok[:, 0].clone())
             if self.paged:
                 for i, r in enumerate(self.slots):
                     if r is not None:
@@ -507,7 +631,8 @@ class Engine:
                     or any(len(r.out) + n_pend - r.pstart >= r.max_new
                            for r in active)):
                 self._materialize()
-            self.t_decode += time.perf_counter() - t0
+            self.t_warmup += t_capture
+            self.t_decode += time.perf_counter() - t0 - t_capture
             self.n_decode_steps += 1
         return [self.results[r] for r in sorted(set(self.results) - before)]
 
@@ -559,6 +684,7 @@ class Engine:
             "new_tokens": new_toks,
             "t_prefill_s": self.t_prefill,
             "t_decode_s": self.t_decode,
+            "t_warmup_s": self.t_warmup,
             "wall_s": wall,
             "decode_tok_s": decoded / max(self.t_decode, 1e-9),
             "goodput_tok_s": new_toks / max(wall, 1e-9),
@@ -572,7 +698,6 @@ class Engine:
         if self.paged:
             out.update(self.pkv.stats())
             out["kv_bytes_per_token"] = paged_kv.kv_bytes_per_token(self.cfg)
-            out["t_warmup_s"] = 0.0
             out["prefill_chunk_calls"] = self.n_chunk_calls
             out["packed_groups"] = 0
             out["packed_requests"] = 0

@@ -136,14 +136,16 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     with it. ``temperature`` > 0 samples stream i from the generator
     that a solo ``Engine(seed=seed)`` gives its request i. The kernel
     backend is ``cfg.kernel_backend``. ``return_stats=True`` also
-    returns {"t_prefill_s", "t_decode_s", "decode_tok_s", "backend"},
-    timed on the host clock (each ends in a device read).
+    returns {"t_prefill_s", "t_decode_s", "t_warmup_s", "decode_tok_s",
+    "backend"}, timed on the host clock (each ends in a device read). On
+    CUDA the engine of the call captures its decode step at the first
+    step: ``t_warmup_s`` is that capture, kept out of ``t_decode_s``.
     """
     from repro_torch.runtime.engine import Engine
 
     if speculative:
         raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP queue 1 item 5)")
+                                  "(ROADMAP queue 1, speculative decoding)")
     B, P = batch["tokens"].shape
     eng = Engine(model, cfg, capacity=B, max_len=max_len or (P + steps),
                  temperature=temperature, seed=seed, device=device)
@@ -158,5 +160,6 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     stats = eng.stats()
     return gen, {"t_prefill_s": stats["t_prefill_s"],
                  "t_decode_s": stats["t_decode_s"],
+                 "t_warmup_s": stats["t_warmup_s"],
                  "decode_tok_s": stats["decode_tok_s"],
                  "backend": cfg.kernel_backend}

@@ -27,6 +27,8 @@ reference divides; the optimizer's roots are taken in float64 and
 rounded once). Paged attention also gives the same bits on a second
 call, with dead block entries on a page of NaN, and in a CUDA graph.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -782,6 +784,215 @@ def test_cuda_paged_engine_matches_cpu(cuda_device):
         assert (paged_attn.COUNTS["launches"] > launches) == (dev == "cuda")
     for a, b in zip(toks["cpu"], toks["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the engine's decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _reduced_model(case):
+    """(config, serve model on the card) of reduced danube for one of
+    GRAPH_CASES."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    base = reduced(get_config("h2o-danube-1.8b"))
+    if case == "pow2":
+        cfg = base.replace(quant=serving_pow2(), act_bits=8, kv_cache_bits=8)
+        calib = torch.randint(0, cfg.vocab, (2, 24),
+                              generator=torch.Generator().manual_seed(3))
+        return cfg, api.serve_state(cfg, seed=0, device="cuda",
+                                    calib_batch={"tokens": calib.cuda()})
+    fused = case == "paged-fused-bf16"
+    cfg = base.replace(quant=QuantSpec(bits=4, min_size=512), act_bits=32,
+                       kv_cache_bits=16 if fused else 8,
+                       dtype=torch.bfloat16 if fused else torch.float32,
+                       kernel_backend="fused" if fused else "auto")
+    model = serve_view(api.quantize(api.init(cfg, seed=0, device="cuda"),
+                                    cfg), pack4=not fused,
+                       policy=api.resolved_policy(cfg))
+    return cfg, model
+
+
+def _serve_queue(cfg, model, reqs, graphs=True, **kw):
+    """(tokens per request, launch counts of the serve, the engine)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import Engine, disable_graphs
+
+    with contextlib.ExitStack() as stack:
+        if not graphs:
+            stack.enter_context(disable_graphs())
+        eng = Engine(model, cfg, device="cuda", **kw)
+        traces = eng.paged_trace_counts()
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"],
+                       seed=r.get("seed"))
+        before = ops.read_counts()
+        toks = [r["tokens"] for r in eng.run()]
+        torch.cuda.synchronize()
+        counts = ops.count_delta(before)
+    if kw.get("kv_pages") and graphs:
+        assert traces == {"decode": 1} == eng.paged_trace_counts()
+    return toks, counts, eng
+
+
+PAGED = dict(capacity=2, max_len=38, kv_pages=16, page_size=8,
+             prefill_pack=False)
+GRAPH_CASES = ["paged-packed4-int8", "paged-fused-bf16",
+               "slot-packed4-generate", "pow2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_cuda_graph_engine_equals_eager(cuda_device, case):
+    """The engine that replays its captured decode step gives the tokens
+    and the launch counts of the same engine stepping eagerly inside
+    disable_graphs(); a paged engine captures at construction, reports
+    its warmup, and a serve captures nothing more."""
+    from repro_torch.runtime.engine import disable_graphs, synthetic_requests
+    from repro_torch.runtime.serving import generate
+
+    slot = case == "slot-packed4-generate"
+    cfg, model = _reduced_model("paged-packed4-int8" if slot else case)
+    if slot:
+        from repro_torch.kernels import ops
+
+        toks = torch.randint(0, cfg.vocab, (3, 20),
+                             generator=torch.Generator().manual_seed(4))
+        out = {}
+        for graphs in (True, False):
+            before = ops.read_counts()
+            with contextlib.ExitStack() as stack:
+                if not graphs:
+                    stack.enter_context(disable_graphs())
+                gen, stats = generate(model, cfg, {"tokens": toks}, steps=9,
+                                      return_stats=True, device="cuda")
+            out[graphs] = (gen.cpu(), ops.count_delta(before), stats)
+        assert torch.equal(out[True][0], out[False][0])
+        assert out[True][1] == out[False][1]
+        assert out[True][1][1]["launches"] == 9 * (7 * cfg.n_layers + 1)
+        assert out[True][2]["t_warmup_s"] > 0 == out[False][2]["t_warmup_s"]
+        return
+    reqs = synthetic_requests(cfg, 5, max_prompt=30, max_new=8, seed=1)
+    got, counts, eng = _serve_queue(cfg, model, reqs, **PAGED)
+    want, want_counts, _ = _serve_queue(cfg, model, reqs, graphs=False,
+                                        **PAGED)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert counts == want_counts
+    launches = {"paged-packed4-int8": 1, "paged-fused-bf16": 0, "pow2": 2}
+    assert counts[launches[case]]["launches"] > 0
+    assert counts[4]["launches"] == cfg.n_layers * eng.n_decode_steps
+    assert eng.stats()["t_warmup_s"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_graph_engine_samples_as_eager(cuda_device):
+    """A temperature queue: the graph replays the forward, the sampling
+    stays eager on the same logits and generators, so the tokens under
+    the same seeds equal the eager engine's."""
+    from repro_torch.runtime.engine import synthetic_requests
+
+    cfg, model = _reduced_model("paged-packed4-int8")
+    reqs = synthetic_requests(cfg, 4, max_prompt=30, max_new=8, seed=2)
+    for i, r in enumerate(reqs):
+        r["seed"] = 40 + i
+    got, _, _ = _serve_queue(cfg, model, reqs, temperature=0.8, **PAGED)
+    want, _, _ = _serve_queue(cfg, model, reqs, graphs=False,
+                              temperature=0.8, **PAGED)
+    greedy, _, _ = _serve_queue(cfg, model, reqs, **PAGED)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert any((a != b).any() for a, b in zip(got, greedy))
+
+
+@pytest.mark.cuda
+def test_cuda_engines_of_two_geometries_keep_their_graphs(cuda_device):
+    """A paged engine and a slot-pool engine of other capacities, stepped
+    in turns in one process: each replays its own graph and gives its
+    eager tokens."""
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    cfg, model = _reduced_model("paged-packed4-int8")
+    reqs = synthetic_requests(cfg, 5, max_prompt=30, max_new=8, seed=3)
+    kws = (PAGED, dict(capacity=3, max_len=38))
+    engines = [Engine(model, cfg, device="cuda", **kw) for kw in kws]
+    for eng in engines:
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"])
+    while not all(e.idle for e in engines):
+        for eng in engines:
+            if not eng.idle:
+                eng.step()
+    assert [e.paged_trace_counts() for e in engines] == [{"decode": 1}] * 2
+    assert engines[0]._graph is not engines[1]._graph
+    for eng, kw in zip(engines, kws):
+        want, _, _ = _serve_queue(cfg, model, reqs, graphs=False, **kw)
+        for a, b in zip([eng.results[i]["tokens"] for i in range(5)], want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_survives_grown_ticket_buffers(cuda_device):
+    """Ticket buffers grown after a capture are kept, so the graph's
+    replay keeps its bits: the same queue served again by the same engine
+    after the growth (and freed memory refilled with garbage) gives the
+    same tokens."""
+    from repro_torch.runtime.engine import synthetic_requests
+
+    cfg, model = _reduced_model("paged-packed4-int8")
+    reqs = synthetic_requests(cfg, 4, max_prompt=30, max_new=8, seed=4)
+    first, _, eng = _serve_queue(cfg, model, reqs, prefix_cache=False,
+                                 **PAGED)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    old = [t for t in (build._GEMM_TICKETS.get(str(dev)),
+                       paged_attn._TICKETS.get(dev.index)) if t is not None]
+    assert old
+    n = max(t.numel() for t in old) * 4
+    build.merge_tickets(n, dev)
+    paged_attn._tickets(dev, n)
+    assert all(any(t is o for t in build._OUTGROWN) for o in old)
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 24,), 7, dtype=torch.int32, device=dev)
+    for r in reqs:
+        eng.submit(r["tokens"], max_new=r["max_new"])
+    again = [r["tokens"] for r in eng.run()[len(reqs):]]
+    del junk
+    assert eng.paged_trace_counts() == {"decode": 1}
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    assert not any(o.any() for o in old)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_in_a_calibration_block_steps_eagerly(cuda_device):
+    """Inside capture_act_scales a graph engine steps eagerly: its decode
+    forwards fold into the record exactly as the eager engine's do."""
+    from repro_torch.core.actquant import capture_act_scales
+    from repro_torch.runtime.engine import (Engine, disable_graphs,
+                                            synthetic_requests)
+
+    cfg, model = _reduced_model("paged-packed4-int8")
+    reqs = synthetic_requests(cfg, 3, max_prompt=30, max_new=8, seed=5)
+    recs = []
+    for graphs in (True, False):
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            eng = Engine(model, cfg, device="cuda", **PAGED)
+            assert eng.paged_trace_counts() == {"decode": int(graphs)}
+            for r in reqs:
+                eng.submit(r["tokens"], max_new=r["max_new"])
+            with capture_act_scales(model) as rec:
+                eng.run()
+        assert eng.n_decode_steps > 0
+        assert eng.paged_trace_counts() == {"decode": int(graphs)}
+        recs.append(rec)
+    assert recs[0] and recs[0] == recs[1]
 
 
 # ---------------------------------------------------------------------------

@@ -255,14 +255,16 @@ def test_synthetic_requests_match_jax():
 
 def test_engine_refuses_unported_options(fp):
     _, tcfg, _, model = fp
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1, speculative decoding"):
         Engine(model, tcfg, speculative=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, multi-GPU"):
         Engine(model, tcfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="packed prefill"):
         Engine(model, tcfg, kv_pages=8, page_size=8, device="cpu")
     eng = Engine(model, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1, other LM families"):
         eng.submit(np.arange(4), max_new=2, frames=np.zeros((3, 64)))
     with pytest.raises(ValueError):
         eng.submit(np.arange(120), max_new=20)  # 120 + 20 > max_len 128
