@@ -2,10 +2,11 @@
 """Smoke test of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM,
-        # lutq_shift, flash-attention and kmeans_stats timings of the
-        # checkout at DIR (say the parent commit, from git archive) and of
-        # this one, in turns DIR, this, this, DIR
+    python3 chip_smoke.py --ab-timings DIR   # phase 4's GEMM (at
+        # M = 4, 8, 32, 64 and 512), lutq_shift, flash-attention and
+        # kmeans_stats timings of the package at DIR/src (say the parent
+        # commit, from git archive) and of this one, in turns DIR, this,
+        # this, DIR, all timed by this script
 
 Phases, each fatal on failure (nothing here catches a phase's error):
 
@@ -110,6 +111,16 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    danube's leaf shapes (2560, 6912), (2560, 640) and (2560,) from a
    seeded state must equal the CPU's bit for bit (parameters and both
    moments).
+2g. verify-window rows: danube's four layer product shapes and the head,
+   through both GEMM kernels, bf16 x: every block of B rows of a
+   B (k + 1)-row product (a speculative verify window) must equal the
+   product of those B rows alone (the decode step's), bit for bit
+   (torch.equal), for B = 1, 4, 8 and k = 1..4; the first product and M
+   whose rows differ are named. Windows wider than 64 rows, (B, k) =
+   (13, 4), (16, 4), (72, 1), run their products over whole positions
+   at a time, as the window does, under the same check. Logged beside
+   it: how many of those row blocks an RMSNorm over the whole window
+   changes (the reason the window norms per position).
 3c. paged engine: full-width h2o-danube-1.8b (the phase-3 serve views)
    through Engine(kv_pages=...), page 64, 8-bit activations: (a) 24
    synthetic requests (prompts 128-512, 8-64 new tokens) on 8 slots,
@@ -154,6 +165,24 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    lutq_shift at 168 x (steps + chunks); the same queue through the
    engine with the decode oracle must give the same tokens, request by
    request.
+3f. self-speculative decoding: the phase-3 serve views (seed 0) at
+   act_bits=32, a draft view of draft_bits=3 (K' = 8, packed, every one
+   of the 9 quantized leaves coarse; its extra bytes printed), k=3.
+   generate (B=4, prompt 128, 32 tokens) through the packed4 and the
+   fused target, each with graphs and eagerly, speculative and not:
+   speculative tokens must equal k=0's and graph must equal eager; per
+   round the target kernel launches 169 times and lutq_gemv_packed 3 x
+   169 times for the draft (plus one prefill forward), and no plain
+   version runs. Then one paged engine (8 slots, 160 pages, int8 KV,
+   prefill_pack=False, fused target) over run (a)'s queue, speculative
+   and not: the same tokens request by request, its graphs (decode and
+   spec) 1 each after the warmup and unchanged by the serve, paged
+   attention 24 x (2k + 1) launches a round. Each run logs decode tok/s,
+   the round's (or step's) ms, acceptance, tokens a round and peak
+   memory, the engine also goodput, one profiled round (or step: wall,
+   device busy, the heaviest kernels) and the next one without the
+   profiler. The speculative runs' launches go
+   into the kernels' record as "speculative_launches".
 3b. train: full-width h2o-danube-1.8b (vocab 32000, random f32 masters
    from a seed) through the training CLI's build path and TrainLoop,
    with its default spec (4-bit pow2, kmeans_iters=1, min_size=4096)
@@ -1752,6 +1781,288 @@ def reduced_engine_card_vs_cpu():
 
 
 # ---------------------------------------------------------------------------
+# phase 2g / 3f
+# ---------------------------------------------------------------------------
+
+#: phase 3f: the verify window's draft block, the draft view's bits and
+#: the tokens a generate makes
+SPEC_K, SPEC_DRAFT_BITS, SPEC_GEN = 3, 3, 32
+#: phase 2g: the slots and draft blocks of the windows whose rows it checks
+WINDOW_B, WINDOW_K = (1, 4, 8), (1, 2, 3, 4)
+#: phase 2g: (B, k) of windows wider than ROW_STABLE_M rows, whose
+#: products run over whole positions at a time (13 and 16 slots: 4
+#: positions, then 1; 72 slots: one position a product)
+WIDE_WINDOWS = ((13, 4), (16, 4), (72, 1))
+
+
+def window_row_checks():
+    """Phase 2g: each of danube's products and the head, through both
+    GEMM kernels, gives the rows of a verify window of B (k + 1) rows the
+    bits that the B-row decode step gives them: every block of B rows of
+    the window's product equals the product of those B rows alone, for B
+    = 1, 4, 8 and k = 1..4. Windows wider than ROW_STABLE_M rows
+    (WIDE_WINDOWS) run their products as the window does
+    (``lm._rows``), and each position's B rows must equal those B rows
+    alone. Fatal; names the first product and M whose rows differ."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import _rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shapes = dict({k: s for k, (s, _) in LAYER_SHAPES.items()},
+                  head=HEAD_SHAPE)
+    sms = build.sm_count(dev)
+    for kname, (fn, _) in _gemm_fns().items():
+        n = 0
+        for label, (Kin, N) in shapes.items():
+            _, a, d = _operands(1, Kin, N, 16, torch.bfloat16, gen, dev,
+                                KERNELS[kname]["packed"])
+            x = torch.randn(max(WINDOW_B) * (max(WINDOW_K) + 1), Kin,
+                            generator=gen, device=dev).to(torch.bfloat16)
+            for B in WINDOW_B:
+                for k in WINDOW_K:
+                    M = B * (k + 1)
+                    full = fn(x[:M], a, d)
+                    for j in range(k + 1):
+                        rows = slice(j * B, (j + 1) * B)
+                        same = torch.equal(fn(x[rows], a, d), full[rows])
+                        n += 1
+                        if not same:
+                            plan = build.plan_splits(M, N, Kin, sms)
+                            die(f"{kname} {label} (Kin={Kin}, N={N}): rows "
+                                f"{rows.start}..{rows.stop - 1} of M={M} "
+                                f"(B={B}, k={k}) differ from the same "
+                                f"{B} rows alone (plan {plan['bm']}x"
+                                f"{plan['bn']}, {plan['splits']} splits)")
+            for B, k in WIDE_WINDOWS:
+                xw = torch.randn(B, k + 1, Kin, generator=gen,
+                                 device=dev).to(torch.bfloat16)
+                # as ops.lutq_dot hands its x to the kernel
+                win = _rows(lambda t: fn(t.reshape(-1, Kin).contiguous(), a,
+                                         d).reshape(*t.shape[:-1], -1),
+                            xw, build.ROW_STABLE_M)
+                for j in range(k + 1):
+                    n += 1
+                    if not torch.equal(fn(xw[:, j].contiguous(), a, d),
+                                       win[:, j]):
+                        die(f"{kname} {label} (Kin={Kin}, N={N}): position "
+                            f"{j} of a {B * (k + 1)}-row window (B={B}, "
+                            f"k={k}, products over whole positions) "
+                            f"differs from the same {B} rows alone")
+            del a, d, x
+        log(f"check {kname}: verify-window rows equal the decode rows bit "
+            f"for bit at B = {WINDOW_B}, k = {WINDOW_K} and (B, k) = "
+            f"{WIDE_WINDOWS} on danube's products and head ({n} row "
+            f"blocks)")
+    _window_norm_report(gen, dev)
+
+
+def _window_norm_report(gen, dev):
+    """Why the window's norms run per position (``lm._norm_rows``): an
+    RMSNorm over all B (k + 1) rows at once, against the same rows
+    normed B at a time as the decode step norms them. Logged only."""
+    import torch
+
+    from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
+
+    p = rmsnorm_init(LAYER_SHAPES["q/o"][0][0], device=dev)
+    p.scale.data = torch.randn(p.scale.shape, generator=gen, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(max(WINDOW_B) * (max(WINDOW_K) + 1), 1,
+                         p.scale.numel(), generator=gen, device=dev)
+             * 3).to(dtype)
+        n = bad = 0
+        for B in WINDOW_B:
+            for k in WINDOW_K:
+                whole = rmsnorm_apply(p, x[:B * (k + 1)])
+                for j in range(k + 1):
+                    rows = slice(j * B, (j + 1) * B)
+                    n += 1
+                    bad += not torch.equal(rmsnorm_apply(p, x[rows]),
+                                           whole[rows])
+        log(f"RMSNorm over a whole window, {str(dtype)[6:]}: {bad} of {n} "
+            f"row blocks differ from the decode step's (the window norms "
+            f"per position)")
+
+
+def serve_speculative(views, cfg):
+    """Phase 3f: self-speculative decoding at full width (the phase-3
+    serve views at act_bits=32, draft_bits=3, k=3). Returns the launches
+    of the speculative runs (graph mode) per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+    from repro_torch.runtime.serving import generate
+
+    scfg = cfg.replace(act_bits=32)
+    ok, why = api.speculative_supported(scfg)
+    check(ok, f"speculative refused: {why}")
+    t0 = time.perf_counter()
+    # the packed and int8 views hold the same indices: one draft serves
+    # both targets
+    draft, report = api.draft_view(views["lutq_gemv_packed"],
+                                   draft_bits=SPEC_DRAFT_BITS,
+                                   with_report=True)
+    torch.cuda.synchronize()
+    extra = sum(v["draft_bytes"] for v in report.values())
+    coarse = sum(not v["shared"] for v in report.values())
+    log(f"speculative: draft view ({SPEC_DRAFT_BITS} bits) built in "
+        f"{time.perf_counter() - t0:.2f} s: +{extra / 2**20:.1f} MiB, "
+        f"{coarse} coarse and {len(report) - coarse} shared leaves")
+    check(coarse == len(report) == 9, f"draft view report {report}")
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen)
+    launches = {"lutq_matmul": 0, "lutq_gemv_packed": 0,
+                "paged_attention": 0}
+    for kname, backend in (("lutq_gemv_packed", "auto"),
+                           ("lutq_matmul", "fused")):
+        run_cfg = scfg.replace(kernel_backend=backend)
+        res = {}
+        for mode in MODES:
+            for k in (0, SPEC_K):
+                with _mode(mode):
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    _reset_counts()
+                    out, st = generate(
+                        views[kname], run_cfg, {"tokens": toks},
+                        steps=SPEC_GEN, return_stats=True, speculative=k,
+                        draft_bits=SPEC_DRAFT_BITS,
+                        draft_params=draft if k else None, device="cuda")
+                    counts = _read_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                res[mode, k] = r = dict(st, tokens=out.cpu(), counts=counts,
+                                        peak_gib=peak)
+                steps = st["decode_steps"] if k else SPEC_GEN - 1
+                r["step_ms"] = st["t_decode_s"] / max(steps, 1) * 1e3
+                line = (f"speculative generate [{backend}] k={k} ({mode}): "
+                        f"decode {st['decode_tok_s']:.1f} tok/s | "
+                        f"{steps} {'rounds' if k else 'steps'} of "
+                        f"{r['step_ms']:.2f} ms | warmup "
+                        f"{st['t_warmup_s'] * 1e3:.1f} ms | peak {peak:.2f} "
+                        f"GiB")
+                if k:
+                    line += (f" | acceptance {st['acceptance_rate']:.3f}, "
+                             f"{st['spec_tokens_per_round']:.2f} tok/round")
+                log(line + f" | launches {counts}")
+                check(counts["plain"] == 0 and counts["decode"] == 0,
+                      f"speculative run went through a plain version: "
+                      f"{counts}")
+                target = CALLS_PER_FORWARD * (1 + steps)
+                drafts = k * CALLS_PER_FORWARD * steps
+                want = ({"lutq_gemv_packed": target + drafts,
+                         "lutq_matmul": 0} if kname == "lutq_gemv_packed"
+                        else {"lutq_gemv_packed": drafts,
+                              "lutq_matmul": target})
+                got = {g: counts[g] for g in want}
+                check(got == want, f"speculative generate [{backend}] k={k}"
+                      f" ({mode}): launches {got}, expected {want}")
+                if k and mode == "graph":
+                    for g, v in got.items():
+                        launches[g] += v
+        for mode in MODES:
+            check(torch.equal(res[mode, SPEC_K]["tokens"],
+                              res[mode, 0]["tokens"]),
+                  f"[{backend}] ({mode}): speculative tokens differ from "
+                  f"k=0's")
+        check(torch.equal(res["graph", SPEC_K]["tokens"],
+                          res["eager", SPEC_K]["tokens"]),
+              f"[{backend}]: graph and eager speculative tokens differ")
+        g, e = res["graph", SPEC_K], res["eager", SPEC_K]
+        g0, e0 = res["graph", 0], res["eager", 0]
+        log(f"speculative generate [{backend}] graph | eager: k={SPEC_K} "
+            f"{g['decode_tok_s']:.1f} | {e['decode_tok_s']:.1f} tok/s "
+            f"(round {g['step_ms']:.2f} | {e['step_ms']:.2f} ms) against "
+            f"k=0 {g0['decode_tok_s']:.1f} | {e0['decode_tok_s']:.1f} tok/s "
+            f"(step {g0['step_ms']:.2f} | {e0['step_ms']:.2f} ms); tokens "
+            f"equal k=0's in both modes")
+
+    # the paged engine over run (a)'s queue, fused target, int8 KV
+    run_cfg = scfg.replace(kernel_backend="fused", kv_cache_bits=8)
+    reqs = synthetic_requests(cfg, ENGINE_QUEUE, max_prompt=512, max_new=64,
+                              seed=0)
+    tokens = {}
+    for k in (0, SPEC_K):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(views["lutq_matmul"], run_cfg, capacity=8,
+                     max_len=512 + 64 + k, kv_pages=160,
+                     page_size=ENGINE_PAGE, prefill_pack=False,
+                     speculative=k, draft_bits=SPEC_DRAFT_BITS,
+                     draft_params=draft if k else None, device="cuda")
+        traces = eng.paged_trace_counts()
+        check(traces == (dict(decode=1, spec=1) if k else dict(decode=1)),
+              f"paged speculative engine k={k}: {traces} graphs after "
+              f"the warmup")
+        for req in reqs:
+            eng.submit(req["tokens"], max_new=req["max_new"])
+        torch.cuda.synchronize()
+        _reset_counts()
+        profiled, timed_ms, _ = _serve_pass(f"spec k={k}", "graph", eng,
+                                            {"capacity": 8})
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        check(eng.paged_trace_counts() == traces,
+              f"paged speculative engine k={k}: the serve captured more "
+              f"graphs")
+        st = eng.stats()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wall_ms, busy_ms, _ = profiled
+        steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
+        want = {"lutq_matmul": CALLS_PER_FORWARD * (steps + chunks),
+                "lutq_gemv_packed": k * CALLS_PER_FORWARD * steps,
+                "paged": N_LAYERS * (2 * k + 1) * steps}
+        got = {"lutq_matmul": counts["lutq_matmul"],
+               "lutq_gemv_packed": counts["lutq_gemv_packed"],
+               "paged": counts["paged_attention"]
+               + counts["paged_attention_multipass"]}
+        line = (f"speculative paged engine k={k} [fused, int8 KV, 8 slots, "
+                f"{len(reqs)} requests]: decode {st['decode_tok_s']:.1f} "
+                f"tok/s | goodput {st['goodput_tok_s']:.1f} tok/s | {steps} "
+                f"{'rounds' if k else 'steps'} of "
+                f"{st['t_decode_s'] / max(steps, 1) * 1e3:.2f} ms, "
+                f"{chunks} prefill chunks, prefill {st['t_prefill_s']:.2f} "
+                f"s, wall {st['wall_s']:.2f} s | TTFT p50 "
+                f"{st['ttft_p50_s'] * 1e3:.0f} ms | warmup "
+                f"{st['t_warmup_s']:.3f} s | peak {peak:.2f} GiB | a "
+                f"{'round' if k else 'step'} {timed_ms:.2f} ms without the "
+                f"profiler, {wall_ms:.1f} ms profiled with the card busy "
+                f"{busy_ms:.2f} ms")
+        if k:
+            line += (f" | acceptance {st['acceptance_rate']:.3f}, "
+                     f"{st['spec_tokens_per_round']:.2f} tok/round")
+        log(line + f" | launches {counts}")
+        check(got == want, f"paged speculative engine k={k}: launches "
+              f"{got}, expected {want}")
+        check(counts["plain"] == 0 and counts["decode"] == 0,
+              f"paged speculative engine k={k} ran a plain version")
+        res = [eng.results[i] for i in sorted(eng.results)]
+        for req, r in zip(reqs, res):
+            check(r["n_new"] == req["max_new"] and r["finish"] == "length",
+                  f"paged speculative engine k={k} request {r['rid']}: "
+                  f"{r['n_new']} of {req['max_new']} tokens")
+        tokens[k] = [r["tokens"] for r in res]
+        if k:
+            launches["lutq_matmul"] += got["lutq_matmul"]
+            launches["lutq_gemv_packed"] += got["lutq_gemv_packed"]
+            launches["paged_attention"] += got["paged"]
+        del eng
+        torch.cuda.empty_cache()
+    same = [i for i, (a, b) in enumerate(zip(tokens[0], tokens[SPEC_K]))
+            if not np.array_equal(a, b)]
+    check(not same, f"paged speculative engine: requests {same} differ "
+          f"from the engine without speculation")
+    log(f"speculative paged engine: tokens equal the plain engine's, "
+        f"request by request ({len(reqs)} requests)")
+    for g, v in launches.items():
+        check(v > 0, f"the speculative path launched no {g}")
+    return launches
+
+
 # phase 3e
 # ---------------------------------------------------------------------------
 
@@ -2176,7 +2487,12 @@ def bound(M, Kin, N, packed):
             flops / PEAK_FLOPS["bfloat16"] * 1e3)
 
 
-def timings(card: str):
+#: phase 4's M for the GEMMs: decode (M=4) and prefill (M=512); the A/B
+#: adds the engine's 8-slot step and the 32- and 64-row prefill chunks
+TIMING_M, AB_TIMING_M = (4, 512), (4, 8, 32, 64, 512)
+
+
+def timings(card: str, ms=TIMING_M):
     import torch
 
     from repro_torch.core.lutq import decode
@@ -2189,7 +2505,7 @@ def timings(card: str):
     for kname, (fn, plain) in _gemm_fns().items():
         packed = KERNELS[kname]["packed"]
         per_m = {}
-        for M in (4, 512):
+        for M in ms:
             agg = dict(ms=0.0, loop_ms=0.0, plain_ms=0.0, library_ms=0.0,
                        bytes_ms=0.0, ops_ms=0.0)
             for label, ((Kin, N), calls) in shapes.items():
@@ -2579,19 +2895,24 @@ def flash_timings(card: str):
 
 
 def ab_timings(parent: str) -> int:
-    """Phase 4's GEMM, lutq_shift, flash-attention and kmeans_stats
-    timings (``timings``, ``shift_timings``, ``flash_timings``,
-    ``kmeans_timings``) of another checkout (say the parent commit,
-    unpacked with git archive) and of this one, in turns (other, this,
-    this, other), each in a fresh process that builds that checkout's
-    kernels, on this one card. Prints each run's per-forward lines and a
-    summary; no ok line. kmeans_stats' per-shape and per-step numbers
-    are read from its log lines, whose form both sides share."""
+    """Phase 4's GEMM (at AB_TIMING_M), lutq_shift, flash-attention and
+    kmeans_stats timings (``timings``, ``shift_timings``,
+    ``flash_timings``, ``kmeans_timings``) of another checkout's package
+    (say the parent commit, unpacked with git archive) and of this one,
+    in turns (other, this, this, other), each in a fresh process that
+    builds that package's kernels and times them with this script, on
+    this one card. Prints each run's per-forward lines and a summary; no
+    ok line. kmeans_stats' per-shape and per-step numbers are read from
+    its log lines."""
     other = Path(parent).resolve()
-    check((other / "chip_smoke.py").is_file(), f"{other}: no chip_smoke.py")
-    code = ("import json, sys; sys.path.insert(0, {root!r}); "
-            "import chip_smoke as c; _, _, card = c.setup(); "
-            "t = c.timings(card); t['lutq_shift'] = c.shift_timings(card); "
+    check((other / "src" / "repro_torch").is_dir(),
+          f"{other}: no src/repro_torch")
+    code = ("import json, sys; from pathlib import Path; "
+            f"sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke as c; c.SRC = Path({root!r}) / 'src'; "
+            "_, _, card = c.setup(); "
+            "t = c.timings(card, c.AB_TIMING_M); "
+            "t['lutq_shift'] = c.shift_timings(card); "
             "t['flash_attention'] = c.flash_timings(card); "
             "c.kmeans_timings(card); "
             "print('AB ' + json.dumps({{k: {{str(m): v "
@@ -2678,6 +2999,7 @@ def main() -> int:
     t_start = time.perf_counter()
     name, count, card = setup()
     worst = kernel_checks()
+    window_row_checks()
     worst["kmeans_stats"] = kmeans_checks()
     worst.update(paged_kernel_checks())
     worst["lutq_shift"] = shift_checks()
@@ -2687,6 +3009,7 @@ def main() -> int:
     launches, _, views, cfg = serve_full_width()
     reduced_reference()
     engine = engine_runs(views, cfg)
+    spec_launches = serve_speculative(views, cfg)
     del views
     torch.cuda.empty_cache()
     for variant in ("paged_attention", "paged_attention_multipass"):
@@ -2739,6 +3062,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if kname in spec_launches:  # phase 3f's speculative runs
+            records[-1]["speculative_launches"] = spec_launches[kname]
         if kname in prefill:  # one prefill forward at B=4 x 128 (M=512)
             p = prefill[kname]
             records[-1]["prefill"] = {

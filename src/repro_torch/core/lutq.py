@@ -6,6 +6,9 @@ PyTorch counterpart of ``repro.core.lutq`` (the paper's Table 1):
   step 2/3 STE forward + master update   -> :func:`quantize_ste`
   step 4   M k-means iterations on (A,d) -> :func:`update_state`
 
+and :func:`coarsen_dictionary`, the coarse dictionary of a speculative
+draft view over the same assignments.
+
 Assignment is 1-D nearest-neighbour search against a *sorted*
 dictionary, done by bucketizing against the K-1 midpoints
 (``torch.searchsorted`` with ``right=False``, the reference's
@@ -19,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.spec import QuantSpec
+from repro_torch.device import scalar_like
 
 
 class LutqState(NamedTuple):
@@ -447,3 +451,52 @@ def init_state(w: torch.Tensor, spec: QuantSpec) -> LutqState:
           else kmeans_update)
     d, a = fn(w, d, spec)
     return LutqState(w=w, d=d, a=a)
+
+
+# ---------------------------------------------------------------------------
+# nested dictionaries: coarsen K entries to K' over the same assignments
+# ---------------------------------------------------------------------------
+
+def coarsen_dictionary(d: torch.Tensor, a: torch.Tensor, k_out: int, *,
+                       iters: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-cluster the K dictionary entries into ``k_out`` coarse entries.
+
+    Weighted 1-D k-means over the entries themselves, each weighted by
+    how many weights it serves (the assignment histogram) plus 1e-3, so
+    that an unused entry still lands in a defined coarse cell. The
+    assignments never change: they compose with the returned map,
+    ``a_draft = fmap[a]``.
+
+    d: (K,) sorted dictionary; a: int assignments of any shape, read as
+    given (a K = 256 plane must be made unsigned first, as
+    :func:`index_of` does). Returns ``(d_coarse (k_out,) sorted float32,
+    fmap (K,) int32)``; the map is monotone and total because both
+    dictionaries are sorted.
+    """
+    K = d.shape[-1]
+    if k_out > K:
+        raise ValueError(f"k_out {k_out} exceeds dictionary size {K}")
+    d32 = d.float()
+    counts = torch.bincount(a.reshape(-1).long(), minlength=K)[:K].float()
+    w = counts + 1e-3
+
+    # weighted-quantile start, duplicates spread by a hair as in
+    # init_dictionary
+    cum = torch.cumsum(w, 0)
+    ar = torch.arange(k_out, dtype=torch.float32, device=d.device)
+    targets = (ar + 0.5) / scalar_like(k_out, d32) * cum[-1]
+    dc = d32[torch.clamp(torch.searchsorted(cum, targets), 0, K - 1)]
+    eps = 1e-8 * (1.0 + dc.abs())
+    dc = torch.sort(dc + eps * ar).values
+
+    def cells(dc):
+        return torch.searchsorted(((dc[:-1] + dc[1:]) * 0.5).contiguous(),
+                                  d32)
+
+    for _ in range(iters):
+        oh = torch.nn.functional.one_hot(cells(dc), k_out).float()
+        cnt = (w[:, None] * oh).sum(0)
+        s = (w[:, None] * oh * d32[:, None]).sum(0)
+        new = torch.where(cnt > 0, s / torch.clamp(cnt, min=1e-6), dc)
+        dc = torch.sort(new).values
+    return dc, cells(dc).to(torch.int32)

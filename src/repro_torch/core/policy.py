@@ -7,7 +7,8 @@ the paper's step 4 on every quantized leaf under its rule,
 masters from the static state, :func:`serve_view` keeps only the
 dictionary and the int8 or packed 4-bit assignments,
 :func:`backend_manifest` records which kernel each leaf resolves to,
-and the report helpers feed the serve CLI.
+:func:`draft_view` makes the coarse view that drafts for self-speculative
+decoding, and the report helpers feed the serve CLI.
 
 Leaves are resolved against the reference's *stacked* path
 (:func:`repro_torch.nn.tree.logical_path`): per-layer leaves of one
@@ -273,6 +274,60 @@ def serve_view(model: nn.Module, *, pack4: bool = False,
     tree = map_with_path(conv, clone_structure(model))
     if with_manifest:
         return tree, manifest
+    return tree
+
+
+def draft_view(model: nn.Module, *, draft_bits: int = 3,
+               with_report: bool = False):
+    """Coarse low-bit view of a serve tree for self-speculative decoding.
+
+    Each :class:`LutqState` leaf's K entries are re-clustered into
+    ``K' = 2**draft_bits`` (:func:`repro_torch.core.lutq.
+    coarsen_dictionary`) and its stored indices remapped through the
+    monotone fine->coarse map, packed two to a byte when K' <= 16 and
+    the reduction axis is even. A pow2 sign+exponent plane is decoded to
+    floats first (coarse centroids are means, so the draft leaf carries
+    a float dictionary); K = 256 indices are read unsigned. Leaves with
+    K <= K' and float leaves are shared with ``model`` (0 extra bytes);
+    ``sid`` and ``act`` are carried through. Returns a new module tree,
+    and with ``with_report=True`` also ``{path: {K, draft_K, shared,
+    draft_bytes}}`` per reference (stacked) path, the bytes summed over
+    the layers, as the reference reports its stacked leaves.
+    """
+    from repro_torch.core.lutq import coarsen_dictionary, index_of, pow2_decode
+    from repro_torch.kernels.ref import pack4_kin, unpack4_kin
+
+    k_out = 1 << int(draft_bits)
+    report: Dict[str, Dict] = {}
+
+    def conv(path, leaf):
+        if not isinstance(leaf, LutqState):
+            return leaf
+        key = "/".join(logical_path(path)[0])
+        K = leaf.d.shape[-1]
+        if k_out >= K:
+            report[key] = {"K": int(K), "draft_K": int(K), "shared": True,
+                           "draft_bytes": 0}
+            return leaf
+        d = leaf.d
+        if d.dtype == torch.int8:  # pow2 sign+exponent plane -> floats
+            d = pow2_decode(d)
+        a = leaf.a
+        if a.dtype == torch.uint8:
+            a = unpack4_kin(a)
+        ai = index_of(a)
+        dc, fmap = coarsen_dictionary(d, ai, k_out)
+        ac = fmap[ai].to(torch.int8)
+        if k_out <= 16 and ac.ndim >= 2 and ac.shape[-2] % 2 == 0:
+            ac = pack4_kin(ac)
+        rec = report.setdefault(key, {"K": int(K), "draft_K": int(k_out),
+                                      "shared": False, "draft_bytes": 0})
+        rec["draft_bytes"] += _nbytes(dc) + _nbytes(ac)
+        return LutqState(w=None, d=dc, a=ac, sid=leaf.sid, act=leaf.act)
+
+    tree = map_with_path(conv, clone_structure(model))
+    if with_report:
+        return tree, report
     return tree
 
 

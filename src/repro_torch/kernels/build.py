@@ -172,6 +172,14 @@ BK = 64  # reduction rows of one pipeline stage of the GEMM kernels
 #: M = 8, and tied at M = 4.
 GEMM_TILES = ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (64, 64, 128, 2, 8),
               (None, 128, 256, 1, 4))
+#: products of at most this many rows split their reduction as an 8-row
+#: decode does (the first tile's plan), whatever their tile. The mma.sync
+#: tiles give each output the same chain of products over a split, and
+#: the merge sums the splits in order, so such a product's rows are the
+#: bits the same rows get in any other product of at most this many rows:
+#: a speculative verify window of B (k + 1) rows gives each row the bits
+#: of the B-row decode step. (Products of more rows use the wgmma tile.)
+ROW_STABLE_M = 64
 #: per device: the output tiles' merge tickets, zero between calls (the
 #: kernel's last block of a tile resets its ticket)
 _GEMM_TICKETS: Dict[str, torch.Tensor] = {}
@@ -191,17 +199,24 @@ def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
     reduction is split, up to the tile's most splits, so that about that
     many blocks run (decode shapes, and prefill of narrow products); each
     split covers ``kchunk`` rows, a multiple of ``bk`` (the kernel's
-    rows a pipeline stage). Returns bm, bn, grid (m tiles, n tiles,
+    rows a pipeline stage). A tile for at most ``ROW_STABLE_M`` rows
+    takes the split of the first tile over one m tile instead, from
+    (N, Kin, sms) alone, so its rows equal the same rows of a smaller
+    product bit for bit. Returns bm, bn, grid (m tiles, n tiles,
     splits), splits, kchunk, and the workspace a call needs: ``tickets``
     int32 (one a tile) and ``partials`` f32 (splits * M * N), both 0
     without a split.
     """
-    bm, bn, per_sm, most = next(t[1:] for t in tiles
-                                if t[0] is None or M <= t[0])
+    top, bm, bn, per_sm, most = next(t for t in tiles
+                                     if t[0] is None or M <= t[0])
     grid_m, grid_n = -(-M // bm), -(-N // bn)
     n_tiles = grid_m * grid_n
     steps = -(-Kin // bk)
-    want = max(1, min(steps, most, per_sm * sms // n_tiles))
+    fill = n_tiles
+    if top is not None and top <= ROW_STABLE_M:
+        _, _, bn0, per_sm, most = tiles[0]
+        fill = -(-N // bn0)
+    want = max(1, min(steps, most, per_sm * sms // fill))
     kchunk = -(-steps // want) * bk
     splits = -(-Kin // kchunk)
     split = splits > 1

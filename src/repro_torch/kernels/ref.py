@@ -26,9 +26,19 @@ from repro_torch.core.lutq import (POW2_MIN_EXP, _bucketize, decode,
 
 def lutq_matmul_ref(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor
                     ) -> torch.Tensor:
-    """y = x @ d[a] in float32. x: (M, Kin); a: (Kin, N) int8; d: (K,)."""
-    w = decode(d, a).to(x.dtype)
-    return torch.matmul(x.float(), w.float())
+    """y = x @ d[a] in float32. x: (M, Kin); a: (Kin, N) int8; d: (K,).
+
+    A one-row product runs as two equal rows: BLAS takes another path
+    for one row (a GEMV) than for several, and its sums then differ in
+    the last bits from the same row inside a larger product. With this,
+    each row of a product of up to 64 rows at the reduced shapes is the
+    bits it has alone (``tests/test_torch_speculative.py``), which the
+    speculative verify window relies on."""
+    w = decode(d, a).to(x.dtype).float()
+    xf = x.float()
+    if xf.shape[0] == 1:
+        return torch.matmul(xf.repeat(2, 1), w)[:1]
+    return torch.matmul(xf, w)
 
 
 def pack4_kin(a: torch.Tensor) -> torch.Tensor:

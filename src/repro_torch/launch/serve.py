@@ -1,8 +1,8 @@
 """Serving CLI: LUT-Q weights served as a static batch or through the
 continuous-batching engine (slot pool or paged KV).
 
-Counterpart of ``repro.launch.serve`` without the mesh, checkpoint,
-autotune and speculative options. On the card:
+Counterpart of ``repro.launch.serve`` without the mesh, checkpoint and
+autotune options. On the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --batch 4 --prompt-len 128 --gen 16 --pack4
@@ -12,6 +12,9 @@ autotune and speculative options. On the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --quant-policy serving_pow2 --batch 4 --prompt-len 128 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --act-bits 32 --speculative 3 --draft-bits 3 --batch 4 \
+        --prompt-len 128 --gen 32 --pack4
 
 On the CPU, through the kernels' plain versions, at the reduced size:
 
@@ -22,6 +25,8 @@ On the CPU, through the kernels' plain versions, at the reduced size:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
         --queue 4 --prompt-len 30 --gen 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --reduced --act-bits 32 --speculative 2 --draft-bits 2 --device cpu
 
 Serves the paper's deployment form (serve_view: dictionary + int8 or
 packed assignments, no fp masters; under ``serving_pow2`` pow2
@@ -31,7 +36,11 @@ without calibration), reports the weight footprint both ways, the
 per-rule breakdown, the backend of each quantized leaf and how many are
 pow2-encoded, the prefill time and decode rate (with ``--engine``:
 goodput, latency and TTFT percentiles, and the paged cache's pages and
-prefix hits), and how many times each kernel launched.
+prefix hits), and how many times each kernel launched. With
+``--speculative K`` (which needs ``--act-bits 32``) each decode step is a
+self-speculative round: a ``--draft-bits`` view of the same indices
+drafts K tokens, one target window checks them; it also reports the
+acceptance and the draft view's extra bytes.
 """
 from __future__ import annotations
 
@@ -84,18 +93,24 @@ def kernel_report(dev: torch.device) -> str:
 def run_engine(model, cfg, *, capacity: int, n_requests: int,
                prompt_len: int, gen: int, seed: int = 0,
                temperature: float = 0.0, kv_pages=None, page_size: int = 64,
-               prefix_cache: bool = True, requests=None, device="cuda"):
+               prefix_cache: bool = True, requests=None,
+               speculative: int = 0, draft_bits: int = 3, draft_params=None,
+               device="cuda"):
     """Serve a ragged queue through the continuous-batching engine and
     return its stats dict (the CLI's and the smoke test's fields).
 
     ``kv_pages`` switches onto the paged KV cache. ``requests``
     overrides the synthetic workload with a list of ``Engine.submit``
     kwargs dicts. Packed prefill is not ported, so a paged engine
-    prefills every prompt in chunks."""
-    eng = Engine(model, cfg, capacity=capacity, max_len=prompt_len + gen,
+    prefills every prompt in chunks. ``speculative``: draft block length
+    of self-speculative rounds (the cache gets that much headroom)."""
+    eng = Engine(model, cfg, capacity=capacity,
+                 max_len=prompt_len + gen + int(speculative),
                  temperature=temperature, seed=seed, kv_pages=kv_pages,
                  page_size=page_size, prefix_cache=prefix_cache,
-                 prefill_pack=False, device=device)
+                 prefill_pack=False, speculative=speculative,
+                 draft_bits=draft_bits, draft_params=draft_params,
+                 device=device)
     if requests is None:
         requests = synthetic_requests(cfg, n_requests, max_prompt=prompt_len,
                                       max_new=gen, seed=seed)
@@ -130,6 +145,23 @@ def format_engine_stats(stats) -> str:
                     f"{stats['prefix_queries']} page hits "
                     f"({stats['prefix_hit_rate']*100:.0f}%), "
                     f"{stats['prefix_evictions']} evictions")
+    if stats.get("speculative_k"):
+        out += "\n" + format_spec_stats(stats)
+    return out
+
+
+def format_spec_stats(stats) -> str:
+    """The speculative line: k, draft bits, acceptance, tokens a round and
+    the draft view's extra bytes."""
+    out = (f"[serve] speculative: k={stats['speculative_k']} "
+           f"draft_bits={stats['draft_bits']} | acceptance "
+           f"{stats['acceptance_rate']*100:.0f}% | "
+           f"{stats['spec_tokens_per_round']:.2f} tok/round | "
+           f"{stats['spec_rounds']} rounds")
+    if "draft_extra_bytes" in stats:
+        out += (f" | draft view +{stats['draft_extra_bytes']/2**20:.2f} "
+                f"MiB ({stats['draft_coarse_leaves']} coarse, "
+                f"{stats['draft_shared_leaves']} shared leaves)")
     return out
 
 
@@ -171,7 +203,18 @@ def main(argv=None):
                     help="share identical prompt-prefix pages across "
                          "requests (--no-prefix-cache disables)")
     ap.add_argument("--act-bits", type=int, default=8, choices=(8, 32),
-                    help="activation fake-quant bits (32 disables)")
+                    help="activation fake-quant bits (32 disables; "
+                         "required for --speculative)")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="self-speculative decoding: draft K tokens a round "
+                         "from a coarse view of the same LUT-Q indices, "
+                         "check them with one target forward (greedy "
+                         "tokens unchanged; needs --act-bits 32: dynamic "
+                         "activation quantization couples the rows)")
+    ap.add_argument("--draft-bits", type=int, default=3,
+                    help="draft view dictionary size = 2^draft_bits entries "
+                         "a leaf (leaves already at or below it are shared "
+                         "with the target)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to run; cuda raises when no card is found")
@@ -185,6 +228,10 @@ def main(argv=None):
              else QuantSpec(bits=args.quant_bits, min_size=1024))
     cfg = cfg.replace(quant=quant, act_bits=args.act_bits,
                       kernel_backend=args.kernel_backend)
+    if args.speculative:
+        ok, why = api.speculative_supported(cfg)
+        if not ok:
+            raise SystemExit(f"[serve] --speculative refused: {why}")
 
     model = api.init(cfg, seed=args.seed, device=dev)
     fp_bytes = footprint_bytes(model)
@@ -216,7 +263,9 @@ def main(argv=None):
                            n_requests=args.queue, prompt_len=args.prompt_len,
                            gen=args.gen, seed=args.seed,
                            kv_pages=args.kv_pages, page_size=args.page_size,
-                           prefix_cache=args.prefix_cache, device=dev)
+                           prefix_cache=args.prefix_cache,
+                           speculative=args.speculative,
+                           draft_bits=args.draft_bits, device=dev)
         print(format_engine_stats(stats))
         print(kernel_report(dev))
         return 0
@@ -225,12 +274,14 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(args.seed + 1)
     toks = torch.randint(0, cfg.vocab, (B, P), generator=gen)
     out, stats = generate(smodel, cfg, {"tokens": toks}, steps=args.gen,
-                          max_len=P + args.gen, return_stats=True,
-                          device=dev)
+                          return_stats=True, speculative=args.speculative,
+                          draft_bits=args.draft_bits, device=dev)
     print(f"[serve] prefill {P} toks x{B}: {stats['t_prefill_s']*1e3:.1f} ms | "
           f"decode[{stats['backend']}]: {stats['decode_tok_s']:.1f} tok/s | "
           f"warmup {stats['t_warmup_s'] * 1e3:.1f} ms | "
           f"sample: {out[0, :8].tolist()}")
+    if args.speculative:
+        print(format_spec_stats(stats))
     print(kernel_report(dev))
     return 0
 

@@ -6,12 +6,16 @@
     loss_fn(model, cfg, batch)                 -> (loss, metrics)
     serve_state(cfg, seed=, pack4=, calib_batch=, device=)
                                                -> serve model [, manifest]
+    draft_view(model, draft_bits=, with_report=) -> coarse draft model
     prefill(model, cfg, batch, lengths=)       -> (logits, cache)
     decode_step(model, cfg, token, cache)      -> (logits, cache)
     init_cache(cfg, batch, max_len, device=)   -> cache
     paged_supported(cfg)                       -> bool
     init_paged_cache(cfg, batch, n_pages, page_size, n_blocks, device=)
     paged_decode_step(model, cfg, token, cache) -> (logits, cache)
+    speculative_supported(cfg)                 -> (ok, reason)
+    decode_window(model, cfg, tokens, cache)   -> (logits, cache)
+    paged_decode_window(model, cfg, tokens, cache) -> (logits, cache)
 
 Every entry point that creates tensors runs on ``device="cuda"`` unless
 the caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -19,10 +23,12 @@ raises.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 from torch import nn
 
-from repro_torch.core.policy import quantize_tree
+from repro_torch.core.policy import draft_view, quantize_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import lm as m_lm
 from repro_torch.models.config import ModelConfig
@@ -92,7 +98,9 @@ def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
     fp masters are dropped with the quantized tree. ``calib_batch``: a
     prefill batch (``{"tokens": ...}``) run through :func:`calibrate`
     before the serve view, freezing activation scales for
-    ``act_frozen`` rules (the ``serving_pow2`` preset)."""
+    ``act_frozen`` rules (the ``serving_pow2`` preset). The draft model
+    of self-speculative decoding is ``draft_view(serve_state(...))``
+    (:func:`repro_torch.core.policy.draft_view`)."""
     from repro_torch.core.policy import serve_view
 
     qmodel = quantize(init(cfg, seed=seed, device=device), cfg)
@@ -115,8 +123,12 @@ def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):
 
 
 def decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
+    """(B, W) tokens against a cache at length n -> (logits (B, W, V),
+    cache at n + W). W = 1 is a decode step; a wider W is a speculative
+    verify window, each row the bits of W chained steps
+    (``models/lm.lm_decode``)."""
     _dense_only(cfg)
-    return m_lm.lm_decode_step(model, cfg, token, cache)
+    return m_lm.lm_decode(model, cfg, token, cache)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -143,5 +155,39 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
 
 
 def paged_decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
+    """Paged-pool twin of :func:`decode_step`."""
     _dense_only(cfg)
-    return m_lm.lm_paged_decode_step(model, cfg, token, cache)
+    return m_lm.lm_paged_decode(model, cfg, token, cache)
+
+
+def speculative_supported(cfg: ModelConfig) -> Tuple[bool, str]:
+    """Whether self-speculative decoding can serve ``cfg``: ``(ok,
+    reason)``, the reference's refusals and reasons. Speculation needs
+    rollback to be a cache-length truncation (no recurrent state or MLA
+    latents) and the verify window's rows to be independent, so that one
+    batched forward gives each row the bits of chained one-token steps:
+    MoE routing couples the window's tokens, and dynamic activation
+    quantization takes a scale over the whole batch."""
+    if cfg.act_bits < 32:
+        return False, ("speculative decoding refused under activation "
+                       "quantization: per-tensor act scales couple draft "
+                       "and verify rows (act_bits < 32)")
+    if cfg.family == "encdec":
+        return True, ""
+    if cfg.n_experts > 0 or cfg.family == "moe":
+        return False, ("speculative decoding unsupported with MoE: "
+                       "routing/capacity couples the verify-window token "
+                       "batch, breaking per-position parity")
+    if cfg.family not in ("dense", "vlm"):
+        return False, (f"speculative decoding unsupported for family="
+                       f"{cfg.family}: recurrent/hybrid state cannot rewind "
+                       "rejected tokens")
+    if cfg.use_mla:
+        return False, ("speculative decoding unsupported with MLA: the "
+                       "latent cache is not length-truncatable bitwise")
+    return True, ""
+
+
+#: a speculative verify window: (B, W) tokens through the decode path
+decode_window = decode_step
+paged_decode_window = paged_decode_step

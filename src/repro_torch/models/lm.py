@@ -10,7 +10,8 @@ Entry points:
   lm_forward      (B, S) tokens -> logits (training forward) + aux
   lm_loss         next-token cross-entropy of a batch
   lm_prefill      (B, S) prompt -> last logits + per-layer K/V
-  lm_decode_step  (B, 1) token  -> logits + updated cache
+  lm_decode       (B, W) tokens -> logits + updated cache (W = 1: a
+                  decode step; W = k + 1: a speculative verify window)
 and the paged-KV entry points of the engine (``lm_paged_*``, below).
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import scalar_like
 from repro_torch.models.config import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.build import ROW_STABLE_M
 from repro_torch.nn.attention import (decode_attention, flash_attention,
                                       gather_pages, scatter_token_pages)
 from repro_torch.nn.linear import (embedding_apply, embedding_init,
@@ -88,16 +90,34 @@ def attn_init(gen, cfg: ModelConfig, device=None) -> Attention:
         linear_init(gen, cfg.n_heads * dh, cfg.d_model, device=device))
 
 
-def _qkv(p: Attention, cfg: ModelConfig, x, positions):
+def _rows(fn, x, chunk: Optional[int]):
+    """``fn(x)`` for x (B, W, D), or, where its B * W rows exceed
+    ``chunk``, ``fn`` over as many whole positions of x as fit in
+    ``chunk`` rows (one position, B rows, where B alone is wider),
+    joined."""
+    B, W, D = x.shape
+    per = W if chunk is None else max(1, chunk // B)
+    if per >= W:
+        return fn(x)
+    xt = x.transpose(0, 1)
+    y = torch.cat([fn(xt[i:i + per].reshape(-1, 1, D))
+                   for i in range(0, W, per)])
+    return y.reshape(W, B, -1).transpose(0, 1)
+
+
+def _lin(p, cfg: ModelConfig, x, chunk: Optional[int] = None):
+    """A product of the model at its backend and activation bits."""
+    return _rows(lambda t: linear_apply(p, t, backend=cfg.kernel_backend,
+                                        act_bits=cfg.act_bits), x, chunk)
+
+
+def _qkv(p: Attention, cfg: ModelConfig, x, positions,
+         chunk: Optional[int] = None):
     B, S, _ = x.shape
     dh = cfg.resolved_head_dim
-    kb, ab = cfg.kernel_backend, cfg.act_bits
-    q = linear_apply(p.q, x, backend=kb,
-                     act_bits=ab).reshape(B, S, cfg.n_heads, dh)
-    k = linear_apply(p.k, x, backend=kb,
-                     act_bits=ab).reshape(B, S, cfg.n_kv_heads, dh)
-    v = linear_apply(p.v, x, backend=kb,
-                     act_bits=ab).reshape(B, S, cfg.n_kv_heads, dh)
+    q = _lin(p.q, cfg, x, chunk).reshape(B, S, cfg.n_heads, dh)
+    k = _lin(p.k, cfg, x, chunk).reshape(B, S, cfg.n_kv_heads, dh)
+    v = _lin(p.v, cfg, x, chunk).reshape(B, S, cfg.n_kv_heads, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -122,50 +142,6 @@ def _kv_quant(t, bits):
     return q, scale[..., 0].to(torch.bfloat16)
 
 
-def attn_decode(p: Attention, cfg: ModelConfig, x, cache, cache_len):
-    """One-token decode against this layer's cache.
-
-    With SWA the cache is a ring of width ``window`` (slot = position %
-    width). With ``kv_cache_bits=8`` it holds int8 K/V plus per-entry
-    bf16 scales. The new entry is written into the cache tensors in
-    place (the reference returns new arrays); the returned dict holds
-    the same tensors.
-    """
-    B = x.shape[0]
-    pos = torch.as_tensor(cache_len, device=x.device).reshape(-1)
-    pos = pos.expand(B).reshape(B, 1)
-    q, k, v = _qkv(p, cfg, x, pos)
-    idx = pos[:, 0].long()
-    eff = cache["k"].shape[1]
-    quant = cfg.kv_cache_bits == 8
-    if quant:
-        k, k_s = _kv_quant(k, 8)
-        v, v_s = _kv_quant(v, 8)
-    ring = cfg.window is not None and eff <= cfg.window
-    slot = idx % eff if ring else torch.clamp(idx, max=eff - 1)
-    rows = torch.arange(B, device=x.device)
-    kc, vc = cache["k"], cache["v"]
-    kc[rows, slot] = k[:, 0].to(kc.dtype)
-    vc[rows, slot] = v[:, 0].to(vc.dtype)
-    new_cache = {"k": kc, "v": vc}
-    if quant:
-        ks, vs = cache["k_scale"], cache["v_scale"]
-        ks[rows, slot] = k_s[:, 0]
-        vs[rows, slot] = v_s[:, 0]
-        new_cache.update(k_scale=ks, v_scale=vs)
-        # a bf16 product, whatever the working dtype, as the reference
-        kc = kc.to(torch.bfloat16) * ks[..., None]
-        vc = vc.to(torch.bfloat16) * vs[..., None]
-    if ring:
-        filled = torch.clamp(idx + 1, max=eff)
-        o = decode_attention(q, kc, vc, filled)  # all filled ring slots live
-    else:
-        o = decode_attention(q, kc, vc, idx + 1, window=cfg.window)
-    out = linear_apply(p.o, o.reshape(B, 1, -1), backend=cfg.kernel_backend,
-                       act_bits=cfg.act_bits)
-    return out, new_cache
-
-
 # ---------------------------------------------------------------------------
 # MLP / layer
 # ---------------------------------------------------------------------------
@@ -183,11 +159,9 @@ def silu(x):
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def mlp_apply(p: MLP, cfg: ModelConfig, x):
-    kb, ab = cfg.kernel_backend, cfg.act_bits
-    h = (linear_apply(p.wi, x, backend=kb, act_bits=ab)
-         * silu(linear_apply(p.wg, x, backend=kb, act_bits=ab)))
-    return linear_apply(p.wo, h, backend=kb, act_bits=ab)
+def mlp_apply(p: MLP, cfg: ModelConfig, x, chunk: Optional[int] = None):
+    h = _lin(p.wi, cfg, x, chunk) * silu(_lin(p.wg, cfg, x, chunk))
+    return _lin(p.wo, cfg, h, chunk)
 
 
 def layer_init(gen, cfg: ModelConfig, device=None) -> Layer:
@@ -203,13 +177,6 @@ def layer_forward(p: Layer, cfg: ModelConfig, h, positions):
                                 positions)
     h = h + a_out
     return h + mlp_apply(p.mlp, cfg, rmsnorm_apply(p.ln2, h)), cache
-
-
-def layer_decode(p: Layer, cfg: ModelConfig, h, cache, cache_len):
-    a_out, new_cache = attn_decode(p.attn, cfg, rmsnorm_apply(p.ln1, h),
-                                   cache, cache_len)
-    h = h + a_out
-    return h + mlp_apply(p.mlp, cfg, rmsnorm_apply(p.ln2, h)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +202,17 @@ def _embed_tokens(model: LM, cfg: ModelConfig, tokens):
     return h * (cfg.d_model ** 0.5)
 
 
-def _readout(model: LM, cfg: ModelConfig, h):
-    h = rmsnorm_apply(model.final_norm, h)
+def _head(model: LM, cfg: ModelConfig, h, chunk: Optional[int] = None):
+    """Logits of normed hidden states (the readout's product)."""
     if cfg.tie_embeddings:
-        return embedding_logits(model.embed, h, backend=cfg.kernel_backend)
-    return linear_apply(model.lm_head, h, backend=cfg.kernel_backend)
+        return _rows(lambda t: embedding_logits(
+            model.embed, t, backend=cfg.kernel_backend), h, chunk)
+    return _rows(lambda t: linear_apply(model.lm_head, t,
+                                        backend=cfg.kernel_backend), h, chunk)
+
+
+def _readout(model: LM, cfg: ModelConfig, h):
+    return _head(model, cfg, rmsnorm_apply(model.final_norm, h))
 
 
 def _layer_train(p: Layer, cfg: ModelConfig, h, positions):
@@ -345,17 +318,109 @@ def lm_prefill(model: LM, cfg: ModelConfig, tokens, *, lengths=None):
     return _readout(model, cfg, h_last), {"len": cache_len, "layers": caches}
 
 
-def lm_decode_step(model: LM, cfg: ModelConfig, token, cache):
-    """token: (B, 1) -> (logits (B, 1, V), cache with len + 1)."""
+# ---------------------------------------------------------------------------
+# decode: one token a slot, or a speculative verify window of W tokens
+# ---------------------------------------------------------------------------
+#
+# A decode step is a window of one token. The verify pass of
+# self-speculative decoding (runtime/speculative.py) runs W = k + 1
+# tokens a slot through ONE forward, so the target's weights stream once
+# a round instead of once a token, and each of its rows must get the
+# bits that W chained one-token steps give it:
+#   * the products batch over the window's B * W rows, in products of at
+#     most ``ROW_STABLE_M`` rows, each of which gives every row the bits
+#     of the B-row step's product (``kernels/build.plan_splits``; the
+#     plain version pads a 1-row product); where B alone is wider, one
+#     position at a time, which is the step's own product;
+#   * the norms run per position, on the step's (B, 1, D) shape: on the
+#     card a reduction's thread layout follows the number of rows, and
+#     with it the order of the sum;
+#   * the attention runs per position: scatter position i's K/V entry
+#     (int8 with per-entry scales where the cache is int8), then the
+#     decode attention at that position's length.
+# Elementwise ops (RoPE, SiLU, the residual adds) do not depend on the
+# shape. At W = 1 each per-position join is its one part, so a step
+# makes no copies for the window.
+
+
+def _join(parts):
+    """Per-position parts joined on the window axis (one part as is)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _norm_rows(p, h):
+    """RMSNorm of h (B, W, D), one window position at a time."""
+    return _join([rmsnorm_apply(p, h[:, i:i + 1].contiguous())
+                  for i in range(h.shape[1])])
+
+
+def _positions(cache_len, B: int, W: int, device):
+    """(B, W) positions n .. n + W - 1 of each row (n = cache_len)."""
+    base = torch.as_tensor(cache_len, device=device).reshape(-1).expand(B)
+    base = base.reshape(B, 1)
+    if W == 1:
+        return base
+    return base + torch.arange(W, dtype=base.dtype, device=device)[None, :]
+
+
+def attn_decode(p: Attention, cfg: ModelConfig, x, cache, pos):
+    """Decode attention of W tokens a slot against this layer's cache.
+    x: (B, W, D); pos: (B, W) their positions.
+
+    With SWA the cache is a ring of width ``window`` (slot = position %
+    width). With ``kv_cache_bits=8`` it holds int8 K/V plus per-entry
+    bf16 scales. Each position's entry is written into the cache tensors
+    in place (the reference returns new arrays) just before that
+    position attends; under a ring a window overwrites columns that
+    ``runtime/speculative.py`` snapshots and restores.
+    """
+    B, W, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, pos, ROW_STABLE_M)
+    eff = cache["k"].shape[1]
+    quant = cfg.kv_cache_bits == 8
+    if quant:
+        k, k_s = _kv_quant(k, 8)
+        v, v_s = _kv_quant(v, 8)
+    ring = cfg.window is not None and eff <= cfg.window
+    rows = torch.arange(B, device=x.device)
+    kc, vc = cache["k"], cache["v"]
+    outs = []
+    for i in range(W):
+        idx = pos[:, i].long()
+        slot = idx % eff if ring else torch.clamp(idx, max=eff - 1)
+        kc[rows, slot] = k[:, i].to(kc.dtype)
+        vc[rows, slot] = v[:, i].to(vc.dtype)
+        kd, vd = kc, vc
+        if quant:
+            ks, vs = cache["k_scale"], cache["v_scale"]
+            ks[rows, slot] = k_s[:, i]
+            vs[rows, slot] = v_s[:, i]
+            # a bf16 product, whatever the working dtype, as the reference
+            kd = kc.to(torch.bfloat16) * ks[..., None]
+            vd = vc.to(torch.bfloat16) * vs[..., None]
+        qi = q[:, i:i + 1].contiguous()
+        if ring:  # all filled ring slots live
+            outs.append(decode_attention(qi, kd, vd,
+                                         torch.clamp(idx + 1, max=eff)))
+        else:
+            outs.append(decode_attention(qi, kd, vd, idx + 1,
+                                         window=cfg.window))
+    return _lin(p.o, cfg, _join(outs).reshape(B, W, -1), ROW_STABLE_M)
+
+
+def lm_decode(model: LM, cfg: ModelConfig, tokens, cache):
+    """tokens: (B, W) -> (logits (B, W, V), cache with len + W)."""
     _check_dense(cfg)
-    h = _embed_tokens(model, cfg, token)
-    cache_len = cache["len"]
-    new_caches = []
+    h = _embed_tokens(model, cfg, tokens)
+    B, W = tokens.shape
+    pos = _positions(cache["len"], B, W, h.device)
     for layer, c in zip(model.layers, cache["layers"]):
-        h, c = layer_decode(layer, cfg, h, c, cache_len)
-        new_caches.append(c)
-    logits = _readout(model, cfg, h)
-    return logits, {"layers": new_caches, "len": cache_len + 1}
+        h = h + attn_decode(layer.attn, cfg, _norm_rows(layer.ln1, h), c,
+                            pos)
+        h = h + mlp_apply(layer.mlp, cfg, _norm_rows(layer.ln2, h),
+                          ROW_STABLE_M)
+    logits = _head(model, cfg, _norm_rows(model.final_norm, h), ROW_STABLE_M)
+    return logits, {"layers": cache["layers"], "len": cache["len"] + W}
 
 
 # ---------------------------------------------------------------------------
@@ -415,47 +480,51 @@ def init_paged_workspace(cfg: ModelConfig, wws: int, *, device=None):
             for _ in range(cfg.n_layers)]
 
 
-def paged_attn_decode(p: Attention, cfg: ModelConfig, x, pool, block,
-                      cache_len):
-    """One-token decode against one layer's page pool.
+def paged_attn_decode(p: Attention, cfg: ModelConfig, x, pool, block, pos):
+    """Decode attention of W tokens a slot against one layer's page
+    pool, the paged twin of :func:`attn_decode`: batched products, then
+    per position the scatter through the block table and
+    ``ops.paged_attention`` (the kernel on the card).
 
     Dead slots keep ``cache_len`` at 0 with an all-trash block row, so
     their scatter lands on the trash page and their output is discarded
-    by the engine. The new entry is written into the pool in place.
+    by the engine. The entries are written into the pool in place.
     """
-    B = x.shape[0]
-    pos = torch.as_tensor(cache_len, device=x.device).reshape(-1)
-    pos = pos.expand(B).reshape(B, 1)
-    q, k, v = _qkv(p, cfg, x, pos)
-    idx = pos[:, 0]
+    B, W, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, pos, ROW_STABLE_M)
     quant = _paged_quant(cfg)
     if quant:
         k, k_s = _kv_quant(k, 8)
         v, v_s = _kv_quant(v, 8)
-        scatter_token_pages(pool["k_scale"], block, idx, k_s[:, 0])
-        scatter_token_pages(pool["v_scale"], block, idx, v_s[:, 0])
-    scatter_token_pages(pool["k"], block, idx, k[:, 0])
-    scatter_token_pages(pool["v"], block, idx, v[:, 0])
-    o = ops.paged_attention(q, pool["k"], pool["v"], block, idx + 1,
-                            window=cfg.window, k_scale=pool.get("k_scale"),
-                            v_scale=pool.get("v_scale"))
-    return linear_apply(p.o, o.reshape(B, 1, -1), backend=cfg.kernel_backend,
-                        act_bits=cfg.act_bits)
+    outs = []
+    for i in range(W):
+        idx = pos[:, i]
+        if quant:
+            scatter_token_pages(pool["k_scale"], block, idx, k_s[:, i])
+            scatter_token_pages(pool["v_scale"], block, idx, v_s[:, i])
+        scatter_token_pages(pool["k"], block, idx, k[:, i])
+        scatter_token_pages(pool["v"], block, idx, v[:, i])
+        outs.append(ops.paged_attention(
+            q[:, i:i + 1].contiguous(), pool["k"], pool["v"], block, idx + 1,
+            window=cfg.window, k_scale=pool.get("k_scale"),
+            v_scale=pool.get("v_scale")))
+    return _lin(p.o, cfg, _join(outs).reshape(B, W, -1), ROW_STABLE_M)
 
 
-def lm_paged_decode_step(model: LM, cfg: ModelConfig, token, cache):
-    """token: (B, 1) -> (logits (B, 1, V), cache with len + 1)."""
+def lm_paged_decode(model: LM, cfg: ModelConfig, tokens, cache):
+    """tokens: (B, W) -> (logits (B, W, V), cache with len + W)."""
     _check_dense(cfg)
-    h = _embed_tokens(model, cfg, token)
-    cache_len, block = cache["len"], cache["block"]
+    h = _embed_tokens(model, cfg, tokens)
+    B, W = tokens.shape
+    pos = _positions(cache["len"], B, W, h.device)
     for layer, pool in zip(model.layers, cache["pool"]):
-        h = h + paged_attn_decode(layer.attn, cfg,
-                                  rmsnorm_apply(layer.ln1, h), pool, block,
-                                  cache_len)
-        h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
-    logits = _readout(model, cfg, h)
-    return logits, {"pool": cache["pool"], "block": block,
-                    "len": cache_len + 1}
+        h = h + paged_attn_decode(layer.attn, cfg, _norm_rows(layer.ln1, h),
+                                  pool, cache["block"], pos)
+        h = h + mlp_apply(layer.mlp, cfg, _norm_rows(layer.ln2, h),
+                          ROW_STABLE_M)
+    logits = _head(model, cfg, _norm_rows(model.final_norm, h), ROW_STABLE_M)
+    return logits, {"pool": cache["pool"], "block": cache["block"],
+                    "len": cache["len"] + W}
 
 
 def lm_paged_prefill_chunk(model: LM, cfg: ModelConfig, tokens, ws,

@@ -44,10 +44,19 @@ other engines capture at their first decode step, as a lazy jit traces.
 :func:`disable_graphs` is the counterpart of ``jax.disable_jit``.
 Temperature sampling, prefill, chunked prefill, hydrate and splice run
 eagerly. The kernel wrappers' launch counts (``COUNTS`` in ``kernels/``)
-count a replay as the eager step it stands for. Not ported yet, and
-raising ``NotImplementedError``: speculative decoding, ``mesh``,
-encdec / vlm requests (``frames`` / ``prefix_embeds``) and packed
-prefill (``prefill_pack`` where it would be active: a paged engine with
+count a replay as the eager step it stands for.
+
+Self-speculative decoding (``speculative=k``, ``runtime/speculative.py``):
+each engine step is one round, in which a coarse ``draft_bits`` view of
+the same LUT-Q indices drafts k tokens and one verify window of the
+target checks them, with one host read a round. Greedy rounds give the
+tokens of non-speculative decoding; a greedy round is one function over
+the engine's buffers, captured and replayed as the decode step is (a
+paged engine's warmup captures both); a temperature round runs eagerly.
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh``, encdec /
+vlm requests (``frames`` / ``prefix_embeds``) and packed prefill
+(``prefill_pack`` where it would be active: a paged engine with
 ``act_bits >= 32``); each message names its ROADMAP queue 1 item.
 """
 from __future__ import annotations
@@ -69,7 +78,7 @@ from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import init_paged_workspace
 from repro_torch.nn.tree import module_device
-from repro_torch.runtime import paged_kv
+from repro_torch.runtime import paged_kv, speculative as spec
 from repro_torch.runtime.serving import (adapt_prefill_cache, paged_chunk,
                                          paged_hydrate, paged_splice)
 
@@ -153,8 +162,13 @@ class Engine:
     of ``page_size`` tokens (``prefix_cache`` shares prompt pages).
     ``device``: where the engine's state lives and the run happens; the
     model must already be there. ``warmup``: a paged engine runs its
-    decode step once at construction and, on CUDA, captures it there
-    (others capture at their first decode step).
+    decode step (and speculative round) once at construction and, on
+    CUDA, captures it there (others capture at their first decode step).
+    ``speculative``: draft block length k (0: off). Each engine step is
+    then one speculative round: the ``draft_bits`` view of the model
+    (``api.draft_view``, or ``draft_params``) drafts k tokens and one
+    target forward over the k + 1 window checks them. Every request
+    needs k tokens of cache headroom (``submit`` checks it).
     """
 
     def __init__(self, model: nn.Module, cfg: ModelConfig, *,
@@ -164,11 +178,8 @@ class Engine:
                  page_size: int = 64, prefix_cache: bool = True,
                  max_chunk: int = 256, prefill_pack: bool = True,
                  warmup: bool = True, speculative: int = 0,
+                 draft_bits: int = 3, draft_params: Optional[nn.Module] = None,
                  device="cuda"):
-        if speculative:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "yet (ROADMAP queue 1, speculative "
-                                      "decoding)")
         if mesh is not None:
             raise NotImplementedError("meshed serving is not ported yet "
                                       "(ROADMAP queue 1, multi-GPU)")
@@ -193,6 +204,31 @@ class Engine:
                 "prefill); "
                 "pass prefill_pack=False (it is off anyway under "
                 "act_bits < 32)")
+        # self-speculative decoding (runtime/speculative.py); the
+        # refusals are exactness gates, as in the reference
+        self.spec_k = int(speculative)
+        self.draft_bits = int(draft_bits)
+        self.draft_report: Optional[Dict[str, Dict]] = None
+        self.n_spec_rounds = 0
+        self._spec_acc_tok = 0    # accepted tokens over live slot-rounds
+        self._spec_acc_draft = 0  # accepted draft tokens (bonus excluded)
+        self._spec_live = 0       # live slot-rounds
+        if self.spec_k:
+            if self.spec_k < 1:
+                raise ValueError(f"speculative k must be >= 1, got "
+                                 f"{self.spec_k}")
+            ok, why = api.speculative_supported(cfg)
+            if not ok:
+                raise ValueError(why)
+            eff = spec.ring_width(cfg, self.max_len)
+            if not self.paged and eff is not None and self.spec_k + 1 > eff:
+                raise ValueError(
+                    f"speculative k={self.spec_k} needs k+1 <= ring width "
+                    f"{eff} (verify window must fit in the SWA ring)")
+            if draft_params is None:
+                draft_params, self.draft_report = api.draft_view(
+                    model, draft_bits=self.draft_bits, with_report=True)
+        self.draft = draft_params if self.spec_k else None
         self._chunking: Optional[Dict[str, Any]] = None
         self.n_chunk_calls = 0
         dev = self.device
@@ -218,8 +254,14 @@ class Engine:
                                device=dev)
         self.logits = torch.zeros((self.capacity, 1, cfg.vocab),
                                   dtype=torch.float32, device=dev)
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_counts = None  # kernel launches a replay stands for
+        # a round's tokens and accepted counts (speculative engines)
+        self.spec_out = torch.zeros((self.capacity, self.spec_k + 1),
+                                    dtype=torch.int32, device=dev)
+        self.spec_acc = torch.zeros((self.capacity,), dtype=torch.int32,
+                                    device=dev)
+        #: captured steps, "decode" and "spec": (graph, the kernel
+        #: launches a replay stands for)
+        self._graphs: Dict[str, Any] = {}
         self.t_warmup = 0.0
         self.slots: List[Optional[Request]] = [None] * self.capacity
         self.queue: deque = deque()
@@ -265,11 +307,14 @@ class Engine:
         prompt = np.asarray(tokens, np.int32).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("empty prompt")
-        if len(prompt) + int(max_new) > self.max_len:
-            raise ValueError(f"prompt {len(prompt)} + max_new {max_new} "
-                             f"exceeds engine max_len {self.max_len}")
+        if len(prompt) + int(max_new) + self.spec_k > self.max_len:
+            extra = (f" (+{self.spec_k} speculative headroom)"
+                     if self.spec_k else "")
+            raise ValueError(f"prompt {len(prompt)} + max_new {max_new}"
+                             f"{extra} exceeds engine max_len {self.max_len}")
         if self.paged:
-            n_need = self.pkv.n_pages_for(len(prompt) + int(max_new))
+            n_need = self.pkv.n_pages_for(
+                len(prompt) + int(max_new) + self.spec_k)
             if n_need > self.n_pages - 1:
                 raise ValueError(
                     f"request needs {n_need} KV pages but the pool only has "
@@ -379,7 +424,7 @@ class Engine:
             req = self.queue[0]
             slot = self.slots.index(None)
             got = self.pkv.admit(slot, req.tokens,
-                                 len(req.tokens) + req.max_new)
+                                 len(req.tokens) + req.max_new + self.spec_k)
             if got is None:
                 return  # deferred: not enough pages even after eviction
             self.queue.popleft()
@@ -511,55 +556,93 @@ class Engine:
         return (self.device.type == "cuda" and not _GRAPHS_OFF
                 and not actquant.capturing())
 
-    def _capture(self) -> float:
-        """Run the decode step eagerly on a side stream (it builds the
-        kernels' libraries and makes every lazily made buffer outside
-        the graph's pool), then capture it. The eager run is a real step;
-        the capture runs nothing, and the launches it counted are taken
-        back and added on every replay. Returns the capture's seconds."""
+    def _capture(self, fn):
+        """Run ``fn`` (a step over the engine's buffers) eagerly on a side
+        stream (it builds the kernels' libraries and makes every lazily
+        made buffer outside the graph's pool), then capture it. The eager
+        run is a real step; the capture runs nothing, and the launches it
+        counted are taken back and added on every replay. Returns (graph,
+        the launches a replay stands for, the capture's seconds)."""
         with torch.cuda.device(self.device):
             main = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                self._decode_step()
+                fn()
             main.wait_stream(side)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             before = ops.read_counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                self._decode_step()
-            self._graph_counts = ops.count_delta(before)
+                fn()
+            counts = ops.count_delta(before)
             ops.set_counts(before)
-        self._graph = graph
-        return time.perf_counter() - t0
+        return graph, counts, time.perf_counter() - t0
+
+    def _run_graphed(self, key: str, fn, eager: bool = False) -> float:
+        """``fn``, a step over the engine's buffers: called (off CUDA,
+        under :func:`disable_graphs`, or ``eager``), captured as
+        ``self._graphs[key]`` at its first call, replayed after. Returns
+        the seconds spent capturing (0 but on a capturing step)."""
+        if eager or not self._graphs_on():
+            fn()
+            return 0.0
+        if key not in self._graphs:
+            graph, counts, t = self._capture(fn)
+            self._graphs[key] = (graph, counts)
+            return t
+        graph, counts = self._graphs[key]
+        graph.replay()
+        ops.add_counts(counts)
+        return 0.0
 
     def _run_decode_step(self) -> float:
-        """One decode step: called, captured or replayed. Returns the
-        seconds spent capturing (0 but on a capturing step)."""
-        if not self._graphs_on():
-            self._decode_step()
-        elif self._graph is None:
-            return self._capture()
-        else:
-            self._graph.replay()
-            ops.add_counts(self._graph_counts)
-        return 0.0
+        return self._run_graphed("decode", self._decode_step)
+
+    def _spec_step(self):
+        """One speculative round over the engine's own buffers: reads
+        ``tok``, the cache and its ``len``; writes the K/V, the round's
+        tokens and accepted counts (``spec_out``, ``spec_acc``), ``len =
+        n0 + n_acc`` and the new pending tokens into ``tok``, in place,
+        so that a CUDA graph of a greedy round replays on the same
+        addresses."""
+        gens = (None if self.greedy
+                else [r.gen if r is not None else None for r in self.slots])
+        out, n_acc, new_len = spec.spec_round(
+            self.model, self.draft, self.cfg, self.spec_k, self.tok,
+            self.cache, paged=self.paged, gens=gens,
+            temperature=self.temperature)
+        self.spec_out.copy_(out)
+        self.spec_acc.copy_(n_acc)
+        self.cache["len"].copy_(new_len)
+        self.tok.copy_(torch.take_along_dim(out, (n_acc.long() - 1)[:, None],
+                                            dim=1))
+
+    def _run_spec_step(self) -> float:
+        """One round, run as the decode step is; a temperature round (its
+        draws from the requests' generators) always eagerly."""
+        return self._run_graphed("spec", self._spec_step,
+                                 eager=not self.greedy)
 
     def _warm(self):
         """The paged engine's warmup, as the reference's ``_warm_paged``:
-        one decode step over the dead slots (``len`` 0 and all-trash
-        block rows, so its K/V writes land on the trash page only),
-        captured on CUDA; then ``len``, ``tok`` and the logits are zeroed
-        again and the step's launches are not counted."""
+        one decode step, and on a speculative engine one round, over the
+        dead slots (``len`` 0 and all-trash block rows, so their K/V
+        writes land on the trash page only), captured on CUDA; then
+        ``len``, ``tok``, the logits and the round's outputs are zeroed
+        again and the launches are not counted."""
         t0 = time.perf_counter()
         before = ops.read_counts()
         with torch.inference_mode():
-            self._run_decode_step()
-            self.cache["len"].zero_()
-            self.tok.zero_()
+            for run in ((self._run_decode_step, self._run_spec_step)
+                        if self.spec_k else (self._run_decode_step,)):
+                run()
+                self.cache["len"].zero_()
+                self.tok.zero_()
             self.logits.zero_()
+            self.spec_out.zero_()
+            self.spec_acc.zero_()
         ops.set_counts(before)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -567,11 +650,13 @@ class Engine:
 
     def paged_trace_counts(self) -> Dict[str, int]:
         """Counterpart of the reference's jit-cache counts: the decode-step
-        graphs this engine captured. A warmed paged engine on CUDA holds
-        1 from construction on and a serve must not change it; on the
-        CPU nothing is captured (0). Prefill, hydrate, splice and the
-        sampler run eagerly and have nothing to count."""
-        return {"decode": int(self._graph is not None)}
+        graphs this engine captured (and, speculative, the round's). A
+        warmed paged engine on CUDA holds 1 of each from construction on
+        and a serve must not change it; on the CPU nothing is captured
+        (0). Prefill, hydrate, splice and the sampler run eagerly and
+        have nothing to count."""
+        keys = ("decode", "spec") if self.spec_k else ("decode",)
+        return {k: int(k in self._graphs) for k in keys}
 
     # -------------------------------------------------------------- loop
 
@@ -613,7 +698,13 @@ class Engine:
                     for _ in range(min(len(free), len(self.queue)))]
             self._admit_group(free[:len(take)], take)
         active = [r for r in self.slots if r is not None]
-        if active:
+        if active and self.spec_k:
+            t0 = time.perf_counter()
+            t_capture = self._spec_round()
+            self.t_warmup += t_capture
+            self.t_decode += time.perf_counter() - t0 - t_capture
+            self.n_decode_steps += 1
+        elif active:
             t0 = time.perf_counter()
             t_capture = self._run_decode_step()
             if not self.greedy:
@@ -635,6 +726,40 @@ class Engine:
             self.t_decode += time.perf_counter() - t0 - t_capture
             self.n_decode_steps += 1
         return [self.results[r] for r in sorted(set(self.results) - before)]
+
+    def _spec_round(self) -> float:
+        """One speculative round over all slots, then ONE host read of
+        the accepted blocks (a round replaces the pending-token scheme:
+        the host must see ``n_acc`` to know how far each slot got).
+
+        An EOS or ``max_new`` inside an accepted block truncates the block
+        there and retires the request in the same step; the tokens after
+        it are dropped, as sequential decode would never have made them.
+        ``len`` still advances by the whole block, which is harmless:
+        retirement pins the freed slot's length to 0. Returns the seconds
+        spent capturing."""
+        t_capture = self._run_spec_step()
+        host = torch.cat([self.spec_out, self.spec_acc[:, None]],
+                         dim=1).cpu().numpy()
+        self.n_spec_rounds += 1
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            A = int(host[slot, -1])
+            self._spec_live += 1
+            self._spec_acc_tok += A
+            self._spec_acc_draft += A - 1
+            for t in host[slot, :A]:
+                req.out.append(int(t))
+                if ((req.eos_id is not None and int(t) == req.eos_id)
+                        or len(req.out) >= req.max_new):
+                    break
+            if self.paged:
+                self.pkv.lens[slot] += A
+            self._maybe_retire(slot)
+        if self.paged and self.cfg.window is not None:
+            self._release_window_pages()
+        return t_capture
 
     @property
     def prefilling(self) -> bool:
@@ -701,4 +826,19 @@ class Engine:
             out["prefill_chunk_calls"] = self.n_chunk_calls
             out["packed_groups"] = 0
             out["packed_requests"] = 0
+        if self.spec_k:
+            live = max(self._spec_live, 1)
+            out["speculative_k"] = self.spec_k
+            out["draft_bits"] = self.draft_bits
+            out["spec_rounds"] = self.n_spec_rounds
+            # the share of drafted tokens the verify window accepted
+            out["acceptance_rate"] = self._spec_acc_draft / (self.spec_k
+                                                             * live)
+            out["spec_tokens_per_round"] = self._spec_acc_tok / live
+            if self.draft_report is not None:
+                rep = self.draft_report.values()
+                out["draft_extra_bytes"] = sum(v["draft_bytes"] for v in rep)
+                out["draft_shared_leaves"] = sum(v["shared"] for v in rep)
+                out["draft_coarse_leaves"] = sum(not v["shared"]
+                                                 for v in rep)
         return out

@@ -11,8 +11,8 @@ Counterpart of ``repro.runtime.serving``:
   * ``generate``: static-batch generation, a thin wrapper over
     ``runtime.engine.Engine`` (one batched prefill through ``preload``,
     then the engine's decode/retire loop), so sampling, EOS retirement
-    and stats are one code path for static and continuous batching.
-    Speculative decoding is not ported yet and raises.
+    and stats are one code path for static and continuous batching,
+    self-speculative decoding included (``speculative=k``).
 """
 from __future__ import annotations
 
@@ -120,11 +120,19 @@ def paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len: int, ws):
     return m_lm.lm_paged_hydrate(cfg, pool, block_row, hist_len, ws)
 
 
+#: the engine stats that a speculative ``generate`` also returns
+_SPEC_STATS = ("speculative_k", "draft_bits", "decode_steps", "spec_rounds",
+               "acceptance_rate", "spec_tokens_per_round",
+               "draft_extra_bytes", "draft_shared_leaves",
+               "draft_coarse_leaves")
+
+
 def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
              *, steps: int, lengths=None, max_len: Optional[int] = None,
              temperature: float = 0.0, seed: int = 0,
              eos_id: Optional[int] = None, return_stats: bool = False,
-             speculative: int = 0, device="cuda"):
+             speculative: int = 0, draft_bits: int = 3, draft_params=None,
+             device="cuda"):
     """Prefill the prompt then decode ``steps`` tokens: (B, steps) int32.
 
     A thin static-batch wrapper over ``runtime.engine.Engine``: the whole
@@ -140,15 +148,22 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     "backend"}, timed on the host clock (each ends in a device read). On
     CUDA the engine of the call captures its decode step at the first
     step: ``t_warmup_s`` is that capture, kept out of ``t_decode_s``.
+    ``speculative``: draft block length k of self-speculative decoding
+    (0: off; ``runtime/speculative.py``), drafting from the
+    ``draft_bits`` view of ``model`` unless ``draft_params`` is given.
+    Greedy tokens equal ``speculative=0``'s; the cache gets k positions
+    of headroom, and the stats also hold ``spec_rounds``,
+    ``acceptance_rate``, ``spec_tokens_per_round`` and the draft view's
+    bytes (``_SPEC_STATS``).
     """
     from repro_torch.runtime.engine import Engine
 
-    if speculative:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP queue 1, speculative decoding)")
     B, P = batch["tokens"].shape
-    eng = Engine(model, cfg, capacity=B, max_len=max_len or (P + steps),
-                 temperature=temperature, seed=seed, device=device)
+    eng = Engine(model, cfg, capacity=B,
+                 max_len=max_len or (P + steps + int(speculative)),
+                 temperature=temperature, seed=seed,
+                 speculative=speculative, draft_bits=draft_bits,
+                 draft_params=draft_params, device=device)
     eng.preload(batch, steps, lengths=lengths, eos_id=eos_id)
     results = eng.run()
     gen = np.full((B, steps), 0 if eos_id is None else eos_id, np.int32)
@@ -158,8 +173,11 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if not return_stats:
         return gen
     stats = eng.stats()
-    return gen, {"t_prefill_s": stats["t_prefill_s"],
-                 "t_decode_s": stats["t_decode_s"],
-                 "t_warmup_s": stats["t_warmup_s"],
-                 "decode_tok_s": stats["decode_tok_s"],
-                 "backend": cfg.kernel_backend}
+    out = {"t_prefill_s": stats["t_prefill_s"],
+           "t_decode_s": stats["t_decode_s"],
+           "t_warmup_s": stats["t_warmup_s"],
+           "decode_tok_s": stats["decode_tok_s"],
+           "backend": cfg.kernel_backend}
+    if speculative:
+        out.update({k: v for k, v in stats.items() if k in _SPEC_STATS})
+    return gen, out

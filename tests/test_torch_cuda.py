@@ -929,7 +929,7 @@ def test_cuda_engines_of_two_geometries_keep_their_graphs(cuda_device):
             if not eng.idle:
                 eng.step()
     assert [e.paged_trace_counts() for e in engines] == [{"decode": 1}] * 2
-    assert engines[0]._graph is not engines[1]._graph
+    assert engines[0]._graphs["decode"] is not engines[1]._graphs["decode"]
     for eng, kw in zip(engines, kws):
         want, _, _ = _serve_queue(cfg, model, reqs, graphs=False, **kw)
         for a, b in zip([eng.results[i]["tokens"] for i in range(5)], want):
@@ -1240,3 +1240,124 @@ def test_cuda_adamw_step_equals_cpu_bits(cuda_device, step):
     for want, got in zip(runs["cpu"], runs[str(cuda_device)]):
         for k in shapes:
             assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decoding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Kin,N", [(64, 211), (96, 64), (2560, 6912),
+                                   (2560, 32000)])
+@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed"])
+def test_cuda_window_rows_equal_decode_rows(cuda_device, kernel, Kin, N,
+                                            dtype):
+    """Each block of B rows of a B (k + 1)-row product (a speculative
+    verify window) has the bits of those B rows alone (the decode step),
+    for B = 1, 4, 8 and k = 1..4: the split plan of up to 64 rows is the
+    8-row decode's."""
+    fn, _, _, (x, a, d) = _gemm_operands(kernel, 40, Kin, N,
+                                         getattr(torch, dtype), cuda_device)
+    for B in (1, 4, 8):
+        for k in (1, 2, 3, 4):
+            full = fn(x[:B * (k + 1)], a, d)
+            for j in range(k + 1):
+                rows = slice(j * B, (j + 1) * B)
+                assert torch.equal(fn(x[rows], a, d), full[rows]), (B, k, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,k", [(13, 4), (16, 4), (72, 1)])
+@pytest.mark.parametrize("Kin,N", [(64, 211), (2560, 6912)])
+@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed"])
+def test_cuda_wide_window_rows_equal_decode_rows(cuda_device, kernel, Kin,
+                                                 N, B, k):
+    """A window of more than ROW_STABLE_M rows runs its products over
+    whole positions at a time (``lm._rows``): 4 positions of 13 or 16
+    slots, then the rest, and one position of 72 slots. Each position's
+    B rows have the bits of those B rows alone (the decode step)."""
+    from repro_torch.models.lm import _rows
+
+    fn, _, _, (x, a, d) = _gemm_operands(kernel, B * (k + 1), Kin, N,
+                                         torch.bfloat16, cuda_device)
+    x = x.reshape(B, k + 1, Kin)
+
+    def prod(t):  # as ops.lutq_dot hands its x to the kernel
+        x2 = t.reshape(-1, Kin).contiguous()
+        return fn(x2, a, d).reshape(*t.shape[:-1], -1)
+
+    win = _rows(prod, x, build.ROW_STABLE_M)
+    for j in range(k + 1):
+        assert torch.equal(fn(x[:, j].contiguous(), a, d), win[:, j]), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_wide_speculative_engine_equals_plain(cuda_device, paged):
+    """Reduced danube through a 14-slot engine at k = 4: 70 window rows,
+    products over 4 positions (56 rows) and then 1 (14 rows). The
+    replayed rounds give the plain engine's tokens."""
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    cfg, model = _reduced_model("paged-packed4-int8")
+    reqs = synthetic_requests(cfg, 20, max_prompt=24, max_new=10, seed=2)
+    kw = dict(capacity=14, max_len=40)
+    if paged:
+        kw.update(kv_pages=96, page_size=8, prefill_pack=False)
+    runs = []
+    for k in (0, 4):
+        eng = Engine(model, cfg, speculative=k, draft_bits=2, device="cuda",
+                     **kw)
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"])
+        runs.append([r["tokens"] for r in eng.run()])
+    assert eng.stats()["spec_rounds"] > 0
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_speculative_engine_equals_plain_and_eager(cuda_device, paged):
+    """Reduced danube (packed, int8 KV, act_bits=32) through a 2-slot
+    speculative engine: the replayed rounds give the tokens of the plain
+    engine and of the same rounds stepped eagerly, with the same launch
+    counts; a paged engine captures its decode step and its round at
+    construction and a serve captures nothing more."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import (Engine, disable_graphs,
+                                            synthetic_requests)
+
+    cfg, model = _reduced_model("paged-packed4-int8")
+    reqs = synthetic_requests(cfg, 5, max_prompt=30, max_new=8, seed=1)
+    kw = dict(PAGED, max_len=40) if paged else dict(capacity=2, max_len=40)
+    runs = {}
+    for name, k, graphs in (("plain", 0, True), ("graph", 2, True),
+                            ("eager", 2, False)):
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            eng = Engine(model, cfg, speculative=k, draft_bits=2,
+                         device="cuda", **kw)
+            traces = eng.paged_trace_counts()
+            for r in reqs:
+                eng.submit(r["tokens"], max_new=r["max_new"])
+            before = ops.read_counts()
+            toks = [r["tokens"] for r in eng.run()]
+            torch.cuda.synchronize()
+            runs[name] = (toks, ops.count_delta(before), eng.stats())
+        if name == "graph":
+            want = {"decode": int(paged), "spec": int(paged)}
+            assert traces == want
+            assert eng.paged_trace_counts() == {"decode": int(paged),
+                                                "spec": 1}
+    for name in ("graph", "eager"):
+        for a, b in zip(runs[name][0], runs["plain"][0]):
+            np.testing.assert_array_equal(a, b)
+    assert runs["graph"][1] == runs["eager"][1]
+    st = runs["graph"][2]
+    assert st["spec_rounds"] == st["decode_steps"] > 0
+    # per round: k draft forwards and one window on the packed kernel
+    n_fwd = 7 * cfg.n_layers + 1
+    assert runs["graph"][1][1]["launches"] >= 3 * n_fwd * st["spec_rounds"]

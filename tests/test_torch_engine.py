@@ -255,9 +255,10 @@ def test_synthetic_requests_match_jax():
 
 def test_engine_refuses_unported_options(fp):
     _, tcfg, _, model = fp
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, speculative decoding"):
-        Engine(model, tcfg, speculative=2, device="cpu")
+    # speculative decoding is ported: it refuses what the reference
+    # refuses (tests/test_torch_speculative.py holds the rest)
+    with pytest.raises(ValueError, match="activation quantization"):
+        Engine(model, tcfg.replace(act_bits=8), speculative=2, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, multi-GPU"):
         Engine(model, tcfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="packed prefill"):

@@ -105,12 +105,15 @@ def test_cli_runs_on_cpu_and_launches_nothing(capsys, flags):
 
 
 def test_generate_refuses_unported_options(jq):
-    """Speculative decoding is not ported; temperature and eos_id are
+    """Speculative decoding under 8-bit activations is refused, as the
+    reference refuses it (tests/test_torch_speculative.py holds the
+    ported path); temperature and eos_id are ported
     (tests/test_torch_engine.py holds them to the serving contract)."""
     _, tcfg = cfg_pair()
+    assert tcfg.act_bits == 8
     model = interop.from_jax(to_np(jq), tcfg)
     toks = torch.from_numpy(tokens(tcfg, B, P))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="activation quantization"):
         tserving.generate(model, tcfg, {"tokens": toks}, steps=2,
                           device="cpu", speculative=2)
     for kw in (dict(temperature=0.7), dict(eos_id=3)):
