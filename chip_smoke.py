@@ -136,15 +136,19 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    GEMM kernel 169 x (decode steps + prefill chunks), no plain version;
    every request ends at max_new; the allocator's invariants hold with
    only prefix-cache pages held. Each run serves its queue twice: an
-   engine that captured its decode step at construction replays it (its
-   decode graphs 1 after the warmup and after the serve), then an engine
-   made and stepped inside disable_graphs() runs the same step eagerly;
-   the tokens and counts of the two must be equal. Prints, for both,
-   decode tok/s, goodput, TTFT p50/p99, latency p50/p95, the warmup's
-   seconds, pages peak, prefix hit rate, peak memory (allocated and
-   reserved), the card's idle share over one profiled decode step and
-   the wall of the next decode step without the profiler, then both
-   side by side.
+   engine that captured at construction its decode step, one prefill
+   chunk graph a width of prefill_buckets(max_chunk) (16-256), the
+   hydrate and the splice replays them (trace counts decode, hydrate,
+   splice 1 and chunk 5 after the warmup and after the serve), then an
+   engine made and stepped inside disable_graphs() runs the same
+   functions eagerly (all counts 0); the tokens and counts of the two
+   must be equal. Prints, for both, prefill seconds and ms a chunk on
+   the engine's clock, one 256-wide chunk timed between synchronizes
+   on the idle engine, decode tok/s, goodput, TTFT p50/p99, latency
+   p50/p95, wall, the warmup's seconds, pages peak, prefix hit rate,
+   peak memory (allocated and reserved), the card's idle share over one
+   profiled decode step and the wall of the next decode step without
+   the profiler, then both side by side.
 3d. the reduced config through the paged engine (int8 and f32 pages)
    and the slot engine: the same tokens on the card and on the CPU.
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
@@ -175,9 +179,11 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    169 times for the draft (plus one prefill forward), and no plain
    version runs. Then one paged engine (8 slots, 160 pages, int8 KV,
    prefill_pack=False, fused target) over run (a)'s queue, speculative
-   and not: the same tokens request by request, its graphs (decode and
-   spec) 1 each after the warmup and unchanged by the serve, paged
-   attention 24 x (2k + 1) launches a round. Each run logs decode tok/s,
+   and not: the same tokens request by request, its graphs (decode,
+   spec, hydrate, splice 1 each, chunk one a width) after the warmup
+   and unchanged by the serve, paged attention 24 x (2k + 1) launches a
+   round; the speculative engine serves the queue again inside
+   disable_graphs(), with the same tokens and counts. Each run logs decode tok/s,
    the round's (or step's) ms, acceptance, tokens a round and peak
    memory, the engine also goodput, one profiled round (or step: wall,
    device busy, the heaviest kernels) and the next one without the
@@ -1565,10 +1571,21 @@ def engine_run(name, view, cfg, r, gemm, calls_per_forward):
     graph, eager = out["graph"], out["eager"]
     same = all(np.array_equal(a, b)
                for a, b in zip(graph["tokens"], eager["tokens"]))
-    log(f"engine run ({name}) graph | eager: decode "
+    log(f"engine run ({name}) graph | eager: prefill "
+        f"{graph['t_prefill_s']:.2f} | {eager['t_prefill_s']:.2f} s over "
+        f"{graph['prefill_chunk_calls']} chunks ("
+        f"{graph['prefill_ms_a_chunk']:.1f} | "
+        f"{eager['prefill_ms_a_chunk']:.1f} ms a chunk on the engine's "
+        f"clock; one {graph['chunk_width']}-wide chunk between "
+        f"synchronizes {graph['chunk_ms']:.2f} | {eager['chunk_ms']:.2f} "
+        f"ms), wall {graph['wall_s']:.2f} | {eager['wall_s']:.2f} s "
+        f"(profiler {graph['profiler_s']:.2f} | {eager['profiler_s']:.2f}), "
+        f"decode "
         f"{graph['decode_tok_s']:.1f} | {eager['decode_tok_s']:.1f} tok/s, "
         f"goodput {graph['goodput_tok_s']:.1f} | "
-        f"{eager['goodput_tok_s']:.1f} tok/s, TTFT p50 "
+        f"{eager['goodput_tok_s']:.1f} tok/s (without the profiler "
+        f"{graph['goodput_net_tok_s']:.1f} | "
+        f"{eager['goodput_net_tok_s']:.1f}), TTFT p50 "
         f"{graph['ttft_p50_s'] * 1e3:.0f} | {eager['ttft_p50_s'] * 1e3:.0f}"
         f" ms, p99 {graph['ttft_p99_s'] * 1e3:.0f} | "
         f"{eager['ttft_p99_s'] * 1e3:.0f} ms, profiled step "
@@ -1605,8 +1622,11 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
                      max_len=r["max_len"], kv_pages=r["kv_pages"],
                      page_size=ENGINE_PAGE, device="cuda")
         traces = eng.paged_trace_counts()
-        check(traces == {"decode": int(mode == "graph")},
-              f"run ({name}, {mode}): {traces} decode graphs after warmup")
+        check(traces == _paged_traces(eng, mode == "graph"),
+              f"run ({name}, {mode}): {traces} graphs after warmup")
+        log(f"  run ({name}, {mode}): graphs {traces} after a "
+            f"{eng.t_warmup:.3f} s warmup; graph pools: "
+            f"{_graph_pools(eng)}")
         for req in r["requests"]:
             eng.submit(req["tokens"], max_new=req["max_new"])
         torch.cuda.synchronize()
@@ -1618,8 +1638,11 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
     peak = torch.cuda.max_memory_allocated() / 2**30
     reserved = torch.cuda.max_memory_reserved() / 2**30
     st = eng.stats()
+    with _mode(mode):
+        chunk_ms = _chunk_ms(eng)
     res = [eng.results[i] for i in sorted(eng.results)]
     steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
+    st["prefill_ms_a_chunk"] = st["t_prefill_s"] / max(chunks, 1) * 1e3
     plan = paged_attn.launch_plan(
         r["capacity"], cfg.n_kv_heads, eng.n_blocks, ENGINE_PAGE,
         cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads,
@@ -1627,7 +1650,9 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
         sms=build.sm_count(torch.device("cuda", torch.cuda.current_device())))
     variant = ("paged_attention_multipass" if plan["multipass"]
                else "paged_attention")
-    wall_ms, busy_ms, rows = profiled
+    wall_ms, busy_ms, rows, prof_s = profiled
+    st["profiler_s"] = prof_s
+    st["goodput_net_tok_s"] = st["new_tokens"] / (st["wall_s"] - prof_s)
     pa_ms = sum(x[0] for x in rows if "paged_decode" in x[2])
     log(f"engine run ({name}, {mode}) [{st['backend']}, {r['kv_bits']}-bit "
         f"KV, capacity {r['capacity']}, {len(res)} requests]: decode "
@@ -1637,8 +1662,13 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
         f"{st['ttft_p99_s'] * 1e3:.0f} ms | latency p50 "
         f"{st['p50_latency_s'] * 1e3:.0f} ms p95 "
         f"{st['p95_latency_s'] * 1e3:.0f} ms | {steps} decode steps, "
-        f"{chunks} prefill chunks, prefill {st['t_prefill_s']:.2f} s, "
-        f"decode {st['t_decode_s']:.2f} s, wall {st['wall_s']:.2f} s | "
+        f"{chunks} prefill chunks, prefill {st['t_prefill_s']:.2f} s "
+        f"({st['prefill_ms_a_chunk']:.1f} ms a chunk; one "
+        f"{eng.buckets[-1]}-wide chunk between synchronizes "
+        f"{chunk_ms:.2f} ms), decode {st['t_decode_s']:.2f} s, wall "
+        f"{st['wall_s']:.2f} s ({prof_s:.2f} s of it the profiler's start,"
+        f" stop and reading; goodput without it "
+        f"{st['goodput_net_tok_s']:.1f} tok/s) | "
         f"pages peak {st['pages_peak']} of {st['kv_pages'] - 1} | prefix "
         f"hits {st['prefix_hits']}/{st['prefix_queries']} "
         f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB "
@@ -1681,6 +1711,7 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
             f"window, their device entries 0")
     out = dict(st, peak_gib=peak, reserved_gib=reserved,
                idle=1 - busy_ms / wall_ms, timed_step_ms=timed_ms,
+               chunk_ms=chunk_ms, chunk_width=eng.buckets[-1],
                launches={k: counts[k] for k in
                          ("paged_attention", "paged_attention_multipass",
                           gemm)}, counts=counts,
@@ -1690,14 +1721,77 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
     return out
 
 
+def _paged_traces(eng, graphs: bool) -> dict:
+    """The graphs a warmed paged engine holds from its construction on:
+    the decode step (and the speculative round), one chunk graph a
+    width of ``prefill_buckets(max_chunk)``, the hydrate and the splice;
+    none when it was made inside disable_graphs()."""
+    from repro_torch.runtime import paged_kv
+
+    n = int(graphs)
+    out = {"decode": n, "hydrate": n, "splice": n,
+           "chunk": n * len(paged_kv.prefill_buckets(eng.max_chunk))}
+    if eng.spec_k:
+        out["spec"] = n
+    return out
+
+
+def _graph_pools(eng) -> str:
+    """MiB reserved in the engine's graph memory pools, from the
+    allocator's segments: the pool the prefill graphs share, and the
+    decode step's own ("not measured" where segments name no pool)."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not eng._graphs or not all("segment_pool_id" in g for g in segs):
+        return "not measured"
+    pools = {"prefill": eng._prefill_pool,
+             "decode": eng._graphs["decode"][0].pool()}
+    mib = {k: sum(g["total_size"] for g in segs
+                  if tuple(g["segment_pool_id"]) == tuple(v)) / 2**20
+           for k, v in pools.items()}
+    return ", ".join(f"{k} {v:.1f} MiB" for k, v in mib.items())
+
+
+def _chunk_ms(eng, reps: int = 3) -> float:
+    """Host ms of one chunk of the idle engine's widest bucket at start
+    0, between synchronizes, as the current mode runs it (the replayed
+    graph, or the function eagerly inside disable_graphs()); one call
+    first, then the mean of ``reps``. The workspace it writes is zeroed
+    by the next hydrate, and its launches are taken back."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    check(eng.idle, "the chunk is timed on an idle engine")
+    width = eng.buckets[-1]
+    before = ops.read_counts()
+    eng.chunk_tok.zero_()
+    eng.chunk_start.zero_()
+    eng.chunk_n_real.fill_(width)
+    fn = functools.partial(eng._prefill_chunk, width)
+    with torch.inference_mode():
+        eng._run_graphed(f"chunk{width}", fn, prefill=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng._run_graphed(f"chunk{width}", fn, prefill=True)
+        torch.cuda.synchronize()
+    ops.set_counts(before)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def _serve_pass(name, mode, eng, r):
     """Engine.run, one step at a time. The first step that only decodes
     (every slot live, or nothing left to admit) is profiled and the next
     such step timed without the profiler, each between synchronizes. Run
     (c) keeps each step's device block row (a copy on the card, no sync)
     and checks after the run that the blocks released behind the window
-    read 0. Returns (the profile, the unprofiled step's ms, the most
-    blocks released)."""
+    read 0. Returns (the profile: wall ms, busy ms, kernel rows and the
+    seconds the profiler itself held the serve; the unprofiled step's
+    ms; the most blocks released)."""
     import torch
 
     profiled, timed_ms, rows = None, None, []
@@ -1709,8 +1803,12 @@ def _serve_pass(name, mode, eng, r):
             def one_step():
                 eng.step()
                 torch.cuda.synchronize()
+            t0 = time.perf_counter()
             profiled = profile_run(one_step, f"one decode step, run ({name},"
                                    f" {mode}), {live} live slots")
+            # the profiler's own start, stop and trace reading, which the
+            # serve's wall holds beside the step
+            profiled += (time.perf_counter() - t0 - profiled[0] / 1e3,)
         elif decode_only and timed_ms is None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1985,33 +2083,35 @@ def serve_speculative(views, cfg):
     run_cfg = scfg.replace(kernel_backend="fused", kv_cache_bits=8)
     reqs = synthetic_requests(cfg, ENGINE_QUEUE, max_prompt=512, max_new=64,
                               seed=0)
-    tokens = {}
-    for k in (0, SPEC_K):
+    tokens, passes = {}, {}
+    # the speculative engine also serves eagerly, inside disable_graphs()
+    for k, mode in ((0, "graph"), (SPEC_K, "graph"), (SPEC_K, "eager")):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        eng = Engine(views["lutq_matmul"], run_cfg, capacity=8,
-                     max_len=512 + 64 + k, kv_pages=160,
-                     page_size=ENGINE_PAGE, prefill_pack=False,
-                     speculative=k, draft_bits=SPEC_DRAFT_BITS,
-                     draft_params=draft if k else None, device="cuda")
-        traces = eng.paged_trace_counts()
-        check(traces == (dict(decode=1, spec=1) if k else dict(decode=1)),
-              f"paged speculative engine k={k}: {traces} graphs after "
-              f"the warmup")
-        for req in reqs:
-            eng.submit(req["tokens"], max_new=req["max_new"])
-        torch.cuda.synchronize()
-        _reset_counts()
-        profiled, timed_ms, _ = _serve_pass(f"spec k={k}", "graph", eng,
-                                            {"capacity": 8})
-        torch.cuda.synchronize()
+        with _mode(mode):
+            eng = Engine(views["lutq_matmul"], run_cfg, capacity=8,
+                         max_len=512 + 64 + k, kv_pages=160,
+                         page_size=ENGINE_PAGE, prefill_pack=False,
+                         speculative=k, draft_bits=SPEC_DRAFT_BITS,
+                         draft_params=draft if k else None, device="cuda")
+            traces = eng.paged_trace_counts()
+            check(traces == _paged_traces(eng, mode == "graph"),
+                  f"paged speculative engine k={k} ({mode}): {traces} "
+                  f"graphs after the warmup")
+            for req in reqs:
+                eng.submit(req["tokens"], max_new=req["max_new"])
+            torch.cuda.synchronize()
+            _reset_counts()
+            profiled, timed_ms, _ = _serve_pass(f"spec k={k}", mode, eng,
+                                                {"capacity": 8})
+            torch.cuda.synchronize()
         counts = _read_counts()
         check(eng.paged_trace_counts() == traces,
-              f"paged speculative engine k={k}: the serve captured more "
-              f"graphs")
+              f"paged speculative engine k={k} ({mode}): the serve "
+              f"captured more graphs")
         st = eng.stats()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        wall_ms, busy_ms, _ = profiled
+        wall_ms, busy_ms, _, prof_s = profiled
         steps, chunks = st["decode_steps"], st["prefill_chunk_calls"]
         want = {"lutq_matmul": CALLS_PER_FORWARD * (steps + chunks),
                 "lutq_gemv_packed": k * CALLS_PER_FORWARD * steps,
@@ -2020,15 +2120,21 @@ def serve_speculative(views, cfg):
                "lutq_gemv_packed": counts["lutq_gemv_packed"],
                "paged": counts["paged_attention"]
                + counts["paged_attention_multipass"]}
-        line = (f"speculative paged engine k={k} [fused, int8 KV, 8 slots, "
-                f"{len(reqs)} requests]: decode {st['decode_tok_s']:.1f} "
+        line = (f"speculative paged engine k={k} ({mode}) [fused, int8 KV, "
+                f"8 slots, {len(reqs)} requests]: decode "
+                f"{st['decode_tok_s']:.1f} "
                 f"tok/s | goodput {st['goodput_tok_s']:.1f} tok/s | {steps} "
                 f"{'rounds' if k else 'steps'} of "
                 f"{st['t_decode_s'] / max(steps, 1) * 1e3:.2f} ms, "
                 f"{chunks} prefill chunks, prefill {st['t_prefill_s']:.2f} "
-                f"s, wall {st['wall_s']:.2f} s | TTFT p50 "
-                f"{st['ttft_p50_s'] * 1e3:.0f} ms | warmup "
-                f"{st['t_warmup_s']:.3f} s | peak {peak:.2f} GiB | a "
+                f"s ({st['t_prefill_s'] / max(chunks, 1) * 1e3:.1f} ms a "
+                f"chunk), wall {st['wall_s']:.2f} s ({prof_s:.2f} s of it "
+                f"the profiler's start, stop and reading) | TTFT p50 "
+                f"{st['ttft_p50_s'] * 1e3:.0f} ms p99 "
+                f"{st['ttft_p99_s'] * 1e3:.0f} ms | warmup "
+                f"{st['t_warmup_s']:.3f} s | peak {peak:.2f} GiB "
+                f"({torch.cuda.max_memory_reserved() / 2**30:.2f} reserved) "
+                f"| a "
                 f"{'round' if k else 'step'} {timed_ms:.2f} ms without the "
                 f"profiler, {wall_ms:.1f} ms profiled with the card busy "
                 f"{busy_ms:.2f} ms")
@@ -2045,7 +2151,20 @@ def serve_speculative(views, cfg):
             check(r["n_new"] == req["max_new"] and r["finish"] == "length",
                   f"paged speculative engine k={k} request {r['rid']}: "
                   f"{r['n_new']} of {req['max_new']} tokens")
-        tokens[k] = [r["tokens"] for r in res]
+        toks = [r["tokens"] for r in res]
+        passes[k, mode] = (toks, counts)
+        if mode == "eager":
+            g_toks, g_counts = passes[k, "graph"]
+            check(all(np.array_equal(a, b) for a, b in zip(toks, g_toks))
+                  and counts == g_counts,
+                  f"paged speculative engine k={k}: graph and eager passes "
+                  f"give other tokens or counts")
+            log(f"speculative paged engine k={k}: graph and eager passes "
+                f"give the same tokens and launch counts")
+            del eng
+            torch.cuda.empty_cache()
+            continue
+        tokens[k] = toks
         if k:
             launches["lutq_matmul"] += got["lutq_matmul"]
             launches["lutq_gemv_packed"] += got["lutq_gemv_packed"]

@@ -527,28 +527,29 @@ def lm_paged_decode(model: LM, cfg: ModelConfig, tokens, cache):
                     "len": cache["len"] + W}
 
 
-def lm_paged_prefill_chunk(model: LM, cfg: ModelConfig, tokens, ws,
-                           start: int, n_real: int):
+def lm_paged_prefill_chunk(model: LM, cfg: ModelConfig, tokens, ws, start,
+                           n_real):
     """One prompt chunk. tokens: (1, C); ws: the workspace, holding K/V
     of positions [0, start) (earlier chunks or a prefix-cache hydrate).
 
     Writes the chunk's K/V at [start, start + C) and returns (logits
     (1, 1, V) at chunk row ``n_real - 1``, ws). Rows past ``n_real`` are
     padding: their logits are not read and the splice skips them.
+    ``start`` and ``n_real`` are ints or 0-dim int32 tensors on the
+    workspace's device, the reference's traced scalars: with tensors
+    nothing is read on the host, so one CUDA graph of a chunk width
+    replays at every start. The caller keeps ``start + C`` within the
+    workspace.
     """
     _check_dense(cfg)
     C = tokens.shape[1]
-    wws = ws[0]["k"].shape[1]
-    if start + C > wws:
-        raise ValueError(f"chunk [{start}, {start + C}) overruns the "
-                         f"workspace of {wws} positions")
     h = _embed_tokens(model, cfg, tokens)
     positions = start + torch.arange(C, device=h.device)[None, :]
     for layer, w in zip(model.layers, ws):
         q, k, v = _qkv(layer.attn, cfg, rmsnorm_apply(layer.ln1, h),
                        positions)
-        w["k"][:, start:start + C] = k.to(w["k"].dtype)
-        w["v"][:, start:start + C] = v.to(w["v"].dtype)
+        w["k"].index_copy_(1, positions[0], k.to(w["k"].dtype))
+        w["v"].index_copy_(1, positions[0], v.to(w["v"].dtype))
         o = flash_attention(q, w["k"], w["v"], window=cfg.window,
                             q_block=cfg.attn_q_block,
                             kv_block=cfg.attn_kv_block, q_offset=start)
@@ -556,27 +557,36 @@ def lm_paged_prefill_chunk(model: LM, cfg: ModelConfig, tokens, ws,
                              backend=cfg.kernel_backend,
                              act_bits=cfg.act_bits)
         h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
-    return _readout(model, cfg, h[:, n_real - 1:n_real]), ws
+    last = torch.as_tensor(n_real, device=h.device).reshape(1) - 1
+    return _readout(model, cfg, h.index_select(1, last)), ws
 
 
-def lm_paged_splice(cfg: ModelConfig, pool, ws, block_row, start: int,
-                    length: int):
+def lm_paged_splice(cfg: ModelConfig, pool, ws, block_row, start, length):
     """Commit workspace positions [start, length) to the page pool
-    through ``block_row`` (NB,) int32. ``start`` is the prefix-cache hit
-    length: shared hit pages already hold their content and are live
-    for other slots, so they are never rewritten. int8 KV quantizes
-    here, per entry, with the slot path's ``_kv_quant``."""
-    if length <= start:
-        return pool
+    through ``block_row`` (NB,) int32; every other workspace position is
+    written to the trash page (block 0), as the reference's fixed-shape
+    splice does, so ``start`` and ``length`` (ints or 0-dim tensors) are
+    never read on the host. Those positions write zeros: many land on
+    one trash entry, and only equal values make the result independent
+    of the order of the writes (dead slots average the trash page, and
+    under dynamic activation scales their rows reach the live rows'
+    scale). ``start`` is the prefix-cache hit length: shared hit pages
+    already hold their content and are live for other slots, so they
+    are never rewritten. int8 KV quantizes here, per entry, with the
+    slot path's ``_kv_quant``."""
     page = pool[0]["k"].shape[1]
     dev = pool[0]["k"].device
-    pos = torch.arange(start, length, device=dev)
     row = torch.as_tensor(block_row, device=dev).long()
-    phys, off = row[pos // page], pos % page
+    NB = row.shape[0]
+    pos = torch.arange(ws[0]["k"].shape[1], device=dev)
+    valid = (pos >= start) & (pos < length)
+    phys = torch.where(valid, row[torch.clamp(pos // page, 0, NB - 1)], 0)
+    off = pos % page
     quant = _paged_quant(cfg)
+    live = valid[:, None, None]
     for c, w in zip(pool, ws):
         for key in ("k", "v"):
-            val = w[key][0, start:length]
+            val = torch.where(live, w[key][0], 0)
             if quant:
                 val, sc = _kv_quant(val, 8)
                 c[f"{key}_scale"][phys, off] = sc
@@ -584,21 +594,23 @@ def lm_paged_splice(cfg: ModelConfig, pool, ws, block_row, start: int,
     return pool
 
 
-def lm_paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len: int, ws):
+def lm_paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len, ws):
     """Rebuild the workspace prefix [0, hist_len) from cached pages (a
-    prefix-cache hit), zero beyond. Exact for fp pools; for int8 pools
-    the hydrated prefix is the dequantized cache."""
+    prefix-cache hit), zero beyond: the whole row is gathered and masked
+    by ``hist_len`` (an int or a 0-dim tensor, never read on the host).
+    Exact for fp pools; for int8 pools the hydrated prefix is the
+    dequantized cache."""
     dev = pool[0]["k"].device
     row = torch.as_tensor(block_row, device=dev)[None]
     quant = _paged_quant(cfg)
+    width = row.shape[1] * pool[0]["k"].shape[1]
+    live = (torch.arange(width, device=dev) < hist_len)[:, None, None]
     for c, w in zip(pool, ws):
         for key in ("k", "v"):
-            w[key].zero_()
-            if hist_len <= 0:
-                continue
-            val = gather_pages(c[key], row)[0, :hist_len]
+            val = gather_pages(c[key], row)[0]
             if quant:
-                sc = gather_pages(c[f"{key}_scale"], row)[0, :hist_len]
+                sc = gather_pages(c[f"{key}_scale"], row)[0]
                 val = val.to(torch.bfloat16) * sc[..., None]
-            w[key][0, :hist_len] = val.to(w[key].dtype)
+            w[key][0, :width] = torch.where(live, val.to(w[key].dtype), 0)
+            w[key][0, width:].zero_()
     return ws

@@ -14,7 +14,7 @@ kernel is ``kernels/paged_attn.py``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -36,21 +36,28 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = 512,
-                    kv_block: int = 512, q_offset: int = 0) -> torch.Tensor:
+                    kv_block: int = 512,
+                    q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """Causal attention. q: (B,S,H,Dh); k,v: (B,Skv,Hkv,Dh[v]) ->
     (B,S,H,Dv).
 
     ``q_offset``: position of q's first row within the KV sequence.
     Chunked prefill attends a chunk of queries against the whole
     workspace with ``q_offset=start``, so the causal and window masks
-    see global positions.
+    see global positions. A 0-dim integer tensor is read on the device,
+    as the reference's traced scalar is: the window's slab start is
+    clamped there and its K/V blocks are gathered at device indices, so
+    a CUDA graph of the call replays at any offset; the output equals
+    that of the ``int`` offset of the same value bit for bit.
     """
     B, S, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = H // Hkv
     scale = Dh ** -0.5
-    q_offset = int(q_offset)
+    traced = isinstance(q_offset, torch.Tensor)
+    if not traced:
+        q_offset = int(q_offset)
     q_block = min(q_block, S)
     kv_block = min(kv_block, Skv)
     S0, Skv0 = S, Skv
@@ -81,17 +88,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for qi in range(nq):
         qblk = qr[:, qi]  # (B, bq, Hkv, G, Dh)
         q_start = q_offset + qi * q_block
-        start = (min(max(q_start + q_block - slab, 0), Skv - slab)
-                 if slab < Skv else 0)
+        if slab == Skv:
+            start = 0
+        elif traced:
+            start = torch.clamp(q_start + q_block - slab, 0, Skv - slab)
+        else:
+            start = min(max(q_start + q_block - slab, 0), Skv - slab)
         q_pos = q_start + torch.arange(q_block, device=dev)
         m = torch.full((B, Hkv, G, q_block, 1), NEG_INF, device=dev)
         l = torch.zeros((B, Hkv, G, q_block, 1), device=dev)
         acc = torch.zeros((B, Hkv, G, q_block, Dv), device=dev)
         for j in range(nkv):
             lo = start + j * kv_block
-            kj = k[:, lo:lo + kv_block]
-            vj = v[:, lo:lo + kv_block]
             k_pos = lo + torch.arange(kv_block, device=dev)
+            if isinstance(lo, torch.Tensor):
+                kj = k.index_select(1, k_pos)
+                vj = v.index_select(1, k_pos)
+            else:
+                kj = k[:, lo:lo + kv_block]
+                vj = v[:, lo:lo + kv_block]
             s = _f32_einsum("bqhgd,bkhd->bhgqk", qblk, kj)
             mask = q_pos[:, None] >= k_pos[None, :]
             if window is not None:

@@ -42,9 +42,17 @@ the reference's ``_warm_paged`` compiles it (``stats()["t_warmup_s"]``);
 other engines capture at their first decode step, as a lazy jit traces.
 ``paged_trace_counts`` counts the graphs an engine captured and
 :func:`disable_graphs` is the counterpart of ``jax.disable_jit``.
-Temperature sampling, prefill, chunked prefill, hydrate and splice run
-eagerly. The kernel wrappers' launch counts (``COUNTS`` in ``kernels/``)
-count a replay as the eager step it stands for.
+
+A paged engine's chunked prefill is captured the same way, as the
+reference jits it: one graph per chunk width of
+``paged_kv.prefill_buckets(max_chunk)`` (``start`` and ``n_real`` are
+0-dim device buffers, the reference's traced scalars), one for the
+hydrate and one for the splice, all over the engine's own buffers and
+sharing one memory pool; a warmed engine captures them at construction
+beside the decode step. The slot pool's batched prefill, the first
+token's sampling and temperature sampling run eagerly. The kernel
+wrappers' launch counts (``COUNTS`` in ``kernels/``) count a replay as
+the eager step it stands for.
 
 Self-speculative decoding (``speculative=k``, ``runtime/speculative.py``):
 each engine step is one round, in which a coarse ``draft_bits`` view of
@@ -63,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -89,9 +98,10 @@ _GRAPHS_OFF = 0
 
 @contextlib.contextmanager
 def disable_graphs():
-    """Counterpart of ``jax.disable_jit()``: engine decode steps taken
-    inside the block run the step function eagerly on CUDA too, with no
-    capture and no replay (an engine's graph, if it has one, is kept)."""
+    """Counterpart of ``jax.disable_jit()``: engine decode steps, rounds
+    and prefill chunks, hydrates and splices taken inside the block run
+    their functions eagerly on CUDA too, with no capture and no replay
+    (an engine's graphs, if it has them, are kept)."""
     global _GRAPHS_OFF
     _GRAPHS_OFF += 1
     try:
@@ -162,8 +172,9 @@ class Engine:
     of ``page_size`` tokens (``prefix_cache`` shares prompt pages).
     ``device``: where the engine's state lives and the run happens; the
     model must already be there. ``warmup``: a paged engine runs its
-    decode step (and speculative round) once at construction and, on
-    CUDA, captures it there (others capture at their first decode step).
+    decode step (and speculative round), every prefill chunk width, the
+    hydrate and the splice once at construction and, on CUDA, captures
+    them there (others capture each at its first call).
     ``speculative``: draft block length k (0: off). Each engine step is
     then one speculative round: the ``draft_bits`` view of the model
     (``api.draft_view``, or ``draft_params``) drafts k tokens and one
@@ -247,6 +258,20 @@ class Engine:
             self.wws = paged_kv.workspace_len(self.max_len, self.n_blocks,
                                               self.page_size)
             self.ws = init_paged_workspace(cfg, self.wws, device=dev)
+            self.buckets = paged_kv.prefill_buckets(self.max_chunk)
+            # the chunk's inputs and output, where its graphs read and
+            # write them: each width replays on its own leading columns
+            # of the token buffer (a prompt tail pads to at least 16)
+            self.chunk_tok = torch.zeros((1, max(self.max_chunk, 16)),
+                                         dtype=torch.int32, device=dev)
+            scalar = functools.partial(torch.zeros, (), dtype=torch.int32,
+                                       device=dev)
+            self.chunk_start, self.chunk_n_real = scalar(), scalar()
+            self.chunk_hit, self.chunk_length = scalar(), scalar()
+            self.chunk_row = torch.zeros((self.n_blocks,), dtype=torch.int32,
+                                         device=dev)
+            self.chunk_logits = torch.zeros((1, 1, cfg.vocab),
+                                            dtype=torch.float32, device=dev)
         else:
             self.cache = api.init_cache(cfg, self.capacity, self.max_len,
                                         device=dev)
@@ -259,9 +284,11 @@ class Engine:
                                     dtype=torch.int32, device=dev)
         self.spec_acc = torch.zeros((self.capacity,), dtype=torch.int32,
                                     device=dev)
-        #: captured steps, "decode" and "spec": (graph, the kernel
-        #: launches a replay stands for)
+        #: captured steps, "decode", "spec", "chunk<width>", "hydrate" and
+        #: "splice": (graph, the kernel launches a replay stands for)
         self._graphs: Dict[str, Any] = {}
+        #: the memory pool the prefill graphs share (made at the first)
+        self._prefill_pool = None
         self.t_warmup = 0.0
         self.slots: List[Optional[Request]] = [None] * self.capacity
         self.queue: deque = deque()
@@ -441,34 +468,41 @@ class Engine:
         in the trash page meanwhile. The workspace is always hydrated:
         from cached pages on a prefix hit, zeros otherwise."""
         t0 = time.perf_counter()
-        row_d = torch.from_numpy(row).to(self.device)
-        paged_hydrate(self.cfg, self.cache["pool"], row_d, hit_tokens,
-                      self.ws)
+        self._to_device(row, self.chunk_row)
+        self.chunk_hit.fill_(hit_tokens)
+        t_capture = self._run_graphed("hydrate", self._hydrate_step,
+                                      prefill=True)
         self._chunking = {
-            "req": req, "slot": slot, "row": row_d, "hit": hit_tokens,
+            "req": req, "slot": slot,
             "plan": paged_kv.chunk_plan(len(req.tokens), hit_tokens,
                                         self.max_chunk),
             "i": 0,
         }
-        self.t_prefill += time.perf_counter() - t0
+        self._prefill_time(t0, t_capture)
 
     def _chunk_step(self):
         st = self._chunking
         t0 = time.perf_counter()
         start, width, n_real = st["plan"][st["i"]]
+        if start + width > self.wws:
+            raise ValueError(f"chunk [{start}, {start + width}) overruns "
+                             f"the workspace of {self.wws} positions")
         req = st["req"]
         toks = np.zeros((1, width), np.int32)
         toks[0, :n_real] = req.tokens[start:start + n_real]
-        logits, self.ws = paged_chunk(self.model, self.cfg,
-                                      torch.from_numpy(toks).to(self.device),
-                                      self.ws, start, n_real)
+        self._to_device(toks, self.chunk_tok[:, :width])
+        self.chunk_start.fill_(start)
+        self.chunk_n_real.fill_(n_real)
+        t_capture = self._run_graphed(
+            f"chunk{width}", functools.partial(self._prefill_chunk, width),
+            prefill=True)
         self.n_chunk_calls += 1
         st["i"] += 1
-        self.t_prefill += time.perf_counter() - t0
+        self._prefill_time(t0, t_capture)
         if st["i"] == len(st["plan"]):
-            self._finish_chunking(logits)
+            self._finish_chunking()
 
-    def _finish_chunking(self, logits):
+    def _finish_chunking(self):
         """Commit the finished prefill: splice workspace KV [hit, L) to
         the pages (never rewriting shared prefix-hit pages), install the
         block row and length, publish the prompt to the prefix cache and
@@ -477,22 +511,61 @@ class Engine:
         req, slot = st["req"], st["slot"]
         t0 = time.perf_counter()
         L = len(req.tokens)
-        paged_splice(self.cfg, self.cache["pool"], self.ws, st["row"],
-                     st["hit"], L)
-        self.cache["block"][slot] = st["row"]
+        self.chunk_length.fill_(L)
+        t_capture = self._run_graphed("splice", self._splice_step,
+                                      prefill=True)
+        self.cache["block"][slot].copy_(self.chunk_row)
         self.cache["len"][slot] = L
         self.pkv.insert_prefix(slot, req.tokens)
-        first = self._sample(logits, [req])
+        first = self._sample(self.chunk_logits, [req])
         self.tok[slot, 0] = first[0]
-        now = time.perf_counter()
-        req.t_first = now
+        req.t_first = time.perf_counter()
         req.out = [int(first[0])]
         req.pstart = len(self._pending)
         self.slots[slot] = req
         self.n_admitted += 1
         self.pkv.lens[slot] = L
         self._maybe_retire(slot)
-        self.t_prefill += now - t0
+        self._prefill_time(t0, t_capture)
+
+    def _prefill_time(self, t0: float, t_capture: float):
+        """Charge the host seconds since ``t0`` to prefill, a capture's
+        to warmup."""
+        self.t_warmup += t_capture
+        self.t_prefill += time.perf_counter() - t0 - t_capture
+
+    def _to_device(self, host: np.ndarray, out: torch.Tensor):
+        """Copy ``host`` into the device buffer ``out`` with no sync: on
+        CUDA asynchronously from pinned memory, which the host allocator
+        keeps until the copy has run."""
+        src = torch.from_numpy(host)
+        if out.is_cuda:
+            out.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            out.copy_(src)
+
+    # ---------------------------------------------- prefill graph steps
+
+    def _hydrate_step(self):
+        """The workspace from the pages of ``chunk_row`` up to
+        ``chunk_hit``, zeros beyond."""
+        paged_hydrate(self.cfg, self.cache["pool"], self.chunk_row,
+                      self.chunk_hit, self.ws)
+
+    def _prefill_chunk(self, width: int):
+        """One chunk of ``width`` tokens from ``chunk_tok`` at
+        ``chunk_start`` into the workspace; its last real row's logits
+        into ``chunk_logits``."""
+        logits, _ = paged_chunk(self.model, self.cfg,
+                                self.chunk_tok[:, :width], self.ws,
+                                self.chunk_start, self.chunk_n_real)
+        self.chunk_logits.copy_(logits)
+
+    def _splice_step(self):
+        """Workspace positions [``chunk_hit``, ``chunk_length``) to the
+        pages of ``chunk_row``, the rest to the trash page."""
+        paged_splice(self.cfg, self.cache["pool"], self.ws, self.chunk_row,
+                     self.chunk_hit, self.chunk_length)
 
     def _release_window_pages(self):
         """Sliding-window decode never reads KV behind ``len - window``:
@@ -556,13 +629,14 @@ class Engine:
         return (self.device.type == "cuda" and not _GRAPHS_OFF
                 and not actquant.capturing())
 
-    def _capture(self, fn):
+    def _capture(self, fn, pool=None):
         """Run ``fn`` (a step over the engine's buffers) eagerly on a side
         stream (it builds the kernels' libraries and makes every lazily
-        made buffer outside the graph's pool), then capture it. The eager
-        run is a real step; the capture runs nothing, and the launches it
-        counted are taken back and added on every replay. Returns (graph,
-        the launches a replay stands for, the capture's seconds)."""
+        made buffer outside the graph's pool), then capture it, into
+        ``pool`` if given. The eager run is a real step; the capture runs
+        nothing, and the launches it counted are taken back and added on
+        every replay. Returns (graph, the launches a replay stands for,
+        the capture's seconds)."""
         with torch.cuda.device(self.device):
             main = torch.cuda.current_stream()
             side = torch.cuda.Stream()
@@ -574,22 +648,31 @@ class Engine:
             t0 = time.perf_counter()
             before = ops.read_counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=pool):
                 fn()
             counts = ops.count_delta(before)
             ops.set_counts(before)
         return graph, counts, time.perf_counter() - t0
 
-    def _run_graphed(self, key: str, fn, eager: bool = False) -> float:
+    def _run_graphed(self, key: str, fn, eager: bool = False,
+                     prefill: bool = False) -> float:
         """``fn``, a step over the engine's buffers: called (off CUDA,
         under :func:`disable_graphs`, or ``eager``), captured as
-        ``self._graphs[key]`` at its first call, replayed after. Returns
+        ``self._graphs[key]`` at its first call, replayed after. The
+        ``prefill`` graphs share one memory pool: each writes its output
+        into engine buffers made outside any graph, and they replay one
+        at a time on one stream, so none reads another's memory. Returns
         the seconds spent capturing (0 but on a capturing step)."""
         if eager or not self._graphs_on():
             fn()
             return 0.0
         if key not in self._graphs:
-            graph, counts, t = self._capture(fn)
+            pool = None
+            if prefill:
+                if self._prefill_pool is None:
+                    self._prefill_pool = torch.cuda.graph_pool_handle()
+                pool = self._prefill_pool
+            graph, counts, t = self._capture(fn, pool)
             self._graphs[key] = (graph, counts)
             return t
         graph, counts = self._graphs[key]
@@ -627,14 +710,28 @@ class Engine:
 
     def _warm(self):
         """The paged engine's warmup, as the reference's ``_warm_paged``:
-        one decode step, and on a speculative engine one round, over the
-        dead slots (``len`` 0 and all-trash block rows, so their K/V
-        writes land on the trash page only), captured on CUDA; then
-        ``len``, ``tok``, the logits and the round's outputs are zeroed
-        again and the launches are not counted."""
+        a hydrate, one chunk of every bucket width and a splice over an
+        all-trash row at ``start = length = hit = 0`` (the splice sends
+        every workspace position to the trash page; the chunks' workspace
+        entries are zeroed by the next hydrate), one decode step, and on
+        a speculative engine one round, over the dead slots (``len`` 0
+        and all-trash block rows, so their K/V writes land on the trash
+        page only), each captured on CUDA; then ``len``, ``tok``, the
+        logits and the round's outputs are zeroed again and the launches
+        are not counted."""
         t0 = time.perf_counter()
         before = ops.read_counts()
         with torch.inference_mode():
+            self._run_graphed("hydrate", self._hydrate_step, prefill=True)
+            for width in self.buckets:
+                self.chunk_n_real.fill_(width)
+                self._run_graphed(
+                    f"chunk{width}",
+                    functools.partial(self._prefill_chunk, width),
+                    prefill=True)
+            self._run_graphed("splice", self._splice_step, prefill=True)
+            self.chunk_n_real.zero_()
+            self.chunk_logits.zero_()
             for run in ((self._run_decode_step, self._run_spec_step)
                         if self.spec_k else (self._run_decode_step,)):
                 run()
@@ -649,14 +746,20 @@ class Engine:
         self.t_warmup = time.perf_counter() - t0
 
     def paged_trace_counts(self) -> Dict[str, int]:
-        """Counterpart of the reference's jit-cache counts: the decode-step
-        graphs this engine captured (and, speculative, the round's). A
-        warmed paged engine on CUDA holds 1 of each from construction on
-        and a serve must not change it; on the CPU nothing is captured
-        (0). Prefill, hydrate, splice and the sampler run eagerly and
-        have nothing to count."""
+        """Counterpart of the reference's jit-cache counts: the graphs
+        this engine captured, the decode step's (and, speculative, the
+        round's) and, paged, ``chunk`` (one a chunk width), ``hydrate``
+        and ``splice``. A warmed paged engine on CUDA holds 1 of each and
+        ``len(buckets)`` chunk widths from construction on, and a serve
+        must not change them; on the CPU nothing is captured (0). The
+        sampler runs eagerly and has nothing to count."""
         keys = ("decode", "spec") if self.spec_k else ("decode",)
-        return {k: int(k in self._graphs) for k in keys}
+        out = {k: int(k in self._graphs) for k in keys}
+        if self.paged:
+            out["chunk"] = sum(k.startswith("chunk") for k in self._graphs)
+            out["hydrate"] = int("hydrate" in self._graphs)
+            out["splice"] = int("splice" in self._graphs)
+        return out
 
     # -------------------------------------------------------------- loop
 

@@ -7,7 +7,8 @@ Counterpart of ``repro.runtime.serving``:
   * ``adapt_prefill_cache``: prefill cache -> decode-ready cache;
   * ``paged_chunk`` / ``paged_splice`` / ``paged_hydrate``: the paged
     engine's chunked prefill, workspace -> pages commit and prefix-hit
-    rebuild (plain functions where the reference keeps jit caches);
+    rebuild (plain functions where the reference keeps jit caches; the
+    engine captures each as a CUDA graph over its own buffers);
   * ``generate``: static-batch generation, a thin wrapper over
     ``runtime.engine.Engine`` (one batched prefill through ``preload``,
     then the engine's decode/retire loop), so sampling, EOS retirement
@@ -103,20 +104,22 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
 # paged entry points (block-table KV; see runtime/paged_kv.py)
 # ---------------------------------------------------------------------------
 
-def paged_chunk(model: nn.Module, cfg: ModelConfig, tokens, ws, start: int,
-                n_real: int):
-    """One prefill chunk into the workspace: (last logits, ws)."""
+def paged_chunk(model: nn.Module, cfg: ModelConfig, tokens, ws, start,
+                n_real):
+    """One prefill chunk into the workspace: (last logits, ws). ``start``
+    and ``n_real``: ints or 0-dim int32 tensors on the device."""
     return m_lm.lm_paged_prefill_chunk(model, cfg, tokens, ws, start, n_real)
 
 
-def paged_splice(cfg: ModelConfig, pool, ws, block_row, start: int,
-                 length: int):
-    """Commit workspace positions [start, length) to the pages."""
+def paged_splice(cfg: ModelConfig, pool, ws, block_row, start, length):
+    """Commit workspace positions [start, length) to the pages (ints or
+    0-dim int32 tensors); the rest goes to the trash page."""
     return m_lm.lm_paged_splice(cfg, pool, ws, block_row, start, length)
 
 
-def paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len: int, ws):
-    """Rebuild the workspace prefix [0, hist_len) from cached pages."""
+def paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len, ws):
+    """Rebuild the workspace prefix [0, hist_len) from cached pages
+    (``hist_len`` an int or a 0-dim int32 tensor)."""
     return m_lm.lm_paged_hydrate(cfg, pool, block_row, hist_len, ws)
 
 

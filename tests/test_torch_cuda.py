@@ -836,8 +836,16 @@ def _serve_queue(cfg, model, reqs, graphs=True, **kw):
         torch.cuda.synchronize()
         counts = ops.count_delta(before)
     if kw.get("kv_pages") and graphs:
-        assert traces == {"decode": 1} == eng.paged_trace_counts()
+        assert traces == _paged_graphs(eng) == eng.paged_trace_counts()
     return toks, counts, eng
+
+
+def _paged_graphs(eng, n=1):
+    """The trace counts of a paged engine that captured its graphs (n =
+    1) or runs eagerly (n = 0): the decode step, one chunk graph a
+    bucket width, the hydrate and the splice."""
+    return {"decode": n, "chunk": n * len(eng.buckets), "hydrate": n,
+            "splice": n}
 
 
 PAGED = dict(capacity=2, max_len=38, kv_pages=16, page_size=8,
@@ -928,7 +936,8 @@ def test_cuda_engines_of_two_geometries_keep_their_graphs(cuda_device):
         for eng in engines:
             if not eng.idle:
                 eng.step()
-    assert [e.paged_trace_counts() for e in engines] == [{"decode": 1}] * 2
+    assert engines[0].paged_trace_counts() == _paged_graphs(engines[0])
+    assert engines[1].paged_trace_counts() == {"decode": 1}
     assert engines[0]._graphs["decode"] is not engines[1]._graphs["decode"]
     for eng, kw in zip(engines, kws):
         want, _, _ = _serve_queue(cfg, model, reqs, graphs=False, **kw)
@@ -962,7 +971,7 @@ def test_cuda_graph_survives_grown_ticket_buffers(cuda_device):
         eng.submit(r["tokens"], max_new=r["max_new"])
     again = [r["tokens"] for r in eng.run()[len(reqs):]]
     del junk
-    assert eng.paged_trace_counts() == {"decode": 1}
+    assert eng.paged_trace_counts() == _paged_graphs(eng)
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a, b)
     assert not any(o.any() for o in old)
@@ -984,15 +993,94 @@ def test_cuda_engine_in_a_calibration_block_steps_eagerly(cuda_device):
             if not graphs:
                 stack.enter_context(disable_graphs())
             eng = Engine(model, cfg, device="cuda", **PAGED)
-            assert eng.paged_trace_counts() == {"decode": int(graphs)}
+            assert eng.paged_trace_counts() == _paged_graphs(eng, graphs)
             for r in reqs:
                 eng.submit(r["tokens"], max_new=r["max_new"])
             with capture_act_scales(model) as rec:
                 eng.run()
         assert eng.n_decode_steps > 0
-        assert eng.paged_trace_counts() == {"decode": int(graphs)}
+        assert eng.paged_trace_counts() == _paged_graphs(eng, graphs)
         recs.append(rec)
     assert recs[0] and recs[0] == recs[1]
+
+
+def _shared_prefix_queue(vocab, n=5):
+    """A 16-token system prompt (two pages of 8) shared by ``n``
+    requests, each with its own tail of 1-14 tokens and 3-8 new."""
+    rng = np.random.default_rng(11)
+    system = rng.integers(0, vocab, 16)
+    return [{"tokens": np.concatenate([system, rng.integers(
+                0, vocab, int(rng.integers(1, 15)))]).astype(np.int32),
+             "max_new": int(rng.integers(3, 9))} for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paged-packed4-int8", "paged-fused-bf16"])
+def test_cuda_graph_prefill_with_prefix_hits_equals_eager(cuda_device,
+                                                          case):
+    """A shared-prefix queue (hydrates from cached pages, splices past
+    the hit) served with the prefill and decode graphs and eagerly: the
+    same tokens and launch counts, one GEMM forward a chunk and a decode
+    step, and the graphs of construction, no more, after the serve.
+    Every trash entry but offset 0 (the dead slots' decode entry) holds
+    one value: the splice's writes there agree, so their order on the
+    card cannot matter (dead slots average the trash page, and under
+    dynamic activation scales their rows reach the live rows')."""
+    cfg, model = _reduced_model(case)
+    reqs = _shared_prefix_queue(cfg.vocab)
+    got, counts, eng = _serve_queue(cfg, model, reqs, **PAGED)
+    want, want_counts, eager = _serve_queue(cfg, model, reqs, graphs=False,
+                                            **PAGED)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert counts == want_counts
+    st = eng.stats()
+    assert st["prefix_hits"] > 0 and st["prefix_hits"] == \
+        eager.stats()["prefix_hits"]
+    assert eager.paged_trace_counts() == _paged_graphs(eager, 0)
+    gemm = counts[0 if case == "paged-fused-bf16" else 1]["launches"]
+    assert gemm == (7 * cfg.n_layers + 1) * (st["decode_steps"]
+                                             + st["prefill_chunk_calls"])
+    for e in (eng, eager):
+        for pool in e.cache["pool"]:
+            for key, t in pool.items():
+                assert torch.unique(t[0, 1:]).numel() == 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paged-packed4-int8", "paged-fused-bf16"])
+def test_cuda_chunk_graph_replays_at_two_starts(cuda_device, case):
+    """The captured 16-wide chunk replayed at start 0 (slab at 0) and at
+    start 80 (a 64-position slab moved to 32, in a 128-position
+    workspace) gives the logits and workspace of eager calls with int
+    starts, bit for bit."""
+    from repro_torch.models.lm import lm_paged_prefill_chunk
+    from repro_torch.runtime.engine import Engine
+
+    cfg, model = _reduced_model(case)
+    eng = Engine(model, cfg, device="cuda", **PAGED)
+    assert eng.wws == 128 and cfg.window == 24
+    graph, _ = eng._graphs["chunk16"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for w in eng.ws:
+        for t in w.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    want_ws = [{k: t.clone() for k, t in w.items()} for w in eng.ws]
+    for start, n_real in ((0, 16), (80, 11)):
+        toks = torch.randint(0, cfg.vocab, (1, 16), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        eng.chunk_tok[:, :16].copy_(toks)
+        eng.chunk_start.fill_(start)
+        eng.chunk_n_real.fill_(n_real)
+        graph.replay()
+        with torch.inference_mode():
+            want, _ = lm_paged_prefill_chunk(model, cfg, toks, want_ws,
+                                             start, n_real)
+        torch.cuda.synchronize()
+        assert torch.equal(eng.chunk_logits, want.float()), start
+        for w, v in zip(eng.ws, want_ws):
+            for key in ("k", "v"):
+                assert torch.equal(w[key], v[key]), (start, key)
 
 
 # ---------------------------------------------------------------------------
@@ -1349,9 +1437,10 @@ def test_cuda_speculative_engine_equals_plain_and_eager(cuda_device, paged):
             runs[name] = (toks, ops.count_delta(before), eng.stats())
         if name == "graph":
             want = {"decode": int(paged), "spec": int(paged)}
+            if paged:
+                want.update(_paged_graphs(eng))
             assert traces == want
-            assert eng.paged_trace_counts() == {"decode": int(paged),
-                                                "spec": 1}
+            assert eng.paged_trace_counts() == dict(want, spec=1)
     for name in ("graph", "eager"):
         for a, b in zip(runs[name][0], runs["plain"][0]):
             np.testing.assert_array_equal(a, b)

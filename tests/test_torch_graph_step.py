@@ -3,13 +3,15 @@ buffers: the function a CUDA engine captures as a graph and replays, run
 here on the CPU, where it is called.
 
 * every buffer the step reads or writes (``tok``, ``cache["len"]``,
-  ``cache["block"]``, every pool, ring and scale plane, the logits) keeps
-  its address across a whole serve, as a replayed graph needs;
+  ``cache["block"]``, every pool, ring and scale plane, the logits), and
+  a paged engine's prefill buffers and workspace, keep their addresses
+  across a whole serve, as a replayed graph needs;
 * pending tokens are copies: a queue whose first retirement decision
   comes only after several steps gives, request by request, the tokens
   of the JAX reference's plain prefill/decode loop
   (``torch_port_helpers.jax_reference``), exactly;
-* a paged engine's warm step at construction, the counterpart of the
+* a paged engine's warm step at construction (the prefill's hydrate,
+  chunk widths and splice, then the decode step), the counterpart of the
   reference's ``_warm_paged``, leaves every page but the trash page zero,
   ``len`` and ``tok`` zero, and the kernels' launch counts unchanged;
 * an engine step inside a calibration block runs the step function, so
@@ -66,10 +68,18 @@ def _engine(tcfg, model, paged, **kw):
 
 
 def _step_buffers(eng):
-    """Every tensor the decode step reads or writes, by name."""
+    """Every tensor the decode step reads or writes, by name, and a paged
+    engine's prefill buffers (the chunk's, hydrate's and splice's inputs
+    and outputs and the workspace)."""
     out = {"tok": eng.tok, "logits": eng.logits, "len": eng.cache["len"]}
     if eng.paged:
         out["block"] = eng.cache["block"]
+        for name in ("tok", "start", "n_real", "hit", "length", "row",
+                     "logits"):
+            out[f"chunk_{name}"] = getattr(eng, f"chunk_{name}")
+        for i, w in enumerate(eng.ws):
+            for key, t in w.items():
+                out[f"ws{i}/{key}"] = t
     layers = eng.cache["pool"] if eng.paged else eng.cache["layers"]
     for i, c in enumerate(layers):
         for key, t in c.items():
@@ -128,7 +138,9 @@ def test_paged_warm_step_writes_only_the_trash_page(jq, kv_bits):
     eng = _engine(tcfg, model, paged=True)
     assert ops.read_counts() == before  # the warm step is not counted
     assert eng.stats()["t_warmup_s"] > 0
-    assert eng.paged_trace_counts() == {"decode": 0}  # no graph on the CPU
+    # no graph on the CPU
+    assert eng.paged_trace_counts() == {"decode": 0, "chunk": 0,
+                                        "hydrate": 0, "splice": 0}
     assert not eng.cache["len"].any() and not eng.tok.any()
     assert not eng.cache["block"].any()
     wrote = False
