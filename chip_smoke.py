@@ -203,6 +203,43 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    the reduced config trains 3 steps on the card and on the CPU from
    the same initial state and batches with kmeans_impl="stats": losses
    within 1e-4 relative, dictionaries within 1e-5.
+3b'. the checkpoint: phase 3b's TrainLoop writes the final train state
+   (the reference's format, ~23.8 GB) into a new temporary directory,
+   which must have 30 GB free (its free space and the host's memory are
+   logged first); the save's seconds and bytes are logged. Before the
+   state goes, the trained model's packed serve view runs generate (B=4,
+   prompt 128, 16 tokens, graph mode): the in-memory tokens.
+3g. the train -> serve handoff at full width, the train state freed:
+   ckpt.restore_params (memory-mapped, no optimizer moment opened),
+   check_ckpt_shapes, interop.from_train_params (pack4, one layer at a
+   time to the card, masters unmaterialised) and serve_view, each timed;
+   the peak allocated above the baseline must be at most the serve
+   view's bytes + 1 GiB, every leaf's d and unpacked a must equal the
+   checkpoint's bit for bit, and generate from it, with graphs and
+   eagerly, must give the in-memory tokens with 169 lutq_gemv_packed
+   launches a forward and no plain version. Then the serve CLI on the
+   directory: --pack4 --engine (phase 3c run (a)'s geometry: kernels 2
+   and 6) and --kernel-backend fused (B=4, prompt 128, 16 tokens: kernel
+   1): each returns 0, prints the restored line and the manifest's policy
+   (4-bit pow2, min_size 4096, not the CLI's 1024) and runs no plain
+   version. The directory is removed.
+3h. the text path: repro_torch.launch.train_e2e, the reference's
+   train_e2e recipe (12 layers x d640, GQA 8/2, window 256, vocab 256,
+   4-bit pow2, 8-bit activations; 300 AdamW steps of 4 x 256 bytes of
+   this checkout, checkpoints at 100, 200, 300), logging the corpus
+   bytes, ms a step, tokens/s and the loss: the loss must fall, and
+   kmeans_stats must launch (kmeans_iters + 1) x 86 times a step with no
+   plain version. Its last checkpoint is served (restore_params,
+   from_train_params, packed serve view): 64 greedy bytes after four
+   128-byte prompts of the corpus at act_bits 8 (logged as text), then
+   at act_bits 32 speculative (k=3, draft_bits=3) beside plain greedy:
+   the tokens must be equal; the acceptance on these trained weights is
+   logged. Then reduced danube trained 3 steps under serving_pow2 on the
+   CPU by the training CLI: its checkpoint served by the serve CLI on the
+   card (lutq_shift launches, no plain version) and on the CPU must give
+   the same sample, and generate (B=4, 16 tokens) from it on both the
+   same tokens. The launches of these phases go into the kernels' record
+   as "handoff_launches".
 4. timing of each GEMM kernel at the decode (M=4) and prefill (M=512)
    shapes with CUDA events, beside its bound, its plain version and a
    torch.matmul on the pre-decoded bf16 weight (a yardstick the port
@@ -238,6 +275,9 @@ it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
 import math
 import subprocess
@@ -296,6 +336,9 @@ TRAIN_LEAVES = {"q/o": ((2560, 2560), 2 * N_LAYERS),
                 "wo": ((6912, 2560), N_LAYERS),
                 "embed/head": ((32000, 2560), 2)}
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 4, 512
+#: free space phase 3b' needs for its checkpoint: 1.831e9 weights x (4 B
+#: master + 8 B moments) + 1.83 GB of int8 assignments is ~23.8 GB
+CKPT_FREE_BYTES = 30e9
 # phase 3c: the paged engine's page, run (a)'s queue, run (c)'s request
 ENGINE_PAGE, ENGINE_QUEUE = 64, 24
 LONG_PROMPT, LONG_GEN = 4352, 64
@@ -2388,17 +2431,51 @@ def _leaves(model):
             if isinstance(m, QuantKernel)]
 
 
+def _host_memory() -> str:
+    info = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, _, val = line.partition(":")
+        info[key] = int(val.split()[0]) * 1024
+    return (f"host memory {info['MemAvailable'] / 1e9:.1f} GB available of "
+            f"{info['MemTotal'] / 1e9:.1f} GB")
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _ckpt_dir(need_bytes: float, what: str) -> str:
+    """A new temporary directory for a checkpoint of ``what``; logs its
+    free space and the host's memory, and fails with the sizes where
+    fewer than ``need_bytes`` are free."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="lutq_ckpt_")
+    free = shutil.disk_usage(d).free
+    log(f"{what} checkpoint directory {d}: {free / 1e9:.1f} GB free | "
+        f"{_host_memory()}")
+    check(free >= need_bytes, f"{d} has {free / 1e9:.1f} GB free, the "
+          f"{what} checkpoint needs {need_bytes / 1e9:.0f} GB")
+    return d
+
+
 def train_full_width():
     """Full-width danube trained 3 steps through the CLI's build path and
-    TrainLoop; returns the phase's numbers."""
+    TrainLoop into a checkpoint (phase 3b'), served in memory before the
+    state goes; returns the phase's numbers and what phase 3g needs."""
     import torch
 
+    from repro_torch.core.policy import serve_view
     from repro_torch.data.synthetic import MarkovLM
     from repro_torch.kernels import kmeans_stats
     from repro_torch.launch import train as train_cli
     from repro_torch.models import api
     from repro_torch.runtime.loop import TrainLoop
+    from repro_torch.runtime.serving import generate
 
+    ckpt_dir = _ckpt_dir(CKPT_FREE_BYTES, "full-width train")
     args = _train_args("--steps", str(TRAIN_STEPS), "--batch",
                        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
                        "--vocab", "0", "--device", "cuda")
@@ -2429,8 +2506,17 @@ def train_full_width():
         return out
 
     loop = TrainLoop(counted_step, train_cli.batch_fn(lm, args, args.device),
-                     log_every=1, log_fn=log,
+                     log_every=1, log_fn=log, ckpt_dir=ckpt_dir,
                      quant_policy=api.resolved_policy(cfg))
+    save_s = []
+    save = loop.ckpt.save
+
+    def timed_save(tree, step):  # the host snapshot and the write
+        t0 = time.perf_counter()
+        save(tree, step)
+        loop.ckpt.wait()
+        save_s.append(time.perf_counter() - t0)
+    loop.ckpt.save = timed_save
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -2438,6 +2524,11 @@ def train_full_width():
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(step == TRAIN_STEPS, f"trained {step} steps")
+    ckpt_bytes = _dir_bytes(ckpt_dir)
+    check(len(save_s) == 1 and ckpt_bytes > 0, "no final checkpoint")
+    log(f"checkpoint at step {step}: {ckpt_bytes / 1e9:.2f} GB on disk, "
+        f"saved in {save_s[0]:.1f} s (host snapshot and write) | "
+        f"{_host_memory()}")
     ms = [h["dt"] * 1e3 for h in loop.history]
     losses = [h["loss"] for h in loop.history]
     tok_s = [TRAIN_BATCH * TRAIN_SEQ / (t / 1e3) for t in ms]
@@ -2461,6 +2552,18 @@ def train_full_width():
              for n, w0 in watch.items()}
     log(f"masters moved (max |w - w0|): {moved}")
     check(all(v > 0 for v in moved.values()), "the masters did not move")
+
+    # the trained model as checkpointed, served in memory: phase 3g's
+    # tokens from the checkpoint must equal these
+    policy = api.resolved_policy(cfg)
+    view = serve_view(state.model, pack4=True, policy=policy)
+    toks = torch.randint(0, cfg.vocab, (BATCH, PROMPT),
+                         generator=torch.Generator().manual_seed(1))
+    t_mem = generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
+                     device="cuda").cpu()
+    log(f"trained model served in memory (packed4, graph): tokens "
+        f"{t_mem[0, :8].tolist()}")
+    del view
 
     batch = loop.make_batch(TRAIN_STEPS)
 
@@ -2497,10 +2600,318 @@ def train_full_width():
                     for k, (d, h) in roots.items()))
     out = dict(launches=counts["kmeans_stats"], n_leaves=n_leaves,
                per_step=per_step, ms=ms, tok_s=tok_s, peak_gib=peak,
-               idle=1 - busy / wall, kmeans_share=km_ms / wall)
-    del state, loop, step_fn, watch, moments
+               idle=1 - busy / wall, kmeans_share=km_ms / wall,
+               ckpt_dir=ckpt_dir, cfg=cfg, toks=toks, t_mem=t_mem)
+    del state, loop, step_fn, watch, moments, leaves
+    gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _serve_cli(*flags):
+    """repro_torch.launch.serve.main on ``flags`` in this process: (its
+    return code, its standard output, the launch counts of the call)."""
+    from repro_torch.launch import serve as serve_cli
+
+    buf = io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(["--arch", "h2o-danube-1.8b", *flags])
+    counts = _read_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return rc, out, counts
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k in KERNELS:
+        total[k] = total.get(k, 0) + counts.get(k, 0)
+
+
+def handoff_full_width(trained, handoff):
+    """Phase 3g: the full-width checkpoint of phase 3b' served from disk,
+    masters and moments never on the card; then through the serve CLI.
+    Adds the kernels' launches to ``handoff``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.policy import serve_view
+    from repro_torch.kernels.ref import unpack4_kin
+    from repro_torch.launch.serve import check_ckpt_shapes, footprint_bytes
+    from repro_torch.models import api
+    from repro_torch.nn.tree import QuantKernel
+    from repro_torch.runtime.serving import generate
+
+    d, toks, t_mem = trained["ckpt_dir"], trained["toks"], trained["t_mem"]
+    cfg = trained["cfg"].replace(quant=ckpt.load_policy(d))
+    policy = api.resolved_policy(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, step = ckpt.restore_params(d)
+    t1 = time.perf_counter()
+    check_ckpt_shapes(cfg, params["trainable"])
+    t2 = time.perf_counter()
+    model = interop.from_train_params(params, cfg, pack4=True, policy=policy,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    view = serve_view(model, pack4=True, policy=policy)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    view_bytes = footprint_bytes(view)
+    log(f"handoff of step {step}: restore_params {t1 - t0:.3f} s, "
+        f"check_ckpt_shapes {t2 - t1:.3f} s, from_train_params "
+        f"{t3 - t2:.2f} s, serve_view {t4 - t3:.3f} s | peak allocated "
+        f"above the baseline {peak / 2**30:.3f} GiB, serve view "
+        f"{view_bytes / 2**30:.3f} GiB | {_host_memory()}")
+    check(peak <= view_bytes + 2**30,
+          f"the handoff's peak {peak / 2**30:.3f} GiB exceeds the serve "
+          f"view's {view_bytes / 2**30:.3f} GiB + 1 GiB")
+    kernels = [(n, m) for n, m in model.named_modules()
+               if isinstance(m, QuantKernel)]
+    check(len(kernels) == 7 * N_LAYERS + 2 and
+          all(m.w.is_meta for _, m in kernels),
+          "from_train_params materialised a master")
+    static = params["static"]
+    for name, mod in kernels:
+        parts = name.split(".")
+        i = None
+        if parts[0] == "layers":
+            i, parts = int(parts[1]), [parts[0]] + parts[2:]
+        node = static
+        for k in parts:
+            node = node[k]
+        want_a, want_d = node["__lutq_a"], node["__lutq_d"]
+        if i is not None:
+            want_a, want_d = want_a[i], want_d[i]
+        a = mod.a if mod.a.dtype == torch.int8 else unpack4_kin(mod.a)
+        check(torch.equal(a.cpu(), torch.from_numpy(np.array(want_a)))
+              and torch.equal(mod.d.cpu(), torch.from_numpy(
+                  np.array(want_d))),
+              f"{name}: d or a differ from the checkpoint's")
+    log(f"  d and unpacked a of all {len(kernels)} leaves equal the "
+        f"checkpoint's bit for bit")
+    del model, kernels, params, static
+    expected = STEPS_GEN * CALLS_PER_FORWARD
+    for mode in MODES:
+        with _mode(mode):
+            _reset_counts()
+            out = generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
+                           device="cuda").cpu()
+            counts = _read_counts()
+        _add(handoff, counts)
+        log(f"  generate from the checkpoint ({mode}): tokens equal the "
+            f"in-memory model's {torch.equal(out, t_mem)} | {counts}")
+        check(torch.equal(out, t_mem), f"served from the checkpoint "
+              f"({mode}), the tokens differ from the in-memory model's")
+        check(counts["lutq_gemv_packed"] == expected
+              and counts["plain"] == 0 and counts["lutq_matmul"] == 0,
+              f"generate ({mode}) launched {counts}, expected "
+              f"{expected} lutq_gemv_packed")
+    del view
+    gc.collect()
+    torch.cuda.empty_cache()
+    for flags, kernel in (
+            (["--pack4", "--engine", "--kv-pages", "160", "--page-size",
+              "64", "--max-batch", "8", "--queue", "24", "--prompt-len",
+              "512", "--gen", "64"], ("lutq_gemv_packed",
+                                      "paged_attention")),
+            (["--kernel-backend", "fused", "--batch", "4", "--prompt-len",
+              "128", "--gen", "16"], ("lutq_matmul",))):
+        t0 = time.perf_counter()
+        rc, out, counts = _serve_cli("--ckpt-dir", d, *flags)
+        _add(handoff, counts)
+        log(f"  serve CLI {' '.join(flags[:2])}: rc {rc} in "
+            f"{time.perf_counter() - t0:.1f} s | {counts}")
+        check(rc == 0, f"serve CLI returned {rc}")
+        check(f"restored train checkpoint step {step} from {d} (policy "
+              "from manifest)" in out, "serve CLI: no restored line")
+        check("4-bit/pow2 (K=16, min_size=4096)" in out
+              and "min_size=1024" not in out,
+              "serve CLI: not the manifest's policy")
+        check(all(counts[k] > 0 for k in kernel) and counts["plain"] == 0,
+              f"serve CLI {flags[:2]}: launches {counts}")
+    shutil.rmtree(d)
+
+
+def text_path_e2e(handoff):
+    """Phase 3h: the reference's train_e2e recipe (~57M weights, 300
+    steps of 4 x 256 bytes of this checkout) through
+    repro_torch.launch.train_e2e into checkpoints, then its last
+    checkpoint served greedy at act_bits=8 and, at act_bits=32,
+    speculatively beside plain greedy. Adds the launches to
+    ``handoff``."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.policy import serve_view
+    from repro_torch.data.text import byte_batch
+    from repro_torch.launch import train_e2e
+    from repro_torch.models import api
+    from repro_torch.nn.tree import QuantKernel
+    from repro_torch.runtime.serving import generate
+
+    d = _ckpt_dir(3e9, "train_e2e")
+    args = train_e2e.parser().parse_args(["--device", "cuda",
+                                          "--ckpt-dir", d])
+    _reset_counts()
+    t0 = time.perf_counter()
+    cfg, state, loop, step, corpus = train_e2e.train(args, log_fn=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    _add(handoff, counts)
+    n_leaves = sum(isinstance(m, QuantKernel) for m in state.model.modules())
+    per_step = (cfg.quant.kmeans_iters + 1) * n_leaves
+    losses = [h["loss"] for h in loop.history]
+    ms = [h["dt"] * 1e3 for h in loop.history]
+    steady = statistics.median(ms[10:])
+    seq = 256
+    steps = sorted(int(p.name.split("_")[1]) for p in Path(d).glob(
+        "step_????????"))
+    sizes = [_dir_bytes(Path(d) / f"step_{s:08d}") / 1e9 for s in steps]
+    log(f"train_e2e {cfg.n_layers}L d{cfg.d_model}: corpus {len(corpus)} "
+        f"bytes | {step} steps in {wall:.1f} s | ms a step: first window "
+        f"{ms[0]:.1f}, median after it {steady:.2f} "
+        f"({4 * seq / steady * 1e3:.0f} tokens/s) | loss {losses[0]:.4f} -> {losses[-1]:.4f} (every 50: "
+        f"{['%.3f' % x for x in losses[::50]]}) | kmeans_stats "
+        f"{counts['kmeans_stats']} ({n_leaves} leaves, {per_step} a step), "
+        f"plain {counts['plain']} | checkpoints {steps}, "
+        f"{['%.3f' % x for x in sizes]} GB")
+    check(step == 300 and len(losses) == 300, f"trained {step} steps")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> "
+          f"{losses[-1]}")
+    check(n_leaves == 7 * cfg.n_layers + 2, f"{n_leaves} quantized leaves")
+    check(counts["kmeans_stats"] == 300 * per_step and counts["plain"] == 0,
+          f"train_e2e launched {counts}, expected {300 * per_step} "
+          "kmeans_stats and no plain version")
+    check(steps == [100, 200, 300], f"checkpoints at {steps}")
+    batch = loop.make_batch(step)
+
+    def one_step():  # after the last checkpoint: what is served is on disk
+        loop.train_step(state, batch)
+        torch.cuda.synchronize()
+    wall_ms, busy_ms, rows = profile_run(one_step, "one train_e2e step")
+    km_ms = sum(r[0] for r in rows if "kmeans" in r[2])
+    log(f"  kmeans_stats in the profiled step: {km_ms:.2f} ms")
+    del state, loop, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    policy = api.resolved_policy(cfg)
+    params, _ = ckpt.restore_params(d)
+    view = serve_view(interop.from_train_params(
+        params, cfg, pack4=True, policy=policy, device="cuda"),
+        pack4=True, policy=policy)
+    prompts = torch.from_numpy(byte_batch(corpus, 0, 4, 128,
+                                          seed=2)["tokens"])
+    _reset_counts()
+    out = generate(view, cfg, {"tokens": prompts}, steps=64,
+                   device="cuda").cpu()
+    counts = _read_counts()
+    _add(handoff, counts)
+
+    def text(t):
+        return bytes(t.tolist()).decode("utf-8", "replace")
+    log(f"  served from step 300 (packed4, act_bits 8): prompt "
+        f"{text(prompts[0])!r} -> {text(out[0])!r} | {counts}")
+    check(counts["lutq_gemv_packed"] > 0 and counts["plain"] == 0,
+          f"served through {counts}")
+    cfg32 = cfg.replace(act_bits=32)
+    _reset_counts()
+    plain = generate(view, cfg32, {"tokens": prompts}, steps=64,
+                     device="cuda").cpu()
+    spec, stats = generate(view, cfg32, {"tokens": prompts}, steps=64,
+                           speculative=3, draft_bits=3, return_stats=True,
+                           device="cuda")
+    counts = _read_counts()
+    _add(handoff, counts)
+    same = torch.equal(spec.cpu(), plain)
+    log(f"  act_bits 32, speculative k=3 draft_bits=3: tokens equal plain "
+        f"greedy {same} | acceptance {stats['acceptance_rate']:.3f}, "
+        f"{stats['spec_tokens_per_round']:.2f} tokens a round over "
+        f"{stats['spec_rounds']} rounds (random weights, phase 3f: ~0.06) "
+        f"| {text(plain[0])!r} | {counts}")
+    check(same, "speculative tokens differ from plain greedy")
+    check(counts["plain"] == 0, f"a plain version ran: {counts}")
+    del view, params
+    shutil.rmtree(d)
+
+
+def reduced_ckpt_card_vs_cpu(handoff):
+    """The reduced config trained 3 steps under serving_pow2 on the CPU by
+    the training CLI, its checkpoint served on the card and on the CPU:
+    through the serve CLI (its restored line, lutq_shift launches) and
+    through restore_params / from_train_params / generate (all tokens
+    equal)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.serving import generate
+
+    d = tempfile.mkdtemp(prefix="lutq_ckpt_")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(["--arch", "h2o-danube-1.8b", "--reduced",
+                             "--steps", "3", "--batch", "4", "--seq", "32",
+                             "--quant-policy", "serving_pow2", "--device",
+                             "cpu", "--ckpt-dir", d])
+    check(rc == 0, f"reduced serving_pow2 training returned {rc}")
+    samples = {}
+    for dev in ("cpu", "cuda"):
+        rc, out, counts = _serve_cli("--reduced", "--vocab", "256",
+                                     "--ckpt-dir", d, "--device", dev)
+        check(rc == 0 and "restored train checkpoint step 3" in out
+              and "serving_pow2" in out, f"serve CLI on {dev}: rc {rc}")
+        samples[dev] = [ln for ln in out.splitlines() if "sample:" in ln][0]
+        if dev == "cuda":
+            _add(handoff, counts)
+            check(counts["lutq_shift"] > 0 and counts["plain"] == 0,
+                  f"card serve launched {counts}")
+    cfg = reduced(get_config("h2o-danube-1.8b")).replace(
+        vocab=256, quant=ckpt.load_policy(d), act_bits=8)
+    policy = api.resolved_policy(cfg)
+    params, _ = ckpt.restore_params(d)
+    toks = torch.randint(0, cfg.vocab, (4, 32),
+                         generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        view = serve_view(interop.from_train_params(
+            params, cfg, policy=policy, device=dev), policy=policy)
+        out[dev] = generate(view, cfg, {"tokens": toks}, steps=16,
+                            device=dev).cpu()
+    same = torch.equal(out["cpu"], out["cuda"])
+    log(f"reduced serving_pow2 checkpoint, card vs cpu: CLI samples "
+        f"{samples['cuda'].split('sample:')[1].strip()} vs "
+        f"{samples['cpu'].split('sample:')[1].strip()} | generate B=4 "
+        f"x 16 tokens equal {same}")
+    check(samples["cpu"].split("sample:")[1]
+          == samples["cuda"].split("sample:")[1], "CLI samples differ")
+    check(same, "reduced serving_pow2 checkpoint: card and CPU differ")
+    shutil.rmtree(d)
 
 
 def reduced_train_card_vs_cpu():
@@ -3139,7 +3550,18 @@ def main() -> int:
     launches["lutq_shift"] = pow2["launches"]
     trained = train_full_width()
     launches["kmeans_stats"] = trained["launches"]
+    handoff = {}
+    t0 = time.perf_counter()
+    handoff_full_width(trained, handoff)
+    t_g = time.perf_counter() - t0
+    del trained
     reduced_train_card_vs_cpu()
+    t0 = time.perf_counter()
+    text_path_e2e(handoff)
+    reduced_ckpt_card_vs_cpu(handoff)
+    log(f"phase 3g {t_g:.1f} s, phase 3h and the reduced checkpoint "
+        f"{time.perf_counter() - t0:.1f} s (3b' is inside phase 3b) | "
+        f"launches {handoff}")
     # the GEMMs and lutq_shift at decode (M = 4, the record's top level)
     # and at prefill (M = 512, its "prefill" entry)
     table, prefill = {}, {}
@@ -3183,6 +3605,8 @@ def main() -> int:
             "library_ms": t["library_ms"]})
         if kname in spec_launches:  # phase 3f's speculative runs
             records[-1]["speculative_launches"] = spec_launches[kname]
+        # phases 3g, 3h and the reduced checkpoint: the handoff path
+        records[-1]["handoff_launches"] = handoff.get(kname, 0)
         if kname in prefill:  # one prefill forward at B=4 x 128 (M=512)
             p = prefill[kname]
             records[-1]["prefill"] = {

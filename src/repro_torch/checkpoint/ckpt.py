@@ -14,7 +14,8 @@ flattens to ``__lutq__w`` / ``__lutq__d`` / ... keys and None to a
 is saved as the reference's ``state_flat`` tree
 (:func:`repro_torch.interop.train_state_to_numpy`: stacked ``layers/...``
 keys, ``__lutq_d`` / ``__lutq_a`` static keys), so a JAX run restores it
-and the port restores a JAX run's. Writes go to ``.tmp`` and are renamed
+and the port restores a JAX run's. :func:`restore_params` maps only the
+parameters of a train checkpoint, for serving. Writes go to ``.tmp`` and are renamed
 when complete; ``keep_n`` prunes old steps. Sharded (per-host) writes,
 meshes and tuning caches are not ported (ROADMAP queue 1, multi-GPU;
 tuning and benches).
@@ -207,3 +208,27 @@ def restore(directory: str, step: Optional[int] = None):
         items[entry["key"]] = (None if entry["file"] is None
                                else np.load(d / entry["file"]))
     return _unflatten(items), manifest["step"]
+
+
+def load(directory: str, step: Optional[int] = None):
+    """Alias of :func:`restore`."""
+    return restore(directory, step)
+
+
+def restore_params(directory: str, step: Optional[int] = None):
+    """Restore only the ``{"trainable", "static"}`` subtrees of a train
+    checkpoint, which is what serving needs: the optimizer moments (the
+    bulk of the state) are never opened, and the leaves are read-only
+    memory maps, so the caller pays pages only for what it copies.
+    Returns ``({"trainable", "static"}, step)``; the serve model is
+    :func:`repro_torch.interop.from_train_params`.
+    """
+    d, manifest, step = _manifest(directory, step)
+    items = {}
+    for entry in manifest["leaves"]:
+        key = entry["key"]
+        if not key.startswith(("trainable/", "static/")):
+            continue
+        items[key] = (None if entry["file"] is None
+                      else np.load(d / entry["file"], mmap_mode="r"))
+    return _unflatten(items), step

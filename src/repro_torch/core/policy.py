@@ -218,6 +218,28 @@ def _pow2_planes(model: nn.Module, pol: Optional[QuantPolicy]):
     return planes
 
 
+def packs(pol: Optional[QuantPolicy], lpath, a: torch.Tensor, K: int,
+          pack4: bool) -> bool:
+    """Whether :func:`serve_view` packs the assignments ``a`` (of a
+    dictionary of ``K`` entries) of the leaf at reference path ``lpath``
+    two to a byte: a rule asking for ``packed4`` packs even without
+    ``pack4``, one asking for ``fused``/``decode``/``pow2`` never (pow2
+    planes carry int8 assignments); otherwise ``pack4`` does, for a rule
+    of at most 4 index bits. Only int8 assignments of K <= 16 with an
+    even reduction axis pack."""
+    spec, requested = _leaf_rule(pol, lpath)
+    packable = (a.dtype != torch.uint8 and K <= 16
+                and a.ndim >= 2 and a.shape[-2] % 2 == 0)
+    if requested == "packed4":
+        return packable
+    if requested in ("fused", "decode", "pow2"):
+        return False
+    pack = packable and pack4
+    if pack and pol is not None:
+        pack = spec is not None and spec.index_bits <= 4
+    return pack
+
+
 def serve_view(model: nn.Module, *, pack4: bool = False,
                policy: Optional[QuantLike] = None,
                with_manifest: bool = False):
@@ -250,25 +272,14 @@ def serve_view(model: nn.Module, *, pack4: bool = False,
             return leaf
         lpath, nstack = logical_path(path)
         a = leaf.a
-        K = leaf.d.shape[-1]
-        spec, requested = _leaf_rule(pol, lpath)
-        packable = (a.dtype != torch.uint8 and K <= 16
-                    and a.ndim >= 2 and a.shape[-2] % 2 == 0)
-        if requested == "packed4":
-            pack = packable
-        elif requested in ("fused", "decode", "pow2"):
-            pack = False  # pow2 planes carry int8 assignments
-        else:  # auto
-            pack = packable and pack4
-            if pack and pol is not None:
-                pack = spec is not None and spec.index_bits <= 4
-        if pack:
+        if packs(pol, lpath, a, leaf.d.shape[-1], pack4):
             a = pack4_kin(a)
         out = LutqState(w=None, d=planes.get(path, leaf.d), a=a,
                         sid=leaf.sid, act=leaf.act)
         if with_manifest:
             manifest["/".join(lpath)] = _record(
-                out, resolve_backend(out, "auto"), requested, nstack)
+                out, resolve_backend(out, "auto"), _leaf_rule(pol, lpath)[1],
+                nstack)
         return out
 
     tree = map_with_path(conv, clone_structure(model))

@@ -13,6 +13,13 @@ the layers, ``{"pool": {"k", "v"[, "k_scale", "v_scale"]}: (L, P,
 page, Hkv[, dh]), "block", "len"}``; the port keeps one pool dict per
 layer.
 
+A train checkpoint's parameters (``ckpt.restore_params``: the
+``trainable`` and ``static`` subtrees, memory-mapped) become a serve
+model with :func:`from_train_params`, which copies each quantized leaf's
+``d``, ``a``, ``sid`` and ``act`` one layer at a time to the device and
+never materialises a master; :func:`trainable_shapes` gives the
+``trainable`` keys and shapes a config expects.
+
 A train state crosses in the reference's ``state_flat`` layout
 (``{"trainable", "static", "opt_state", "step"}``, what its checkpoints
 hold): :func:`train_state_to_numpy` builds it from a port
@@ -62,10 +69,11 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _walk(tree, prefix=()):
+def walk(tree, prefix=()):
+    """Yield (path, leaf) of a tree of nested dicts."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _walk(v, prefix + (k,))
+            yield from walk(v, prefix + (k,))
     else:
         yield prefix, tree
 
@@ -86,7 +94,7 @@ def _convert(leaf, device, i=None):
 def from_jax(tree, cfg: ModelConfig, *, device="cpu") -> nn.Module:
     """The port's model holding the parameters of a reference tree."""
     model = init_lm(None, cfg, device="meta")
-    for path, leaf in _walk(tree):
+    for path, leaf in walk(tree):
         if path[0] == "layers":
             for i in range(cfg.n_layers):
                 set_leaf(model, ("layers", str(i)) + path[1:],
@@ -260,3 +268,98 @@ def load_train_state(state, tree) -> None:
                 _, path, i = keys[name]
                 t.copy_(_tensor(_fetch(tree["opt_state"][k], path, i), "cpu"))
     state.step = int(np.asarray(tree["step"]))
+
+
+# ---------------------------------------------------------------------------
+# train checkpoint -> serve model
+# ---------------------------------------------------------------------------
+
+def trainable_shapes(cfg: ModelConfig) -> Dict[Tuple[str, ...], Tuple]:
+    """{reference path: stacked shape} of the ``trainable`` tree a train
+    checkpoint of ``cfg`` holds. Built on the meta device; a LUT-Q master
+    sits at its kernel's own path with its kernel's shape, so the
+    quantization policy changes neither the keys nor the shapes."""
+    model = init_lm(None, cfg, device="meta")
+    named = dict(model.named_parameters())
+    out: Dict[Tuple[str, ...], Tuple] = {}
+    for name, (sec, path, i) in _ref_keys(model).items():
+        if sec == "trainable":
+            shape = tuple(named[name].shape)
+            out[path] = shape if i is None else (cfg.n_layers,) + shape
+    return out
+
+
+def _param_leaves(trainable, static, prefix=()):
+    """(reference path, trainable leaf, static node) of every leaf of a
+    ``state_flat`` params pair, walked as the reference's
+    ``merge_trainable`` walks it: a static ``{"__lutq_d", ...}`` node is
+    a LutqState (its master in ``trainable``), a ``{"__static"}`` node an
+    integer leaf, and a None static entry a float leaf."""
+    if isinstance(static, dict) and ("__lutq_d" in static
+                                     or "__static" in static):
+        yield prefix, trainable, static
+    elif isinstance(trainable, dict):
+        for k, v in trainable.items():
+            yield from _param_leaves(
+                v, None if static is None else static.get(k), prefix + (k,))
+    else:
+        yield prefix, trainable, None
+
+
+def _meta_like(arr, i: Optional[int]) -> Optional[torch.Tensor]:
+    """An unmaterialised tensor of the shape and dtype of ``arr`` (or of
+    its i-th stack slice): nothing is read."""
+    if arr is None:
+        return None
+    shape = arr.shape if i is None else arr.shape[1:]
+    dtype = _tensor(np.zeros(0, arr.dtype), "cpu").dtype
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def from_train_params(params, cfg: ModelConfig, *, pack4: bool = False,
+                      policy=None, device="cuda") -> nn.Module:
+    """The port's model holding the parameters of a train checkpoint,
+    counterpart of the reference's ``merge_trainable(params["trainable"],
+    params["static"])`` on the tree ``ckpt.restore_params`` returns.
+
+    Each quantized leaf's ``d``, ``a``, ``sid`` and ``act``, and each
+    float leaf, is copied one layer at a time from the (memory-mapped)
+    stacked arrays to ``device``, so the host holds one layer's copy.
+    Masters stay unmaterialised (meta tensors): the model serves through
+    :func:`repro_torch.core.policy.serve_view`, which drops them, and
+    neither the masters nor the optimizer moments reach the device.
+    ``pack4`` / ``policy``: pack the assignments that ``serve_view(
+    pack4=pack4, policy=policy)`` would pack as each layer lands, so the
+    int8 form of a packed leaf is never whole on the device
+    (``core/policy.packs``; serve_view keeps them as they are).
+    """
+    from repro_torch.core.policy import packs
+    from repro_torch.core.rules import as_policy
+    from repro_torch.kernels.ref import pack4_kin
+
+    pol = as_policy(policy)
+    model = init_lm(None, cfg, device="meta")
+    for lpath, tr, st in _param_leaves(params["trainable"],
+                                       params["static"]):
+        stacked = lpath[0] == "layers"
+        for i in (range(cfg.n_layers) if stacked else (None,)):
+            path = (("layers", str(i)) + lpath[1:]) if stacked else lpath
+            if st is None:
+                set_leaf(model, path, _convert(tr, device, i))
+            elif "__static" in st:
+                set_leaf(model, path, _convert(st["__static"], device, i))
+            else:
+                d = _convert(st["__lutq_d"], device, i)
+                a = _convert(st["__lutq_a"], device, i)
+                if packs(pol, lpath, a, d.shape[-1], pack4):
+                    a = pack4_kin(a)
+                set_leaf(model, path, LutqState(
+                    w=_meta_like(tr, i), d=d, a=a,
+                    sid=_convert(st.get("__lutq_sid"), device, i),
+                    act=_convert(st.get("__lutq_act"), device, i)))
+    missing = [".".join(p) for p, v in tree_paths(model)
+               if v is not None and not isinstance(v, LutqState)
+               and v.is_meta]
+    if missing:
+        raise KeyError(f"from_train_params: no value for {missing}")
+    return model

@@ -1,8 +1,8 @@
 """Serving CLI: LUT-Q weights served as a static batch or through the
 continuous-batching engine (slot pool or paged KV).
 
-Counterpart of ``repro.launch.serve`` without the mesh, checkpoint and
-autotune options. On the card:
+Counterpart of ``repro.launch.serve`` without the mesh and autotune
+options. On the card:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --batch 4 --prompt-len 128 --gen 16 --pack4
@@ -15,6 +15,8 @@ autotune options. On the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --act-bits 32 --speculative 3 --draft-bits 3 --batch 4 \
         --prompt-len 128 --gen 32 --pack4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --ckpt-dir DIR --pack4
 
 On the CPU, through the kernels' plain versions, at the reduced size:
 
@@ -27,6 +29,19 @@ On the CPU, through the kernels' plain versions, at the reduced size:
         --queue 4 --prompt-len 30 --gen 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --act-bits 32 --speculative 2 --draft-bits 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
+        --reduced --steps 3 --batch 4 --seq 32 --device cpu --ckpt-dir DIR
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --reduced --vocab 256 --device cpu --ckpt-dir DIR
+
+``--ckpt-dir`` serves the (d, A) that ``launch/train.py`` trained: the
+latest train checkpoint's parameters, memory-mapped
+(``ckpt.restore_params``; the optimizer moments are never read), loaded
+without their masters (``interop.from_train_params``), with the
+manifest's quant policy in place of the ``--quant-*`` flags; a
+checkpoint that does not fit ``--arch`` / ``--reduced`` / ``--vocab``
+is refused (the train CLI's vocab defaults to 256, this one's to the
+config's). Otherwise the weights are random, from ``--seed``.
 
 Serves the paper's deployment form (serve_view: dictionary + int8 or
 packed assignments, no fp masters; under ``serving_pow2`` pow2
@@ -50,6 +65,8 @@ from collections import Counter
 
 import torch
 
+from repro_torch import interop
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.policy import (backend_manifest, effective_bits,
                                      format_breakdown, quantized_fraction,
@@ -75,6 +92,33 @@ def footprint_bytes(model) -> int:
             if t is not None:
                 total += t.numel() * t.element_size()
     return total
+
+
+def check_ckpt_shapes(cfg, trainable) -> None:
+    """Refuse a restored train checkpoint that does not fit the serve
+    config, naming the mismatched leaves (a vocab or width mismatch
+    would otherwise serve garbage): every leaf of the checkpoint's
+    ``trainable`` tree against the shapes ``cfg`` gives
+    (:func:`repro_torch.interop.trainable_shapes`). Raises SystemExit."""
+    want = interop.trainable_shapes(cfg)
+    got = {path: getattr(leaf, "shape", None)
+           for path, leaf in interop.walk(trainable)}
+    bad = []
+    for path in sorted(set(want) | set(got)):
+        key = "/".join(path)
+        if path not in got:
+            bad.append(f"{key}: missing from checkpoint")
+        elif path not in want:
+            bad.append(f"{key}: not in model")
+        elif tuple(got[path] or ()) != want[path]:
+            bad.append(f"{key}: model {want[path]} vs checkpoint "
+                       f"{got[path]}")
+    if bad:
+        raise SystemExit(
+            "[serve] checkpoint does not fit the serve config "
+            f"({len(bad)} mismatched leaves, e.g. {bad[:3]}). "
+            "--arch/--reduced/--vocab (and the quant policy, when the "
+            "manifest lacks one) must match the training run.")
 
 
 def kernel_report(dev: torch.device) -> str:
@@ -215,6 +259,15 @@ def main(argv=None):
                     help="draft view dictionary size = 2^draft_bits entries "
                          "a leaf (leaves already at or below it are shared "
                          "with the target)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the (d, A) trained by launch/train.py: the "
+                         "latest train checkpoint's parameters (the "
+                         "manifest's quant policy supersedes the --quant "
+                         "flags) instead of random weights from --seed")
+    ap.add_argument("--vocab", type=int, default=None,
+                    help="override the vocab size (0 or unset keeps the "
+                         "config's; must match the checkpoint's with "
+                         "--ckpt-dir)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to run; cuda raises when no card is found")
@@ -224,8 +277,15 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    quant = (get_policy(args.quant_policy) if args.quant_policy
-             else QuantSpec(bits=args.quant_bits, min_size=1024))
+    if args.vocab:
+        cfg = cfg.replace(vocab=args.vocab)
+    ckpt_policy = ckpt.load_policy(args.ckpt_dir) if args.ckpt_dir else None
+    if ckpt_policy is not None:
+        quant = ckpt_policy
+    elif args.quant_policy:
+        quant = get_policy(args.quant_policy)
+    else:
+        quant = QuantSpec(bits=args.quant_bits, min_size=1024)
     cfg = cfg.replace(quant=quant, act_bits=args.act_bits,
                       kernel_backend=args.kernel_backend)
     if args.speculative:
@@ -233,13 +293,27 @@ def main(argv=None):
         if not ok:
             raise SystemExit(f"[serve] --speculative refused: {why}")
 
-    model = api.init(cfg, seed=args.seed, device=dev)
-    fp_bytes = footprint_bytes(model)
-    qmodel = api.quantize(model, cfg)
     policy = api.resolved_policy(cfg)
     pack = args.pack4 or args.kernel_backend == "packed4"
+    if args.ckpt_dir:
+        params, step = ckpt.restore_params(args.ckpt_dir)
+        check_ckpt_shapes(cfg, params["trainable"])
+        fp_bytes = sum(leaf.nbytes for _, leaf in
+                       interop.walk(params["trainable"]) if leaf is not None)
+        qmodel = interop.from_train_params(params, cfg, pack4=pack,
+                                           policy=policy, device=dev)
+        print(f"[serve] restored train checkpoint step {step} from "
+              f"{args.ckpt_dir}"
+              + (" (policy from manifest)" if ckpt_policy is not None else ""))
+        if ckpt_policy is not None:
+            print(ckpt_policy.describe())
+    else:
+        model = api.init(cfg, seed=args.seed, device=dev)
+        fp_bytes = footprint_bytes(model)
+        qmodel = api.quantize(model, cfg)
+        del model
     smodel = serve_view(qmodel, pack4=pack, policy=policy)
-    del model, qmodel  # the fp masters go with the quantized tree
+    del qmodel  # the fp masters go with the quantized tree
     manifest = backend_manifest(smodel, policy, override=args.kernel_backend)
 
     q_bytes = footprint_bytes(smodel)

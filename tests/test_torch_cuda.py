@@ -1450,3 +1450,71 @@ def test_cuda_speculative_engine_equals_plain_and_eager(cuda_device, paged):
     # per round: k draft forwards and one window on the packed kernel
     n_fwd = 7 * cfg.n_layers + 1
     assert runs["graph"][1][1]["launches"] >= 3 * n_fwd * st["spec_rounds"]
+
+
+def _blocks(model) -> int:
+    """Device bytes the caching allocator gives the distinct tensors of
+    ``model`` (each rounded up to its 512-byte block)."""
+    from repro_torch.nn.tree import tree_paths
+
+    seen, total = set(), 0
+    for _, leaf in tree_paths(model):
+        for t in (leaf if isinstance(leaf, tuple) else (leaf,)):
+            if t is not None and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += -(-t.numel() * t.element_size() // 512) * 512
+    return total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "serving_pow2"])
+def test_cuda_train_checkpoint_serves_the_cpu_tokens(cuda_device, tmp_path,
+                                                     policy):
+    """Reduced danube trained 3 steps on the CPU by the training CLI into
+    a checkpoint, served on the card and on the CPU through
+    restore_params and from_train_params (packed4; under serving_pow2
+    through lutq_shift): the same greedy tokens, no plain version on the
+    card, and the load raises the card's allocated memory by no more
+    than the serve view's blocks (no master, no moment)."""
+    from repro_torch import interop
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.serving import generate
+
+    flags = ["--arch", "h2o-danube-1.8b", "--reduced", "--steps", "3",
+             "--batch", "4", "--seq", "32", "--device", "cpu",
+             "--ckpt-dir", str(tmp_path)]
+    if policy:
+        flags += ["--quant-policy", policy]
+    assert train_cli.main(flags) == 0
+    cfg = reduced(get_config("h2o-danube-1.8b")).replace(
+        vocab=256, quant=ckpt.load_policy(str(tmp_path)), act_bits=8)
+    pol = api.resolved_policy(cfg)
+    params, _ = ckpt.restore_params(str(tmp_path))
+    toks = torch.randint(0, cfg.vocab, (2, 30),
+                         generator=torch.Generator().manual_seed(4))
+    out, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model = interop.from_train_params(params, cfg, pack4=True,
+                                          policy=pol, device=dev)
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - base
+        sv = serve_view(model, pack4=True, policy=pol)
+        if dev == "cuda":
+            assert 0 < grew <= _blocks(sv), (grew, _blocks(sv))
+        before = ops.read_counts()
+        out[dev] = generate(sv, cfg, {"tokens": toks}, steps=8,
+                            device=dev).cpu()
+        counts[dev] = ops.count_delta(before)
+    np.testing.assert_array_equal(out["cuda"].numpy(), out["cpu"].numpy())
+    mm, gp, sh = counts["cuda"][:3]
+    kernel = sh if policy else gp
+    assert kernel["launches"] > 0
+    assert sum(c.get("plain", 0) for c in counts["cuda"]) == 0
