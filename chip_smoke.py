@@ -121,6 +121,15 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    at a time, as the window does, under the same check. Logged beside
    it: how many of those row blocks an RMSNorm over the whole window
    changes (the reason the window norms per position).
+2h. prefill rows: danube's five product shapes through both GEMM
+   kernels, bf16 x: the first m rows of an M-row product equal the
+   m-row product bit for bit for every m < M in 16, 32, 64, 128, 256
+   (the paged engine's chunk widths and a packed call's widths), each
+   pair printed; then one forward's 169 products at M = 128 and 256 on
+   this plan (the 64 x 128 mma.sync tile at the decode split up to 256
+   rows), on the 128 x 256 wgmma tile at the same split, and on the
+   plan before packed prefill (the wgmma tile above 64 rows with its own
+   split), whose rows are printed too; in turns, CUDA-graph timed.
 3c. paged engine: full-width h2o-danube-1.8b (the phase-3 serve views)
    through Engine(kv_pages=...), page 64, 8-bit activations: (a) 24
    synthetic requests (prompts 128-512, 8-64 new tokens) on 8 slots,
@@ -149,8 +158,26 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    peak memory (allocated and reserved), the card's idle share over one
    profiled decode step and the wall of the next decode step without
    the profiler, then both side by side.
-3d. the reduced config through the paged engine (int8 and f32 pages)
+3d. the reduced config through the paged engine (int8 and f32 pages;
+   int8 pages packing its prefills, which must pack as often on both)
    and the slot engine: the same tokens on the card and on the CPU.
+3i. packed prefill: the phase-3 serve views at act_bits=32, page 64, 8
+   slots, 160 pages, max_len 512 + 64 (a 2048-position workspace: at
+   most 4 segments a packed call), max_chunk 256, over 32 requests at
+   t=0 (prompts 16-96, 2-16 new tokens, seed 2): P1 packed4, bf16 KV,
+   prefix cache on, every second prompt behind one 128-token system
+   prompt; P2 fused, int8 KV, prefix cache off. Each served packed with
+   graphs, packed inside disable_graphs() and unpacked
+   (prefill_pack=False) with graphs, each pass under phase 3c's checks
+   (its graphs, one packed graph a width where it packs, after the
+   warmup and unchanged by the serve; GEMM launches 169 x (decode steps
+   + prefill calls), a packed call's head one product over its
+   segments; paged attention 24 x decode steps; no plain version). The
+   three must give the same tokens request by request, the packed
+   passes the same counts, and packing at least one group and fewer
+   prefill calls than unpacked; prefill calls, prefill seconds, TTFT
+   p50/p99, goodput, warmup and peak memory are logged side by side.
+   Its launches go into the kernels' record as "packed_launches".
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -1663,7 +1690,10 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
     with _mode(mode):
         eng = Engine(view, run_cfg, capacity=r["capacity"],
                      max_len=r["max_len"], kv_pages=r["kv_pages"],
-                     page_size=ENGINE_PAGE, device="cuda")
+                     page_size=ENGINE_PAGE,
+                     prefix_cache=r.get("prefix_cache", True),
+                     prefill_pack=r.get("prefill_pack", True),
+                     device="cuda")
         traces = eng.paged_trace_counts()
         check(traces == _paged_traces(eng, mode == "graph"),
               f"run ({name}, {mode}): {traces} graphs after warmup")
@@ -1713,8 +1743,8 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
         f" stop and reading; goodput without it "
         f"{st['goodput_net_tok_s']:.1f} tok/s) | "
         f"pages peak {st['pages_peak']} of {st['kv_pages'] - 1} | prefix "
-        f"hits {st['prefix_hits']}/{st['prefix_queries']} "
-        f"({st['prefix_hit_rate'] * 100:.1f}%) | peak {peak:.2f} GiB "
+        f"hits {st.get('prefix_hits', 0)}/{st.get('prefix_queries', 0)} "
+        f"({st.get('prefix_hit_rate', 0) * 100:.1f}%) | peak {peak:.2f} GiB "
         f"({reserved:.2f} reserved) | warmup {st['t_warmup_s']:.3f} s | "
         f"card idle {(1 - busy_ms / wall_ms) * 100:.1f}% of a decode "
         f"step ({wall_ms:.1f} ms, paged kernel {pa_ms:.3f} ms; "
@@ -1740,7 +1770,8 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
         check(bool(((got["tokens"] >= 0) & (got["tokens"] < cfg.vocab)
                     ).all()), "tokens out of range")
     eng.pkv.alloc.check()
-    held = {n.page for n in eng.pkv.prefix._nodes.values()}
+    held = ({n.page for n in eng.pkv.prefix._nodes.values()}
+            if eng.pkv.prefix is not None else set())
     check(eng.pkv.alloc.pages_in_use == len(held),
           f"run ({name}): {eng.pkv.alloc.pages_in_use} pages still held, "
           f"{len(held)} by the prefix cache")
@@ -1767,15 +1798,18 @@ def _engine_pass(name, mode, view, cfg, r, gemm, calls_per_forward):
 def _paged_traces(eng, graphs: bool) -> dict:
     """The graphs a warmed paged engine holds from its construction on:
     the decode step (and the speculative round), one chunk graph a
-    width of ``prefill_buckets(max_chunk)``, the hydrate and the splice;
-    none when it was made inside disable_graphs()."""
+    width of ``prefill_buckets(max_chunk)``, the hydrate and the splice,
+    and one packed graph a width where the engine packs; none when it
+    was made inside disable_graphs()."""
     from repro_torch.runtime import paged_kv
 
     n = int(graphs)
-    out = {"decode": n, "hydrate": n, "splice": n,
-           "chunk": n * len(paged_kv.prefill_buckets(eng.max_chunk))}
+    widths = len(paged_kv.prefill_buckets(eng.max_chunk))
+    out = {"decode": n, "hydrate": n, "splice": n, "chunk": n * widths}
     if eng.spec_k:
         out["spec"] = n
+    if eng.prefill_pack:
+        out["packed"] = n * widths
     return out
 
 
@@ -1899,9 +1933,10 @@ def reduced_engine_card_vs_cpu():
                                    prefill_pack=False)),
             ("paged f32", 16, dict(kv_pages=24, page_size=8,
                                    prefill_pack=False)),
+            ("paged int8 packed", 8, dict(kv_pages=24, page_size=8)),
             ("slot", 16, {})):
         cfg = base.replace(kv_cache_bits=kv_bits)
-        toks, counts = {}, {}
+        toks, counts, groups = {}, {}, {}
         for dev in ("cpu", "cuda"):
             eng = Engine(model.to(dev), cfg, capacity=2, max_len=38,
                          device=dev, **kw)
@@ -1910,15 +1945,126 @@ def reduced_engine_card_vs_cpu():
             _reset_counts()
             toks[dev] = [r["tokens"].tolist() for r in eng.run()]
             counts[dev] = _read_counts()
+            groups[dev] = eng.stats().get("packed_groups", 0)
         same = toks["cpu"] == toks["cuda"]
         log(f"reduced engine {label}: card vs cpu tokens equal {same} | "
+            f"packed groups {groups['cuda']} | {groups['cpu']} | "
             f"card {counts['cuda']} | cpu {counts['cpu']}")
+        if label.endswith("packed"):
+            check(groups["cuda"] >= 1 and groups["cuda"] == groups["cpu"],
+                  f"reduced engine {label}: packed groups {groups}")
         check(same, f"reduced engine {label}: card and CPU tokens differ")
         check(counts["cuda"]["plain"] == 0, "card run took a plain version")
         if kw:
             check(counts["cuda"]["paged_attention"] > 0
                   and counts["cpu"]["paged_attention"] == 0,
                   f"reduced engine {label}: paged kernel launches wrong")
+
+
+# ---------------------------------------------------------------------------
+# phase 3i
+# ---------------------------------------------------------------------------
+
+#: phase 3i: the reference's prefill_packing burst scaled to run (a)'s 8
+#: slots: 32 requests at t=0, prompts of 16-96 tokens, 2-16 new tokens
+PACK_QUEUE, PACK_SYSTEM = 32, 128
+
+
+def _packing_requests(vocab, shared: bool):
+    """Phase 3i's queue (seed 2); with ``shared`` every second prompt
+    sits behind one 128-token system prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, vocab, PACK_SYSTEM)
+    out = []
+    for i in range(PACK_QUEUE):
+        toks = rng.integers(0, vocab, int(rng.integers(16, 97)))
+        if shared and i % 2:
+            toks = np.concatenate([system, toks])
+        out.append({"tokens": toks.astype(np.int32),
+                    "max_new": int(rng.integers(2, 17))})
+    return out
+
+
+def packed_runs(views, cfg):
+    """Phase 3i: packed prefill at full width (act_bits 32, page 64, 8
+    slots, 160 pages, max_len 576: a 2048-position workspace, at most 4
+    segments a call). Run P1: packed4, bf16 KV, prefix cache on, half
+    the prompts behind a shared system prompt (segments hydrate prefix
+    hits); run P2: fused, int8 KV, prefix cache off. Each is served
+    packed replaying its graphs, packed eagerly inside disable_graphs(),
+    and unpacked replaying its graphs, with phase 3c's checks on each
+    pass; the tokens of the three must be equal request by request, the
+    packed passes' counts equal, the packed passes must pack and make
+    fewer prefill calls than the unpacked one. Returns the kernels'
+    launches over the packed graph passes."""
+    import numpy as np
+
+    pcfg = cfg.replace(act_bits=32)
+    runs = {
+        "P1": dict(view="lutq_gemv_packed", backend="auto", kv_bits=16,
+                   prefix_cache=True, shared=True),
+        "P2": dict(view="lutq_matmul", backend="fused", kv_bits=8,
+                   prefix_cache=False, shared=False),
+    }
+    launches = {}
+    for name, r in runs.items():
+        r.update(capacity=8, kv_pages=160, max_len=512 + 64,
+                 requests=_packing_requests(cfg.vocab, r["shared"]))
+        gemm = r["view"]
+        out = {}
+        for label, mode, pack in (("packed", "graph", True),
+                                  ("packed eager", "eager", True),
+                                  ("unpacked", "graph", False)):
+            out[label] = _engine_pass(f"{name} {label}", mode,
+                                      views[r["view"]], pcfg,
+                                      dict(r, prefill_pack=pack), gemm,
+                                      CALLS_PER_FORWARD)
+        pk, ea, up = out["packed"], out["packed eager"], out["unpacked"]
+        same = all(np.array_equal(a, b) and np.array_equal(a, c)
+                   for a, b, c in zip(pk["tokens"], ea["tokens"],
+                                      up["tokens"]))
+        log(f"packed run ({name}) packed graph | packed eager | unpacked "
+            f"graph: prefill calls {pk['prefill_chunk_calls']} | "
+            f"{ea['prefill_chunk_calls']} | {up['prefill_chunk_calls']} "
+            f"({pk['packed_groups']} packed groups of "
+            f"{pk['packed_requests']} requests), prefill "
+            f"{pk['t_prefill_s']:.3f} | {ea['t_prefill_s']:.3f} | "
+            f"{up['t_prefill_s']:.3f} s, TTFT p50 "
+            f"{pk['ttft_p50_s'] * 1e3:.1f} | {ea['ttft_p50_s'] * 1e3:.1f} | "
+            f"{up['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+            f"{pk['ttft_p99_s'] * 1e3:.1f} | {ea['ttft_p99_s'] * 1e3:.1f} | "
+            f"{up['ttft_p99_s'] * 1e3:.1f} ms, goodput "
+            f"{pk['goodput_tok_s']:.1f} | {ea['goodput_tok_s']:.1f} | "
+            f"{up['goodput_tok_s']:.1f} tok/s (without the profiler "
+            f"{pk['goodput_net_tok_s']:.1f} | {ea['goodput_net_tok_s']:.1f}"
+            f" | {up['goodput_net_tok_s']:.1f}), decode steps "
+            f"{pk['decode_steps']} | {ea['decode_steps']} | "
+            f"{up['decode_steps']}, prefix hits {pk.get('prefix_hits', 0)}"
+            f" | {ea.get('prefix_hits', 0)} | {up.get('prefix_hits', 0)}, "
+            f"warmup {pk['t_warmup_s']:.3f} | {ea['t_warmup_s']:.3f} | "
+            f"{up['t_warmup_s']:.3f} s, peak {pk['peak_gib']:.2f} | "
+            f"{ea['peak_gib']:.2f} | {up['peak_gib']:.2f} GiB (reserved "
+            f"{pk['reserved_gib']:.2f} | {ea['reserved_gib']:.2f} | "
+            f"{up['reserved_gib']:.2f}) | tokens equal {same}")
+        check(pk["packed_groups"] >= 1 and ea["packed_groups"] >= 1,
+              f"run ({name}): nothing packed")
+        check(up["packed_groups"] == 0, f"run ({name}): unpacked packed")
+        check(pk["prefill_chunk_calls"] + pk["packed_groups"]
+              < up["prefill_chunk_calls"],
+              f"run ({name}): {pk['prefill_chunk_calls']} prefill calls "
+              f"packed, not fewer than {up['prefill_chunk_calls']}")
+        check(same, f"run ({name}): packed and unpacked serves give other "
+              f"tokens")
+        check(pk["counts"] == ea["counts"],
+              f"run ({name}): packed graph and eager passes launch other "
+              f"counts")
+        if r["shared"]:
+            check(pk["prefix_hits"] > 0, f"run ({name}): no prefix hit")
+        for k, v in pk["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2026,6 +2172,103 @@ def _window_norm_report(gen, dev):
         log(f"RMSNorm over a whole window, {str(dtype)[6:]}: {bad} of {n} "
             f"row blocks differ from the decode step's (the window norms "
             f"per position)")
+
+
+#: phase 2h: the prefill widths whose rows must agree (the paged engine's
+#: chunk buckets, a packed call's widths)
+PREFILL_M = (16, 32, 64, 128, 256)
+#: phase 2h: two other plans of the GEMM tiles, for their rows and
+#: cost: the 128 x 256 wgmma tile above 64 rows at the decode split, and
+#: the plan before packed prefill (PR 25), the wgmma tile above 64 rows
+#: with its own split: (tiles, stable_m) of build.plan_splits
+OTHER_PLANS = {
+    "wgmma at the decode split": (
+        ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (64, 64, 128, 2, 8),
+         (256, 128, 256, 1, 4), (None, 128, 256, 1, 4)), 256),
+    "wgmma, own split": (
+        ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (64, 64, 128, 2, 8),
+         (None, 128, 256, 1, 4)), 64),
+}
+
+
+def prefill_row_checks():
+    """Phase 2h: the first m rows of an M-row product equal an m-row
+    product bit for bit, at danube's five shapes, for M, m in PREFILL_M,
+    both GEMM kernels (bf16 x): a packed prefill call gives each prompt
+    the rows its own chunks give it. Fatal on the build's plan; logged
+    for OTHER_PLANS. Then the cost of each plan: one forward's 169
+    products at M = 128 and 256, CUDA-graph timed, the plans in turns."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = dict({k: s for k, (s, _) in LAYER_SHAPES.items()},
+                  head=HEAD_SHAPE)
+    sms = build.sm_count(dev)
+    stable = build.plan_splits
+    plans = {"row-stable": stable}
+    plans.update({name: functools.partial(stable, tiles=tiles,
+                                          stable_m=top)
+                  for name, (tiles, top) in OTHER_PLANS.items()})
+
+    def under(plan, fn, *args):
+        build.plan_splits = plans[plan]
+        try:
+            return fn(*args)
+        finally:
+            build.plan_splits = stable
+
+    for kname, (fn, _) in _gemm_fns().items():
+        ops_ = {}
+        for label, (Kin, N) in shapes.items():
+            _, a, d = _operands(1, Kin, N, 16, torch.bfloat16, gen, dev,
+                                KERNELS[kname]["packed"])
+            x = torch.randn(max(PREFILL_M), Kin, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            for plan, plan_fn in plans.items():
+                ys = {M: under(plan, fn, x[:M].contiguous(), a, d)
+                      for M in PREFILL_M}
+                pairs = [(m, M, torch.equal(ys[M][:m], ys[m]))
+                         for M in PREFILL_M for m in PREFILL_M if m < M]
+                splits = {M: plan_fn(M, N, Kin, sms)["splits"]
+                          for M in PREFILL_M}
+                log(f"check {kname} {label} (Kin={Kin}, N={N}) prefill rows"
+                    f" [{plan}], first m of M equal to m alone: " + " ".join(
+                        f"{m}<{M}:{'=' if ok else 'DIFFERENT'}"
+                        for m, M, ok in pairs) + f" (splits {splits})")
+                bad = [(m, M) for m, M, ok in pairs if not ok]
+                check(plan != "row-stable" or not bad,
+                      f"{kname} {label}: prefill rows depend on M at (m, M)"
+                      f" = {bad}")
+            ops_[label] = [(a, d)] + [
+                _operands(1, Kin, N, 16, torch.bfloat16, gen, dev,
+                          KERNELS[kname]["packed"])[1:]
+                for _ in range(_copies(a.numel()) - 1)]
+        for M in PREFILL_M[-2:]:
+            xs = {lab: torch.randn(M, shapes[lab][0], generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                  for lab in shapes}
+
+            def forward():
+                for layer in range(N_LAYERS):
+                    for lab, (_, calls) in LAYER_SHAPES.items():
+                        copies = ops_[lab]
+                        for _ in range(calls):
+                            fn(xs[lab], *copies[layer % len(copies)])
+                fn(xs["head"], *ops_["head"][0])
+
+            ms = {plan: [] for plan in plans}
+            for plan in list(plans) + list(plans)[::-1]:
+                ms[plan].append(under(plan, time_ms, forward, [()], 2)[0])
+            log(f"cost {kname} M={M}: one forward's 169 products, ms (two "
+                f"runs in turns): " + " | ".join(
+                    f"{plan} {sum(t) / 2:.3f} ({t[0]:.3f}, {t[1]:.3f})"
+                    for plan, t in ms.items()))
+        del ops_
 
 
 def serve_speculative(views, cfg):
@@ -3530,6 +3773,7 @@ def main() -> int:
     name, count, card = setup()
     worst = kernel_checks()
     window_row_checks()
+    prefill_row_checks()
     worst["kmeans_stats"] = kmeans_checks()
     worst.update(paged_kernel_checks())
     worst["lutq_shift"] = shift_checks()
@@ -3539,6 +3783,7 @@ def main() -> int:
     launches, _, views, cfg = serve_full_width()
     reduced_reference()
     engine = engine_runs(views, cfg)
+    packed_launches = packed_runs(views, cfg)
     spec_launches = serve_speculative(views, cfg)
     del views
     torch.cuda.empty_cache()
@@ -3605,6 +3850,8 @@ def main() -> int:
             "library_ms": t["library_ms"]})
         if kname in spec_launches:  # phase 3f's speculative runs
             records[-1]["speculative_launches"] = spec_launches[kname]
+        if kname in packed_launches:  # phase 3i's packed graph passes
+            records[-1]["packed_launches"] = packed_launches[kname]
         # phases 3g, 3h and the reduced checkpoint: the handoff path
         records[-1]["handoff_launches"] = handoff.get(kname, 0)
         if kname in prefill:  # one prefill forward at B=4 x 128 (M=512)

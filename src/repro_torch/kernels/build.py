@@ -162,24 +162,33 @@ def load_library() -> ctypes.CDLL:
 
 BK = 64  # reduction rows of one pipeline stage of the GEMM kernels
 #: (largest M, BM, BN, resident blocks an SM, most splits) of the GEMM
-#: kernels' output tiles, by M: decode tiles for M <= 16, prefill tiles
-#: above (None: every larger M). csrc/lutq_gemm.cuh instantiates exactly
-#: these tiles (128 x 256 on wgmma) and sizes each one's registers for
-#: that many blocks an SM; the split plan aims at that many blocks an SM,
-#: with at most that many splits (the last block of a tile merges them:
-#: a 128 x 256 f32 partial is 128 KB). Measured on the H100: decode at 2
-#: blocks an SM and at most 8 splits beat 1 or 4 blocks and 64 splits at
-#: M = 8, and tied at M = 4.
-GEMM_TILES = ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (64, 64, 128, 2, 8),
+#: kernels' output tiles, by M: decode tiles for M <= 16, the mma.sync
+#: 64 x 128 prefill tile up to GEMM_STABLE_M rows, the wgmma 128 x 256
+#: tile above (None: every larger M). csrc/lutq_gemm.cuh instantiates
+#: exactly these tiles and sizes each one's registers for that many
+#: blocks an SM; the split plan aims at that many blocks an SM, with at
+#: most that many splits (the last block of a tile merges them: a 128 x
+#: 256 f32 partial is 128 KB). Measured on the H100: decode at 2 blocks
+#: an SM and at most 8 splits beat 1 or 4 blocks and 64 splits at M = 8,
+#: and tied at M = 4.
+GEMM_TILES = ((8, 8, 256, 2, 8), (16, 16, 256, 2, 8), (256, 64, 128, 2, 8),
               (None, 128, 256, 1, 4))
 #: products of at most this many rows split their reduction as an 8-row
-#: decode does (the first tile's plan), whatever their tile. The mma.sync
-#: tiles give each output the same chain of products over a split, and
-#: the merge sums the splits in order, so such a product's rows are the
-#: bits the same rows get in any other product of at most this many rows:
-#: a speculative verify window of B (k + 1) rows gives each row the bits
-#: of the B-row decode step. (Products of more rows use the wgmma tile.)
+#: decode does (the first tile's plan), whatever their tile; this holds
+#: for every kernel that plans with :func:`plan_splits` (the shift-add
+#: kernel's tiles included). The mma.sync tiles give each output the
+#: same chain of products over a split, and the merge sums the splits in
+#: order, so such a product's rows are the bits the same rows get in any
+#: other product of at most this many rows: a speculative verify window
+#: of B (k + 1) rows gives each row the bits of the B-row decode step.
 ROW_STABLE_M = 64
+#: the LUT-decode GEMMs (``GEMM_TILES``) keep that split, on the mma.sync
+#: tiles, up to this many rows, so a paged prefill chunk of up to 256
+#: rows gives each row the bits it gets in any narrower chunk: a packed
+#: prefill call gives each prompt the rows of its own chunks. (A 128 x
+#: 256 wgmma tile at the decode split gives the same rows, measured on
+#: the H100, but is slower there.)
+GEMM_STABLE_M = 256
 #: per device: the output tiles' merge tickets, zero between calls (the
 #: kernel's last block of a tile resets its ticket)
 _GEMM_TICKETS: Dict[str, torch.Tensor] = {}
@@ -189,7 +198,7 @@ _OUTGROWN: List[torch.Tensor] = []
 
 
 def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
-                bk: int = BK) -> dict:
+                bk: int = BK, stable_m: int = GEMM_STABLE_M) -> dict:
     """How a (M, Kin) @ (Kin, N) product is tiled and split, from static
     shapes and the SM count only (never the data).
 
@@ -199,10 +208,11 @@ def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
     reduction is split, up to the tile's most splits, so that about that
     many blocks run (decode shapes, and prefill of narrow products); each
     split covers ``kchunk`` rows, a multiple of ``bk`` (the kernel's
-    rows a pipeline stage). A tile for at most ``ROW_STABLE_M`` rows
-    takes the split of the first tile over one m tile instead, from
-    (N, Kin, sms) alone, so its rows equal the same rows of a smaller
-    product bit for bit. Returns bm, bn, grid (m tiles, n tiles,
+    rows a pipeline stage). A tile for at most ``stable_m`` rows
+    (``GEMM_STABLE_M`` for the GEMMs' tiles; the shift-add kernel passes
+    ``ROW_STABLE_M``) takes the split of the first tile over one m tile
+    instead, from (N, Kin, sms) alone, so its rows equal the same rows
+    of a smaller product bit for bit. Returns bm, bn, grid (m tiles, n tiles,
     splits), splits, kchunk, and the workspace a call needs: ``tickets``
     int32 (one a tile) and ``partials`` f32 (splits * M * N), both 0
     without a split.
@@ -213,7 +223,7 @@ def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
     n_tiles = grid_m * grid_n
     steps = -(-Kin // bk)
     fill = n_tiles
-    if top is not None and top <= ROW_STABLE_M:
+    if top is not None and top <= stable_m:
         _, _, bn0, per_sm, most = tiles[0]
         fill = -(-N // bn0)
     want = max(1, min(steps, most, per_sm * sms // fill))

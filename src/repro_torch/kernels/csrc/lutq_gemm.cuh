@@ -13,7 +13,8 @@
 // they share the assignment bytes in L2 and each byte leaves device
 // memory about once. The tiles (BM x BN), the split and kchunk come from
 // build.plan_splits (static shapes only): 8 x 256 and 16 x 256 for
-// decode (M <= 16), 64 x 128 and 128 x 256 for prefill.
+// decode (M <= 16), 64 x 128 for prefill up to 256 rows (at the decode
+// tiles' split, so its rows do not depend on M) and 128 x 256 above.
 //
 // Pipeline: a ring of shared-memory stages (5 for the 128 x 256 tile, 4
 // for the other bf16 tiles, 2 for f32 x), each holding the x tile (BM x

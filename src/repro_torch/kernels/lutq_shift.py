@@ -45,7 +45,8 @@ def plan_splits(M: int, N: int, Kin: int, sms: int) -> dict:
     ``partials`` the int32 partial tiles the splits write (every split's
     whole bm x bn tile, contiguous: tiles * splits * bm * bn; 0 without a
     split)."""
-    plan = build.plan_splits(M, N, Kin, sms, tiles=SHIFT_TILES, bk=BK)
+    plan = build.plan_splits(M, N, Kin, sms, tiles=SHIFT_TILES, bk=BK,
+                             stable_m=build.ROW_STABLE_M)
     grid_m, grid_n, splits = plan["grid"]
     plan["partials"] = (grid_m * grid_n * splits * plan["bm"] * plan["bn"]
                         if splits > 1 else 0)

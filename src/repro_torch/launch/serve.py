@@ -145,14 +145,13 @@ def run_engine(model, cfg, *, capacity: int, n_requests: int,
 
     ``kv_pages`` switches onto the paged KV cache. ``requests``
     overrides the synthetic workload with a list of ``Engine.submit``
-    kwargs dicts. Packed prefill is not ported, so a paged engine
-    prefills every prompt in chunks. ``speculative``: draft block length
-    of self-speculative rounds (the cache gets that much headroom)."""
+    kwargs dicts. ``speculative``: draft block length of self-speculative
+    rounds (the cache gets that much headroom)."""
     eng = Engine(model, cfg, capacity=capacity,
                  max_len=prompt_len + gen + int(speculative),
                  temperature=temperature, seed=seed, kv_pages=kv_pages,
                  page_size=page_size, prefix_cache=prefix_cache,
-                 prefill_pack=False, speculative=speculative,
+                 speculative=speculative,
                  draft_bits=draft_bits, draft_params=draft_params,
                  device=device)
     if requests is None:
@@ -183,7 +182,10 @@ def format_engine_stats(stats) -> str:
         out += (f"\n[serve] paged KV: {stats['pages_in_use']}/"
                 f"{stats['kv_pages'] - 1} pages in use "
                 f"(peak {stats['pages_peak']}) x {stats['page_size']} tokens"
-                f" | {stats['kv_bytes_per_token']} KV bytes/token")
+                f" | {stats['kv_bytes_per_token']} KV bytes/token"
+                f" | {stats['prefill_chunk_calls']} prefill calls, "
+                f"{stats['packed_groups']} packed groups of "
+                f"{stats['packed_requests']} requests")
         if "prefix_hit_rate" in stats:
             out += (f" | prefix cache: {stats['prefix_hits']}/"
                     f"{stats['prefix_queries']} page hits "

@@ -614,3 +614,114 @@ def lm_paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len, ws):
             w[key][0, :width] = torch.where(live, val.to(w[key].dtype), 0)
             w[key][0, width:].zero_()
     return ws
+
+
+def lm_paged_prefill_packed(model: LM, cfg: ModelConfig, tokens, pool,
+                            blocks, bases, hists, lens, wws: int):
+    """Packed prefill: several prompts' tails in ONE chunk call.
+
+    tokens: (1, C), the segments' tail tokens back to back (rows past
+    their sum are padding, masked everywhere). blocks: (S, NB) block
+    rows; bases: (S,) each segment's workspace base, aligned to
+    ``cfg.attn_kv_block`` and non-decreasing (inactive segments park at
+    the total span); hists / lens: (S,) prefix-hit and prompt lengths (0
+    for an inactive segment). blocks, bases, hists and lens are integer
+    tensors (or arrays) and nothing is read on the host, so one CUDA
+    graph of a width replays for every group.
+
+    Does per layer what the unpacked path does in a hydrate, a chunk and
+    a splice: a ``wws``-position workspace holds each segment's prefix
+    [0, hist) from the pool (dequantized where the pool is int8) and its
+    tail's fresh K/V at ``base + position``, zeros elsewhere; the chunk
+    attends it with per-token positions and segments
+    (``flash_attention``'s overrides); then positions [hist, len) of
+    each segment go to its pages and every other workspace position
+    writes zeros to the trash page (see ``lm_paged_splice``). The pool
+    is updated in place. Returns logits (S, 1, V), row s read at segment
+    s's last tail row (an inactive segment's row is not meaningful).
+
+    A segment's rows get the bits of its own unpacked hydrate + chunk +
+    splice where every op's rows are independent of the call's width:
+    masked kv blocks leave the online softmax as it was, and the bases'
+    alignment puts a segment's entries in the kv blocks, at the
+    in-block offsets, that an unpacked chunk puts them. The readout
+    norms each segment's row on its own, as the chunk norms its one row.
+    """
+    _check_dense(cfg)
+    C = tokens.shape[1]
+    dev = pool[0]["k"].device
+    page = pool[0]["k"].shape[1]
+
+    def ints(t):
+        return torch.as_tensor(t, device=dev).long()
+
+    blocks, bases, hists, lens = map(ints, (blocks, bases, hists, lens))
+    S, NB = blocks.shape
+    # packed-q geometry: row i belongs to segment q_seg[i] at in-prompt
+    # position q_pos[i] = hist + its offset within the tail
+    tails = lens - hists
+    ends = torch.cumsum(tails, 0)
+    firsts = ends - tails
+    qi = torch.arange(C, device=dev)
+    q_valid = qi < ends[S - 1]
+    q_seg = torch.clamp(torch.searchsorted(ends, qi, right=True), 0, S - 1)
+    q_pos = torch.where(q_valid, hists[q_seg] + qi - firsts[q_seg], -1)
+    q_seg_m = torch.where(q_valid, q_seg, -2)  # matches no key
+    positions = torch.clamp(q_pos, min=0)[None, :]
+    # workspace geometry: position w belongs to the last segment whose
+    # base is <= w, at in-prompt position w_local
+    wpos = torch.arange(wws, device=dev)
+    w_seg = torch.clamp(torch.searchsorted(bases, wpos, right=True) - 1, 0,
+                        S - 1)
+    w_local = wpos - bases[w_seg]
+    w_blk = blocks[w_seg, torch.clamp(w_local // page, 0, NB - 1)]
+    gather_idx = w_blk * page + w_local % page
+    hyd_live = (w_local < hists[w_seg])[:, None, None]
+    spl_valid = (w_local >= hists[w_seg]) & (w_local < lens[w_seg])
+    # the chunk row whose K/V lands at w (the tail rows, back to back)
+    w_row = torch.clamp(firsts[w_seg] + w_local - hists[w_seg], 0, C - 1)
+    spl_live = spl_valid[:, None, None]
+    spl_idx = torch.where(spl_valid, w_blk, 0) * page + w_local % page
+    quant = _paged_quant(cfg)
+
+    def flat(t):
+        return t.reshape((-1,) + tuple(t.shape[2:]))
+
+    h = _embed_tokens(model, cfg, tokens)
+    for layer, c in zip(model.layers, pool):
+        q, k, v = _qkv(layer.attn, cfg, rmsnorm_apply(layer.ln1, h),
+                       positions)
+        ws = {}
+        for key, fresh in (("k", k), ("v", v)):
+            # the hydrate of lm_paged_hydrate, position by position
+            val = flat(c[key])[gather_idx]
+            if quant:
+                val = val.to(torch.bfloat16) * flat(
+                    c[f"{key}_scale"])[gather_idx][..., None]
+            val = torch.where(hyd_live, val.to(cfg.dtype), 0)
+            ws[key] = torch.where(spl_live, fresh[0][w_row].to(cfg.dtype),
+                                  val)
+        o = flash_attention(q, ws["k"][None], ws["v"][None],
+                            window=cfg.window, q_block=cfg.attn_q_block,
+                            kv_block=cfg.attn_kv_block,
+                            q_positions=q_pos, kv_positions=w_local,
+                            q_segments=q_seg_m, kv_segments=w_seg)
+        h = h + linear_apply(layer.attn.o, o.reshape(1, C, -1),
+                             backend=cfg.kernel_backend,
+                             act_bits=cfg.act_bits)
+        h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
+        # the splice: [hist, len) of each segment to its pages, zeros to
+        # the trash page from every other position
+        for key in ("k", "v"):
+            val = torch.where(spl_live, ws[key], 0)
+            if quant:
+                val, sc = _kv_quant(val, 8)
+                flat(c[f"{key}_scale"])[spl_idx] = sc
+            flat(c[key])[spl_idx] = val.to(c[key].dtype)
+    last = torch.clamp(ends - 1, 0, C - 1)
+    # each segment's row normed on its own, as the chunk's readout norms
+    # its one row, then one head product over the S rows (at most
+    # ROW_STABLE_M rows give each row a one-row product's bits)
+    normed = torch.cat([rmsnorm_apply(model.final_norm, h[:, last[s:s + 1]])
+                        for s in range(S)])
+    return _head(model, cfg, normed, ROW_STABLE_M)

@@ -7,10 +7,11 @@ helpers ``gather_pages`` / ``scatter_token_pages`` of the paged KV
 cache, as plain torch ops. The prefill walks (q-block, kv-block) pairs
 with an online softmax, and under a window each q-block reads a
 fixed-width KV slab, as the reference does. GQA folds query heads into
-(kv_head, group) so no KV head is replicated. The reference's packed
-multi-sequence overrides of ``flash_attention`` (per-token positions
-and segments) are not ported yet (ROADMAP queue 1). The paged decode
-kernel is ``kernels/paged_attn.py``.
+(kv_head, group) so no KV head is replicated. Per-token positions and
+segments (``q_positions`` / ``kv_positions`` / ``q_segments`` /
+``kv_segments``) let one call attend several packed sequences, as the
+paged engine's packed prefill does. The paged decode kernel is
+``kernels/paged_attn.py``.
 """
 from __future__ import annotations
 
@@ -37,7 +38,12 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = 512,
                     kv_block: int = 512,
-                    q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
+                    q_offset: Union[int, torch.Tensor] = 0,
+                    q_positions: Optional[torch.Tensor] = None,
+                    kv_positions: Optional[torch.Tensor] = None,
+                    q_segments: Optional[torch.Tensor] = None,
+                    kv_segments: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Causal attention. q: (B,S,H,Dh); k,v: (B,Skv,Hkv,Dh[v]) ->
     (B,S,H,Dv).
 
@@ -49,12 +55,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     clamped there and its K/V blocks are gathered at device indices, so
     a CUDA graph of the call replays at any offset; the output equals
     that of the ``int`` offset of the same value bit for bit.
+
+    ``q_positions`` / ``kv_positions`` (S,) / (Skv,) and ``q_segments`` /
+    ``kv_segments``, integer tensors, all four or none: per-token
+    overrides for several sequences packed into one call. The mask is
+    then ``seg_q == seg_kv & pos_q >= pos_kv [& pos_q - pos_kv <
+    window]``, so a token attends its own segment only; padding takes
+    position -1 and segments -2 (queries) and -1 (keys), which never
+    match. There is no window slab (positions need not grow along the
+    buffer) and ``q_offset`` is ignored. A fully masked kv block leaves
+    every row's result exactly as it is without that block (before a
+    row's first live block its sums are later scaled by exactly 0), so
+    a segment's rows equal an unpacked call's that groups the same
+    entries into the same kv blocks (segment bases aligned to
+    ``kv_block``).
     """
     B, S, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
     G = H // Hkv
     scale = Dh ** -0.5
+    packed = q_positions is not None
+    if packed != (kv_positions is not None) or packed != (
+            q_segments is not None) or packed != (kv_segments is not None):
+        raise ValueError("flash_attention: pass q_positions, kv_positions, "
+                         "q_segments and kv_segments together")
     traced = isinstance(q_offset, torch.Tensor)
     if not traced:
         q_offset = int(q_offset)
@@ -63,17 +88,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S0, Skv0 = S, Skv
     pad_q = (-S) % q_block
     pad_kv = (-Skv) % kv_block
+    pad = torch.nn.functional.pad
     if pad_q:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+        q = pad(q, (0, 0, 0, 0, 0, pad_q))
         S += pad_q
+        if packed:
+            q_positions = pad(q_positions, (0, pad_q), value=-1)
+            q_segments = pad(q_segments, (0, pad_q), value=-2)
     if pad_kv:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_kv))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
+        k = pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = pad(v, (0, 0, 0, 0, 0, pad_kv))
         Skv += pad_kv
+        if packed:
+            kv_positions = pad(kv_positions, (0, pad_kv), value=-1)
+            kv_segments = pad(kv_segments, (0, pad_kv), value=-1)
     nq = S // q_block
     qr = scaled(q.reshape(B, nq, q_block, Hkv, G, Dh), scale)
 
-    if window is not None:
+    if window is not None and not packed:
         # static KV slab wide enough to cover [q_end - window, q_end)
         slab = ((window + kv_block - 1) // kv_block + 1) * kv_block
         slab = min(slab + (q_block // kv_block) * kv_block, Skv)
@@ -88,13 +120,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for qi in range(nq):
         qblk = qr[:, qi]  # (B, bq, Hkv, G, Dh)
         q_start = q_offset + qi * q_block
+        if packed:
+            rows = slice(qi * q_block, (qi + 1) * q_block)
+            q_pos, q_seg = q_positions[rows], q_segments[rows]
+        else:
+            q_pos = q_start + torch.arange(q_block, device=dev)
         if slab == Skv:
             start = 0
         elif traced:
             start = torch.clamp(q_start + q_block - slab, 0, Skv - slab)
         else:
             start = min(max(q_start + q_block - slab, 0), Skv - slab)
-        q_pos = q_start + torch.arange(q_block, device=dev)
         m = torch.full((B, Hkv, G, q_block, 1), NEG_INF, device=dev)
         l = torch.zeros((B, Hkv, G, q_block, 1), device=dev)
         acc = torch.zeros((B, Hkv, G, q_block, Dv), device=dev)
@@ -107,11 +143,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             else:
                 kj = k[:, lo:lo + kv_block]
                 vj = v[:, lo:lo + kv_block]
+            if packed:
+                k_seg = kv_segments[lo:lo + kv_block]
+                k_pos = kv_positions[lo:lo + kv_block]
             s = _f32_einsum("bqhgd,bkhd->bhgqk", qblk, kj)
             mask = q_pos[:, None] >= k_pos[None, :]
             if window is not None:
                 mask &= q_pos[:, None] - k_pos[None, :] < window
-            if pad_kv:
+            if packed:
+                mask &= q_seg[:, None] == k_seg[None, :]
+            elif pad_kv:
                 mask &= k_pos[None, :] < Skv0
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))

@@ -49,7 +49,18 @@ reference jits it: one graph per chunk width of
 0-dim device buffers, the reference's traced scalars), one for the
 hydrate and one for the splice, all over the engine's own buffers and
 sharing one memory pool; a warmed engine captures them at construction
-beside the decode step. The slot pool's batched prefill, the first
+beside the decode step.
+
+Packed prefill (``prefill_pack``, on for a paged engine at ``act_bits >=
+32``, as in the reference): when no chunked prefill is in flight,
+consecutive queue heads whose prompt tails (past their prospective
+prefix hits) sum within ``max_chunk`` and whose ``attn_kv_block``-aligned
+workspace spans fit the workspace are admitted together, and ONE call
+(``serving.paged_packed``) hydrates, prefills and splices them all,
+with segment-masked attention; it is captured as one graph per bucket
+width, as the chunk is. Dynamic activation scales span a whole product,
+so under ``act_bits < 32`` packing would couple the segments' rows and
+stays off. The slot pool's batched prefill, the first
 token's sampling and temperature sampling run eagerly. The kernel
 wrappers' launch counts (``COUNTS`` in ``kernels/``) count a replay as
 the eager step it stands for.
@@ -62,10 +73,9 @@ tokens of non-speculative decoding; a greedy round is one function over
 the engine's buffers, captured and replayed as the decode step is (a
 paged engine's warmup captures both); a temperature round runs eagerly.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh``, encdec /
-vlm requests (``frames`` / ``prefix_embeds``) and packed prefill
-(``prefill_pack`` where it would be active: a paged engine with
-``act_bits >= 32``); each message names its ROADMAP queue 1 item.
+Not ported yet, and raising ``NotImplementedError``: ``mesh`` and encdec
+/ vlm requests (``frames`` / ``prefix_embeds``); each message names its
+ROADMAP queue 1 item.
 """
 from __future__ import annotations
 
@@ -89,7 +99,8 @@ from repro_torch.models.lm import init_paged_workspace
 from repro_torch.nn.tree import module_device
 from repro_torch.runtime import paged_kv, speculative as spec
 from repro_torch.runtime.serving import (adapt_prefill_cache, paged_chunk,
-                                         paged_hydrate, paged_splice)
+                                         paged_hydrate, paged_packed,
+                                         paged_splice)
 
 
 #: open :func:`disable_graphs` blocks
@@ -173,8 +184,12 @@ class Engine:
     ``device``: where the engine's state lives and the run happens; the
     model must already be there. ``warmup``: a paged engine runs its
     decode step (and speculative round), every prefill chunk width, the
-    hydrate and the splice once at construction and, on CUDA, captures
-    them there (others capture each at its first call).
+    hydrate, the splice and (``prefill_pack``) a packed call of every
+    width once at construction and, on CUDA, captures them there (others
+    capture each at its first call). ``prefill_pack``: admit several
+    short prompts' tails in one packed prefill call where the engine is
+    paged and ``act_bits >= 32`` (``self.prefill_pack`` says whether it
+    is on).
     ``speculative``: draft block length k (0: off). Each engine step is
     then one speculative round: the ``draft_bits`` view of the model
     (``api.draft_view``, or ``draft_params``) drafts k tokens and one
@@ -209,12 +224,11 @@ class Engine:
         self.greedy = self.temperature <= 0
         self.seed = int(seed)
         self.paged = kv_pages is not None and api.paged_supported(cfg)
-        if self.paged and prefill_pack and cfg.act_bits >= 32:
-            raise NotImplementedError(
-                "packed prefill is not ported yet (ROADMAP queue 1, packed "
-                "prefill); "
-                "pass prefill_pack=False (it is off anyway under "
-                "act_bits < 32)")
+        # packed prefill couples the rows of a product: off under dynamic
+        # activation scales (per-tensor maxima), as in the reference
+        self.prefill_pack = (bool(prefill_pack) and self.paged
+                             and cfg.family != "encdec"
+                             and cfg.act_bits >= 32)
         # self-speculative decoding (runtime/speculative.py); the
         # refusals are exactness gates, as in the reference
         self.spec_k = int(speculative)
@@ -242,6 +256,8 @@ class Engine:
         self.draft = draft_params if self.spec_k else None
         self._chunking: Optional[Dict[str, Any]] = None
         self.n_chunk_calls = 0
+        self.n_packed_groups = 0
+        self.n_packed_reqs = 0
         dev = self.device
         if self.paged:
             self.page_size = int(page_size)
@@ -272,6 +288,14 @@ class Engine:
                                          device=dev)
             self.chunk_logits = torch.zeros((1, 1, cfg.vocab),
                                             dtype=torch.float32, device=dev)
+            # a packed call's inputs beside chunk_tok: one block row and
+            # (base, hist, len) a segment, and its logits, a row each
+            self.pack_blocks = torch.zeros((self.capacity, self.n_blocks),
+                                           dtype=torch.int32, device=dev)
+            self.pack_meta = torch.zeros((3, self.capacity),
+                                         dtype=torch.int32, device=dev)
+            self.pack_logits = torch.zeros((self.capacity, 1, cfg.vocab),
+                                           dtype=torch.float32, device=dev)
         else:
             self.cache = api.init_cache(cfg, self.capacity, self.max_len,
                                         device=dev)
@@ -284,8 +308,9 @@ class Engine:
                                     dtype=torch.int32, device=dev)
         self.spec_acc = torch.zeros((self.capacity,), dtype=torch.int32,
                                     device=dev)
-        #: captured steps, "decode", "spec", "chunk<width>", "hydrate" and
-        #: "splice": (graph, the kernel launches a replay stands for)
+        #: captured steps, "decode", "spec", "chunk<width>", "hydrate",
+        #: "splice" and "packed<width>": (graph, the kernel launches a
+        #: replay stands for)
         self._graphs: Dict[str, Any] = {}
         #: the memory pool the prefill graphs share (made at the first)
         self._prefill_pool = None
@@ -440,14 +465,25 @@ class Engine:
     # ---------------------------------------------------- paged admission
 
     def _paged_admit(self):
-        """Advance the in-flight chunked prefill (one chunk per engine
-        step: decode slots keep stepping between chunks), or FIFO-admit
-        the queue head into a free slot if its pages can be reserved; a
-        shortfall defers the head (FIFO kept) until retirements or
-        prefix-cache eviction free pages."""
-        if self._chunking is None:
+        """Spend the step's prefill budget (one call): advance the
+        in-flight chunked prefill (decode slots keep stepping between
+        chunks), or admit queue heads in FIFO order, several in one
+        packed call where they fit, else the head alone into a free slot
+        if its pages can be reserved. A shortfall defers the head (FIFO
+        kept) until retirements or prefix-cache eviction free pages. A
+        packed call, or a group that shrank to one request (its chunks
+        start next step), is the step's prefill, as in the reference."""
+        budget = 1
+        while budget > 0:
+            if self._chunking is not None:
+                self._chunk_step()
+                budget -= 1
+                continue
             if not self.queue or None not in self.slots:
                 return
+            if self.prefill_pack and self._try_packed_admit():
+                budget -= 1
+                continue
             req = self.queue[0]
             slot = self.slots.index(None)
             got = self.pkv.admit(slot, req.tokens,
@@ -459,7 +495,116 @@ class Engine:
             req.t_admit = time.perf_counter()
             req.kv_pages = len(self.pkv.rows[slot])
             self._start_chunking(slot, req, row, hit)
-        self._chunk_step()
+
+    def _span(self, length: int) -> int:
+        """Workspace positions a packed segment of ``length`` takes: its
+        base stays aligned to the attention's kv block."""
+        kvb = min(self.cfg.attn_kv_block, self.wws)
+        return -(-length // kvb) * kvb
+
+    def _try_packed_admit(self) -> bool:
+        """Admit several queue heads as ONE packed prefill call.
+
+        A group is consecutive FIFO requests whose tails (prompt past the
+        prospective prefix hit of the side-effect-free ``pkv.peek``) sum
+        within ``max_chunk`` and whose aligned spans fit the workspace, at
+        most one a free slot. Pages are then reserved in FIFO order up to
+        the first shortfall, each fit checked again against the actual
+        hit (an earlier admission's eviction can shrink a later hit).
+        Returns True when it spent the step's prefill (a packed call, or
+        a group of one handed to the chunked path); False leaves the
+        queue as it was for the unpacked path."""
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if len(free) < 2 or len(self.queue) < 2:
+            return False
+        plan: List[Request] = []
+        c_tot = base = 0
+        for req in list(self.queue)[:len(free)]:
+            L = len(req.tokens)
+            tail = L - self.pkv.peek(req.tokens)
+            if (c_tot + tail > self.max_chunk
+                    or base + self._span(L) > self.wws):
+                break
+            plan.append(req)
+            c_tot += tail
+            base += self._span(L)
+        if len(plan) < 2:
+            return False
+        admitted = []
+        c_tot = base = 0
+        for req in plan:
+            slot = free[len(admitted)]
+            L = len(req.tokens)
+            got = self.pkv.admit(slot, req.tokens,
+                                 L + req.max_new + self.spec_k)
+            if got is None:
+                break
+            row, hit = got
+            if (c_tot + L - hit > self.max_chunk
+                    or base + self._span(L) > self.wws):
+                self.pkv.release_slot(slot)
+                break
+            self.queue.popleft()
+            req.t_admit = time.perf_counter()
+            req.kv_pages = len(self.pkv.rows[slot])
+            admitted.append((slot, req, row, hit))
+            c_tot += L - hit
+            base += self._span(L)
+        if not admitted:
+            return False  # page shortfall at the head: deferred, FIFO kept
+        if len(admitted) == 1:
+            self._start_chunking(*admitted[0])
+            return True
+        self._packed_prefill(admitted)
+        return True
+
+    def _packed_prefill(self, admitted):
+        """One packed prefill call for an admitted group, then each
+        member installed: its block row and length on the device, its
+        prompt in the prefix cache, its first token from its logits row
+        (one host read for the group)."""
+        t0 = time.perf_counter()
+        S, n = self.capacity, len(admitted)
+        blocks = np.zeros((S, self.n_blocks), np.int32)
+        meta = np.zeros((3, S), np.int32)  # bases, hists, lens
+        base = 0
+        for s, (_, req, row, hit) in enumerate(admitted):
+            blocks[s] = row
+            meta[:, s] = base, hit, len(req.tokens)
+            base += self._span(len(req.tokens))
+        meta[0, n:] = base  # inactive segments park at the end
+        tail = np.concatenate([req.tokens[hit:]
+                               for _, req, _, hit in admitted])
+        width = paged_kv.next_pow2(max(len(tail), self.buckets[0]))
+        toks = np.zeros((1, width), np.int32)
+        toks[0, :len(tail)] = tail
+        self._to_device(toks, self.chunk_tok[:, :width])
+        self._to_device(blocks, self.pack_blocks)
+        self._to_device(meta, self.pack_meta)
+        t_capture = self._run_graphed(
+            f"packed{width}", functools.partial(self._packed_step, width),
+            prefill=True)
+        self.n_chunk_calls += 1
+        self.n_packed_groups += 1
+        self.n_packed_reqs += n
+        reqs = [req for _, req, _, _ in admitted]
+        firsts = self._sample(self.pack_logits[:n], reqs)
+        for s, (slot, req, _, _) in enumerate(admitted):
+            self.cache["block"][slot].copy_(self.pack_blocks[s])
+            self.cache["len"][slot] = len(req.tokens)
+            self.tok[slot, 0] = firsts[s]
+            self.pkv.insert_prefix(slot, req.tokens)
+        firsts = firsts.cpu().tolist()  # one sync per group
+        now = time.perf_counter()
+        for (slot, req, _, _), first in zip(admitted, firsts):
+            req.t_first = now
+            req.out = [first]
+            req.pstart = len(self._pending)
+            self.slots[slot] = req
+            self.n_admitted += 1
+            self.pkv.lens[slot] = len(req.tokens)
+            self._maybe_retire(slot)
+        self._prefill_time(t0, t_capture)
 
     def _start_chunking(self, slot: int, req: Request, row: np.ndarray,
                         hit_tokens: int):
@@ -566,6 +711,17 @@ class Engine:
         pages of ``chunk_row``, the rest to the trash page."""
         paged_splice(self.cfg, self.cache["pool"], self.ws, self.chunk_row,
                      self.chunk_hit, self.chunk_length)
+
+    def _packed_step(self, width: int):
+        """One packed call of ``width`` tokens from ``chunk_tok`` over the
+        segments of ``pack_blocks`` and ``pack_meta`` (bases, hists,
+        lens) into the pages; a logits row a segment into
+        ``pack_logits``."""
+        bases, hists, lens = self.pack_meta.unbind(0)
+        logits = paged_packed(self.model, self.cfg,
+                              self.chunk_tok[:, :width], self.cache["pool"],
+                              self.pack_blocks, bases, hists, lens, self.wws)
+        self.pack_logits.copy_(logits)
 
     def _release_window_pages(self):
         """Sliding-window decode never reads KV behind ``len - window``:
@@ -713,7 +869,9 @@ class Engine:
         a hydrate, one chunk of every bucket width and a splice over an
         all-trash row at ``start = length = hit = 0`` (the splice sends
         every workspace position to the trash page; the chunks' workspace
-        entries are zeroed by the next hydrate), one decode step, and on
+        entries are zeroed by the next hydrate), with ``prefill_pack`` a
+        packed call of every width over an all-inactive group (every row
+        masked, zeros to the trash page), one decode step, and on
         a speculative engine one round, over the dead slots (``len`` 0
         and all-trash block rows, so their K/V writes land on the trash
         page only), each captured on CUDA; then ``len``, ``tok``, the
@@ -730,8 +888,14 @@ class Engine:
                     functools.partial(self._prefill_chunk, width),
                     prefill=True)
             self._run_graphed("splice", self._splice_step, prefill=True)
+            for width in self.buckets if self.prefill_pack else ():
+                self._run_graphed(
+                    f"packed{width}",
+                    functools.partial(self._packed_step, width),
+                    prefill=True)
             self.chunk_n_real.zero_()
             self.chunk_logits.zero_()
+            self.pack_logits.zero_()
             for run in ((self._run_decode_step, self._run_spec_step)
                         if self.spec_k else (self._run_decode_step,)):
                 run()
@@ -748,10 +912,11 @@ class Engine:
     def paged_trace_counts(self) -> Dict[str, int]:
         """Counterpart of the reference's jit-cache counts: the graphs
         this engine captured, the decode step's (and, speculative, the
-        round's) and, paged, ``chunk`` (one a chunk width), ``hydrate``
-        and ``splice``. A warmed paged engine on CUDA holds 1 of each and
-        ``len(buckets)`` chunk widths from construction on, and a serve
-        must not change them; on the CPU nothing is captured (0). The
+        round's) and, paged, ``chunk`` (one a chunk width), ``hydrate``,
+        ``splice`` and, packing, ``packed`` (one a width). A warmed paged
+        engine on CUDA holds 1 of each and ``len(buckets)`` chunk and
+        packed widths from construction on, and a serve must not change
+        them; on the CPU nothing is captured (0). The
         sampler runs eagerly and has nothing to count."""
         keys = ("decode", "spec") if self.spec_k else ("decode",)
         out = {k: int(k in self._graphs) for k in keys}
@@ -759,6 +924,9 @@ class Engine:
             out["chunk"] = sum(k.startswith("chunk") for k in self._graphs)
             out["hydrate"] = int("hydrate" in self._graphs)
             out["splice"] = int("splice" in self._graphs)
+            if self.prefill_pack:
+                out["packed"] = sum(k.startswith("packed")
+                                    for k in self._graphs)
         return out
 
     # -------------------------------------------------------------- loop
@@ -927,8 +1095,8 @@ class Engine:
             out.update(self.pkv.stats())
             out["kv_bytes_per_token"] = paged_kv.kv_bytes_per_token(self.cfg)
             out["prefill_chunk_calls"] = self.n_chunk_calls
-            out["packed_groups"] = 0
-            out["packed_requests"] = 0
+            out["packed_groups"] = self.n_packed_groups
+            out["packed_requests"] = self.n_packed_reqs
         if self.spec_k:
             live = max(self._spec_live, 1)
             out["speculative_k"] = self.spec_k

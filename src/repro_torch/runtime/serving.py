@@ -5,9 +5,10 @@ Counterpart of ``repro.runtime.serving``:
     (slot = position % window) so decode can continue a long prompt;
   * ``grow_cache``: right-pad linear caches to max_len;
   * ``adapt_prefill_cache``: prefill cache -> decode-ready cache;
-  * ``paged_chunk`` / ``paged_splice`` / ``paged_hydrate``: the paged
-    engine's chunked prefill, workspace -> pages commit and prefix-hit
-    rebuild (plain functions where the reference keeps jit caches; the
+  * ``paged_chunk`` / ``paged_splice`` / ``paged_hydrate`` /
+    ``paged_packed``: the paged engine's chunked prefill, workspace ->
+    pages commit, prefix-hit rebuild and packed prefill of several
+    prompts (plain functions where the reference keeps jit caches; the
     engine captures each as a CUDA graph over its own buffers);
   * ``generate``: static-batch generation, a thin wrapper over
     ``runtime.engine.Engine`` (one batched prefill through ``preload``,
@@ -121,6 +122,15 @@ def paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len, ws):
     """Rebuild the workspace prefix [0, hist_len) from cached pages
     (``hist_len`` an int or a 0-dim int32 tensor)."""
     return m_lm.lm_paged_hydrate(cfg, pool, block_row, hist_len, ws)
+
+
+def paged_packed(model: nn.Module, cfg: ModelConfig, tokens, pool, blocks,
+                 bases, hists, lens, wws: int):
+    """Several prompts' tails in one prefill call, straight into the
+    pages: logits (S, 1, V), one row a segment. blocks (S, NB), bases,
+    hists, lens (S,): integer tensors on the device (or arrays)."""
+    return m_lm.lm_paged_prefill_packed(model, cfg, tokens, pool, blocks,
+                                        bases, hists, lens, wws)
 
 
 #: the engine stats that a speculative ``generate`` also returns

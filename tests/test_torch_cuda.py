@@ -843,9 +843,13 @@ def _serve_queue(cfg, model, reqs, graphs=True, **kw):
 def _paged_graphs(eng, n=1):
     """The trace counts of a paged engine that captured its graphs (n =
     1) or runs eagerly (n = 0): the decode step, one chunk graph a
-    bucket width, the hydrate and the splice."""
-    return {"decode": n, "chunk": n * len(eng.buckets), "hydrate": n,
-            "splice": n}
+    bucket width, the hydrate and the splice, and one packed graph a
+    bucket width where the engine packs."""
+    out = {"decode": n, "chunk": n * len(eng.buckets), "hydrate": n,
+           "splice": n}
+    if eng.prefill_pack:
+        out["packed"] = n * len(eng.buckets)
+    return out
 
 
 PAGED = dict(capacity=2, max_len=38, kv_pages=16, page_size=8,
@@ -1045,6 +1049,69 @@ def test_cuda_graph_prefill_with_prefix_hits_equals_eager(cuda_device,
         for pool in e.cache["pool"]:
             for key, t in pool.items():
                 assert torch.unique(t[0, 1:]).numel() == 1, key
+
+
+#: the packed-prefill geometry of tests/test_torch_packed.py: four
+#: prompts of 5-8 tokens for 4 slots in one packed call
+PACKED = dict(capacity=4, max_len=20, kv_pages=24, page_size=16)
+
+
+def _packed_queue(vocab, seed=1):
+    rng = np.random.default_rng(seed)
+    return [{"tokens": rng.integers(0, vocab, L).astype(np.int32),
+             "max_new": g} for L, g in zip((5, 7, 6, 8), (4, 3, 4, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paged-packed4-int8", "paged-fused-bf16"])
+def test_cuda_packed_engine_graph_equals_eager(cuda_device, case):
+    """A packing engine replaying its packed graph gives the tokens and
+    launch counts of the same engine eagerly inside disable_graphs(),
+    and of the unpacked engine; it holds one packed graph a bucket width
+    from its warmup on (the serve captures none), and one GEMM forward
+    of a packed call launches 168 body products and one head product."""
+    cfg, model = _reduced_model(case)
+    reqs = _packed_queue(cfg.vocab)
+    got, counts, eng = _serve_queue(cfg, model, reqs, **PACKED)
+    want, want_counts, eager = _serve_queue(cfg, model, reqs, graphs=False,
+                                            **PACKED)
+    plain, _, unpacked = _serve_queue(cfg, model, reqs, prefill_pack=False,
+                                      **PACKED)
+    assert eng.prefill_pack and eng.paged_trace_counts()["packed"] == \
+        len(eng.buckets)
+    assert eager.paged_trace_counts() == _paged_graphs(eager, 0)
+    for a, b, c in zip(got, want, plain):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert counts == want_counts
+    st = eng.stats()
+    assert st["packed_groups"] == eager.stats()["packed_groups"] == 1
+    assert st["prefill_chunk_calls"] < unpacked.stats()["prefill_chunk_calls"]
+    gemm = counts[0 if case == "paged-fused-bf16" else 1]["launches"]
+    assert gemm == (7 * cfg.n_layers + 1) * (st["decode_steps"]
+                                             + st["prefill_chunk_calls"])
+
+
+@pytest.mark.cuda
+def test_cuda_packed_engine_matches_cpu(cuda_device):
+    """Reduced danube (packed4, int8 pages) through a packing engine: the
+    card's tokens are the CPU's, with one packed call on each."""
+    from repro_torch.runtime.engine import Engine
+
+    cfg, model = _reduced_model("paged-packed4-int8")
+    reqs = _packed_queue(cfg.vocab, seed=2)
+    toks, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(model.to(dev), cfg, device=dev, **PACKED)
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"])
+        toks[dev] = [r["tokens"] for r in eng.run()]
+        stats[dev] = eng.stats()
+    model.to("cuda")
+    assert stats["cpu"]["packed_groups"] == stats["cuda"]["packed_groups"] \
+        == 1
+    for a, b in zip(toks["cpu"], toks["cuda"]):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

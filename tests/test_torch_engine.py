@@ -261,8 +261,10 @@ def test_engine_refuses_unported_options(fp):
         Engine(model, tcfg.replace(act_bits=8), speculative=2, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1, multi-GPU"):
         Engine(model, tcfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="packed prefill"):
-        Engine(model, tcfg, kv_pages=8, page_size=8, device="cpu")
+    # packed prefill is ported: a paged engine at act_bits 32 packs
+    # (tests/test_torch_packed.py holds it)
+    assert Engine(model, tcfg, kv_pages=8, page_size=8,
+                  device="cpu").prefill_pack
     eng = Engine(model, tcfg, device="cpu")
     with pytest.raises(NotImplementedError,
                        match="queue 1, other LM families"):

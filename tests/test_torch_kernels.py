@@ -207,7 +207,11 @@ def test_plan_splits_covers_the_reduction(M, N, Kin, sms):
     # decode tiles for M <= 16, prefill tiles above
     assert (bm <= 16) == (M <= 16)
     tiles = grid_m * grid_n
-    if splits > 1:
+    if M <= build.GEMM_STABLE_M:
+        # the row-stable tiles split as an 8-row decode does
+        want = build.plan_splits(8, N, Kin, sms)
+        assert (splits, kchunk) == (want["splits"], want["kchunk"])
+    elif splits > 1:
         # split only while the tiles leave SMs idle, and never below one
         # pipeline step a split
         assert tiles * splits <= per_sm * sms

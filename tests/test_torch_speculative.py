@@ -108,17 +108,20 @@ def _prompts(cfg, seed=3, lens=LENS):
 
 @pytest.mark.parametrize("Kin,N", DANUBE + REDUCED)
 def test_plan_splits_row_stable_up_to_64_rows(Kin, N):
-    """Every product of at most ROW_STABLE_M rows gets the split count
-    and kchunk of an 8-row decode (so its rows have the decode step's
-    bits on the card); wider ones keep their own plan."""
+    """Every product of at most ROW_STABLE_M rows (and, through the LUT
+    GEMMs, of at most GEMM_STABLE_M rows) gets the split count and kchunk
+    of an 8-row decode (so its rows have the decode step's bits on the
+    card); wider ones keep their own plan."""
+    assert build.GEMM_STABLE_M >= build.ROW_STABLE_M
     for sms in (132, 114):
         want = build.plan_splits(8, N, Kin, sms)
-        for M in range(1, build.ROW_STABLE_M + 1):
+        for M in range(1, build.GEMM_STABLE_M + 1):
             plan = build.plan_splits(M, N, Kin, sms)
             assert (plan["splits"], plan["kchunk"]) == (
                 want["splits"], want["kchunk"]), (M, sms)
             assert (plan["bm"] <= 16) == (M <= 16)
-    assert build.plan_splits(build.ROW_STABLE_M + 1, N, Kin, 132)["bm"] == 128
+    assert build.plan_splits(build.GEMM_STABLE_M + 1, N, Kin,
+                             132)["bm"] == 128
 
 
 @pytest.mark.parametrize("Kin,N", REDUCED + [(64, 256)])
