@@ -267,6 +267,33 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    the same sample, and generate (B=4, 16 tokens) from it on both the
    same tokens. The launches of these phases go into the kernels' record
    as "handoff_launches".
+3j. vision: (a) the reduced ResNet (widths 8/16, one block a stage, 8x8
+   images, B=8), seeded, quantized on the CPU under cifar_table's fully
+   multiplier-less row and copied to the card: every forward form
+   (training and multiplier_less on and off, act_bits 32 and 8) within
+   1e-4 (32) and 2e-2 (8) of max|CPU logits| (an 8-bit activation within
+   an ulp of a grid boundary may round the other way), the folded ML-BN
+   scales equal bit for bit, and one train_step: loss within 1e-2
+   relative, running variances 1e-3, every parameter within 2 lr (Adam's
+   first step moves by lr), dictionaries equal, assignments equal except
+   within 2 lr of a midpoint (counted). (b) ResNet-20 proper (16/32/64, 3
+   blocks a stage, 8 classes: 22 LUT-Q leaves) trained by
+   cifar_table.train under that row (4-bit pow2, ML-BN, 8-bit
+   activations) for 200 steps of B=128 on shapes_dataset(2048, res=32):
+   the loss must fall (mean of the last 10 below the first 10), no kernel
+   and no plain version runs (every leaf is under the k-means kernel's
+   2^16 threshold); ms a step, peak memory above what earlier phases
+   hold, loss. (c) 512 held-out images evaluated (batches of 128,
+   training=False, multiplier_less, act_bits 8) in the train form and through serve_view int8, pack4=True and
+   policy=serving_pow2: the fc launches lutq_matmul, lutq_gemv_packed and
+   lutq_shift (dynamic int8 scales) once a forward and nothing else runs;
+   each kernel against its plain version at the fc's shape (M = 1, 8,
+   128, 512 x Kin 64 x N 8, K = 16; lutq_shift bit for bit); the
+   shift-add fold's logits equal the multiply form's bit for bit with
+   deterministic convolutions; the int8 and packed views' logits within
+   1e-4 of the train form's. Logs held-out error and images/s of each,
+   then 10 more steps' ms and one profiled step's idle share. Its serve
+   launches go into the kernels' record as "vision_launches".
 4. timing of each GEMM kernel at the decode (M=4) and prefill (M=512)
    shapes with CUDA events, beside its bound, its plain version and a
    torch.matmul on the pre-decoded bf16 weight (a yardstick the port
@@ -3202,6 +3229,341 @@ def reduced_train_card_vs_cpu():
 
 
 # ---------------------------------------------------------------------------
+# phase 3j
+# ---------------------------------------------------------------------------
+
+#: the cifar_table row the phase trains and serves
+VISION_ROW = "LUT-Q 4-bit pow2 (fully ML)"
+#: ResNet-20 proper (6 * 3 + 2 layers) at CIFAR's resolution
+VISION_FULL = dict(widths=(16, 32, 64), blocks=3)
+VISION_RES, VISION_BATCH, VISION_STEPS, VISION_EVAL = 32, 128, 200, 512
+#: the card-vs-CPU check's reduced network, images and batch
+VISION_REDUCED = dict(widths=(8, 16), blocks=1)
+VISION_REDUCED_RES, VISION_REDUCED_BATCH = 8, 8
+#: the fc's rows in the kernel checks: one image, the reduced batch, the
+#: eval batch, the held-out set at once
+VISION_FC_M = (1, 8, 128, 512)
+#: card against CPU, of max|CPU|: f32 convolutions in another order (TF32
+#: off) give ~1e-6 a layer; with 8-bit activations an activation within an
+#: ulp of a rounding boundary of its grid may round the other way, one
+#: grid step (1/255 of the layer's max) that the layers after it carry
+VISION_LOGIT_TOL = {32: 1e-4, 8: 2e-2}
+VISION_LOSS_TOL = 1e-2   # relative, one step at 8-bit activations
+VISION_STATS_TOL = 1e-3  # running statistics after the step, of max|CPU|
+
+
+def _ml_scales(model, stats):
+    """Every BN's folded multiplier-less scale (a), concatenated."""
+    import torch
+
+    from repro_torch.core.mlbn import inference_scale_offset
+
+    return torch.cat([inference_scale_offset(
+        m.p.params, stats[name.replace(".", "_")], multiplier_less=True)[0]
+        for name, m in model.named_modules() if hasattr(m, "p")])
+
+
+def vision_reduced_card_vs_cpu():
+    """Phase 3j (a): the reduced ResNet (widths 8/16, one block a stage,
+    8x8 images, B=8) from one seeded init, quantized on the CPU under the
+    fully multiplier-less row's spec and copied to the card: each forward
+    form (training and multiplier_less on and off, act_bits 32 and 8)
+    and one train_step on both devices, within the VISION_* tolerances;
+    the folded ML-BN scales equal bit for bit (their roots are float64 on
+    both); after the step dictionaries equal and assignments equal except
+    for weights within 2 lr of a midpoint (a gradient whose sign differs
+    moves Adam's first step by 2 lr), counted."""
+    import copy
+
+    import torch
+
+    from repro_torch.core.policy import quantize_tree, split_trainable
+    from repro_torch.data.synthetic import class_batches, shapes_dataset
+    from repro_torch.launch import cifar_table as ct
+    from repro_torch.models.resnet import init_resnet20, resnet20_apply
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+
+    _, spec, ml, act_bits = ct.config(VISION_ROW)
+    spec = ct.table_spec(spec)
+    model, stats = init_resnet20(torch.Generator().manual_seed(3),
+                                 n_classes=8, device="cpu", **VISION_REDUCED)
+    quantize_tree(model, spec)
+    # non-trivial running statistics, so the inference forms fold work
+    stats = {k: type(v)(v.mean + 0.1, v.var * 1.7) for k, v in stats.items()}
+    xs, ys = shapes_dataset(64, seed=1, res=VISION_REDUCED_RES)
+    batch = next(class_batches(xs, ys, VISION_REDUCED_BATCH, seed=3))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        s = {k: type(v)(v.mean.to(dev), v.var.to(dev))
+             for k, v in stats.items()}
+        b = ct.to_device(batch, dev)
+        out = {}
+        with torch.no_grad():
+            for training in (False, True):
+                for ml_ in (False, True):
+                    for ab in (32, 8):
+                        logits, ns = resnet20_apply(
+                            m, s, b["x"], training=training,
+                            multiplier_less=ml_, act_bits=ab,
+                            **VISION_REDUCED)
+                        out[training, ml_, ab] = (logits.cpu(), {
+                            k: v.var.cpu() for k, v in ns.items()})
+        scales = _ml_scales(m, s).cpu()
+        opt = adamw(cosine_schedule(2e-3, 20, ct.STEPS))
+        opt_state = opt.init(split_trainable(m)[0])
+        _reset_counts()
+        s2, loss, _ = ct.train_step(m, s, opt, opt_state, 5, b, spec=spec,
+                                    multiplier_less=ml, act_bits=act_bits,
+                                    **VISION_REDUCED)
+        counts = _read_counts()
+        runs[dev] = dict(out=out, scales=scales, loss=float(loss),
+                         counts=counts,
+                         stats={k: v.var.cpu() for k, v in s2.items()},
+                         leaves={n: (q.w.detach().cpu(), q.d.cpu(), q.a.cpu())
+                                 for n, q in _leaves(m)},
+                         params={n: p.detach().cpu() for n, p in
+                                 m.named_parameters()})
+    cpu, card = runs["cpu"], runs["cuda"]
+    for key, (want, want_s) in cpu["out"].items():
+        got, got_s = card["out"][key]
+        rel = float((got - want).abs().max() / want.abs().max())
+        srel = max(float((got_s[k] - want_s[k]).abs().max()
+                         / want_s[k].abs().max()) for k in want_s)
+        training, ml_, ab = key
+        log(f"vision reduced forward training={training} "
+            f"multiplier_less={ml_} act_bits={ab}: logits max rel "
+            f"{rel:.2e} (tol {VISION_LOGIT_TOL[ab]:.0e}), running var max "
+            f"rel {srel:.2e}")
+        check(rel <= VISION_LOGIT_TOL[ab] and srel <= 1e-4,
+              f"vision forward {key}: card and CPU disagree")
+    flips = int((card["scales"] != cpu["scales"]).sum())
+    log(f"vision ML-BN folded scales: {flips} of {cpu['scales'].numel()} "
+        f"differ between card and CPU")
+    check(flips == 0, "ML-BN scales differ between card and CPU")
+    lrel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    srel = max(float((card["stats"][k] - v).abs().max() / v.abs().max())
+               for k, v in cpu["stats"].items())
+    lr = cosine_schedule(2e-3, 20, ct.STEPS)(5)
+    near, beyond = 0, 0
+    for name, p in cpu["params"].items():
+        diff = (card["params"][name] - p).abs()
+        check(float(diff.max()) <= 2 * lr + 1e-6 * float(p.abs().max()),
+              f"vision step: {name} moved {float(diff.max()):.3e} apart")
+        beyond += int((diff > 1e-5 * p.abs().max()).sum())
+    for name, (w, d, a) in cpu["leaves"].items():
+        _, dg, ag = card["leaves"][name]
+        check(torch.equal(dg, d), f"vision step: {name} dictionaries differ")
+        diff = ag != a
+        mid = (d[:-1] + d[1:]) * 0.5
+        dist = (w[diff].reshape(-1, 1) - mid).abs().min(1).values
+        check(bool((dist <= 2 * lr).all()), f"vision step: {name} "
+              f"assignments differ away from a midpoint")
+        near += int(diff.sum())
+    log(f"vision reduced train_step card vs cpu: loss {card['loss']:.6f} vs "
+        f"{cpu['loss']:.6f} (rel {lrel:.2e}, tol {VISION_LOSS_TOL:.0e}), "
+        f"running var max rel {srel:.2e}; {beyond} parameter elements "
+        f"beyond 1e-5 of their leaf's max (all within 2 lr = {2 * lr:.1e}); "
+        f"dictionaries equal; {near} assignments differ, all within 2 lr of "
+        f"a midpoint | card {card['counts']} | cpu {cpu['counts']}")
+    check(lrel <= VISION_LOSS_TOL, "vision step: losses disagree")
+    check(srel <= VISION_STATS_TOL, "vision step: running stats disagree")
+    check(card["counts"]["plain"] == 0 and card["counts"]["kmeans_stats"]
+          == 0, f"vision step ran a kernel or plain version: "
+          f"{card['counts']}")
+
+
+def _vision_fc_checks(view, kname):
+    """The fc's kernel against its plain version at the fc's shape
+    ((M, 64) @ (64, 8), K = 16) for M in VISION_FC_M, on features from
+    the view's own relu range; returns max |kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels import lutq_gemv_packed, lutq_matmul, ops
+    from repro_torch.kernels.ref import lutq_gemv_packed_ref, lutq_matmul_ref
+    from repro_torch.nn.tree import leaf
+
+    st = leaf(view.fc, "kernel")
+    g = torch.Generator(device="cuda").manual_seed(27)
+    worst = 0.0
+    for M in VISION_FC_M:
+        x = torch.rand(M, st.a.shape[0] * (2 if kname == "lutq_gemv_packed"
+                                           else 1),
+                       generator=g, device="cuda") * 3.0
+        if kname == "lutq_shift":
+            got, _ = ops._pow2_dot_acc(x, st.d, st.a, st.act)
+            want, _ = ops._pow2_dot_acc(x, st.d, st.a, st.act,
+                                        use_kernel=False)
+            torch.cuda.synchronize()
+            err = float((got.long() - want.long()).abs().max())
+            ok = torch.equal(got, want)
+            tol = "bit for bit"
+        else:
+            fn, plain = ((lutq_matmul.lutq_matmul, lutq_matmul_ref)
+                         if kname == "lutq_matmul" else
+                         (lutq_gemv_packed.lutq_gemv_packed,
+                          lutq_gemv_packed_ref))
+            got = fn(x, st.a, st.d)
+            want = plain(x, st.a, st.d)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = err <= TOL["float32"] * float(want.abs().max())
+            tol = f"rel tol {TOL['float32']:.0e}"
+        log(f"check {kname} vision fc M={M} Kin=64 N={got.shape[1]} K="
+            f"{st.d.numel()}: max_abs_err {err:.3e} ({tol})")
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              f"{kname} disagrees with its plain version at the vision fc's "
+              f"shape, M={M}")
+        worst = max(worst, err)
+    return worst
+
+
+def vision_full_width(card: str):
+    """Phase 3j (b, c): ResNet-20 (widths 16/32/64, 3 blocks a stage, 8
+    classes) trained by cifar_table.train under the fully multiplier-less
+    row (4-bit pow2 LUT-Q, ML-BN, 8-bit activations) for VISION_STEPS
+    steps of B=128 on shapes_dataset(2048, res=32), then served three
+    ways on 512 held-out images. Returns ({kernel: launches of the serve
+    evaluations}, {kernel: worst |kernel - plain| at the fc's shape})."""
+    import torch
+
+    from repro_torch.core import rules
+    from repro_torch.core.policy import serve_view, split_trainable
+    from repro_torch.data.synthetic import class_batches, shapes_dataset
+    from repro_torch.launch import cifar_table as ct
+    from repro_torch.models import resnet as resnet_mod
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+
+    _, spec, ml, act_bits = ct.config(VISION_ROW)
+    geo = dict(VISION_FULL)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    trained = ct.train(spec, multiplier_less=ml, act_bits=act_bits,
+                       steps=VISION_STEPS, res=VISION_RES,
+                       batch=VISION_BATCH, device="cuda", **geo)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 - base
+    losses = trained.losses
+    first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    n_kernels = sum(1 for n, _ in trained.model.named_parameters()
+                    if n.endswith("kernel.w"))
+    log(f"vision train {VISION_ROW}: ResNet-20 {geo}, {n_kernels} LUT-Q "
+        f"leaves, B={VISION_BATCH} at {VISION_RES}x{VISION_RES}, "
+        f"{VISION_STEPS} steps in {trained.seconds:.2f} s "
+        f"({trained.seconds / VISION_STEPS * 1e3:.2f} ms a step, first step "
+        f"included) | loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+        f"first / last 10: {first:.4f} / {last:.4f}) | peak "
+        f"{peak:.3f} GiB above the {base:.3f} GiB held before the phase | "
+        f"counts {counts} | {card}")
+    check(all(math.isfinite(v) for v in losses), "vision loss not finite")
+    check(last < first, f"vision loss did not fall: {first} -> {last}")
+    check(counts["plain"] == 0 and counts["kmeans_stats"] == 0,
+          f"vision training ran a kernel or plain version: {counts}")
+    check(n_kernels == 22, f"{n_kernels} quantized leaves, expected 22")
+
+    xt, yt = shapes_dataset(VISION_EVAL, seed=2, res=VISION_RES)
+    ekw = dict(geo, multiplier_less=ml, act_bits=act_bits)
+    model, stats = trained.model, trained.stats
+
+    def evaluate(m, what):
+        err = ct.error_rate(m, stats, xt, yt, **ekw)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err2 = ct.error_rate(m, stats, xt, yt, **ekw)
+        sec = time.perf_counter() - t0
+        check(err == err2, f"{what}: two evaluations disagree")
+        return err, VISION_EVAL / sec
+
+    err_train, ips_train = evaluate(model, "train form")
+    log(f"vision eval train form (decode fc): held-out error "
+        f"{err_train:.2f} %, {ips_train:.0f} images/s")
+    launches, worst = {}, {}
+    x = torch.from_numpy(xt[:VISION_BATCH]).to("cuda")
+    with torch.no_grad():
+        ref_logits, _ = resnet_mod.resnet20_apply(
+            model, stats, x, training=False, **ekw)
+    views = {"int8": (serve_view(model), "lutq_matmul"),
+             "pack4": (serve_view(model, pack4=True), "lutq_gemv_packed"),
+             "serving_pow2": (serve_view(model, policy=rules.serving_pow2()),
+                              "lutq_shift")}
+    for name, (view, kname) in views.items():
+        _reset_counts()
+        err = ct.error_rate(view, stats, xt, yt, **ekw)
+        counts = _read_counts()
+        forwards = -(-VISION_EVAL // 128)
+        others = {k: v for k, v in counts.items() if k != kname and v}
+        log(f"vision serve {name}: held-out error {err:.2f} % | {kname} "
+            f"{counts[kname]} launches for {forwards} forwards | other "
+            f"counts {others}")
+        check(counts[kname] == forwards and not others,
+              f"vision serve {name}: counts {counts}, expected {forwards} "
+              f"{kname} launches and nothing else")
+        launches[kname] = counts[kname]
+        _, ips = evaluate(view, name)
+        with torch.no_grad():
+            logits, _ = resnet_mod.resnet20_apply(
+                view, stats, x, training=False, **ekw)
+            # the shift-add fold against the multiply form it replaces,
+            # deterministic convolutions in both
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=True,
+                                            allow_tf32=False):
+                fold, _ = resnet_mod.resnet20_apply(
+                    view, stats, x, training=False, **ekw)
+                orig = resnet_mod.apply_scale_offset_shift
+                resnet_mod.apply_scale_offset_shift = \
+                    lambda h, a, b, **_: a * h + b
+                try:
+                    mul, _ = resnet_mod.resnet20_apply(
+                        view, stats, x, training=False, **ekw)
+                finally:
+                    resnet_mod.apply_scale_offset_shift = orig
+        same = torch.equal(fold, mul)
+        rel = float((logits - ref_logits).abs().max()
+                    / ref_logits.abs().max())
+        log(f"vision serve {name}: {ips:.0f} images/s (train form "
+            f"{ips_train:.0f}) | shift-add fold vs multiply form on the "
+            f"card: {'same' if same else 'DIFFERENT'} bits | logits vs the "
+            f"train form max rel {rel:.2e} (B={VISION_BATCH})")
+        check(same, f"vision serve {name}: the fold's bits differ from the "
+              f"multiply form's")
+        if kname != "lutq_shift":  # the pow2 path quantizes the fc input
+            check(rel <= TOL["float32"], f"vision serve {name}: logits "
+                  f"differ from the train form's")
+        worst[kname] = _vision_fc_checks(view, kname)
+
+    # steady step time and the card's idle share: more steps of the same
+    # recipe on the trained model (after the serving above)
+    opt = adamw(cosine_schedule(2e-3, 20, VISION_STEPS))
+    opt_state = opt.init(split_trainable(model)[0])
+    xs, ys = shapes_dataset(2048, seed=1, res=VISION_RES)
+    it = class_batches(xs, ys, VISION_BATCH, seed=4)
+    spec = ct.table_spec(spec)
+
+    def step(n):
+        nonlocal stats
+        stats, loss, _ = ct.train_step(model, stats, opt, opt_state, n,
+                                       ct.to_device(next(it), "cuda"),
+                                       spec=spec, multiplier_less=ml,
+                                       act_bits=act_bits, **geo)
+        torch.cuda.synchronize()
+
+    for n in range(3):
+        step(n)
+    t0 = time.perf_counter()
+    for n in range(3, 13):
+        step(n)
+    ms = (time.perf_counter() - t0) / 10 * 1e3
+    wall, busy, _ = profile_run(lambda: step(13), "vision train step")
+    log(f"vision train step steady: {ms:.2f} ms a step (10 steps), one "
+        f"profiled step busy {busy:.2f} of {wall:.2f} ms (idle "
+        f"{(1 - busy / wall) * 100:.1f} %) | {card}")
+    return launches, worst
+
+
+# ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
 
@@ -3807,6 +4169,12 @@ def main() -> int:
     log(f"phase 3g {t_g:.1f} s, phase 3h and the reduced checkpoint "
         f"{time.perf_counter() - t0:.1f} s (3b' is inside phase 3b) | "
         f"launches {handoff}")
+    t0 = time.perf_counter()
+    vision_reduced_card_vs_cpu()
+    vision, vision_worst = vision_full_width(card)
+    for kname, err in vision_worst.items():
+        worst[kname] = max(worst[kname], err)
+    log(f"phase 3j {time.perf_counter() - t0:.1f} s | launches {vision}")
     # the GEMMs and lutq_shift at decode (M = 4, the record's top level)
     # and at prefill (M = 512, its "prefill" entry)
     table, prefill = {}, {}
@@ -3854,6 +4222,8 @@ def main() -> int:
             records[-1]["packed_launches"] = packed_launches[kname]
         # phases 3g, 3h and the reduced checkpoint: the handoff path
         records[-1]["handoff_launches"] = handoff.get(kname, 0)
+        # phase 3j: the vision serve views' held-out evaluations
+        records[-1]["vision_launches"] = vision.get(kname, 0)
         if kname in prefill:  # one prefill forward at B=4 x 128 (M=512)
             p = prefill[kname]
             records[-1]["prefill"] = {

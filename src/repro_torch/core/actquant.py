@@ -6,7 +6,8 @@ quantization in the working dtype, in the reference's op order: amax,
 ``/ qmax``, round half to even, clip. The value is
 ``x + (q - x).detach()``, as the reference's ``x + stop_gradient(q -
 x)``: it rounds exactly as the reference's does, and its gradient to x
-is the identity.
+is the identity. :func:`relu_fake_quant` (unsigned, post-ReLU) and
+:func:`learned_clip_fake_quant` (a trained clip) divide the same way.
 
 Calibration: inside :func:`capture_act_scales` (model), the matmul
 boundary (``nn.linear.dot_kernel``) folds max|x| of every call into one
@@ -38,6 +39,41 @@ def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     scale = (amax / scalar_like(qmax, x)).to(x.dtype)
     q = torch.clamp(torch.round(x / scale), -qmax - 1.0, qmax) * scale
     return x + (q - x).detach()
+
+
+def relu_fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Unsigned variant for post-ReLU activations: relu, then q = clip(
+    round(x / s), 0, 2^b - 1) * s with s = max|x| / (2^b - 1) (amax
+    detached); gradient = relu's."""
+    x = torch.relu(x)
+    if bits >= 32:
+        return x
+    qmax = 2.0 ** bits - 1.0
+    amax = torch.clamp(x.detach().abs().max(), min=1e-8)
+    scale = (amax / scalar_like(qmax, x)).to(x.dtype)
+    q = torch.clamp(torch.round(x / scale), 0.0, qmax) * scale
+    return x + (q - x).detach()
+
+
+def learned_clip_fake_quant(x: torch.Tensor, alpha: torch.Tensor,
+                            bits: int = 8) -> torch.Tensor:
+    """PACT-style fake-quant with a learned clip: a = |alpha| + 1e-6,
+    xc = clip(x, -a, a), q = round(xc / s) * s with s = a / qmax.
+
+    The value is q; the gradient is the identity inside the range and
+    reaches ``alpha`` through the clip boundary. The clip is
+    ``minimum(maximum(x, -a), a)``, as ``jnp.clip`` is, so a value on the
+    boundary splits its gradient between x and alpha as the
+    reference's does.
+    """
+    if bits >= 32:
+        return x
+    qmax = 2.0 ** (bits - 1) - 1.0
+    a = torch.as_tensor(alpha, device=x.device).abs() + 1e-6
+    xc = torch.minimum(torch.maximum(x, -a), a)
+    scale = a / scalar_like(qmax, a)
+    q = torch.round(xc / scale) * scale
+    return xc + (q - xc).detach()
 
 
 def fake_quant_frozen(x: torch.Tensor, act: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,10 @@ model with :func:`from_train_params`, which copies each quantized leaf's
 never materialises a master; :func:`trainable_shapes` gives the
 ``trainable`` keys and shapes a config expects.
 
+A ResNet-20 of the vision family crosses with :func:`resnet_from_jax`:
+its ``BNParams`` leaves become ``....p.gamma`` / ``....p.beta`` and its
+running statistics a ``{name: BNStats}`` dict.
+
 A train state crosses in the reference's ``state_flat`` layout
 (``{"trainable", "static", "opt_state", "step"}``, what its checkpoints
 hold): :func:`train_state_to_numpy` builds it from a port
@@ -363,3 +367,48 @@ def from_train_params(params, cfg: ModelConfig, *, pack4: bool = False,
     if missing:
         raise KeyError(f"from_train_params: no value for {missing}")
     return model
+
+
+# ---------------------------------------------------------------------------
+# the vision family
+# ---------------------------------------------------------------------------
+
+def _out_dim(leaf) -> int:
+    return int(np.shape(leaf.a if _is_state(leaf) else leaf)[-1])
+
+
+def resnet_from_jax(params, stats, *, device="cpu"):
+    """(model, {name: BNStats}) of the port holding a reference ResNet-20
+    tree (``repro.models.resnet.init_resnet20``'s params and stats, as
+    numpy): train-form, serve-form, packed or pow2-plane leaves; a
+    ``BNParams`` leaf becomes ``....p.gamma`` / ``....p.beta``. The
+    widths, blocks and classes are read from the tree; a leaf or a
+    statistic the geometry needs and the tree lacks raises KeyError."""
+    from repro_torch.core.mlbn import BNStats
+    from repro_torch.models.resnet import init_resnet20
+
+    widths = []
+    while f"s{len(widths)}b0" in params:
+        widths.append(_out_dim(params[f"s{len(widths)}b0"]["conv1"]["kernel"]))
+    blocks = 0
+    while f"s0b{blocks}" in params:
+        blocks += 1
+    model, want = init_resnet20(
+        None, widths=tuple(widths), blocks=blocks,
+        n_classes=_out_dim(params["fc"]["kernel"]), device="meta")
+    for path, leaf in walk(params):
+        if tuple(getattr(leaf, "_fields", ())) == ("gamma", "beta"):
+            for f in leaf._fields:
+                set_leaf(model, path + (f,), _convert(getattr(leaf, f),
+                                                      device))
+        else:
+            set_leaf(model, path, _convert(leaf, device))
+    missing = [".".join(p) for p, v in tree_paths(model)
+               if v is not None and not isinstance(v, LutqState)
+               and v.is_meta]
+    missing += [f"stats[{k!r}]" for k in want if k not in stats]
+    if missing:
+        raise KeyError(f"resnet_from_jax: the tree has no value for "
+                       f"{missing}")
+    return model, {k: BNStats(_tensor(stats[k].mean, device),
+                              _tensor(stats[k].var, device)) for k in want}

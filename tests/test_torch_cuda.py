@@ -26,6 +26,11 @@ AdamW step equal the CPU's bit for bit (the card divides where the
 reference divides; the optimizer's roots are taken in float64 and
 rounded once). Paged attention also gives the same bits on a second
 call, with dead block entries on a page of NaN, and in a CUDA graph.
+The vision family: ``conv_apply`` within 1e-4 of max|CPU| in both passes
+(f32 sums in another order, TF32 off inside the call); the ML-BN
+shift-add fold equal to the multiply form bit for bit; the fc's three
+kernels at (M, 64) @ (64, 8) as above; one CIFAR-table train step
+within 1e-2 (loss, 8-bit activations) and 2 lr (parameters) of the CPU's.
 """
 import contextlib
 
@@ -1585,3 +1590,179 @@ def test_cuda_train_checkpoint_serves_the_cpu_tokens(cuda_device, tmp_path,
     kernel = sh if policy else gp
     assert kernel["launches"] > 0
     assert sum(c.get("plain", 0) for c in counts["cuda"]) == 0
+
+
+# ---------------------------------------------------------------------------
+# the vision family: conv, the ML-BN fold, the fc's kernels, a train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_cuda_conv_apply_matches_cpu(cuda_device, stride):
+    """conv_apply's output and both gradients on the card equal the
+    CPU's within 1e-4 of max|CPU| (f32 sums in another order) with TF32
+    switched on globally: the call runs both passes with TF32 off (TF32's
+    10-bit mantissa would miss by ~1e-3)."""
+    from repro_torch.nn.conv import Conv, conv_apply
+
+    g = torch.Generator().manual_seed(30)
+    x = torch.randn(8, 32, 32, 16, generator=g)
+    w = torch.randn(3, 3, 16, 32, generator=g) * 0.1
+    gy = torch.randn(8, 32 // stride, 32 // stride, 32, generator=g)
+    out = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev in ("cpu", "cuda"):
+            xt = x.to(dev, copy=True).requires_grad_(True)
+            conv = Conv(w.to(dev, copy=True))
+            y = conv_apply(conv, xt, stride=stride)
+            (y * gy.to(dev)).sum().backward()
+            out[dev] = [t.detach().cpu() for t in (y, xt.grad,
+                                                    conv.kernel.grad)]
+        assert torch.backends.cudnn.allow_tf32  # the switch was local
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.shape == want.shape
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, err
+
+
+def _pow2_fc(M, g, K=16, Kin=64, N=8):
+    """Non-negative features (M, Kin) and a sorted 4-bit pow2 dictionary
+    with its assignments (Kin, N): the ResNet fc's operands."""
+    from repro_torch.core.lutq import pow2_round
+
+    x = torch.rand(M, Kin, generator=g) * 3.0
+    d = torch.sort(pow2_round(torch.randn(K, generator=g) * 0.3)).values
+    a = torch.randint(0, K, (Kin, N), generator=g, dtype=torch.int8)
+    return x, a, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 128, 512])
+@pytest.mark.parametrize("kernel", ["lutq_matmul", "lutq_gemv_packed",
+                                    "lutq_shift"])
+def test_cuda_vision_fc_kernels_match_plain(cuda_device, kernel, M):
+    """The three kernels at the ResNet fc's shape (Kin 64, N 8, below the
+    vectorised N % 16 == 0 path): the GEMMs within 1e-4 of max|plain|,
+    lutq_shift bit for bit (dynamic int8 activation scale)."""
+    from repro_torch.core.lutq import pow2_encode
+    from repro_torch.kernels import ops
+
+    x, a, d = (t.to(cuda_device) for t in _pow2_fc(
+        M, torch.Generator().manual_seed(31 + M)))
+    before = ops.read_counts()
+    if kernel == "lutq_shift":
+        code = pow2_encode(d)
+        got, _ = ops._pow2_dot_acc(x, code, a, None)
+        want, _ = ops._pow2_dot_acc(x, code, a, None, use_kernel=False)
+        assert torch.equal(got, want)
+    else:
+        fn, plain, idx = {
+            "lutq_matmul": (lutq_matmul.lutq_matmul, lutq_matmul_ref, a),
+            "lutq_gemv_packed": (lutq_gemv_packed.lutq_gemv_packed,
+                                 lutq_gemv_packed_ref, pack4_kin(a))}[kernel]
+        got, want = fn(x, idx, d), plain(x, idx, d)
+        assert got.shape == (M, 8)
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+    delta = dict(zip(("lutq_matmul", "lutq_gemv_packed", "lutq_shift"),
+                     ops.count_delta(before)[:3]))
+    assert delta[kernel] == {"launches": 1, "plain": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_shift_fold_equals_multiply_bits(cuda_device, monkeypatch):
+    """On the card the shift-add apply equals ``a*x + b`` bit for bit, and
+    a multiplier-less ResNet inference through the fold equals the same
+    forward through the multiply form (deterministic convolutions)."""
+    from repro_torch.core.mlbn import apply_scale_offset_shift
+    from repro_torch.models import resnet
+
+    g = torch.Generator().manual_seed(32)
+    e = torch.arange(-14, 16)
+    a = (torch.where(torch.rand(e.numel(), generator=g) < 0.5, -1.0, 1.0)
+         * torch.exp2(e.float())).to(cuda_device)
+    a[[2, 11]] = 0.0
+    b = torch.randn(e.numel(), generator=g).to(cuda_device)
+    x = torch.randn(64, e.numel(), generator=g).to(cuda_device)
+    assert torch.equal(apply_scale_offset_shift(x, a, b), a * x + b)
+
+    model, stats = resnet.init_resnet20(g, widths=(8, 16), blocks=1,
+                                        device=cuda_device)
+    stats = {k: type(v)(v.mean + 0.3, v.var * 2.5) for k, v in stats.items()}
+    xs = torch.rand(4, 8, 8, 3, generator=g).to(cuda_device)
+    kw = dict(widths=(8, 16), blocks=1, training=False, multiplier_less=True,
+              act_bits=8)
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True,
+            allow_tf32=False):
+        fold, _ = resnet.resnet20_apply(model, stats, xs, **kw)
+        monkeypatch.setattr(resnet, "apply_scale_offset_shift",
+                            lambda h, a, b, **_: a * h + b)
+        mul, _ = resnet.resnet20_apply(model, stats, xs, **kw)
+    assert torch.equal(fold, mul)
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_train_step_matches_cpu(cuda_device):
+    """One cifar_table.train_step of the fully multiplier-less row on the
+    reduced ResNet (8/16, one block, 8x8, B=8) from one quantized state on
+    the card and on the CPU: loss within 1e-2 relative (an 8-bit
+    activation may round the other way), every parameter within 2 lr
+    (Adam's first step moves by lr), dictionaries equal, assignments
+    equal except within 2 lr of a midpoint; no kernel or plain version
+    runs (every leaf is dense k-means)."""
+    import copy
+
+    from repro_torch.core.policy import quantize_tree, split_trainable
+    from repro_torch.data.synthetic import class_batches, shapes_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cifar_table as ct
+    from repro_torch.models.resnet import init_resnet20
+    from repro_torch.nn.tree import QuantKernel
+    from repro_torch.optim.optimizers import adamw, cosine_schedule
+
+    _, spec, ml, act_bits = ct.config("LUT-Q 4-bit pow2 (fully ML)")
+    spec = ct.table_spec(spec)
+    model, stats = init_resnet20(torch.Generator().manual_seed(3),
+                                 widths=(8, 16), blocks=1, device="cpu")
+    quantize_tree(model, spec)
+    xs, ys = shapes_dataset(64, seed=1, res=8)
+    batch = next(class_batches(xs, ys, 8, seed=3))
+    lr = cosine_schedule(2e-3, 20, ct.STEPS)(5)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        s = {k: type(v)(v.mean.to(dev), v.var.to(dev))
+             for k, v in stats.items()}
+        opt = adamw(cosine_schedule(2e-3, 20, ct.STEPS))
+        opt_state = opt.init(split_trainable(m)[0])
+        before = ops.read_counts()
+        _, loss, _ = ct.train_step(m, s, opt, opt_state, 5,
+                                   ct.to_device(batch, dev), spec=spec,
+                                   widths=(8, 16), blocks=1,
+                                   multiplier_less=ml, act_bits=act_bits)
+        delta = ops.count_delta(before)
+        runs[dev] = (float(loss), {n: p.detach().cpu()
+                                   for n, p in m.named_parameters()},
+                     {n: (q.w.detach().cpu(), q.d.cpu(), q.a.cpu())
+                      for n, q in m.named_modules()
+                      if isinstance(q, QuantKernel)}, delta)
+    (lc, pc, qc, _), (lg, pg, qg, dg) = runs["cpu"], runs["cuda"]
+    assert abs(lg - lc) <= 1e-2 * abs(lc)
+    assert all(d.get("launches", 0) == 0 and d.get("plain", 0) == 0
+               for d in dg[:4])
+    for n, p in pc.items():
+        assert float((pg[n] - p).abs().max()) <= 2 * lr + 1e-6 * float(
+            p.abs().max()), n
+    assert len(qc) == 4
+    for n, (w, d, a) in qc.items():
+        _, dd, aa = qg[n]
+        assert torch.equal(dd, d), n
+        diff = aa != a
+        mid = (d[:-1] + d[1:]) * 0.5
+        assert bool(((w[diff].reshape(-1, 1) - mid).abs().min(1).values
+                     <= 2 * lr).all()), n
