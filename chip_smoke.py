@@ -196,6 +196,24 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    lutq_shift at 168 x (steps + chunks); the same queue through the
    engine with the decode oracle must give the same tokens, request by
    request.
+3k. the multiply audit (repro_torch.kernels.audit: every aten op under a
+   TorchDispatchMode plus a note from each kernel launch), inside phase
+   3e on its view: memory.affine_shift_ops' and pow2_layer_bits' totals
+   over the 168 body leaves are logged, then four eager functions are
+   audited with params=view, each logging its count_ops: api.prefill (B=4,
+   prompt 128), one api.decode_step from its cache, one paged-engine
+   decode step (8 slots, page 64, 160 pages, int8 KV, 8 live requests of
+   64-128 prompt tokens) and generate(steps=4), the last two inside
+   disable_graphs(). Each must pass with 168 int dots a forward, all of
+   them lutq_shift launches, int_dot_flops = sum(M) x sum(Kin N), no fp
+   dot on a quantized shape and one head dot a forward beside the
+   attention's fp dots (counted). Refused, as they must be: a float
+   dictionary at danube's (2560, 6912) through the fused and the packed4
+   kernel ("decoded-weight matmul" from the kernel's note), the integer
+   decode oracle's prefill on the card (the same, from its float64 aten
+   mm) and the engine's decode step once its graph is captured (a replay
+   inside an audit). No plain version runs; the phase's launches go into
+   the kernels' record as "audit_launches".
 3f. self-speculative decoding: the phase-3 serve views (seed 0) at
    act_bits=32, a draft view of draft_bits=3 (K' = 8, packed, every one
    of the 9 quantized leaves coarse; its extra bytes printed), k=3.
@@ -2604,11 +2622,13 @@ def serve_pow2_full_width():
         f"{sum(same)} of {len(same)} requests")
     check(len(same) == len(run["requests"]) and all(same),
           "pow2 engine tokens: kernel and oracle differ")
-    del view, oracle_eng
+    del oracle_eng
+    audited = audit_full_width(view, cfg, toks)
+    del view
     torch.cuda.empty_cache()
     return dict(stats, launches=counts["lutq_shift"]
                 + eng["launches"]["lutq_shift"], eager=eager, engine=eng,
-                guard_bits=max(bits.values()))
+                guard_bits=max(bits.values()), audit=audited)
 
 
 def _pow2_generate(mode, view, cfg, oracle_cfg, toks, same_logits):
@@ -2677,6 +2697,174 @@ def _pow2_generate(mode, view, cfg, oracle_cfg, toks, same_logits):
           f"lutq_shift adds memsets to a pow2 generate ({mode}): {memsets}")
     return dict(stats, peak_gib=peak, counts=counts, tokens=out.cpu(),
                 profiled_wall_ms=wall_ms, profiled_busy_ms=busy_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 3k
+# ---------------------------------------------------------------------------
+
+#: phase 3k: the paged engine's queue (8 prompts of 64-128 tokens, enough
+#: new tokens that every slot is live for the audited and the refused
+#: step) and the decode steps of its audited generate
+AUDIT_PROMPTS, AUDIT_NEW, AUDIT_GEN = (64, 128), 32, 4
+
+
+def _audited(name, fn, view, cfg, per_token, rows):
+    """Audit ``fn`` (eager) with params=view, whose rules hold every fp
+    dot off the quantized shapes: 168 lutq_shift int dots a forward,
+    int_dot_flops = sum(M) x sum(Kin N) over ``rows`` (each forward's M),
+    one head dot a forward beside the attention's. Returns its
+    count_ops."""
+    from repro_torch.kernels import audit
+
+    t0 = time.perf_counter()
+    rep = audit.audit_multiplierless(fn, params=view)
+    c = audit.count_ops(rep)
+    head = [d for d in rep["fp_dots"] if d["out"][-1] == cfg.vocab]
+    attn = [d for d in rep["fp_dots"] if d["out"][-1] != cfg.vocab]
+    kinds = sorted({d["op"] for d in attn})
+    log(f"  audit {name}: PASS in {time.perf_counter() - t0:.2f} s | "
+        f"count_ops {c} | int dots: {len(rep['int_dots'])} lutq_shift "
+        f"launches over {len(rows)} forward(s) at M = {rows} | fp dots off "
+        f"the quantized shapes: head {len(head)}, attention {len(attn)} "
+        f"({', '.join(kinds)})")
+    check(all(d["kernel"] and d["op"] == "lutq_shift"
+              for d in rep["int_dots"]),
+          f"audit {name}: an int dot that is no lutq_shift launch")
+    check(c["n_int_dots"] == SHIFT_CALLS_PER_FORWARD * len(rows),
+          f"audit {name}: {c['n_int_dots']} int dots, expected "
+          f"{SHIFT_CALLS_PER_FORWARD} x {len(rows)}")
+    check(c["int_dot_flops"] == sum(rows) * per_token,
+          f"audit {name}: int_dot_flops {c['int_dot_flops']} != "
+          f"{sum(rows)} x {per_token}")
+    check(len(head) == len(rows) and bool(attn),
+          f"audit {name}: {len(head)} head dots, {len(attn)} attention dots")
+    return c
+
+
+def _refused(name, exc, match, fn):
+    """``fn`` must raise ``exc`` with ``match`` in its message."""
+    try:
+        fn()
+    except exc as e:
+        msg = str(e)
+        check(all(m in msg for m in match),
+              f"audit negative {name}: raised without {match}: {msg[:300]}")
+        log(f"  audit negative {name}: raised {exc.__name__}: {msg[:160]}")
+        return
+    die(f"audit negative {name}: the audit passed")
+
+
+def audit_full_width(view, cfg, toks):
+    """Phase 3k: the multiply audit (repro_torch.kernels.audit) of the
+    full-width serving_pow2 view at phase 3e's prompts, eager: prefill,
+    one decode step, one paged-engine decode step and generate pass with
+    168 lutq_shift int dots a forward; the float-dictionary kernels, the
+    integer decode oracle on the card and a graph replay are refused.
+    Returns {"launches": the phase's kernel launches, "seconds", "ops"}."""
+    import torch
+
+    from repro_torch.core.lutq import LutqState
+    from repro_torch.kernels import audit, ops
+    from repro_torch.kernels.ref import pack4_kin
+    from repro_torch.launch.serve_edge import op_budget, storage_bits
+    from repro_torch.models import api
+    from repro_torch.nn.tree import tree_paths
+    from repro_torch.runtime.engine import Engine, disable_graphs
+    from repro_torch.runtime.serving import adapt_prefill_cache, generate
+
+    t_start = time.perf_counter()
+    per_token = sum(int(x.a.shape[0]) * int(x.a.shape[1])
+                    for _, x in tree_paths(view) if isinstance(x, LutqState))
+    _, tot, dense = op_budget(view)
+    q_bits, dense_bits = storage_bits(view)
+    log(f"phase 3k: memory.affine_shift_ops of one token over the "
+        f"{SHIFT_CALLS_PER_FORWARD} body leaves: adds {tot['adds']}, shifts "
+        f"{tot['shifts']}, fp_mults {tot['fp_mults']} ({dense} dense "
+        f"multiplies); pow2_layer_bits {q_bits / 8 / 2**20:.1f} MiB against "
+        f"{dense_bits / 8 / 2**20:.1f} MiB f32; sum of Kin x N {per_token}")
+    check(tot["adds"] == per_token, "affine_shift_ops adds != sum Kin x N")
+    B, P = toks.shape
+    toks = toks.cuda()
+    _reset_counts()
+    out = {}
+    with torch.inference_mode():
+        def prefill():
+            out["prefill"] = api.prefill(view, cfg, {"tokens": toks})
+            return out["prefill"][0]
+        res = {"prefill": _audited("api.prefill", prefill, view, cfg,
+                                   per_token, [B * P])}
+        logits, cache = out["prefill"]
+        cache = adapt_prefill_cache(cfg, cache, B, P + 8)
+        tok = torch.argmax(logits[:, -1].float(), -1)[:, None].to(
+            torch.int32)
+        res["decode_step"] = _audited(
+            "api.decode_step",
+            lambda: api.decode_step(view, cfg, tok, cache)[0], view, cfg,
+            per_token, [B])
+        del cache, out["prefill"]
+
+    gen = torch.Generator().manual_seed(3)
+    run_cfg = cfg.replace(kv_cache_bits=8)
+    with disable_graphs():
+        eng = Engine(view, run_cfg, capacity=8, max_len=512 + 64,
+                     kv_pages=160, page_size=ENGINE_PAGE, device="cuda")
+        for _ in range(8):
+            n = int(torch.randint(*AUDIT_PROMPTS, (), generator=gen))
+            eng.submit(torch.randint(0, cfg.vocab, (n,), generator=gen,
+                                     dtype=torch.int32).numpy(),
+                       max_new=AUDIT_NEW)
+        while eng.queue or eng.prefilling:
+            eng.step()
+        check(all(s is not None for s in eng.slots),
+              "phase 3k: the paged engine's slots are not all live")
+        res["engine_step"] = _audited("paged Engine.step (disable_graphs)",
+                                      eng.step, view, run_cfg, per_token,
+                                      [eng.capacity])
+        res["generate"] = _audited(
+            f"generate(steps={AUDIT_GEN}) (disable_graphs)",
+            lambda: generate(view, cfg, {"tokens": toks}, steps=AUDIT_GEN,
+                             device="cuda"),
+            view, cfg, per_token, [B * P] + [B] * (AUDIT_GEN - 1))
+
+    # negatives: a float dictionary through the two LUT-decode kernels at
+    # danube's wi shape, the integer decode oracle on the card (float64
+    # aten mm) and a graph replay
+    g = torch.Generator(device="cuda").manual_seed(4)
+    kin, n = LAYER_SHAPES["wi/wg"][0]
+    d = torch.sort(torch.randn(16, device="cuda", generator=g)).values
+    a = torch.randint(0, 16, (kin, n), device="cuda", generator=g,
+                      dtype=torch.int8)
+    x = torch.randn(B, kin, device="cuda", generator=g)
+    for backend, leaf in (("fused", LutqState(None, d, a)),
+                          ("packed4", LutqState(None, d, pack4_kin(a)))):
+        kname = "lutq_matmul" if backend == "fused" else "lutq_gemv_packed"
+        _refused(f"{backend} ({kin}, {n}) leaf", AssertionError,
+                 ("decoded-weight matmul", f"'op': '{kname}'",
+                  "'kernel': True"),
+                 lambda: audit.audit_multiplierless(
+                     lambda: ops.lutq_dot(x, leaf, backend=backend),
+                     weight_shapes=[(kin, n)]))
+    oracle_cfg = cfg.replace(kernel_backend="decode")
+    with torch.inference_mode():
+        _refused("integer decode oracle's prefill on the card",
+                 AssertionError,
+                 ("decoded-weight matmul", "'op': 'mm'", "'dtype': 'f64'"),
+                 lambda: audit.audit_multiplierless(
+                     lambda: api.prefill(view, oracle_cfg,
+                                         {"tokens": toks})[0],
+                     params=view))
+    eng.step()  # captures the decode step's graph
+    check(eng.paged_trace_counts()["decode"] == 1,
+          "phase 3k: the engine captured no decode graph")
+    _refused("decode-step graph replay", RuntimeError,
+             ("disable_graphs",), lambda: audit.record(eng.step))
+    del eng
+    launches = _read_counts()
+    check(launches["plain"] == 0, f"phase 3k ran a plain version: {launches}")
+    seconds = time.perf_counter() - t_start
+    log(f"phase 3k {seconds:.1f} s | launches {launches}")
+    return dict(launches=launches, seconds=seconds, ops=res)
 
 
 # ---------------------------------------------------------------------------
@@ -4224,6 +4412,8 @@ def main() -> int:
         records[-1]["handoff_launches"] = handoff.get(kname, 0)
         # phase 3j: the vision serve views' held-out evaluations
         records[-1]["vision_launches"] = vision.get(kname, 0)
+        # phase 3k: the multiply audit's runs and its refused negatives
+        records[-1]["audit_launches"] = pow2["audit"]["launches"][kname]
         if kname in prefill:  # one prefill forward at B=4 x 128 (M=512)
             p = prefill[kname]
             records[-1]["prefill"] = {

@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import audit, build
 from repro_torch.kernels.ref import flash_attention_ref
 
 #: launches of the kernels (all, and by kernel), and calls that ran the
@@ -155,6 +155,8 @@ def launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"bk={bk}, {q.dtype})")
     COUNTS["launches"] += 1
     COUNTS[kernel] += 1
+    if audit.RECORDER is not None:
+        audit.note("flash_attention", q.dtype, q.shape, k.shape, out.shape)
     return out
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import audit, build
 from repro_torch.kernels.ref import kmeans_stats_ref
 
 #: launches of the kernel, and calls that ran the plain version instead
@@ -141,4 +141,6 @@ def kmeans_stats(w: torch.Tensor, d: torch.Tensor, write_a: bool = True):
         raise RuntimeError(f"kmeans_stats: CUDA error {rc} at launch "
                            f"(N={n}, K={K}, plan={p})")
     COUNTS["launches"] += 1
+    if audit.RECORDER is not None:  # a reduction, no product
+        audit.note("kmeans_stats", torch.float32, None, None, (K, 2))
     return a, sums, counts

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import audit, build
 from repro_torch.kernels.ref import lutq_gemv_packed_ref
 
 #: launches of the kernel, and calls that ran the plain version instead
@@ -41,4 +41,7 @@ def lutq_gemv_packed(x: torch.Tensor, packed: torch.Tensor,
     y = build.launch_gemm("lutq_gemv_packed_launch", x, packed, d,
                           N=packed.shape[1])
     COUNTS["launches"] += 1
+    if audit.RECORDER is not None:  # the weight by its logical (Kin, N)
+        audit.note("lutq_gemv_packed", y.dtype, x.shape,
+                   (x.shape[1], packed.shape[1]), y.shape)
     return y

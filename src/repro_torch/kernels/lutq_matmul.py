@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import audit, build
 from repro_torch.kernels.ref import lutq_matmul_ref
 
 #: launches of the kernel, and calls that ran the plain version instead
@@ -35,4 +35,6 @@ def lutq_matmul(x: torch.Tensor, a: torch.Tensor, d: torch.Tensor
         return lutq_matmul_ref(x, a, d)
     y = build.launch_gemm("lutq_matmul_launch", x, a, d, N=a.shape[1])
     COUNTS["launches"] += 1
+    if audit.RECORDER is not None:
+        audit.note("lutq_matmul", y.dtype, x.shape, a.shape, y.shape)
     return y

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import audit, build
 from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
 
 #: launches of the kernel, and calls that ran the plain version instead
@@ -115,4 +115,6 @@ def lutq_shift(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor,
         raise RuntimeError(f"lutq_shift: CUDA error {rc} at launch (M={M}, "
                            f"N={N}, Kin={Kin}, plan={plan})")
     COUNTS["launches"] += 1
+    if audit.RECORDER is not None:
+        audit.note("lutq_shift", torch.int32, (M, Kin), (Kin, N), (M, N))
     return y

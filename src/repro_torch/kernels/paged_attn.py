@@ -38,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import audit, build
 from repro_torch.kernels.ref import paged_attention_ref
 
 TRASH_PAGE = 0
@@ -298,9 +298,13 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise RuntimeError(f"paged_attention: CUDA error {rc} at launch "
                            f"(B={B}, Hkv={Hkv}, G={G}, dh={dh}, page={page}, "
                            f"NB={NB}, plan={plan})")
+    variant = ("paged_attention_multipass" if plan["multipass"]
+               else "paged_attention")
     COUNTS["launches"] += 1
-    VARIANTS["paged_attention_multipass" if plan["multipass"]
-             else "paged_attention"] += 1
+    VARIANTS[variant] += 1
+    if audit.RECORDER is not None:  # q against the keys the table reaches
+        audit.note(variant, q.dtype, q.shape, (B, NB * page, Hkv, dh),
+                   out.shape)
     return out
 
 

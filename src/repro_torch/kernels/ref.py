@@ -109,15 +109,23 @@ def lutq_shift_ref(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor
 
     xq: (M, Kin) int8; a: (Kin, N) int8 assignments (read as unsigned
     bytes, as the reference's ``jnp.take`` wraps negative indices);
-    wsh: (K,) int32 (:func:`pow2_shift_weights`). The product runs on
-    float64 copies, which PyTorch multiplies on the CPU and the card
-    alike: every product and partial sum is an integer below 2^53, so
-    the sum is exact in any order wherever the int32 result does not
-    overflow, which the serve-time guard (``7 + span + ceil(log2 Kin)
-    <= 31``) makes sure of.
+    wsh: (K,) int32 (:func:`pow2_shift_weights`). On the CPU the product
+    is an int32 ``torch.matmul`` of int32 operands, as the reference's
+    int32 ``dot_general``: the serve-time guard (``7 + span +
+    ceil(log2 Kin) <= 31``) keeps every partial sum inside int32, so the
+    sum is exact in any order, and no floating-point product touches the
+    decoded weight (``kernels/audit.py``). PyTorch has no integer matmul
+    on CUDA, so there the product runs on float64 copies: every product
+    and partial sum is an integer below 2^53, which gives the same bits,
+    but the multiply audit reports that product as a floating-point dot
+    on the weight's shape; the card's multiplier-less path is the
+    kernel.
     """
-    w = wsh[index_of(a)].to(torch.float64)
-    return torch.matmul(xq.to(torch.float64), w).to(torch.int32)
+    w = wsh[index_of(a)]
+    if xq.device.type == "cpu":
+        return torch.matmul(xq.to(torch.int32), w.to(torch.int32))
+    return torch.matmul(xq.to(torch.float64), w.to(torch.float64)).to(
+        torch.int32)
 
 
 #: bits of one digit plane of the shift-add kernel (base 2^7: s8 digits)

@@ -92,7 +92,7 @@ from torch import nn
 
 from repro_torch.core import actquant
 from repro_torch.device import resolve_device, scalar_like
-from repro_torch.kernels import ops
+from repro_torch.kernels import audit, ops
 from repro_torch.models import api
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import init_paged_workspace
@@ -818,10 +818,17 @@ class Engine:
         ``prefill`` graphs share one memory pool: each writes its output
         into engine buffers made outside any graph, and they replay one
         at a time on one stream, so none reads another's memory. Returns
-        the seconds spent capturing (0 but on a capturing step)."""
+        the seconds spent capturing (0 but on a capturing step). Raises
+        where it would capture or replay while a multiply audit records
+        (``kernels/audit.py``): the audit sees none of a graph's ops."""
         if eager or not self._graphs_on():
             fn()
             return 0.0
+        if audit.RECORDER is not None:
+            raise RuntimeError(
+                f"Engine: the {key!r} step would capture or replay a CUDA "
+                f"graph inside a multiply audit, which sees none of its "
+                f"ops; audit it under disable_graphs()")
         if key not in self._graphs:
             pool = None
             if prefill:

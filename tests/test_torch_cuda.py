@@ -31,6 +31,10 @@ The vision family: ``conv_apply`` within 1e-4 of max|CPU| in both passes
 shift-add fold equal to the multiply form bit for bit; the fc's three
 kernels at (M, 64) @ (64, 8) as above; one CIFAR-table train step
 within 1e-2 (loss, 8-bit activations) and 2 lr (parameters) of the CPU's.
+The multiply audit (``kernels/audit.py``) is held by counts and shapes,
+with no tolerance: one int dot a ``lutq_shift`` launch, and refusals of
+the float-dictionary kernels, the card's float64 decode oracle and a
+replayed CUDA graph.
 """
 import contextlib
 
@@ -1766,3 +1770,116 @@ def test_cuda_resnet_train_step_matches_cpu(cuda_device):
         mid = (d[:-1] + d[1:]) * 0.5
         assert bool(((w[diff].reshape(-1, 1) - mid).abs().min(1).values
                      <= 2 * lr).all()), n
+
+
+def _pow2_audit_model():
+    """Reduced danube under serving_pow2 on the card, calibrated, and its
+    prompt."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    cfg = reduced(get_config("h2o-danube-1.8b")).replace(
+        quant=serving_pow2(), act_bits=8)
+    toks = torch.randint(0, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(3)).cuda()
+    model = api.serve_state(cfg, seed=0, device="cuda",
+                            calib_batch={"tokens": toks})
+    return cfg, model, toks
+
+
+@pytest.mark.cuda
+def test_cuda_audit_records_an_int_dot_a_lutq_shift_launch(cuda_device):
+    """The kernel path's audit: one integer dot a lutq_shift launch, each
+    the kernel's note at its (M, Kin) @ (Kin, N), and no plain version."""
+    from repro_torch.kernels import audit
+    from repro_torch.models import api
+
+    cfg, model, toks = _pow2_audit_model()
+    before = dict(lutq_shift.COUNTS)
+    with torch.inference_mode():
+        rep = audit.audit_multiplierless(
+            lambda: api.prefill(model, cfg, {"tokens": toks})[0],
+            params=model)
+    launches = lutq_shift.COUNTS["launches"] - before["launches"]
+    assert launches == 5 * cfg.n_layers
+    assert len(rep["int_dots"]) == launches
+    assert all(d["kernel"] and d["op"] == "lutq_shift" and d["dtype"] == "i32"
+               and d["lhs"][0] == toks.numel() for d in rep["int_dots"])
+    assert lutq_shift.COUNTS["plain"] == before["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["fused", "packed4"])
+def test_cuda_audit_refuses_float_dictionary_kernels(cuda_device, backend):
+    """A float dictionary through the LUT-decode kernels is a decoded-
+    weight matmul, seen through the kernel's note."""
+    from repro_torch.core.lutq import LutqState
+    from repro_torch.kernels import audit, ops
+
+    g = torch.Generator().manual_seed(4)
+    d = torch.sort(torch.randn(16, generator=g)).values.cuda()
+    a = torch.randint(0, 16, (256, 384), generator=g, dtype=torch.int8)
+    leaf = LutqState(None, d, (a if backend == "fused" else pack4_kin(a))
+                     .cuda())
+    x = torch.randn(4, 256, generator=g).cuda()
+    kname = "lutq_matmul" if backend == "fused" else "lutq_gemv_packed"
+    with pytest.raises(AssertionError, match="decoded-weight matmul") as e:
+        audit.audit_multiplierless(
+            lambda: ops.lutq_dot(x, leaf, backend=backend),
+            weight_shapes=[(256, 384)])
+    assert f"'op': '{kname}'" in str(e.value)
+
+
+@pytest.mark.cuda
+def test_cuda_audit_refuses_the_decode_oracle(cuda_device):
+    """On the card the integer decode oracle multiplies in float64 (no
+    integer matmul on CUDA): its aten mm on the weight's shape is seen."""
+    from repro_torch.kernels import audit
+    from repro_torch.models import api
+
+    cfg, model, toks = _pow2_audit_model()
+    oracle = cfg.replace(kernel_backend="decode")
+    with torch.inference_mode(), pytest.raises(
+            AssertionError, match="decoded-weight matmul") as e:
+        audit.audit_multiplierless(
+            lambda: api.prefill(model, oracle, {"tokens": toks})[0],
+            params=model)
+    assert "'op': 'mm'" in str(e.value) and "'dtype': 'f64'" in str(e.value)
+
+
+@pytest.mark.cuda
+def test_cuda_audit_refuses_a_graph_replay(cuda_device):
+    """An engine whose decode step replays a CUDA graph cannot be audited;
+    stepping it under disable_graphs() can."""
+    from repro_torch.kernels import audit
+    from repro_torch.runtime.engine import Engine, disable_graphs
+
+    cfg, model, toks = _pow2_audit_model()
+    eng = Engine(model, cfg, capacity=2, max_len=48, device="cuda")
+    for row in toks.cpu().numpy():
+        eng.submit(row, max_new=12)
+    eng.step()
+    eng.step()
+    assert eng.paged_trace_counts()["decode"] == 1
+    with pytest.raises(RuntimeError, match="disable_graphs"):
+        audit.record(eng.step)
+    assert audit.RECORDER is None
+    with disable_graphs():
+        rep = audit.audit_multiplierless(eng.step, params=model)
+    assert len(rep["int_dots"]) == 5 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_cuda_serve_edge_cli(cuda_device, capsys):
+    """The edge example on the card: the audit passes through lutq_shift
+    launches, the tokens equal the decode oracle's, no plain version."""
+    from repro_torch.launch import serve_edge
+
+    plain = lutq_shift.COUNTS["plain"]
+    assert serve_edge.main(["--gen", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "PASS (10 integer dots, 10 of them lutq_shift launches" in out
+    assert "token-identical" in out and "plain versions run 0" in out
+    assert lutq_shift.COUNTS["plain"] == plain
