@@ -121,6 +121,21 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    at a time, as the window does, under the same check. Logged beside
    it: how many of those row blocks an RMSNorm over the whole window
    changes (the reason the window norms per position).
+2m. the expert-stacked kernels (the MoE family's: kernels 1, 2 and 4
+   with a grid dimension selecting the expert, one launch a stacked
+   product) against their plain versions (a loop over the experts) at
+   qwen3-moe-235b-a22b's expert shapes, wi/wg (C, 4096) @ (4096, 1536)
+   and wo (C, 1536) @ (1536, 4096), E = 128 with C = 1, 2, 10, 40
+   (decode, two tokens an expert, one 128-token prompt, 4 x 128 tokens)
+   and a 4-expert stack at C = 1 and 40 whose products split their
+   reduction; bf16 and f32 x (lutq_shift: int8, bit for bit), distinct
+   per-expert dictionaries (lutq_shift: spans 0..9 from expert to
+   expert), expert 3 an all-zero slab (its output exactly 0). Phase 2's
+   tolerances; one launch and no plain call a product; each of experts
+   0, 3 and E - 1 against a one-expert launch of the plain product's
+   kernel on its operands, bit for bit where the two plans split alike;
+   at C = 1 and 40 a second call and two replays of a captured call give
+   the first call's bits, the merge tickets back at 0.
 2h. prefill rows: danube's five product shapes through both GEMM
    kernels, bf16 x: the first m rows of an M-row product equal the
    m-row product bit for bit for every m < M in 16, 32, 64, 128, 256
@@ -178,6 +193,28 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    prefill calls than unpacked; prefill calls, prefill seconds, TTFT
    p50/p99, goodput, warmup and peak memory are logged side by side.
    Its launches go into the kernels' record as "packed_launches".
+3m. the MoE family: qwen3-moe-235b-a22b at full width (d_model 4096,
+   64 query heads of 128 over 4 KV heads, qk-norm, 128 experts top-8 of
+   d_ff 1536, vocab 151936, RoPE 1e6, its own 4-bit pow2 LUT-Q and 8-bit
+   activations), 2 of its 94 layers (each layer's experts are 2.416 G
+   weights), random weights from seed 0. (b) init + quantize (one
+   dictionary an expert), then generate (B=4, prompt 128, 16 tokens)
+   through the int8 view (kernel 1 and its expert stack) and the packed4
+   view (kernel 2 and its stack), each replaying its decode step and
+   eagerly: the same tokens and counts, 4 x 2 + 1 dense and 3 x 2
+   stacked launches a forward, no plain version; prefill ms, decode
+   tok/s, capture ms, peak memory and a profiled generate's heaviest
+   kernels are logged. Then serving_pow2 through api.serve_state
+   (calibrated on 2 x 64 tokens; every expert leaf pow2-encoded with
+   frozen (128, 2) pairs): the same generate on lutq_shift (4 x 2) and
+   its stack (3 x 2), and the multiply audit of its prefill (B=4 x 96)
+   and one decode step: 14 int dots a forward, all lutq_shift and
+   lutq_shift_experts notes, 2 router fp dots. (c) the slot-pool engine
+   over 4 prompts of 64-128 tokens, 8 new each: one slot, each request
+   equal to its lone generate; four slots with kv_pages (a MoE config
+   keeps the slot path, stats()["paged"] False); graph equal to eager.
+   (d) reduced qwen3-moe on the card gives the CPU's tokens through the
+   int8, packed4 and calibrated serving_pow2 views.
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -339,7 +376,13 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    larger of q, k, v and out at the HBM rate and 4 BH D S(S+1)/2 causal
    bf16 operations at the tensor-core peak), its plain version and
    scaled_dot_product_attention(..., is_causal=True) on the same tensors
-   viewed as (B, H, S, D) (a yardstick the port never calls).
+   viewed as (B, H, S, D) (a yardstick the port never calls); the
+   expert-stacked kernels at E = 128, C = 1 and 40, each of a MoE
+   layer's three products, the assignments in two copies, beside the
+   bound (assignments, x, output and dictionaries at the HBM rate; 2 E C
+   Kin N at the bf16 or int8 peak), the plain version and torch.bmm on
+   the pre-decoded bf16 weights (a yardstick; none for lutq_shift): the
+   record's top level is one layer at C = 1, its "prefill" at C = 40.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout,
@@ -415,6 +458,9 @@ CKPT_FREE_BYTES = 30e9
 ENGINE_PAGE, ENGINE_QUEUE = 64, 24
 LONG_PROMPT, LONG_GEN = 4352, 64
 KMEANS_SUM_TOL = 1e-5  # of sum|w| over the entry
+#: the card's name and power limit (nvidia-smi), set by setup(): logged
+#: beside every MoE number
+CARD = ""
 
 KERNELS = {
     "lutq_matmul": dict(route="cuda",
@@ -479,6 +525,8 @@ def setup():
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    CARD = card
     print(card, flush=True)
     log(f"device {name} x{count} | torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -1425,6 +1473,310 @@ def paged_kernel_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2m: the expert-stacked kernels at qwen3-moe-235b-a22b's shapes
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_E = 128
+#: an expert's (Kin, N) per product of a MoE layer, with products a layer
+MOE_SHAPES = {"wi/wg": ((4096, 1536), 2), "wo": ((1536, 4096), 1)}
+#: capacity C of an expert slab: decode (1..8 tokens at cf 2: C = 1), C =
+#: 2, one 128-token prompt (C = 10) and 4 x 128 tokens (C = 40)
+MOE_C = (1, 2, 10, 40)
+#: the empty expert (an all-zero slab) of every check
+MOE_EMPTY = 3
+#: a 4-expert stack whose products split their reduction (128 experts
+#: fill the card without a split)
+MOE_SPLIT_E = 4
+MOE_KERNELS = {
+    "lutq_matmul_experts": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lutq_matmul.cu",
+        replaces="src/repro/kernels/lutq_matmul.py:52", packed=False),
+    "lutq_gemv_packed_experts": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lutq_gemv_packed.cu",
+        replaces="src/repro/kernels/lutq_gemv_packed.py:48", packed=True),
+    "lutq_shift_experts": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/lutq_shift.cu",
+        replaces="src/repro/kernels/lutq_shift.py:58", packed=False),
+}
+
+
+def _expert_fns():
+    """{name: (stacked wrapper, plain version, one-expert wrapper,
+    one-expert plan, stacked plan)}."""
+    from repro_torch.kernels import (build, lutq_gemv_packed, lutq_matmul,
+                                     lutq_shift)
+    from repro_torch.kernels import ref
+
+    def gemm_plan(C, Kin, N, sms, experts=1):
+        return build.plan_splits(C, N, Kin, sms, experts=experts)
+
+    def shift_plan(C, Kin, N, sms, experts=1):
+        return lutq_shift.plan_splits(C, N, Kin, sms, experts=experts)
+
+    return {
+        "lutq_matmul_experts": (lutq_matmul.lutq_matmul_experts,
+                                ref.lutq_matmul_experts_ref,
+                                lutq_matmul.lutq_matmul, gemm_plan),
+        "lutq_gemv_packed_experts": (
+            lutq_gemv_packed.lutq_gemv_packed_experts,
+            ref.lutq_gemv_packed_experts_ref,
+            lutq_gemv_packed.lutq_gemv_packed, gemm_plan),
+        "lutq_shift_experts": (lutq_shift.lutq_shift_experts,
+                               ref.lutq_shift_experts_ref,
+                               lutq_shift.lutq_shift, shift_plan),
+    }
+
+
+def _expert_operands(kname, E, C, Kin, N, dtype, gen, dev, span=9):
+    """x (E, C, Kin) with expert MOE_EMPTY all zero, assignments (E, Kin,
+    N) (packed for the packed kernel) and per-expert dictionaries: sorted
+    random floats (E, 16), or for lutq_shift int8 xq and the shifted
+    dictionaries (E, 16) int32 of pow2 codes whose span differs from
+    expert to expert (0..span)."""
+    import torch
+
+    from repro_torch.kernels.ref import pack4_kin, pow2_shift_weights
+
+    K = 16
+    a = torch.randint(0, K, (E, Kin, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    if kname == "lutq_shift_experts":
+        x = torch.randint(-127, 128, (E, C, Kin), generator=gen, device=dev,
+                          dtype=torch.int8)
+        spans = torch.arange(E, device=dev) % (span + 1)
+        mag = (torch.randint(0, 1 << 20, (E, K), generator=gen, device=dev)
+               % (spans[:, None] + 1)) + 1
+        mag[:, 0], mag[:, -1] = 1, spans + 1
+        sign = torch.randint(0, 2, (E, K), generator=gen, device=dev) * 2 - 1
+        code = (mag * sign).to(torch.int8)
+        code[:, 1] = 0
+        d = pow2_shift_weights(code)
+    else:
+        x = torch.randn(E, C, Kin, generator=gen, device=dev).to(dtype)
+        d = torch.sort(torch.randn(E, K, generator=gen, device=dev),
+                       dim=-1).values
+        if MOE_KERNELS[kname]["packed"]:
+            a = pack4_kin(a)
+    if MOE_EMPTY < E:
+        x[MOE_EMPTY] = 0
+    return x, a, d
+
+
+def _expert_call(kname, fn, args):
+    """fn's output, and the stacked launches and plain calls it made."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    before = ops.read_counts()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    delta = ops.count_delta(before)
+    mod = {"lutq_matmul_experts": 8, "lutq_gemv_packed_experts": 9,
+           "lutq_shift_experts": 10}[kname]
+    plain = sum(c.get("plain", 0) for c in delta)
+    return y, delta[mod]["launches"], plain
+
+
+def _expert_error(kname, got, want):
+    """(max_abs_err, rel) with rel over max|plain|; lutq_shift exact."""
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    return err, err / max(scale, 1e-30)
+
+
+def _expert_repeats(fn, args, first):
+    """A second call, and one call captured in a CUDA graph and replayed
+    twice, give the first call's bits; the merge tickets are back at 0."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    second = fn(*args)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args)
+    same = [torch.equal(first, second)]
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(captured, first))
+    tickets = build._GEMM_TICKETS.get(str(first.device))
+    del graph
+    return all(same), tickets is None or not bool(tickets.any())
+
+
+def moe_kernel_checks():
+    """Phase 2m: each expert-stacked kernel against its plain version at
+    qwen3-moe's expert shapes, E = 128 (and a 4-expert stack that
+    splits), C in MOE_C, bf16 and f32 x (lutq_shift: int8, bit for bit),
+    distinct per-expert dictionaries and an empty expert; one launch a
+    stacked product; each expert's slab against a one-expert launch of
+    the plain product's kernel on its operands (bit for bit where the
+    two plans split alike); second-call and graph-replay bits."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import shift_planes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    sms = build.sm_count(dev)
+    worst = {}
+    t0 = time.perf_counter()
+    for kname, (fn, plain, one, plan_of) in _expert_fns().items():
+        shift = kname == "lutq_shift_experts"
+        worst[kname] = 0.0
+        dtypes = ((torch.int8,) if shift
+                  else (torch.bfloat16, torch.float32))
+        cases = [(MOE_E, C, shape) for C in MOE_C
+                 for shape, _ in MOE_SHAPES.values()]
+        cases += [(MOE_SPLIT_E, C, shape) for C in (1, 40)
+                  for shape, _ in MOE_SHAPES.values()]
+        for E, C, (Kin, N) in cases:
+            for dtype in dtypes:
+                x, a, d = _expert_operands(kname, E, C, Kin, N, dtype, gen,
+                                           dev)
+                # the shift-add kernel's digit planes, derived once, as the
+                # serving path hands them in (a host read)
+                args = (x, a, d) + ((shift_planes(d),) if shift else ())
+                got, launches, nplain = _expert_call(kname, fn, args)
+                want = plain(x, a, d)
+                torch.cuda.synchronize()
+                err, rel = _expert_error(kname, got, want)
+                dname = str(dtype).split(".")[-1]
+                stacked = plan_of(C, Kin, N, sms, experts=E)
+                single = plan_of(C, Kin, N, sms)
+                same_plan = all(stacked[k] == single[k]
+                                for k in ("bm", "bn", "splits", "kchunk"))
+                ones = []
+                for e in sorted({0, MOE_EMPTY, E - 1}):
+                    y1 = one(x[e], a[e], d[e])
+                    if same_plan:
+                        ones.append(torch.equal(y1, got[e]))
+                    else:
+                        ones.append(_expert_error(kname, y1, got[e])[1]
+                                    <= TOL.get(dname, 0.0))
+                tol = 0.0 if shift else TOL[dname]
+                log(f"check {kname} E={E} C={C} Kin={Kin} N={N} {dname}: "
+                    f"max_abs_err {err:.3e} rel {rel:.2e} (tol {tol:.0e}) | "
+                    f"{launches} launch, plan {stacked['bm']}x{stacked['bn']} "
+                    f"{stacked['splits']} splits (one expert: "
+                    f"{single['splits']} splits) | one-expert launches "
+                    f"{'bit-equal' if same_plan else 'within tol'}: "
+                    f"{all(ones)} | empty expert max "
+                    f"{got[min(MOE_EMPTY, E - 1)].abs().max().item():.1e}")
+                check(launches == 1 and nplain == 0,
+                      f"{kname}: {launches} launches and {nplain} plain "
+                      f"calls for one stacked product")
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"{kname} produced non-finite values")
+                check(rel <= tol, f"{kname} disagrees with its plain "
+                      f"version at E={E} C={C} Kin={Kin} N={N} {dname}")
+                check(all(ones), f"{kname}: an expert's slab differs from a "
+                      f"one-expert launch at E={E} C={C} Kin={Kin} N={N}")
+                if MOE_EMPTY < E:
+                    check(not bool(got[MOE_EMPTY].any()),
+                          f"{kname}: the empty expert's slab is not zero")
+                if C in (1, 40) and dtype != torch.float32:
+                    same, tickets = _expert_repeats(fn, args, got)
+                    log(f"check {kname} E={E} C={C} Kin={Kin} N={N} repeat: "
+                        f"second call and graph replays "
+                        f"{'same' if same else 'DIFFERENT'} bits, tickets "
+                        f"{'at 0' if tickets else 'SET'}")
+                    check(same and tickets, f"{kname} is not deterministic "
+                          f"at E={E} C={C} Kin={Kin} N={N}")
+                worst[kname] = max(worst[kname], err)
+                del x, a, d, got, want, args
+        torch.cuda.empty_cache()
+    log(f"phase 2m {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def moe_kernel_timings(card: str):
+    """The expert-stacked kernels at E = 128 with C = 1 (decode) and C =
+    40 (4 x 128 prompt tokens), each of a MoE layer's three products,
+    the assignments in two copies (805 MB each, far past the L2), beside
+    the bound (the assignments at 1 byte, or half a byte packed, x, the
+    output and the dictionaries at the HBM rate; 2 E C Kin N operations
+    at the bf16 or int8 tensor-core peak), the plain version (a loop of
+    128 plain products) and, for the float kernels, torch.bmm on the
+    pre-decoded bf16 weights (a yardstick the port never calls; none for
+    the shift-add kernel). Returns {kernel: {C: one layer's three
+    products}}."""
+    import torch
+
+    from repro_torch.core.lutq import decode
+    from repro_torch.kernels.ref import shift_planes, unpack4_kin
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for kname, (fn, plain, _, _) in _expert_fns().items():
+        shift = kname == "lutq_shift_experts"
+        packed = MOE_KERNELS[kname]["packed"]
+        per_c = {}
+        for C in (1, 40):
+            agg = dict(ms=0.0, plain_ms=0.0, library_ms=None if shift
+                       else 0.0, bytes_ms=0.0, ops_ms=0.0)
+            for label, ((Kin, N), calls) in MOE_SHAPES.items():
+                x, a, d = _expert_operands(kname, MOE_E, C, Kin, N,
+                                           torch.bfloat16, gen, dev)
+                extra = (shift_planes(d),) if shift else ()
+                sets = [(x, a, d) + extra, (x, a.clone(), d) + extra]
+                t, t_loop = time_ms(fn, sets, iters=8)
+                tp, _ = time_ms(plain, [s[:3] for s in sets], iters=2)
+                tl = None
+                if not shift:
+                    w = decode(d, unpack4_kin(a) if packed else a).to(
+                        torch.bfloat16)
+                    tl, _ = time_ms(torch.bmm, [(x, w), (x, w.clone())],
+                                    iters=8)
+                    del w
+                abytes = MOE_E * Kin * N // (2 if packed else 1)
+                xbytes = x.numel() * x.element_size()
+                ybytes = MOE_E * C * N * 4
+                tb = (abytes + xbytes + ybytes + d.numel() * 4) \
+                    / HBM_BYTES_PER_S * 1e3
+                to = 2 * MOE_E * C * Kin * N / (
+                    INT8_OPS if shift else PEAK_FLOPS["bfloat16"]) * 1e3
+                b, by = max(tb, to), ("bytes" if tb >= to else "operations")
+                log(f"time {kname} E={MOE_E} C={C} {label} Kin={Kin} N={N}: "
+                    f"kernel {t * 1e3:.1f} us (host loop "
+                    f"{t_loop * 1e3:.1f} us) | bound {b * 1e3:.1f} us ({by})"
+                    f" = {b / t * 100:.1f}% | plain {tp * 1e3:.1f} us | "
+                    f"torch.bmm bf16 "
+                    f"{'n/a' if tl is None else '%.1f us' % (tl * 1e3)} | "
+                    f"{card}")
+                agg["ms"] += calls * t
+                agg["plain_ms"] += calls * tp
+                if tl is not None:
+                    agg["library_ms"] += calls * tl
+                agg["bytes_ms"] += calls * tb
+                agg["ops_ms"] += calls * to
+                del x, a, d, sets
+                torch.cuda.empty_cache()
+            agg["bound_ms"] = max(agg["bytes_ms"], agg["ops_ms"])
+            agg["bound_by"] = ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
+                               else "operations")
+            log(f"time {kname} E={MOE_E} C={C} one MoE layer (3 products): "
+                f"kernel {agg['ms']:.3f} ms | bound {agg['bound_ms']:.3f} ms "
+                f"({agg['bound_by']}) = "
+                f"{agg['bound_ms'] / agg['ms'] * 100:.1f}% | plain "
+                f"{agg['plain_ms']:.3f} ms | {card}")
+            per_c[C] = agg
+        out[kname] = per_c
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -1441,12 +1793,16 @@ def _reset_counts():
 
 
 def _read_counts():
-    mm, gp, sh, km, pa, variants, fa, ops = _count_dicts()
+    mm, gp, sh, km, pa, variants, fa, ops, mme, gpe, she = _count_dicts()
     return {"lutq_matmul": mm["launches"], "lutq_gemv_packed": gp["launches"],
             "lutq_shift": sh["launches"], "kmeans_stats": km["launches"],
             "flash_attention": fa["launches"],
-            **variants, "plain": (mm["plain"] + gp["plain"] + sh["plain"]
-                                  + km["plain"] + pa["plain"] + fa["plain"]),
+            **variants, "lutq_matmul_experts": mme["launches"],
+            "lutq_gemv_packed_experts": gpe["launches"],
+            "lutq_shift_experts": she["launches"],
+            "plain": (mm["plain"] + gp["plain"] + sh["plain"] + km["plain"]
+                      + pa["plain"] + fa["plain"] + mme["plain"]
+                      + gpe["plain"] + she["plain"]),
             "decode": ops["decode"]}
 
 
@@ -1624,6 +1980,307 @@ def reduced_reference():
             f"{err:.2e}, tokens equal {bool((tc == tg.cpu()).all())}")
         check(err <= 1e-4, "reduced logits: card and CPU disagree")
         check(bool((tc == tg.cpu()).all()), "reduced tokens differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 3m: the MoE family at full width (qwen3-moe-235b-a22b)
+# ---------------------------------------------------------------------------
+
+#: qwen3-moe's depth on the card: 2 of its 94 layers (each layer's
+#: experts are 2.416 G weights, 9.66 GB in float32; 2 layers with the
+#: 151936 x 4096 embedding and head are ~24.9 GB before quantize)
+MOE_LAYERS = 2
+#: q, k, v, o and the three expert-stacked products a layer, plus the head
+MOE_CALLS = 7 * MOE_LAYERS + 1
+#: phase 3m (c): the engine's queue, prompts of unequal lengths
+MOE_QUEUE = (128, 96, 64, 112)
+MOE_ENGINE_GEN = 8
+#: phase 3m's audited prefill: B=4 x 96 tokens. The audit's rule is by
+#: shape (no fp dot on a quantized leaf's (Kin, N) or its transpose), and
+#: at 4 x 128 = 512 tokens the routers' float product (512, 4096) @
+#: (4096, 128) has the shape of k's and v's transposed (512, 4096) plane
+MOE_AUDIT_PROMPT = 96
+
+
+def _moe_counts(counts, dense, stacked):
+    """(dense launches, stacked launches, every other launch or plain
+    call) of a _read_counts() record."""
+    other = {k: v for k, v in counts.items()
+             if k not in (dense, stacked, "paged_attention",
+                          "paged_attention_multipass")}
+    return counts[dense], counts[stacked], other
+
+
+def _moe_serve(name, view, cfg, toks, dense, stacked, calls):
+    """Phase 3m (b) for one view: generate (B=4, prompt 128, 16 tokens)
+    replaying the decode step it captured and eagerly: equal tokens and
+    counts, ``calls`` launches of the two kernels a forward, no plain
+    version; prefill ms, decode tok/s, capture ms, peak memory and a
+    profiled generate's heaviest kernels are logged."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.runtime.serving import generate
+
+    generate(view, cfg, {"tokens": toks}, steps=2, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    per_mode = {}
+    for mode in MODES:
+        with _mode(mode):
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            out, stats = generate(view, cfg, {"tokens": toks},
+                                  steps=STEPS_GEN, return_stats=True,
+                                  device="cuda")
+            counts = _read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n_dense, n_stacked, other = _moe_counts(counts, dense, stacked)
+            log(f"moe serve [{name}] {cfg.name} x{cfg.n_layers} layers B="
+                f"{BATCH} P={PROMPT} gen={STEPS_GEN} ({mode}): prefill "
+                f"{stats['t_prefill_s'] * 1e3:.1f} ms | decode "
+                f"{stats['decode_tok_s']:.1f} tok/s | capture "
+                f"{stats['t_warmup_s'] * 1e3:.1f} ms | peak {peak:.2f} GiB |"
+                f" launches {dense} {n_dense}, {stacked} {n_stacked} | "
+                f"{CARD}")
+            check(n_dense == STEPS_GEN * calls[0]
+                  and n_stacked == STEPS_GEN * calls[1],
+                  f"moe {name} ({mode}): {n_dense} {dense} and {n_stacked} "
+                  f"{stacked} launches, expected {STEPS_GEN} x {calls}")
+            check(not any(other.values()), f"moe {name} ({mode}) went "
+                  f"through another path: {other}")
+            check(out.shape == (BATCH, STEPS_GEN)
+                  and bool(((out >= 0) & (out < cfg.vocab)).all()),
+                  f"moe {name}: tokens out of shape or range")
+            if mode == "graph":
+                def run():
+                    generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
+                             device="cuda")
+                    torch.cuda.synchronize()
+                profile_run(run, f"moe generate [{name}]")
+        per_mode[mode] = (out.cpu(), counts)
+    check(torch.equal(per_mode["graph"][0], per_mode["eager"][0]),
+          f"moe {name}: graph and eager serves give other tokens")
+    check(per_mode["graph"][1] == per_mode["eager"][1],
+          f"moe {name}: graph and eager serves launch other counts")
+    with torch.inference_mode():
+        logits, _ = api.prefill(view, cfg, {"tokens": toks.cuda()})
+    check(bool(torch.isfinite(logits).all()), f"moe {name}: non-finite "
+          f"logits")
+    log(f"  sample tokens {per_mode['graph'][0][0, :8].tolist()}")
+    return per_mode["graph"]
+
+
+def _moe_engine(view, cfg, toks_by_len):
+    """Phase 3m (c): the slot-pool engine over prompts of unequal
+    lengths. One slot: each request's tokens equal a lone generate of it
+    (with more slots the requests of a decode step share the experts'
+    capacity and the activation scales, so a request's tokens depend on
+    its batch, as in the reference); graph and eager equal. Four slots
+    (kv_pages given: a MoE config keeps the slot path): graph and eager
+    give the same tokens and counts, stats()["paged"] is False."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.serving import generate
+
+    max_len = max(MOE_QUEUE) + MOE_ENGINE_GEN
+    lone = [generate(view, cfg, {"tokens": t[None]}, steps=MOE_ENGINE_GEN,
+                     max_len=max_len, device="cuda")[0].cpu()
+            for t in toks_by_len]
+    for capacity, kw in ((1, {}), (4, dict(kv_pages=64, page_size=64))):
+        runs = {}
+        for mode in MODES:
+            with _mode(mode):
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                eng = Engine(view, cfg, capacity=capacity, max_len=max_len,
+                             device="cuda", **kw)
+                for t in toks_by_len:
+                    eng.submit(t, max_new=MOE_ENGINE_GEN)
+                res = eng.run()
+                torch.cuda.synchronize()
+                st = eng.stats()
+                counts = _read_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+            runs[mode] = ([torch.as_tensor(r["tokens"]) for r in res], counts)
+            log(f"moe engine {capacity} slot(s) ({mode}): "
+                f"{st['completed']} requests, decode "
+                f"{st['decode_tok_s']:.1f} tok/s, goodput "
+                f"{st['goodput_tok_s']:.1f} tok/s, "
+                f"{st['decode_steps']} steps, paged {st['paged']}, peak "
+                f"{peak:.2f} GiB | {CARD}")
+            check(st["paged"] is False, "a MoE engine took the paged path")
+            check(counts["plain"] == 0, f"moe engine ran plain versions: "
+                  f"{counts}")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(runs["graph"][0], runs["eager"][0]))
+              and runs["graph"][1] == runs["eager"][1],
+              f"moe engine ({capacity} slots): graph and eager differ")
+        if capacity == 1:
+            same = [torch.equal(a, b) for a, b in zip(runs["graph"][0],
+                                                      lone)]
+            log(f"  one-slot engine equals lone generate per request: "
+                f"{same}")
+            check(all(same), "moe engine: a request differs from its lone "
+                  "generate")
+
+
+def _moe_audit(view, cfg, toks):
+    """Phase 3m (b): the serving_pow2 view's prefill (B=4 x
+    MOE_AUDIT_PROMPT) and one decode step pass the multiply audit at
+    full width: the 14 int dots a forward are
+    lutq_shift (8) and lutq_shift_experts (6) launches, no fp dot on a
+    quantized shape; the routers' float products (not quantized) and the
+    float head are allowed."""
+    import torch
+
+    from repro_torch.kernels import audit
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    toks = toks[:, :MOE_AUDIT_PROMPT]
+
+    def prefill():
+        with torch.inference_mode():
+            return api.prefill(view, cfg, {"tokens": toks.cuda()})
+
+    _, cache = prefill()
+    cache = serving.adapt_prefill_cache(cfg, cache, BATCH,
+                                        MOE_AUDIT_PROMPT + 2)
+    tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            return api.decode_step(view, cfg, tok, cache)
+
+    for name, fn in (("prefill", prefill), ("decode_step", step)):
+        t0 = time.perf_counter()
+        rep = audit.audit_multiplierless(fn, params=view)
+        c = audit.count_ops(rep)
+        ops_ = sorted({d["op"] for d in rep["int_dots"]})
+        routers = [d for d in rep["fp_dots"]
+                   if d["rhs"] == (cfg.d_model, cfg.n_experts)]
+        log(f"  moe audit {name}: PASS in {time.perf_counter() - t0:.2f} s "
+            f"| count_ops {c} | int dots {ops_} | router fp dots "
+            f"{len(routers)}")
+        check(c["n_int_dots"] == 7 * cfg.n_layers and ops_ == [
+            "lutq_shift", "lutq_shift_experts"], f"moe audit {name}: "
+              f"{c['n_int_dots']} int dots {ops_}")
+        check(len(routers) == cfg.n_layers, f"moe audit {name}: "
+              f"{len(routers)} router products")
+
+
+def _moe_reduced_card_vs_cpu():
+    """Phase 3m (d): reduced qwen3-moe (4 experts top-2) on the card
+    gives the CPU's greedy tokens through each view (int8, packed4,
+    serving_pow2 with calibration), act_bits 32."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.serving import generate
+
+    base = reduced(get_config(MOE_ARCH)).replace(act_bits=32)
+    toks = torch.randint(0, base.vocab, (3, 24),
+                         generator=torch.Generator().manual_seed(6))
+    for view in ("int8", "packed4", "pow2"):
+        cfg = base.replace(quant=serving_pow2()) if view == "pow2" else base
+        model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+        if view == "pow2":
+            model = api.calibrate(model, cfg, {"tokens": toks[:2]})
+        cpu = serve_view(model, pack4=view == "packed4",
+                         policy=api.resolved_policy(cfg))
+        want = generate(cpu, cfg, {"tokens": toks}, steps=8, device="cpu")
+        got = generate(cpu.to("cuda"), cfg, {"tokens": toks}, steps=8,
+                       device="cuda").cpu()
+        log(f"reduced {cfg.name} [{view}] card vs cpu tokens equal "
+            f"{bool(torch.equal(got, want))}")
+        check(torch.equal(got, want), f"reduced MoE [{view}]: card and CPU "
+              f"tokens differ")
+
+
+def moe_full_width():
+    """Phase 3m: qwen3-moe-235b-a22b at full width (2 layers, random
+    weights from a seed): (b) served through the int8/fused, packed4 and
+    calibrated serving_pow2 views, the last audited; (c) the slot-pool
+    engine; (d) the reduced config card vs CPU. Returns {kernel:
+    launches} of the expert-stacked kernels on the main path (phase (b)'s
+    graph-mode generates), and under "dense" the other kernels' launches
+    in those generates."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    base = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, base.vocab, (BATCH, PROMPT), generator=gen)
+    launches = {}
+    t0 = time.perf_counter()
+    model = api.quantize(api.init(base, seed=0, device="cuda"), base)
+    policy = api.resolved_policy(base)
+    torch.cuda.synchronize()
+    log(f"moe {base.name} x{MOE_LAYERS}: init + quantize "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | "
+        f"{CARD}")
+    views = {"int8": serve_view(model, policy=policy),
+             "packed4": serve_view(model, pack4=True, policy=policy)}
+    del model  # the fp masters go
+    torch.cuda.empty_cache()
+    wi = views["int8"].layers[0].moe.wi.state
+    check(wi.d.shape == (base.n_experts, 16) and wi.a.shape == (
+        base.n_experts, base.d_model, base.d_ff), f"expert leaf {wi.d.shape}"
+        f" {wi.a.shape}")
+    launches["dense"] = {}
+    for name, stacked, dense in (
+            ("int8", "lutq_matmul_experts", "lutq_matmul"),
+            ("packed4", "lutq_gemv_packed_experts", "lutq_gemv_packed")):
+        _, counts = _moe_serve(name, views[name], base, toks, dense, stacked,
+                               (4 * MOE_LAYERS + 1, 3 * MOE_LAYERS))
+        launches[stacked] = counts[stacked]
+        launches["dense"][dense] = counts[dense]
+    rng = torch.Generator().manual_seed(7)
+    queue = [torch.randint(0, base.vocab, (n,), generator=rng)
+             for n in MOE_QUEUE]
+    _moe_engine(views["packed4"], base, queue)
+    del views
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = base.replace(quant=serving_pow2())
+    calib = torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                          generator=torch.Generator().manual_seed(2))
+    view = api.serve_state(cfg, seed=0, device="cuda",
+                           calib_batch={"tokens": calib.cuda()})
+    torch.cuda.synchronize()
+    wo = view.layers[1].moe.wo.state
+    check(wo.d.dtype == torch.int8 and wo.act is not None
+          and wo.act.shape == (cfg.n_experts, 2),
+          "serving_pow2: the expert leaves are not pow2-encoded with "
+          "frozen pairs")
+    log(f"moe serving_pow2: serve_state (init, quantize, calibrate, "
+        f"serve_view) {time.perf_counter() - t0:.1f} s")
+    _, counts = _moe_serve("serving_pow2", view, cfg, toks, "lutq_shift",
+                           "lutq_shift_experts",
+                           (4 * MOE_LAYERS, 3 * MOE_LAYERS))
+    launches["lutq_shift_experts"] = counts["lutq_shift_experts"]
+    launches["dense"]["lutq_shift"] = counts["lutq_shift"]
+    _moe_audit(view, cfg, toks)
+    del view
+    torch.cuda.empty_cache()
+    _moe_reduced_card_vs_cpu()
+    log(f"phase 3m {time.perf_counter() - t_phase:.1f} s | launches "
+        f"{launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -4328,6 +4985,7 @@ def main() -> int:
     worst.update(paged_kernel_checks())
     worst["lutq_shift"] = shift_checks()
     worst["flash_attention"] = flash_checks()
+    worst.update(moe_kernel_checks())
     quant_divide_checks()
     adamw_checks()
     launches, _, views, cfg = serve_full_width()
@@ -4341,6 +4999,7 @@ def main() -> int:
         launches[variant] = sum(r["launches"][variant]
                                 for r in engine.values())
     reduced_engine_card_vs_cpu()
+    moe = moe_full_width()
     pow2 = serve_pow2_full_width()
     launches["lutq_shift"] = pow2["launches"]
     trained = train_full_width()
@@ -4385,8 +5044,13 @@ def main() -> int:
                               library_ms=g["library_ms"])
     # kernel 5: danube's prefill geometry (the 4096 row is logged)
     table["flash_attention"] = flash_timings(card)["danube"]
+    # the expert-stacked kernels: one MoE layer's three products at E =
+    # 128, C = 1 (the record's top level) and C = 40 (its "prefill")
+    for kname, per_c in moe_kernel_timings(card).items():
+        table[kname], prefill[kname] = per_c[1], per_c[40]
+    launches.update({k: moe[k] for k in MOE_KERNELS})
     records = []
-    for kname, meta in KERNELS.items():
+    for kname, meta in {**KERNELS, **MOE_KERNELS}.items():
         t = table[kname]
         records.append({
             "name": kname, "route": meta["route"], "source": meta["source"],
@@ -4400,10 +5064,22 @@ def main() -> int:
             # variant) and at run (c)'s longest row (workspace variant,
             # forced: on the engine's path danube's rows never need it);
             # flash attention: one call at danube's prefill geometry (no
-            # path of the reference or the port reaches it: 0 launches)
+            # path of the reference or the port reaches it: 0 launches);
+            # the expert-stacked kernels: one MoE layer's three products
+            # at qwen3-moe's shapes, E = 128, C = 1, with launches over
+            # phase 3m's graph-mode generate of the view that runs them
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if kname in MOE_KERNELS:  # phase 2m's timing at C = 40
+            p = prefill[kname]
+            records[-1]["prefill"] = {
+                "C": 40, "ms": p["ms"], "plain_ms": p["plain_ms"],
+                "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+                "library_ms": p["library_ms"]}
+            continue
+        if kname in moe["dense"]:  # phase 3m's q, k, v, o and head
+            records[-1]["moe_launches"] = moe["dense"][kname]
         if kname in spec_launches:  # phase 3f's speculative runs
             records[-1]["speculative_launches"] = spec_launches[kname]
         if kname in packed_launches:  # phase 3i's packed graph passes

@@ -1,7 +1,8 @@
 """Architecture registry (counterpart of ``repro.configs``).
 
 The port registers the configurations it can serve: the dense
-``h2o-danube-1.8b`` so far.
+``h2o-danube-1.8b`` and ``mistral-nemo-12b`` and the MoE
+``qwen3-moe-235b-a22b``.
 """
 from __future__ import annotations
 
@@ -32,4 +33,8 @@ def list_archs():
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import h2o_danube_1_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        h2o_danube_1_8b,
+        mistral_nemo_12b,
+        qwen3_moe_235b_a22b,
+    )

@@ -155,7 +155,8 @@ def apply_act_scales(model: torch.nn.Module, record: Dict[str, float],
     QuantSpec / None) has ``act_frozen=True`` and ``act_bits < 32`` are
     filled: ``act = [amax / qmax, qmax]`` with ``qmax = 2^(act_bits-1)
     - 1`` (clamped to the int8 range by the pow2 consumers), the same
-    pair on every layer of a logical leaf. Others keep theirs.
+    pair on every layer of a logical leaf, broadcast over an expert
+    stack (act (E, 2), the reference's shape). Others keep theirs.
     """
     from repro_torch.core.rules import as_policy
     from repro_torch.nn.tree import QuantKernel, logical_path
@@ -175,6 +176,7 @@ def apply_act_scales(model: torch.nn.Module, record: Dict[str, float],
         if amax is None or amax <= 0.0:
             continue
         qmax = float(2.0 ** (spec.act_bits - 1) - 1.0)
-        mod.act = torch.tensor([amax / qmax, qmax], dtype=torch.float32,
-                               device=mod.d.device)
+        pair = torch.tensor([amax / qmax, qmax], dtype=torch.float32,
+                            device=mod.d.device)
+        mod.act = pair.expand(tuple(mod.d.shape[:-1]) + (2,)).clone()
     return model

@@ -37,7 +37,10 @@ class LutqState(NamedTuple):
     act: frozen activation-quant pair ``[scale, qmax]``, or None.
 
     One layer's dictionary is its own (K,) tensor: the port keeps the
-    layer stack as per-layer modules instead of (L, ...) stacks.
+    layer stack as per-layer modules instead of (L, ...) stacks. An
+    expert-stacked leaf (a MoE layer's ``wi``/``wg``/``wo``) keeps its
+    expert axis: w and a (E, Din, Dout) (packed: (E, Din/2, Dout)), d
+    (E, K), sid (E,), act (E, 2), one dictionary an expert.
     """
 
     w: Optional[torch.Tensor]
@@ -64,8 +67,12 @@ def index_of(a: torch.Tensor) -> torch.Tensor:
 
 
 def decode(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """Q = d[A] (paper step 1)."""
-    return d[index_of(a)]
+    """Q = d[A] (paper step 1). A stacked d (S, K) decodes a (S, ...)
+    slice by slice, slice s against its own dictionary d[s]."""
+    if d.ndim == 1:
+        return d[index_of(a)]
+    idx = index_of(a).reshape(a.shape[0], -1)
+    return torch.gather(d, 1, idx).reshape(a.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -100,16 +107,15 @@ def quantize_ste(w: torch.Tensor, d: torch.Tensor, a: torch.Tensor
 
 def quantize_ste_any(w: torch.Tensor, d: torch.Tensor, a: torch.Tensor
                      ) -> torch.Tensor:
-    """:func:`quantize_ste` of any leaf (the port's leaves are per layer,
-    so there are no stacked dictionaries to map over)."""
+    """:func:`quantize_ste` of any leaf: a per-layer (K,) dictionary, or
+    an expert stack's (E, K), each expert's slice against its own."""
     return quantize_ste(w, d, a)
 
 
 def decode_any(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """decode() of any leaf: an int8 ``d`` is a pow2 sign+exponent plane
-    (serve-form convention) and decodes to exact ±2^k floats first. (The
-    reference also takes stacked (L, K) dictionaries here; the port's
-    leaves are per layer.)"""
+    (serve-form convention) and decodes to exact ±2^k floats first; an
+    expert stack's (E, K) dictionaries decode their own slices."""
     if d.dtype == torch.int8:
         d = pow2_decode(d)
     return decode(d, a)
@@ -391,7 +397,15 @@ def update_state(state: LutqState, spec: QuantSpec,
     """Paper step 4 applied to a LutqState (after the optimizer touched
     w). ``impl``: force "dense" | "segsum" | "stats"; default structural
     (:func:`resolve_kmeans_impl`). Returns new (d, a); nothing is
-    written in place here."""
+    written in place here. A stacked leaf (an expert stack's d (E, K))
+    runs step 4 on each expert's slice against its own dictionary."""
+    if state.d.ndim > 1:
+        parts = [update_state(LutqState(w=state.w[i], d=state.d[i],
+                                        a=state.a[i]), spec, impl)
+                 for i in range(state.d.shape[0])]
+        return LutqState(w=state.w, d=torch.stack([p.d for p in parts]),
+                         a=torch.stack([p.a for p in parts]), sid=state.sid,
+                         act=state.act)
     w = state.w.detach()
     fn = _KMEANS_IMPLS[resolve_kmeans_impl(w.numel(), impl, w.device)]
     d, a = fn(w, state.d, spec)
@@ -445,7 +459,16 @@ def init_dictionary(w: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     return apply_constraint(d.float(), spec)
 
 
-def init_state(w: torch.Tensor, spec: QuantSpec) -> LutqState:
+def init_state(w: torch.Tensor, spec: QuantSpec, nstack: int = 0
+               ) -> LutqState:
+    """Initial (d, A) of w. With ``nstack`` leading stack axes (an
+    expert stack: 1) every slice gets its own dictionary, as the
+    reference's ``init_state`` vmapped over its stack axes: d
+    (*stack, K), a shaped like w."""
+    if nstack:
+        parts = [init_state(s, spec, nstack - 1) for s in w]
+        return LutqState(w=w, d=torch.stack([p.d for p in parts]),
+                         a=torch.stack([p.a for p in parts]))
     d = init_dictionary(w, spec)
     fn = (kmeans_update_segsum if w.numel() >= _SEGSUM_THRESHOLD
           else kmeans_update)

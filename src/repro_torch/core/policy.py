@@ -14,7 +14,10 @@ Leaves are resolved against the reference's *stacked* path
 (:func:`repro_torch.nn.tree.logical_path`): per-layer leaves of one
 stacked kernel get the same rule, their size floor is checked against
 the stacked size, and manifests carry one record per stacked kernel, so
-they are JSON-equal to the reference's.
+they are JSON-equal to the reference's. An expert-stacked leaf keeps
+its expert axis (:func:`repro_torch.nn.tree.expert_dims`): each expert
+gets its own dictionary, as each slice of the reference's vmapped
+``init_state`` does.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ from repro_torch.core.lutq import (LutqState, init_state, pow2_encode,
                                    update_state)
 from repro_torch.core.rules import QuantLike, QuantPolicy, as_policy
 from repro_torch.core.spec import QuantSpec
-from repro_torch.nn.tree import (QuantKernel, clone_structure, logical_path,
-                                 map_with_path, tree_paths)
+from repro_torch.nn.tree import (QuantKernel, clone_structure, expert_dims,
+                                 logical_path, map_with_path, tree_paths)
 
 # Parameters that never get quantized regardless of size (norm gains,
 # biases, routers, ...). The paper quantizes affine/conv *weights* only.
@@ -60,7 +63,8 @@ def quantize_tree(model: nn.Module, quant: QuantLike,
     """Convert eligible kernels to LutqState, in place; returns model.
 
     Each per-layer kernel gets its own dictionary, as each slice of the
-    reference's stacked kernel does. The fp master stays as ``w``.
+    reference's stacked kernel does, and so does each expert of an
+    expert stack (d (E, K), sid (E,)). The fp master stays as ``w``.
     """
     policy = as_policy(quant)
     if policy is None:
@@ -74,9 +78,10 @@ def quantize_tree(model: nn.Module, quant: QuantLike,
         rid, spec = policy.resolve(lpath, size=sizes[lpath])
         if spec is None:
             return leaf
-        st = init_state(leaf.detach(), spec)
-        return st._replace(sid=torch.tensor(rid, dtype=torch.int32,
-                                            device=leaf.device))
+        st = init_state(leaf.detach(), spec, expert_dims(lpath))
+        return st._replace(sid=torch.full(st.d.shape[:-1], rid,
+                                          dtype=torch.int32,
+                                          device=leaf.device))
 
     return map_with_path(convert, model)
 
@@ -184,12 +189,13 @@ def pow2_guard_bits(code: torch.Tensor, kin: int) -> int:
 
 def _pow2_encodable(d: torch.Tensor, kin: int):
     """(int8 plane, fits) for pow2 serve encoding of the dictionaries
-    ``d`` (L, K) of every layer of one logical leaf.
+    ``d`` (L, K) of every layer of one logical leaf ((L, E, K) for an
+    expert stack).
 
     ``fits`` is the shift-add int32 overflow guard,
-    :func:`pow2_guard_bits` <= 31, decided over all layers at once as
-    the reference decides it over a stacked leaf: either every layer of
-    a logical leaf is encoded or none is.
+    :func:`pow2_guard_bits` <= 31, decided over all layers (and experts)
+    at once as the reference decides it over a stacked leaf: either
+    every slice of a logical leaf is encoded or none is.
     """
     code = pow2_encode(d)
     return code, pow2_guard_bits(code, kin) <= 31
@@ -278,8 +284,8 @@ def serve_view(model: nn.Module, *, pack4: bool = False,
                         sid=leaf.sid, act=leaf.act)
         if with_manifest:
             manifest["/".join(lpath)] = _record(
-                out, resolve_backend(out, "auto"), _leaf_rule(pol, lpath)[1],
-                nstack)
+                out, resolve_backend(out, "auto", sliced=True),
+                _leaf_rule(pol, lpath)[1], nstack)
         return out
 
     tree = map_with_path(conv, clone_structure(model))
@@ -361,7 +367,8 @@ def backend_manifest(model: nn.Module, policy: Optional[QuantLike] = None,
         lpath, nstack = logical_path(path)
         _, requested = _leaf_rule(pol, lpath)
         out["/".join(lpath)] = _record(
-            leaf, resolve_backend(leaf, effective), requested, nstack)
+            leaf, resolve_backend(leaf, effective, sliced=True), requested,
+            nstack)
     return out
 
 

@@ -114,7 +114,9 @@ def note(kernel: str, dtype, lhs, rhs, out) -> None:
     the dtype of the kernel's product (int32 for the shift-add kernel,
     the output's float dtype for the others), ``lhs`` / ``rhs`` / ``out``
     its operands' and output's logical dims (a weight by its (Kin, N),
-    not its packed bytes; ``lhs`` None for a kernel that is no product).
+    not its packed bytes; an expert stack's E C rows against one expert's
+    (Kin, N), so that its flops are E C Kin N; ``lhs`` None for a kernel
+    that is no product).
     Wrappers call it only while :data:`RECORDER` is set."""
     RECORDER.stream.append({
         "op": kernel, "kernel": True, "dtype": _dtype_name(dtype),
@@ -129,11 +131,14 @@ def _stream_capturing() -> bool:
 
 def kernel_launches(delta) -> Dict[str, int]:
     """Kernel launches by note name from an ``ops.count_delta``."""
-    mm, gp, sh, km, _, variants, fa, _ = delta
+    mm, gp, sh, km, _, variants, fa, _, mme, gpe, she = delta
     return {"lutq_matmul": mm["launches"],
             "lutq_gemv_packed": gp["launches"],
             "lutq_shift": sh["launches"], "kmeans_stats": km["launches"],
-            **variants, "flash_attention": fa["launches"]}
+            **variants, "flash_attention": fa["launches"],
+            "lutq_matmul_experts": mme["launches"],
+            "lutq_gemv_packed_experts": gpe["launches"],
+            "lutq_shift_experts": she["launches"]}
 
 
 def record(fn, *args, **kwargs) -> Tuple[object, List[dict]]:
@@ -235,7 +240,8 @@ def _states(tree) -> Iterator[LutqState]:
 
 def quantized_weight_dims(params) -> Set[Tuple[int, ...]]:
     """Trailing-2D shapes (and transposes) of every LUT-Q leaf's
-    assignment plane in a model, a LutqState or dicts and lists of them:
+    assignment plane in a model, a LutqState or dicts and lists of them
+    (an expert stack's (E, Din, Dout): each expert's (Din, Dout)):
     the shapes a multiplier-less forward must never touch with an fp dot
     or an fp weight-shaped multiply. A packed uint8 plane holds two rows
     a byte: its Kin is twice its rows."""

@@ -31,9 +31,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 #: argtypes of the two GEMM launchers: device, x, x_bf16, a, avec, xvec,
-#: d, n_dict, y, part, ticket, M, N, Kin, bm, bn, splits, kchunk, stream
+#: d, n_dict, y, part, ticket, M, N, Kin, bm, bn, splits, kchunk,
+#: experts, stream
 LAUNCH_ARGTYPES = [_I, _P, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I,
-                   _I, _I, _I, _I, _P]
+                   _I, _I, _I, _I, _I, _P]
 #: argtypes of the k-means launcher: device, w, head, nvec, tail, chunk,
 #: blocks, threads, lanes, slices, d, n_dict, a, part, ticket, sums,
 #: counts, stream
@@ -48,9 +49,9 @@ PAGED_ARGTYPES = [_I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _P]
 #: argtypes of the shift-add launcher: device, xq, a, avec, xvec, wsh,
 #: n_dict, planes, y, sums, ticket, M, N, Kin, bm, bn, splits, kchunk,
-#: stream
+#: experts, stream
 SHIFT_ARGTYPES = [_I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                  _I, _I, _I, _I, _P]
+                  _I, _I, _I, _I, _I, _P]
 #: argtypes of the flash-attention launcher: device, q, k, v, out, kernel
 #: (flash_attn.KERNEL_CODES), BH, S, Skv, D, bk, causal, scale, stream
 FLASH_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -198,7 +199,8 @@ _OUTGROWN: List[torch.Tensor] = []
 
 
 def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
-                bk: int = BK, stable_m: int = GEMM_STABLE_M) -> dict:
+                bk: int = BK, stable_m: int = GEMM_STABLE_M,
+                experts: int = 1) -> dict:
     """How a (M, Kin) @ (Kin, N) product is tiled and split, from static
     shapes and the SM count only (never the data).
 
@@ -212,9 +214,12 @@ def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
     (``GEMM_STABLE_M`` for the GEMMs' tiles; the shift-add kernel passes
     ``ROW_STABLE_M``) takes the split of the first tile over one m tile
     instead, from (N, Kin, sms) alone, so its rows equal the same rows
-    of a smaller product bit for bit. Returns bm, bn, grid (m tiles, n tiles,
-    splits), splits, kchunk, and the workspace a call needs: ``tickets``
-    int32 (one a tile) and ``partials`` f32 (splits * M * N), both 0
+    of a smaller product bit for bit. ``experts``: an expert-stacked
+    call runs that many (M, Kin) @ (Kin, N) products in one launch, so
+    its blocks fill the SMs ``experts`` times over before any split.
+    Returns bm, bn, grid (m tiles, n tiles, splits), splits, kchunk, and
+    the workspace a call needs: ``tickets`` int32 (one a tile of every
+    expert) and ``partials`` f32 (experts * splits * M * N), both 0
     without a split.
     """
     top, bm, bn, per_sm, most = next(t for t in tiles
@@ -226,13 +231,13 @@ def plan_splits(M: int, N: int, Kin: int, sms: int, tiles=GEMM_TILES,
     if top is not None and top <= stable_m:
         _, _, bn0, per_sm, most = tiles[0]
         fill = -(-N // bn0)
-    want = max(1, min(steps, most, per_sm * sms // fill))
+    want = max(1, min(steps, most, per_sm * sms // (fill * experts)))
     kchunk = -(-steps // want) * bk
     splits = -(-Kin // kchunk)
     split = splits > 1
     return dict(bm=bm, bn=bn, grid=(grid_m, grid_n, splits), splits=splits,
-                kchunk=kchunk, tickets=n_tiles if split else 0,
-                partials=splits * M * N if split else 0)
+                kchunk=kchunk, tickets=n_tiles * experts if split else 0,
+                partials=experts * splits * M * N if split else 0)
 
 
 def merge_tickets(n: int, device: torch.device) -> torch.Tensor:
@@ -274,11 +279,14 @@ def sm_count(device: torch.device) -> int:
 
 def launch_gemm(launcher: str, x, a, d, N: int):
     """Run one LUT-decode GEMM launcher (prefill or decode, the plan picks
-    the tile) on CUDA tensors; returns y (M, N) f32.
+    the tile) on CUDA tensors; returns y (M, N) f32, or (E, M, N) for an
+    expert stack.
 
-    ``a`` is the (Kin, N) int8 or (Kin/2, N) packed assignment matrix;
-    the kernel copies x and a with 16-byte cp.async where their rows are
-    16-byte aligned, and with plain loads otherwise.
+    ``a`` is the (Kin, N) int8 or (Kin/2, N) packed assignment matrix
+    with x (M, Kin) and d (K,), or an expert stack: x (E, M, Kin), a
+    (E, Kin, N) or (E, Kin/2, N), d (E, K), every expert's product in
+    the one launch. The kernel copies x and a with 16-byte cp.async
+    where their rows are 16-byte aligned, and with plain loads otherwise.
     """
     for name, t in (("x", x), ("a", a), ("d", d)):
         if t.device.type != "cuda":
@@ -292,24 +300,27 @@ def launch_gemm(launcher: str, x, a, d, N: int):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{launcher}: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
-    if d.dtype != torch.float32 or not 1 <= d.numel() <= 256:
+    if d.dtype != torch.float32 or not 1 <= d.shape[-1] <= 256:
         raise TypeError(f"{launcher}: d must be float32 with 1..256 entries")
-    M, Kin = x.shape
-    if M == 0 or N == 0 or Kin == 0:
-        raise ValueError(f"{launcher}: empty product {(M, Kin, N)}")
-    plan = plan_splits(M, N, Kin, sm_count(x.device))
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    E = x.shape[0] if x.dim() == 3 else 1
+    M, Kin = x.shape[-2:]
+    if M == 0 or N == 0 or Kin == 0 or E == 0:
+        raise ValueError(f"{launcher}: empty product {(E, M, Kin, N)}")
+    plan = plan_splits(M, N, Kin, sm_count(x.device), experts=E)
+    y = torch.empty(tuple(x.shape[:-1]) + (N,), dtype=torch.float32,
+                    device=x.device)
     part, ticket = gemm_workspace(plan, x.device)
     avec = int(a.data_ptr() % 16 == 0 and N % 16 == 0)
     xvec = int(x.data_ptr() % 16 == 0 and (Kin * x.element_size()) % 16 == 0)
     fn = getattr(load_library(), launcher)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.device.index, x.data_ptr(), int(x.dtype == torch.bfloat16),
-            a.data_ptr(), avec, xvec, d.data_ptr(), d.numel(), y.data_ptr(),
-            None if part is None else part.data_ptr(),
+            a.data_ptr(), avec, xvec, d.data_ptr(), d.shape[-1],
+            y.data_ptr(), None if part is None else part.data_ptr(),
             None if ticket is None else ticket.data_ptr(), M, N, Kin,
-            plan["bm"], plan["bn"], plan["splits"], plan["kchunk"], stream)
+            plan["bm"], plan["bn"], plan["splits"], plan["kchunk"], E,
+            stream)
     if rc != 0:
         raise RuntimeError(f"{launcher}: CUDA error {rc} at launch "
-                           f"(M={M}, N={N}, Kin={Kin}, plan={plan})")
+                           f"(E={E}, M={M}, N={N}, Kin={Kin}, plan={plan})")
     return y

@@ -7,9 +7,13 @@
 // bytes, or packed (Kin/2, N) uint8 with row 2i in the low nibble and
 // row 2i + 1 in the high one; d (K <= 256,) f32.
 //
-// Grid (ceil(M/BM), ceil(N/BN), splits): block (i, j, z) computes the
-// output tile (i, j) over the reduction rows [z kchunk, min(Kin, (z + 1)
-// kchunk)). The m tiles of one n tile are neighbours in launch order, so
+// Grid (ceil(M/BM), ceil(N/BN), experts x splits): block (i, j, e splits
+// + z) computes the output tile (i, j) of expert e over the reduction rows
+// [z kchunk, min(Kin, (z + 1) kchunk)). An expert stack (a MoE layer's
+// experts: x (E, M, Kin), A (E, Kin, N), d (E, K), y (E, M, N)) is one
+// launch: expert e's block reads its own x slab, assignments and
+// dictionary and writes its own output slab, split partials and merge
+// tickets; a plain product is the stack of one. The m tiles of one n tile are neighbours in launch order, so
 // they share the assignment bytes in L2 and each byte leaves device
 // memory about once. The tiles (BM x BN), the split and kchunk come from
 // build.plan_splits (static shapes only): 8 x 256 and 16 x 256 for
@@ -289,9 +293,9 @@ template <int BM, int BN, int G>
 __device__ __forceinline__ void finish(const float (&v)[G][4], const int (&gm)[G], int gn,
                                        float* __restrict__ y, float* __restrict__ part,
                                        int* __restrict__ ticket, int M, int N, int m0,
-                                       int n0, int splits) {
+                                       int n0, int splits, int z) {
   const bool nvec = (N & 3) == 0;
-  float* dst = splits == 1 ? y : part + (size_t)blockIdx.z * M * N;
+  float* dst = splits == 1 ? y : part + (size_t)z * M * N;
 #pragma unroll
   for (int g = 0; g < G; ++g)
     if (gm[g] < M) store4(dst + (size_t)gm[g] * N, gn, v[g], N, nvec);
@@ -356,6 +360,17 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
               const __grid_constant__ CUtensorMap xmap) {
   using Tl = Tile<T, BM, BN, PACKED>;
   constexpr bool kPairs = Tl::kBf16 && PAIRS;
+  // this block's expert and split, and the expert's operands
+  const int e = blockIdx.z / splits, z = blockIdx.z % splits;
+  x += (size_t)e * M * Kin;
+  a += (size_t)e * (PACKED ? Kin / 2 : Kin) * N;
+  d += (size_t)e * n_dict;
+  y += (size_t)e * M * N;
+  if (splits > 1) {
+    part += (size_t)e * splits * M * N;
+    ticket += (size_t)e * gridDim.x * gridDim.y;
+  }
+  const int xrow = e * M;  // the expert's first row in the TMA map of x
   extern __shared__ __align__(128) uint8_t smem_dyn[];
   // 1024-byte aligned (the swizzled x tiles wgmma reads), then the pair
   // table, then the ring
@@ -364,7 +379,7 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
   __shared__ __align__(16) float sdict[kMaxDict];  // f32 entries, or bf16 bits
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int kbeg = blockIdx.z * kchunk;
+  const int kbeg = z * kchunk;
   const int kend = min(Kin, kbeg + kchunk);
   const int steps = (kend - kbeg + kBK - 1) / kBK;
 
@@ -384,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
       load_stage<T, BM, BN, PACKED>(smem + s * Tl::kStageBytes, x, a, M, N, Kin, m0, n0,
                                     kbeg + s * kBK, kend, xvec, avec, tma);
       if (tma && tid == 0)
-        tma_load_x(smem + s * Tl::kStageBytes, &xmap, kbeg + s * kBK, m0, &xbar[s],
+        tma_load_x(smem + s * Tl::kStageBytes, &xmap, kbeg + s * kBK, xrow + m0, &xbar[s],
                    Tl::kXBytes);
     }
     cp_async_commit();
@@ -455,7 +470,8 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
         load_stage<T, BM, BN, PACKED>(slot, x, a, M, N, Kin, m0, n0, kbeg + nx * kBK, kend,
                                       xvec, avec, tma);
         if (tma && tid == 0)
-          tma_load_x(slot, &xmap, kbeg + nx * kBK, m0, &xbar[nx % Tl::kStages], Tl::kXBytes);
+          tma_load_x(slot, &xmap, kbeg + nx * kBK, xrow + m0, &xbar[nx % Tl::kStages],
+                     Tl::kXBytes);
       }
       cp_async_commit();
       if (tma) mbar_wait(&xbar[i % Tl::kStages], (i / Tl::kStages) & 1);
@@ -504,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
         v[2 * t + h][3] = acc[1][4 * t + 2 + h];
         gm[2 * t + h] = m0 + 8 * t + 2 * q + h;
       }
-    finish<BM, BN, 32>(v, gm, n0 + nb, y, part, ticket, M, N, m0, n0, splits);
+    finish<BM, BN, 32>(v, gm, n0 + nb, y, part, ticket, M, N, m0, n0, splits, z);
   } else if constexpr (Tl::kBf16) {
     constexpr int MF = Tl::kMF;
     const int wn = warp % Tl::kWN, wm = warp / Tl::kWN;
@@ -515,7 +531,7 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
     // ldmatrix: lane l addresses row l % 8 of matrix l / 8; matrices
     // (fragment f, k 0-7), (f, k 8-15), (f + 1, k 0-7), (f + 1, k 8-15)
     const int mi = lane >> 3, ri = lane & 7;
-    const int xrow = xrow0 + 8 * (MF > 1 ? (mi >> 1) : 0) + ri;
+    const int lrow = xrow0 + 8 * (MF > 1 ? (mi >> 1) : 0) + ri;
     const uint16_t* tab = reinterpret_cast<const uint16_t*>(sdict);
     const uint32_t pairs = smem_u32(smem_all) + 4 * lane;  // this lane's column
     float acc[MF][2][4];
@@ -529,7 +545,7 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
     for (int i = 0; i < steps; ++i) {
       LUTQ_NEXT_STAGE(i)
       const uint8_t* raw = st + Tl::kXBytes;
-      const uint32_t xs = smem_u32(st) + xrow * Tl::kXRow;
+      const uint32_t xs = smem_u32(st) + lrow * Tl::kXRow;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         // A fragments of the two 16-column tiles: tile j's row g is
@@ -571,7 +587,7 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
         v[2 * f + h][3] = acc[f][1][2 + h];
         gm[2 * f + h] = m0 + xrow0 + 8 * f + 2 * q + h;
       }
-    finish<BM, BN, 2 * MF>(v, gm, n0 + nb, y, part, ticket, M, N, m0, n0, splits);
+    finish<BM, BN, 2 * MF>(v, gm, n0 + nb, y, part, ticket, M, N, m0, n0, splits, z);
   } else {
     // f32: thread (tm, tn) owns rows tm + kTM r and columns 4 tn .. + 3
     constexpr int R = Tl::kR;
@@ -611,7 +627,7 @@ __global__ void __launch_bounds__(kThreads, (Tile<T, BM, BN, PACKED>::kMinBlocks
     int gm[R];
 #pragma unroll
     for (int rr = 0; rr < R; ++rr) gm[rr] = m0 + tm + Tl::kTM * rr;
-    finish<BM, BN, R>(acc, gm, n0 + col, y, part, ticket, M, N, m0, n0, splits);
+    finish<BM, BN, R>(acc, gm, n0 + col, y, part, ticket, M, N, m0, n0, splits, z);
   }
 #undef LUTQ_NEXT_STAGE
 }
@@ -644,11 +660,14 @@ int x_tensor_map(CUtensorMap* map, const void* x, int M, int Kin, int elem = 2,
 template <typename T, int BM, int BN, bool PACKED, bool PAIRS>
 int launch_tile(int device, const void* x, const void* a, const void* d, int n_dict,
                 float* y, float* part, int* ticket, int M, int N, int Kin, int splits,
-                int kchunk, int xvec, int avec, cudaStream_t stream) {
+                int kchunk, int experts, int xvec, int avec, cudaStream_t stream) {
   auto kernel = lutq_gemm<T, BM, BN, PACKED, PAIRS>;
   CUtensorMap xmap = {};
   if (Tile<T, BM, BN, PACKED>::kWgmma && xvec) {
-    const int rc = x_tensor_map(&xmap, x, M, Kin);
+    // every expert's rows in one map: an expert's tile past its M rows
+    // reads the next expert's (or zero-filled) rows, whose outputs are
+    // masked, and each output row depends on its own x row only
+    const int rc = x_tensor_map(&xmap, x, experts * M, Kin);
     if (rc != 0) return rc;
   }
   constexpr int smem =
@@ -662,7 +681,7 @@ int launch_tile(int device, const void* x, const void* a, const void* d, int n_d
     if (attr != cudaSuccess) return (int)attr;
     if (device < kMaxDevices) opted[device] = true;
   }
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits * experts);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(a), static_cast<const float*>(d),
       n_dict, y, part, ticket, M, N, Kin, kchunk, splits, xvec, avec, xmap);
@@ -673,12 +692,13 @@ int launch_tile(int device, const void* x, const void* a, const void* d, int n_d
 template <typename T, bool PACKED, bool PAIRS>
 int launch_typed(int bm, int bn, int device, const void* x, const void* a, const void* d,
                  int n_dict, float* y, float* part, int* ticket, int M, int N, int Kin,
-                 int splits, int kchunk, int xvec, int avec, cudaStream_t stream) {
+                 int splits, int kchunk, int experts, int xvec, int avec,
+                 cudaStream_t stream) {
 #define LUTQ_TILE(BM_, BN_)                                                                \
   if (bm == BM_ && bn == BN_)                                                              \
     return launch_tile<T, BM_, BN_, PACKED, PAIRS>(device, x, a, d, n_dict, y, part,     \
                                                      ticket, M, N, Kin, splits, kchunk,    \
-                                                     xvec, avec, stream);
+                                                     experts, xvec, avec, stream);
   LUTQ_TILE(8, 256)
   LUTQ_TILE(16, 256)
   LUTQ_TILE(64, 128)
@@ -689,15 +709,18 @@ int launch_typed(int bm, int bn, int device, const void* x, const void* a, const
 
 // Returns the first CUDA error of the launch (0 on success). The library
 // links its own CUDA runtime, whose current device is not the caller's:
-// it is set here from the wrapper's device index. part (splits, M, N) f32
-// and ticket (one int32 per output tile, zero on entry and left zero) are
-// needed when splits > 1.
+// it is set here from the wrapper's device index. part (experts, splits,
+// M, N) f32 and ticket (one int32 per output tile of every expert, zero on
+// entry and left zero) are needed when splits > 1. experts: the products
+// of the stack (1 for a plain product); n_dict is each expert's K.
 template <bool PACKED>
 int launch(int device, const void* x, int x_bf16, const void* a, int avec, int xvec,
            const void* d, int n_dict, void* y, void* part, void* ticket, int M, int N,
-           int Kin, int bm, int bn, int splits, int kchunk, cudaStream_t stream) {
+           int Kin, int bm, int bn, int splits, int kchunk, int experts,
+           cudaStream_t stream) {
   if (splits < 1 || kchunk < 1 || kchunk % kBK != 0 || (splits > 1 && (!part || !ticket)) ||
-      n_dict < 1 || n_dict > (PACKED ? 16 : kMaxDict) || (PACKED && Kin % 2 != 0))
+      n_dict < 1 || n_dict > (PACKED ? 16 : kMaxDict) || (PACKED && Kin % 2 != 0) ||
+      experts < 1 || (long long)experts * splits > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -706,15 +729,16 @@ int launch(int device, const void* x, int x_bf16, const void* a, int avec, int x
   int* tp = static_cast<int*>(ticket);
   if (!x_bf16)
     return launch_typed<float, PACKED, false>(bm, bn, device, x, a, d, n_dict, yp, pp, tp, M,
-                                              N, Kin, splits, kchunk, xvec, avec, stream);
+                                              N, Kin, splits, kchunk, experts, xvec, avec,
+                                              stream);
   if (PACKED || n_dict <= 16)
     return launch_typed<__nv_bfloat16, PACKED, true>(bm, bn, device, x, a, d, n_dict, yp, pp,
-                                                     tp, M, N, Kin, splits, kchunk, xvec,
-                                                     avec, stream);
+                                                     tp, M, N, Kin, splits, kchunk, experts,
+                                                     xvec, avec, stream);
   if constexpr (!PACKED)
     return launch_typed<__nv_bfloat16, false, false>(bm, bn, device, x, a, d, n_dict, yp, pp,
-                                                     tp, M, N, Kin, splits, kchunk, xvec,
-                                                     avec, stream);
+                                                     tp, M, N, Kin, splits, kchunk, experts,
+                                                     xvec, avec, stream);
   return (int)cudaErrorInvalidValue;
 }
 

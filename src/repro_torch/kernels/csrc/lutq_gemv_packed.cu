@@ -3,7 +3,9 @@
 // Replaces the TPU kernel src/repro/kernels/lutq_gemv_packed.py::
 // lutq_gemv_packed (body _kernel), the `packed4` backend of
 // kernels/ops.lutq_dot. It serves every M: the auto backend sends the
-// prefill of a packed tree through it too.
+// prefill of a packed tree through it too, and an expert stack (the
+// reference's jax.vmap of it in src/repro/nn/moe.py::_expert_dot) in one
+// launch.
 //
 // Bound on the H100: at decode (M = 4 or 8) it reads half a byte per
 // weight, so device-memory bytes bound it (Kin * N / 2 bytes at 3.35
@@ -22,11 +24,12 @@
 // bits on every run.
 #include "lutq_gemm.cuh"
 
+// experts > 1: an expert stack (x (E, M, Kin), its assignments and
+// dictionaries stacked the same way, y (E, M, N)) in one launch.
 extern "C" int lutq_gemv_packed_launch(int device, const void* x, int x_bf16, const void* p,
-                                       int avec, int xvec, const void* d, int n_dict,
-                                       void* y, void* part, void* ticket, int M, int N,
-                                       int Kin, int bm, int bn, int splits, int kchunk,
-                                       void* stream) {
+                                  int avec, int xvec, const void* d, int n_dict, void* y,
+                                  void* part, void* ticket, int M, int N, int Kin, int bm,
+                                  int bn, int splits, int kchunk, int experts, void* stream) {
   return launch<true>(device, x, x_bf16, p, avec, xvec, d, n_dict, y, part, ticket, M, N,
-                      Kin, bm, bn, splits, kchunk, static_cast<cudaStream_t>(stream));
+                       Kin, bm, bn, splits, kchunk, experts, static_cast<cudaStream_t>(stream));
 }

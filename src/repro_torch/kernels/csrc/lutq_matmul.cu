@@ -1,7 +1,10 @@
 // Fused LUT-decode matmul over int8 assignments: y = x @ d[A].
 //
 // Replaces the TPU kernel src/repro/kernels/lutq_matmul.py::lutq_matmul
-// (body _kernel), the `fused` backend of kernels/ops.lutq_dot.
+// (body _kernel), the `fused` backend of kernels/ops.lutq_dot, and its
+// jax.vmap over a MoE layer's experts (src/repro/nn/moe.py::_expert_dot):
+// an expert stack is one launch, a grid dimension selecting the expert
+// (kernels/ops.lutq_dot_experts).
 //
 // Bound on the H100: at decode (M = 4 or 8) the kernel reads 1 byte per
 // weight and does 2 M flops on it, far below the ~295 flops per byte
@@ -22,10 +25,12 @@
 // one launch a call.
 #include "lutq_gemm.cuh"
 
+// experts > 1: an expert stack (x (E, M, Kin), its assignments and
+// dictionaries stacked the same way, y (E, M, N)) in one launch.
 extern "C" int lutq_matmul_launch(int device, const void* x, int x_bf16, const void* a,
                                   int avec, int xvec, const void* d, int n_dict, void* y,
                                   void* part, void* ticket, int M, int N, int Kin, int bm,
-                                  int bn, int splits, int kchunk, void* stream) {
+                                  int bn, int splits, int kchunk, int experts, void* stream) {
   return launch<false>(device, x, x_bf16, a, avec, xvec, d, n_dict, y, part, ticket, M, N,
-                       Kin, bm, bn, splits, kchunk, static_cast<cudaStream_t>(stream));
+                       Kin, bm, bn, splits, kchunk, experts, static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,8 @@
 // unsigned bytes, wsh (K <= 256,) int32.
 //
 // Replaces the TPU kernel src/repro/kernels/lutq_shift.py::lutq_shift
-// (body _kernel), the `pow2` backend of kernels/ops.lutq_dot. wsh is the
+// (body _kernel), the `pow2` backend of kernels/ops.lutq_dot, and its
+// jax.vmap over a MoE layer's experts (one launch a stack). wsh is the
 // pow2 dictionary lowered to integer shifts (sign * 2^s, s in 0..span,
 // kernels/ref.pow2_shift_weights); the caller applies the one float
 // multiply, acc * (act_scale * 2^e_min), at the O(M * N) epilogue.
@@ -79,6 +80,12 @@
 //    the output: the same bits on every call and CUDA-graph replay.
 //  * Ragged M, N and Kin are masked in the kernel: no padded copies.
 //    Unaligned xq or A rows take plain loads into the same ring.
+//  * An expert stack (a MoE layer's experts, the reference's vmap of the
+//    kernel: xq (E, M, Kin), A (E, Kin, N), wsh (E, K), acc (E, M, N)) is
+//    one launch: the grid's third dimension is experts x splits, and
+//    expert e's blocks read its own xq slab, assignments and shifted
+//    dictionary (its own digit tables) and write its own output slab,
+//    partial tiles and merge tickets. A plain product is the stack of one.
 #include "lutq_gemm.cuh"
 
 namespace {
@@ -374,14 +381,14 @@ __device__ __forceinline__ void shift_finish(int32_t (&v)[G][C], const int (&gm)
                                              int32_t* __restrict__ y,
                                              int32_t* __restrict__ part,
                                              int* __restrict__ ticket, int M, int N,
-                                             int splits) {
+                                             int splits, int zs) {
   constexpr int W = G * C / 4;  // int4 words a thread holds
   static_assert(W * 4 * kThreads == BM * BN, "a tile is every thread's words");
   if (splits > 1) {
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
     const int4* tiles = reinterpret_cast<const int4*>(part) + (size_t)tile * splits * W * kThreads;
     int4* own = reinterpret_cast<int4*>(part) +
-                ((size_t)tile * splits + blockIdx.z) * W * kThreads + threadIdx.x;
+                ((size_t)tile * splits + zs) * W * kThreads + threadIdx.x;
 #pragma unroll
     for (int w = 0; w < W; ++w)
       own[w * kThreads] =
@@ -399,7 +406,7 @@ __device__ __forceinline__ void shift_finish(int32_t (&v)[G][C], const int (&gm)
       int4 t[ZB][W];
 #pragma unroll
       for (int u = 0; u < ZB; ++u) {
-        const int o = o0 + u, z = o + (o >= (int)blockIdx.z);
+        const int o = o0 + u, z = o + (o >= zs);
 #pragma unroll
         for (int w = 0; w < W; ++w)
           t[u][w] = o < splits - 1
@@ -426,10 +433,11 @@ __device__ __forceinline__ void shift_finish(int32_t (&v)[G][C], const int (&gm)
     if (gm[g] < M) store_cols<C>(y + (size_t)gm[g] * N, gn, v[g], N);
 }
 
-// Grid (ceil(M / BM), ceil(N / BN), splits): block (i, j, z) computes the
-// output tile (i, j) over the reduction rows [z kchunk, min(Kin, (z + 1)
-// kchunk)), every plane: `planes` passes over those rows, step i of the
-// loop the k-step i % steps of plane planes - 1 - i / steps.
+// Grid (ceil(M / BM), ceil(N / BN), experts x splits): block (i, j, e
+// splits + z) computes the output tile (i, j) of expert e over the
+// reduction rows [z kchunk, min(Kin, (z + 1) kchunk)), every plane:
+// `planes` passes over those rows, step i of the loop the k-step i % steps
+// of plane planes - 1 - i / steps.
 template <int BM, int BN, bool PAIRS>
 __global__ void __launch_bounds__(kThreads, 1)
     lutq_shift_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ a,
@@ -438,6 +446,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                       int* __restrict__ ticket, int M, int N, int Kin, int kchunk, int splits,
                       int xvec, int avec, const __grid_constant__ CUtensorMap xmap) {
   using Tl = ShiftTile<BM, BN>;
+  // this block's expert and split, and the expert's operands
+  const int e = blockIdx.z / splits, zs = blockIdx.z % splits;
+  xq += (size_t)e * M * Kin;
+  a += (size_t)e * Kin * N;
+  wsh += (size_t)e * n_dict;
+  y += (size_t)e * M * N;
+  if (splits > 1) {
+    part += (size_t)e * gridDim.x * gridDim.y * splits * BM * BN;
+    ticket += (size_t)e * gridDim.x * gridDim.y;
+  }
+  const int xrow = e * M;  // the expert's first row in the TMA map of xq
   extern __shared__ __align__(128) uint8_t smem_dyn[];
   // 1024-byte aligned (the swizzled xq tiles wgmma reads), then the
   // digit table, then the ring
@@ -446,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int kbeg = blockIdx.z * kchunk;
+  const int kbeg = zs * kchunk;
   const int kend = min(Kin, kbeg + kchunk);
   const int steps = (kend - kbeg + kSBK - 1) / kSBK;
   const int total = planes * steps;
@@ -469,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_shift_stage<BM, BN>(smem + s * Tl::kStageBytes, xq, a, M, N, Kin, m0, n0, k0, kend,
                                xvec, avec, tma);
       if (tma && tid == 0)
-        tma_load_x(smem + s * Tl::kStageBytes, &xmap, k0, m0, &xbar[s], Tl::kXBytes);
+        tma_load_x(smem + s * Tl::kStageBytes, &xmap, k0, xrow + m0, &xbar[s], Tl::kXBytes);
     }
     cp_async_commit();
   }
@@ -521,7 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int k0 = kbeg + (nx % steps) * kSBK;
         load_shift_stage<BM, BN>(slot, xq, a, M, N, Kin, m0, n0, k0, kend, xvec, avec, tma);
         if (tma && tid == 0)
-          tma_load_x(slot, &xmap, k0, m0, &xbar[nx % Tl::kStages], Tl::kXBytes);
+          tma_load_x(slot, &xmap, k0, xrow + m0, &xbar[nx % Tl::kStages], Tl::kXBytes);
       }
       cp_async_commit();
       if (tma) mbar_wait(&xbar[i % Tl::kStages], (i / Tl::kStages) & 1);
@@ -573,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         gm[2 * t + h] = m0 + 8 * t + 2 * q + h;
       }
-    shift_finish<BM, BN, G, C>(v, gm, n0 + nb, y, part, ticket, M, N, splits);
+    shift_finish<BM, BN, G, C>(v, gm, n0 + nb, y, part, ticket, M, N, splits, zs);
   } else {
     // warp w owns columns 32 w .. + 31: mma tile j's row g is column
     // nb + 2 j, row g + 8 column nb + 2 j + 1
@@ -584,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // (fragment f, k 0-15 of the slice), (f, k 16-31), (f + 1, k 0-15),
     // (f + 1, k 16-31)
     const int mi = lane >> 3, ri = lane & 7;
-    const int xrow = 8 * (MF > 1 ? (mi >> 1) : 0) + ri;
+    const int lrow = 8 * (MF > 1 ? (mi >> 1) : 0) + ri;
     int32_t acc[MF][2][4];
 #pragma unroll
     for (int f = 0; f < MF; ++f)
@@ -616,7 +635,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       cp_async_commit();
       const uint8_t* st = smem + (i % Tl::kStages) * Tl::kStageBytes;
       const uint8_t* raw = st + Tl::kXBytes;
-      const uint32_t xs = smem_u32(st) + xrow * kSBK;
+      const uint32_t xs = smem_u32(st) + lrow * kSBK;
 #pragma unroll
       for (int kk = 0; kk < kSBK / 32; ++kk) {
         uint32_t lo[4], hi[4];
@@ -653,20 +672,22 @@ __global__ void __launch_bounds__(kThreads, 1)
         v[2 * f + h][3] = acc[f][1][2 + h];
         gm[2 * f + h] = m0 + 8 * f + 2 * q + h;
       }
-    shift_finish<BM, BN, 2 * MF, 4>(v, gm, n0 + nb, y, part, ticket, M, N, splits);
+    shift_finish<BM, BN, 2 * MF, 4>(v, gm, n0 + nb, y, part, ticket, M, N, splits, zs);
   }
 }
 
 template <int BM, int BN, bool PAIRS>
 int launch_shift_tile(int device, const int8_t* xq, const uint8_t* a, const int32_t* wsh,
                       int n_dict, int planes, int32_t* y, int32_t* part, int* ticket, int M,
-                      int N, int Kin, int splits, int kchunk, int xvec, int avec,
+                      int N, int Kin, int splits, int kchunk, int experts, int xvec, int avec,
                       cudaStream_t stream) {
   using Tl = ShiftTile<BM, BN>;
   auto kernel = lutq_shift_kernel<BM, BN, PAIRS>;
   CUtensorMap xmap = {};
   if (Tl::kWgmma && xvec) {
-    const int rc = x_tensor_map(&xmap, xq, M, Kin, 1, BM);
+    // every expert's rows in one map (rows past an expert's M are the
+    // next expert's or zero fill; their outputs are masked)
+    const int rc = x_tensor_map(&xmap, xq, experts * M, Kin, 1, BM);
     if (rc != 0) return rc;
   }
   // opt in to the ring's dynamic shared memory once per device (not a
@@ -678,7 +699,7 @@ int launch_shift_tile(int device, const int8_t* xq, const uint8_t* a, const int3
     if (attr != cudaSuccess) return (int)attr;
     if (device < kMaxDevices) opted[device] = true;
   }
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits * experts);
   kernel<<<grid, kThreads, Tl::kSmem, stream>>>(xq, a, wsh, n_dict, planes, y, part, ticket, M,
                                                 N, Kin, kchunk, splits, xvec, avec, xmap);
   return (int)cudaGetLastError();
@@ -690,16 +711,19 @@ int launch_shift_tile(int device, const int8_t* xq, const uint8_t* a, const int3
 // cudaErrorInvalidValue for a plan or operands the kernel does not take.
 // The library links its own CUDA runtime, whose current device is not the
 // caller's: it is set here from the wrapper's device index. The tiles are
-// the ones lutq_shift.SHIFT_TILES names; part (tiles x splits x bm x bn
-// int32, 16-byte aligned) and ticket (one int32 a tile, zero on entry and
-// left zero) are needed when splits > 1. avec / xvec: A / xq rows are
-// 16-byte aligned.
+// the ones lutq_shift.SHIFT_TILES names; part (experts x tiles x splits x
+// bm x bn int32, 16-byte aligned) and ticket (one int32 a tile of every
+// expert, zero on entry and left zero) are needed when splits > 1. avec /
+// xvec: A / xq rows are 16-byte aligned. experts: the products of the
+// stack (1 for a plain product), n_dict each expert's K, planes the most
+// any expert's dictionary needs.
 extern "C" int lutq_shift_launch(int device, const void* xq, const void* a, int avec, int xvec,
                                  const void* wsh, int n_dict, int planes, void* y, void* part,
                                  void* ticket, int M, int N, int Kin, int bm, int bn, int splits,
-                                 int kchunk, void* stream_ptr) {
+                                 int kchunk, int experts, void* stream_ptr) {
   if (splits < 1 || kchunk < 1 || kchunk % kSBK != 0 || (splits > 1 && (!part || !ticket)) ||
-      n_dict < 1 || n_dict > kMaxDict || planes < 1 || planes > kMaxPlanes)
+      n_dict < 1 || n_dict > kMaxDict || planes < 1 || planes > kMaxPlanes || experts < 1 ||
+      (long long)experts * splits > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -715,10 +739,10 @@ extern "C" int lutq_shift_launch(int device, const void* xq, const void* a, int 
   if (bm == BM_ && bn == BN_)                                                              \
     return pairs ? launch_shift_tile<BM_, BN_, true>(device, xp, ap, wp, n_dict, planes, yp, \
                                                      pp, tp, M, N, Kin, splits, kchunk,     \
-                                                     xvec, avec, stream)                    \
+                                                     experts, xvec, avec, stream)           \
                  : launch_shift_tile<BM_, BN_, false>(device, xp, ap, wp, n_dict, planes,   \
                                                       yp, pp, tp, M, N, Kin, splits,        \
-                                                      kchunk, xvec, avec, stream);
+                                                      kchunk, experts, xvec, avec, stream);
   LUTQ_SHIFT_TILE(8, 256)
   LUTQ_SHIFT_TILE(16, 256)
   LUTQ_SHIFT_TILE(128, 256)

@@ -4,6 +4,9 @@ paged attention.
 Counterpart of ``repro.kernels.ops``: :func:`lutq_dot` resolves a
 backend per quantized leaf, flattens leading dims, handles the
 transposed (tied-readout) case and dispatches to the kernel wrappers;
+:func:`lutq_dot_experts` is its expert-stacked form (the reference's
+``jax.vmap`` of ``lutq_dot`` over a MoE layer's experts), one launch of
+an expert-stacked kernel a product;
 :func:`kmeans_stats` and :func:`kmeans_step_fused` are training step 4's
 entry points to the ``kmeans_stats`` kernel; :func:`paged_attention` is
 paged decode's entry point to the ``paged_attn`` kernels.
@@ -38,11 +41,13 @@ from repro_torch.kernels import lutq_gemv_packed as _lutq_gemv_packed
 from repro_torch.kernels import lutq_matmul as _lutq_matmul
 from repro_torch.kernels import lutq_shift as _lutq_shift
 from repro_torch.kernels import paged_attn as _paged_attn
-from repro_torch.kernels.lutq_gemv_packed import lutq_gemv_packed
-from repro_torch.kernels.lutq_matmul import lutq_matmul
-from repro_torch.kernels.ref import (lutq_shift_ref, paged_attention_ref,
-                                     pow2_shift_scale, pow2_shift_weights,
-                                     shift_planes, unpack4_kin)
+from repro_torch.kernels.lutq_gemv_packed import (lutq_gemv_packed,
+                                                  lutq_gemv_packed_experts)
+from repro_torch.kernels.lutq_matmul import lutq_matmul, lutq_matmul_experts
+from repro_torch.kernels.ref import (lutq_shift_experts_ref, lutq_shift_ref,
+                                     paged_attention_ref, pow2_shift_scale,
+                                     pow2_shift_weights, shift_planes,
+                                     unpack4_kin)
 
 #: Backend names accepted by ``lutq_dot`` / policy rules / CLI flags.
 BACKENDS = ("auto", "decode", "fused", "packed4", "pow2")
@@ -53,10 +58,13 @@ COUNTS = {"decode": 0}
 
 def count_dicts():
     """Every kernel wrapper's count dict (launches and plain-version
-    calls; the paged kernel's launches per variant) and this module's."""
+    calls; the paged kernel's launches per variant), this module's, and
+    last the expert-stacked forms' of kernels 1, 2 and 4."""
     return (_lutq_matmul.COUNTS, _lutq_gemv_packed.COUNTS,
             _lutq_shift.COUNTS, _kmeans_stats.COUNTS, _paged_attn.COUNTS,
-            _paged_attn.VARIANTS, _flash_attn.COUNTS, COUNTS)
+            _paged_attn.VARIANTS, _flash_attn.COUNTS, COUNTS,
+            _lutq_matmul.EXPERT_COUNTS, _lutq_gemv_packed.EXPERT_COUNTS,
+            _lutq_shift.EXPERT_COUNTS)
 
 
 def read_counts():
@@ -110,7 +118,7 @@ def lutq_shift(xq: torch.Tensor, a: torch.Tensor, wsh: torch.Tensor,
 
 
 def resolve_backend(state: LutqState, backend: str = "auto", *,
-                    transpose_rhs: bool = False) -> str:
+                    transpose_rhs: bool = False, sliced: bool = False) -> str:
     """Concrete backend ("decode" | "fused" | "packed4" | "pow2") for one
     leaf.
 
@@ -119,13 +127,18 @@ def resolve_backend(state: LutqState, backend: str = "auto", *,
     ``d``) -> pow2 unless its assignments are packed or K > 256; packed
     uint8 -> packed4 unless transposed or K > 16; int8 with K <= 256 ->
     fused. A request for pow2 on a float dictionary degrades to fused.
-    The port's leaves are per layer, so the reference's per-slice
-    resolution of a stacked leaf is the only one there is.
+    A stacked leaf (an expert stack's d (E, K)) resolves to decode, as
+    in the reference, unless ``sliced=True`` asks for the per-slice view
+    the kernels see (:func:`lutq_dot_experts`, ``serve_view``'s
+    manifest).
     """
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if state.w is not None or state.d.ndim != 1 or state.a.ndim != 2:
+    nstack = state.d.ndim - 1
+    d_ndim = 1 if sliced else state.d.ndim
+    a_ndim = state.a.ndim - nstack if sliced else state.a.ndim
+    if state.w is not None or d_ndim != 1 or a_ndim != 2:
         return "decode"
     if backend == "decode":
         return "decode"
@@ -176,7 +189,7 @@ def _shift_dictionary(code: torch.Tensor):
     return wsh, pow2_shift_scale(code), shift_planes(wsh)
 
 
-def _pow2_act_quant(x2: torch.Tensor, act):
+def _pow2_act_quant(x2: torch.Tensor, act, experts: bool = False):
     """int8-quantize activations for the shift-add path.
 
     ``act`` is the leaf's frozen calibration pair ``[scale, qmax]`` or
@@ -185,7 +198,11 @@ def _pow2_act_quant(x2: torch.Tensor, act):
     is the reference's: float32 copy, divide by the scale (a tensor on
     x's device: PyTorch multiplies by the reciprocal of a Python-number
     divisor on the card), round half to even, clip to
-    ``±min(qmax, 127)``; a scale <= 0 becomes 1.
+    ``±min(qmax, 127)``; a scale <= 0 becomes 1. With ``experts`` x2 is
+    an expert stack (E, C, Kin) and each expert's slab gets its own
+    scale (E,) (its own amax, or its own pair act[e]), as the
+    reference's vmap over the experts takes it: an expert that received
+    no token has scale 1 and quantizes to zeros.
     """
     xf = x2.float()
     if act is not None:
@@ -193,9 +210,14 @@ def _pow2_act_quant(x2: torch.Tensor, act):
     else:
         hi = torch.full((), 127.0, device=x2.device)
         lo = -hi
-        s = _positive(xf.detach().abs().max() / hi)
+        amax = (xf.detach().abs().amax(dim=(1, 2)) if experts
+                else xf.detach().abs().max())
+        s = _positive(amax / hi)
+    if experts:  # one scale a slab, broadcast over its rows
+        s, lo, hi = (t.reshape(-1, 1, 1) if t.ndim else t
+                     for t in (s, lo, hi))
     xq = torch.clamp(torch.round(xf / s), lo, hi).to(torch.int8)
-    return xq, s
+    return xq, s.reshape(-1) if experts else s
 
 
 def _pow2_dot_acc(x2: torch.Tensor, code: torch.Tensor, a: torch.Tensor,
@@ -280,6 +302,54 @@ def lutq_dot(x: torch.Tensor, state: LutqState, *, backend: str = "auto",
     else:
         y = lutq_gemv_packed(x2, state.a, state.d)
     return y.reshape(*lead, y.shape[-1]).to(out_dtype)
+
+
+def lutq_dot_experts(x: torch.Tensor, state: LutqState, *,
+                     backend: str = "auto", out_dtype=None) -> torch.Tensor:
+    """Expert-stacked ``x[e] @ d[e][A[e]]``: the reference's ``jax.vmap``
+    of :func:`lutq_dot` over a MoE layer's experts.
+
+    x: (E, C, Kin), a serve-form expert leaf: d (E, K) (or its int8
+    sign+exponent planes), a (E, Kin, N) int8 or (E, Kin/2, N) packed.
+    Returns (E, C, N) in ``out_dtype`` (default x.dtype). The backend is
+    resolved per slice (``resolve_backend(..., sliced=True)``); each of
+    ``fused``, ``packed4`` and ``pow2`` is ONE launch of its
+    expert-stacked kernel for all E products. Activations arrive
+    quantized as the caller scoped them (``nn/moe._expert_dot``: one
+    fake-quant over the whole dispatch buffer), except on the pow2 path,
+    which takes its int8 scale per expert slab (dynamic) or from each
+    expert's frozen pair, as the vmapped ``_pow2_act_quant`` does; its
+    epilogue is ``acc[e] * (s[e] * 2^e_min[e])``. ``decode`` runs the
+    plain products (the integer oracle on an encoded leaf).
+    """
+    be = resolve_backend(state, backend, sliced=True)
+    out_dtype = out_dtype or x.dtype
+    encoded = state.d.dtype == torch.int8 and state.a.dtype != torch.uint8
+    if be == "pow2" or (be == "decode" and encoded):
+        wsh, shift_scale, planes = _derived(state.d, _shift_dictionary)
+        xq, s = _pow2_act_quant(x, state.act, experts=True)
+        if be == "pow2":
+            acc = _lutq_shift.lutq_shift_experts(xq.contiguous(),
+                                                 state.a.contiguous(), wsh,
+                                                 planes)
+        else:
+            COUNTS["decode"] += 1
+            acc = lutq_shift_experts_ref(xq, state.a, wsh)
+        scale = (s * shift_scale).reshape(-1, 1, 1)
+        return (acc.float() * scale).to(out_dtype)
+    if be == "decode":
+        COUNTS["decode"] += 1
+        a = state.a
+        if a.dtype == torch.uint8:
+            a = unpack4_kin(a)
+        w = decode_any(state.d, a).to(x.dtype)
+        return torch.matmul(x, w).to(out_dtype)
+    x = x.contiguous()
+    if be == "fused":
+        y = lutq_matmul_experts(x, state.a, state.d)
+    else:
+        y = lutq_gemv_packed_experts(x, state.a, state.d)
+    return y.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

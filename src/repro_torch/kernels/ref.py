@@ -2,8 +2,9 @@
 the pow2 shift-add dictionary.
 
 ``lutq_matmul_ref``, ``lutq_gemv_packed_ref``, ``lutq_shift_ref``,
-``kmeans_stats_ref``, ``paged_attention_ref`` and
-``flash_attention_ref`` are what the kernel
+their expert-stacked forms (``*_experts_ref``: one product an expert,
+each through the plain version above), ``kmeans_stats_ref``,
+``paged_attention_ref`` and ``flash_attention_ref`` are what the kernel
 wrappers run for a tensor on the CPU, and what the kernels are held
 against on the card; ``lutq_shift_planes_ref`` emulates the shift-add
 kernel's digit-plane arithmetic beside its plain version,
@@ -170,6 +171,31 @@ def lutq_shift_planes_ref(xq: torch.Tensor, a: torch.Tensor,
         assert bool((part.abs() < 2**31).all()), "a plane's sum overflows"
         acc = ((acc << SHIFT_DIGIT_BITS) + part) & 0xFFFFFFFF
     return (acc - ((acc >> 31) << 32)).to(torch.int32)
+
+
+def _per_expert(fn, x, a, d):
+    return torch.stack([fn(x[e], a[e], d[e]) for e in range(x.shape[0])])
+
+
+def lutq_matmul_experts_ref(x: torch.Tensor, a: torch.Tensor,
+                            d: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ d[e][a[e]] in float32 for every expert e. x (E, C,
+    Kin); a (E, Kin, N) int8; d (E, K); y (E, C, N)."""
+    return _per_expert(lutq_matmul_ref, x, a, d)
+
+
+def lutq_gemv_packed_experts_ref(x: torch.Tensor, packed: torch.Tensor,
+                                 d: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ d[e][unpack(packed[e])] in float32. packed (E,
+    Kin/2, N) uint8."""
+    return _per_expert(lutq_gemv_packed_ref, x, packed, d)
+
+
+def lutq_shift_experts_ref(xq: torch.Tensor, a: torch.Tensor,
+                           wsh: torch.Tensor) -> torch.Tensor:
+    """acc[e] = xq[e] @ wsh[e][a[e]], int32, for every expert e. xq (E,
+    C, Kin) int8; a (E, Kin, N) int8; wsh (E, K) int32."""
+    return _per_expert(lutq_shift_ref, xq, a, wsh)
 
 
 def kmeans_stats_ref(w: torch.Tensor, d: torch.Tensor, write_a: bool = True):

@@ -18,12 +18,21 @@ options. On the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --ckpt-dir DIR --pack4
 
+The MoE family (qwen3-moe-235b-a22b: experts through the expert-stacked
+kernels, one launch a product; an --engine with --kv-pages serves it
+through its slot pool, as the reference does):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-235b-a22b --batch 4 --prompt-len 128 --gen 16
+
 On the CPU, through the kernels' plain versions, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --batch 2 --prompt-len 16 --gen 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --quant-policy serving_pow2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-235b-a22b --reduced --device cpu [--engine]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
         --queue 4 --prompt-len 30 --gen 8 --device cpu
@@ -121,17 +130,25 @@ def check_ckpt_shapes(cfg, trainable) -> None:
             "manifest lacks one) must match the training run.")
 
 
-def kernel_report(dev: torch.device) -> str:
+def kernel_report(dev: torch.device, experts: bool = False) -> str:
+    """The kernels' launches and the plain versions' calls; with
+    ``experts`` (a MoE config) also the expert-stacked kernels'."""
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    plain = sum(m.COUNTS["plain"] for m in (lutq_matmul, lutq_gemv_packed,
-                                            lutq_shift, paged_attn))
+    stacked = (lutq_matmul, lutq_gemv_packed, lutq_shift)
+    plain = sum(m.COUNTS["plain"] for m in stacked + (paged_attn,))
+    plain += sum(m.EXPERT_COUNTS["plain"] for m in stacked)
+    moe = ""
+    if experts:
+        moe = ", " + ", ".join(
+            f"{m.__name__.rsplit('.', 1)[-1]}_experts "
+            f"{m.EXPERT_COUNTS['launches']}" for m in stacked)
     return (f"[serve] kernel launches: lutq_matmul "
             f"{lutq_matmul.COUNTS['launches']}, lutq_gemv_packed "
             f"{lutq_gemv_packed.COUNTS['launches']}, lutq_shift "
             f"{lutq_shift.COUNTS['launches']}, paged_attention "
-            f"{paged_attn.COUNTS['launches']} | plain versions: {plain}"
-            f" | device {name}")
+            f"{paged_attn.COUNTS['launches']}{moe} | plain versions: "
+            f"{plain} | device {name}")
 
 
 def run_engine(model, cfg, *, capacity: int, n_requests: int,
@@ -343,7 +360,7 @@ def main(argv=None):
                            speculative=args.speculative,
                            draft_bits=args.draft_bits, device=dev)
         print(format_engine_stats(stats))
-        print(kernel_report(dev))
+        print(kernel_report(dev, bool(cfg.n_experts)))
         return 0
 
     B, P = args.batch, args.prompt_len
@@ -358,7 +375,7 @@ def main(argv=None):
           f"sample: {out[0, :8].tolist()}")
     if args.speculative:
         print(format_spec_stats(stats))
-    print(kernel_report(dev))
+    print(kernel_report(dev, bool(cfg.n_experts)))
     return 0
 
 

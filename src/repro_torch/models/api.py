@@ -1,4 +1,5 @@
-"""Model API (counterpart of ``repro.models.api``), dense family.
+"""Model API (counterpart of ``repro.models.api``), dense and MoE
+families.
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)
@@ -34,16 +35,20 @@ from repro_torch.models import lm as m_lm
 from repro_torch.models.config import ModelConfig
 
 
-def _dense_only(cfg: ModelConfig):
-    if cfg.family != "dense":
+#: the LM families the port serves
+FAMILIES = ("dense", "moe")
+
+
+def _ported(cfg: ModelConfig):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"other LM families); the port serves the dense family")
+            f"other LM families); the port serves {FAMILIES}")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
     """Random fp32 model from ``seed``, built on ``device``."""
-    _dense_only(cfg)
+    _ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return m_lm.init_lm(gen, cfg, device=dev)
@@ -112,13 +117,13 @@ def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
 
 def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
     """Training loss of a batch (tokens, labels): (loss, metrics)."""
-    _dense_only(cfg)
+    _ported(cfg)
     return m_lm.lm_loss(model, cfg, batch)
 
 
 def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):
     """Run the prompt, return (last_logits (B, 1, V), cache)."""
-    _dense_only(cfg)
+    _ported(cfg)
     return m_lm.lm_prefill(model, cfg, batch["tokens"], lengths=lengths)
 
 
@@ -127,20 +132,22 @@ def decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
     cache at n + W). W = 1 is a decode step; a wider W is a speculative
     verify window, each row the bits of W chained steps
     (``models/lm.lm_decode``)."""
-    _dense_only(cfg)
+    _ported(cfg)
     return m_lm.lm_decode(model, cfg, token, cache)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda"):
-    _dense_only(cfg)
+    _ported(cfg)
     return m_lm.init_cache(cfg, batch, max_len, device=resolve_device(device))
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
     """Configs the paged KV cache serves: dense attention without MLA,
     experts, prefix layers or a modality prefix. The reference also
-    pages encdec; the port serves the dense family only so far."""
+    pages encdec (not ported yet); MoE stays on the slot path, as in the
+    reference (an ``Engine(kv_pages=...)`` of a MoE config silently
+    serves through its slot pool)."""
     return (cfg.family == "dense" and not cfg.use_mla and cfg.n_experts == 0
             and cfg.first_dense == 0 and cfg.n_prefix_tokens == 0)
 
@@ -156,7 +163,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
 
 def paged_decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
     """Paged-pool twin of :func:`decode_step`."""
-    _dense_only(cfg)
+    _ported(cfg)
     return m_lm.lm_paged_decode(model, cfg, token, cache)
 
 

@@ -1,8 +1,11 @@
-"""Decoder-only transformer LM, dense path.
+"""Decoder-only transformer LM, dense and MoE families.
 
-Counterpart of the dense path of ``repro.models.lm``: GQA attention with
-an optional sliding window (SWA ring cache, optional int8 KV with bf16
-scales), SwiGLU MLP, untied or tied readout. The reference scans over a
+Counterpart of the dense and MoE paths of ``repro.models.lm``: GQA
+attention with an optional sliding window (SWA ring cache, optional int8
+KV with bf16 scales) and optional qk-norm (RMSNorm over the head dim,
+before RoPE), a SwiGLU MLP or a top-k MoE (``nn/moe.py``; prefill at
+``cfg.capacity_factor``, one-token decode at ``max(cf, 2.0)``), untied
+or tied readout. The reference scans over a
 stacked layer axis; here the layers are an ``nn.ModuleList`` walked by a
 Python loop, and the cache holds one dict per layer.
 
@@ -30,15 +33,18 @@ from repro_torch.nn.attention import (decode_attention, flash_attention,
                                       gather_pages, scatter_token_pages)
 from repro_torch.nn.linear import (embedding_apply, embedding_init,
                                    embedding_logits, linear_apply,
-                                   linear_init)
+                                   linear_init, silu)
+from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.nn.rotary import apply_rope
 
 
 class Attention(nn.Module):
-    def __init__(self, q, k, v, o):
+    def __init__(self, q, k, v, o, q_norm=None, k_norm=None):
         super().__init__()
         self.q, self.k, self.v, self.o = q, k, v, o
+        if q_norm is not None:
+            self.q_norm, self.k_norm = q_norm, k_norm
 
 
 class MLP(nn.Module):
@@ -48,9 +54,16 @@ class MLP(nn.Module):
 
 
 class Layer(nn.Module):
-    def __init__(self, ln1, ln2, attn, mlp):
+    """``mlp`` (dense) or ``moe`` (a MoE layer), as the reference names
+    the layer's feed-forward block."""
+
+    def __init__(self, ln1, ln2, attn, mlp=None, moe=None):
         super().__init__()
-        self.ln1, self.ln2, self.attn, self.mlp = ln1, ln2, attn, mlp
+        self.ln1, self.ln2, self.attn = ln1, ln2, attn
+        if moe is not None:
+            self.moe = moe
+        else:
+            self.mlp = mlp
 
 
 class LM(nn.Module):
@@ -67,14 +80,23 @@ class LM(nn.Module):
             self.lm_head = lm_head
 
 
-def _check_dense(cfg: ModelConfig):
-    if (cfg.family != "dense" or cfg.use_mla or cfg.n_experts
-            or cfg.first_dense or cfg.n_prefix_tokens or cfg.qkv_bias
-            or cfg.use_qk_norm):
+def _check_family(cfg: ModelConfig):
+    if (cfg.family not in ("dense", "moe") or cfg.use_mla
+            or cfg.first_dense or cfg.n_prefix_tokens or cfg.qkv_bias):
         raise NotImplementedError(
-            f"the port serves dense GQA attention without qkv bias or qk "
-            f"norm so far (config {cfg.name!r}); see ROADMAP queue 1, "
-            f"other LM families")
+            f"the port serves GQA attention without MLA, leading dense "
+            f"layers, a modality prefix or qkv bias so far (config "
+            f"{cfg.name!r}); see ROADMAP queue 1, other LM families")
+
+
+def _check_paged(cfg: ModelConfig):
+    """The paged entry points serve what ``api.paged_supported`` admits:
+    dense attention, no experts (the reference keeps MoE on the slot
+    path)."""
+    _check_family(cfg)
+    if cfg.family != "dense" or cfg.n_experts:
+        raise ValueError(f"paged KV unsupported for family={cfg.family} "
+                         f"(use api.paged_supported to gate)")
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +105,14 @@ def _check_dense(cfg: ModelConfig):
 
 def attn_init(gen, cfg: ModelConfig, device=None) -> Attention:
     dh = cfg.resolved_head_dim
+    norms = ((rmsnorm_init(dh, device=device), rmsnorm_init(dh, device=device))
+             if cfg.use_qk_norm else (None, None))
     return Attention(
         linear_init(gen, cfg.d_model, cfg.n_heads * dh, device=device),
         linear_init(gen, cfg.d_model, cfg.n_kv_heads * dh, device=device),
         linear_init(gen, cfg.d_model, cfg.n_kv_heads * dh, device=device),
-        linear_init(gen, cfg.n_heads * dh, cfg.d_model, device=device))
+        linear_init(gen, cfg.n_heads * dh, cfg.d_model, device=device),
+        *norms)
 
 
 def _rows(fn, x, chunk: Optional[int]):
@@ -118,6 +143,9 @@ def _qkv(p: Attention, cfg: ModelConfig, x, positions,
     q = _lin(p.q, cfg, x, chunk).reshape(B, S, cfg.n_heads, dh)
     k = _lin(p.k, cfg, x, chunk).reshape(B, S, cfg.n_kv_heads, dh)
     v = _lin(p.v, cfg, x, chunk).reshape(B, S, cfg.n_kv_heads, dh)
+    if cfg.use_qk_norm:
+        q = rmsnorm_apply(p.q_norm, q)
+        k = rmsnorm_apply(p.k_norm, k)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -152,31 +180,45 @@ def mlp_init(gen, cfg: ModelConfig, device=None) -> MLP:
                linear_init(gen, cfg.d_ff, cfg.d_model, device=device))
 
 
-def silu(x):
-    """``jax.nn.silu``: x * 1 / (1 + exp(-x)), each step rounded to the
-    working dtype. ``torch.nn.functional.silu`` rounds once, which moves
-    a third of bf16 outputs by an ulp."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
-
-
 def mlp_apply(p: MLP, cfg: ModelConfig, x, chunk: Optional[int] = None):
     h = _lin(p.wi, cfg, x, chunk) * silu(_lin(p.wg, cfg, x, chunk))
     return _lin(p.wo, cfg, h, chunk)
 
 
+def ffn_apply(p: Layer, cfg: ModelConfig, x, chunk: Optional[int] = None,
+              *, decode: bool = False):
+    """The layer's feed-forward block: (out, aux). A MoE layer routes at
+    ``cfg.capacity_factor`` (prefill, training) or, for a one-token
+    decode step, at ``max(cf, 2.0)``, as the reference's
+    ``layer_decode``; a dense MLP has aux 0."""
+    if hasattr(p, "moe"):
+        cf = (max(cfg.capacity_factor, 2.0) if decode
+              else cfg.capacity_factor)
+        return moe_apply(p.moe, x, top_k=cfg.top_k, capacity_factor=cf,
+                         backend=cfg.kernel_backend, act_bits=cfg.act_bits)
+    return (mlp_apply(p.mlp, cfg, x, chunk),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def layer_init(gen, cfg: ModelConfig, device=None) -> Layer:
+    if cfg.n_experts:
+        ffn = {"moe": moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                               n_shared=cfg.n_shared_experts,
+                               d_ff_shared=cfg.d_ff_shared, device=device)}
+    else:
+        ffn = {"mlp": mlp_init(gen, cfg, device=device)}
     return Layer(rmsnorm_init(cfg.d_model, device=device),
                  rmsnorm_init(cfg.d_model, device=device),
-                 attn_init(gen, cfg, device=device),
-                 mlp_init(gen, cfg, device=device))
+                 attn_init(gen, cfg, device=device), **ffn)
 
 
 def layer_forward(p: Layer, cfg: ModelConfig, h, positions):
-    """Returns (h, cache)."""
+    """Returns (h, cache, aux)."""
     a_out, cache = attn_forward(p.attn, cfg, rmsnorm_apply(p.ln1, h),
                                 positions)
     h = h + a_out
-    return h + mlp_apply(p.mlp, cfg, rmsnorm_apply(p.ln2, h)), cache
+    m_out, aux = ffn_apply(p, cfg, rmsnorm_apply(p.ln2, h))
+    return h + m_out, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +229,7 @@ def init_lm(gen: Optional[torch.Generator], cfg: ModelConfig,
             device=None) -> LM:
     """Random fp32 parameters from ``gen`` (None: unseeded, e.g. on the
     meta device as a skeleton to load weights into)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     embed = embedding_init(gen, cfg.vocab, cfg.d_model, device=device)
     layers = [layer_init(gen, cfg, device=device)
               for _ in range(cfg.n_layers)]
@@ -216,7 +258,8 @@ def _readout(model: LM, cfg: ModelConfig, h):
 
 
 def _layer_train(p: Layer, cfg: ModelConfig, h, positions):
-    return layer_forward(p, cfg, h, positions)[0]
+    h, _, aux = layer_forward(p, cfg, h, positions)
+    return h, aux
 
 
 def lm_forward(model: LM, cfg: ModelConfig, tokens):
@@ -225,9 +268,10 @@ def lm_forward(model: LM, cfg: ModelConfig, tokens):
     With ``cfg.remat`` each layer is recomputed in the backward pass
     (``torch.utils.checkpoint``), as the reference's ``remat_wrap``
     recomputes its scan body: only the residual stream between layers
-    is kept. The dense family has no auxiliary loss (aux = 0).
+    is kept. aux sums the MoE layers' load-balance losses (0 for the
+    dense family).
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     remat = (cfg.remat and cfg.remat_policy != "none"
              and torch.is_grad_enabled())
     if remat and cfg.remat_policy != "full":
@@ -236,13 +280,14 @@ def lm_forward(model: LM, cfg: ModelConfig, tokens):
             f"port recomputes whole layers ('full') or none")
     h = _embed_tokens(model, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in model.layers:
         if remat:
-            h = checkpoint(_layer_train, layer, cfg, h, positions,
-                           use_reentrant=False)
+            h, a = checkpoint(_layer_train, layer, cfg, h, positions,
+                              use_reentrant=False)
         else:
-            h = _layer_train(layer, cfg, h, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            h, a = _layer_train(layer, cfg, h, positions)
+        aux = aux + a
     return _readout(model, cfg, h), aux
 
 
@@ -270,7 +315,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
                ) -> Dict[str, Any]:
     """Per-layer decode cache: K/V (int8 + bf16 scales with
     ``kv_cache_bits=8``), a ring of the window's width under SWA."""
-    _check_dense(cfg)
+    _check_family(cfg)
     dh = cfg.resolved_head_dim
     eff = min(max_len, cfg.window) if cfg.window else max_len
     kv_dt = torch.int8 if cfg.kv_cache_bits == 8 else cfg.dtype
@@ -300,9 +345,11 @@ def lm_prefill(model: LM, cfg: ModelConfig, tokens, *, lengths=None):
 
     ``lengths``: per-stream real prompt lengths for right-padded
     batches; logits come from each stream's last real position and
-    ``cache["len"]`` records them.
+    ``cache["len"]`` records them. A MoE prompt routes every position of
+    the batch, padding included: callers prefill MoE prompts at their
+    exact length (the engine groups by length).
     """
-    _check_dense(cfg)
+    _check_family(cfg)
     h = _embed_tokens(model, cfg, tokens)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :]
@@ -312,7 +359,7 @@ def lm_prefill(model: LM, cfg: ModelConfig, tokens, *, lengths=None):
         cache_len = torch.as_tensor(lengths, device=h.device).to(torch.int32)
     caches = []
     for layer in model.layers:
-        h, c = layer_forward(layer, cfg, h, positions)
+        h, c, _ = layer_forward(layer, cfg, h, positions)
         caches.append(c)
     h_last = h[:, -1:] if lengths is None else last_real_slice(h, lengths)
     return _readout(model, cfg, h_last), {"len": cache_len, "layers": caches}
@@ -409,16 +456,22 @@ def attn_decode(p: Attention, cfg: ModelConfig, x, cache, pos):
 
 
 def lm_decode(model: LM, cfg: ModelConfig, tokens, cache):
-    """tokens: (B, W) -> (logits (B, W, V), cache with len + W)."""
-    _check_dense(cfg)
-    h = _embed_tokens(model, cfg, tokens)
+    """tokens: (B, W) -> (logits (B, W, V), cache with len + W). A MoE
+    layer routes the B tokens of a step at the decode capacity factor;
+    a verify window (W > 1) serves dense configs only, as in the
+    reference (MoE routing would couple the window's tokens)."""
+    _check_family(cfg)
     B, W = tokens.shape
+    if W > 1 and cfg.n_experts:
+        raise ValueError("a decode window (W > 1) serves dense configs "
+                         "only: MoE routing couples the window's tokens")
+    h = _embed_tokens(model, cfg, tokens)
     pos = _positions(cache["len"], B, W, h.device)
     for layer, c in zip(model.layers, cache["layers"]):
         h = h + attn_decode(layer.attn, cfg, _norm_rows(layer.ln1, h), c,
                             pos)
-        h = h + mlp_apply(layer.mlp, cfg, _norm_rows(layer.ln2, h),
-                          ROW_STABLE_M)
+        h = h + ffn_apply(layer, cfg, _norm_rows(layer.ln2, h),
+                          ROW_STABLE_M, decode=True)[0]
     logits = _head(model, cfg, _norm_rows(model.final_norm, h), ROW_STABLE_M)
     return logits, {"layers": cache["layers"], "len": cache["len"] + W}
 
@@ -450,7 +503,7 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
     dict per layer: K/V (P, page, Hkv, dh) (+ (P, page, Hkv) bf16 scales
     for int8 KV). block: (B, NB) int32, all zero = every entry points at
     the trash page."""
-    _check_dense(cfg)
+    _check_paged(cfg)
     dh = cfg.resolved_head_dim
     quant = _paged_quant(cfg)
     kv_dt = torch.int8 if quant else cfg.dtype
@@ -513,7 +566,7 @@ def paged_attn_decode(p: Attention, cfg: ModelConfig, x, pool, block, pos):
 
 def lm_paged_decode(model: LM, cfg: ModelConfig, tokens, cache):
     """tokens: (B, W) -> (logits (B, W, V), cache with len + W)."""
-    _check_dense(cfg)
+    _check_paged(cfg)
     h = _embed_tokens(model, cfg, tokens)
     B, W = tokens.shape
     pos = _positions(cache["len"], B, W, h.device)
@@ -541,7 +594,7 @@ def lm_paged_prefill_chunk(model: LM, cfg: ModelConfig, tokens, ws, start,
     replays at every start. The caller keeps ``start + C`` within the
     workspace.
     """
-    _check_dense(cfg)
+    _check_paged(cfg)
     C = tokens.shape[1]
     h = _embed_tokens(model, cfg, tokens)
     positions = start + torch.arange(C, device=h.device)[None, :]
@@ -647,7 +700,7 @@ def lm_paged_prefill_packed(model: LM, cfg: ModelConfig, tokens, pool,
     in-block offsets, that an unpacked chunk puts them. The readout
     norms each segment's row on its own, as the chunk norms its one row.
     """
-    _check_dense(cfg)
+    _check_paged(cfg)
     C = tokens.shape[1]
     dev = pool[0]["k"].device
     page = pool[0]["k"].shape[1]

@@ -15,6 +15,9 @@ The reference stacks the layers along a leading axis; the port keeps one
 module per layer in an ``nn.ModuleList``. :func:`logical_path` maps a
 per-layer path back to the reference's stacked path, which is what
 policy rules, size floors and backend manifests are resolved against.
+A MoE layer's expert kernels (``moe/wi``, ``moe/wg``, ``moe/wo``) keep
+the expert axis in front, as the reference's ``"expert"`` stack axis:
+one (E, Din, Dout) leaf a layer with one dictionary an expert.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ Path = Tuple[str, ...]
 
 #: Module-list names whose children are the reference's stacked layers.
 STACKS = frozenset({"layers"})
+#: Leaves of a ``moe`` module stacked over the experts (the reference's
+#: ``("expert", ...)`` logical axes); the shared experts are not.
+EXPERT_LEAVES = frozenset({"wi", "wg", "wo"})
 
 
 class QuantKernel(nn.Module):
@@ -120,10 +126,18 @@ def layer_split(path: Path) -> Tuple[Path, Optional[int]]:
     return path, None
 
 
+def expert_dims(path: Path) -> int:
+    """1 for an expert-stacked leaf (``.../moe/wi``, ``wg``, ``wo``),
+    else 0."""
+    return int(len(path) >= 2 and path[-2] == "moe"
+               and path[-1] in EXPERT_LEAVES)
+
+
 def logical_path(path: Path) -> Tuple[Path, int]:
-    """(reference path, number of stack axes) of a per-layer path."""
+    """(reference path, number of stack axes) of a per-layer path: the
+    layer axis the port splits off, plus the expert axis a leaf keeps."""
     lpath, i = layer_split(path)
-    return lpath, int(i is not None)
+    return lpath, int(i is not None) + expert_dims(lpath)
 
 
 def module_device(module: nn.Module) -> Optional[torch.device]:

@@ -396,6 +396,16 @@ class Engine:
 
     # --------------------------------------------------------- admission
 
+    def _group_key(self, req: Request):
+        """Requests admitted in one step share one batched prefill where
+        exactness allows it: attention-only families batch ragged prompts
+        freely (per-stream ``lengths`` keep them exact); MoE routing
+        couples real tokens to padding (capacity), so MoE groups by exact
+        prompt length, as the reference's engine does."""
+        if self.cfg.n_experts:
+            return ("exact", len(req.tokens))
+        return ("any", False)
+
     def _admit_group(self, slots: List[int], reqs: List[Request]):
         """Prefill a group of requests with ONE batched call and write
         each row into its slot."""
@@ -974,7 +984,12 @@ class Engine:
             free = [i for i, s in enumerate(self.slots) if s is None]
             take = [self.queue.popleft()
                     for _ in range(min(len(free), len(self.queue)))]
-            self._admit_group(free[:len(take)], take)
+            groups: Dict[Any, List[Request]] = {}
+            for req in take:
+                groups.setdefault(self._group_key(req), []).append(req)
+            for reqs in groups.values():
+                slots, free = free[:len(reqs)], free[len(reqs):]
+                self._admit_group(slots, reqs)
         active = [r for r in self.slots if r is not None]
         if active and self.spec_k:
             t0 = time.perf_counter()

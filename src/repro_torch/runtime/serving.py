@@ -153,8 +153,9 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     prefill, then decoded by the engine's loop. ``device`` is where the
     run happens ("cuda" unless asked for "cpu"); the model must already
     live there. ``lengths``: per-stream prompt lengths for right-padded
-    batches. ``eos_id``: streams retire at their EOS and are right-padded
-    with it. ``temperature`` > 0 samples stream i from the generator
+    batches (a MoE config prefills each padded stream alone, at its
+    exact length, as the reference does). ``eos_id``: streams retire at
+    their EOS and are right-padded with it. ``temperature`` > 0 samples stream i from the generator
     that a solo ``Engine(seed=seed)`` gives its request i. The kernel
     backend is ``cfg.kernel_backend``. ``return_stats=True`` also
     returns {"t_prefill_s", "t_decode_s", "t_warmup_s", "decode_tok_s",
@@ -177,7 +178,19 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                  temperature=temperature, seed=seed,
                  speculative=speculative, draft_bits=draft_bits,
                  draft_params=draft_params, device=device)
-    eng.preload(batch, steps, lengths=lengths, eos_id=eos_id)
+    lens = (None if lengths is None else np.broadcast_to(
+        torch.as_tensor(lengths).cpu().numpy().astype(np.int32).reshape(-1),
+        (B,)))
+    padded = lens is not None and (int(lens.min()) != int(lens.max())
+                                   or int(lens.max()) != P)
+    if padded and cfg.n_experts:
+        # MoE capacity couples real tokens to padding: every stream is
+        # prefilled at its exact length through the admission path
+        toks = torch.as_tensor(batch["tokens"]).cpu().numpy()
+        for i in range(B):
+            eng.submit(toks[i, :int(lens[i])], max_new=steps, eos_id=eos_id)
+    else:
+        eng.preload(batch, steps, lengths=lengths, eos_id=eos_id)
     results = eng.run()
     gen = np.full((B, steps), 0 if eos_id is None else eos_id, np.int32)
     for r in results:

@@ -34,7 +34,12 @@ within 1e-2 (loss, 8-bit activations) and 2 lr (parameters) of the CPU's.
 The multiply audit (``kernels/audit.py``) is held by counts and shapes,
 with no tolerance: one int dot a ``lutq_shift`` launch, and refusals of
 the float-dictionary kernels, the card's float64 decode oracle and a
-replayed CUDA graph.
+replayed CUDA graph. The expert-stacked kernels (the MoE family): one
+launch a stacked product, the GEMMs' tolerances against the plain
+version (a loop over the experts), ``lutq_shift`` bit for bit, an empty
+expert exactly 0, each expert's slab bit for bit against a one-expert
+launch where the two plans split alike; reduced qwen3-moe served on the
+card gives the CPU's greedy tokens.
 """
 import contextlib
 
@@ -1883,3 +1888,200 @@ def test_cuda_serve_edge_cli(cuda_device, capsys):
     assert "PASS (10 integer dots, 10 of them lutq_shift launches" in out
     assert "token-identical" in out and "plain versions run 0" in out
     assert lutq_shift.COUNTS["plain"] == plain
+
+
+# ---------------------------------------------------------------------------
+# the expert-stacked kernels (the MoE family)
+# ---------------------------------------------------------------------------
+
+#: (E, C, Kin, N): a 128-expert stack at qwen3-moe's wi (4096 x 1536)
+#: and wo (1536 x 4096) shapes, decode (C = 1) and a 4 x 128-token
+#: prefill (C = 40), a 4-expert stack whose products split their
+#: reduction, and ragged shapes (unaligned rows, C past one tile)
+EXPERT_CASES = [(128, 1, 4096, 1536), (128, 40, 1536, 4096),
+                (4, 1, 4096, 1536), (4, 40, 1536, 4096), (3, 9, 130, 211),
+                (5, 130, 256, 384), (2, 17, 2002, 211)]
+EXPERT_KERNELS = ["lutq_matmul", "lutq_gemv_packed", "lutq_shift"]
+
+
+def _expert_operands(kernel, E, C, Kin, N, dtype, seed=0):
+    """(stacked wrapper, plain version, one-expert wrapper, CPU operands)
+    with expert 1 an all-zero slab and a dictionary of its own an
+    expert (lutq_shift: int8 xq and shifted pow2 dictionaries of spans
+    0..9)."""
+    from repro_torch.kernels.ref import (lutq_gemv_packed_experts_ref,
+                                         lutq_matmul_experts_ref,
+                                         lutq_shift_experts_ref)
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(0, 16, (E, Kin, N), generator=g, dtype=torch.int8)
+    if kernel == "lutq_shift":
+        x = torch.randint(-127, 128, (E, C, Kin), generator=g,
+                          dtype=torch.int8)
+        span = torch.arange(E) % 10
+        mag = torch.randint(0, 1 << 20, (E, 16), generator=g) % (
+            span[:, None] + 1) + 1
+        sign = torch.randint(0, 2, (E, 16), generator=g) * 2 - 1
+        d = pow2_shift_weights((mag * sign).to(torch.int8))
+        fns = (lutq_shift.lutq_shift_experts, lutq_shift_experts_ref,
+               lutq_shift.lutq_shift)
+    else:
+        x = torch.randn(E, C, Kin, generator=g).to(dtype)
+        d = torch.sort(torch.randn(E, 16, generator=g), dim=-1).values
+        if kernel == "lutq_gemv_packed":
+            a = pack4_kin(a)
+            fns = (lutq_gemv_packed.lutq_gemv_packed_experts,
+                   lutq_gemv_packed_experts_ref,
+                   lutq_gemv_packed.lutq_gemv_packed)
+        else:
+            fns = (lutq_matmul.lutq_matmul_experts, lutq_matmul_experts_ref,
+                   lutq_matmul.lutq_matmul)
+    x[1] = 0
+    return fns + ((x, a, d),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,Kin,N", EXPERT_CASES)
+@pytest.mark.parametrize("kernel,dtype", [
+    ("lutq_matmul", "float32"), ("lutq_matmul", "bfloat16"),
+    ("lutq_gemv_packed", "float32"), ("lutq_gemv_packed", "bfloat16"),
+    ("lutq_shift", "int8")])
+def test_cuda_expert_kernel_matches_plain(cuda_device, kernel, E, C, Kin, N,
+                                          dtype):
+    """One launch a stacked product, against the plain version (a loop
+    over the experts): the GEMMs' tolerance, lutq_shift bit for bit; the
+    empty expert's slab exactly 0; each expert's slab against a
+    one-expert launch of the plain kernel (bit for bit where the stacked
+    and the single plan split alike)."""
+    fn, plain, one, (x, a, d) = _expert_operands(kernel, E, C, Kin, N,
+                                                 getattr(torch, dtype))
+    counts = {"lutq_matmul": lutq_matmul, "lutq_gemv_packed":
+              lutq_gemv_packed, "lutq_shift": lutq_shift}[kernel]
+    before = dict(counts.EXPERT_COUNTS)
+    dev = [t.to(cuda_device) for t in (x, a, d)]
+    got = fn(*dev)
+    torch.cuda.synchronize()
+    assert counts.EXPERT_COUNTS["launches"] == before["launches"] + 1
+    assert counts.EXPERT_COUNTS["plain"] == before["plain"]
+    want = plain(x, a, d)
+    assert not got[1].any()
+    if kernel == "lutq_shift":
+        assert torch.equal(got.cpu(), want)
+    else:
+        tol = 1e-4 if dtype == "float32" else 1e-3
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert err <= tol, err
+    plan_of = (lutq_shift.plan_splits if kernel == "lutq_shift"
+               else lambda *s, **kw: build.plan_splits(s[0], s[1], s[2],
+                                                       s[3], **kw))
+    sms = build.sm_count(cuda_device)
+    same = (plan_of(C, N, Kin, sms, experts=E)["splits"]
+            == plan_of(C, N, Kin, sms)["splits"])
+    for e in (0, E - 1):
+        alone = one(dev[0][e], dev[1][e], dev[2][e])
+        if same or kernel == "lutq_shift":
+            assert torch.equal(alone, got[e])
+        else:
+            scale = alone.abs().max()
+            assert (alone - got[e]).abs().max() <= 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,Kin,N", [(128, 1, 4096, 1536),
+                                       (4, 1, 4096, 1536),
+                                       (4, 40, 1536, 4096)])
+@pytest.mark.parametrize("kernel", EXPERT_KERNELS)
+def test_cuda_expert_kernel_repeats_and_replays(cuda_device, kernel, E, C,
+                                                Kin, N):
+    """A second call and two replays of a captured call give the first
+    call's bits; the merge tickets are back at 0."""
+    from repro_torch.kernels.ref import shift_planes
+
+    fn, _, _, ops_cpu = _expert_operands(kernel, E, C, Kin, N,
+                                         torch.bfloat16, seed=1)
+    args = [t.to(cuda_device) for t in ops_cpu]
+    if kernel == "lutq_shift":
+        args.append(shift_planes(args[2]))
+    first = fn(*args)
+    assert torch.equal(fn(*args), first)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    tickets = build._GEMM_TICKETS.get(str(cuda_device))
+    assert tickets is None or not tickets.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", EXPERT_KERNELS)
+def test_cuda_expert_kernel_raises_instead_of_falling_back(cuda_device,
+                                                           kernel,
+                                                           monkeypatch):
+    fn, _, _, ops_cpu = _expert_operands(kernel, 3, 2, 64, 96,
+                                         torch.bfloat16)
+    x, a, d = (t.to(cuda_device) for t in ops_cpu)
+    launcher = ("lutq_shift_launch" if kernel == "lutq_shift"
+                else f"{kernel}_launch")
+
+    class FailedLaunch:
+        pass
+
+    setattr(FailedLaunch, launcher, staticmethod(lambda *args: 1))
+    monkeypatch.setattr(build, "load_library", lambda: FailedLaunch)
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        fn(x, a, d)
+    with pytest.raises(ValueError):
+        fn(x, a.cpu(), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_moe_serves_the_cpu_tokens(cuda_device, view):
+    """Reduced qwen3-moe (4 experts top-2, qk-norm) served on the card
+    through the expert-stacked kernels, graph-replayed and eager, gives
+    the CPU's greedy tokens; three stacked launches a layer a forward,
+    no plain version on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.engine import disable_graphs
+    from repro_torch.runtime.serving import generate
+
+    base = reduced(get_config("qwen3-moe-235b-a22b")).replace(act_bits=32)
+    if view == "pow2":
+        cfg = base.replace(quant=serving_pow2())
+    else:
+        cfg = base.replace(quant=QuantSpec(bits=4, constraint="pow2",
+                                           min_size=512))
+    cpu = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+    serve = serve_view(cpu, pack4=view == "packed4",
+                       policy=api.resolved_policy(cfg))
+    toks = torch.randint(0, cfg.vocab, (3, 16),
+                         generator=torch.Generator().manual_seed(5))
+    want = generate(serve, cfg, {"tokens": toks}, steps=6, device="cpu")
+    card = serve.to(cuda_device)
+    for graphs in (True, False):
+        before = ops.read_counts()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            got = generate(card, cfg, {"tokens": toks}, steps=6,
+                           device="cuda")
+        delta = ops.count_delta(before)
+        assert torch.equal(got.cpu(), want)
+        stacked = delta[{"int8": 8, "packed4": 9, "pow2": 10}[view]]
+        assert stacked == {"launches": 6 * 3 * cfg.n_layers, "plain": 0}
+        assert sum(c.get("plain", 0) for c in delta) == 0

@@ -21,10 +21,11 @@ def to_np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def cfg_pair(dtype: str = "float32", **kw):
-    """(JAX config, port config) of reduced danube with the same fields,
-    4-bit LUT-Q at MIN_SIZE unless ``quant_bits``/``constraint`` say
-    otherwise. ``dtype`` names the working dtype of both sides."""
+def cfg_pair(dtype: str = "float32", arch: str = ARCH, **kw):
+    """(JAX config, port config) of reduced ``arch`` (danube unless
+    named) with the same fields, 4-bit LUT-Q at MIN_SIZE unless
+    ``quant_bits``/``constraint`` say otherwise. ``dtype`` names the
+    working dtype of both sides."""
     from repro.configs import get_config as jget
     from repro.core.spec import QuantSpec as JSpec
     from repro.models.reduce import reduced as jred
@@ -34,15 +35,16 @@ def cfg_pair(dtype: str = "float32", **kw):
 
     spec = dict(bits=kw.pop("quant_bits", 4),
                 constraint=kw.pop("constraint", "none"), min_size=MIN_SIZE)
-    jcfg = jred(jget(ARCH)).replace(quant=JSpec(**spec),
+    jcfg = jred(jget(arch)).replace(quant=JSpec(**spec),
                                     dtype=getattr(jnp, dtype), **kw)
-    tcfg = tred(tget(ARCH)).replace(quant=TSpec(**spec),
+    tcfg = tred(tget(arch)).replace(quant=TSpec(**spec),
                                     dtype=getattr(torch, dtype), **kw)
     return jcfg, tcfg
 
 
 def jax_quantized(jcfg, seed=0):
-    """JAX init -> quantize of reduced danube (the slow step: share it)."""
+    """JAX init -> quantize of a reduced config (the slow step: share
+    it)."""
     from repro.models import api as japi
 
     params, axes = japi.init(jax.random.PRNGKey(seed), jcfg)
