@@ -55,7 +55,12 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    rows and window rows whose first valid position is on no page or
    split edge; a batch of empty rows) and reduced ones (dh=16, G=2,
    page 8/16, an empty row), bf16/f32 queries, bf16/f32/int8 pages,
-   window none, 24 or 4096. Error of each (sequence, query head) row
+   window none, 24 or 4096; head dim 128 at page 64 with bf16 queries
+   over bf16 and int8 pages, window none and 4096, full-width lengths
+   and (B=16) the split edges, at G = 4 (mistral-nemo-12b), 8
+   (qwen1.5-110b), 12 (mistral-large-123b) and 16 (the kernel's limit),
+   and a G = 12 batch of 64 one-split rows whose scores the plan itself
+   moves to the workspace. Error of each (sequence, query head) row
    over that row's own max|plain|: at most one bf16 ulp of the row
    (2^-7) for bf16 queries (bf16 output, bf16 scores that may round the
    other way where the f32 sums differ in their last bits), 1e-5 for
@@ -63,7 +68,8 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    same bits; every dead or behind-window block entry is then pointed
    at a page of NaN: the output must keep its bits. One call of each
    variant captured in a CUDA graph and replayed twice must equal the
-   eager call, with the merge tickets back at 0.
+   eager call, with the merge tickets back at 0, at (G, dh) = (4, 80)
+   and (12, 128).
 2d. lutq_shift (the shift-add kernel of the multiplier-less pow2 path)
    against its plain version on the card, bit for bit (torch.equal, no
    tolerance: int32 sums): danube's seven body shapes at M = 1, 2, 4, 8,
@@ -215,6 +221,35 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    keeps the slot path, stats()["paged"] False); graph equal to eager.
    (d) reduced qwen3-moe on the card gives the CPU's tokens through the
    int8, packed4 and calibrated serving_pow2 views.
+3n. the remaining dense families at full width, 2 layers each, random
+   weights from seed 0, one family on the card at a time:
+   mistral-large-123b (d_model 12288, 96 query heads of 128 over 8 KV
+   heads: a group of 12, d_ff 28672, vocab 32768) and qwen1.5-110b
+   (d_model 8192, 64 / 8 heads of 128, d_ff 49152, vocab 152064, a bias
+   on q, k and v, set to seeded values), each under its own 4-bit pow2
+   LUT-Q (embedding and head included) and 8-bit activations. (a) init +
+   quantize; (b) generate (B=4, prompt 128, 16 tokens) through the int8
+   view (kernel 1) and the packed4 view (kernel 2), each replaying its
+   decode step and eagerly: the same tokens and counts, 7 x 2 + 1
+   launches a forward, no plain version, prefill ms, decode tok/s,
+   capture ms, peak memory and a profiled generate logged; (c) at
+   act_bits 32 the paged engine (page 64, 4 slots, packed prefill;
+   mistral-large int8 pages, qwen1.5 bf16) over 5 prompts of 64-128
+   tokens, 8 new each, and its speculative twin (k=3, draft_bits 3):
+   each request's tokens equal its lone generate, the paged kernel
+   n_layers launches a step (x 7 a round) in the variant its plan picks,
+   no plain version; (d) serving_pow2, calibrated on 2 x 64 tokens: the
+   overflow guard's 7 + span + ceil(log2 Kin) and decision for every
+   logical leaf (a leaf kept on its float dictionary runs kernel 1 and
+   the audit must refuse it), generate through lutq_shift as in (b),
+   and the multiply audit of its prefill (B=4 x 128) and one decode
+   step: one integer dot a pow2 leaf, all lutq_shift launches; (e) the
+   reduced config (mistral-large at 12 query heads over 1 KV head;
+   qwen1.5 with seeded biases) on the card gives the CPU's tokens
+   through the int8, packed4 and serving_pow2 views. Then
+   mistral-nemo-12b's paged engine (2 full-width layers, G = 4, head
+   dim 128, int8 pages) over the same kind of queue, as in (c). Its
+   launches go into the kernels' record as "dense_family_launches".
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -369,7 +404,9 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    rows and scales, q, out and the block table), its plain version
    and scaled_dot_product_attention on a pre-gathered, pre-dequantized
    row (a yardstick the port never calls), and swept over the split
-   plan's target of 1, 2, 4 and 8 blocks an SM; flash attention at phase
+   plan's target of 1, 2, 4 and 8 blocks an SM; both variants again at
+   run (a)'s geometry with head dim 128 at G = 8 and 12 (qwen1.5's and
+   mistral-large's groups; the record's "shapes"); flash attention at phase
    2e's danube geometry and 4096-token row, operands rotated through
    more than twice the L2, the planned kernel (flash_wgmma) beside the
    mma.sync kernel flash_bf16 forced on the same operands, its bound (the
@@ -1392,6 +1429,18 @@ def paged_kernel_checks():
               for q, kv in ((bf16, i8), (f32, i8), (bf16, bf16))
               for w in (None, 4096)]
     cases += [(4, 8, 4, 80, 64, 69, [0] * 4, bf16, i8, 4096)]
+    # head dim 128 at the groups of mistral-nemo-12b (4), qwen1.5-110b
+    # (8), mistral-large-123b (12) and the kernel's limit (16): full-width
+    # lengths, then the split edges (the plan does not depend on G or dh);
+    # at G = 12 also a batch of 64 rows, one split each, whose score rows
+    # outgrow shared memory: the plan itself picks the workspace variant
+    for G in (4, 8, 12, 16):
+        cases += [(8, 8, G, 128, 64, 69, full_lens, bf16, kv, w)
+                  for kv in (bf16, i8) for w in (None, 4096)]
+        cases += [(16, 8, G, 128, 64, 69, edges, bf16, i8, w)
+                  for w in (None, 4096)]
+    cases += [(64, 8, 12, 128, 64, 69, (full_lens * 8)[:64], bf16, bf16,
+               None)]
     worst = {name: 0.0 for name in paged_attn.VARIANTS}
     for B, Hkv, G, dh, page, NB, lens, qdt, kvdt, window in cases:
         q, kp, vp, ks, vs, block, poisoned, cl = _paged_case(
@@ -1422,10 +1471,14 @@ def paged_kernel_checks():
             stable = bool(torch.equal(got, twice))
             zero_rows = [b for b, L in enumerate(lens) if L == 0]
             zeros = all(bool((got[b] == 0).all()) for b in zero_rows)
-            split = paged_attn.split_plan(B, Hkv, NB, page, window, sms=sms)
+            split = paged_attn.launch_plan(
+                B, Hkv, NB, page, dh, G, window=window,
+                itemsize=kp.element_size(), sms=sms, budget_bytes=budget)
             log(f"check {name} B={B} Hkv={Hkv} G={G} dh={dh} page={page} "
                 f"NB={NB} q {qdt} pool {kvdt} window {window} (nsplit "
-                f"{split['nsplit']}, chunk {split['chunk']}): max_abs_err "
+                f"{split['nsplit']}, chunk {split['chunk']}, "
+                f"{'workspace' if split['multipass'] else 'shared memory'}"
+                f"): max_abs_err "
                 f"{err:.3e} | worst row {rel.max().item():.2e} of its own "
                 f"max (len {lens[at]}, tol {tol:.1e}) | poisoned dead "
                 f"entries give the same bits {same} | two calls the same "
@@ -1437,38 +1490,42 @@ def paged_kernel_checks():
             check(same, f"{name} read a dead or behind-window page")
             check(stable, f"{name}: two calls gave different bits")
             check(zeros, f"{name}: a row with cache_len 0 is not 0")
+            check(B != 64 or split["multipass"], f"{name}: the plan kept "
+                  f"B=64 score rows of G={G} in shared memory")
             worst[name] = max(worst[name], err)
-    # one call of each variant captured in a CUDA graph, replayed twice
-    q, kp, vp, ks, vs, block, _, cl = _paged_case(
-        16, 8, 4, 80, 64, 69, edges, bf16, i8, 4096, gen, dev)
-    for name, budget in (("paged_attention", None),
-                         ("paged_attention_multipass", 0)):
-        def call():
-            return paged_attn.paged_attention(
-                q, kp, vp, block, cl, window=4096, k_scale=ks, v_scale=vs,
-                smem_budget_bytes=budget)
-        eager = call()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            call()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            captured = call()
-        replays = []
-        for _ in range(2):
-            captured.zero_()
-            graph.replay()
-            torch.cuda.synchronize()
-            replays.append(bool(torch.equal(captured, eager)))
-        tickets = not bool(paged_attn._TICKETS[dev.index].any())
-        log(f"check {name} in a CUDA graph (B=16, split edges): two "
-            f"replays equal the eager call {replays} | merge tickets back "
-            f"at 0 {tickets}")
-        check(all(replays) and tickets,
-              f"{name}: a CUDA graph replay differs from the eager call")
-        del graph
+    # one call of each variant captured in a CUDA graph, replayed twice,
+    # at danube's (G, dh) and mistral-large's
+    for G, dh in ((4, 80), (12, 128)):
+        q, kp, vp, ks, vs, block, _, cl = _paged_case(
+            16, 8, G, dh, 64, 69, edges, bf16, i8, 4096, gen, dev)
+        for name, budget in (("paged_attention", None),
+                             ("paged_attention_multipass", 0)):
+            def call():
+                return paged_attn.paged_attention(
+                    q, kp, vp, block, cl, window=4096, k_scale=ks,
+                    v_scale=vs, smem_budget_bytes=budget)
+            eager = call()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                call()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = call()
+            replays = []
+            for _ in range(2):
+                captured.zero_()
+                graph.replay()
+                torch.cuda.synchronize()
+                replays.append(bool(torch.equal(captured, eager)))
+            tickets = not bool(paged_attn._TICKETS[dev.index].any())
+            log(f"check {name} in a CUDA graph (B=16, G={G}, dh={dh}, split "
+                f"edges): two replays equal the eager call {replays} | merge "
+                f"tickets back at 0 {tickets}")
+            check(all(replays) and tickets,
+                  f"{name}: a CUDA graph replay differs from the eager call")
+            del graph
     return worst
 
 
@@ -2002,21 +2059,14 @@ MOE_ENGINE_GEN = 8
 MOE_AUDIT_PROMPT = 96
 
 
-def _moe_counts(counts, dense, stacked):
-    """(dense launches, stacked launches, every other launch or plain
-    call) of a _read_counts() record."""
-    other = {k: v for k, v in counts.items()
-             if k not in (dense, stacked, "paged_attention",
-                          "paged_attention_multipass")}
-    return counts[dense], counts[stacked], other
-
-
-def _moe_serve(name, view, cfg, toks, dense, stacked, calls):
-    """Phase 3m (b) for one view: generate (B=4, prompt 128, 16 tokens)
-    replaying the decode step it captured and eagerly: equal tokens and
-    counts, ``calls`` launches of the two kernels a forward, no plain
+def _family_serve(label, name, view, cfg, toks, expect):
+    """One view's generate (B=4, prompt 128, 16 tokens) replaying the
+    decode step it captured and eagerly (phases 3m (b) and 3n): equal
+    tokens and counts, ``expect[kernel]`` launches of each kernel a
+    forward, no other kernel (paged attention aside) and no plain
     version; prefill ms, decode tok/s, capture ms, peak memory and a
-    profiled generate's heaviest kernels are logged."""
+    profiled generate's heaviest kernels are logged. Returns the graph
+    serve's (tokens, counts)."""
     import torch
 
     from repro_torch.models import api
@@ -2034,37 +2084,39 @@ def _moe_serve(name, view, cfg, toks, dense, stacked, calls):
                                   device="cuda")
             counts = _read_counts()
             peak = torch.cuda.max_memory_allocated() / 2**30
-            n_dense, n_stacked, other = _moe_counts(counts, dense, stacked)
-            log(f"moe serve [{name}] {cfg.name} x{cfg.n_layers} layers B="
-                f"{BATCH} P={PROMPT} gen={STEPS_GEN} ({mode}): prefill "
+            other = {k: v for k, v in counts.items()
+                     if k not in expect and k not in (
+                         "paged_attention", "paged_attention_multipass")}
+            log(f"{label} serve [{name}] {cfg.name} x{cfg.n_layers} layers "
+                f"B={BATCH} P={PROMPT} gen={STEPS_GEN} ({mode}): prefill "
                 f"{stats['t_prefill_s'] * 1e3:.1f} ms | decode "
                 f"{stats['decode_tok_s']:.1f} tok/s | capture "
                 f"{stats['t_warmup_s'] * 1e3:.1f} ms | peak {peak:.2f} GiB |"
-                f" launches {dense} {n_dense}, {stacked} {n_stacked} | "
-                f"{CARD}")
-            check(n_dense == STEPS_GEN * calls[0]
-                  and n_stacked == STEPS_GEN * calls[1],
-                  f"moe {name} ({mode}): {n_dense} {dense} and {n_stacked} "
-                  f"{stacked} launches, expected {STEPS_GEN} x {calls}")
-            check(not any(other.values()), f"moe {name} ({mode}) went "
+                f" launches " + ", ".join(f"{k} {counts[k]}" for k in expect)
+                + f" | {CARD}")
+            check(all(counts[k] == STEPS_GEN * n for k, n in expect.items()),
+                  f"{label} {name} ({mode}): launches "
+                  f"{ {k: counts[k] for k in expect} }, expected "
+                  f"{STEPS_GEN} x {expect}")
+            check(not any(other.values()), f"{label} {name} ({mode}) went "
                   f"through another path: {other}")
             check(out.shape == (BATCH, STEPS_GEN)
                   and bool(((out >= 0) & (out < cfg.vocab)).all()),
-                  f"moe {name}: tokens out of shape or range")
+                  f"{label} {name}: tokens out of shape or range")
             if mode == "graph":
                 def run():
                     generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
                              device="cuda")
                     torch.cuda.synchronize()
-                profile_run(run, f"moe generate [{name}]")
+                profile_run(run, f"{label} generate [{name}]")
         per_mode[mode] = (out.cpu(), counts)
     check(torch.equal(per_mode["graph"][0], per_mode["eager"][0]),
-          f"moe {name}: graph and eager serves give other tokens")
+          f"{label} {name}: graph and eager serves give other tokens")
     check(per_mode["graph"][1] == per_mode["eager"][1],
-          f"moe {name}: graph and eager serves launch other counts")
+          f"{label} {name}: graph and eager serves launch other counts")
     with torch.inference_mode():
         logits, _ = api.prefill(view, cfg, {"tokens": toks.cuda()})
-    check(bool(torch.isfinite(logits).all()), f"moe {name}: non-finite "
+    check(bool(torch.isfinite(logits).all()), f"{label} {name}: non-finite "
           f"logits")
     log(f"  sample tokens {per_mode['graph'][0][0, :8].tolist()}")
     return per_mode["graph"]
@@ -2127,28 +2179,27 @@ def _moe_engine(view, cfg, toks_by_len):
                   "generate")
 
 
-def _moe_audit(view, cfg, toks):
-    """Phase 3m (b): the serving_pow2 view's prefill (B=4 x
-    MOE_AUDIT_PROMPT) and one decode step pass the multiply audit at
-    full width: the 14 int dots a forward are
-    lutq_shift (8) and lutq_shift_experts (6) launches, no fp dot on a
-    quantized shape; the routers' float products (not quantized) and the
-    float head are allowed."""
+def _family_audit(label, view, cfg, toks, prompt, int_dots):
+    """The serving_pow2 view's prefill (B=4 x ``prompt``) and one decode
+    step through the multiply audit at full width (phases 3m (b), 3n):
+    ``int_dots`` ({op: count}) integer dots a forward, all of them kernel
+    launches, no fp dot on a quantized shape; the routers' float
+    products (a MoE layer's, not quantized; one a layer) and the float
+    head are allowed."""
     import torch
 
     from repro_torch.kernels import audit
     from repro_torch.models import api
     from repro_torch.runtime import serving
 
-    toks = toks[:, :MOE_AUDIT_PROMPT]
+    toks = toks[:, :prompt]
 
     def prefill():
         with torch.inference_mode():
             return api.prefill(view, cfg, {"tokens": toks.cuda()})
 
     _, cache = prefill()
-    cache = serving.adapt_prefill_cache(cfg, cache, BATCH,
-                                        MOE_AUDIT_PROMPT + 2)
+    cache = serving.adapt_prefill_cache(cfg, cache, BATCH, prompt + 2)
     tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
 
     def step():
@@ -2159,38 +2210,51 @@ def _moe_audit(view, cfg, toks):
         t0 = time.perf_counter()
         rep = audit.audit_multiplierless(fn, params=view)
         c = audit.count_ops(rep)
-        ops_ = sorted({d["op"] for d in rep["int_dots"]})
+        ops_ = {op: sum(d["op"] == op for d in rep["int_dots"])
+                for op in sorted({d["op"] for d in rep["int_dots"]})}
         routers = [d for d in rep["fp_dots"]
                    if d["rhs"] == (cfg.d_model, cfg.n_experts)]
-        log(f"  moe audit {name}: PASS in {time.perf_counter() - t0:.2f} s "
-            f"| count_ops {c} | int dots {ops_} | router fp dots "
-            f"{len(routers)}")
-        check(c["n_int_dots"] == 7 * cfg.n_layers and ops_ == [
-            "lutq_shift", "lutq_shift_experts"], f"moe audit {name}: "
-              f"{c['n_int_dots']} int dots {ops_}")
-        check(len(routers) == cfg.n_layers, f"moe audit {name}: "
-              f"{len(routers)} router products")
+        log(f"  {label} audit {cfg.name} {name}: PASS in "
+            f"{time.perf_counter() - t0:.2f} s | count_ops {c} | int dots "
+            f"{ops_} | router fp dots {len(routers)}")
+        check(ops_ == int_dots, f"{label} audit {name}: int dots {ops_}, "
+              f"expected {int_dots}")
+        check(len(routers) == (cfg.n_layers if cfg.n_experts else 0),
+              f"{label} audit {name}: {len(routers)} router products")
 
 
-def _moe_reduced_card_vs_cpu():
-    """Phase 3m (d): reduced qwen3-moe (4 experts top-2) on the card
-    gives the CPU's greedy tokens through each view (int8, packed4,
-    serving_pow2 with calibration), act_bits 32."""
+def _random_qkv_biases(model, seed):
+    """Set every q/k/v bias of ``model`` (a qkv_bias config's: zero at
+    init) to seeded normal values, so the bias path carries numbers."""
     import torch
 
-    from repro_torch.configs import get_config
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.layers:
+            for k in ("q", "k", "v"):
+                b = getattr(layer.attn, k).bias
+                b.copy_(torch.randn(b.shape, generator=g).to(b.device))
+
+
+def _reduced_card_vs_cpu(label, base):
+    """The reduced config ``base`` (act_bits 32) on the card gives the
+    CPU's greedy tokens through each view (int8, packed4, serving_pow2
+    with calibration): phases 3m (d) and 3n (e)."""
+    import torch
+
     from repro_torch.core.policy import serve_view
     from repro_torch.core.rules import serving_pow2
     from repro_torch.models import api
-    from repro_torch.models.reduce import reduced
     from repro_torch.runtime.serving import generate
 
-    base = reduced(get_config(MOE_ARCH)).replace(act_bits=32)
     toks = torch.randint(0, base.vocab, (3, 24),
                          generator=torch.Generator().manual_seed(6))
     for view in ("int8", "packed4", "pow2"):
         cfg = base.replace(quant=serving_pow2()) if view == "pow2" else base
-        model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+        model = api.init(cfg, seed=0, device="cpu")
+        if cfg.qkv_bias:
+            _random_qkv_biases(model, 8)
+        model = api.quantize(model, cfg)
         if view == "pow2":
             model = api.calibrate(model, cfg, {"tokens": toks[:2]})
         cpu = serve_view(model, pack4=view == "packed4",
@@ -2198,10 +2262,11 @@ def _moe_reduced_card_vs_cpu():
         want = generate(cpu, cfg, {"tokens": toks}, steps=8, device="cpu")
         got = generate(cpu.to("cuda"), cfg, {"tokens": toks}, steps=8,
                        device="cuda").cpu()
-        log(f"reduced {cfg.name} [{view}] card vs cpu tokens equal "
+        log(f"reduced {cfg.name} (G = {cfg.n_heads // cfg.n_kv_heads}, qkv "
+            f"bias {cfg.qkv_bias}) [{view}] card vs cpu tokens equal "
             f"{bool(torch.equal(got, want))}")
-        check(torch.equal(got, want), f"reduced MoE [{view}]: card and CPU "
-              f"tokens differ")
+        check(torch.equal(got, want), f"reduced {label} [{view}]: card and "
+              f"CPU tokens differ")
 
 
 def moe_full_width():
@@ -2244,8 +2309,9 @@ def moe_full_width():
     for name, stacked, dense in (
             ("int8", "lutq_matmul_experts", "lutq_matmul"),
             ("packed4", "lutq_gemv_packed_experts", "lutq_gemv_packed")):
-        _, counts = _moe_serve(name, views[name], base, toks, dense, stacked,
-                               (4 * MOE_LAYERS + 1, 3 * MOE_LAYERS))
+        _, counts = _family_serve("moe", name, views[name], base, toks,
+                                  {dense: 4 * MOE_LAYERS + 1,
+                                   stacked: 3 * MOE_LAYERS})
         launches[stacked] = counts[stacked]
         launches["dense"][dense] = counts[dense]
     rng = torch.Generator().manual_seed(7)
@@ -2269,17 +2335,259 @@ def moe_full_width():
           "frozen pairs")
     log(f"moe serving_pow2: serve_state (init, quantize, calibrate, "
         f"serve_view) {time.perf_counter() - t0:.1f} s")
-    _, counts = _moe_serve("serving_pow2", view, cfg, toks, "lutq_shift",
-                           "lutq_shift_experts",
-                           (4 * MOE_LAYERS, 3 * MOE_LAYERS))
+    _, counts = _family_serve("moe", "serving_pow2", view, cfg, toks,
+                              {"lutq_shift": 4 * MOE_LAYERS,
+                               "lutq_shift_experts": 3 * MOE_LAYERS})
     launches["lutq_shift_experts"] = counts["lutq_shift_experts"]
     launches["dense"]["lutq_shift"] = counts["lutq_shift"]
-    _moe_audit(view, cfg, toks)
+    _family_audit("moe", view, cfg, toks, MOE_AUDIT_PROMPT,
+                  {"lutq_shift": 4 * MOE_LAYERS,
+                   "lutq_shift_experts": 3 * MOE_LAYERS})
     del view
     torch.cuda.empty_cache()
-    _moe_reduced_card_vs_cpu()
+    from repro_torch.models.reduce import reduced
+
+    _reduced_card_vs_cpu("MoE", reduced(get_config(MOE_ARCH)).replace(
+        act_bits=32))
     log(f"phase 3m {time.perf_counter() - t_phase:.1f} s | launches "
         f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3n: the remaining dense families at full width
+# ---------------------------------------------------------------------------
+
+#: phase 3n's families (kv bits of their paged engines: int8 pages at
+#: mistral-large's group of 12, bf16 pages at qwen1.5's group of 8) and
+#: mistral-nemo-12b, whose paged engine runs once (group 4, head dim 128)
+DENSE_ARCHS = {"mistral-large-123b": 8, "qwen1.5-110b": 16}
+NEMO_ARCH = "mistral-nemo-12b"
+#: their depth on the card: 2 layers (mistral-large ~5.5 GB of float32
+#: masters a layer and 3.2 GB of embedding and head; qwen1.5 ~5.4 GB a
+#: layer and 10 GB of embedding and head at vocab 152064)
+DENSE_LAYERS = 2
+#: phase 3n (c): the paged engine's queue and new tokens a request
+DENSE_QUEUE = (128, 96, 64, 112, 80)
+DENSE_ENGINE_GEN = 8
+
+
+def _dense_engine(label, view, cfg, queue, *, speculative=True):
+    """Phase 3n (c): the paged engine (page 64, 4 slots, packed prefill,
+    act_bits 32, graph replay) over prompts of unequal lengths: each
+    request's tokens equal its lone generate; the paged kernel launches
+    n_layers times a decode step in the variant its plan picks, no plain
+    version. With ``speculative`` a speculative paged engine (k = 3,
+    draft_bits 3) gives the same tokens (plain decoding's). Returns
+    {kernel: launches} over the runs."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.kernels import build, paged_attn
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.serving import generate
+
+    # the speculative engine's k = 3 positions of headroom past each
+    # request's last token
+    max_len = max(len(t) for t in queue) + DENSE_ENGINE_GEN + 3
+    lone = [generate(view, cfg, {"tokens": t[None]}, steps=DENSE_ENGINE_GEN,
+                     max_len=max_len, device="cuda")[0].cpu()
+            for t in queue]
+    G = cfg.n_heads // cfg.n_kv_heads
+    plan = paged_attn.launch_plan(
+        4, cfg.n_kv_heads, -(-max_len // ENGINE_PAGE), ENGINE_PAGE,
+        cfg.resolved_head_dim, G, window=cfg.window,
+        itemsize=1 if cfg.kv_cache_bits == 8 else 2,
+        sms=build.sm_count(torch.device("cuda", 0)))
+    variant = ("paged_attention_multipass" if plan["multipass"]
+               else "paged_attention")
+    launches = Counter()
+    for k in ((0, 3) if speculative else (0,)):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(view, cfg, capacity=4, max_len=max_len, kv_pages=48,
+                     page_size=ENGINE_PAGE, speculative=k, draft_bits=3,
+                     device="cuda")
+        warm = time.perf_counter() - t0
+        _reset_counts()
+        for t in queue:
+            eng.submit(t, max_new=DENSE_ENGINE_GEN)
+        res = eng.run()
+        torch.cuda.synchronize()
+        st, counts = eng.stats(), _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = [torch.equal(torch.as_tensor(r["tokens"]), want)
+                for r, want in zip(res, lone)]
+        steps = st["spec_rounds"] if k else st["decode_steps"]
+        per = cfg.n_layers * (2 * k + 1 if k else 1)
+        log(f"{label} paged engine {cfg.name} x{cfg.n_layers} (G = {G}, "
+            f"dh {cfg.resolved_head_dim}, kv {cfg.kv_cache_bits} bits"
+            + (f", speculative k={k}" if k else "") + f"): "
+            f"{st['completed']} requests, {steps} "
+            + ("rounds" if k else "steps") + f", decode "
+            f"{st['decode_tok_s']:.1f} tok/s, goodput "
+            f"{st['goodput_tok_s']:.1f} tok/s, warmup {warm:.2f} s, "
+            + (f"acceptance {st['acceptance_rate']:.3f}, " if k else "")
+            + f"{variant} {counts[variant]} (plan: {plan['nsplit']} splits "
+            f"of {plan['chunk']}), peak {peak:.2f} GiB | equal to lone "
+            f"generates {same} | {CARD}")
+        check(st["paged"] is True and len(res) == len(queue),
+              f"{label} {cfg.name}: the engine did not serve its queue paged")
+        check(all(same), f"{label} {cfg.name}: a request's tokens differ from "
+              f"its lone generate (speculative k={k})")
+        check(counts[variant] == per * steps and counts["plain"] == 0,
+              f"{label} {cfg.name}: {counts[variant]} {variant} launches for "
+              f"{steps} steps of {per}, plain {counts['plain']}")
+        launches.update({kk: v for kk, v in counts.items() if v})
+        del eng
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _dense_family(arch, kv_bits):
+    """Phase 3n for one family: (a) init + quantize 2 full-width layers
+    (qwen1.5's q/k/v biases set to seeded values); (b) generate through
+    the int8 and packed4 views, graph and eager; (c) the paged engine and
+    its speculative twin at act_bits 32; (d) serving_pow2 (calibrated):
+    the per-leaf overflow guard, generate and the multiply audit; (e)
+    the reduced config card vs CPU. Returns {kernel: launches} of the
+    main-path runs (the graph-mode generates and the engines)."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    t_phase = time.perf_counter()
+    base = get_config(arch).replace(n_layers=DENSE_LAYERS)
+    L = base.n_layers
+    toks = torch.randint(0, base.vocab, (BATCH, PROMPT),
+                         generator=torch.Generator().manual_seed(1))
+    launches = Counter()
+
+    def build(cfg):
+        model = api.init(cfg, seed=0, device="cuda")
+        if cfg.qkv_bias:
+            _random_qkv_biases(model, 3)
+        return api.quantize(model, cfg)
+
+    t0 = time.perf_counter()
+    model = build(base)
+    torch.cuda.synchronize()
+    log(f"dense {arch} x{L} (d_model {base.d_model}, {base.n_heads} / "
+        f"{base.n_kv_heads} heads of {base.resolved_head_dim}, d_ff "
+        f"{base.d_ff}, vocab {base.vocab}, qkv bias {base.qkv_bias}): init "
+        f"+ quantize {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | {CARD}")
+    policy = api.resolved_policy(base)
+    views = {"int8": serve_view(model, policy=policy),
+             "packed4": serve_view(model, pack4=True, policy=policy)}
+    del model
+    torch.cuda.empty_cache()
+    q = views["int8"].layers[0].attn.q
+    check(hasattr(q, "bias") == base.qkv_bias
+          and (not base.qkv_bias or bool(q.bias.abs().min() > 0)),
+          f"{arch}: the served q projection's bias is not what the config "
+          f"says")
+    for name, kernel in (("int8", "lutq_matmul"),
+                         ("packed4", "lutq_gemv_packed")):
+        _, counts = _family_serve("dense", name, views[name], base, toks,
+                                  {kernel: 7 * L + 1})
+        launches[kernel] += counts[kernel]
+    rng = torch.Generator().manual_seed(7)
+    queue = [torch.randint(0, base.vocab, (n,), generator=rng)
+             for n in DENSE_QUEUE]
+    launches.update(_dense_engine(
+        "dense", views["packed4"], base.replace(act_bits=32,
+                                                kv_cache_bits=kv_bits),
+        queue))
+    del views
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = base.replace(quant=serving_pow2())
+    calib = torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                          generator=torch.Generator().manual_seed(2))
+    model = api.calibrate(build(cfg), cfg, {"tokens": calib.cuda()})
+    view = serve_view(model, policy=api.resolved_policy(cfg))
+    del model
+    torch.cuda.empty_cache()
+    n_leaves, n_encoded, bits, kept = _pow2_guard_report(view)
+    log(f"dense serving_pow2 {arch}: init, quantize, calibrate ("
+        f"{CALIB_BATCH} x {CALIB_LEN} tokens), serve view "
+        f"{time.perf_counter() - t0:.1f} s | {n_encoded} of {n_leaves} body "
+        f"leaves pow2-encoded with frozen scales | guard (7 + span + "
+        f"ceil(log2 Kin) <= 31) per logical leaf: {bits} | kept on a float "
+        f"dictionary (kernel 1, refused by the audit): {kept or 'none'}")
+    check(n_leaves == 7 * L, f"{arch}: {n_leaves} body leaves")
+    check(all((b > 31) == (p in kept) for p, b in bits.items()),
+          f"{arch}: the guard's decisions disagree with its bits {bits}")
+    n_kept = L * len(kept)  # float-dictionary products a forward
+    expect = {"lutq_shift": 7 * L - n_kept}
+    if n_kept:
+        expect["lutq_matmul"] = n_kept
+    _, counts = _family_serve("dense", "serving_pow2", view, cfg, toks,
+                              expect)
+    launches["lutq_shift"] += counts["lutq_shift"]
+    if kept:
+        try:
+            _family_audit("dense", view, cfg, toks, PROMPT,
+                          {"lutq_shift": 7 * L - n_kept})
+        except AssertionError as e:
+            log(f"  dense audit {arch}: REFUSED, as the reference's audit "
+                f"refuses a float dictionary ({kept}): {str(e)[:200]}")
+        else:
+            die(f"{arch}: the audit passed a float dictionary {kept}")
+    else:
+        _family_audit("dense", view, cfg, toks, PROMPT,
+                      {"lutq_shift": 7 * L})
+    del view
+    torch.cuda.empty_cache()
+    red = reduced(get_config(arch)).replace(act_bits=32)
+    if arch == "mistral-large-123b":  # reduced() makes the group 4
+        red = red.replace(n_heads=12, n_kv_heads=1)
+    _reduced_card_vs_cpu("dense", red)
+    log(f"phase 3n {arch} {time.perf_counter() - t_phase:.1f} s | launches "
+        f"{dict(launches)}")
+    return launches
+
+
+def dense_families_full_width():
+    """Phase 3n: mistral-large-123b and qwen1.5-110b at full width (2
+    layers each, one family on the card at a time), then
+    mistral-nemo-12b's paged engine at 2 full-width layers. Returns
+    {kernel: launches} over their main-path runs."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    launches = Counter()
+    for arch, kv_bits in DENSE_ARCHS.items():
+        launches.update(_dense_family(arch, kv_bits))
+    cfg = get_config(NEMO_ARCH).replace(n_layers=DENSE_LAYERS)
+    model = api.quantize(api.init(cfg, seed=0, device="cuda"), cfg)
+    view = serve_view(model, pack4=True, policy=api.resolved_policy(cfg))
+    del model
+    rng = torch.Generator().manual_seed(9)
+    queue = [torch.randint(0, cfg.vocab, (n,), generator=rng)
+             for n in DENSE_QUEUE]
+    launches.update(_dense_engine(
+        "dense", view, cfg.replace(act_bits=32, kv_cache_bits=8), queue,
+        speculative=False))
+    del view
+    torch.cuda.empty_cache()
+    log(f"phase 3n {time.perf_counter() - t_phase:.1f} s | launches "
+        f"{dict(launches)}")
     return launches
 
 
@@ -3174,13 +3482,15 @@ def serve_speculative(views, cfg):
 # ---------------------------------------------------------------------------
 
 def _pow2_guard_report(view):
-    """(body leaves, leaves pow2-encoded with frozen scales, largest
-    7 + span + ceil(log2 Kin) over the logical leaves)."""
+    """(body leaves, leaves pow2-encoded with frozen scales, {logical
+    leaf: 7 + span + ceil(log2 Kin)} over every logical leaf, the
+    logical leaves the guard kept on a float dictionary). A kept leaf's
+    bits are those of its dictionaries' own sign+exponent planes."""
     from collections import defaultdict
 
     import torch
 
-    from repro_torch.core.lutq import LutqState
+    from repro_torch.core.lutq import LutqState, pow2_encode
     from repro_torch.core.policy import pow2_guard_bits
     from repro_torch.nn.tree import logical_path, tree_paths
 
@@ -3191,10 +3501,14 @@ def _pow2_guard_report(view):
     leaves = [x for g in groups.values() for x in g]
     encoded = [x for x in leaves
                if x.d.dtype == torch.int8 and x.act is not None]
-    bits = {"/".join(p): pow2_guard_bits(torch.stack([x.d for x in g]),
-                                         g[0].a.shape[0])
-            for p, g in groups.items() if g[0].d.dtype == torch.int8}
-    return len(leaves), len(encoded), bits
+    bits, kept = {}, []
+    for p, g in groups.items():
+        d = torch.stack([x.d for x in g])
+        if d.dtype != torch.int8:
+            kept.append("/".join(p))
+            d = pow2_encode(d)
+        bits["/".join(p)] = pow2_guard_bits(d, g[0].a.shape[-2])
+    return len(leaves), len(encoded), bits, kept
 
 
 def serve_pow2_full_width():
@@ -3219,7 +3533,7 @@ def serve_pow2_full_width():
                                      calib_batch={"tokens": calib.cuda()},
                                      device="cuda")
     torch.cuda.synchronize()
-    n_leaves, n_encoded, bits = _pow2_guard_report(view)
+    n_leaves, n_encoded, bits, _ = _pow2_guard_report(view)
     kinds = Counter((m["backend"], m["encoding"], m["act_frozen"])
                     for m in manifest.values())
     log(f"serving_pow2 {cfg.name}: init + quantize + calibrate ({CALIB_BATCH}"
@@ -4700,14 +5014,17 @@ def kmeans_timings(card: str):
     return agg
 
 
-def paged_timings(card: str, run_a_lens):
+def paged_timings(card: str, run_a_lens, G=4, dh=80, labels=("a", "c"),
+                  sweep=True):
     """The paged-attention kernel at run (a)'s decode geometry (8 rows,
     lengths mid-generation) and at run (c)'s longest row, int8 pages,
     both variants, with pools rotated through more than twice the L2;
     beside its byte bound (the live pages' K/V rows and scales, q and
     out once), its plain version and scaled_dot_product_attention on a
     pre-gathered, pre-dequantized row with the same mask (a yardstick
-    the port never calls)."""
+    the port never calls). Danube's group and head dim unless ``G``,
+    ``dh`` say otherwise (8 KV heads either way); ``labels`` picks the
+    geometries, ``sweep`` the blocks-per-SM sweep."""
     import torch
     import torch.nn.functional as F
 
@@ -4717,12 +5034,13 @@ def paged_timings(card: str, run_a_lens):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(9)
-    Hkv, G, dh, page, window = 8, 4, 80, 64, 4096
+    Hkv, page, window = 8, 64, 4096
     geometries = {"a": (run_a_lens, -(-(512 + 64) // page)),
                   "c": ([LONG_PROMPT + LONG_GEN - 1],
                         -(-(LONG_PROMPT + LONG_GEN) // page))}
     out = {}
-    for label, (lens, NB) in geometries.items():
+    for label in labels:
+        lens, NB = geometries[label]
         B = len(lens)
         q, kp, vp, ks, vs, block, _, cl = _paged_case(
             B, Hkv, G, dh, page, NB, lens, torch.bfloat16, torch.int8,
@@ -4751,9 +5069,9 @@ def paged_timings(card: str, run_a_lens):
         # the split plan's target of blocks per SM, swept (the default,
         # paged_attn.BLOCKS_PER_SM, is what every other call used)
         default = paged_attn.BLOCKS_PER_SM
-        sweep = {}
+        swept = {}
         try:
-            for per_sm in (1, 2, 4, 8):
+            for per_sm in (1, 2, 4, 8) if sweep else ():
                 paged_attn.BLOCKS_PER_SM = per_sm
                 for variant, budget in (("paged_attention", None),
                                         ("paged_attention_multipass", 0)):
@@ -4761,18 +5079,18 @@ def paged_timings(card: str, run_a_lens):
                         return paged_attn.paged_attention(
                             q, kp, vp, blk, cl, window=window, k_scale=ks,
                             v_scale=vs, smem_budget_bytes=budget)
-                    sweep[per_sm, variant] = time_ms(
+                    swept[per_sm, variant] = time_ms(
                         fn, sets, iters=max(40, 2 * n))[0]
         finally:
             paged_attn.BLOCKS_PER_SM = default
         split = paged_attn.split_plan(B, Hkv, NB, page, window,
                                       sms=build.sm_count(dev))
-        for per_sm in (1, 2, 4, 8):
+        for per_sm in (1, 2, 4, 8) if sweep else ():
             sp = paged_attn.split_plan(B, Hkv, NB, page, window,
                                        sms=build.sm_count(dev), per_sm=per_sm)
             log(f"  run ({label}) at {per_sm} blocks an SM ({sp['nsplit']} "
                 f"splits of {sp['chunk']}, {sp['blocks']} blocks): "
-                + ", ".join(f"{v} {sweep[per_sm, v] * 1e3:.1f} us"
+                + ", ".join(f"{v} {swept[per_sm, v] * 1e3:.1f} us"
                             for v in times))
 
         def plain(q, kp, vp, blk, cl, ks, vs):
@@ -5000,6 +5318,7 @@ def main() -> int:
                                 for r in engine.values())
     reduced_engine_card_vs_cpu()
     moe = moe_full_width()
+    dense = dense_families_full_width()
     pow2 = serve_pow2_full_width()
     launches["lutq_shift"] = pow2["launches"]
     trained = train_full_width()
@@ -5042,6 +5361,18 @@ def main() -> int:
                               plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
                               bound_by=g["bound_by"],
                               library_ms=g["library_ms"])
+    # kernels 6 and 7 at run (a)'s geometry with head dim 128 at
+    # qwen1.5-110b's group (8) and mistral-large-123b's (12)
+    wide = {}
+    for G in (8, 12):
+        g = paged_timings(card, [len(r["tokens"]) + r["max_new"] // 2
+                                 for r in run_a], G=G, dh=128, labels=("a",),
+                          sweep=False)["a"]
+        for variant in ("paged_attention", "paged_attention_multipass"):
+            wide.setdefault(variant, {})[f"G{G}_dh128"] = dict(
+                ms=g["times"][variant][0], plain_ms=g["plain_ms"],
+                bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+                library_ms=g["library_ms"])
     # kernel 5: danube's prefill geometry (the 4096 row is logged)
     table["flash_attention"] = flash_timings(card)["danube"]
     # the expert-stacked kernels: one MoE layer's three products at E =
@@ -5080,6 +5411,11 @@ def main() -> int:
             continue
         if kname in moe["dense"]:  # phase 3m's q, k, v, o and head
             records[-1]["moe_launches"] = moe["dense"][kname]
+        # phase 3n: mistral-large-123b's and qwen1.5-110b's graph-mode
+        # generates and paged engines, mistral-nemo-12b's engine
+        records[-1]["dense_family_launches"] = dense.get(kname, 0)
+        if kname in wide:  # phase 4 at dh 128, G = 8 and 12, run (a)
+            records[-1]["shapes"] = wide[kname]
         if kname in spec_launches:  # phase 3f's speculative runs
             records[-1]["speculative_launches"] = spec_launches[kname]
         if kname in packed_launches:  # phase 3i's packed graph passes

@@ -1,8 +1,9 @@
 """Architecture registry (counterpart of ``repro.configs``).
 
 The port registers the configurations it can serve: the dense
-``h2o-danube-1.8b`` and ``mistral-nemo-12b`` and the MoE
-``qwen3-moe-235b-a22b``.
+``h2o-danube-1.8b``, ``mistral-nemo-12b``, ``mistral-large-123b`` (a
+GQA group of 12) and ``qwen1.5-110b`` (a bias on q, k and v), and the
+MoE ``qwen3-moe-235b-a22b``.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ def _ensure_loaded():
         return
     from repro_torch.configs import (  # noqa: F401
         h2o_danube_1_8b,
+        mistral_large_123b,
         mistral_nemo_12b,
+        qwen1_5_110b,
         qwen3_moe_235b_a22b,
     )

@@ -1,0 +1,12 @@
+// Paged decode attention (paged_attn.cu) at (G, dh) = (8, 128),
+// qwen1.5-110b's 64 query heads over 8 KV heads, compiled apart so that
+// the kernel's shapes build in parallel (paged_attn.cuh).
+#include "paged_attn.cuh"
+
+namespace paged_attn {
+
+int launch_g8_dh128(const Args& a, int q_dtype, int kv_dtype, bool global) {
+  return launch_dtypes<8, 128, 8>(a, q_dtype, kv_dtype, global);
+}
+
+}  // namespace paged_attn

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.kernels.paged_attn``: :func:`paged_attention_tpu`
 (kernel 6) and ``_paged_attention_multipass`` (kernel 7) become the two
-variants of the hand-written CUDA kernel in ``csrc/paged_attn.cu``:
+variants of the hand-written CUDA kernel in ``csrc/paged_attn.cu`` (its
+body in ``csrc/paged_attn.cuh``):
 
 ``paged_attention``            each split's scores in shared memory;
 ``paged_attention_multipass``  each split's scores in a global f32
@@ -30,7 +31,10 @@ kernel or raises; on a CPU tensor it runs the plain version,
 
 The kernel reads only the valid positions ``[max(0, len - window),
 len)`` of each row: dead block entries and pages behind the window are
-never read, and a row with ``len = 0`` gives 0.
+never read, and a row with ``len = 0`` gives 0. It takes groups of up
+to 16 query heads a KV head (mistral-large-123b's 96 over 8 is 12) and
+head dims up to 128; one block reads a K/V row once for its whole
+group.
 """
 from __future__ import annotations
 
@@ -56,10 +60,11 @@ MAX_SMEM = 232448
 DEFAULT_SMEM_BUDGET = MAX_SMEM
 #: blocks an SM that :func:`split_plan` aims for
 BLOCKS_PER_SM = 2
-# the kernel's block shape (csrc/paged_attn.cu): warps, most query heads
-# per KV head, most head-dim columns, most partial dot products of a K
-# row, positions of a ring stage, ring stages, most splits of a row
-_WARPS, _MAX_GROUP, _MAX_DH, _MAX_PARTS = 8, 8, 128, 8
+# the kernel's block shape (csrc/paged_attn.cuh): warps, most query heads
+# per KV head (kMaxGroup: one block reads a K/V row once for all of
+# them), most head-dim columns, most partial dot products of a K row,
+# positions of a ring stage, ring stages, most splits of a row
+_WARPS, _MAX_GROUP, _MAX_DH, _MAX_PARTS = 8, 16, 128, 8
 TILE, STAGES, MAX_SPLITS = 64, 4, 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -130,7 +135,7 @@ def smem_plan(nb: int, page: int, dh: int, g: int, *,
     the staged scales (int8 pools), the reduction slots, every split's
     max and sum for the merge (``nsplit > 1``), the split's
     block-table entries and a tile's partial scores
-    (csrc/paged_attn.cu's ``Smem``). When the scores outgrow
+    (csrc/paged_attn.cuh's ``Smem``). When the scores outgrow
     ``budget_bytes``, or the block would outgrow what sm_90 allows,
     they move to a global workspace of ``g x span`` floats a row
     (``multipass``). ``ws_bytes`` is that workspace per row.

@@ -2,8 +2,9 @@
 
 Counterpart of the dense and MoE paths of ``repro.models.lm``: GQA
 attention with an optional sliding window (SWA ring cache, optional int8
-KV with bf16 scales) and optional qk-norm (RMSNorm over the head dim,
-before RoPE), a SwiGLU MLP or a top-k MoE (``nn/moe.py``; prefill at
+KV with bf16 scales), an optional bias on q, k and v (added after the
+product, cast to its dtype) and optional qk-norm (RMSNorm over the head
+dim, before RoPE), a SwiGLU MLP or a top-k MoE (``nn/moe.py``; prefill at
 ``cfg.capacity_factor``, one-token decode at ``max(cf, 2.0)``), untied
 or tied readout. The reference scans over a
 stacked layer axis; here the layers are an ``nn.ModuleList`` walked by a
@@ -82,11 +83,11 @@ class LM(nn.Module):
 
 def _check_family(cfg: ModelConfig):
     if (cfg.family not in ("dense", "moe") or cfg.use_mla
-            or cfg.first_dense or cfg.n_prefix_tokens or cfg.qkv_bias):
+            or cfg.first_dense or cfg.n_prefix_tokens):
         raise NotImplementedError(
             f"the port serves GQA attention without MLA, leading dense "
-            f"layers, a modality prefix or qkv bias so far (config "
-            f"{cfg.name!r}); see ROADMAP queue 1, other LM families")
+            f"layers or a modality prefix so far (config {cfg.name!r}); "
+            f"see ROADMAP queue 1, other LM families")
 
 
 def _check_paged(cfg: ModelConfig):
@@ -104,13 +105,16 @@ def _check_paged(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def attn_init(gen, cfg: ModelConfig, device=None) -> Attention:
+    """q, k, v (each with a bias under ``cfg.qkv_bias``, zero at init, as
+    the reference's), o and, under ``cfg.use_qk_norm``, the qk-norms."""
     dh = cfg.resolved_head_dim
     norms = ((rmsnorm_init(dh, device=device), rmsnorm_init(dh, device=device))
              if cfg.use_qk_norm else (None, None))
+    qkv = dict(bias=cfg.qkv_bias, device=device)
     return Attention(
-        linear_init(gen, cfg.d_model, cfg.n_heads * dh, device=device),
-        linear_init(gen, cfg.d_model, cfg.n_kv_heads * dh, device=device),
-        linear_init(gen, cfg.d_model, cfg.n_kv_heads * dh, device=device),
+        linear_init(gen, cfg.d_model, cfg.n_heads * dh, **qkv),
+        linear_init(gen, cfg.d_model, cfg.n_kv_heads * dh, **qkv),
+        linear_init(gen, cfg.d_model, cfg.n_kv_heads * dh, **qkv),
         linear_init(gen, cfg.n_heads * dh, cfg.d_model, device=device),
         *norms)
 

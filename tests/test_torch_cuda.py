@@ -572,13 +572,20 @@ def test_cuda_kmeans_stats_raises_instead_of_falling_back(cuda_device,
 #: (B, Hkv, G, dh, page, NB, lengths, window): reduced danube's decode
 #: shape, full-width danube's at capacity 8 with a 69-page row, the same
 #: with lengths on the kernel's split edges (filled in from the card's
-#: split plan by _paged_operands), and a batch of empty rows
+#: split plan by _paged_operands), a batch of empty rows, and head dim
+#: 128 at the groups of qwen1.5-110b (8), mistral-large-123b (12) and
+#: the kernel's limit (16), the last on the split edges
 PAGED_SHAPES = {
     "reduced": (6, 1, 2, 16, 8, 4, [0, 1, 7, 8, 25, 32], 24),
     "full": (8, 8, 4, 80, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
              4096),
     "splits": (12, 8, 4, 80, 64, 69, None, 4096),
     "empty": (4, 8, 4, 80, 64, 69, [0, 0, 0, 0], 4096),
+    "g8": (8, 8, 8, 128, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
+           4096),
+    "g12": (8, 8, 12, 128, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
+            4096),
+    "g16": (12, 8, 16, 128, 64, 69, None, 4096),
 }
 
 
@@ -652,7 +659,8 @@ def _paged_operands(shape, q_dtype, kv_dtype, dev, seed=0, poison=False):
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.float32, torch.int8),
     (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)])
-@pytest.mark.parametrize("shape", ["reduced", "full", "splits", "empty"])
+@pytest.mark.parametrize("shape", ["reduced", "full", "splits", "empty",
+                                   "g8", "g12", "g16"])
 @pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
 def test_cuda_paged_attention_matches_plain(cuda_device, budget, shape,
                                             q_dtype, kv_dtype):
@@ -675,7 +683,7 @@ def test_cuda_paged_attention_matches_plain(cuda_device, budget, shape,
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.int8)])
-@pytest.mark.parametrize("shape", ["reduced", "splits"])
+@pytest.mark.parametrize("shape", ["reduced", "splits", "g12", "g16"])
 @pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
 def test_cuda_paged_attention_is_deterministic_and_skips_dead_pages(
         cuda_device, budget, shape, q_dtype, kv_dtype):
@@ -695,13 +703,15 @@ def test_cuda_paged_attention_is_deterministic_and_skips_dead_pages(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["splits", "g8", "g12", "g16"])
 @pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
-def test_cuda_paged_attention_replays_in_a_cuda_graph(cuda_device, budget):
+def test_cuda_paged_attention_replays_in_a_cuda_graph(cuda_device, budget,
+                                                      shape):
     """One call captured in a CUDA graph and replayed twice equals the
     eager call: the launch reads nothing back from the card, and the
     merge tickets are left at zero for the next replay."""
     q, kp, vp, block, cl, ks, vs, window = _paged_operands(
-        "splits", torch.bfloat16, torch.int8, cuda_device)
+        shape, torch.bfloat16, torch.int8, cuda_device)
 
     def call():
         return paged_attn.paged_attention(q, kp, vp, block, cl, window=window,
@@ -766,8 +776,9 @@ def test_cuda_paged_attention_raises_instead_of_falling_back(cuda_device,
     monkeypatch.setattr(build, "load_library", failed_build)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         paged_attn.paged_attention(q, kp, vp, block, cl)
+    # the kernel takes groups of up to 16: 2 x 9 = 18 query heads a KV head
     with pytest.raises(ValueError, match="query heads per KV head"):
-        paged_attn.paged_attention(q.repeat(1, 1, 5, 1), kp, vp, block, cl)
+        paged_attn.paged_attention(q.repeat(1, 1, 9, 1), kp, vp, block, cl)
     assert paged_attn.COUNTS["plain"] == plain
 
 
@@ -796,6 +807,58 @@ def test_cuda_paged_engine_matches_cpu(cuda_device):
         launches = paged_attn.COUNTS["launches"]
         toks[dev] = [r["tokens"] for r in eng.run()]
         assert (paged_attn.COUNTS["launches"] > launches) == (dev == "cuda")
+    for a, b in zip(toks["cpu"], toks["cuda"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mistral-large-123b", "qwen1.5-110b"])
+def test_cuda_dense_family_engine_matches_cpu(cuda_device, arch):
+    """Reduced mistral-large-123b at its group of 12 (12 query heads over
+    1 KV head, head dim 16) and reduced qwen1.5-110b with nonzero q, k
+    and v biases, through the paged engine (int8 pages, packed4): the
+    card's tokens are the CPU's, and the card ran the paged kernel and
+    the GEMM, no plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.kernels import lutq_gemv_packed
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+
+    cfg = reduced(get_config(arch)).replace(
+        quant=QuantSpec(bits=4, constraint="pow2", min_size=512),
+        act_bits=32, kv_cache_bits=8)
+    if arch == "mistral-large-123b":
+        cfg = cfg.replace(n_heads=12, n_kv_heads=1)
+    model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for layer in model.layers:
+            for k in ("q", "k", "v"):
+                lin = getattr(layer.attn, k)
+                assert hasattr(lin, "bias") == cfg.qkv_bias
+                if cfg.qkv_bias:
+                    lin.bias.copy_(torch.randn(lin.bias.shape, generator=g))
+    model = serve_view(model, pack4=True, policy=api.resolved_policy(cfg))
+    reqs = synthetic_requests(cfg, 4, max_prompt=30, max_new=8, seed=1)
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(model.to(dev), cfg, capacity=2, max_len=38, kv_pages=16,
+                     page_size=8, device=dev)
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"])
+        before = (paged_attn.COUNTS["launches"],
+                  lutq_gemv_packed.COUNTS["launches"], paged_attn.COUNTS[
+                      "plain"], lutq_gemv_packed.COUNTS["plain"])
+        with torch.no_grad():
+            toks[dev] = [r["tokens"] for r in eng.run()]
+        if dev == "cuda":
+            assert paged_attn.COUNTS["launches"] > before[0]
+            assert lutq_gemv_packed.COUNTS["launches"] > before[1]
+            assert (paged_attn.COUNTS["plain"],
+                    lutq_gemv_packed.COUNTS["plain"]) == before[2:]
     for a, b in zip(toks["cpu"], toks["cuda"]):
         np.testing.assert_array_equal(a, b)
 

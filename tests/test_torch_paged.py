@@ -145,7 +145,7 @@ def test_smem_plan_properties():
     block can hold (16384 positions) takes the workspace; the score
     row's width is the window where that is shorter than the row;
     shrinking the budget moves a chunk to the workspace and never back;
-    the block's bytes are the kernel's layout (csrc/paged_attn.cu
+    the block's bytes are the kernel's layout (csrc/paged_attn.cuh
     ``Smem``) and always fit what sm_90 allows."""
     p = paged_attn.smem_plan(3, 8, 16, 2)
     assert not p["multipass"] and p["span"] == p["chunk"] == 24
@@ -159,12 +159,13 @@ def test_smem_plan_properties():
         assert not plan["multipass"] and plan["ws_bytes"] == 0
     assert paged_attn.smem_plan(256, 64, 80, 4)["multipass"]
     # run (c): q 1280 + ring max(4 x 5120, 8 x 4 x 80 x 4) + int8 scales
-    # 1024 + reductions 336 + the splits' maxima and sums 32 x 4 x 8 + 4
-    # block entries (16) + a tile's partial scores 64 x 5 x 4 x 4 + scores
-    # 4 x 128 x 4
+    # 1024 + reductions 656 (the warps' and the split's slots for the
+    # kernel's 16 heads, (8 + 2) x 16 + 1 floats) + the splits' maxima
+    # and sums 32 x 4 x 8 + 4 block entries (16) + a tile's partial
+    # scores 64 x 5 x 4 x 4 + scores 4 x 128 x 4
     c = paged_attn.smem_plan(69, 64, 80, 4, window=4096, chunk=128,
                              nsplit=32, itemsize=1)
-    assert c["smem_bytes"] == (1280 + 20480 + 1024 + 336 + 1024 + 16 + 5120
+    assert c["smem_bytes"] == (1280 + 20480 + 1024 + 656 + 1024 + 16 + 5120
                                + 2048)
     last = False
     for budget in (4096, 400, 200, 192, 100, 0):
