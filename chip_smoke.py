@@ -142,6 +142,15 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    kernel on its operands, bit for bit where the two plans split alike;
    at C = 1 and 40 a second call and two replays of a captured call give
    the first call's bits, the merge tickets back at 0.
+2o. deepseek-v2-lite-16b's shapes: kernels 1, 2 and 4 at its leaves, q
+   (2048, 3072), dkv (2048, 576: N not a multiple of 128, a partial n
+   tile and, packed, its byte pairs), uk / uv (512, 2048), o, the dense
+   MLP (2048 <-> 1408) and the shared experts (2048 <-> 2816), M = 1, 4,
+   128, 384, 512, against their plain versions (phase 2's tolerances;
+   lutq_shift bit for bit and a second call's bits); second-call and
+   graph bits at N = 576 and Kin = 512; then phase 2m's checks of the
+   three expert stacks at E = 64, wi/wg (2048, 1408) and wo (1408,
+   2048) (Kin 1408 = 11 x 128: an odd chunk count), C = 1, 40, 60.
 2h. prefill rows: danube's five product shapes through both GEMM
    kernels, bf16 x: the first m rows of an M-row product equal the
    m-row product bit for bit for every m < M in 16, 32, 64, 128, 256
@@ -250,6 +259,26 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    mistral-nemo-12b's paged engine (2 full-width layers, G = 4, head
    dim 128, int8 pages) over the same kind of queue, as in (c). Its
    launches go into the kernels' record as "dense_family_launches".
+3o. deepseek-v2-lite-16b at full width (d_model 2048, 16 heads, MLA
+   with kv_lora 512, q/k heads of 128 + 64 rope, v heads of 128; 64
+   experts top-6 of d_ff 1408 plus 2 shared (2816), vocab 102400, its own
+   4-bit pow2 LUT-Q, 8-bit activations), 3 of its 27 layers: the dense
+   prefix layer and 2 MoE layers, random weights from seed 0. (b) int8
+   and packed4 generate (B=4, prompt 128, 16 tokens), graph and eager:
+   equal tokens and counts, no plain version; a prefill runs 8 dense
+   products a layer (MLA's q, dkv, uk, uv, o and the MLP or the shared
+   experts) plus the head, a decode step 6 (the absorbed form decodes uk
+   and uv in the step) plus the head, and 3 stacked launches a MoE
+   layer; the materialize of uk / uv beside a replayed decode step. The
+   calibrated serving_pow2 view the same on lutq_shift (no head) and
+   its stack; (c) the audit of its 96-token prefill and one decode step:
+   the integer dots as in (b), the routers' 2 float products, and the
+   absorbed decode's 2 float latent products a layer (on decoded uk /
+   uv, reported apart: not multiplier-less); (d) the slot engine over 5
+   prompts (two lengths twice: groups of equal length), as phase 3m (c);
+   (e) reduced deepseek (floor 0: every MLA leaf quantized) on the card
+   gives the CPU's tokens in the three views. Its launches go into the
+   kernels' record as "deepseek_launches".
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -419,7 +448,10 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    bound (assignments, x, output and dictionaries at the HBM rate; 2 E C
    Kin N at the bf16 or int8 peak), the plain version and torch.bmm on
    the pre-decoded bf16 weights (a yardstick; none for lutq_shift): the
-   record's top level is one layer at C = 1, its "prefill" at C = 40.
+   record's top level is one layer at C = 1, its "prefill" at C = 40;
+   the same at deepseek's E = 64 stacks (2048 <-> 1408), C = 1 and 60
+   (its 4 x 128-token prefill at top-6 and cf 1.25), the record's
+   "deepseek".
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout,
@@ -640,7 +672,7 @@ def _gemm_fns():
                                  lutq_gemv_packed_ref)}
 
 
-def _gemm_repeats(kname, fn, gen, dev):
+def _gemm_repeats(kname, fn, gen, dev, cases=GEMM_REPEAT_CASES):
     """A second call, and one call captured in a CUDA graph and replayed
     twice, equal the first call bit for bit; the merge tickets are back
     at 0 afterwards."""
@@ -648,7 +680,7 @@ def _gemm_repeats(kname, fn, gen, dev):
 
     from repro_torch.kernels import build
 
-    for M, Kin, N in GEMM_REPEAT_CASES:
+    for M, Kin, N in cases:
         x, a, d = _operands(M, Kin, N, 16, torch.bfloat16, gen, dev,
                             KERNELS[kname]["packed"])
         first = fn(x, a, d)
@@ -1670,14 +1702,17 @@ def _expert_repeats(fn, args, first):
     return all(same), tickets is None or not bool(tickets.any())
 
 
-def moe_kernel_checks():
+def moe_kernel_checks(E_main=MOE_E, shapes=MOE_SHAPES, cs=MOE_C,
+                      split_e=MOE_SPLIT_E, repeat_c=(1, 40), label="2m"):
     """Phase 2m: each expert-stacked kernel against its plain version at
     qwen3-moe's expert shapes, E = 128 (and a 4-expert stack that
     splits), C in MOE_C, bf16 and f32 x (lutq_shift: int8, bit for bit),
     distinct per-expert dictionaries and an empty expert; one launch a
     stacked product; each expert's slab against a one-expert launch of
     the plain product's kernel on its operands (bit for bit where the
-    two plans split alike); second-call and graph-replay bits."""
+    two plans split alike); second-call and graph-replay bits at C in
+    ``repeat_c``. Phase 2o runs it at deepseek's stacks (the arguments;
+    ``split_e`` None: no small stack)."""
     import torch
 
     from repro_torch.kernels import build
@@ -1693,10 +1728,11 @@ def moe_kernel_checks():
         worst[kname] = 0.0
         dtypes = ((torch.int8,) if shift
                   else (torch.bfloat16, torch.float32))
-        cases = [(MOE_E, C, shape) for C in MOE_C
-                 for shape, _ in MOE_SHAPES.values()]
-        cases += [(MOE_SPLIT_E, C, shape) for C in (1, 40)
-                  for shape, _ in MOE_SHAPES.values()]
+        cases = [(E_main, C, shape) for C in cs
+                 for shape, _ in shapes.values()]
+        if split_e:
+            cases += [(split_e, C, shape) for C in (1, 40)
+                      for shape, _ in shapes.values()]
         for E, C, (Kin, N) in cases:
             for dtype in dtypes:
                 x, a, d = _expert_operands(kname, E, C, Kin, N, dtype, gen,
@@ -1742,7 +1778,7 @@ def moe_kernel_checks():
                 if MOE_EMPTY < E:
                     check(not bool(got[MOE_EMPTY].any()),
                           f"{kname}: the empty expert's slab is not zero")
-                if C in (1, 40) and dtype != torch.float32:
+                if C in repeat_c and dtype != torch.float32:
                     same, tickets = _expert_repeats(fn, args, got)
                     log(f"check {kname} E={E} C={C} Kin={Kin} N={N} repeat: "
                         f"second call and graph replays "
@@ -1753,13 +1789,14 @@ def moe_kernel_checks():
                 worst[kname] = max(worst[kname], err)
                 del x, a, d, got, want, args
         torch.cuda.empty_cache()
-    log(f"phase 2m {time.perf_counter() - t0:.1f} s")
+    log(f"phase {label} {time.perf_counter() - t0:.1f} s")
     return worst
 
 
-def moe_kernel_timings(card: str):
+def moe_kernel_timings(card: str, E=MOE_E, shapes=MOE_SHAPES, cs=(1, 40)):
     """The expert-stacked kernels at E = 128 with C = 1 (decode) and C =
-    40 (4 x 128 prompt tokens), each of a MoE layer's three products,
+    40 (4 x 128 prompt tokens), each of a MoE layer's three products
+    (phase 4o: deepseek's E = 64 stacks, C = 1 and 60, the arguments),
     the assignments in two copies (805 MB each, far past the L2), beside
     the bound (the assignments at 1 byte, or half a byte packed, x, the
     output and the dictionaries at the HBM rate; 2 E C Kin N operations
@@ -1780,11 +1817,11 @@ def moe_kernel_timings(card: str):
         shift = kname == "lutq_shift_experts"
         packed = MOE_KERNELS[kname]["packed"]
         per_c = {}
-        for C in (1, 40):
+        for C in cs:
             agg = dict(ms=0.0, plain_ms=0.0, library_ms=None if shift
                        else 0.0, bytes_ms=0.0, ops_ms=0.0)
-            for label, ((Kin, N), calls) in MOE_SHAPES.items():
-                x, a, d = _expert_operands(kname, MOE_E, C, Kin, N,
+            for label, ((Kin, N), calls) in shapes.items():
+                x, a, d = _expert_operands(kname, E, C, Kin, N,
                                            torch.bfloat16, gen, dev)
                 extra = (shift_planes(d),) if shift else ()
                 sets = [(x, a, d) + extra, (x, a.clone(), d) + extra]
@@ -1797,15 +1834,15 @@ def moe_kernel_timings(card: str):
                     tl, _ = time_ms(torch.bmm, [(x, w), (x, w.clone())],
                                     iters=8)
                     del w
-                abytes = MOE_E * Kin * N // (2 if packed else 1)
+                abytes = E * Kin * N // (2 if packed else 1)
                 xbytes = x.numel() * x.element_size()
-                ybytes = MOE_E * C * N * 4
+                ybytes = E * C * N * 4
                 tb = (abytes + xbytes + ybytes + d.numel() * 4) \
                     / HBM_BYTES_PER_S * 1e3
-                to = 2 * MOE_E * C * Kin * N / (
+                to = 2 * E * C * Kin * N / (
                     INT8_OPS if shift else PEAK_FLOPS["bfloat16"]) * 1e3
                 b, by = max(tb, to), ("bytes" if tb >= to else "operations")
-                log(f"time {kname} E={MOE_E} C={C} {label} Kin={Kin} N={N}: "
+                log(f"time {kname} E={E} C={C} {label} Kin={Kin} N={N}: "
                     f"kernel {t * 1e3:.1f} us (host loop "
                     f"{t_loop * 1e3:.1f} us) | bound {b * 1e3:.1f} us ({by})"
                     f" = {b / t * 100:.1f}% | plain {tp * 1e3:.1f} us | "
@@ -1823,7 +1860,7 @@ def moe_kernel_timings(card: str):
             agg["bound_ms"] = max(agg["bytes_ms"], agg["ops_ms"])
             agg["bound_by"] = ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
                                else "operations")
-            log(f"time {kname} E={MOE_E} C={C} one MoE layer (3 products): "
+            log(f"time {kname} E={E} C={C} one MoE layer (3 products): "
                 f"kernel {agg['ms']:.3f} ms | bound {agg['bound_ms']:.3f} ms "
                 f"({agg['bound_by']}) = "
                 f"{agg['bound_ms'] / agg['ms'] * 100:.1f}% | plain "
@@ -2059,14 +2096,24 @@ MOE_ENGINE_GEN = 8
 MOE_AUDIT_PROMPT = 96
 
 
+def _per_generate(n):
+    """Launches of a kernel in one generate of STEPS_GEN tokens (a
+    prefill and STEPS_GEN - 1 decode steps): ``n`` a forward, or ``n =
+    (prefill, decode)`` where the two run other counts (MLA's absorbed
+    decode leaves uk and uv out)."""
+    p, d = n if isinstance(n, tuple) else (n, n)
+    return p + (STEPS_GEN - 1) * d
+
+
 def _family_serve(label, name, view, cfg, toks, expect):
     """One view's generate (B=4, prompt 128, 16 tokens) replaying the
-    decode step it captured and eagerly (phases 3m (b) and 3n): equal
-    tokens and counts, ``expect[kernel]`` launches of each kernel a
-    forward, no other kernel (paged attention aside) and no plain
-    version; prefill ms, decode tok/s, capture ms, peak memory and a
-    profiled generate's heaviest kernels are logged. Returns the graph
-    serve's (tokens, counts)."""
+    decode step it captured and eagerly (phases 3m (b), 3n and 3o (b)):
+    equal tokens and counts, ``expect[kernel]`` launches of each kernel
+    a forward (or a (prefill, decode step) pair, ``_per_generate``), no
+    other kernel (paged attention aside) and no plain version; prefill
+    ms, decode tok/s, capture ms, peak memory and a profiled generate's
+    heaviest kernels are logged. Returns the graph serve's (tokens,
+    counts)."""
     import torch
 
     from repro_torch.models import api
@@ -2094,10 +2141,10 @@ def _family_serve(label, name, view, cfg, toks, expect):
                 f"{stats['t_warmup_s'] * 1e3:.1f} ms | peak {peak:.2f} GiB |"
                 f" launches " + ", ".join(f"{k} {counts[k]}" for k in expect)
                 + f" | {CARD}")
-            check(all(counts[k] == STEPS_GEN * n for k, n in expect.items()),
+            want = {k: _per_generate(n) for k, n in expect.items()}
+            check(all(counts[k] == n for k, n in want.items()),
                   f"{label} {name} ({mode}): launches "
-                  f"{ {k: counts[k] for k in expect} }, expected "
-                  f"{STEPS_GEN} x {expect}")
+                  f"{ {k: counts[k] for k in expect} }, expected {want}")
             check(not any(other.values()), f"{label} {name} ({mode}) went "
                   f"through another path: {other}")
             check(out.shape == (BATCH, STEPS_GEN)
@@ -2122,9 +2169,10 @@ def _family_serve(label, name, view, cfg, toks, expect):
     return per_mode["graph"]
 
 
-def _moe_engine(view, cfg, toks_by_len):
-    """Phase 3m (c): the slot-pool engine over prompts of unequal
-    lengths. One slot: each request's tokens equal a lone generate of it
+def _moe_engine(view, cfg, toks_by_len, label="moe", gen=MOE_ENGINE_GEN):
+    """Phases 3m (c) and 3o (d): the slot-pool engine over prompts of
+    unequal lengths (equal lengths are admitted as one group). One
+    slot: each request's tokens equal a lone generate of it
     (with more slots the requests of a decode step share the experts'
     capacity and the activation scales, so a request's tokens depend on
     its batch, as in the reference); graph and eager equal. Four slots
@@ -2137,8 +2185,8 @@ def _moe_engine(view, cfg, toks_by_len):
     from repro_torch.runtime.engine import Engine
     from repro_torch.runtime.serving import generate
 
-    max_len = max(MOE_QUEUE) + MOE_ENGINE_GEN
-    lone = [generate(view, cfg, {"tokens": t[None]}, steps=MOE_ENGINE_GEN,
+    max_len = max(len(t) for t in toks_by_len) + gen
+    lone = [generate(view, cfg, {"tokens": t[None]}, steps=gen,
                      max_len=max_len, device="cuda")[0].cpu()
             for t in toks_by_len]
     for capacity, kw in ((1, {}), (4, dict(kv_pages=64, page_size=64))):
@@ -2150,42 +2198,49 @@ def _moe_engine(view, cfg, toks_by_len):
                 eng = Engine(view, cfg, capacity=capacity, max_len=max_len,
                              device="cuda", **kw)
                 for t in toks_by_len:
-                    eng.submit(t, max_new=MOE_ENGINE_GEN)
+                    eng.submit(t, max_new=gen)
                 res = eng.run()
                 torch.cuda.synchronize()
                 st = eng.stats()
                 counts = _read_counts()
                 peak = torch.cuda.max_memory_allocated() / 2**30
             runs[mode] = ([torch.as_tensor(r["tokens"]) for r in res], counts)
-            log(f"moe engine {capacity} slot(s) ({mode}): "
+            log(f"{label} engine {capacity} slot(s) ({mode}): "
                 f"{st['completed']} requests, decode "
                 f"{st['decode_tok_s']:.1f} tok/s, goodput "
                 f"{st['goodput_tok_s']:.1f} tok/s, "
                 f"{st['decode_steps']} steps, paged {st['paged']}, peak "
                 f"{peak:.2f} GiB | {CARD}")
             check(st["paged"] is False, "a MoE engine took the paged path")
-            check(counts["plain"] == 0, f"moe engine ran plain versions: "
-                  f"{counts}")
+            check(counts["plain"] == 0, f"{label} engine ran plain "
+                  f"versions: {counts}")
         check(all(torch.equal(a, b) for a, b in
                   zip(runs["graph"][0], runs["eager"][0]))
               and runs["graph"][1] == runs["eager"][1],
-              f"moe engine ({capacity} slots): graph and eager differ")
+              f"{label} engine ({capacity} slots): graph and eager differ")
         if capacity == 1:
             same = [torch.equal(a, b) for a, b in zip(runs["graph"][0],
                                                       lone)]
             log(f"  one-slot engine equals lone generate per request: "
                 f"{same}")
-            check(all(same), "moe engine: a request differs from its lone "
-                  "generate")
+            check(all(same), f"{label} engine: a request differs from its "
+                  f"lone generate")
 
 
-def _family_audit(label, view, cfg, toks, prompt, int_dots):
+def _family_audit(label, view, cfg, toks, prompt, int_dots,
+                  decode_dots=None):
     """The serving_pow2 view's prefill (B=4 x ``prompt``) and one decode
-    step through the multiply audit at full width (phases 3m (b), 3n):
-    ``int_dots`` ({op: count}) integer dots a forward, all of them kernel
+    step through the multiply audit at full width (phases 3m (b), 3n, 3o
+    (c)): ``int_dots`` ({op: count}; ``decode_dots`` for the decode step
+    where it differs) integer dots a forward, all of them kernel
     launches, no fp dot on a quantized shape; the routers' float
-    products (a MoE layer's, not quantized; one a layer) and the float
-    head are allowed."""
+    products (a MoE layer's, not quantized; one a MoE layer) and the
+    float head are allowed. Under MLA the absorbed decode's two float
+    products a layer on the decoded uk / uv (trailing dims (qk_nope,
+    kv_lora) and (kv_lora, v_head), which no quantized leaf has) are
+    counted and reported apart: that decode is not multiplier-less in
+    its latent products, in the reference either. Returns {run: (count,
+    flops)} of those latent products."""
     import torch
 
     from repro_torch.kernels import audit
@@ -2206,7 +2261,13 @@ def _family_audit(label, view, cfg, toks, prompt, int_dots):
         with torch.inference_mode():
             return api.decode_step(view, cfg, tok, cache)
 
+    n_moe = cfg.n_layers - cfg.first_dense if cfg.n_experts else 0
+    latent_dims = ({(cfg.qk_nope, cfg.kv_lora), (cfg.kv_lora, cfg.v_head)}
+                   if cfg.use_mla else set())
+    latent = {}
     for name, fn in (("prefill", prefill), ("decode_step", step)):
+        want = (decode_dots or int_dots) if name == "decode_step" \
+            else int_dots
         t0 = time.perf_counter()
         rep = audit.audit_multiplierless(fn, params=view)
         c = audit.count_ops(rep)
@@ -2214,13 +2275,22 @@ def _family_audit(label, view, cfg, toks, prompt, int_dots):
                 for op in sorted({d["op"] for d in rep["int_dots"]})}
         routers = [d for d in rep["fp_dots"]
                    if d["rhs"] == (cfg.d_model, cfg.n_experts)]
+        lat = [d for d in rep["fp_dots"] if d["rhs"][-2:] in latent_dims]
+        latent[name] = (len(lat), sum(d["flops"] for d in lat))
         log(f"  {label} audit {cfg.name} {name}: PASS in "
             f"{time.perf_counter() - t0:.2f} s | count_ops {c} | int dots "
-            f"{ops_} | router fp dots {len(routers)}")
-        check(ops_ == int_dots, f"{label} audit {name}: int dots {ops_}, "
-              f"expected {int_dots}")
-        check(len(routers) == (cfg.n_layers if cfg.n_experts else 0),
+            f"{ops_} | router fp dots {len(routers)}"
+            + (f" | float latent products {len(lat)} "
+               f"({sorted({(d['lhs'], d['rhs']) for d in lat})}), "
+               f"{latent[name][1]} flops" if cfg.use_mla else ""))
+        check(ops_ == want, f"{label} audit {name}: int dots {ops_}, "
+              f"expected {want}")
+        check(len(routers) == n_moe,
               f"{label} audit {name}: {len(routers)} router products")
+        check(len(lat) == (2 * cfg.n_layers if name == "decode_step"
+                           and cfg.use_mla else 0),
+              f"{label} audit {name}: {len(lat)} float latent products")
+    return latent
 
 
 def _random_qkv_biases(model, seed):
@@ -2236,10 +2306,11 @@ def _random_qkv_biases(model, seed):
                 b.copy_(torch.randn(b.shape, generator=g).to(b.device))
 
 
-def _reduced_card_vs_cpu(label, base):
+def _reduced_card_vs_cpu(label, base, pow2_policy=None):
     """The reduced config ``base`` (act_bits 32) on the card gives the
     CPU's greedy tokens through each view (int8, packed4, serving_pow2
-    with calibration): phases 3m (d) and 3n (e)."""
+    with calibration, or ``pow2_policy``): phases 3m (d), 3n (e) and 3o
+    (e)."""
     import torch
 
     from repro_torch.core.policy import serve_view
@@ -2250,7 +2321,8 @@ def _reduced_card_vs_cpu(label, base):
     toks = torch.randint(0, base.vocab, (3, 24),
                          generator=torch.Generator().manual_seed(6))
     for view in ("int8", "packed4", "pow2"):
-        cfg = base.replace(quant=serving_pow2()) if view == "pow2" else base
+        cfg = (base.replace(quant=pow2_policy or serving_pow2())
+               if view == "pow2" else base)
         model = api.init(cfg, seed=0, device="cpu")
         if cfg.qkv_bias:
             _random_qkv_biases(model, 8)
@@ -2351,6 +2423,264 @@ def moe_full_width():
         act_bits=32))
     log(f"phase 3m {time.perf_counter() - t_phase:.1f} s | launches "
         f"{launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 2o, 3o and 4o: deepseek-v2-lite-16b at full width
+# ---------------------------------------------------------------------------
+
+DS_ARCH = "deepseek-v2-lite-16b"
+#: deepseek's depth on the card: 3 of its 27 layers, the reduced
+#: config's layout (the dense prefix layer and 2 MoE layers); every
+#: width stays at its published size
+DS_LAYERS = 3
+DS_E = 64
+#: the (Kin, N) of deepseek's quantized products beside the expert
+#: stacks: q, dkv (N = 576, not a multiple of 128: a partial n tile),
+#: uk / uv (Kin = 512), o, the dense layer's MLP (d_ff 1408 = 11 x 128)
+#: and the shared experts (2816)
+DS_LEAF_SHAPES = {"q": (2048, 3072), "dkv": (2048, 576),
+                  "uk/uv": (512, 2048), "o": (2048, 2048),
+                  "mlp wi/wg": (2048, 1408), "mlp wo": (1408, 2048),
+                  "shared wi/wg": (2048, 2816), "shared wo": (2816, 2048)}
+#: M of those checks: one slot's decode (1), generate's (4), one
+#: 128-token prompt, the audited 4 x 96 prefill, generate's 4 x 128
+DS_CHECK_M = (1, 4, 128, 384, 512)
+#: (M, Kin, N): second-call and graph-replay bits at dkv's N = 576 and
+#: uk's Kin = 512, decode and prefill
+DS_REPEAT_CASES = [(4, 2048, 576), (512, 2048, 576), (4, 512, 2048),
+                   (512, 512, 2048)]
+#: a MoE layer's expert stack products, (Kin, N) and products a layer
+DS_SHAPES = {"wi/wg": ((2048, 1408), 2), "wo": ((1408, 2048), 1)}
+#: C of the stack checks: decode (4 tokens x top-6 of 64 at cf 2: 1),
+#: phase 2m's prefill C (40), generate's 4 x 128 prefill (512 x 6 / 64 x
+#: 1.25: 60)
+DS_C = (1, 40, 60)
+#: phase 3o (d): the slot engine's queue, equal lengths in groups
+DS_QUEUE = (128, 96, 128, 64, 96)
+DS_ENGINE_GEN = 8
+
+
+def deepseek_kernel_checks():
+    """Phase 2o: kernels 1, 2 and 4 at deepseek's leaf shapes (N = 576,
+    Kin = 512, 1408, 2816) and M in DS_CHECK_M against their plain
+    versions (bf16 and f32 x; lutq_shift bit for bit), second-call and
+    graph bits at N = 576 and Kin = 512; then their expert stacks at E =
+    64, C in DS_C (phase 2m's checks). Returns {kernel: max abs err}."""
+    import torch
+
+    from repro_torch.kernels.lutq_shift import lutq_shift
+    from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    worst = {}
+    for kname, (fn, plain) in _gemm_fns().items():
+        packed = KERNELS[kname]["packed"]
+        worst[kname] = 0.0
+        for label, (Kin, N) in DS_LEAF_SHAPES.items():
+            for M in DS_CHECK_M:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x, a, d = _operands(M, Kin, N, 16, dtype, gen, dev,
+                                        packed)
+                    got = fn(x, a, d)
+                    want = plain(x, a, d)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    rel = err / max(want.abs().max().item(), 1e-30)
+                    dname = str(dtype).split(".")[-1]
+                    log(f"check {kname} deepseek {label} M={M} Kin={Kin} "
+                        f"N={N} {dname}: max_abs_err {err:.3e} rel "
+                        f"{rel:.2e} (tol {TOL[dname]:.0e})")
+                    check(bool(torch.isfinite(got).all()),
+                          f"{kname} produced non-finite values")
+                    check(rel <= TOL[dname], f"{kname} disagrees with its "
+                          f"plain version at deepseek {label} M={M} {dname}")
+                    worst[kname] = max(worst[kname], err)
+                    del x, a, d, got, want
+        _gemm_repeats(kname, fn, gen, dev, DS_REPEAT_CASES)
+    worst["lutq_shift"] = 0.0
+    for label, (Kin, N) in DS_LEAF_SHAPES.items():
+        for M in DS_CHECK_M:
+            xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=9)
+            planes = shift_planes(wsh)
+            got = lutq_shift(xq, a, wsh, planes)
+            again = lutq_shift(xq, a, wsh, planes)
+            want = lutq_shift_ref(xq, a, wsh)
+            torch.cuda.synchronize()
+            log(f"check lutq_shift deepseek {label} M={M} Kin={Kin} N={N}: "
+                f"equal {bool(torch.equal(got, want))}, second call "
+                f"{'same' if torch.equal(got, again) else 'DIFFERENT'} "
+                f"bits")
+            check(torch.equal(got, want) and torch.equal(got, again),
+                  f"lutq_shift differs from its plain version or itself at "
+                  f"deepseek {label} M={M}")
+            del xq, a, got, again, want
+    log(f"phase 2o (kernels 1, 2, 4 at deepseek's leaves) "
+        f"{time.perf_counter() - t0:.1f} s")
+    stacks = moe_kernel_checks(E_main=DS_E, shapes=DS_SHAPES, cs=DS_C,
+                               split_e=None, repeat_c=(1, 60), label="2o")
+    worst.update(stacks)
+    return worst
+
+
+def _graph_ms(fn, iters=20):
+    """Device ms of ``fn`` captured in a CUDA graph and replayed
+    ``iters`` times between CUDA events (warmed up on a side stream)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _materialize_share(name, view, cfg, toks):
+    """Phase 3o: the absorbed decode's per-step decode of the uk / uv
+    leaves (``materialize``, two 1 M-entry decodes a layer, inside the
+    captured step) beside one whole decode step, both replayed from CUDA
+    graphs at B=4 against a 130-column cache; returns (materialize ms,
+    step ms)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models.lm import all_layers
+    from repro_torch.nn.linear import materialize
+    from repro_torch.nn.tree import leaf
+    from repro_torch.runtime import serving
+
+    with torch.inference_mode():
+        _, cache = api.prefill(view, cfg, {"tokens": toks.cuda()})
+        cache = serving.adapt_prefill_cache(cfg, cache, BATCH, PROMPT + 2)
+        tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+        states = [leaf(getattr(layer.attn, k), "kernel")
+                  for layer in all_layers(view) for k in ("uk", "uv")]
+        mat = _graph_ms(lambda: [materialize(st, cfg.dtype)
+                                 for st in states])
+        step = _graph_ms(lambda: api.decode_step(view, cfg, tok, cache))
+    log(f"  deepseek [{name}] materialize of uk / uv ({len(states)} leaves) "
+        f"{mat * 1e3:.1f} us of a {step * 1e3:.1f} us decode step "
+        f"({mat / step * 100:.1f}%), graph replay | {CARD}")
+    return mat, step
+
+
+def deepseek_full_width():
+    """Phase 3o: deepseek-v2-lite-16b at full width (3 layers: the dense
+    prefix layer and 2 MoE layers, random weights from a seed): (b) the
+    int8, packed4 and calibrated serving_pow2 views through generate,
+    graph and eager, with each kernel's launches a forward derived from
+    the view; the materialize share of a replayed decode step; (c) the
+    serving_pow2 view's audit; (d) the slot engine; (e) the reduced
+    config card vs CPU. Returns {kernel: launches} of the graph-mode
+    generates of (b)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2, with_size_floor
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    t_phase = time.perf_counter()
+    base = get_config(DS_ARCH).replace(n_layers=DS_LAYERS)
+    L, n_moe = base.n_layers, base.n_layers - base.first_dense
+    # launches a forward: MLA's q, dkv, uk, uv, o in the prefill and q,
+    # dkv, o in the absorbed decode (uk, uv decoded in the step instead),
+    # a dense MLP or the shared experts (3 products) a layer, the head
+    # (float under serving_pow2); the 3 expert-stacked products of each
+    # MoE layer
+    p, d = 5 * L + 3 * L, 3 * L + 3 * L
+    stack = 3 * n_moe
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, base.vocab, (BATCH, PROMPT), generator=gen)
+    launches, shares = {}, {}
+    t0 = time.perf_counter()
+    model = api.quantize(api.init(base, seed=0, device="cuda"), base)
+    policy = api.resolved_policy(base)
+    torch.cuda.synchronize()
+    log(f"deepseek {base.name} x{L} ({base.first_dense} dense + {n_moe} "
+        f"MoE): init + quantize {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | "
+        f"{CARD}")
+    views = {"int8": serve_view(model, policy=policy),
+             "packed4": serve_view(model, pack4=True, policy=policy)}
+    del model
+    torch.cuda.empty_cache()
+    p0 = views["int8"].prefix_layers["0"]
+    check(p0.attn.dkv.kernel.state.a.shape == (base.d_model, 576)
+          and views["packed4"].layers[0].attn.uk.kernel.state.a.shape
+          == (256, 2048) and hasattr(p0, "mlp"),
+          "deepseek: the MLA leaves or the prefix layer are not as expected")
+    for name, stacked, dense in (
+            ("int8", "lutq_matmul_experts", "lutq_matmul"),
+            ("packed4", "lutq_gemv_packed_experts", "lutq_gemv_packed")):
+        _, counts = _family_serve("deepseek", name, views[name], base, toks,
+                                  {dense: (p + 1, d + 1), stacked: stack})
+        launches[stacked] = counts[stacked]
+        launches[dense] = counts[dense]
+        shares[name] = _materialize_share(name, views[name], base, toks)
+    rng = torch.Generator().manual_seed(7)
+    queue = [torch.randint(0, base.vocab, (n,), generator=rng)
+             for n in DS_QUEUE]
+    _moe_engine(views["packed4"], base, queue, label="deepseek",
+                gen=DS_ENGINE_GEN)
+    del views
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = base.replace(quant=serving_pow2())
+    calib = torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                          generator=torch.Generator().manual_seed(2))
+    view = api.serve_state(cfg, seed=0, device="cuda",
+                           calib_batch={"tokens": calib.cuda()})
+    torch.cuda.synchronize()
+    uk = view.layers[1].attn.uk.kernel.state
+    wo = view.layers[1].moe.wo.state
+    check(uk.d.dtype == torch.int8 and uk.act is not None
+          and wo.d.dtype == torch.int8 and wo.act is not None
+          and wo.act.shape == (cfg.n_experts, 2),
+          "serving_pow2: the MLA or expert leaves are not pow2-encoded with "
+          "frozen pairs")
+    log(f"deepseek serving_pow2: serve_state (init, quantize, calibrate, "
+        f"serve_view) {time.perf_counter() - t0:.1f} s")
+    _, counts = _family_serve("deepseek", "serving_pow2", view, cfg, toks,
+                              {"lutq_shift": (p, d),
+                               "lutq_shift_experts": stack})
+    launches["lutq_shift_experts"] = counts["lutq_shift_experts"]
+    launches["lutq_shift"] = counts["lutq_shift"]
+    shares["serving_pow2"] = _materialize_share("serving_pow2", view, cfg,
+                                                toks)
+    latent = _family_audit("deepseek", view, cfg, toks, MOE_AUDIT_PROMPT,
+                           {"lutq_shift": p, "lutq_shift_experts": stack},
+                           {"lutq_shift": d, "lutq_shift_experts": stack})
+    del view
+    torch.cuda.empty_cache()
+    # floor 0: reduced deepseek's MLA leaves are under 4096 elements
+    small = reduced(get_config(DS_ARCH)).replace(
+        act_bits=32, quant=QuantSpec(bits=4, constraint="pow2", min_size=0))
+    _reduced_card_vs_cpu("deepseek", small,
+                         with_size_floor(serving_pow2(), 0))
+    log(f"phase 3o {time.perf_counter() - t_phase:.1f} s | launches "
+        f"{launches} | decode's float latent products {latent} | "
+        f"materialize ms / step ms {shares}")
     return launches
 
 
@@ -5304,6 +5634,8 @@ def main() -> int:
     worst["lutq_shift"] = shift_checks()
     worst["flash_attention"] = flash_checks()
     worst.update(moe_kernel_checks())
+    for kname, err in deepseek_kernel_checks().items():
+        worst[kname] = max(worst[kname], err)
     quant_divide_checks()
     adamw_checks()
     launches, _, views, cfg = serve_full_width()
@@ -5318,6 +5650,7 @@ def main() -> int:
                                 for r in engine.values())
     reduced_engine_card_vs_cpu()
     moe = moe_full_width()
+    deepseek = deepseek_full_width()
     dense = dense_families_full_width()
     pow2 = serve_pow2_full_width()
     launches["lutq_shift"] = pow2["launches"]
@@ -5379,6 +5712,9 @@ def main() -> int:
     # 128, C = 1 (the record's top level) and C = 40 (its "prefill")
     for kname, per_c in moe_kernel_timings(card).items():
         table[kname], prefill[kname] = per_c[1], per_c[40]
+    # phase 4o: the stacks at deepseek's E = 64, C = 1 and 60
+    ds_stacks = moe_kernel_timings(card, E=DS_E, shapes=DS_SHAPES,
+                                   cs=(1, 60))
     launches.update({k: moe[k] for k in MOE_KERNELS})
     records = []
     for kname, meta in {**KERNELS, **MOE_KERNELS}.items():
@@ -5402,12 +5738,20 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        # phase 3o: deepseek-v2-lite's graph-mode generates
+        if kname in deepseek:
+            records[-1]["deepseek_launches"] = deepseek[kname]
         if kname in MOE_KERNELS:  # phase 2m's timing at C = 40
             p = prefill[kname]
             records[-1]["prefill"] = {
                 "C": 40, "ms": p["ms"], "plain_ms": p["plain_ms"],
                 "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
                 "library_ms": p["library_ms"]}
+            # phase 4o: one deepseek MoE layer's three products, E = 64
+            records[-1]["deepseek"] = {
+                f"C{C}": {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
+                for C, t in ds_stacks[kname].items()}
             continue
         if kname in moe["dense"]:  # phase 3m's q, k, v, o and head
             records[-1]["moe_launches"] = moe["dense"][kname]

@@ -3,7 +3,8 @@
 The port registers the configurations it can serve: the dense
 ``h2o-danube-1.8b``, ``mistral-nemo-12b``, ``mistral-large-123b`` (a
 GQA group of 12) and ``qwen1.5-110b`` (a bias on q, k and v), and the
-MoE ``qwen3-moe-235b-a22b``.
+MoE ``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (MLA with a
+latent cache, one leading dense layer, shared experts).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
+        deepseek_v2_lite_16b,
         h2o_danube_1_8b,
         mistral_large_123b,
         mistral_nemo_12b,

@@ -230,6 +230,15 @@ EMBED_PATTERN = "re:(^|/)table$"
 HEAD_PATTERN = "lm_head/*"
 
 
+def with_size_floor(policy: QuantPolicy, min_size: int) -> QuantPolicy:
+    """``policy`` with every quantizing rule's eligibility floor at
+    ``min_size`` (excluding rules unchanged): a reduced config whose
+    leaves are under a preset's floor still quantizes them all."""
+    return QuantPolicy(rules=tuple(
+        r if r.spec is None else dataclasses.replace(r, min_size=min_size)
+        for r in policy.rules), name=policy.name)
+
+
 def uniform(spec: QuantSpec, name: str = "uniform") -> QuantPolicy:
     """Single catch-all rule: exactly the historical global-QuantSpec
     behavior (same eligibility predicate, same min_size floor)."""

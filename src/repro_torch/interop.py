@@ -4,8 +4,16 @@ The reference keeps parameters as nested dicts of arrays, with
 ``LutqState(w, d, a, sid, act)`` leaves and the layers stacked along a
 leading axis. :func:`from_jax` loads such a tree, handed over as numpy
 (any namedtuple with those five fields stands for a LutqState), into
-the port's modules, splitting each ``(L, ...)`` stack per layer;
-:func:`to_numpy` goes the other way.
+the port's modules, splitting each ``(L, ...)`` stack per layer (L =
+``n_layers - first_dense``; a config's leading dense layers are the
+reference's unstacked ``prefix_layers/<i>`` dicts, the port's
+``prefix_layers.<i>`` modules); :func:`to_numpy` goes the other way.
+
+A slot decode cache crosses with :func:`cache_from_jax` /
+:func:`cache_to_numpy`: the reference stacks each leaf over the
+stacked layers (``{"layers": {...: (L, B, S, ...)}, "len"[,
+"prefix_layers": {"<i>": {...}}]}``); the port keeps one dict per layer
+in execution order, the prefix layers first.
 
 A paged KV cache crosses with :func:`paged_cache_from_jax` /
 :func:`paged_cache_to_numpy`: the reference stacks each pool leaf over
@@ -47,7 +55,7 @@ from torch import nn
 from repro_torch.core.lutq import LutqState
 from repro_torch.core.policy import merge_trainable
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import init_lm
+from repro_torch.models.lm import init_lm, n_stacked
 from repro_torch.nn.tree import (QuantKernel, layer_split, logical_path,
                                  set_leaf, tree_paths)
 
@@ -100,7 +108,7 @@ def from_jax(tree, cfg: ModelConfig, *, device="cpu") -> nn.Module:
     model = init_lm(None, cfg, device="meta")
     for path, leaf in walk(tree):
         if path[0] == "layers":
-            for i in range(cfg.n_layers):
+            for i in range(n_stacked(cfg)):
                 set_leaf(model, ("layers", str(i)) + path[1:],
                          _convert(leaf, device, i))
         else:
@@ -153,6 +161,35 @@ def paged_cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
     return {"pool": pool,
             "block": _tensor(np.asarray(cache["block"], np.int32), device),
             "len": _tensor(np.asarray(cache["len"], np.int32), device)}
+
+
+def cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
+                   ) -> Dict[str, Any]:
+    """A reference slot cache (as numpy) in the port's layout: the
+    prefix layers' dicts, then the stacked leaves split per layer."""
+    prefix = [{key: _tensor(leaf, device) for key, leaf in
+               cache["prefix_layers"][str(i)].items()}
+              for i in range(cfg.first_dense)]
+    layers = [{key: _tensor(np.asarray(leaf)[i], device)
+               for key, leaf in cache["layers"].items()}
+              for i in range(n_stacked(cfg))]
+    return {"layers": prefix + layers,
+            "len": _tensor(np.asarray(cache["len"], np.int32), device)}
+
+
+def cache_to_numpy(cache, cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's slot cache in the reference's layout, as numpy: the
+    first ``first_dense`` layers under ``prefix_layers``, the others
+    restacked."""
+    n = cfg.first_dense
+    stack = cache["layers"][n:]
+    out = {"layers": {k: np.stack([_numpy(c[k]) for c in stack])
+                      for k in stack[0]},
+           "len": _numpy(cache["len"])}
+    if n:
+        out["prefix_layers"] = {str(i): {k: _numpy(v) for k, v in c.items()}
+                                for i, c in enumerate(cache["layers"][:n])}
+    return out
 
 
 def paged_cache_to_numpy(cache) -> Dict[str, Any]:
@@ -289,7 +326,7 @@ def trainable_shapes(cfg: ModelConfig) -> Dict[Tuple[str, ...], Tuple]:
     for name, (sec, path, i) in _ref_keys(model).items():
         if sec == "trainable":
             shape = tuple(named[name].shape)
-            out[path] = shape if i is None else (cfg.n_layers,) + shape
+            out[path] = shape if i is None else (n_stacked(cfg),) + shape
     return out
 
 
@@ -346,7 +383,7 @@ def from_train_params(params, cfg: ModelConfig, *, pack4: bool = False,
     for lpath, tr, st in _param_leaves(params["trainable"],
                                        params["static"]):
         stacked = lpath[0] == "layers"
-        for i in (range(cfg.n_layers) if stacked else (None,)):
+        for i in (range(n_stacked(cfg)) if stacked else (None,)):
             path = (("layers", str(i)) + lpath[1:]) if stacked else lpath
             if st is None:
                 set_leaf(model, path, _convert(tr, device, i))

@@ -26,6 +26,16 @@ batch, then:
 
 On the card the run also fails if any kernel's plain version ran. The
 full-width audit is ``chip_smoke.py``'s phase 3k.
+
+The audit rules by shape, so a float leaf with a quantized leaf's shape
+fails it. Reduced deepseek-v2-lite-16b under the preset's floor (4096
+elements) has one: its prefix layer's ``dkv`` (64 x 32) stays float
+while the stacked ``dkv`` (2 x 64 x 32) is quantized, and the reference's
+example fails the same way. ``--min-size 0`` quantizes every body leaf,
+and ``--calib-len 20`` keeps the audited prompt off kv_lora's 24:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_edge \
+        --arch deepseek-v2-lite-16b --min-size 0 --calib-len 20 --device cpu
 """
 from __future__ import annotations
 
@@ -40,7 +50,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.core import memory
 from repro_torch.core.lutq import LutqState
 from repro_torch.core.policy import lutq_weight_count
-from repro_torch.core.rules import serving_pow2
+from repro_torch.core.rules import serving_pow2, with_size_floor
 from repro_torch.device import resolve_device
 from repro_torch.kernels import audit, ops
 from repro_torch.models import api
@@ -101,6 +111,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="h2o-danube-1.8b", choices=list_archs())
     ap.add_argument("--calib-len", type=int, default=24)
     ap.add_argument("--gen", type=int, default=8)
+    ap.add_argument("--min-size", type=int, default=None,
+                    help="size floor of the preset's quantized rules "
+                         "(default: the preset's own)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to serve; cuda raises when no card is found")
     return ap
@@ -109,8 +122,11 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     dev = resolve_device(args.device)
+    policy = serving_pow2()
+    if args.min_size is not None:
+        policy = with_size_floor(policy, args.min_size)
     cfg = reduced(get_config(args.arch)).replace(
-        quant=serving_pow2(), act_bits=8, remat=False)
+        quant=policy, act_bits=8, remat=False)
     rng = np.random.default_rng(0)
     calib = torch.from_numpy(rng.integers(
         0, cfg.vocab, size=(2, args.calib_len)).astype(np.int32)).to(dev)

@@ -1,5 +1,6 @@
 """Model API (counterpart of ``repro.models.api``), dense and MoE
-families.
+families: GQA attention or MLA (deepseek's latent cache, on the slot
+path only), leading dense layers (``cfg.first_dense``).
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)

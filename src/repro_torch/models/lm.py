@@ -1,14 +1,18 @@
 """Decoder-only transformer LM, dense and MoE families.
 
-Counterpart of the dense and MoE paths of ``repro.models.lm``: GQA
-attention with an optional sliding window (SWA ring cache, optional int8
+Counterpart of the dense and MoE paths of ``repro.models.lm``. Attention
+is GQA, with an optional sliding window (SWA ring cache, optional int8
 KV with bf16 scales), an optional bias on q, k and v (added after the
 product, cast to its dtype) and optional qk-norm (RMSNorm over the head
-dim, before RoPE), a SwiGLU MLP or a top-k MoE (``nn/moe.py``; prefill at
-``cfg.capacity_factor``, one-token decode at ``max(cf, 2.0)``), untied
-or tied readout. The reference scans over a
-stacked layer axis; here the layers are an ``nn.ModuleList`` walked by a
-Python loop, and the cache holds one dict per layer.
+dim, before RoPE); or, under ``cfg.use_mla``, multi-head latent
+attention (``nn/mla.py``: expanded prefill, absorbed one-token decode
+against a latent cache). The feed-forward block is a SwiGLU MLP or a
+top-k MoE (``nn/moe.py``; prefill at ``cfg.capacity_factor``, one-token
+decode at ``max(cf, 2.0)``), with ``cfg.first_dense`` leading layers of
+dense MLP (``prefix_layers``, as deepseek's); the readout is untied or
+tied. The reference scans over a stacked layer axis; here the layers
+are an ``nn.ModuleList`` walked by a Python loop, the prefix layers
+first, and the cache holds one dict per layer in that order.
 
 Entry points:
   lm_forward      (B, S) tokens -> logits (training forward) + aux
@@ -35,6 +39,7 @@ from repro_torch.nn.attention import (decode_attention, flash_attention,
 from repro_torch.nn.linear import (embedding_apply, embedding_init,
                                    embedding_logits, linear_apply,
                                    linear_init, silu)
+from repro_torch.nn.mla import mla_decode, mla_forward, mla_init
 from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.nn.rotary import apply_rope
@@ -56,7 +61,8 @@ class MLP(nn.Module):
 
 class Layer(nn.Module):
     """``mlp`` (dense) or ``moe`` (a MoE layer), as the reference names
-    the layer's feed-forward block."""
+    the layer's feed-forward block; ``attn`` an :class:`Attention` or,
+    under ``cfg.use_mla``, an :class:`~repro_torch.nn.mla.MLA`."""
 
     def __init__(self, ln1, ln2, attn, mlp=None, moe=None):
         super().__init__()
@@ -70,32 +76,52 @@ class Layer(nn.Module):
 class LM(nn.Module):
     """State-dict keys follow the reference's pytree paths:
     ``embed.table``, ``layers.<i>.attn.q.kernel``, ``final_norm.scale``,
-    ``lm_head.kernel``."""
+    ``lm_head.kernel``; with ``cfg.first_dense`` the leading dense
+    layers are ``prefix_layers.<i>....`` (the reference's unstacked
+    ``prefix_layers/<i>`` dicts) and ``layers`` holds the other
+    ``n_layers - first_dense``."""
 
-    def __init__(self, embed, layers, final_norm, lm_head=None):
+    def __init__(self, embed, layers, final_norm, lm_head=None,
+                 prefix_layers=()):
         super().__init__()
         self.embed = embed
+        if prefix_layers:
+            self.prefix_layers = nn.ModuleDict(
+                {str(i): layer for i, layer in enumerate(prefix_layers)})
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
         if lm_head is not None:
             self.lm_head = lm_head
 
 
+def n_stacked(cfg: ModelConfig) -> int:
+    """Layers of the stack (``layers``): those after the prefix layers."""
+    return cfg.n_layers - cfg.first_dense
+
+
+def all_layers(model: LM):
+    """The layers in execution order: the prefix layers, then the
+    stack (the order of a cache's per-layer list)."""
+    prefix = getattr(model, "prefix_layers", None)
+    return (list(prefix.values()) if prefix is not None else []) + list(
+        model.layers)
+
+
 def _check_family(cfg: ModelConfig):
-    if (cfg.family not in ("dense", "moe") or cfg.use_mla
-            or cfg.first_dense or cfg.n_prefix_tokens):
+    if cfg.family not in ("dense", "moe") or cfg.n_prefix_tokens:
         raise NotImplementedError(
-            f"the port serves GQA attention without MLA, leading dense "
-            f"layers or a modality prefix so far (config {cfg.name!r}); "
-            f"see ROADMAP queue 1, other LM families")
+            f"the port serves the dense and MoE LM families without a "
+            f"modality prefix so far (config {cfg.name!r}); see ROADMAP "
+            f"queue 1, other LM families")
 
 
 def _check_paged(cfg: ModelConfig):
     """The paged entry points serve what ``api.paged_supported`` admits:
-    dense attention, no experts (the reference keeps MoE on the slot
-    path)."""
+    dense GQA attention, no experts or prefix layers (the reference keeps
+    MoE and MLA on the slot path)."""
     _check_family(cfg)
-    if cfg.family != "dense" or cfg.n_experts:
+    if (cfg.family != "dense" or cfg.n_experts or cfg.use_mla
+            or cfg.first_dense):
         raise ValueError(f"paged KV unsupported for family={cfg.family} "
                          f"(use api.paged_supported to gate)")
 
@@ -204,22 +230,39 @@ def ffn_apply(p: Layer, cfg: ModelConfig, x, chunk: Optional[int] = None,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def layer_init(gen, cfg: ModelConfig, device=None) -> Layer:
-    if cfg.n_experts:
+def _mla_dims(cfg: ModelConfig) -> Dict[str, int]:
+    return dict(n_heads=cfg.n_heads, kv_lora=cfg.kv_lora,
+                qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope, v_head=cfg.v_head)
+
+
+def layer_init(gen, cfg: ModelConfig, device=None, *, moe: bool = True
+               ) -> Layer:
+    """A layer of ``cfg``: a MoE feed-forward block where the config has
+    experts and ``moe`` (False for a leading dense layer: an MLP of
+    ``cfg.d_ff``, as the reference's prefix layers)."""
+    if cfg.n_experts and moe:
         ffn = {"moe": moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
                                n_shared=cfg.n_shared_experts,
                                d_ff_shared=cfg.d_ff_shared, device=device)}
     else:
         ffn = {"mlp": mlp_init(gen, cfg, device=device)}
+    if cfg.use_mla:
+        attn = mla_init(gen, cfg.d_model, **_mla_dims(cfg), device=device)
+    else:
+        attn = attn_init(gen, cfg, device=device)
     return Layer(rmsnorm_init(cfg.d_model, device=device),
-                 rmsnorm_init(cfg.d_model, device=device),
-                 attn_init(gen, cfg, device=device), **ffn)
+                 rmsnorm_init(cfg.d_model, device=device), attn, **ffn)
 
 
 def layer_forward(p: Layer, cfg: ModelConfig, h, positions):
     """Returns (h, cache, aux)."""
-    a_out, cache = attn_forward(p.attn, cfg, rmsnorm_apply(p.ln1, h),
-                                positions)
+    a_in = rmsnorm_apply(p.ln1, h)
+    if cfg.use_mla:
+        a_out, cache = mla_forward(p.attn, a_in, positions, **_mla_dims(cfg),
+                                   backend=cfg.kernel_backend,
+                                   act_bits=cfg.act_bits)
+    else:
+        a_out, cache = attn_forward(p.attn, cfg, a_in, positions)
     h = h + a_out
     m_out, aux = ffn_apply(p, cfg, rmsnorm_apply(p.ln2, h))
     return h + m_out, cache, aux
@@ -235,12 +278,14 @@ def init_lm(gen: Optional[torch.Generator], cfg: ModelConfig,
     meta device as a skeleton to load weights into)."""
     _check_family(cfg)
     embed = embedding_init(gen, cfg.vocab, cfg.d_model, device=device)
+    prefix = [layer_init(gen, cfg, device=device, moe=False)
+              for _ in range(cfg.first_dense)]
     layers = [layer_init(gen, cfg, device=device)
-              for _ in range(cfg.n_layers)]
+              for _ in range(n_stacked(cfg))]
     final_norm = rmsnorm_init(cfg.d_model, device=device)
     head = (None if cfg.tie_embeddings
             else linear_init(gen, cfg.d_model, cfg.vocab, device=device))
-    return LM(embed, layers, final_norm, head)
+    return LM(embed, layers, final_norm, head, prefix_layers=prefix)
 
 
 def _embed_tokens(model: LM, cfg: ModelConfig, tokens):
@@ -272,8 +317,9 @@ def lm_forward(model: LM, cfg: ModelConfig, tokens):
     With ``cfg.remat`` each layer is recomputed in the backward pass
     (``torch.utils.checkpoint``), as the reference's ``remat_wrap``
     recomputes its scan body: only the residual stream between layers
-    is kept. aux sums the MoE layers' load-balance losses (0 for the
-    dense family).
+    is kept (the prefix layers too, which the reference runs outside its
+    remat'd scan). aux sums the MoE layers' load-balance losses (0 for
+    the dense family).
     """
     _check_family(cfg)
     remat = (cfg.remat and cfg.remat_policy != "none"
@@ -285,7 +331,7 @@ def lm_forward(model: LM, cfg: ModelConfig, tokens):
     h = _embed_tokens(model, cfg, tokens)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for layer in model.layers:
+    for layer in all_layers(model):
         if remat:
             h, a = checkpoint(_layer_train, layer, cfg, h, positions,
                               use_reentrant=False)
@@ -317,8 +363,11 @@ def lm_loss(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
                ) -> Dict[str, Any]:
-    """Per-layer decode cache: K/V (int8 + bf16 scales with
-    ``kv_cache_bits=8``), a ring of the window's width under SWA."""
+    """Per-layer decode cache, one dict a layer in execution order
+    (prefix layers first): K/V (int8 + bf16 scales with
+    ``kv_cache_bits=8``), a ring of the window's width under SWA; under
+    MLA the latents ``c_kv`` (B, max_len, kv_lora) and the rope keys
+    ``k_rope`` (B, max_len, qk_rope) in ``cfg.dtype``."""
     _check_family(cfg)
     dh = cfg.resolved_head_dim
     eff = min(max_len, cfg.window) if cfg.window else max_len
@@ -326,6 +375,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None
     shape = (batch, eff, cfg.n_kv_heads, dh)
 
     def one():
+        if cfg.use_mla:
+            return {key: torch.zeros((batch, max_len, width),
+                                     dtype=cfg.dtype, device=device)
+                    for key, width in (("c_kv", cfg.kv_lora),
+                                       ("k_rope", cfg.qk_rope))}
         c = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
              "v": torch.zeros(shape, dtype=kv_dt, device=device)}
         if cfg.kv_cache_bits == 8:
@@ -362,7 +416,7 @@ def lm_prefill(model: LM, cfg: ModelConfig, tokens, *, lengths=None):
     else:
         cache_len = torch.as_tensor(lengths, device=h.device).to(torch.int32)
     caches = []
-    for layer in model.layers:
+    for layer in all_layers(model):
         h, c, _ = layer_forward(layer, cfg, h, positions)
         caches.append(c)
     h_last = h[:, -1:] if lengths is None else last_real_slice(h, lengths)
@@ -463,17 +517,24 @@ def lm_decode(model: LM, cfg: ModelConfig, tokens, cache):
     """tokens: (B, W) -> (logits (B, W, V), cache with len + W). A MoE
     layer routes the B tokens of a step at the decode capacity factor;
     a verify window (W > 1) serves dense configs only, as in the
-    reference (MoE routing would couple the window's tokens)."""
+    reference (MoE routing would couple the window's tokens; MLA decodes
+    one token a step)."""
     _check_family(cfg)
     B, W = tokens.shape
-    if W > 1 and cfg.n_experts:
+    if W > 1 and (cfg.n_experts or cfg.use_mla):
         raise ValueError("a decode window (W > 1) serves dense configs "
-                         "only: MoE routing couples the window's tokens")
+                         "only: MoE routing couples the window's tokens, "
+                         "and MLA decodes one token a step")
     h = _embed_tokens(model, cfg, tokens)
     pos = _positions(cache["len"], B, W, h.device)
-    for layer, c in zip(model.layers, cache["layers"]):
-        h = h + attn_decode(layer.attn, cfg, _norm_rows(layer.ln1, h), c,
-                            pos)
+    for layer, c in zip(all_layers(model), cache["layers"]):
+        x = _norm_rows(layer.ln1, h)
+        if cfg.use_mla:
+            h = h + mla_decode(layer.attn, x, c, pos, **_mla_dims(cfg),
+                               backend=cfg.kernel_backend,
+                               act_bits=cfg.act_bits)
+        else:
+            h = h + attn_decode(layer.attn, cfg, x, c, pos)
         h = h + ffn_apply(layer, cfg, _norm_rows(layer.ln2, h),
                           ROW_STABLE_M, decode=True)[0]
     logits = _head(model, cfg, _norm_rows(model.final_norm, h), ROW_STABLE_M)

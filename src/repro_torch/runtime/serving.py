@@ -72,7 +72,9 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
     """Convert a prefill cache into a decode-ready cache of max_len.
 
     ``lengths``: per-stream (B,) prompt lengths for right-padded batches;
-    defaults to the prefill cache's own ``len`` vector.
+    defaults to the prefill cache's own ``len`` vector. The int8 KV
+    quantization and the SWA ring apply to GQA K/V only: MLA latents are
+    grown as they are, as the reference's ``attn_kv`` guard leaves them.
     """
     dev = cache["len"].device
     target = api.init_cache(cfg, batch, max_len, device=dev)
@@ -81,7 +83,8 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
     lengths = torch.as_tensor(lengths, device=dev).reshape(-1)
     lengths = lengths.expand(batch).to(torch.int32)
     layers = [dict(c) for c in cache["layers"]]
-    if cfg.kv_cache_bits == 8:
+    attn_kv = not cfg.use_mla
+    if attn_kv and cfg.kv_cache_bits == 8:
         # prefill emits float K/V; the decode cache holds int8 + scales
         from repro_torch.models.lm import _kv_quant
 
@@ -89,7 +92,7 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
             for key in ("k", "v"):
                 c[key], c[f"{key}_scale"] = _kv_quant(c[key], 8)
     out = {"len": lengths}
-    if cfg.window is not None:
+    if attn_kv and cfg.window is not None:
         # SWA ring: re-lay per-position leaves at the decode ring width,
         # each stream at its own length
         out["layers"] = [

@@ -39,7 +39,11 @@ launch a stacked product, the GEMMs' tolerances against the plain
 version (a loop over the experts), ``lutq_shift`` bit for bit, an empty
 expert exactly 0, each expert's slab bit for bit against a one-expert
 launch where the two plans split alike; reduced qwen3-moe served on the
-card gives the CPU's greedy tokens.
+card gives the CPU's greedy tokens. deepseek-v2-lite: kernels 1, 2 and
+4 at its leaf shapes (dkv's N = 576, uk's Kin = 512) with the tolerances
+above; the MLA decode step replayed from a CUDA graph equals the eager
+step bit for bit (logits and latent cache); reduced deepseek on the card
+gives the CPU's greedy tokens.
 """
 import contextlib
 
@@ -1960,10 +1964,13 @@ def test_cuda_serve_edge_cli(cuda_device, capsys):
 #: (E, C, Kin, N): a 128-expert stack at qwen3-moe's wi (4096 x 1536)
 #: and wo (1536 x 4096) shapes, decode (C = 1) and a 4 x 128-token
 #: prefill (C = 40), a 4-expert stack whose products split their
-#: reduction, and ragged shapes (unaligned rows, C past one tile)
+#: reduction, ragged shapes (unaligned rows, C past one tile), and
+#: deepseek-v2-lite's 64-expert stacks (wi 2048 x 1408, wo 1408 x 2048:
+#: Kin 1408 = 11 x 128) at decode and its 4 x 128-token prefill (C = 60)
 EXPERT_CASES = [(128, 1, 4096, 1536), (128, 40, 1536, 4096),
                 (4, 1, 4096, 1536), (4, 40, 1536, 4096), (3, 9, 130, 211),
-                (5, 130, 256, 384), (2, 17, 2002, 211)]
+                (5, 130, 256, 384), (2, 17, 2002, 211),
+                (64, 1, 2048, 1408), (64, 60, 1408, 2048)]
 EXPERT_KERNELS = ["lutq_matmul", "lutq_gemv_packed", "lutq_shift"]
 
 
@@ -2147,4 +2154,150 @@ def test_cuda_moe_serves_the_cpu_tokens(cuda_device, view):
         assert torch.equal(got.cpu(), want)
         stacked = delta[{"int8": 8, "packed4": 9, "pow2": 10}[view]]
         assert stacked == {"launches": 6 * 3 * cfg.n_layers, "plain": 0}
+        assert sum(c.get("plain", 0) for c in delta) == 0
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v2-lite-16b: MLA and its leaf shapes
+# ---------------------------------------------------------------------------
+
+#: (M, Kin, N) at deepseek's leaves: dkv (2048 -> 576, not a multiple of
+#: 128: a partial n tile and, packed, its byte pairs), uk / uv (512 ->
+#: 2048), the dense MLP (2048 <-> 1408) and a shared expert (2816 ->
+#: 2048), at decode, a 4 x 96 and a 4 x 128 prefill
+DS_CASES = [(4, 2048, 576), (384, 2048, 576), (512, 2048, 576),
+            (1, 512, 2048), (4, 512, 2048), (512, 512, 2048),
+            (4, 2048, 1408), (512, 1408, 2048), (4, 2816, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kin,N", DS_CASES)
+@pytest.mark.parametrize("kernel,dtype", [
+    ("lutq_matmul", "float32"), ("lutq_matmul", "bfloat16"),
+    ("lutq_gemv_packed", "float32"), ("lutq_gemv_packed", "bfloat16"),
+    ("lutq_shift", "int8")])
+def test_cuda_kernels_at_deepseek_shapes(cuda_device, kernel, dtype, M,
+                                         Kin, N):
+    """The GEMMs within their tolerance of the plain version and
+    lutq_shift bit for bit at deepseek's shapes, a second call giving
+    the first call's bits."""
+    if kernel == "lutq_shift":
+        xq, a, wsh = _shift_operands(M, Kin, N, 16,
+                                     torch.Generator().manual_seed(3))
+        args = [t.to(cuda_device) for t in (xq, a, wsh)]
+        got = lutq_shift.lutq_shift(*args)
+        assert torch.equal(got.cpu(), lutq_shift_ref(xq, a, wsh))
+        assert torch.equal(lutq_shift.lutq_shift(*args), got)
+        return
+    fn, plain, cpu_args, card_args = _gemm_operands(
+        kernel, M, Kin, N, getattr(torch, dtype), cuda_device)
+    got = fn(*card_args)
+    want = plain(*cpu_args)
+    tol = 1e-4 if dtype == "float32" else 1e-3
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err <= tol, err
+    assert torch.equal(fn(*card_args), got)
+
+
+def _deepseek_serve(view, cuda_device=None):
+    """Reduced deepseek (3 layers, the first dense; MLA kv_lora 24) at
+    act_bits 32 under a floor-0 policy (every MLA leaf quantized): the
+    config and its serve view (int8, packed4 or calibrated
+    serving_pow2), on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2, with_size_floor
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    base = reduced(get_config("deepseek-v2-lite-16b")).replace(act_bits=32)
+    if view == "pow2":
+        cfg = base.replace(quant=with_size_floor(serving_pow2(), 0))
+    else:
+        cfg = base.replace(quant=QuantSpec(bits=4, constraint="pow2",
+                                           min_size=0))
+    model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+    toks = torch.randint(0, cfg.vocab, (3, 16),
+                         generator=torch.Generator().manual_seed(5))
+    if view == "pow2":
+        model = api.calibrate(model, cfg, {"tokens": toks[:2]})
+    return cfg, serve_view(model, pack4=view == "packed4",
+                           policy=api.resolved_policy(cfg)), toks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_mla_decode_step_replays_as_eager(cuda_device, view):
+    """The MLA decode step (absorbed form: uk / uv decoded in the step,
+    the latent written in place at the cache length) captured as a CUDA
+    graph and replayed equals the eager step bit for bit: logits, c_kv
+    and k_rope; a second replay at the next length too."""
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    cfg, serve, toks = _deepseek_serve(view)
+    card = serve.to(cuda_device)
+    with torch.inference_mode():
+        _, cache = api.prefill(card, cfg, {"tokens": toks.to(cuda_device)})
+        cache = serving.adapt_prefill_cache(cfg, cache, 3, 20)
+        eager = {"layers": [{k: v.clone() for k, v in c.items()}
+                            for c in cache["layers"]],
+                 "len": cache["len"].clone()}
+        graphed = {"layers": [{k: v.clone() for k, v in c.items()}
+                              for c in cache["layers"]],
+                   "len": cache["len"].clone()}
+        tok = torch.randint(0, cfg.vocab, (3, 1), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(6)
+                            ).to(cuda_device)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        warm = {"layers": [{k: v.clone() for k, v in c.items()}
+                           for c in cache["layers"]],
+                "len": cache["len"].clone()}
+        with torch.cuda.stream(stream):
+            api.decode_step(card, cfg, tok, warm)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, nxt = api.decode_step(card, cfg, tok, graphed)
+        for step in range(2):
+            graph.replay()
+            want, after = api.decode_step(card, cfg, tok, eager)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), step
+            for g, e in zip(graphed["layers"], eager["layers"]):
+                for k in ("c_kv", "k_rope"):
+                    assert torch.equal(g[k], e[k]), (step, k)
+            assert torch.equal(nxt["len"], after["len"])
+            graphed["len"].copy_(nxt["len"])
+            eager["len"] = after["len"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_deepseek_serves_the_cpu_tokens(cuda_device, view):
+    """Reduced deepseek served on the card through kernels 1, 2, 4 and
+    their stacks, graph-replayed and eager, gives the CPU's greedy
+    tokens; three stacked launches a MoE layer a forward, no plain
+    version on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import disable_graphs
+    from repro_torch.runtime.serving import generate
+
+    cfg, serve, toks = _deepseek_serve(view)
+    want = generate(serve, cfg, {"tokens": toks}, steps=6, device="cpu")
+    card = serve.to(cuda_device)
+    for graphs in (True, False):
+        before = ops.read_counts()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            got = generate(card, cfg, {"tokens": toks}, steps=6,
+                           device="cuda")
+        delta = ops.count_delta(before)
+        assert torch.equal(got.cpu(), want)
+        stacked = delta[{"int8": 8, "packed4": 9, "pow2": 10}[view]]
+        n_moe = cfg.n_layers - cfg.first_dense
+        assert stacked == {"launches": 6 * 3 * n_moe, "plain": 0}
         assert sum(c.get("plain", 0) for c in delta) == 0

@@ -151,9 +151,10 @@ def test_full_width_config_is_the_reference(arch):
 
 
 def test_check_family_still_refuses_what_remains():
+    """A modality prefix and the other families stay refused; MLA and
+    leading dense layers are admitted (tests/test_torch_deepseek.py)."""
     cfg = tconfigs.get_config(LARGE)
-    for kw in (dict(use_mla=True), dict(first_dense=1),
-               dict(n_prefix_tokens=4)):
+    for kw in (dict(n_prefix_tokens=4), dict(family="hybrid")):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1, other LM families"):
             tlm._check_family(cfg.replace(**kw))
