@@ -279,6 +279,47 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    (e) reduced deepseek (floor 0: every MLA leaf quantized) on the card
    gives the CPU's tokens in the three views. Its launches go into the
    kernels' record as "deepseek_launches".
+2p. seamless-m4t-medium's shapes: kernels 1, 2 and 4 at its body leaves
+   (Kin x N 1024 x 1024, 1024 x 4096, 4096 x 1024) and M = 1..512
+   (every tile edge) against their plain versions (phase 2's tolerances,
+   lutq_shift bit for bit); kernel 1 and lutq_shift on the transposed
+   tied head (Kin 1024, N 256206: a partial n tile) at M = 1, 4 and 9;
+   second-call and graph bits; kernels 6 and 7 at G = 1, dh 64, 16 KV
+   heads, bf16 q over bf16 pages: full-width lengths, the split edges of
+   the engine's plan (4 rows, 3 blocks) and of a 16-row plan, empty rows,
+   the NaN pages and a graph replay at phase 2c's per-row tolerance.
+3p. seamless-m4t-medium at full width, 6 of its 12 encoder and 6 of
+   its 12 decoder layers (SM_LAYERS): d_model 1024, 16 / 16 heads of
+   64, d_ff 4096, vocab 256206 with a tied readout, its 4-bit pow2
+   LUT-Q, 8-bit activations, random weights from seed 0 and 128 seeded
+   frames a row. (b) int8 and packed4 generate (B=4, prompt 128, 16
+   tokens), graph and eager: equal tokens and counts, no plain version;
+   a prefill runs 7 products an encoder layer and 11 a decoder layer
+   (109 with the head in int8; 217 at full depth), a decode step 9 a
+   decoder layer (55; 109); the packed4 view's tied head is
+   one decode-backend call a forward (the packed table used transposed,
+   as in the reference); the head's share of a replayed decode step and
+   the graph pools' MiB; the random model's greedy tokens repeat, so
+   the logits are held too: a decode step replayed from a graph is the
+   eager step's bits and lies within SM_LOGIT_TOL of a prefill one token
+   longer (half the source masked moves it by SM_LOGIT_APART or more),
+   and a W = 4 window equals 4 chained steps. The calibrated
+   serving_pow2 view the same on lutq_shift (108 / 54, the head float);
+   (c) its audit (a 20-token
+   prefill over 20 frames and one decode step: 108 and 54 integer
+   dots); (d) at act_bits 32, synthetic_requests(seed=0) (12 requests,
+   prompts up to 128, 64-128 frames of a 128-frame src_len, up to 32 new
+   tokens) through the paged engine (4 slots, page 64, bf16 pages), its
+   speculative twin (k = 3) and a 4-slot slot engine: each request's
+   tokens equal its lone generate, each request's first decode step's
+   logits in the paged and slot engines lie within SM_LOGIT_TOL of its
+   lone first step's and SM_LOGIT_APART or more from the next
+   request's, a W = 4 paged window equals 4 chained paged steps, the
+   paged kernel launches once a decoder layer a decode step ((2k + 1) a
+   layer a round); (e) reduced
+   seamless on the card gives the
+   CPU's tokens in the three views. Its launches go into the kernels'
+   record as "seamless_launches".
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -451,7 +492,9 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    record's top level is one layer at C = 1, its "prefill" at C = 40;
    the same at deepseek's E = 64 stacks (2048 <-> 1408), C = 1 and 60
    (its 4 x 128-token prefill at top-6 and cf 1.25), the record's
-   "deepseek".
+   "deepseek"; kernels 6 and 7 at seamless's G = 1, dh 64 with 16 KV
+   heads over bf16 pages at run (a)'s lengths (the record's "shapes",
+   "G1_dh64_bf16").
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout,
@@ -1433,7 +1476,6 @@ def paged_kernel_checks():
     import torch
 
     from repro_torch.kernels import build, paged_attn
-    from repro_torch.kernels.ref import paged_attention_ref
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -1473,6 +1515,26 @@ def paged_kernel_checks():
                   for w in (None, 4096)]
     cases += [(64, 8, 12, 128, 64, 69, (full_lens * 8)[:64], bf16, bf16,
                None)]
+    worst = _paged_cases(cases, gen, dev)
+    # one call of each variant captured in a CUDA graph, replayed twice,
+    # at danube's (G, dh) and mistral-large's
+    for G, dh in ((4, 80), (12, 128)):
+        _paged_graph(16, 8, G, dh, 69, edges, i8, gen, dev)
+    return worst
+
+
+def _paged_cases(cases, gen, dev):
+    """Both variants of each case (B, Hkv, G, dh, page, NB, lens, q dtype,
+    pool dtype, window) against the plain version, per row within
+    PAGED_TOL of the row's max; the same bits with every dead or
+    behind-window entry on a NaN page and on a second call; empty rows
+    0. Returns the largest |kernel - plain| of each variant."""
+    import torch
+
+    from repro_torch.kernels import build, paged_attn
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    sms = build.sm_count(dev)
     worst = {name: 0.0 for name in paged_attn.VARIANTS}
     for B, Hkv, G, dh, page, NB, lens, qdt, kvdt, window in cases:
         q, kp, vp, ks, vs, block, poisoned, cl = _paged_case(
@@ -1525,40 +1587,48 @@ def paged_kernel_checks():
             check(B != 64 or split["multipass"], f"{name}: the plan kept "
                   f"B=64 score rows of G={G} in shared memory")
             worst[name] = max(worst[name], err)
-    # one call of each variant captured in a CUDA graph, replayed twice,
-    # at danube's (G, dh) and mistral-large's
-    for G, dh in ((4, 80), (12, 128)):
-        q, kp, vp, ks, vs, block, _, cl = _paged_case(
-            16, 8, G, dh, 64, 69, edges, bf16, i8, 4096, gen, dev)
-        for name, budget in (("paged_attention", None),
-                             ("paged_attention_multipass", 0)):
-            def call():
-                return paged_attn.paged_attention(
-                    q, kp, vp, block, cl, window=4096, k_scale=ks,
-                    v_scale=vs, smem_budget_bytes=budget)
-            eager = call()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                call()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                captured = call()
-            replays = []
-            for _ in range(2):
-                captured.zero_()
-                graph.replay()
-                torch.cuda.synchronize()
-                replays.append(bool(torch.equal(captured, eager)))
-            tickets = not bool(paged_attn._TICKETS[dev.index].any())
-            log(f"check {name} in a CUDA graph (B=16, G={G}, dh={dh}, split "
-                f"edges): two replays equal the eager call {replays} | merge "
-                f"tickets back at 0 {tickets}")
-            check(all(replays) and tickets,
-                  f"{name}: a CUDA graph replay differs from the eager call")
-            del graph
     return worst
+
+
+def _paged_graph(B, Hkv, G, dh, NB, lens, kvdt, gen, dev):
+    """One call of each variant (page 64, window 4096, bf16 q) captured
+    in a CUDA graph and replayed twice: each replay equals the eager
+    call, the merge tickets back at 0."""
+    import torch
+
+    from repro_torch.kernels import paged_attn
+
+    q, kp, vp, ks, vs, block, _, cl = _paged_case(
+        B, Hkv, G, dh, 64, NB, lens, torch.bfloat16, kvdt, 4096, gen,
+        dev)
+    for name, budget in (("paged_attention", None),
+                         ("paged_attention_multipass", 0)):
+        def call():
+            return paged_attn.paged_attention(
+                q, kp, vp, block, cl, window=4096, k_scale=ks,
+                v_scale=vs, smem_budget_bytes=budget)
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        replays = []
+        for _ in range(2):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            replays.append(bool(torch.equal(captured, eager)))
+        tickets = not bool(paged_attn._TICKETS[dev.index].any())
+        log(f"check {name} in a CUDA graph (B={B}, Hkv={Hkv}, G={G}, "
+            f"dh={dh}, split edges): two replays equal the eager call "
+            f"{replays} | merge tickets back at 0 {tickets}")
+        check(all(replays) and tickets,
+              f"{name}: a CUDA graph replay differs from the eager call")
+        del graph
 
 
 # ---------------------------------------------------------------------------
@@ -2105,9 +2175,10 @@ def _per_generate(n):
     return p + (STEPS_GEN - 1) * d
 
 
-def _family_serve(label, name, view, cfg, toks, expect):
-    """One view's generate (B=4, prompt 128, 16 tokens) replaying the
-    decode step it captured and eagerly (phases 3m (b), 3n and 3o (b)):
+def _family_serve(label, name, view, cfg, toks, expect, frames=None):
+    """One view's generate (B=4, prompt 128, 16 tokens; an encdec config
+    over ``frames``) replaying the decode step it captured and eagerly
+    (phases 3m (b), 3n, 3o (b) and 3p (b)):
     equal tokens and counts, ``expect[kernel]`` launches of each kernel
     a forward (or a (prefill, decode step) pair, ``_per_generate``), no
     other kernel (paged attention aside) and no plain version; prefill
@@ -2119,14 +2190,17 @@ def _family_serve(label, name, view, cfg, toks, expect):
     from repro_torch.models import api
     from repro_torch.runtime.serving import generate
 
-    generate(view, cfg, {"tokens": toks}, steps=2, device="cuda")  # warm-up
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = frames
+    generate(view, cfg, batch, steps=2, device="cuda")  # warm-up
     torch.cuda.synchronize()
     per_mode = {}
     for mode in MODES:
         with _mode(mode):
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
-            out, stats = generate(view, cfg, {"tokens": toks},
+            out, stats = generate(view, cfg, batch,
                                   steps=STEPS_GEN, return_stats=True,
                                   device="cuda")
             counts = _read_counts()
@@ -2152,7 +2226,7 @@ def _family_serve(label, name, view, cfg, toks, expect):
                   f"{label} {name}: tokens out of shape or range")
             if mode == "graph":
                 def run():
-                    generate(view, cfg, {"tokens": toks}, steps=STEPS_GEN,
+                    generate(view, cfg, batch, steps=STEPS_GEN,
                              device="cuda")
                     torch.cuda.synchronize()
                 profile_run(run, f"{label} generate [{name}]")
@@ -2162,7 +2236,8 @@ def _family_serve(label, name, view, cfg, toks, expect):
     check(per_mode["graph"][1] == per_mode["eager"][1],
           f"{label} {name}: graph and eager serves launch other counts")
     with torch.inference_mode():
-        logits, _ = api.prefill(view, cfg, {"tokens": toks.cuda()})
+        logits, _ = api.prefill(view, cfg, {k: v.cuda()
+                                            for k, v in batch.items()})
     check(bool(torch.isfinite(logits).all()), f"{label} {name}: non-finite "
           f"logits")
     log(f"  sample tokens {per_mode['graph'][0][0, :8].tolist()}")
@@ -2228,10 +2303,11 @@ def _moe_engine(view, cfg, toks_by_len, label="moe", gen=MOE_ENGINE_GEN):
 
 
 def _family_audit(label, view, cfg, toks, prompt, int_dots,
-                  decode_dots=None):
-    """The serving_pow2 view's prefill (B=4 x ``prompt``) and one decode
-    step through the multiply audit at full width (phases 3m (b), 3n, 3o
-    (c)): ``int_dots`` ({op: count}; ``decode_dots`` for the decode step
+                  decode_dots=None, frames=None):
+    """The serving_pow2 view's prefill (B=4 x ``prompt``; an encdec
+    config over the first ``prompt`` of ``frames``) and one decode step
+    through the multiply audit at full width (phases 3m (b), 3n, 3o (c),
+    3p (c)): ``int_dots`` ({op: count}; ``decode_dots`` for the decode step
     where it differs) integer dots a forward, all of them kernel
     launches, no fp dot on a quantized shape; the routers' float
     products (a MoE layer's, not quantized; one a MoE layer) and the
@@ -2247,11 +2323,13 @@ def _family_audit(label, view, cfg, toks, prompt, int_dots,
     from repro_torch.models import api
     from repro_torch.runtime import serving
 
-    toks = toks[:, :prompt]
+    batch = {"tokens": toks[:, :prompt].cuda()}
+    if frames is not None:
+        batch["frames"] = frames[:, :prompt].cuda()
 
     def prefill():
         with torch.inference_mode():
-            return api.prefill(view, cfg, {"tokens": toks.cuda()})
+            return api.prefill(view, cfg, batch)
 
     _, cache = prefill()
     cache = serving.adapt_prefill_cache(cfg, cache, BATCH, prompt + 2)
@@ -2309,8 +2387,8 @@ def _random_qkv_biases(model, seed):
 def _reduced_card_vs_cpu(label, base, pow2_policy=None):
     """The reduced config ``base`` (act_bits 32) on the card gives the
     CPU's greedy tokens through each view (int8, packed4, serving_pow2
-    with calibration, or ``pow2_policy``): phases 3m (d), 3n (e) and 3o
-    (e)."""
+    with calibration, or ``pow2_policy``): phases 3m (d), 3n (e), 3o (e)
+    and 3p (e) (an encdec config over 20 seeded frames a row)."""
     import torch
 
     from repro_torch.core.policy import serve_view
@@ -2318,8 +2396,10 @@ def _reduced_card_vs_cpu(label, base, pow2_policy=None):
     from repro_torch.models import api
     from repro_torch.runtime.serving import generate
 
-    toks = torch.randint(0, base.vocab, (3, 24),
-                         generator=torch.Generator().manual_seed(6))
+    gen = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, base.vocab, (3, 24), generator=gen)}
+    if base.family == "encdec":
+        batch["frames"] = torch.randn((3, 20, base.d_model), generator=gen)
     for view in ("int8", "packed4", "pow2"):
         cfg = (base.replace(quant=pow2_policy or serving_pow2())
                if view == "pow2" else base)
@@ -2328,11 +2408,12 @@ def _reduced_card_vs_cpu(label, base, pow2_policy=None):
             _random_qkv_biases(model, 8)
         model = api.quantize(model, cfg)
         if view == "pow2":
-            model = api.calibrate(model, cfg, {"tokens": toks[:2]})
+            model = api.calibrate(model, cfg,
+                                  {k: v[:2] for k, v in batch.items()})
         cpu = serve_view(model, pack4=view == "packed4",
                          policy=api.resolved_policy(cfg))
-        want = generate(cpu, cfg, {"tokens": toks}, steps=8, device="cpu")
-        got = generate(cpu.to("cuda"), cfg, {"tokens": toks}, steps=8,
+        want = generate(cpu, cfg, batch, steps=8, device="cpu")
+        got = generate(cpu.to("cuda"), cfg, batch, steps=8,
                        device="cuda").cpu()
         log(f"reduced {cfg.name} (G = {cfg.n_heads // cfg.n_kv_heads}, qkv "
             f"bias {cfg.qkv_bias}) [{view}] card vs cpu tokens equal "
@@ -2526,9 +2607,10 @@ def deepseek_kernel_checks():
     return worst
 
 
-def _graph_ms(fn, iters=20):
+def _graph_ms(fn, iters=20, pool=False):
     """Device ms of ``fn`` captured in a CUDA graph and replayed
-    ``iters`` times between CUDA events (warmed up on a side stream)."""
+    ``iters`` times between CUDA events (warmed up on a side stream);
+    with ``pool`` also the MiB the capture reserved (its memory pool)."""
     import torch
 
     stream = torch.cuda.Stream()
@@ -2536,9 +2618,13 @@ def _graph_ms(fn, iters=20):
     with torch.cuda.stream(stream):
         fn()
     torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
+    pool_mib = (torch.cuda.memory_reserved() - reserved) / 2**20
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2549,7 +2635,8 @@ def _graph_ms(fn, iters=20):
     end.record()
     torch.cuda.synchronize()
     del graph
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / iters
+    return (ms, pool_mib) if pool else ms
 
 
 def _materialize_share(name, view, cfg, toks):
@@ -2682,6 +2769,542 @@ def deepseek_full_width():
         f"{launches} | decode's float latent products {latent} | "
         f"materialize ms / step ms {shares}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 2p and 3p: the encoder-decoder family (seamless-m4t-medium)
+# ---------------------------------------------------------------------------
+
+SM_ARCH = "seamless-m4t-medium"
+#: seamless's (Kin, N) of its body products: q, k, v, o and the
+#: cross-attention's four (1024 x 1024), wi / wg (1024 x 4096), wo (4096
+#: x 1024)
+SM_LEAF_SHAPES = {"attn": (1024, 1024), "wi/wg": (1024, 4096),
+                  "wo": (4096, 1024)}
+#: the tied readout's assignments as the int8 view's head reads them,
+#: transposed: (Kin 1024, N 256206), a partial n tile of 78 at 128
+SM_HEAD = (1024, 256206)
+#: phase 2p's M: decode (1, generate's 4, the engine's 4 slots), the tile
+#: edges, a 128-token prompt and generate's 4 x 128 prefill
+SM_CHECK_M = (1, 4, 8, 9, 16, 17, 64, 65, 128, 129, 256, 512)
+SM_HEAD_M = (1, 4, 9)
+SM_REPEAT_CASES = [(4, 1024, 1024), (512, 1024, 4096), (4, 4096, 1024),
+                   (4, 1024, 256206)]
+#: phase 3p: source frames a row, the engine queue (synthetic_requests,
+#: seed 0: prompts of 32-128 tokens over 64-128 frames, up to 32 new
+#: tokens), the audited prefill's width (B x 20 rows: no activation of a
+#: quantized leaf's 1024 or 4096 rows)
+SM_SRC, SM_QUEUE, SM_MAX_NEW, SM_AUDIT = 128, 12, 32, 20
+#: phase 3p's depth: 6 of the 12 encoder and 6 of the 12 decoder layers
+#: (the whole model took 68.0 s of phase 3p, over its 60 s share of the
+#: script's limit; the width stays whole)
+SM_LAYERS = 6
+#: the paged engine's block-table width: ceil((128 + 32 + 3) / 64)
+SM_NB = 3
+#: phase 3p's logits checks: max |a - b| over the reference row's max
+#: |logit|, for a decode step against a prefill one token longer, an
+#: engine row's first decode step against its request's alone, and a W
+#: = 4 window against 4 chained steps (bf16 activations, f32 sums); at
+#: serving_pow2's frozen 8-bit activation scales a bf16 difference
+#: upstream can move an activation by a whole step, so its decode step
+#: against the prefill is held to SM_LOGIT_TOL_ACT8
+SM_LOGIT_TOL, SM_LOGIT_TOL_ACT8 = 2e-2, 4e-2
+#: the least relative distance that a wrong input (half the source
+#: masked, another request's row) must put between two logits rows, so
+#: that the checks above can fail where the greedy tokens repeat
+SM_LOGIT_APART = 0.1
+
+
+def seamless_kernel_checks():
+    """Phase 2p: kernels 1, 2 and 4 at seamless's body shapes and M in
+    SM_CHECK_M against their plain versions (bf16 and f32 x, phase 2's
+    tolerances; lutq_shift bit for bit), kernel 1 and lutq_shift on the
+    transposed tied head (N = 256206), second-call and graph bits; then
+    kernels 6 and 7 at G = 1, dh 64 (16 KV heads), bf16 q over bf16
+    pages: full-width lengths, the split edges of the engine's plan and
+    of a 16-row plan, empty rows, the NaN pages, a graph replay, with
+    phase 2c's per-row tolerance. Returns {kernel: max abs err}."""
+    import torch
+
+    from repro_torch.kernels import build, paged_attn
+    from repro_torch.kernels.lutq_shift import lutq_shift
+    from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(41)
+    worst = {}
+    shapes = [(label, shape, SM_CHECK_M)
+              for label, shape in SM_LEAF_SHAPES.items()]
+    for kname, (fn, plain) in _gemm_fns().items():
+        packed = KERNELS[kname]["packed"]
+        worst[kname] = 0.0
+        # the packed view's head is the decode backend: kernel 1 only
+        head = [] if packed else [("head", SM_HEAD, SM_HEAD_M)]
+        for label, (Kin, N), ms in shapes + head:
+            for M in ms:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x, a, d = _operands(M, Kin, N, 16, dtype, gen, dev,
+                                        packed)
+                    got = fn(x, a, d)
+                    want = plain(x, a, d)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    rel = err / max(want.abs().max().item(), 1e-30)
+                    dname = str(dtype).split(".")[-1]
+                    log(f"check {kname} seamless {label} M={M} Kin={Kin} "
+                        f"N={N} {dname}: max_abs_err {err:.3e} rel "
+                        f"{rel:.2e} (tol {TOL[dname]:.0e})")
+                    check(bool(torch.isfinite(got).all()),
+                          f"{kname} produced non-finite values")
+                    check(rel <= TOL[dname], f"{kname} disagrees with its "
+                          f"plain version at seamless {label} M={M} {dname}")
+                    worst[kname] = max(worst[kname], err)
+                    del x, a, d, got, want
+        _gemm_repeats(kname, fn, gen, dev, SM_REPEAT_CASES)
+    worst["lutq_shift"] = 0.0
+    for label, (Kin, N), ms in shapes + [("head", SM_HEAD, SM_HEAD_M)]:
+        for M in ms:
+            xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=9)
+            planes = shift_planes(wsh)
+            got = lutq_shift(xq, a, wsh, planes)
+            again = lutq_shift(xq, a, wsh, planes)
+            want = lutq_shift_ref(xq, a, wsh)
+            torch.cuda.synchronize()
+            log(f"check lutq_shift seamless {label} M={M} Kin={Kin} N={N}: "
+                f"equal {bool(torch.equal(got, want))}, second call "
+                f"{'same' if torch.equal(got, again) else 'DIFFERENT'} "
+                f"bits")
+            check(torch.equal(got, want) and torch.equal(got, again),
+                  f"lutq_shift differs from its plain version or itself at "
+                  f"seamless {label} M={M}")
+            del xq, a, got, again, want
+    log(f"phase 2p (kernels 1, 2, 4 at seamless's leaves and head) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    sms = build.sm_count(dev)
+    full_lens = [0, 1, 63, 64, 65, 577, 2048, 69 * 64]
+    edges = {}
+    for B, NB in ((4, SM_NB), (16, 69)):
+        c = paged_attn.split_plan(B, 16, NB, 64, None, sms=sms)["chunk"]
+        e = sorted({min(x, NB * 64) for x in
+                    (1, c // 2, c - 1, c, c + 1, 2 * c + 1, NB * 64)})
+        edges[B] = (e * B)[:B]
+    cases = [(8, 16, 1, 64, 64, 69, full_lens, bf16, bf16, w)
+             for w in (None, 4096)]
+    cases += [(B, 16, 1, 64, 64, NB, edges[B], bf16, bf16, None)
+              for B, NB in ((4, SM_NB), (16, 69))]
+    cases += [(4, 16, 1, 64, 64, SM_NB, [0, 5, 0, 64], bf16, bf16, None),
+              (4, 16, 1, 64, 64, SM_NB, [0] * 4, bf16, bf16, None)]
+    for name, err in _paged_cases(cases, gen, dev).items():
+        worst[name] = err
+    _paged_graph(4, 16, 1, 64, SM_NB, edges[4], bf16, gen, dev)
+    _paged_graph(16, 16, 1, 64, 69, edges[16], bf16, gen, dev)
+    log(f"phase 2p (kernels 6 and 7 at G = 1, dh 64) "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def _head_share(name, view, cfg, toks, frames):
+    """Phase 3p: the tied readout (its product on B=4 normed rows) beside
+    one whole decode step, both replayed from CUDA graphs against a
+    130-column cache over 128 frames; returns (head ms, step ms, the
+    step graph's pool MiB, the head graph's)."""
+    import torch
+
+    from repro_torch.kernels.build import ROW_STABLE_M
+    from repro_torch.models import api
+    from repro_torch.models.lm import _head
+    from repro_torch.runtime import serving
+
+    with torch.inference_mode():
+        _, cache = api.prefill(view, cfg, {"tokens": toks.cuda(),
+                                           "frames": frames.cuda()})
+        cache = serving.adapt_prefill_cache(cfg, cache, BATCH, PROMPT + 2,
+                                            src_len=SM_SRC)
+        tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+        x = torch.randn((BATCH, 1, cfg.d_model), device="cuda").to(cfg.dtype)
+        head, head_mib = _graph_ms(
+            lambda: _head(view, cfg, x, ROW_STABLE_M), pool=True)
+        step, step_mib = _graph_ms(
+            lambda: api.decode_step(view, cfg, tok, cache), pool=True)
+    log(f"  seamless [{name}] tied head {head * 1e3:.1f} us of a "
+        f"{step * 1e3:.1f} us decode step ({head / step * 100:.1f}%), graph "
+        f"replay | graph pools: step {step_mib:.1f} MiB, head alone "
+        f"{head_mib:.1f} MiB | {CARD}")
+    return head, step, step_mib, head_mib
+
+
+def _rel(a, ref) -> float:
+    """max |a - ref| over max |ref|, in float32."""
+    a, ref = a.float(), ref.float()
+    return float((a - ref).abs().max() / ref.abs().max())
+
+
+def _clone_tree(tree):
+    """A copy of a cache's nested dicts and lists of tensors."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree.clone()
+
+
+def _decode_logits_checks(name, view, cfg, toks, frames):
+    """Phase 3p (b): one decode step's logits (B=4, after a 127-token
+    prefill over 128 frames) replayed from a CUDA graph are the eager
+    step's bits and lie within SM_LOGIT_TOL (SM_LOGIT_TOL_ACT8 at 8-bit
+    activations) of a 128-token prefill's last logits; half the source masked (``src_len`` 64) moves them by
+    more than SM_LOGIT_APART; a W = 4 window equals 4 chained steps
+    within SM_LOGIT_TOL. int8 and packed4 at act_bits 32 (8-bit dynamic
+    scales couple a batch's rows), serving_pow2 at its frozen scales."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    if name != "serving_pow2":
+        cfg = cfg.replace(act_bits=32)
+    tol = SM_LOGIT_TOL if cfg.act_bits == 32 else SM_LOGIT_TOL_ACT8
+    toks, frames = toks.cuda(), frames.cuda()
+    P = toks.shape[1] - 1
+    with torch.inference_mode():
+        want, _ = api.prefill(view, cfg, {"tokens": toks, "frames": frames})
+        _, cache = api.prefill(view, cfg, {"tokens": toks[:, :P],
+                                           "frames": frames})
+        cache = serving.adapt_prefill_cache(cfg, cache, BATCH, P + 5,
+                                            src_len=SM_SRC)
+        snap = _clone_tree(cache)
+        tok = toks[:, P:].to(torch.int32).contiguous()
+
+        def step():
+            return api.decode_step(view, cfg, tok, cache)[0]
+        eager = step().clone()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            step()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        del graph
+        half = _clone_tree(snap)
+        half["src_len"].fill_(SM_SRC // 2)
+        masked = api.decode_step(view, cfg, tok, half)[0]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        win = torch.cat([tok, torch.randint(0, cfg.vocab, (BATCH, 3),
+                                            generator=gen, device="cuda",
+                                            dtype=torch.int32)], dim=1)
+        window = api.decode_window(view, cfg, win, _clone_tree(snap))[0]
+        c, chained = _clone_tree(snap), []
+        for j in range(4):
+            lg, c = api.decode_step(view, cfg, win[:, j:j + 1], c)
+            chained.append(lg)
+        chained = torch.cat(chained, dim=1)
+    err, moved = _rel(eager, want), _rel(masked, want)
+    werr = _rel(window, chained)
+    log(f"  seamless [{name}] logits (act_bits {cfg.act_bits}): graph step "
+        f"= eager step bits {bool(torch.equal(replayed, eager))}; decode "
+        f"step vs prefill {err:.3e}, with half the source masked "
+        f"{moved:.3e} (tol {tol:g}, apart >= {SM_LOGIT_APART:g}); "
+        f"W=4 window vs 4 chained steps {werr:.3e} (bits "
+        f"{bool(torch.equal(window, chained))}); greedy tokens "
+        f"{want[:, -1].argmax(-1).tolist()} | {CARD}")
+    check(torch.equal(replayed, eager), f"seamless {name}: a replayed "
+          f"decode step's logits are not the eager step's")
+    check(err <= tol, f"seamless {name}: decode step logits {err:.3e} "
+          f"from the prefill's (tol {tol:g})")
+    check(moved >= SM_LOGIT_APART, f"seamless {name}: masking half the "
+          f"source moved the logits by only {moved:.3e}")
+    check(werr <= SM_LOGIT_TOL, f"seamless {name}: a W=4 window's logits "
+          f"{werr:.3e} from 4 chained steps' (tol {SM_LOGIT_TOL:g})")
+
+
+def _first_step_logits(view, cfg, r, max_len):
+    """A request's first decode step alone (B = 1, eagerly, as its lone
+    generate runs it): the prefill over its own frames, its greedy first
+    token, one step. Returns the step's logits (V,)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    frames = torch.as_tensor(r["frames"])[None].cuda()
+    with torch.inference_mode():
+        logits, cache = api.prefill(
+            view, cfg, {"tokens": torch.as_tensor(r["tokens"])[None].cuda(),
+                        "frames": frames})
+        cache = serving.adapt_prefill_cache(cfg, cache, 1, max_len,
+                                            src_len=frames.shape[1])
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        return api.decode_step(view, cfg, first, cache)[0][0, -1]
+
+
+def _paged_window_check(view, cfg, eng):
+    """Phase 3p (d): on a copy of the paged engine's cache, a W = 4
+    window (each slot's pending token and 3 seeded drafts, as a
+    speculative round's verify runs it) against 4 chained paged steps:
+    within SM_LOGIT_TOL of each other; their launches are not counted.
+    Returns the distance."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+
+    before = ops.read_counts()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.inference_mode():
+        win = torch.cat([eng.tok, torch.randint(
+            0, cfg.vocab, (eng.tok.shape[0], 3), generator=gen,
+            device="cuda", dtype=torch.int32)], dim=1)
+        window = api.paged_decode_window(view, cfg, win,
+                                         _clone_tree(eng.cache))[0]
+        c, chained = _clone_tree(eng.cache), []
+        for j in range(4):
+            lg, c = api.paged_decode_step(view, cfg, win[:, j:j + 1], c)
+            chained.append(lg)
+        chained = torch.cat(chained, dim=1)
+    ops.set_counts(before)
+    werr = _rel(window, chained)
+    live = sum(q is not None for q in eng.slots)
+    log(f"  seamless paged W=4 window vs 4 chained paged steps ({live} live "
+        f"slots): {werr:.3e} (bits {bool(torch.equal(window, chained))}, "
+        f"tol {SM_LOGIT_TOL:g})")
+    check(werr <= SM_LOGIT_TOL, f"seamless paged window: logits {werr:.3e} "
+          f"from chained steps' (tol {SM_LOGIT_TOL:g})")
+    return werr
+
+
+def _seamless_engines(view, cfg):
+    """Phase 3p (d): at act_bits 32, synthetic_requests(seed=0) (12
+    requests over 64-128 frames of a 128-frame src_len) through the
+    paged engine (4 slots, page 64, bf16 pages), its speculative twin (k
+    = 3, draft_bits 3) and a 4-slot slot engine: every request's tokens
+    equal its lone generate; in the paged and slot engines each
+    request's first decode step's logits row lies within SM_LOGIT_TOL of
+    its lone first step's and SM_LOGIT_APART from the next request's,
+    and a W = 4 paged window equals chained paged steps
+    (``_paged_window_check``); the paged kernel launches n_layers times
+    a decode step (n_layers (2k + 1) a round) in the variant its plan
+    picks; no plain version. Returns {kernel: launches}."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.kernels import build, paged_attn
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+    from repro_torch.runtime.serving import generate
+
+    reqs = synthetic_requests(cfg, SM_QUEUE, max_prompt=PROMPT,
+                              max_new=SM_MAX_NEW, seed=0, src_len=SM_SRC)
+    max_len = PROMPT + SM_MAX_NEW + 3
+    t0 = time.perf_counter()
+    lone = [generate(view, cfg, {"tokens": torch.as_tensor(r["tokens"])[None],
+                                 "frames": torch.as_tensor(r["frames"])[None]},
+                     steps=r["max_new"], max_len=max_len,
+                     device="cuda")[0].cpu() for r in reqs]
+    lone_rows = [_first_step_logits(view, cfg, r, max_len) for r in reqs]
+    log(f"seamless: {len(reqs)} lone generates "
+        f"{time.perf_counter() - t0:.1f} s (sources "
+        f"{sorted(len(r['frames']) for r in reqs)}, prompts "
+        f"{sorted(len(r['tokens']) for r in reqs)})")
+    plan = paged_attn.launch_plan(
+        4, cfg.n_kv_heads, SM_NB, ENGINE_PAGE, cfg.resolved_head_dim,
+        cfg.n_heads // cfg.n_kv_heads, window=None, itemsize=2,
+        sms=build.sm_count(torch.device("cuda", 0)))
+    variant = ("paged_attention_multipass" if plan["multipass"]
+               else "paged_attention")
+    launches = Counter()
+    for kind, k, kw in (("paged", 0, dict(kv_pages=16)),
+                        ("paged", 3, dict(kv_pages=16)),
+                        ("slot", 0, {})):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(view, cfg, capacity=4, max_len=max_len, src_len=SM_SRC,
+                     page_size=ENGINE_PAGE, speculative=k, draft_bits=3,
+                     device="cuda", **kw)
+        warm = time.perf_counter() - t0
+        _reset_counts()
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"], frames=r["frames"])
+        rows, werr = {}, None
+        while not eng.idle:  # run(), a step at a time
+            held = {q.rid for q in eng.slots if q is not None}
+            eng.step()
+            for i, q in enumerate(eng.slots):
+                if not k and q is not None and q.rid not in held:
+                    # admitted this step: the step decoded its first token
+                    rows[q.rid] = eng.logits[i, -1].clone()
+            if (kind == "paged" and not k and werr is None
+                    and None not in eng.slots):
+                werr = _paged_window_check(view, cfg, eng)
+        res = [eng.results[rid] for rid in sorted(eng.results)]
+        torch.cuda.synchronize()
+        st, counts = eng.stats(), _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = [torch.equal(torch.as_tensor(r["tokens"]), want)
+                for r, want in zip(res, lone)]
+        n = len(reqs)
+        errs = [_rel(rows[i], lone_rows[i]) for i in sorted(rows)]
+        apart = [_rel(rows[i], lone_rows[(i + 1) % n]) for i in sorted(rows)]
+        distinct = [len(set(r["tokens"].tolist())) for r in res]
+        steps = st["spec_rounds"] if k else st["decode_steps"]
+        paged = kind == "paged"
+        per = cfg.n_layers * (2 * k + 1) if paged else 0
+        log(f"seamless {kind} engine{f' speculative k={k}' if k else ''} "
+            f"(G = 1, dh 64, bf16 pages): {st['completed']} requests, "
+            f"{steps} {'rounds' if k else 'steps'}, decode "
+            f"{st['decode_tok_s']:.1f} tok/s, goodput "
+            f"{st['goodput_tok_s']:.1f} tok/s, prefill "
+            f"{st['t_prefill_s']:.2f} s, warmup {warm:.2f} s, "
+            + (f"acceptance {st['acceptance_rate']:.3f}, " if k else "")
+            + f"{variant} {counts[variant]} (plan: {plan['nsplit']} splits "
+            f"of {plan['chunk']}), peak {peak:.2f} GiB"
+            + (f", graph pools {_graph_pools(eng)}" if paged else "")
+            + f" | equal to lone generates {same}, distinct tokens a "
+            f"request {distinct}"
+            + (f" | first-step logits vs alone max {max(errs):.3e}, vs the "
+               f"next request's min {min(apart):.3e}" if rows else "")
+            + f" | {CARD}")
+        check(st["paged"] is paged and len(res) == len(reqs),
+              f"seamless {kind} engine: paged {st['paged']}, "
+              f"{len(res)} results")
+        check(all(same), f"seamless {kind} engine (k={k}): a request's "
+              f"tokens differ from its lone generate")
+        check(werr is not None or k or not paged, "seamless paged engine: "
+              "no step had every slot live for the window check")
+        if not k:
+            check(len(rows) == n and max(errs) <= SM_LOGIT_TOL,
+                  f"seamless {kind} engine: {len(rows)} first-step rows of "
+                  f"{n}, max {max(errs):.3e} from alone (tol "
+                  f"{SM_LOGIT_TOL:g})")
+            check(min(apart) >= SM_LOGIT_APART, f"seamless {kind} engine: "
+                  f"a request's first-step logits lie within "
+                  f"{min(apart):.3e} of another's")
+        check(counts[variant] == per * steps and counts["plain"] == 0,
+              f"seamless {kind} engine: {counts[variant]} {variant} "
+              f"launches for {steps} steps of {per}, plain "
+              f"{counts['plain']}")
+        launches.update({kk: v for kk, v in counts.items() if v})
+        del eng
+        torch.cuda.empty_cache()
+    return launches
+
+
+def seamless_full_width():
+    """Phase 3p: seamless-m4t-medium at full width (SM_LAYERS of its 12
+    encoder and of its 12 decoder layers, d_model 1024, 16 / 16 heads of
+    64, d_ff 4096, vocab 256206 tied, its 4-bit pow2 LUT-Q, 8-bit
+    activations; random weights from seed 0, 128 seeded frames a row): (b) int8 and packed4
+    generate (B=4, prompt 128, 16 tokens), graph and eager, with each
+    kernel's launches a forward (a prefill 7 products an encoder layer,
+    11 a decoder layer, a decode step 9 a decoder layer, and the tied
+    head: kernel 1 in int8, the decode backend in packed4), the head's
+    share of a replayed step and the graph pools; the calibrated
+    serving_pow2 view the same on lutq_shift (the head float); (c) its
+    audit (a 20-token prefill over 20 frames, one decode step); (d) the
+    engines at act_bits 32; (e) reduced seamless card vs CPU. Returns
+    {kernel: launches} of (b)'s graph-mode generates and (d)."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    t_phase = time.perf_counter()
+    base = get_config(SM_ARCH).replace(n_layers=SM_LAYERS,
+                                       enc_layers=SM_LAYERS)
+    E, L = base.enc_layers, base.n_layers
+    p, d = 7 * E + 11 * L, 9 * L  # body products: prefill, decode step
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, base.vocab, (BATCH, PROMPT), generator=gen)
+    frames = torch.randn((BATCH, SM_SRC, base.d_model), generator=gen)
+    launches, shares, parts = Counter(), {}, {}
+    t0 = time.perf_counter()
+    model = api.quantize(api.init(base, seed=0, device="cuda"), base)
+    policy = api.resolved_policy(base)
+    torch.cuda.synchronize()
+    log(f"seamless {base.name} ({E} + {L} layers, d_model {base.d_model}, "
+        f"{base.n_heads} / {base.n_kv_heads} heads of "
+        f"{base.resolved_head_dim}, d_ff {base.d_ff}, vocab {base.vocab} "
+        f"tied): init + quantize {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | {CARD}")
+    views = {"int8": serve_view(model, policy=policy),
+             "packed4": serve_view(model, pack4=True, policy=policy)}
+    del model
+    torch.cuda.empty_cache()
+    t8 = views["int8"].embed.table.state.a
+    t4 = views["packed4"].embed.table.state.a
+    check(t8.shape == (base.vocab, base.d_model) and t8.dtype == torch.int8
+          and t4.shape == (base.vocab // 2, base.d_model)
+          and t4.dtype == torch.uint8 and len(views["int8"].encoder) == E
+          and len(views["int8"].decoder) == L,
+          "seamless: the tied table or the stacks are not as expected")
+    for name, expect in (
+            ("int8", {"lutq_matmul": (p + 1, d + 1)}),
+            ("packed4", {"lutq_gemv_packed": (p, d), "decode": 1})):
+        _, counts = _family_serve("seamless", name, views[name], base, toks,
+                                  expect, frames=frames)
+        for kname in expect:
+            if kname != "decode":
+                launches[kname] += counts[kname]
+        shares[name] = _head_share(name, views[name], base, toks, frames)
+        _decode_logits_checks(name, views[name], base, toks, frames)
+    parts["int8 + packed4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(_seamless_engines(views["packed4"],
+                                      base.replace(act_bits=32)))
+    parts["engines"] = time.perf_counter() - t0
+    del views
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = base.replace(quant=serving_pow2())
+    cgen = torch.Generator().manual_seed(2)
+    calib = {"tokens": torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                                     generator=cgen).cuda(),
+             "frames": torch.randn((CALIB_BATCH, CALIB_LEN, cfg.d_model),
+                                   generator=cgen).cuda()}
+    view = api.serve_state(cfg, seed=0, device="cuda", calib_batch=calib)
+    torch.cuda.synchronize()
+    xq = view.decoder[0].xattn.q.kernel.state
+    check(xq.d.dtype == torch.int8 and xq.act is not None
+          and view.embed.table.dtype == torch.float32,
+          "serving_pow2: the cross-attention leaves are not pow2-encoded "
+          "with frozen pairs, or the tied table is not float")
+    log(f"seamless serving_pow2: serve_state (init, quantize, calibrate on "
+        f"{CALIB_BATCH} x {CALIB_LEN} tokens and frames, serve_view) "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, counts = _family_serve("seamless", "serving_pow2", view, cfg, toks,
+                              {"lutq_shift": (p, d)}, frames=frames)
+    launches["lutq_shift"] += counts["lutq_shift"]
+    shares["serving_pow2"] = _head_share("serving_pow2", view, cfg, toks,
+                                         frames)
+    _decode_logits_checks("serving_pow2", view, cfg, toks, frames)
+    _family_audit("seamless", view, cfg, toks, SM_AUDIT, {"lutq_shift": p},
+                  {"lutq_shift": d}, frames=frames)
+    del view
+    torch.cuda.empty_cache()
+    parts["serving_pow2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _reduced_card_vs_cpu("seamless", reduced(get_config(SM_ARCH)).replace(
+        act_bits=32))
+    parts["reduced"] = time.perf_counter() - t0
+    log(f"phase 3p {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + ") | launches "
+        f"{dict(launches)} | head ms, step ms, step / head graph pool MiB "
+        f"{ {k: tuple(round(x, 4) for x in v) for k, v in shares.items()} }")
+    return dict(launches)
 
 
 # ---------------------------------------------------------------------------
@@ -3166,7 +3789,7 @@ def _graph_pools(eng) -> str:
              "decode": eng._graphs["decode"][0].pool()}
     mib = {k: sum(g["total_size"] for g in segs
                   if tuple(g["segment_pool_id"]) == tuple(v)) / 2**20
-           for k, v in pools.items()}
+           for k, v in pools.items() if v is not None}
     return ", ".join(f"{k} {v:.1f} MiB" for k, v in mib.items())
 
 
@@ -5345,16 +5968,17 @@ def kmeans_timings(card: str):
 
 
 def paged_timings(card: str, run_a_lens, G=4, dh=80, labels=("a", "c"),
-                  sweep=True):
+                  sweep=True, Hkv=8, kv_dtype="int8"):
     """The paged-attention kernel at run (a)'s decode geometry (8 rows,
-    lengths mid-generation) and at run (c)'s longest row, int8 pages,
-    both variants, with pools rotated through more than twice the L2;
-    beside its byte bound (the live pages' K/V rows and scales, q and
-    out once), its plain version and scaled_dot_product_attention on a
-    pre-gathered, pre-dequantized row with the same mask (a yardstick
-    the port never calls). Danube's group and head dim unless ``G``,
-    ``dh`` say otherwise (8 KV heads either way); ``labels`` picks the
-    geometries, ``sweep`` the blocks-per-SM sweep."""
+    lengths mid-generation) and at run (c)'s longest row, int8 pages
+    (``kv_dtype="bfloat16"``: bf16 pages, no scales), both variants,
+    with pools rotated through more than twice the L2; beside its byte
+    bound (the live pages' K/V rows and scales, q and out once), its
+    plain version and scaled_dot_product_attention on a pre-gathered,
+    pre-dequantized row with the same mask (a yardstick the port never
+    calls). Danube's group, head dim and 8 KV heads unless ``G``, ``dh``,
+    ``Hkv`` say otherwise; ``labels`` picks the geometries, ``sweep``
+    the blocks-per-SM sweep."""
     import torch
     import torch.nn.functional as F
 
@@ -5364,7 +5988,9 @@ def paged_timings(card: str, run_a_lens, G=4, dh=80, labels=("a", "c"),
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(9)
-    Hkv, page, window = 8, 64, 4096
+    page, window = 64, 4096
+    kvdt = getattr(torch, kv_dtype)
+    quant = kvdt == torch.int8
     geometries = {"a": (run_a_lens, -(-(512 + 64) // page)),
                   "c": ([LONG_PROMPT + LONG_GEN - 1],
                         -(-(LONG_PROMPT + LONG_GEN) // page))}
@@ -5373,17 +5999,21 @@ def paged_timings(card: str, run_a_lens, G=4, dh=80, labels=("a", "c"),
         lens, NB = geometries[label]
         B = len(lens)
         q, kp, vp, ks, vs, block, _, cl = _paged_case(
-            B, Hkv, G, dh, page, NB, lens, torch.bfloat16, torch.int8,
+            B, Hkv, G, dh, page, NB, lens, torch.bfloat16, kvdt,
             window, gen, dev)
         live = sum(paged_attn.live_pages(L, page, NB, window) for L in lens)
         valid = sum(min(L, NB * page) - max(0, L - window) for L in lens)
-        # what a call must move: the valid positions' int8 K and V rows
-        # and their bf16 scales, q read and out written (bf16), the block
-        # table and the lengths
-        kv_bytes = valid * Hkv * (2 * dh + 2 * 2)
+        # what a call must move: the valid positions' K and V rows (int8
+        # with their bf16 scales, or bf16), q read and out written (bf16),
+        # the block table and the lengths
+        kv_bytes = valid * Hkv * (2 * dh * kvdt.itemsize
+                                  + (2 * 2 if quant else 0))
         nbytes = kv_bytes + 2 * q.numel() * 2 + block.numel() * 4 + B * 4
         n = _copies(kv_bytes)
-        sets = [(q, kp.clone(), vp.clone(), block, cl, ks.clone(), vs.clone())
+
+        def copy(t):
+            return None if t is None else t.clone()
+        sets = [(q, kp.clone(), vp.clone(), block, cl, copy(ks), copy(vs))
                 for _ in range(n)]
         tb = nbytes / HBM_BYTES_PER_S * 1e3
         to = 4 * Hkv * G * dh * valid / PEAK_FLOPS["float32"] * 1e3
@@ -5433,10 +6063,12 @@ def paged_timings(card: str, run_a_lens, G=4, dh=80, labels=("a", "c"),
         lsets = []
         for _, kpc, vpc, blk, _, ksc, vsc in sets[:_copies(
                 4 * B * NB * page * Hkv * dh)]:
-            kc = (gather_pages(kpc, blk).to(torch.bfloat16)
-                  * gather_pages(ksc, blk)[..., None]).transpose(1, 2)
-            vc = (gather_pages(vpc, blk).to(torch.bfloat16)
-                  * gather_pages(vsc, blk)[..., None]).transpose(1, 2)
+            kc, vc = (gather_pages(t, blk).to(torch.bfloat16)
+                      for t in (kpc, vpc))
+            if quant:
+                kc = kc * gather_pages(ksc, blk)[..., None]
+                vc = vc * gather_pages(vsc, blk)[..., None]
+            kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
             lsets.append((q.transpose(1, 2), kc.contiguous(), vc.contiguous(),
                           mask))
 
@@ -5447,7 +6079,8 @@ def paged_timings(card: str, run_a_lens, G=4, dh=80, labels=("a", "c"),
                         graph=False)
         for variant, (t, t_loop) in times.items():
             log(f"time {variant} run ({label}) geometry B={B} Hkv={Hkv} G={G} "
-                f"dh={dh} page={page} NB={NB} int8 pages, {live} live pages, "
+                f"dh={dh} page={page} NB={NB} {kv_dtype} pages, {live} live "
+                f"pages, "
                 f"{split['nsplit']} splits of {split['chunk']} positions "
                 f"({split['blocks']} blocks): kernel {t * 1e3:.1f} us (host "
                 f"loop {t_loop * 1e3:.1f} us) | bound {b * 1e3:.2f} us ({by})"
@@ -5636,6 +6269,8 @@ def main() -> int:
     worst.update(moe_kernel_checks())
     for kname, err in deepseek_kernel_checks().items():
         worst[kname] = max(worst[kname], err)
+    for kname, err in seamless_kernel_checks().items():
+        worst[kname] = max(worst[kname], err)
     quant_divide_checks()
     adamw_checks()
     launches, _, views, cfg = serve_full_width()
@@ -5651,6 +6286,7 @@ def main() -> int:
     reduced_engine_card_vs_cpu()
     moe = moe_full_width()
     deepseek = deepseek_full_width()
+    seamless = seamless_full_width()
     dense = dense_families_full_width()
     pow2 = serve_pow2_full_width()
     launches["lutq_shift"] = pow2["launches"]
@@ -5706,6 +6342,16 @@ def main() -> int:
                 ms=g["times"][variant][0], plain_ms=g["plain_ms"],
                 bound_ms=g["bound_ms"], bound_by=g["bound_by"],
                 library_ms=g["library_ms"])
+    # phase 4p: kernels 6 and 7 at seamless's G = 1, dh 64 (16 KV heads,
+    # bf16 pages: encdec never quantizes its pages) at run (a)'s lengths
+    g = paged_timings(card, [len(r["tokens"]) + r["max_new"] // 2
+                             for r in run_a], G=1, dh=64, Hkv=16,
+                      kv_dtype="bfloat16", labels=("a",), sweep=False)["a"]
+    for variant in ("paged_attention", "paged_attention_multipass"):
+        wide.setdefault(variant, {})["G1_dh64_bf16"] = dict(
+            ms=g["times"][variant][0], plain_ms=g["plain_ms"],
+            bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+            library_ms=g["library_ms"])
     # kernel 5: danube's prefill geometry (the 4096 row is logged)
     table["flash_attention"] = flash_timings(card)["danube"]
     # the expert-stacked kernels: one MoE layer's three products at E =
@@ -5741,6 +6387,9 @@ def main() -> int:
         # phase 3o: deepseek-v2-lite's graph-mode generates
         if kname in deepseek:
             records[-1]["deepseek_launches"] = deepseek[kname]
+        # phase 3p: seamless-m4t-medium's graph-mode generates and engines
+        if kname in seamless:
+            records[-1]["seamless_launches"] = seamless[kname]
         if kname in MOE_KERNELS:  # phase 2m's timing at C = 40
             p = prefill[kname]
             records[-1]["prefill"] = {
@@ -5758,8 +6407,8 @@ def main() -> int:
         # phase 3n: mistral-large-123b's and qwen1.5-110b's graph-mode
         # generates and paged engines, mistral-nemo-12b's engine
         records[-1]["dense_family_launches"] = dense.get(kname, 0)
-        if kname in wide:  # phase 4 at dh 128, G = 8 and 12, run (a)
-            records[-1]["shapes"] = wide[kname]
+        if kname in wide:  # phase 4 at dh 128, G = 8 and 12, and G = 1,
+            records[-1]["shapes"] = wide[kname]  # dh 64 (4p), run (a)
         if kname in spec_launches:  # phase 3f's speculative runs
             records[-1]["speculative_launches"] = spec_launches[kname]
         if kname in packed_launches:  # phase 3i's packed graph passes

@@ -2,9 +2,11 @@
 
 The port registers the configurations it can serve: the dense
 ``h2o-danube-1.8b``, ``mistral-nemo-12b``, ``mistral-large-123b`` (a
-GQA group of 12) and ``qwen1.5-110b`` (a bias on q, k and v), and the
-MoE ``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (MLA with a
-latent cache, one leading dense layer, shared experts).
+GQA group of 12) and ``qwen1.5-110b`` (a bias on q, k and v), the MoE
+``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (MLA with a latent
+cache, one leading dense layer, shared experts), and the
+encoder-decoder ``seamless-m4t-medium`` (cross-attention over a
+per-request memory, a tied readout).
 """
 from __future__ import annotations
 
@@ -42,4 +44,5 @@ def _ensure_loaded():
         mistral_nemo_12b,
         qwen1_5_110b,
         qwen3_moe_235b_a22b,
+        seamless_m4t_medium,
     )

@@ -7,19 +7,24 @@ leading axis. :func:`from_jax` loads such a tree, handed over as numpy
 the port's modules, splitting each ``(L, ...)`` stack per layer (L =
 ``n_layers - first_dense``; a config's leading dense layers are the
 reference's unstacked ``prefix_layers/<i>`` dicts, the port's
-``prefix_layers.<i>`` modules); :func:`to_numpy` goes the other way.
+``prefix_layers.<i>`` modules; an encoder-decoder's ``encoder`` and
+``decoder`` stacks split the same way, a layer at a time);
+:func:`to_numpy` goes the other way.
 
 A slot decode cache crosses with :func:`cache_from_jax` /
 :func:`cache_to_numpy`: the reference stacks each leaf over the
 stacked layers (``{"layers": {...: (L, B, S, ...)}, "len"[,
 "prefix_layers": {"<i>": {...}}]}``); the port keeps one dict per layer
-in execution order, the prefix layers first.
+in execution order, the prefix layers first. An encdec cache's layers
+hold ``xk`` / ``xv`` (the cross K/V) beside ``k`` / ``v``, and its
+``src_len`` (B,) crosses as ``len`` does.
 
 A paged KV cache crosses with :func:`paged_cache_from_jax` /
 :func:`paged_cache_to_numpy`: the reference stacks each pool leaf over
 the layers, ``{"pool": {"k", "v"[, "k_scale", "v_scale"]}: (L, P,
 page, Hkv[, dh]), "block", "len"}``; the port keeps one pool dict per
-layer.
+layer. An encdec paged cache's ``xk`` / ``xv`` slabs (L, B, src_len,
+Hkv, dh) become one tensor a layer, and ``src_len`` crosses as ``len``.
 
 A train checkpoint's parameters (``ckpt.restore_params``: the
 ``trainable`` and ``static`` subtrees, memory-mapped) become a serve
@@ -55,6 +60,7 @@ from torch import nn
 from repro_torch.core.lutq import LutqState
 from repro_torch.core.policy import merge_trainable
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import init_encdec, n_encoder
 from repro_torch.models.lm import init_lm, n_stacked
 from repro_torch.nn.tree import (QuantKernel, layer_split, logical_path,
                                  set_leaf, tree_paths)
@@ -103,13 +109,22 @@ def _convert(leaf, device, i=None):
     return one(leaf)
 
 
+def _stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """{stacked top-level key: its number of layers} of a config's tree."""
+    if cfg.family == "encdec":
+        return {"encoder": n_encoder(cfg), "decoder": cfg.n_layers}
+    return {"layers": n_stacked(cfg)}
+
+
 def from_jax(tree, cfg: ModelConfig, *, device="cpu") -> nn.Module:
     """The port's model holding the parameters of a reference tree."""
-    model = init_lm(None, cfg, device="meta")
+    model = (init_encdec(None, cfg, device="meta") if cfg.family == "encdec"
+             else init_lm(None, cfg, device="meta"))
+    stacks = _stacks(cfg)
     for path, leaf in walk(tree):
-        if path[0] == "layers":
-            for i in range(n_stacked(cfg)):
-                set_leaf(model, ("layers", str(i)) + path[1:],
+        if path[0] in stacks:
+            for i in range(stacks[path[0]]):
+                set_leaf(model, (path[0], str(i)) + path[1:],
                          _convert(leaf, device, i))
         else:
             set_leaf(model, path, _convert(leaf, device))
@@ -158,9 +173,15 @@ def paged_cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
     pool = [{key: _tensor(np.asarray(leaf)[i], device)
              for key, leaf in cache["pool"].items()}
             for i in range(cfg.n_layers)]
-    return {"pool": pool,
-            "block": _tensor(np.asarray(cache["block"], np.int32), device),
-            "len": _tensor(np.asarray(cache["len"], np.int32), device)}
+    out = {"pool": pool}
+    for key in ("xk", "xv"):
+        if key in cache:
+            out[key] = [_tensor(np.asarray(cache[key])[i], device)
+                        for i in range(cfg.n_layers)]
+    for key in ("block", "len", "src_len"):
+        if key in cache:
+            out[key] = _tensor(np.asarray(cache[key], np.int32), device)
+    return out
 
 
 def cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
@@ -173,8 +194,11 @@ def cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
     layers = [{key: _tensor(np.asarray(leaf)[i], device)
                for key, leaf in cache["layers"].items()}
               for i in range(n_stacked(cfg))]
-    return {"layers": prefix + layers,
-            "len": _tensor(np.asarray(cache["len"], np.int32), device)}
+    out = {"layers": prefix + layers}
+    for key in ("len", "src_len"):
+        if key in cache:
+            out[key] = _tensor(np.asarray(cache[key], np.int32), device)
+    return out
 
 
 def cache_to_numpy(cache, cfg: ModelConfig) -> Dict[str, Any]:
@@ -186,6 +210,8 @@ def cache_to_numpy(cache, cfg: ModelConfig) -> Dict[str, Any]:
     out = {"layers": {k: np.stack([_numpy(c[k]) for c in stack])
                       for k in stack[0]},
            "len": _numpy(cache["len"])}
+    if "src_len" in cache:
+        out["src_len"] = _numpy(cache["src_len"])
     if n:
         out["prefix_layers"] = {str(i): {k: _numpy(v) for k, v in c.items()}
                                 for i, c in enumerate(cache["layers"][:n])}
@@ -196,9 +222,15 @@ def paged_cache_to_numpy(cache) -> Dict[str, Any]:
     """The port's paged cache in the reference's layout, as numpy: pool
     leaves restacked over the layers."""
     keys = cache["pool"][0].keys()
-    return {"pool": {k: np.stack([_numpy(c[k]) for c in cache["pool"]])
-                     for k in keys},
-            "block": _numpy(cache["block"]), "len": _numpy(cache["len"])}
+    out = {"pool": {k: np.stack([_numpy(c[k]) for c in cache["pool"]])
+                    for k in keys}}
+    for key in ("xk", "xv"):
+        if key in cache:
+            out[key] = np.stack([_numpy(t) for t in cache[key]])
+    for key in ("block", "len", "src_len"):
+        if key in cache:
+            out[key] = _numpy(cache[key])
+    return out
 
 
 # ---------------------------------------------------------------------------

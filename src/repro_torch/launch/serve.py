@@ -25,6 +25,13 @@ through its slot pool, as the reference does):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-235b-a22b --batch 4 --prompt-len 128 --gen 16
 
+The encoder-decoder family (seamless-m4t-medium: ``frames`` of the
+prompt's width, standard normal from ``--seed``, stand in for the audio
+frontend; an --engine takes sources of up to --prompt-len frames):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --batch 4 --prompt-len 128 --gen 16
+
 On the CPU, through the kernels' plain versions, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
@@ -33,6 +40,9 @@ On the CPU, through the kernels' plain versions, at the reduced size:
         --reduced --quant-policy serving_pow2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-235b-a22b --reduced --device cpu [--engine]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --reduced --device cpu [--engine \
+        --kv-pages 24 --page-size 16]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
         --queue 4 --prompt-len 30 --gen 8 --device cpu
@@ -163,17 +173,20 @@ def run_engine(model, cfg, *, capacity: int, n_requests: int,
     ``kv_pages`` switches onto the paged KV cache. ``requests``
     overrides the synthetic workload with a list of ``Engine.submit``
     kwargs dicts. ``speculative``: draft block length of self-speculative
-    rounds (the cache gets that much headroom)."""
+    rounds (the cache gets that much headroom). An encdec engine takes
+    sources of up to ``prompt_len`` frames, as the reference's CLI."""
+    src_len = prompt_len if cfg.family == "encdec" else 0
     eng = Engine(model, cfg, capacity=capacity,
                  max_len=prompt_len + gen + int(speculative),
-                 temperature=temperature, seed=seed, kv_pages=kv_pages,
+                 src_len=src_len, temperature=temperature, seed=seed, kv_pages=kv_pages,
                  page_size=page_size, prefix_cache=prefix_cache,
                  speculative=speculative,
                  draft_bits=draft_bits, draft_params=draft_params,
                  device=device)
     if requests is None:
         requests = synthetic_requests(cfg, n_requests, max_prompt=prompt_len,
-                                      max_new=gen, seed=seed)
+                                      max_new=gen, seed=seed,
+                                      src_len=src_len)
     for req in requests:
         req = dict(req)
         req.pop("arrival_s", None)
@@ -195,6 +208,8 @@ def format_engine_stats(stats) -> str:
            f"prefill {stats['t_prefill_s']:.2f} s, "
            f"decode {stats['t_decode_s']:.2f} s, "
            f"warmup {stats['t_warmup_s']:.2f} s")
+    if "src_len" in stats:
+        out += f" | sources up to {stats['src_len']} frames"
     if stats.get("paged"):
         out += (f"\n[serve] paged KV: {stats['pages_in_use']}/"
                 f"{stats['kv_pages'] - 1} pages in use "
@@ -366,10 +381,18 @@ def main(argv=None):
     B, P = args.batch, args.prompt_len
     gen = torch.Generator().manual_seed(args.seed + 1)
     toks = torch.randint(0, cfg.vocab, (B, P), generator=gen)
-    out, stats = generate(smodel, cfg, {"tokens": toks}, steps=args.gen,
+    batch = {"tokens": toks}
+    src = ""
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (B, P, cfg.d_model), generator=torch.Generator().manual_seed(
+                args.seed + 2)).to(cfg.dtype)
+        src = f" over {P} source frames"
+    out, stats = generate(smodel, cfg, batch, steps=args.gen,
                           return_stats=True, speculative=args.speculative,
                           draft_bits=args.draft_bits, device=dev)
-    print(f"[serve] prefill {P} toks x{B}: {stats['t_prefill_s']*1e3:.1f} ms | "
+    print(f"[serve] prefill {P} toks x{B}{src}: "
+          f"{stats['t_prefill_s']*1e3:.1f} ms | "
           f"decode[{stats['backend']}]: {stats['decode_tok_s']:.1f} tok/s | "
           f"warmup {stats['t_warmup_s'] * 1e3:.1f} ms | "
           f"sample: {out[0, :8].tolist()}")

@@ -1,6 +1,8 @@
-"""Model API (counterpart of ``repro.models.api``), dense and MoE
-families: GQA attention or MLA (deepseek's latent cache, on the slot
-path only), leading dense layers (``cfg.first_dense``).
+"""Model API (counterpart of ``repro.models.api``), dense, MoE and
+encoder-decoder families: GQA attention or MLA (deepseek's latent
+cache, on the slot path only), leading dense layers
+(``cfg.first_dense``), and the encdec family's encoder over ``frames``
+and cross-attending decoder (``models/encdec.py``).
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)
@@ -11,13 +13,19 @@ path only), leading dense layers (``cfg.first_dense``).
     draft_view(model, draft_bits=, with_report=) -> coarse draft model
     prefill(model, cfg, batch, lengths=)       -> (logits, cache)
     decode_step(model, cfg, token, cache)      -> (logits, cache)
-    init_cache(cfg, batch, max_len, device=)   -> cache
+    init_cache(cfg, batch, max_len, src_len=, device=) -> cache
     paged_supported(cfg)                       -> bool
-    init_paged_cache(cfg, batch, n_pages, page_size, n_blocks, device=)
+    init_paged_cache(cfg, batch, n_pages, page_size, n_blocks, src_len=,
+                     device=)
     paged_decode_step(model, cfg, token, cache) -> (logits, cache)
     speculative_supported(cfg)                 -> (ok, reason)
     decode_window(model, cfg, tokens, cache)   -> (logits, cache)
     paged_decode_window(model, cfg, tokens, cache) -> (logits, cache)
+
+An encdec batch carries ``frames`` (B, S_src, D) beside ``tokens``; its
+caches hold each decoder layer's cross K/V of ``src_len`` source
+positions. Training an encdec model is not ported yet (``loss_fn``
+raises).
 
 Every entry point that creates tensors runs on ``device="cuda"`` unless
 the caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -32,12 +40,13 @@ from torch import nn
 
 from repro_torch.core.policy import draft_view, quantize_tree
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as m_encdec
 from repro_torch.models import lm as m_lm
 from repro_torch.models.config import ModelConfig
 
 
-#: the LM families the port serves
-FAMILIES = ("dense", "moe")
+#: the model families the port serves
+FAMILIES = ("dense", "moe", "encdec")
 
 
 def _ported(cfg: ModelConfig):
@@ -52,6 +61,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
     _ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "encdec":
+        return m_encdec.init_encdec(gen, cfg, device=dev)
     return m_lm.init_lm(gen, cfg, device=dev)
 
 
@@ -83,7 +94,8 @@ def calibrate(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None
 
     Runs a prefill forward of the model under
     :func:`repro_torch.core.actquant.capture_act_scales` (max|x| at each
-    matmul boundary, one maximum per logical leaf), then installs
+    matmul boundary, one maximum per logical leaf; an encdec batch
+    carries ``frames``), then installs
     ``[scale, qmax]`` pairs into the ``act`` of every leaf whose rule has
     ``act_frozen=True`` and ``act_bits < 32``. The pairs persist through
     ``serve_view`` and checkpoints; the pow2 backend quantizes
@@ -102,7 +114,8 @@ def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
     """init -> quantize [-> calibrate] -> serve_view. Returns the serve
     model (plus the backend manifest with ``with_manifest=True``); the
     fp masters are dropped with the quantized tree. ``calib_batch``: a
-    prefill batch (``{"tokens": ...}``) run through :func:`calibrate`
+    prefill batch (``{"tokens": ...}``, with ``"frames"`` for encdec) run
+    through :func:`calibrate`
     before the serve view, freezing activation scales for
     ``act_frozen`` rules (the ``serving_pow2`` preset). The draft model
     of self-speculative decoding is ``draft_view(serve_state(...))``
@@ -119,12 +132,20 @@ def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
 def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
     """Training loss of a batch (tokens, labels): (loss, metrics)."""
     _ported(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "the encdec loss is not ported yet (ROADMAP queue 1, encdec "
+            "training); the port serves encdec models")
     return m_lm.lm_loss(model, cfg, batch)
 
 
 def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):
-    """Run the prompt, return (last_logits (B, 1, V), cache)."""
+    """Run the prompt, return (last_logits (B, 1, V), cache). An encdec
+    batch encodes ``batch["frames"]`` first."""
     _ported(cfg)
+    if cfg.family == "encdec":
+        return m_encdec.encdec_prefill(model, cfg, batch["frames"],
+                                       batch["tokens"], lengths=lengths)
     return m_lm.lm_prefill(model, cfg, batch["tokens"], lengths=lengths)
 
 
@@ -132,39 +153,57 @@ def decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
     """(B, W) tokens against a cache at length n -> (logits (B, W, V),
     cache at n + W). W = 1 is a decode step; a wider W is a speculative
     verify window, each row the bits of W chained steps
-    (``models/lm.lm_decode``)."""
+    (``models/lm.lm_decode``, ``models/encdec.encdec_decode``)."""
     _ported(cfg)
+    if cfg.family == "encdec":
+        return m_encdec.encdec_decode(model, cfg, token, cache)
     return m_lm.lm_decode(model, cfg, token, cache)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda"):
+               src_len: int = 0, device="cuda"):
+    """An empty slot cache; an encdec one holds ``src_len`` (else
+    ``max_len``) cross positions a row, as the reference's."""
     _ported(cfg)
-    return m_lm.init_cache(cfg, batch, max_len, device=resolve_device(device))
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return m_encdec.init_encdec_cache(cfg, batch, max_len,
+                                          src_len or max_len, device=dev)
+    return m_lm.init_cache(cfg, batch, max_len, device=dev)
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
     """Configs the paged KV cache serves: dense attention without MLA,
-    experts, prefix layers or a modality prefix. The reference also
-    pages encdec (not ported yet); MoE stays on the slot path, as in the
-    reference (an ``Engine(kv_pages=...)`` of a MoE config silently
-    serves through its slot pool)."""
+    experts, prefix layers or a modality prefix, and encdec (its growing
+    self-attention K/V paged, its cross K/V a slab a slot). MoE stays on
+    the slot path, as in the reference (an ``Engine(kv_pages=...)`` of a
+    MoE config silently serves through its slot pool)."""
+    if cfg.family == "encdec":
+        return True
     return (cfg.family == "dense" and not cfg.use_mla and cfg.n_experts == 0
             and cfg.first_dense == 0 and cfg.n_prefix_tokens == 0)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
-                     page_size: int, n_blocks: int, *, device="cuda"):
+                     page_size: int, n_blocks: int, *, src_len: int = 0,
+                     device="cuda"):
     if not paged_supported(cfg):
         raise ValueError(f"paged KV unsupported for family={cfg.family} "
                          "(use api.paged_supported to gate)")
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return m_encdec.init_paged_encdec_cache(cfg, batch, n_pages,
+                                                page_size, n_blocks, src_len,
+                                                device=dev)
     return m_lm.init_paged_cache(cfg, batch, n_pages, page_size, n_blocks,
-                                 device=resolve_device(device))
+                                 device=dev)
 
 
 def paged_decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
     """Paged-pool twin of :func:`decode_step`."""
     _ported(cfg)
+    if cfg.family == "encdec":
+        return m_encdec.encdec_paged_decode(model, cfg, token, cache)
     return m_lm.lm_paged_decode(model, cfg, token, cache)
 
 

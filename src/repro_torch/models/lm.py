@@ -108,6 +108,14 @@ def all_layers(model: LM):
 
 
 def _check_family(cfg: ModelConfig):
+    """The decoder-only entry points serve the dense and MoE families; an
+    encoder-decoder config goes through ``models/encdec.py`` (which
+    reuses this module's blocks, never these entry points)."""
+    if cfg.family == "encdec":
+        raise ValueError(f"config {cfg.name!r} is an encoder-decoder: the "
+                         f"decoder-only LM entry points refuse it (serve it "
+                         f"through models/api, which dispatches it to "
+                         f"models/encdec)")
     if cfg.family not in ("dense", "moe") or cfg.n_prefix_tokens:
         raise NotImplementedError(
             f"the port serves the dense and MoE LM families without a "

@@ -1,8 +1,9 @@
 """Attention: blocked online-softmax prefill, one-token decode, pages.
 
-Counterpart of ``repro.nn.attention``: ``flash_attention`` (the causal
-path with an optional sliding window and a ``q_offset`` for chunked
-prefill against a workspace), ``decode_attention``, and the block-table
+Counterpart of ``repro.nn.attention``: ``flash_attention`` (causal with
+an optional sliding window and a ``q_offset`` for chunked prefill
+against a workspace, or unmasked, ``causal=False``, for cross-attention),
+``decode_attention``, and the block-table
 helpers ``gather_pages`` / ``scatter_token_pages`` of the paged KV
 cache, as plain torch ops. The prefill walks (q-block, kv-block) pairs
 with an online softmax, and under a window each q-block reads a
@@ -36,6 +37,7 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
                     window: Optional[int] = None, q_block: int = 512,
                     kv_block: int = 512,
                     q_offset: Union[int, torch.Tensor] = 0,
@@ -44,8 +46,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_segments: Optional[torch.Tensor] = None,
                     kv_segments: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Causal attention. q: (B,S,H,Dh); k,v: (B,Skv,Hkv,Dh[v]) ->
-    (B,S,H,Dv).
+    """Causal attention (``causal=False``: every query attends every
+    key, as an encoder-decoder's cross-attention does). q: (B,S,H,Dh);
+    k,v: (B,Skv,Hkv,Dh[v]) -> (B,S,H,Dv).
 
     ``q_offset``: position of q's first row within the KV sequence.
     Chunked prefill attends a chunk of queries against the whole
@@ -105,7 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq = S // q_block
     qr = scaled(q.reshape(B, nq, q_block, Hkv, G, Dh), scale)
 
-    if window is not None and not packed:
+    if window is not None and causal and not packed:
         # static KV slab wide enough to cover [q_end - window, q_end)
         slab = ((window + kv_block - 1) // kv_block + 1) * kv_block
         slab = min(slab + (q_block // kv_block) * kv_block, Skv)
@@ -147,7 +150,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 k_seg = kv_segments[lo:lo + kv_block]
                 k_pos = kv_positions[lo:lo + kv_block]
             s = _f32_einsum("bqhgd,bkhd->bhgqk", qblk, kj)
-            mask = q_pos[:, None] >= k_pos[None, :]
+            if causal:
+                mask = q_pos[:, None] >= k_pos[None, :]
+            else:
+                mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                                  device=dev)
             if window is not None:
                 mask &= q_pos[:, None] - k_pos[None, :] < window
             if packed:

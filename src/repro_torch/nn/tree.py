@@ -31,8 +31,9 @@ from repro_torch.core.lutq import LutqState
 
 Path = Tuple[str, ...]
 
-#: Module-list names whose children are the reference's stacked layers.
-STACKS = frozenset({"layers"})
+#: Module-list names whose children are the reference's stacked layers
+#: (an encoder-decoder stacks its ``encoder`` and ``decoder`` layers).
+STACKS = frozenset({"layers", "encoder", "decoder"})
 #: Leaves of a ``moe`` module stacked over the experts (the reference's
 #: ``("expert", ...)`` logical axes); the shared experts are not.
 EXPERT_LEAVES = frozenset({"wi", "wg", "wo"})

@@ -73,9 +73,20 @@ tokens of non-speculative decoding; a greedy round is one function over
 the engine's buffers, captured and replayed as the decode step is (a
 paged engine's warmup captures both); a temperature round runs eagerly.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh`` and encdec
-/ vlm requests (``frames`` / ``prefix_embeds``); each message names its
-ROADMAP queue 1 item.
+An encdec engine (``src_len``: the widest source it takes) serves
+requests that carry ``frames`` (S_src <= src_len, D). The slot pool
+prefills a group of equal source widths in one call (the encoder's
+padding would reach real positions) and right-pads each row's cross K/V
+to ``src_len``, masked by the row's ``src_len``. A paged encdec engine
+admits one request a step through one bucket-padded prefill and
+``serving.paged_encdec_splice``, eagerly, as the slot pool's prefill
+runs; its decode step and greedy round are captured as graphs that read
+``len`` and ``src_len`` on the device. Its prefix cache and packed
+prefill are off: the K/V depends on the frames.
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh`` and vlm
+requests (``prefix_embeds``); each message names its ROADMAP queue 1
+item.
 """
 from __future__ import annotations
 
@@ -99,8 +110,8 @@ from repro_torch.models.lm import init_paged_workspace
 from repro_torch.nn.tree import module_device
 from repro_torch.runtime import paged_kv, speculative as spec
 from repro_torch.runtime.serving import (adapt_prefill_cache, paged_chunk,
-                                         paged_hydrate, paged_packed,
-                                         paged_splice)
+                                         paged_encdec_splice, paged_hydrate,
+                                         paged_packed, paged_splice)
 
 
 #: open :func:`disable_graphs` blocks
@@ -122,12 +133,15 @@ def disable_graphs():
 
 
 def synthetic_requests(cfg: ModelConfig, n: int, *, max_prompt: int,
-                       max_new: int, seed: int = 0, rate: float = 0.0):
+                       max_new: int, seed: int = 0, src_len: int = 0,
+                       rate: float = 0.0):
     """Deterministic ragged workload, the reference's for the same seed:
     ``n`` requests with prompt lengths uniform in [max(2, max_prompt//4),
-    max_prompt], max_new uniform in [max(1, max_new//8), max_new], and
-    (``rate > 0``) Poisson arrival offsets at ``rate`` requests/s.
-    Returns kwargs dicts for ``Engine.submit`` plus ``arrival_s``."""
+    max_prompt], max_new uniform in [max(1, max_new//8), max_new], for
+    encdec ``frames`` of a width uniform in [max(2, src_len//2),
+    src_len] (standard normal, float32), and (``rate > 0``) Poisson
+    arrival offsets at ``rate`` requests/s. Returns kwargs dicts for
+    ``Engine.submit`` plus ``arrival_s``."""
     rng = np.random.default_rng(seed)
     t = 0.0
     reqs = []
@@ -139,6 +153,10 @@ def synthetic_requests(cfg: ModelConfig, n: int, *, max_prompt: int,
             "max_new": g,
             "arrival_s": t,
         })
+        if cfg.family == "encdec":
+            sl = int(rng.integers(max(2, src_len // 2), src_len + 1))
+            reqs[-1]["frames"] = rng.standard_normal(
+                (sl, cfg.d_model)).astype(np.float32)
         if rate > 0:
             t += float(rng.exponential(1.0 / rate))
     return reqs
@@ -157,6 +175,7 @@ class Request:
     max_new: int
     eos_id: Optional[int]
     gen: Optional[torch.Generator]          # sampling generator (temperature)
+    frames: Optional[torch.Tensor] = None   # encdec source embeddings (S, D)
     out: List[int] = dataclasses.field(default_factory=list)
     pstart: int = 0   # index into the engine's pending-token list
     kv_pages: int = 0  # pages reserved at admission (paged engines)
@@ -195,10 +214,12 @@ class Engine:
     (``api.draft_view``, or ``draft_params``) drafts k tokens and one
     target forward over the k + 1 window checks them. Every request
     needs k tokens of cache headroom (``submit`` checks it).
+    ``src_len``: an encdec engine's cross-attention memory width, the
+    most frames a request may carry.
     """
 
     def __init__(self, model: nn.Module, cfg: ModelConfig, *,
-                 capacity: int = 8, max_len: int = 128,
+                 capacity: int = 8, max_len: int = 128, src_len: int = 0,
                  temperature: float = 0.0, seed: int = 0,
                  backend: Optional[str] = None, mesh=None, kv_pages: Optional[int] = None,
                  page_size: int = 64, prefix_cache: bool = True,
@@ -220,6 +241,8 @@ class Engine:
         self.model = model
         self.capacity = int(capacity)
         self.max_len = int(max_len)
+        self.src_len = int(src_len)
+        self.encdec = cfg.family == "encdec"
         self.temperature = float(temperature)
         self.greedy = self.temperature <= 0
         self.seed = int(seed)
@@ -263,17 +286,24 @@ class Engine:
             self.page_size = int(page_size)
             self.n_blocks = -(-self.max_len // self.page_size)
             self.n_pages = int(kv_pages)
-            self.pkv = paged_kv.PagedKV(self.n_pages, self.page_size,
-                                        self.n_blocks, self.capacity,
-                                        prefix_cache=prefix_cache)
+            # an encdec request's K/V depends on its frames: never shared
+            self.pkv = paged_kv.PagedKV(
+                self.n_pages, self.page_size, self.n_blocks, self.capacity,
+                prefix_cache=prefix_cache and not self.encdec)
             self.cache = api.init_paged_cache(cfg, self.capacity,
                                               self.n_pages, self.page_size,
-                                              self.n_blocks, device=dev)
-            self.max_chunk = min(int(max_chunk),
-                                 paged_kv.next_pow2(self.max_len))
-            self.wws = paged_kv.workspace_len(self.max_len, self.n_blocks,
-                                              self.page_size)
-            self.ws = init_paged_workspace(cfg, self.wws, device=dev)
+                                              self.n_blocks,
+                                              src_len=self.src_len,
+                                              device=dev)
+            if self.encdec:
+                # a whole prompt in one prefill, padded to a pow2 bucket
+                self.max_chunk = paged_kv.next_pow2(self.max_len)
+            else:
+                self.max_chunk = min(int(max_chunk),
+                                     paged_kv.next_pow2(self.max_len))
+                self.wws = paged_kv.workspace_len(
+                    self.max_len, self.n_blocks, self.page_size)
+                self.ws = init_paged_workspace(cfg, self.wws, device=dev)
             self.buckets = paged_kv.prefill_buckets(self.max_chunk)
             # the chunk's inputs and output, where its graphs read and
             # write them: each width replays on its own leading columns
@@ -298,7 +328,7 @@ class Engine:
                                            dtype=torch.float32, device=dev)
         else:
             self.cache = api.init_cache(cfg, self.capacity, self.max_len,
-                                        device=dev)
+                                        src_len=self.src_len, device=dev)
         self.tok = torch.zeros((self.capacity, 1), dtype=torch.int32,
                                device=dev)
         self.logits = torch.zeros((self.capacity, 1, cfg.vocab),
@@ -349,11 +379,21 @@ class Engine:
         ``seed``: the request's sampling seed (default
         ``request_seed(engine seed, rid)``). To reproduce a temperature
         stream of one engine in another, submit it with the same seed.
+        ``frames``: an encdec request's source embeddings (S, D), S <=
+        the engine's ``src_len`` (other families ignore them, as the
+        reference does).
         """
-        if frames is not None or prefix_embeds is not None:
-            raise NotImplementedError("encdec and vlm requests are not "
-                                      "ported yet (ROADMAP queue 1, other "
-                                      "LM families)")
+        if prefix_embeds is not None:
+            raise NotImplementedError("vlm requests are not ported yet "
+                                      "(ROADMAP queue 1, other LM "
+                                      "families)")
+        if self.encdec:
+            if frames is None:
+                raise ValueError("encdec requests need `frames`")
+            frames = torch.as_tensor(frames)
+            if frames.shape[0] > self.src_len:
+                raise ValueError(f"frames {frames.shape[0]} exceed engine "
+                                 f"src_len {self.src_len}")
         if isinstance(tokens, torch.Tensor):
             tokens = tokens.cpu().numpy()
         prompt = np.asarray(tokens, np.int32).reshape(-1)
@@ -373,6 +413,8 @@ class Engine:
                     f"{self.n_pages - 1} allocatable pages")
         req = self._new_request(prompt, max_new, eos_id, seed,
                                 time.perf_counter())
+        if self.encdec:
+            req.frames = frames
         self.queue.append(req)
         return req.rid
 
@@ -401,9 +443,13 @@ class Engine:
         exactness allows it: attention-only families batch ragged prompts
         freely (per-stream ``lengths`` keep them exact); MoE routing
         couples real tokens to padding (capacity), so MoE groups by exact
-        prompt length, as the reference's engine does."""
+        prompt length, and encdec by source width (padded frames would
+        reach the real positions' memory), as the reference's engine
+        does."""
         if self.cfg.n_experts:
             return ("exact", len(req.tokens))
+        if self.encdec:
+            return ("src", req.frames.shape[0])
         return ("any", False)
 
     def _admit_group(self, slots: List[int], reqs: List[Request]):
@@ -417,16 +463,19 @@ class Engine:
         for i, r in enumerate(reqs):
             toks[i, :Ls[i]] = r.tokens
         lengths = torch.tensor(Ls, dtype=torch.int32, device=dev)
-        logits, pcache = api.prefill(self.model, cfg,
-                                     {"tokens": torch.from_numpy(toks).to(dev)},
-                                     lengths=lengths)
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if self.encdec:  # one source width a group
+            batch["frames"] = torch.stack([r.frames for r in reqs]).to(dev)
+        logits, pcache = api.prefill(self.model, cfg, batch, lengths=lengths)
         grp = adapt_prefill_cache(cfg, pcache, m, self.max_len,
-                                  lengths=lengths)
+                                  src_len=self.src_len, lengths=lengths)
         idx = torch.tensor(slots, device=dev)
         for c, g in zip(self.cache["layers"], grp["layers"]):
             for key, t in c.items():
                 t[idx] = g[key].to(t.dtype)
         self.cache["len"][idx] = lengths
+        if self.encdec:
+            self.cache["src_len"][idx] = grp["src_len"]
         firsts = self._sample(logits, reqs)
         self.tok[idx, 0] = firsts
         firsts = firsts.cpu().tolist()  # one sync per group
@@ -491,6 +540,12 @@ class Engine:
                 continue
             if not self.queue or None not in self.slots:
                 return
+            if self.encdec:
+                if not self._admit_paged_encdec(self.slots.index(None),
+                                                self.queue[0]):
+                    return  # deferred: not enough pages
+                budget -= 1
+                continue
             if self.prefill_pack and self._try_packed_admit():
                 budget -= 1
                 continue
@@ -672,16 +727,58 @@ class Engine:
         self.cache["block"][slot].copy_(self.chunk_row)
         self.cache["len"][slot] = L
         self.pkv.insert_prefix(slot, req.tokens)
-        first = self._sample(self.chunk_logits, [req])
+        self._install_first_token(slot, req, self.chunk_logits, L)
+        self._prefill_time(t0, t_capture)
+
+    def _install_first_token(self, slot: int, req: Request, logits,
+                             length: int):
+        """The end of a paged admission: the first token sampled from
+        ``logits`` (1, 1, V) into ``tok``, the slot armed (retired at
+        once if its first token ends it)."""
+        first = self._sample(logits, [req])
         self.tok[slot, 0] = first[0]
         req.t_first = time.perf_counter()
         req.out = [int(first[0])]
         req.pstart = len(self._pending)
         self.slots[slot] = req
         self.n_admitted += 1
-        self.pkv.lens[slot] = L
+        self.pkv.lens[slot] = length
         self._maybe_retire(slot)
-        self._prefill_time(t0, t_capture)
+
+    def _admit_paged_encdec(self, slot: int, req: Request) -> bool:
+        """An encdec admission: reserve the request's pages, run ONE
+        prefill of its prompt right-padded to a bucket width (the causal
+        decoder keeps padding out of the real positions; its frames at
+        face value), splice its self-attention K/V into the pages and its
+        cross K/V into the slot's slab row, then set the slot's block
+        row, ``len`` and ``src_len``. Eager, as the slot pool's prefill.
+        Returns False on a page shortfall (the queue head waits)."""
+        got = self.pkv.admit(slot, None,
+                             len(req.tokens) + req.max_new + self.spec_k)
+        if got is None:
+            return False
+        self.queue.popleft()
+        row, _ = got
+        req.t_admit = t0 = time.perf_counter()
+        req.kv_pages = len(self.pkv.rows[slot])
+        cfg, dev = self.cfg, self.device
+        L = len(req.tokens)
+        toks = np.zeros((1, paged_kv.next_pow2(max(L, self.buckets[0]))),
+                        np.int32)
+        toks[0, :L] = req.tokens
+        logits, pcache = api.prefill(
+            self.model, cfg, {"tokens": torch.from_numpy(toks).to(dev),
+                              "frames": req.frames[None].to(dev)},
+            lengths=torch.tensor([L], dtype=torch.int32, device=dev))
+        row_t = torch.from_numpy(row).to(dev)
+        paged_encdec_splice(cfg, self.cache, pcache["layers"], row_t, L,
+                            slot)
+        self.cache["block"][slot].copy_(row_t)
+        self.cache["len"][slot] = L
+        self.cache["src_len"][slot] = req.frames.shape[0]
+        self._install_first_token(slot, req, logits, L)
+        self._prefill_time(t0, 0.0)
+        return True
 
     def _prefill_time(self, t0: float, t_capture: float):
         """Charge the host seconds since ``t0`` to prefill, a capture's
@@ -771,6 +868,13 @@ class Engine:
         t0 = time.perf_counter()
         reqs = [self._new_request(toks[i, :int(lens[i])], steps, eos_id,
                                   None, t0) for i in range(B)]
+        if self.encdec:
+            frames = torch.as_tensor(batch["frames"])
+            if frames.shape[1] > self.src_len:
+                raise ValueError(f"frames {frames.shape[1]} exceed engine "
+                                 f"src_len {self.src_len}")
+            for req, f in zip(reqs, frames):
+                req.frames = f
         self._admit_group(list(range(B)), reqs)
 
     # ------------------------------------------------------- decode step
@@ -893,26 +997,18 @@ class Engine:
         and all-trash block rows, so their K/V writes land on the trash
         page only), each captured on CUDA; then ``len``, ``tok``, the
         logits and the round's outputs are zeroed again and the launches
-        are not counted."""
+        are not counted. An encdec engine's admission runs eagerly: its
+        warmup runs it once a bucket width, a prefill of zero frames of
+        ``src_len`` and a splice at length 0 onto an all-trash row (the
+        pages get zeros on the trash page; slot 0's slab row is
+        rewritten by its first admission), then the decode step."""
         t0 = time.perf_counter()
         before = ops.read_counts()
         with torch.inference_mode():
-            self._run_graphed("hydrate", self._hydrate_step, prefill=True)
-            for width in self.buckets:
-                self.chunk_n_real.fill_(width)
-                self._run_graphed(
-                    f"chunk{width}",
-                    functools.partial(self._prefill_chunk, width),
-                    prefill=True)
-            self._run_graphed("splice", self._splice_step, prefill=True)
-            for width in self.buckets if self.prefill_pack else ():
-                self._run_graphed(
-                    f"packed{width}",
-                    functools.partial(self._packed_step, width),
-                    prefill=True)
-            self.chunk_n_real.zero_()
-            self.chunk_logits.zero_()
-            self.pack_logits.zero_()
+            if self.encdec:
+                self._warm_encdec_admission()
+            else:
+                self._warm_prefill_graphs()
             for run in ((self._run_decode_step, self._run_spec_step)
                         if self.spec_k else (self._run_decode_step,)):
                 run()
@@ -926,6 +1022,42 @@ class Engine:
             torch.cuda.synchronize(self.device)
         self.t_warmup = time.perf_counter() - t0
 
+    def _warm_prefill_graphs(self):
+        """The chunked and packed prefill's graphs, captured over an
+        all-trash row (see :meth:`_warm`)."""
+        self._run_graphed("hydrate", self._hydrate_step, prefill=True)
+        for width in self.buckets:
+            self.chunk_n_real.fill_(width)
+            self._run_graphed(f"chunk{width}",
+                              functools.partial(self._prefill_chunk, width),
+                              prefill=True)
+        self._run_graphed("splice", self._splice_step, prefill=True)
+        for width in self.buckets if self.prefill_pack else ():
+            self._run_graphed(f"packed{width}",
+                              functools.partial(self._packed_step, width),
+                              prefill=True)
+        self.chunk_n_real.zero_()
+        self.chunk_logits.zero_()
+        self.pack_logits.zero_()
+
+    def _warm_encdec_admission(self):
+        """An encdec engine's admission once a bucket width: zero frames
+        of ``src_len``, a one-token prompt, a splice at length 0 onto an
+        all-trash row (see :meth:`_warm`)."""
+        if not self.src_len:
+            return
+        cfg, dev = self.cfg, self.device
+        frames = torch.zeros((1, self.src_len, cfg.d_model), dtype=cfg.dtype,
+                             device=dev)
+        row = torch.zeros((self.n_blocks,), dtype=torch.int32, device=dev)
+        one = torch.ones((1,), dtype=torch.int32, device=dev)
+        for width in self.buckets:
+            toks = torch.zeros((1, width), dtype=torch.int32, device=dev)
+            _, pc = api.prefill(self.model, cfg,
+                                {"tokens": toks, "frames": frames},
+                                lengths=one)
+            paged_encdec_splice(cfg, self.cache, pc["layers"], row, 0, 0)
+
     def paged_trace_counts(self) -> Dict[str, int]:
         """Counterpart of the reference's jit-cache counts: the graphs
         this engine captured, the decode step's (and, speculative, the
@@ -934,10 +1066,11 @@ class Engine:
         engine on CUDA holds 1 of each and ``len(buckets)`` chunk and
         packed widths from construction on, and a serve must not change
         them; on the CPU nothing is captured (0). The
-        sampler runs eagerly and has nothing to count."""
+        sampler and an encdec engine's admission run eagerly and have
+        nothing to count."""
         keys = ("decode", "spec") if self.spec_k else ("decode",)
         out = {k: int(k in self._graphs) for k in keys}
-        if self.paged:
+        if self.paged and not self.encdec:
             out["chunk"] = sum(k.startswith("chunk") for k in self._graphs)
             out["hydrate"] = int("hydrate" in self._graphs)
             out["splice"] = int("splice" in self._graphs)
@@ -1113,6 +1246,8 @@ class Engine:
             "ttft_p99_s": float(np.percentile(ttft, 99)),
             "paged": self.paged,
         }
+        if self.encdec:
+            out["src_len"] = self.src_len
         if self.paged:
             out.update(self.pkv.stats())
             out["kv_bytes_per_token"] = paged_kv.kv_bytes_per_token(self.cfg)

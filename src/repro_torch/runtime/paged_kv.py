@@ -19,7 +19,10 @@ global **page pool** of fixed-size pages:
     admission and retirement never read the device.
 
 The device side (gather, scatter, paged attention) lives in
-``nn/attention.py``, ``kernels/paged_attn.py`` and ``models/lm.py``.
+``nn/attention.py``, ``kernels/paged_attn.py``, ``models/lm.py`` and
+``models/encdec.py``. An encdec engine builds its ``PagedKV`` without a
+prefix cache: its K/V depends on each request's frames, not only on
+its tokens.
 """
 from __future__ import annotations
 

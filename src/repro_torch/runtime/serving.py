@@ -10,6 +10,8 @@ Counterpart of ``repro.runtime.serving``:
     pages commit, prefix-hit rebuild and packed prefill of several
     prompts (plain functions where the reference keeps jit caches; the
     engine captures each as a CUDA graph over its own buffers);
+    ``paged_encdec_splice``: an encdec request's prefill cache -> pages
+    and its cross K/V slab row;
   * ``generate``: static-batch generation, a thin wrapper over
     ``runtime.engine.Engine`` (one batched prefill through ``preload``,
     then the engine's decode/retire loop), so sampling, EOS retirement
@@ -25,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import api
+from repro_torch.models import encdec as m_encdec
 from repro_torch.models import lm as m_lm
 from repro_torch.models.config import ModelConfig
 
@@ -68,22 +71,25 @@ def grow_cache(cache_small, cache_big):
 
 
 def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
-                        *, lengths=None):
+                        *, src_len: int = 0, lengths=None):
     """Convert a prefill cache into a decode-ready cache of max_len.
 
     ``lengths``: per-stream (B,) prompt lengths for right-padded batches;
     defaults to the prefill cache's own ``len`` vector. The int8 KV
-    quantization and the SWA ring apply to GQA K/V only: MLA latents are
-    grown as they are, as the reference's ``attn_kv`` guard leaves them.
+    quantization and the SWA ring apply to the decoder-only families' GQA
+    K/V only: MLA latents are grown as they are, as the reference's
+    ``attn_kv`` guard leaves them, and so are an encdec cache's leaves,
+    its cross K/V right-padded to ``src_len`` (the target cache's width:
+    ``src_len`` or ``max_len``) and its ``src_len`` vector kept.
     """
     dev = cache["len"].device
-    target = api.init_cache(cfg, batch, max_len, device=dev)
+    target = api.init_cache(cfg, batch, max_len, src_len=src_len, device=dev)
     if lengths is None:
         lengths = cache["len"]
     lengths = torch.as_tensor(lengths, device=dev).reshape(-1)
     lengths = lengths.expand(batch).to(torch.int32)
     layers = [dict(c) for c in cache["layers"]]
-    attn_kv = not cfg.use_mla
+    attn_kv = cfg.family in ("dense", "moe") and not cfg.use_mla
     if attn_kv and cfg.kv_cache_bits == 8:
         # prefill emits float K/V; the decode cache holds int8 + scales
         from repro_torch.models.lm import _kv_quant
@@ -101,6 +107,8 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
             for c, t in zip(layers, target["layers"])]
         return out
     out["layers"] = grow_cache(layers, target["layers"])
+    if "src_len" in cache:
+        out["src_len"] = cache["src_len"]
     return out
 
 
@@ -125,6 +133,15 @@ def paged_hydrate(cfg: ModelConfig, pool, block_row, hist_len, ws):
     """Rebuild the workspace prefix [0, hist_len) from cached pages
     (``hist_len`` an int or a 0-dim int32 tensor)."""
     return m_lm.lm_paged_hydrate(cfg, pool, block_row, hist_len, ws)
+
+
+def paged_encdec_splice(cfg: ModelConfig, cache, prefill_layers, block_row,
+                        length, slot: int):
+    """One encdec request's prefill cache (``encdec_prefill``'s layers)
+    into the pages of ``block_row`` and row ``slot`` of the cross K/V
+    slabs, in place."""
+    return m_encdec.encdec_paged_splice(cfg, cache, prefill_layers,
+                                        block_row, length, slot)
 
 
 def paged_packed(model: nn.Module, cfg: ModelConfig, tokens, pool, blocks,
@@ -171,13 +188,16 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     Greedy tokens equal ``speculative=0``'s; the cache gets k positions
     of headroom, and the stats also hold ``spec_rounds``,
     ``acceptance_rate``, ``spec_tokens_per_round`` and the draft view's
-    bytes (``_SPEC_STATS``).
+    bytes (``_SPEC_STATS``). An encdec batch carries ``frames`` (B,
+    S_src, D); the engine's source width is ``S_src``.
     """
     from repro_torch.runtime.engine import Engine
 
     B, P = batch["tokens"].shape
     eng = Engine(model, cfg, capacity=B,
                  max_len=max_len or (P + steps + int(speculative)),
+                 src_len=(batch["frames"].shape[1]
+                          if cfg.family == "encdec" else 0),
                  temperature=temperature, seed=seed,
                  speculative=speculative, draft_bits=draft_bits,
                  draft_params=draft_params, device=device)

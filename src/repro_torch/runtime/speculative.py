@@ -18,7 +18,9 @@ positions n0 .. n0 + k - 1; the verify window, rewound to n0, writes the
 target's K/V position by position before each position attends, so every
 verify position attends target K/V only and greedy tokens are the bits
 of non-speculative decoding. Rejected positions' K/V stay past ``len``,
-masked, and are overwritten by the next round.
+masked, and are overwritten by the next round. An encdec cache's cross
+K/V and ``src_len`` are only read by a round, so nothing of them is
+rolled back.
 
 A sliding-window ring needs one more move: the k + 1 ring columns of a
 round may hold entries from ``window`` positions back that are still

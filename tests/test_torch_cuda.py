@@ -43,7 +43,13 @@ card gives the CPU's greedy tokens. deepseek-v2-lite: kernels 1, 2 and
 4 at its leaf shapes (dkv's N = 576, uk's Kin = 512) with the tolerances
 above; the MLA decode step replayed from a CUDA graph equals the eager
 step bit for bit (logits and latent cache); reduced deepseek on the card
-gives the CPU's greedy tokens.
+gives the CPU's greedy tokens. seamless-m4t-medium: kernels 6 and 7 at
+G = 1, dh 64 (bf16 q over bf16 pages) with the paged tolerances above,
+two calls, NaN dead pages and a graph replay giving the same bits; the
+encdec paged decode step replayed from a CUDA graph equals the eager
+step bit for bit, and the paged engine (plain and speculative, graph
+and eager) gives lone generates' tokens; reduced seamless on the card
+gives the CPU's greedy tokens in each view.
 """
 import contextlib
 
@@ -590,6 +596,11 @@ PAGED_SHAPES = {
     "g12": (8, 8, 12, 128, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
             4096),
     "g16": (12, 8, 16, 128, 64, 69, None, 4096),
+    # seamless-m4t-medium: 16 heads of 64 over 16 KV heads (G = 1)
+    "g1": (8, 16, 1, 64, 64, 69, [1, 63, 64, 65, 577, 2048, 4101, 4416],
+           4096),
+    "g1_splits": (12, 16, 1, 64, 64, 69, None, 4096),
+    "g1_engine": (4, 16, 1, 64, 64, 3, [0, 1, 64, 192], 4096),
 }
 
 
@@ -2300,4 +2311,200 @@ def test_cuda_deepseek_serves_the_cpu_tokens(cuda_device, view):
         stacked = delta[{"int8": 8, "packed4": 9, "pow2": 10}[view]]
         n_moe = cfg.n_layers - cfg.first_dense
         assert stacked == {"launches": 6 * 3 * n_moe, "plain": 0}
+        assert sum(c.get("plain", 0) for c in delta) == 0
+
+
+# ---------------------------------------------------------------------------
+# seamless-m4t-medium: the encdec family (kernel 6 at G = 1, dh 64)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["g1", "g1_splits", "g1_engine"])
+@pytest.mark.parametrize("budget", [None, 0], ids=["plan", "workspace"])
+def test_cuda_paged_attention_g1_dh64(cuda_device, budget, shape):
+    """Both variants at seamless's G = 1, dh 64 (16 KV heads), bf16 q
+    over bf16 pages: each row within 2^-7 of its own max|plain| (an
+    empty row exactly 0), a second call and NaN dead pages giving the
+    same bits, and a CUDA graph replay equal to the eager call."""
+    bf16 = torch.bfloat16
+    q, kp, vp, block, cl, ks, vs, window = _paged_operands(
+        shape, bf16, bf16, cuda_device)
+    poisoned = _paged_operands(shape, bf16, bf16, cuda_device,
+                               poison=True)[3]
+
+    def call(blk=block, w=window):
+        return paged_attn.paged_attention(q, kp, vp, blk, cl, window=w,
+                                          smem_budget_bytes=budget)
+    for w in (None, window):
+        want = paged_attention_ref(q, kp, vp, block, cl, window=w)
+        got = call(w=w)
+        assert got.dtype == bf16 and _rows_within(got, want, PAGED_TOL[bf16])
+    outs = [call(), call(), call(poisoned)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, outs[0])
+
+
+def _seamless_serve(view, act_bits=32):
+    """Reduced seamless (2 + 2 layers, 4 / 4 heads of 16, vocab 211) at
+    ``act_bits``: the config, its serve view (int8, packed4 or calibrated
+    serving_pow2) on the CPU, and a batch of 3 x 12 tokens over 10
+    seeded frames."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    cfg = reduced(get_config("seamless-m4t-medium")).replace(
+        act_bits=act_bits)
+    if view == "pow2":
+        cfg = cfg.replace(quant=serving_pow2())
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (3, 12), generator=g),
+             "frames": torch.randn((3, 10, cfg.d_model), generator=g)}
+    model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+    if view == "pow2":
+        model = api.calibrate(model, cfg, {k: v[:2] for k, v in batch.items()})
+    return cfg, serve_view(model, pack4=view == "packed4",
+                           policy=api.resolved_policy(cfg)), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4"])
+def test_cuda_encdec_paged_step_replays_as_eager(cuda_device, view):
+    """The encdec paged decode step (self-attention through kernel 6,
+    cross-attention masked by the rows' src_len on the device) captured
+    as a CUDA graph equals the eager step bit for bit, logits and pages,
+    at two successive lengths."""
+    from repro_torch.models import api
+    from repro_torch.models import encdec
+
+    cfg, serve, batch = _seamless_serve(view)
+    card = serve.to(cuda_device)
+    B, P = batch["tokens"].shape
+
+    def paged():
+        c = api.init_paged_cache(cfg, B, 8, 8, 3, src_len=12,
+                                 device="cuda")
+        with torch.inference_mode():
+            for i in range(B):
+                b = {k: v[i:i + 1].to(cuda_device) for k, v in batch.items()}
+                _, pc = api.prefill(card, cfg, b)
+                row = torch.tensor([1 + 2 * i, 2 + 2 * i, 0],
+                                   dtype=torch.int32, device=cuda_device)
+                encdec.encdec_paged_splice(cfg, c, pc["layers"], row, P, i)
+                c["block"][i] = row
+                c["len"][i] = P
+                c["src_len"][i] = 10
+        return c
+    eager, graphed, warm = paged(), paged(), paged()
+    tok = torch.randint(0, cfg.vocab, (B, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(6)
+                        ).to(cuda_device)
+    with torch.inference_mode():
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            api.paged_decode_step(card, cfg, tok, warm)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, nxt = api.paged_decode_step(card, cfg, tok, graphed)
+        for step in range(2):
+            before = paged_attn.COUNTS["launches"]
+            want, after = api.paged_decode_step(card, cfg, tok, eager)
+            assert paged_attn.COUNTS["launches"] - before == cfg.n_layers
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), step
+            for g, e in zip(graphed["pool"], eager["pool"]):
+                assert torch.equal(g["k"], e["k"]) and torch.equal(g["v"],
+                                                                   e["v"])
+            graphed["len"].copy_(nxt["len"])
+            eager["len"] = after["len"]
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_paged_engine_graph_and_speculative(cuda_device):
+    """The paged encdec engine on the card (page 8, 2 slots, ragged
+    sources of 10, 6 and 12 frames), plain and speculative (k = 2),
+    with its captured decode step and greedy round and eagerly, gives
+    every request its lone generate's tokens; kernel 6 launches
+    n_layers times a step, (2k + 1) n_layers a round; no plain
+    version."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import Engine, disable_graphs
+    from repro_torch.runtime.serving import generate
+
+    cfg, serve, _ = _seamless_serve("int8")
+    card = serve.to(cuda_device)
+    g = torch.Generator().manual_seed(8)
+    frames = [torch.randn((s, cfg.d_model), generator=g) for s in (10, 6, 12)]
+    toks = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in (5, 11, 8)]
+    lone = [generate(card, cfg, {"tokens": t[None], "frames": f[None]},
+                     steps=4, max_len=20, device="cuda")[0].cpu()
+            for t, f in zip(toks, frames)]
+    for k in (0, 2):
+        for graphs in (True, False):
+            with contextlib.ExitStack() as stack:
+                if not graphs:
+                    stack.enter_context(disable_graphs())
+                eng = Engine(card, cfg, capacity=2, max_len=20, src_len=12,
+                             kv_pages=12, page_size=8, speculative=k,
+                             device="cuda")
+                before = ops.read_counts()
+                for t, f in zip(toks, frames):
+                    eng.submit(t, max_new=4, frames=f)
+                res = eng.run()
+                delta = ops.count_delta(before)
+            st = eng.stats()
+            steps = st["spec_rounds"] if k else st["decode_steps"]
+            assert st["paged"] and eng.paged_trace_counts()["decode"] == int(
+                graphs)
+            for r, want in zip(res, lone):
+                assert torch.equal(torch.as_tensor(r["tokens"]), want)
+            assert delta[4]["launches"] == cfg.n_layers * (2 * k + 1) * steps
+            assert sum(c.get("plain", 0) for c in delta) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_seamless_serves_the_cpu_tokens(cuda_device, view):
+    """Reduced seamless served on the card (graph-replayed and eager)
+    gives the CPU's greedy tokens: 36 body launches a prefill and 18 a
+    decode step of the view's kernel, the tied head on kernel 1 (int8,
+    and packed4 at the reduced odd vocab), no plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import disable_graphs
+    from repro_torch.runtime.serving import generate
+
+    cfg, serve, batch = _seamless_serve(view)
+    want = generate(serve, cfg, batch, steps=6, device="cpu")
+    card = serve.to(cuda_device)
+    idx = {"int8": 0, "packed4": 1, "pow2": 2}[view]
+    for graphs in (True, False):
+        before = ops.read_counts()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            got = generate(card, cfg, batch, steps=6, device="cuda")
+        delta = ops.count_delta(before)
+        assert torch.equal(got.cpu(), want)
+        body = 7 * 2 + 11 * 2 + 5 * 9 * 2
+        head = 0 if view == "pow2" else 6
+        assert delta[idx]["launches"] == body + (head if view == "int8"
+                                                 else 0)
+        assert delta[0]["launches"] == (body if view == "int8" else 0) + head
         assert sum(c.get("plain", 0) for c in delta) == 0

@@ -266,9 +266,12 @@ def test_engine_refuses_unported_options(fp):
     assert Engine(model, tcfg, kv_pages=8, page_size=8,
                   device="cpu").prefill_pack
     eng = Engine(model, tcfg, device="cpu")
+    # encdec frames are ported (tests/test_torch_encdec.py); a vlm
+    # modality prefix is not
     with pytest.raises(NotImplementedError,
                        match="queue 1, other LM families"):
-        eng.submit(np.arange(4), max_new=2, frames=np.zeros((3, 64)))
+        eng.submit(np.arange(4), max_new=2,
+                   prefix_embeds=np.zeros((3, 64)))
     with pytest.raises(ValueError):
         eng.submit(np.arange(120), max_new=20)  # 120 + 20 > max_len 128
     with pytest.raises(ValueError):
