@@ -288,15 +288,15 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    heads, bf16 q over bf16 pages: full-width lengths, the split edges of
    the engine's plan (4 rows, 3 blocks) and of a 16-row plan, empty rows,
    the NaN pages and a graph replay at phase 2c's per-row tolerance.
-3p. seamless-m4t-medium at full width, 6 of its 12 encoder and 6 of
+3p. seamless-m4t-medium at full width, 4 of its 12 encoder and 4 of
    its 12 decoder layers (SM_LAYERS): d_model 1024, 16 / 16 heads of
    64, d_ff 4096, vocab 256206 with a tied readout, its 4-bit pow2
    LUT-Q, 8-bit activations, random weights from seed 0 and 128 seeded
    frames a row. (b) int8 and packed4 generate (B=4, prompt 128, 16
    tokens), graph and eager: equal tokens and counts, no plain version;
    a prefill runs 7 products an encoder layer and 11 a decoder layer
-   (109 with the head in int8; 217 at full depth), a decode step 9 a
-   decoder layer (55; 109); the packed4 view's tied head is
+   (73 with the head in int8; 217 at full depth), a decode step 9 a
+   decoder layer (37; 109); the packed4 view's tied head is
    one decode-backend call a forward (the packed table used transposed,
    as in the reference); the head's share of a replayed decode step and
    the graph pools' MiB; the random model's greedy tokens repeat, so
@@ -304,9 +304,9 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    eager step's bits and lies within SM_LOGIT_TOL of a prefill one token
    longer (half the source masked moves it by SM_LOGIT_APART or more),
    and a W = 4 window equals 4 chained steps. The calibrated
-   serving_pow2 view the same on lutq_shift (108 / 54, the head float);
+   serving_pow2 view the same on lutq_shift (72 / 36, the head float);
    (c) its audit (a 20-token
-   prefill over 20 frames and one decode step: 108 and 54 integer
+   prefill over 20 frames and one decode step: 72 and 36 integer
    dots); (d) at act_bits 32, synthetic_requests(seed=0) (12 requests,
    prompts up to 128, 64-128 frames of a 128-frame src_len, up to 32 new
    tokens) through the paged engine (4 slots, page 64, bf16 pages), its
@@ -320,6 +320,43 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    seamless on the card gives the
    CPU's tokens in the three views. Its launches go into the kernels'
    record as "seamless_launches".
+2q. paligemma-3b's shapes: kernels 1, 2 and 4 at its body leaves (Kin x
+   N 2048 x 2048, 2048 x 256, 2048 x 16384, 16384 x 2048) and M =
+   1..512 against their plain versions (phase 2's tolerances, lutq_shift
+   bit for bit); kernel 1 and lutq_shift on the transposed tied head
+   (Kin 2048, N 257216: a partial n tile of 64) at M = 1, 4 and 9;
+   second-call and graph bits; kmeans_stats on a 526.8 M-weight leaf
+   (the tied table's 2.107 GB of f32: byte offsets past 2^31), aligned
+   and 3 elements into a buffer: assignments bit for bit, counts equal,
+   sums within 1e-5 of sum|w|, repeats the same bits, one call timed
+   beside its byte bound.
+3q. paligemma-3b at full width, 2 of its 18 layers (PG_LAYERS): d_model
+   2048, 8 query heads of 256 over 1 KV head, d_ff 16384, vocab 257216
+   with a tied readout, its 4-bit pow2 LUT-Q, 8-bit activations, random
+   weights from seed 0 and a seeded 256-row image prefix a row. (b)
+   int8 and packed4 generate (B=4, prompt 128 after the prefix, 16
+   tokens), graph and eager: equal tokens and counts, no plain version,
+   15 kernel-1 launches a forward in int8 (the head on a transposed
+   copy), 14 of kernel 2 and one decode-backend call in packed4; the
+   head's share of a replayed decode step and the graph pools' MiB; a
+   replayed decode step is the eager step's bits and lies within
+   _pg_tol (2e-3 a layer at act_bits 32, twice that at 8) of a prefill
+   one token longer, a zeroed prefix moves it by PG_PREFIX_APART times
+   that or more, a W = 4 window equals 4 chained steps. The calibrated
+   serving_pow2 view the same on lutq_shift (14, the head float); (c)
+   its audit (the prefix and 20 tokens, one decode step: 14 integer
+   dots each); (d) at act_bits 32, synthetic_requests(seed=0) (12
+   requests, every third text-only, prompts up to 128, up to 32 new)
+   through a 4-slot engine asked for pages (a vlm engine keeps its slot
+   pool: paged False) and its speculative twin (k = 3): each request's
+   tokens equal its lone generate, each first decode step's logits lie
+   within _pg_tol of its lone first step's and SM_LOGIT_APART from the
+   next request's; (e) 3 steps of the trainer (train.build at 2 layers,
+   the vocab kept, B = 2 x (256 + 128) prefixed batches): finite losses,
+   30 kmeans_stats launches a step (the table among the leaves), no
+   plain version, ms a step and peak memory; (f) reduced paligemma on
+   the card gives the CPU's tokens in the three views. Its launches go
+   into the kernels' record as "paligemma_launches".
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -2175,10 +2212,12 @@ def _per_generate(n):
     return p + (STEPS_GEN - 1) * d
 
 
-def _family_serve(label, name, view, cfg, toks, expect, frames=None):
+def _family_serve(label, name, view, cfg, toks, expect, frames=None,
+                  prefix=None):
     """One view's generate (B=4, prompt 128, 16 tokens; an encdec config
-    over ``frames``) replaying the decode step it captured and eagerly
-    (phases 3m (b), 3n, 3o (b) and 3p (b)):
+    over ``frames``, a vlm config after ``prefix``, its image embeddings)
+    replaying the decode step it captured and eagerly
+    (phases 3m (b), 3n, 3o (b), 3p (b) and 3q (b)):
     equal tokens and counts, ``expect[kernel]`` launches of each kernel
     a forward (or a (prefill, decode step) pair, ``_per_generate``), no
     other kernel (paged attention aside) and no plain version; prefill
@@ -2193,6 +2232,8 @@ def _family_serve(label, name, view, cfg, toks, expect, frames=None):
     batch = {"tokens": toks}
     if frames is not None:
         batch["frames"] = frames
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix
     generate(view, cfg, batch, steps=2, device="cuda")  # warm-up
     torch.cuda.synchronize()
     per_mode = {}
@@ -2303,12 +2344,13 @@ def _moe_engine(view, cfg, toks_by_len, label="moe", gen=MOE_ENGINE_GEN):
 
 
 def _family_audit(label, view, cfg, toks, prompt, int_dots,
-                  decode_dots=None, frames=None):
+                  decode_dots=None, frames=None, prefix=None):
     """The serving_pow2 view's prefill (B=4 x ``prompt``; an encdec
-    config over the first ``prompt`` of ``frames``) and one decode step
-    through the multiply audit at full width (phases 3m (b), 3n, 3o (c),
-    3p (c)): ``int_dots`` ({op: count}; ``decode_dots`` for the decode step
-    where it differs) integer dots a forward, all of them kernel
+    config over the first ``prompt`` of ``frames``, a vlm config after
+    ``prefix``) and one decode step through the multiply audit at full
+    width (phases 3m (b), 3n, 3o (c), 3p (c), 3q (c)): ``int_dots`` ({op:
+    count}; ``decode_dots`` for the decode step where it differs)
+    integer dots a forward, all of them kernel
     launches, no fp dot on a quantized shape; the routers' float
     products (a MoE layer's, not quantized; one a MoE layer) and the
     float head are allowed. Under MLA the absorbed decode's two float
@@ -2326,13 +2368,17 @@ def _family_audit(label, view, cfg, toks, prompt, int_dots,
     batch = {"tokens": toks[:, :prompt].cuda()}
     if frames is not None:
         batch["frames"] = frames[:, :prompt].cuda()
+    width = prompt + 2
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix.cuda()
+        width += prefix.shape[1]
 
     def prefill():
         with torch.inference_mode():
             return api.prefill(view, cfg, batch)
 
     _, cache = prefill()
-    cache = serving.adapt_prefill_cache(cfg, cache, BATCH, prompt + 2)
+    cache = serving.adapt_prefill_cache(cfg, cache, BATCH, width)
     tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
 
     def step():
@@ -2387,8 +2433,9 @@ def _random_qkv_biases(model, seed):
 def _reduced_card_vs_cpu(label, base, pow2_policy=None):
     """The reduced config ``base`` (act_bits 32) on the card gives the
     CPU's greedy tokens through each view (int8, packed4, serving_pow2
-    with calibration, or ``pow2_policy``): phases 3m (d), 3n (e), 3o (e)
-    and 3p (e) (an encdec config over 20 seeded frames a row)."""
+    with calibration, or ``pow2_policy``): phases 3m (d), 3n (e), 3o (e),
+    3p (e) (an encdec config over 20 seeded frames a row) and 3q (f) (a
+    vlm config after a seeded prefix of its image embeddings)."""
     import torch
 
     from repro_torch.core.policy import serve_view
@@ -2400,6 +2447,9 @@ def _reduced_card_vs_cpu(label, base, pow2_policy=None):
     batch = {"tokens": torch.randint(0, base.vocab, (3, 24), generator=gen)}
     if base.family == "encdec":
         batch["frames"] = torch.randn((3, 20, base.d_model), generator=gen)
+    if base.family == "vlm":
+        batch["prefix_embeds"] = torch.randn(
+            (3, base.n_prefix_tokens, base.d_model), generator=gen)
     for view in ("int8", "packed4", "pow2"):
         cfg = (base.replace(quant=pow2_policy or serving_pow2())
                if view == "pow2" else base)
@@ -2795,10 +2845,12 @@ SM_REPEAT_CASES = [(4, 1024, 1024), (512, 1024, 4096), (4, 4096, 1024),
 #: tokens), the audited prefill's width (B x 20 rows: no activation of a
 #: quantized leaf's 1024 or 4096 rows)
 SM_SRC, SM_QUEUE, SM_MAX_NEW, SM_AUDIT = 128, 12, 32, 20
-#: phase 3p's depth: 6 of the 12 encoder and 6 of the 12 decoder layers
+#: phase 3p's depth: 4 of the 12 encoder and 4 of the 12 decoder layers
 #: (the whole model took 68.0 s of phase 3p, over its 60 s share of the
-#: script's limit; the width stays whole)
-SM_LAYERS = 6
+#: script's limit, and 6 + 6 38.5 s on a slow H100 host whose whole
+#: script took 1124.8 s of its 1200 s once phase 3q joined; the width
+#: stays whole)
+SM_LAYERS = 4
 #: the paged engine's block-table width: ceil((128 + 32 + 3) / 64)
 SM_NB = 3
 #: phase 3p's logits checks: max |a - b| over the reference row's max
@@ -3300,6 +3352,627 @@ def seamless_full_width():
         act_bits=32))
     parts["reduced"] = time.perf_counter() - t0
     log(f"phase 3p {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + ") | launches "
+        f"{dict(launches)} | head ms, step ms, step / head graph pool MiB "
+        f"{ {k: tuple(round(x, 4) for x in v) for k, v in shares.items()} }")
+    return dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# phases 2q and 3q: the vlm family (paligemma-3b)
+# ---------------------------------------------------------------------------
+
+PG_ARCH = "paligemma-3b"
+#: paligemma's (Kin, N) of its body products: q and o (2048 x 2048), k
+#: and v (one KV head of 256: 2048 x 256), wi / wg (2048 x 16384), wo
+#: (16384 x 2048)
+PG_LEAF_SHAPES = {"q/o": (2048, 2048), "k/v": (2048, 256),
+                  "wi/wg": (2048, 16384), "wo": (16384, 2048)}
+#: the tied readout's assignments as the int8 view's head reads them,
+#: transposed: (Kin 2048, N 257216), a partial n tile of 64 at 128
+PG_HEAD = (2048, 257216)
+#: the tied table's entries: 526.8 M float32 masters, 2.107 GB, the
+#: first leaf whose float32 bytes pass 2^31
+PG_TABLE = 257216 * 2048
+PG_REPEAT_CASES = [(4, 2048, 2048), (512, 2048, 16384), (4, 16384, 2048),
+                   (4, 2048, 257216)]
+#: phase 3q's depth: 2 of paligemma's 18 layers (the width whole; the
+#: script's 1200 s limit leaves the phase ~60 s)
+PG_LAYERS = 2
+#: the image prefix a row (the config's n_prefix_tokens), the engine
+#: queue (synthetic_requests, seed 0: prompts of 32-128 tokens, up to 32
+#: new tokens; every third request text-only), the audited prefill's
+#: text (B x (256 + 20) rows: no activation of a quantized leaf's 256,
+#: 2048 or 16384 rows)
+PG_PFX, PG_QUEUE, PG_MAX_NEW, PG_AUDIT = 256, 12, 32, 20
+#: phase 3q (e): the trainer's batch, sequence and steps (the vocab kept)
+PG_TRAIN_BATCH, PG_TRAIN_SEQ, PG_TRAIN_STEPS = 2, 128, 3
+#: phase 3q's logits checks at act_bits 32, max |a - b| over the
+#: reference row's max |logit| (a decode step against a prefill one
+#: token longer, an engine row's first step against its request's alone,
+#: a W = 4 window against chained steps), a layer: bf16 activations and
+#: f32 sums in other orders put the two apart by an amount that grows
+#: with depth (5.0e-4 at 2 layers, 4.7e-3 at 18 on an H100); twice that
+#: at serving_pow2's frozen 8-bit scales (1.5e-3 at 2 layers)
+PG_LOGIT_TOL_LAYER = 2e-3
+#: the least distance, over the tolerance, that zeroing the image
+#: prefix must put between a decode step's logits and the same step's
+#: after the true prefix (through one path, so nothing else moves them):
+#: above the tolerance, so that a decode step that lost the prefix's
+#: cache slots fails the check against the prefill. The random model's
+#: last token leans on its own residual: an H100 measured 1.3e-2 at 2
+#: layers, 0.12 at 18
+PG_PREFIX_APART = 1.25
+
+
+def _pg_tol(cfg) -> float:
+    """Phase 3q's logits tolerance at ``cfg``'s depth and act_bits."""
+    tol = PG_LOGIT_TOL_LAYER * cfg.n_layers
+    return tol if cfg.act_bits == 32 else 2 * tol
+
+
+def _kmeans_table_check(gen, dev):
+    """Phase 2q: kmeans_stats on a leaf of the tied table's 526.8 M
+    float32 weights (2.107 GB: byte offsets past 2^31), aligned and 3
+    elements into a buffer, against its plain version: assignments bit
+    for bit, counts equal, sums within KMEANS_SUM_TOL of sum|w| an
+    entry; a second call the same bits, write_a=False the same sums;
+    one call timed with CUDA events beside its byte bound. Returns the
+    largest |sums - plain sums|."""
+    import torch
+
+    from repro_torch.kernels import build, kmeans_stats as km
+    from repro_torch.kernels.ref import kmeans_stats_ref
+
+    worst = 0.0
+    for off in (0, 3):
+        t0 = time.perf_counter()
+        buf = torch.randn(PG_TABLE + off, generator=gen, device=dev) * 0.02
+        w = buf[off:]
+        d = _pow2_dict(w, 16)
+        before = dict(km.COUNTS)
+        a, sums, counts = km.kmeans_stats(w, d)
+        again = km.kmeans_stats(w, d)
+        no_a = km.kmeans_stats(w, d, write_a=False)
+        calls = km.COUNTS["launches"] - before["launches"]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        km.kmeans_stats(w, d)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        a0, s0, c0 = kmeans_stats_ref(w, d)
+        torch.cuda.synchronize()
+        n_bad = int((a != a0).sum())
+        mag = torch.zeros(16, dtype=torch.float64, device=dev).index_add_(
+            0, a0.view(torch.uint8).long(), w.abs().double()).float()
+        err = (sums - s0).abs()
+        same = (torch.equal(a, again[0]) and torch.equal(sums, again[1])
+                and torch.equal(counts, again[2]) and no_a[0] is None
+                and torch.equal(no_a[1], sums)
+                and torch.equal(no_a[2], counts))
+        bound = (w.numel() * 4 + w.numel()) / HBM_BYTES_PER_S * 1e3
+        p = km.plan(w.numel(), 16, build.sm_count(dev),
+                    (w.data_ptr() // 4) % 4)
+        log(f"check kmeans_stats paligemma table N={w.numel()} K=16 "
+            f"offset {off} ({w.numel() * 4 / 1e9:.3f} GB float32): "
+            f"assignments differing {n_bad}, counts equal "
+            f"{bool(torch.equal(counts, c0))} (largest {int(c0.max())}), "
+            f"sums max err {err.max().item():.3e} "
+            f"({(err / mag.clamp(min=1e-30)).max().item():.2e} of sum|w|, "
+            f"tol {KMEANS_SUM_TOL:.0e}), repeat / write_a=False "
+            f"{'same' if same else 'DIFFERENT'}, {calls} launches for 3 "
+            f"calls, {km.COUNTS['plain'] - before['plain']} plain; one call "
+            f"{ms:.3f} ms against a {bound:.3f} ms byte bound "
+            f"({bound / ms * 100:.1f}%; plan {p['blocks']} blocks, head "
+            f"{p['head']} tail {p['tail']}) in "
+            f"{time.perf_counter() - t0:.1f} s | {CARD}")
+        check(n_bad == 0 and bool(torch.equal(counts, c0)),
+              f"kmeans_stats on the paligemma table (offset {off}): "
+              f"{n_bad} assignments differ or the counts do")
+        check(bool((err <= KMEANS_SUM_TOL * mag).all()),
+              f"kmeans_stats sums off on the paligemma table (offset {off})")
+        check(same and calls == 3, f"kmeans_stats on the paligemma table: "
+              f"repeats differ or {calls} launches for 3 calls")
+        worst = max(worst, err.max().item())
+        del buf, w, a, a0, again, no_a, mag
+        torch.cuda.empty_cache()
+    return worst
+
+
+def paligemma_kernel_checks():
+    """Phase 2q: kernels 1, 2 and 4 at paligemma's body shapes and M in
+    SM_CHECK_M against their plain versions (bf16 and f32 x, phase 2's
+    tolerances; lutq_shift bit for bit), kernel 1 and lutq_shift on the
+    transposed tied head (N = 257216), second-call and graph bits; then
+    kmeans_stats on the 526.8 M-weight table (``_kmeans_table_check``).
+    Returns {kernel: max abs err}."""
+    import torch
+
+    from repro_torch.kernels.lutq_shift import lutq_shift
+    from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(43)
+    worst = {}
+    shapes = [(label, shape, SM_CHECK_M)
+              for label, shape in PG_LEAF_SHAPES.items()]
+    head = [("head", PG_HEAD, SM_HEAD_M)]
+    for kname, (fn, plain) in _gemm_fns().items():
+        packed = KERNELS[kname]["packed"]
+        worst[kname] = 0.0
+        # the packed view's head is the decode backend: kernel 1 only
+        for label, (Kin, N), ms in shapes + ([] if packed else head):
+            for M in ms:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x, a, d = _operands(M, Kin, N, 16, dtype, gen, dev,
+                                        packed)
+                    got = fn(x, a, d)
+                    want = plain(x, a, d)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    rel = err / max(want.abs().max().item(), 1e-30)
+                    dname = str(dtype).split(".")[-1]
+                    log(f"check {kname} paligemma {label} M={M} Kin={Kin} "
+                        f"N={N} {dname}: max_abs_err {err:.3e} rel "
+                        f"{rel:.2e} (tol {TOL[dname]:.0e})")
+                    check(bool(torch.isfinite(got).all()),
+                          f"{kname} produced non-finite values")
+                    check(rel <= TOL[dname], f"{kname} disagrees with its "
+                          f"plain version at paligemma {label} M={M} "
+                          f"{dname}")
+                    worst[kname] = max(worst[kname], err)
+                    del x, a, d, got, want
+        _gemm_repeats(kname, fn, gen, dev, PG_REPEAT_CASES)
+    worst["lutq_shift"] = 0.0
+    for label, (Kin, N), ms in shapes + head:
+        for M in ms:
+            xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=9)
+            planes = shift_planes(wsh)
+            got = lutq_shift(xq, a, wsh, planes)
+            again = lutq_shift(xq, a, wsh, planes)
+            want = lutq_shift_ref(xq, a, wsh)
+            torch.cuda.synchronize()
+            log(f"check lutq_shift paligemma {label} M={M} Kin={Kin} "
+                f"N={N}: equal {bool(torch.equal(got, want))}, second call "
+                f"{'same' if torch.equal(got, again) else 'DIFFERENT'} "
+                f"bits")
+            check(torch.equal(got, want) and torch.equal(got, again),
+                  f"lutq_shift differs from its plain version or itself at "
+                  f"paligemma {label} M={M}")
+            del xq, a, got, again, want
+    log(f"phase 2q (kernels 1, 2, 4 at paligemma's leaves and head) "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    worst["kmeans_stats"] = _kmeans_table_check(gen, dev)
+    log(f"phase 2q (kernel 3 on the 526.8 M-weight table) "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def _pg_batch(toks, prefix):
+    """A generate / prefill batch on the card, the prefix if given."""
+    batch = {"tokens": toks.cuda()}
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix.cuda()
+    return batch
+
+
+def _pg_head_share(name, view, cfg, toks, prefix):
+    """Phase 3q: the tied readout (its product on B=4 normed rows) beside
+    one whole decode step, both replayed from CUDA graphs against a
+    cache of the 256-position prefix and 128 tokens; returns (head ms,
+    step ms, the step graph's pool MiB, the head graph's)."""
+    import torch
+
+    from repro_torch.kernels.build import ROW_STABLE_M
+    from repro_torch.models import api
+    from repro_torch.models.lm import _head
+    from repro_torch.runtime import serving
+
+    with torch.inference_mode():
+        _, cache = api.prefill(view, cfg, _pg_batch(toks, prefix))
+        cache = serving.adapt_prefill_cache(cfg, cache, BATCH,
+                                            PG_PFX + PROMPT + 2)
+        tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
+        x = torch.randn((BATCH, 1, cfg.d_model), device="cuda").to(cfg.dtype)
+        head, head_mib = _graph_ms(
+            lambda: _head(view, cfg, x, ROW_STABLE_M), pool=True)
+        step, step_mib = _graph_ms(
+            lambda: api.decode_step(view, cfg, tok, cache), pool=True)
+    log(f"  paligemma [{name}] tied head {head * 1e3:.1f} us of a "
+        f"{step * 1e3:.1f} us decode step ({head / step * 100:.1f}%), graph "
+        f"replay | graph pools: step {step_mib:.1f} MiB, head alone "
+        f"{head_mib:.1f} MiB | {CARD}")
+    return head, step, step_mib, head_mib
+
+
+def _pg_logits_checks(name, view, cfg, toks, prefix):
+    """Phase 3q (b): one decode step's logits (B=4, after the prefix and
+    a 127-token prefill) replayed from a CUDA graph are the eager step's
+    bits and lie within ``_pg_tol`` of a 128-token prefill's last
+    logits; the same step after a zeroed prefix lies PG_PREFIX_APART
+    times the act_bits-32 tolerance or more from the step's; a W = 4
+    window equals 4 chained steps within the tolerance. int8 and
+    packed4 at act_bits 32 (8-bit dynamic scales couple a batch's rows),
+    serving_pow2 at its frozen scales."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    if name != "serving_pow2":
+        cfg = cfg.replace(act_bits=32)
+    tol = _pg_tol(cfg)
+    apart = PG_PREFIX_APART * _pg_tol(cfg.replace(act_bits=32))
+    toks, prefix = toks.cuda(), prefix.cuda()
+    P = toks.shape[1] - 1
+    width = PG_PFX + P + 5
+    with torch.inference_mode():
+        want, _ = api.prefill(view, cfg, _pg_batch(toks, prefix))
+        _, cache = api.prefill(view, cfg, _pg_batch(toks[:, :P], prefix))
+        cache = serving.adapt_prefill_cache(cfg, cache, BATCH, width)
+        snap = _clone_tree(cache)
+        _, zeroed = api.prefill(view, cfg, _pg_batch(toks[:, :P],
+                                                     torch.zeros_like(prefix)))
+        zeroed = serving.adapt_prefill_cache(cfg, zeroed, BATCH, width)
+        tok = toks[:, P:].to(torch.int32).contiguous()
+
+        def step():
+            return api.decode_step(view, cfg, tok, cache)[0]
+        eager = step().clone()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            step()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = step()
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        del graph
+        masked = api.decode_step(view, cfg, tok, zeroed)[0]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        win = torch.cat([tok, torch.randint(0, cfg.vocab, (BATCH, 3),
+                                            generator=gen, device="cuda",
+                                            dtype=torch.int32)], dim=1)
+        window = api.decode_window(view, cfg, win, _clone_tree(snap))[0]
+        c, chained = _clone_tree(snap), []
+        for j in range(4):
+            lg, c = api.decode_step(view, cfg, win[:, j:j + 1], c)
+            chained.append(lg)
+        chained = torch.cat(chained, dim=1)
+    err, moved = _rel(eager, want), _rel(masked, eager)
+    werr = _rel(window, chained)
+    log(f"  paligemma [{name}] logits (act_bits {cfg.act_bits}): graph step "
+        f"= eager step bits {bool(torch.equal(replayed, eager))}; decode "
+        f"step vs prefill {err:.3e}, after a zeroed prefix {moved:.3e} "
+        f"(tol {tol:g}, apart >= {apart:g}); W=4 window vs 4 "
+        f"chained steps {werr:.3e} (bits "
+        f"{bool(torch.equal(window, chained))}); greedy tokens "
+        f"{want[:, -1].argmax(-1).tolist()} | {CARD}")
+    check(torch.equal(replayed, eager), f"paligemma {name}: a replayed "
+          f"decode step's logits are not the eager step's")
+    check(err <= tol, f"paligemma {name}: decode step logits {err:.3e} "
+          f"from the prefill's (tol {tol:g})")
+    check(moved >= apart, f"paligemma {name}: zeroing the prefix moved "
+          f"the logits by only {moved:.3e}")
+    check(werr <= tol, f"paligemma {name}: a W=4 window's logits "
+          f"{werr:.3e} from 4 chained steps' (tol {tol:g})")
+
+
+def _pg_first_step_logits(view, cfg, r, max_len):
+    """A request's first decode step alone (B = 1, eagerly, as its lone
+    generate runs it): the prefill after its prefix (if it has one), its
+    greedy first token, one step. Returns the step's logits (V,)."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    batch = {"tokens": torch.as_tensor(r["tokens"])[None].cuda()}
+    if "prefix_embeds" in r:
+        batch["prefix_embeds"] = torch.as_tensor(r["prefix_embeds"])[None]
+        batch["prefix_embeds"] = batch["prefix_embeds"].cuda()
+    with torch.inference_mode():
+        logits, cache = api.prefill(view, cfg, batch)
+        # the engine's slot width, prefixed or not
+        cache = serving.adapt_prefill_cache(cfg, cache, 1, max_len + PG_PFX)
+        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        return api.decode_step(view, cfg, first, cache)[0][0, -1]
+
+
+def _pg_engines(view, cfg):
+    """Phase 3q (d): at act_bits 32, synthetic_requests(seed=0) (12
+    requests, every third text-only) through a 4-slot engine asked for
+    pages (a vlm engine keeps its slot pool: ``paged`` False) and its
+    speculative twin (k = 3, draft_bits 3): every request's tokens equal
+    its lone generate; in the plain engine each request's first decode
+    step's logits row lies within ``_pg_tol`` of its lone first step's
+    and SM_LOGIT_APART from the next request's; no plain version.
+    Returns {kernel: launches}."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+    from repro_torch.runtime.serving import generate
+
+    reqs = synthetic_requests(cfg, PG_QUEUE, max_prompt=PROMPT,
+                              max_new=PG_MAX_NEW, seed=0)
+    for i in range(1, PG_QUEUE, 3):
+        del reqs[i]["prefix_embeds"]
+    max_len = PROMPT + PG_MAX_NEW + 3
+    t0 = time.perf_counter()
+    lone, lone_rows = [], []
+    for r in reqs:
+        batch = {"tokens": torch.as_tensor(r["tokens"])[None]}
+        if "prefix_embeds" in r:
+            batch["prefix_embeds"] = torch.as_tensor(r["prefix_embeds"])[None]
+        lone.append(generate(view, cfg, batch, steps=r["max_new"],
+                             max_len=max_len, device="cuda")[0].cpu())
+        lone_rows.append(_pg_first_step_logits(view, cfg, r, max_len))
+    log(f"paligemma: {len(reqs)} lone generates "
+        f"{time.perf_counter() - t0:.1f} s (prompts "
+        f"{sorted(len(r['tokens']) for r in reqs)}, "
+        f"{sum('prefix_embeds' in r for r in reqs)} with a prefix)")
+    launches = Counter()
+    for k in (0, 3):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(view, cfg, capacity=4, max_len=max_len, kv_pages=16,
+                     page_size=ENGINE_PAGE, speculative=k, draft_bits=3,
+                     device="cuda")
+        _reset_counts()
+        for r in reqs:
+            eng.submit(r["tokens"], max_new=r["max_new"],
+                       prefix_embeds=r.get("prefix_embeds"))
+        rows = {}
+        while not eng.idle:  # run(), a step at a time
+            held = {q.rid for q in eng.slots if q is not None}
+            eng.step()
+            for i, q in enumerate(eng.slots):
+                if not k and q is not None and q.rid not in held:
+                    # admitted this step: the step decoded its first token
+                    rows[q.rid] = eng.logits[i, -1].clone()
+        res = [eng.results[rid] for rid in sorted(eng.results)]
+        torch.cuda.synchronize()
+        st, counts = eng.stats(), _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = [torch.equal(torch.as_tensor(r["tokens"]), want)
+                for r, want in zip(res, lone)]
+        n = len(reqs)
+        errs = [_rel(rows[i], lone_rows[i]) for i in sorted(rows)]
+        apart = [_rel(rows[i], lone_rows[(i + 1) % n]) for i in sorted(rows)]
+        distinct = [len(set(r["tokens"].tolist())) for r in res]
+        steps = st["spec_rounds"] if k else st["decode_steps"]
+        log(f"paligemma slot engine{f' speculative k={k}' if k else ''} "
+            f"(kv_pages asked, paged {st['paged']}): {st['completed']} "
+            f"requests, {steps} {'rounds' if k else 'steps'}, decode "
+            f"{st['decode_tok_s']:.1f} tok/s, goodput "
+            f"{st['goodput_tok_s']:.1f} tok/s, prefill "
+            f"{st['t_prefill_s']:.2f} s, wall {time.perf_counter() - t0:.2f}"
+            f" s, " + (f"acceptance {st['acceptance_rate']:.3f}, " if k
+                       else "")
+            + f"peak {peak:.2f} GiB | launches "
+            f"{ {kk: v for kk, v in counts.items() if v} } | equal to lone "
+            f"generates {same}, distinct tokens a request {distinct}"
+            + (f" | first-step logits vs alone max {max(errs):.3e}, vs the "
+               f"next request's min {min(apart):.3e}" if rows else "")
+            + f" | {CARD}")
+        check(st["paged"] is False and len(res) == n
+              and st["max_len"] == max_len + PG_PFX,
+              f"paligemma engine: paged {st['paged']}, {len(res)} results, "
+              f"max_len {st['max_len']}")
+        check(all(same), f"paligemma engine (k={k}): a request's tokens "
+              f"differ from its lone generate")
+        check(counts["plain"] == 0, f"paligemma engine ran plain versions: "
+              f"{counts}")
+        if not k:
+            check(len(rows) == n and max(errs) <= _pg_tol(cfg),
+                  f"paligemma engine: {len(rows)} first-step rows of {n}, "
+                  f"max {max(errs):.3e} from alone (tol {_pg_tol(cfg):g})")
+            check(min(apart) >= SM_LOGIT_APART, f"paligemma engine: a "
+                  f"request's first-step logits lie within "
+                  f"{min(apart):.3e} of another's")
+        launches.update({kk: v for kk, v in counts.items() if v})
+        del eng
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _pg_train(base):
+    """Phase 3q (e): the trainer (launch/train.build at PG_LAYERS layers,
+    the vocab kept, its CLI's 4-bit pow2 spec; TrainLoop over
+    batch_fn's prefixed batches) for PG_TRAIN_STEPS steps of B =
+    PG_TRAIN_BATCH x (256 + PG_TRAIN_SEQ): finite losses, kmeans_stats
+    (kmeans_iters + 1) times a leaf a step (the 526.8 M-entry table
+    among them), no plain version; ms a step and peak memory. Returns
+    the kmeans_stats launches."""
+    import torch
+
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import kmeans_stats
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import api
+    from repro_torch.runtime.loop import TrainLoop
+
+    args = train_cli.parser().parse_args([
+        "--arch", PG_ARCH, "--steps", str(PG_TRAIN_STEPS), "--batch",
+        str(PG_TRAIN_BATCH), "--seq", str(PG_TRAIN_SEQ), "--vocab", "0"])
+    args.device = torch.device("cuda")
+    t0 = time.perf_counter()
+    full = train_cli._train_cfg
+    train_cli._train_cfg = lambda a: full(a).replace(n_layers=base.n_layers)
+    try:
+        cfg, state, step_fn = train_cli.build(args)
+    finally:
+        train_cli._train_cfg = full
+    torch.cuda.synchronize()
+    leaves = _leaves(state.model)
+    per_step = (cfg.quant.kmeans_iters + 1) * len(leaves)
+    table = state.model.embed.table.w
+    check((cfg.n_layers, cfg.vocab, cfg.n_prefix_tokens, len(leaves),
+           table.numel()) == (base.n_layers, 257216, PG_PFX,
+                              7 * base.n_layers + 1, PG_TABLE),
+          f"paligemma trainer: {cfg.n_layers} layers, vocab {cfg.vocab}, "
+          f"{len(leaves)} leaves, table {table.numel()}")
+    log(f"paligemma train: build (init + quantize, {len(leaves)} leaves, "
+        f"the table {table.numel()} entries) {time.perf_counter() - t0:.1f}"
+        f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    launches = []
+
+    def counted_step(st, batch):
+        before = kmeans_stats.COUNTS["launches"]
+        out = step_fn(st, batch)
+        launches.append(kmeans_stats.COUNTS["launches"] - before)
+        return out
+
+    make_batch = train_cli.batch_fn(MarkovLM(cfg.vocab, seed=args.data_seed),
+                                    args, args.device, cfg)
+    check(make_batch(0)["prefix_embeds"].shape
+          == (PG_TRAIN_BATCH, PG_PFX, cfg.d_model),
+          "paligemma trainer: the batch has no prefix")
+    loop = TrainLoop(counted_step, make_batch, log_every=1, log_fn=log,
+                     quant_policy=api.resolved_policy(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    state, step = loop.run(state, PG_TRAIN_STEPS, handle_signals=False)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = [h["dt"] * 1e3 for h in loop.history]
+    losses = [h["loss"] for h in loop.history]
+    log(f"paligemma train {cfg.n_layers} layers B={PG_TRAIN_BATCH} x "
+        f"({PG_PFX} + {PG_TRAIN_SEQ}): ms {['%.1f' % t for t in ms]} | loss "
+        f"{['%.4f' % x for x in losses]} | peak {peak:.2f} GiB | "
+        f"kmeans_stats a step {launches} (expected {per_step}), plain "
+        f"{counts['plain']} | {CARD}")
+    check(step == PG_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"paligemma train: {step} steps, losses {losses}")
+    check(launches == [per_step] * PG_TRAIN_STEPS and counts["plain"] == 0,
+          f"paligemma train: kmeans_stats {launches} a step, plain "
+          f"{counts['plain']}")
+    out = counts["kmeans_stats"]
+    del state, loop, step_fn, leaves, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def paligemma_full_width():
+    """Phase 3q: paligemma-3b at full width (PG_LAYERS of its 18 layers,
+    d_model 2048, 8 / 1 heads of 256, d_ff 16384, vocab 257216 tied, its
+    4-bit pow2 LUT-Q, 8-bit activations; random weights from seed 0, a
+    256-row seeded image prefix a row): (b) int8 and packed4 generate
+    (B=4, prompt 128, 16 tokens), graph and eager, with each kernel's
+    launches a forward (7 a layer, and the tied head: kernel 1 in int8,
+    the decode backend in packed4), the head's share of a replayed step,
+    the graph pools and the logits checks; the calibrated serving_pow2
+    view the same on lutq_shift (the head float); (c) its audit (a
+    prefill of the prefix and 20 tokens, one decode step); (d) the slot
+    engine at act_bits 32; (e) training; (f) reduced paligemma card vs
+    CPU. Returns {kernel: launches} of (b)'s graph-mode generates, (d)
+    and (e)."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    t_phase = time.perf_counter()
+    base = get_config(PG_ARCH).replace(n_layers=PG_LAYERS)
+    L = base.n_layers
+    p = 7 * L  # body products a forward
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, base.vocab, (BATCH, PROMPT), generator=gen)
+    prefix = torch.randn((BATCH, PG_PFX, base.d_model), generator=gen)
+    launches, shares, parts = Counter(), {}, {}
+    t0 = time.perf_counter()
+    model = api.quantize(api.init(base, seed=0, device="cuda"), base)
+    policy = api.resolved_policy(base)
+    torch.cuda.synchronize()
+    log(f"paligemma {base.name} ({L} layers, d_model {base.d_model}, "
+        f"{base.n_heads} / {base.n_kv_heads} heads of "
+        f"{base.resolved_head_dim}, d_ff {base.d_ff}, vocab {base.vocab} "
+        f"tied, prefix {base.n_prefix_tokens}): init + quantize "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | {CARD}")
+    views = {"int8": serve_view(model, policy=policy),
+             "packed4": serve_view(model, pack4=True, policy=policy)}
+    del model
+    torch.cuda.empty_cache()
+    t8 = views["int8"].embed.table.state.a
+    t4 = views["packed4"].embed.table.state.a
+    check(t8.shape == (base.vocab, base.d_model) and t8.dtype == torch.int8
+          and t4.shape == (base.vocab // 2, base.d_model)
+          and t4.dtype == torch.uint8 and len(views["int8"].layers) == L
+          and not hasattr(views["int8"], "lm_head"),
+          "paligemma: the tied table or the stack is not as expected")
+    for name, expect in (("int8", {"lutq_matmul": p + 1}),
+                         ("packed4", {"lutq_gemv_packed": p, "decode": 1})):
+        _, counts = _family_serve("paligemma", name, views[name], base, toks,
+                                  expect, prefix=prefix)
+        for kname in expect:
+            if kname != "decode":
+                launches[kname] += counts[kname]
+        shares[name] = _pg_head_share(name, views[name], base, toks, prefix)
+        _pg_logits_checks(name, views[name], base, toks, prefix)
+    del views["packed4"]
+    torch.cuda.empty_cache()
+    parts["int8 + packed4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(_pg_engines(views["int8"], base.replace(act_bits=32)))
+    parts["engines"] = time.perf_counter() - t0
+    del views
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = base.replace(quant=serving_pow2())
+    cgen = torch.Generator().manual_seed(2)
+    calib = {"tokens": torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                                     generator=cgen).cuda(),
+             "prefix_embeds": torch.randn((CALIB_BATCH, PG_PFX, cfg.d_model),
+                                          generator=cgen).cuda()}
+    view = api.serve_state(cfg, seed=0, device="cuda", calib_batch=calib)
+    torch.cuda.synchronize()
+    kq = view.layers[0].attn.k.kernel.state
+    check(kq.d.dtype == torch.int8 and kq.act is not None
+          and view.embed.table.dtype == torch.float32,
+          "serving_pow2: k is not pow2-encoded with frozen pairs, or the "
+          "tied table is not float")
+    log(f"paligemma serving_pow2: serve_state (init, quantize, calibrate on "
+        f"{CALIB_BATCH} x ({PG_PFX} + {CALIB_LEN}), serve_view) "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, counts = _family_serve("paligemma", "serving_pow2", view, cfg, toks,
+                              {"lutq_shift": p}, prefix=prefix)
+    launches["lutq_shift"] += counts["lutq_shift"]
+    shares["serving_pow2"] = _pg_head_share("serving_pow2", view, cfg, toks,
+                                            prefix)
+    _pg_logits_checks("serving_pow2", view, cfg, toks, prefix)
+    _family_audit("paligemma", view, cfg, toks, PG_AUDIT, {"lutq_shift": p},
+                  prefix=prefix)
+    del view
+    torch.cuda.empty_cache()
+    parts["serving_pow2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["kmeans_stats"] += _pg_train(base)
+    parts["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _reduced_card_vs_cpu("paligemma", reduced(get_config(PG_ARCH)).replace(
+        act_bits=32))
+    parts["reduced"] = time.perf_counter() - t0
+    log(f"phase 3q {time.perf_counter() - t_phase:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
         + ") | launches "
         f"{dict(launches)} | head ms, step ms, step / head graph pool MiB "
@@ -6271,6 +6944,8 @@ def main() -> int:
         worst[kname] = max(worst[kname], err)
     for kname, err in seamless_kernel_checks().items():
         worst[kname] = max(worst[kname], err)
+    for kname, err in paligemma_kernel_checks().items():
+        worst[kname] = max(worst[kname], err)
     quant_divide_checks()
     adamw_checks()
     launches, _, views, cfg = serve_full_width()
@@ -6287,6 +6962,7 @@ def main() -> int:
     moe = moe_full_width()
     deepseek = deepseek_full_width()
     seamless = seamless_full_width()
+    paligemma = paligemma_full_width()
     dense = dense_families_full_width()
     pow2 = serve_pow2_full_width()
     launches["lutq_shift"] = pow2["launches"]
@@ -6390,6 +7066,9 @@ def main() -> int:
         # phase 3p: seamless-m4t-medium's graph-mode generates and engines
         if kname in seamless:
             records[-1]["seamless_launches"] = seamless[kname]
+        # phase 3q: paligemma-3b's graph-mode generates, engines, training
+        if kname in paligemma:
+            records[-1]["paligemma_launches"] = paligemma[kname]
         if kname in MOE_KERNELS:  # phase 2m's timing at C = 40
             p = prefill[kname]
             records[-1]["prefill"] = {

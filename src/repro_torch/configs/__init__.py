@@ -4,9 +4,10 @@ The port registers the configurations it can serve: the dense
 ``h2o-danube-1.8b``, ``mistral-nemo-12b``, ``mistral-large-123b`` (a
 GQA group of 12) and ``qwen1.5-110b`` (a bias on q, k and v), the MoE
 ``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (MLA with a latent
-cache, one leading dense layer, shared experts), and the
-encoder-decoder ``seamless-m4t-medium`` (cross-attention over a
-per-request memory, a tied readout).
+cache, one leading dense layer, shared experts), the encoder-decoder
+``seamless-m4t-medium`` (cross-attention over a per-request memory, a
+tied readout), and the vlm ``paligemma-3b`` (a bidirectional prefix of
+precomputed image embeddings before the text, MQA, a tied readout).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ def _ensure_loaded():
         h2o_danube_1_8b,
         mistral_large_123b,
         mistral_nemo_12b,
+        paligemma_3b,
         qwen1_5_110b,
         qwen3_moe_235b_a22b,
         seamless_m4t_medium,

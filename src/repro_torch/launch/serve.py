@@ -32,6 +32,15 @@ frontend; an --engine takes sources of up to --prompt-len frames):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch seamless-m4t-medium --batch 4 --prompt-len 128 --gen 16
 
+The vlm family (paligemma-3b: a prefix of the config's 256 image
+embeddings a row, standard normal from ``--seed``, stands in for the
+SigLIP frontend; an --engine draws one a request and mixes in no
+text-only requests, as ``synthetic_requests`` does; it serves through
+its slot pool, as the reference does):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch paligemma-3b --batch 4 --prompt-len 128 --gen 16
+
 On the CPU, through the kernels' plain versions, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
@@ -43,6 +52,8 @@ On the CPU, through the kernels' plain versions, at the reduced size:
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch seamless-m4t-medium --reduced --device cpu [--engine \
         --kv-pages 24 --page-size 16]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
+        --reduced --device cpu [--pack4 | --engine]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
         --queue 4 --prompt-len 30 --gen 8 --device cpu
@@ -388,6 +399,12 @@ def main(argv=None):
             (B, P, cfg.d_model), generator=torch.Generator().manual_seed(
                 args.seed + 2)).to(cfg.dtype)
         src = f" over {P} source frames"
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = torch.randn(
+            (B, cfg.n_prefix_tokens, cfg.d_model),
+            generator=torch.Generator().manual_seed(args.seed + 3)).to(
+                cfg.dtype)
+        src = f" after a {cfg.n_prefix_tokens}-token image prefix"
     out, stats = generate(smodel, cfg, batch, steps=args.gen,
                           return_stats=True, speculative=args.speculative,
                           draft_bits=args.draft_bits, device=dev)

@@ -13,8 +13,15 @@ On the CPU, through the kernels' plain versions, at the reduced size:
 Same flags and defaults as the reference: a 4-bit pow2 LUT-Q spec
 (``kmeans_iters=1``, ``min_size=4096``), 8-bit activations, AdamW on a
 cosine schedule, MarkovLM batches, vocab 256 unless ``--vocab`` says
-otherwise (0 keeps the config's). ``--mesh``, ``--grad-compress`` and
-``--autotune`` other than ``off`` are not ported yet and raise. The
+otherwise (0 keeps the config's). A vlm config (paligemma-3b) trains
+on prefixed batches: each step's batch carries ``prefix_embeds`` (B, P,
+D), standard normal from a torch generator seeded by ``--data-seed``
+and the step, in place of the stubbed image frontend's output; torch
+cannot draw the reference's ``jax.random`` numbers, so the prefixes
+differ from the reference CLI's (the tokens are the same MarkovLM
+batches). The loss drops the prefix's logits. ``--mesh``,
+``--grad-compress`` and ``--autotune`` other than ``off`` are not
+ported yet and raise. The
 checkpoints are the reference's format, so either package resumes the
 other's.
 """
@@ -23,6 +30,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs
@@ -85,12 +93,29 @@ def build(args, *, kmeans_impl=None):
     return cfg, state, step_fn
 
 
-def batch_fn(lm: MarkovLM, args, device):
+def prefix_seed(data_seed: int, step: int) -> int:
+    """The seed of step ``step``'s vlm prefix generator."""
+    return int(np.random.SeedSequence([data_seed, step, 8]).generate_state(
+        1)[0])
+
+
+def batch_fn(lm: MarkovLM, args, device, cfg=None):
     """make_batch(step): the MarkovLM batch of that step on ``device``
-    (a pure function of the step: a resumed run sees the same data)."""
+    (a pure function of the step: a resumed run sees the same data);
+    for a vlm ``cfg`` also ``prefix_embeds`` (batch, P, d_model) in
+    ``cfg.dtype``, standard normal from :func:`prefix_seed`."""
+    vlm = cfg is not None and cfg.family == "vlm"
+
     def make_batch(step):
         b = lm.batch(args.data_seed, step, args.batch, args.seq)
-        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        out = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        if vlm:
+            gen = torch.Generator().manual_seed(prefix_seed(args.data_seed,
+                                                            step))
+            out["prefix_embeds"] = torch.randn(
+                (args.batch, cfg.n_prefix_tokens, cfg.d_model),
+                generator=gen).to(device=device, dtype=cfg.dtype)
+        return out
     return make_batch
 
 
@@ -146,7 +171,7 @@ def main(argv=None):
     args.device = resolve_device(args.device)
     cfg, state, step_fn = build(args)
     lm = MarkovLM(cfg.vocab, seed=args.data_seed)
-    loop = TrainLoop(step_fn, batch_fn(lm, args, args.device),
+    loop = TrainLoop(step_fn, batch_fn(lm, args, args.device, cfg),
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      log_every=10, quant_policy=api.resolved_policy(cfg))
     state, step = loop.run(state, args.steps)

@@ -1,8 +1,10 @@
-"""Model API (counterpart of ``repro.models.api``), dense, MoE and
+"""Model API (counterpart of ``repro.models.api``), dense, MoE, vlm and
 encoder-decoder families: GQA attention or MLA (deepseek's latent
 cache, on the slot path only), leading dense layers
-(``cfg.first_dense``), and the encdec family's encoder over ``frames``
-and cross-attending decoder (``models/encdec.py``).
+(``cfg.first_dense``), the vlm family's bidirectional prefix of image
+embeddings (``prefix_embeds``, on the slot path only), and the encdec
+family's encoder over ``frames`` and cross-attending decoder
+(``models/encdec.py``).
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)
@@ -24,8 +26,9 @@ and cross-attending decoder (``models/encdec.py``).
 
 An encdec batch carries ``frames`` (B, S_src, D) beside ``tokens``; its
 caches hold each decoder layer's cross K/V of ``src_len`` source
-positions. Training an encdec model is not ported yet (``loss_fn``
-raises).
+positions. A vlm batch may carry ``prefix_embeds`` (B, P, D); its
+cache's ``len`` then counts the P prefix positions too. Training an
+encdec model is not ported yet (``loss_fn`` raises).
 
 Every entry point that creates tensors runs on ``device="cuda"`` unless
 the caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -46,7 +49,7 @@ from repro_torch.models.config import ModelConfig
 
 
 #: the model families the port serves
-FAMILIES = ("dense", "moe", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "encdec")
 
 
 def _ported(cfg: ModelConfig):
@@ -95,7 +98,8 @@ def calibrate(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None
     Runs a prefill forward of the model under
     :func:`repro_torch.core.actquant.capture_act_scales` (max|x| at each
     matmul boundary, one maximum per logical leaf; an encdec batch
-    carries ``frames``), then installs
+    carries ``frames``, a vlm batch may carry ``prefix_embeds``), then
+    installs
     ``[scale, qmax]`` pairs into the ``act`` of every leaf whose rule has
     ``act_frozen=True`` and ``act_bits < 32``. The pairs persist through
     ``serve_view`` and checkpoints; the pow2 backend quantizes
@@ -130,7 +134,8 @@ def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
 
 
 def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
-    """Training loss of a batch (tokens, labels): (loss, metrics)."""
+    """Training loss of a batch (tokens, labels; a vlm batch's
+    ``prefix_embeds`` too): (loss, metrics)."""
     _ported(cfg)
     if cfg.family == "encdec":
         raise NotImplementedError(
@@ -141,12 +146,16 @@ def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
 
 def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):
     """Run the prompt, return (last_logits (B, 1, V), cache). An encdec
-    batch encodes ``batch["frames"]`` first."""
+    batch encodes ``batch["frames"]`` first; a vlm batch's
+    ``prefix_embeds`` go in front of the text (``lengths`` count text
+    tokens)."""
     _ported(cfg)
     if cfg.family == "encdec":
         return m_encdec.encdec_prefill(model, cfg, batch["frames"],
                                        batch["tokens"], lengths=lengths)
-    return m_lm.lm_prefill(model, cfg, batch["tokens"], lengths=lengths)
+    return m_lm.lm_prefill(model, cfg, batch["tokens"],
+                           prefix_embeds=batch.get("prefix_embeds"),
+                           lengths=lengths)
 
 
 def decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
@@ -175,9 +184,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def paged_supported(cfg: ModelConfig) -> bool:
     """Configs the paged KV cache serves: dense attention without MLA,
     experts, prefix layers or a modality prefix, and encdec (its growing
-    self-attention K/V paged, its cross K/V a slab a slot). MoE stays on
-    the slot path, as in the reference (an ``Engine(kv_pages=...)`` of a
-    MoE config silently serves through its slot pool)."""
+    self-attention K/V paged, its cross K/V a slab a slot). MoE and vlm
+    stay on the slot path, as in the reference (an ``Engine(kv_pages=...)``
+    of such a config silently serves through its slot pool)."""
     if cfg.family == "encdec":
         return True
     return (cfg.family == "dense" and not cfg.use_mla and cfg.n_experts == 0

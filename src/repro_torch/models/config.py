@@ -1,7 +1,8 @@
 """Unified architecture config (counterpart of ``repro.models.config``).
 
-The port serves the ``dense`` family only so far; the other families' fields
-are kept so configs and policies read the same in both packages.
+The port serves the dense, MoE, encdec and vlm families so far; the other
+families' fields are kept so configs and policies read the same in both
+packages.
 """
 from __future__ import annotations
 

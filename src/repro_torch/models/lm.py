@@ -1,6 +1,6 @@
-"""Decoder-only transformer LM, dense and MoE families.
+"""Decoder-only transformer LM, dense, MoE and vlm families.
 
-Counterpart of the dense and MoE paths of ``repro.models.lm``. Attention
+Counterpart of the dense, MoE and vlm paths of ``repro.models.lm``. Attention
 is GQA, with an optional sliding window (SWA ring cache, optional int8
 KV with bf16 scales), an optional bias on q, k and v (added after the
 product, cast to its dtype) and optional qk-norm (RMSNorm over the head
@@ -10,14 +10,22 @@ against a latent cache). The feed-forward block is a SwiGLU MLP or a
 top-k MoE (``nn/moe.py``; prefill at ``cfg.capacity_factor``, one-token
 decode at ``max(cf, 2.0)``), with ``cfg.first_dense`` leading layers of
 dense MLP (``prefix_layers``, as deepseek's); the readout is untied or
-tied. The reference scans over a stacked layer axis; here the layers
-are an ``nn.ModuleList`` walked by a Python loop, the prefix layers
-first, and the cache holds one dict per layer in that order.
+tied. A vlm config (paligemma) puts ``prefix_embeds`` (B, P, D), the
+precomputed image embeddings of a stubbed frontend, in front of the
+text: cast to the working dtype, unscaled, at positions 0 .. P - 1
+(RoPE runs over prefix and text alike), attended both ways inside the
+prefix (``flash_attention(prefix=P)``); a prefill's ``lengths`` count
+text tokens and its cache's ``len`` counts the P prefix slots too, so
+decode sees a longer cache and nothing else. The reference scans over a
+stacked layer axis; here the layers are an ``nn.ModuleList`` walked by a
+Python loop, the prefix layers first, and the cache holds one dict per
+layer in that order.
 
 Entry points:
-  lm_forward      (B, S) tokens -> logits (training forward) + aux
+  lm_forward      (B, S) tokens [+ prefix] -> logits (training
+                  forward) + aux
   lm_loss         next-token cross-entropy of a batch
-  lm_prefill      (B, S) prompt -> last logits + per-layer K/V
+  lm_prefill      (B, S) prompt [+ prefix] -> last logits + per-layer K/V
   lm_decode       (B, W) tokens -> logits + updated cache (W = 1: a
                   decode step; W = k + 1: a speculative verify window)
 and the paged-KV entry points of the engine (``lm_paged_*``, below).
@@ -35,7 +43,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.build import ROW_STABLE_M
 from repro_torch.nn.attention import (decode_attention, flash_attention,
-                                      gather_pages, scatter_token_pages)
+                                      gather_pages, scaled,
+                                      scatter_token_pages)
 from repro_torch.nn.linear import (embedding_apply, embedding_init,
                                    embedding_logits, linear_apply,
                                    linear_init, silu)
@@ -108,18 +117,18 @@ def all_layers(model: LM):
 
 
 def _check_family(cfg: ModelConfig):
-    """The decoder-only entry points serve the dense and MoE families; an
-    encoder-decoder config goes through ``models/encdec.py`` (which
-    reuses this module's blocks, never these entry points)."""
+    """The decoder-only entry points serve the dense, MoE and vlm
+    families; an encoder-decoder config goes through ``models/encdec.py``
+    (which reuses this module's blocks, never these entry points)."""
     if cfg.family == "encdec":
         raise ValueError(f"config {cfg.name!r} is an encoder-decoder: the "
                          f"decoder-only LM entry points refuse it (serve it "
                          f"through models/api, which dispatches it to "
                          f"models/encdec)")
-    if cfg.family not in ("dense", "moe") or cfg.n_prefix_tokens:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"the port serves the dense and MoE LM families without a "
-            f"modality prefix so far (config {cfg.name!r}); see ROADMAP "
+            f"the port serves the dense, MoE and vlm LM families so far "
+            f"(config {cfg.name!r}, family {cfg.family!r}); see ROADMAP "
             f"queue 1, other LM families")
 
 
@@ -189,11 +198,13 @@ def _qkv(p: Attention, cfg: ModelConfig, x, positions,
     return q, k, v
 
 
-def attn_forward(p: Attention, cfg: ModelConfig, x, positions):
-    """Prefill attention. Returns (out, {"k", "v"})."""
+def attn_forward(p: Attention, cfg: ModelConfig, x, positions, *,
+                 prefix: Optional[int] = None):
+    """Prefill attention (the first ``prefix`` positions bidirectional).
+    Returns (out, {"k", "v"})."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    o = flash_attention(q, k, v, window=cfg.window,
+    o = flash_attention(q, k, v, window=cfg.window, prefix=prefix,
                         q_block=cfg.attn_q_block, kv_block=cfg.attn_kv_block)
     out = linear_apply(p.o, o.reshape(B, S, -1), backend=cfg.kernel_backend,
                        act_bits=cfg.act_bits)
@@ -262,7 +273,8 @@ def layer_init(gen, cfg: ModelConfig, device=None, *, moe: bool = True
                  rmsnorm_init(cfg.d_model, device=device), attn, **ffn)
 
 
-def layer_forward(p: Layer, cfg: ModelConfig, h, positions):
+def layer_forward(p: Layer, cfg: ModelConfig, h, positions, *,
+                  prefix: Optional[int] = None):
     """Returns (h, cache, aux)."""
     a_in = rmsnorm_apply(p.ln1, h)
     if cfg.use_mla:
@@ -270,7 +282,8 @@ def layer_forward(p: Layer, cfg: ModelConfig, h, positions):
                                    backend=cfg.kernel_backend,
                                    act_bits=cfg.act_bits)
     else:
-        a_out, cache = attn_forward(p.attn, cfg, a_in, positions)
+        a_out, cache = attn_forward(p.attn, cfg, a_in, positions,
+                                    prefix=prefix)
     h = h + a_out
     m_out, aux = ffn_apply(p, cfg, rmsnorm_apply(p.ln2, h))
     return h + m_out, cache, aux
@@ -296,9 +309,29 @@ def init_lm(gen: Optional[torch.Generator], cfg: ModelConfig,
     return LM(embed, layers, final_norm, head, prefix_layers=prefix)
 
 
-def _embed_tokens(model: LM, cfg: ModelConfig, tokens):
-    h = embedding_apply(model.embed, tokens, dtype=cfg.dtype)
-    return h * (cfg.d_model ** 0.5)
+def _embed_tokens(model: LM, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """The text's embeddings scaled by sqrt(d_model), in ``cfg.dtype``
+    (the scale rounds to that dtype first, as jnp's weakly typed scalar
+    does), with ``prefix_embeds`` (B, P, D), cast and unscaled, in
+    front."""
+    h = scaled(embedding_apply(model.embed, tokens, dtype=cfg.dtype),
+               cfg.d_model ** 0.5)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(device=h.device, dtype=cfg.dtype),
+                       h], dim=1)
+    return h
+
+
+def _prefix(cfg: ModelConfig, prefix_embeds) -> Optional[int]:
+    """The bidirectional prefix's width: the config's, where the batch
+    carries its embeddings (a text-only call on a vlm config has none)."""
+    if prefix_embeds is None:
+        return None
+    if prefix_embeds.shape[1] != cfg.n_prefix_tokens:
+        raise ValueError(f"prefix_embeds of {prefix_embeds.shape[1]} "
+                         f"positions; config {cfg.name!r} takes "
+                         f"{cfg.n_prefix_tokens}")
+    return cfg.n_prefix_tokens
 
 
 def _head(model: LM, cfg: ModelConfig, h, chunk: Optional[int] = None):
@@ -314,13 +347,14 @@ def _readout(model: LM, cfg: ModelConfig, h):
     return _head(model, cfg, rmsnorm_apply(model.final_norm, h))
 
 
-def _layer_train(p: Layer, cfg: ModelConfig, h, positions):
-    h, _, aux = layer_forward(p, cfg, h, positions)
+def _layer_train(p: Layer, cfg: ModelConfig, h, positions, prefix=None):
+    h, _, aux = layer_forward(p, cfg, h, positions, prefix=prefix)
     return h, aux
 
 
-def lm_forward(model: LM, cfg: ModelConfig, tokens):
-    """Full forward -> (logits (B, S, V), aux). tokens: (B, S).
+def lm_forward(model: LM, cfg: ModelConfig, tokens, *, prefix_embeds=None):
+    """Full forward -> (logits (B, P + S, V), aux). tokens: (B, S);
+    ``prefix_embeds`` (B, P, D) a vlm's image prefix (P = 0 without).
 
     With ``cfg.remat`` each layer is recomputed in the backward pass
     (``torch.utils.checkpoint``), as the reference's ``remat_wrap``
@@ -336,15 +370,16 @@ def lm_forward(model: LM, cfg: ModelConfig, tokens):
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r} is not ported yet; the "
             f"port recomputes whole layers ('full') or none")
-    h = _embed_tokens(model, cfg, tokens)
+    prefix = _prefix(cfg, prefix_embeds)
+    h = _embed_tokens(model, cfg, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in all_layers(model):
         if remat:
-            h, a = checkpoint(_layer_train, layer, cfg, h, positions,
+            h, a = checkpoint(_layer_train, layer, cfg, h, positions, prefix,
                               use_reentrant=False)
         else:
-            h, a = _layer_train(layer, cfg, h, positions)
+            h, a = _layer_train(layer, cfg, h, positions, prefix)
         aux = aux + a
     return _readout(model, cfg, h), aux
 
@@ -353,9 +388,13 @@ def lm_loss(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE over f32 logits. batch: tokens (B, S), labels (B, S)
-    with -100 (any negative) = ignore. Returns (loss + aux_weight * aux,
-    {"loss", "aux", "ntok"})."""
-    logits, aux = lm_forward(model, cfg, batch["tokens"])
+    with -100 (any negative) = ignore, and for a vlm ``prefix_embeds``
+    (B, P, D), whose P positions' logits are dropped. Returns (loss +
+    aux_weight * aux, {"loss", "aux", "ntok"})."""
+    logits, aux = lm_forward(model, cfg, batch["tokens"],
+                             prefix_embeds=batch.get("prefix_embeds"))
+    if cfg.n_prefix_tokens and "prefix_embeds" in batch:
+        logits = logits[:, cfg.n_prefix_tokens:]
     labels = batch["labels"].long()
     logits = logits.float()
     mask = (labels >= 0).float()
@@ -406,28 +445,35 @@ def last_real_slice(h, lengths, offset: int = 0):
     return torch.take_along_dim(h, idx[:, None, None], dim=1)
 
 
-def lm_prefill(model: LM, cfg: ModelConfig, tokens, *, lengths=None):
+def lm_prefill(model: LM, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+               lengths=None):
     """Run the full prompt, return (last_logits (B, 1, V), cache).
 
     ``lengths``: per-stream real prompt lengths for right-padded
     batches; logits come from each stream's last real position and
     ``cache["len"]`` records them. A MoE prompt routes every position of
     the batch, padding included: callers prefill MoE prompts at their
-    exact length (the engine groups by length).
+    exact length (the engine groups by length). ``prefix_embeds`` (B,
+    P, D): a vlm's image prefix before the text; ``lengths`` still count
+    text tokens, the logits are read at P + length - 1 and ``len`` is
+    P + length (a text-only call occupies no prefix slot).
     """
     _check_family(cfg)
-    h = _embed_tokens(model, cfg, tokens)
+    prefix = _prefix(cfg, prefix_embeds)
+    h = _embed_tokens(model, cfg, tokens, prefix_embeds)
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :]
     if lengths is None:
         cache_len = torch.full((B,), S, dtype=torch.int32, device=h.device)
     else:
-        cache_len = torch.as_tensor(lengths, device=h.device).to(torch.int32)
+        cache_len = (torch.as_tensor(lengths, device=h.device).to(torch.int32)
+                     + (prefix or 0))
     caches = []
     for layer in all_layers(model):
-        h, c, _ = layer_forward(layer, cfg, h, positions)
+        h, c, _ = layer_forward(layer, cfg, h, positions, prefix=prefix)
         caches.append(c)
-    h_last = h[:, -1:] if lengths is None else last_real_slice(h, lengths)
+    h_last = (h[:, -1:] if lengths is None
+              else last_real_slice(h, lengths, offset=prefix or 0))
     return _readout(model, cfg, h_last), {"len": cache_len, "layers": caches}
 
 

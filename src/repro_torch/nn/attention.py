@@ -1,8 +1,9 @@
 """Attention: blocked online-softmax prefill, one-token decode, pages.
 
 Counterpart of ``repro.nn.attention``: ``flash_attention`` (causal with
-an optional sliding window and a ``q_offset`` for chunked prefill
-against a workspace, or unmasked, ``causal=False``, for cross-attention),
+an optional sliding window, a ``q_offset`` for chunked prefill
+against a workspace and a bidirectional ``prefix`` for a vlm's image
+tokens, or unmasked, ``causal=False``, for cross-attention),
 ``decode_attention``, and the block-table
 helpers ``gather_pages`` / ``scatter_token_pages`` of the paged KV
 cache, as plain torch ops. The prefill walks (q-block, kv-block) pairs
@@ -38,7 +39,8 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
-                    window: Optional[int] = None, q_block: int = 512,
+                    window: Optional[int] = None,
+                    prefix: Optional[int] = None, q_block: int = 512,
                     kv_block: int = 512,
                     q_offset: Union[int, torch.Tensor] = 0,
                     q_positions: Optional[torch.Tensor] = None,
@@ -49,6 +51,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal attention (``causal=False``: every query attends every
     key, as an encoder-decoder's cross-attention does). q: (B,S,H,Dh);
     k,v: (B,Skv,Hkv,Dh[v]) -> (B,S,H,Dv).
+
+    ``prefix``: the first ``prefix`` positions (a vlm's image tokens)
+    attend each other both ways, a prefix-LM mask: after the causal and
+    window terms, ``mask |= (q_pos < prefix) & (k_pos < prefix)``, as the
+    reference applies it. Not with the packed overrides below.
 
     ``q_offset``: position of q's first row within the KV sequence.
     Chunked prefill attends a chunk of queries against the whole
@@ -83,6 +90,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q_segments is not None) or packed != (kv_segments is not None):
         raise ValueError("flash_attention: pass q_positions, kv_positions, "
                          "q_segments and kv_segments together")
+    if packed and prefix is not None:
+        raise ValueError("flash_attention: a prefix with the packed segment "
+                         "overrides is unsupported")
     traced = isinstance(q_offset, torch.Tensor)
     if not traced:
         q_offset = int(q_offset)
@@ -159,7 +169,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 mask &= q_pos[:, None] - k_pos[None, :] < window
             if packed:
                 mask &= q_seg[:, None] == k_seg[None, :]
-            elif pad_kv:
+            if prefix is not None:
+                # bidirectional attention inside the (image) prefix
+                mask |= (q_pos[:, None] < prefix) & (k_pos[None, :] < prefix)
+            if pad_kv and not packed:
                 mask &= k_pos[None, :] < Skv0
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))

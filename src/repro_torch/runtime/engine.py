@@ -84,9 +84,17 @@ runs; its decode step and greedy round are captured as graphs that read
 ``len`` and ``src_len`` on the device. Its prefix cache and packed
 prefill are off: the K/V depends on the frames.
 
-Not ported yet, and raising ``NotImplementedError``: ``mesh`` and vlm
-requests (``prefix_embeds``); each message names its ROADMAP queue 1
-item.
+A vlm engine (paligemma) serves requests with or without
+``prefix_embeds`` (P, D), the config's P precomputed image embeddings
+in front of the prompt. Its slots are ``max_len + P`` wide (``max_len``
+counts text tokens, and a request's length check counts P even when it
+brings no prefix, as the reference's does). Prefixed and text-only
+requests never share a prefill (their caches start at other widths); a
+prefixed row's ``len`` counts its P prefix slots. A vlm engine stays on
+the slot path, as in the reference (``api.paged_supported``).
+
+Not ported yet, and raising ``NotImplementedError``: ``mesh`` (ROADMAP
+queue 1, multi-GPU).
 """
 from __future__ import annotations
 
@@ -139,9 +147,11 @@ def synthetic_requests(cfg: ModelConfig, n: int, *, max_prompt: int,
     ``n`` requests with prompt lengths uniform in [max(2, max_prompt//4),
     max_prompt], max_new uniform in [max(1, max_new//8), max_new], for
     encdec ``frames`` of a width uniform in [max(2, src_len//2),
-    src_len] (standard normal, float32), and (``rate > 0``) Poisson
-    arrival offsets at ``rate`` requests/s. Returns kwargs dicts for
-    ``Engine.submit`` plus ``arrival_s``."""
+    src_len] (standard normal, float32), for vlm ``prefix_embeds`` of
+    the config's P rows (standard normal, float32, drawn after the
+    request's tokens), and (``rate > 0``) Poisson arrival offsets at
+    ``rate`` requests/s. Returns kwargs dicts for ``Engine.submit`` plus
+    ``arrival_s``."""
     rng = np.random.default_rng(seed)
     t = 0.0
     reqs = []
@@ -157,6 +167,9 @@ def synthetic_requests(cfg: ModelConfig, n: int, *, max_prompt: int,
             sl = int(rng.integers(max(2, src_len // 2), src_len + 1))
             reqs[-1]["frames"] = rng.standard_normal(
                 (sl, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            reqs[-1]["prefix_embeds"] = rng.standard_normal(
+                (cfg.n_prefix_tokens, cfg.d_model)).astype(np.float32)
         if rate > 0:
             t += float(rng.exponential(1.0 / rate))
     return reqs
@@ -176,6 +189,7 @@ class Request:
     eos_id: Optional[int]
     gen: Optional[torch.Generator]          # sampling generator (temperature)
     frames: Optional[torch.Tensor] = None   # encdec source embeddings (S, D)
+    prefix_embeds: Optional[torch.Tensor] = None  # vlm image prefix (P, D)
     out: List[int] = dataclasses.field(default_factory=list)
     pstart: int = 0   # index into the engine's pending-token list
     kv_pages: int = 0  # pages reserved at admission (paged engines)
@@ -198,7 +212,9 @@ class Engine:
         print(eng.stats())
 
     ``capacity``: decode slots (the fixed decode batch). ``max_len``:
-    per-slot context in tokens (prompt + new). ``kv_pages``: serve through the paged KV cache with this many pages
+    per-slot context in text tokens (prompt + new); a vlm config's
+    prefix of P positions widens each slot to ``max_len + P``.
+    ``kv_pages``: serve through the paged KV cache with this many pages
     of ``page_size`` tokens (``prefix_cache`` shares prompt pages).
     ``device``: where the engine's state lives and the run happens; the
     model must already be there. ``warmup``: a paged engine runs its
@@ -240,7 +256,9 @@ class Engine:
         self.cfg = cfg
         self.model = model
         self.capacity = int(capacity)
-        self.max_len = int(max_len)
+        # a vlm slot holds the image prefix's positions before the text
+        self.prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+        self.max_len = int(max_len) + self.prefix
         self.src_len = int(src_len)
         self.encdec = cfg.family == "encdec"
         self.temperature = float(temperature)
@@ -381,12 +399,12 @@ class Engine:
         stream of one engine in another, submit it with the same seed.
         ``frames``: an encdec request's source embeddings (S, D), S <=
         the engine's ``src_len`` (other families ignore them, as the
-        reference does).
+        reference does). ``prefix_embeds``: a vlm request's image
+        prefix (P, D) (a vlm request may also come without one); other
+        families refuse it.
         """
         if prefix_embeds is not None:
-            raise NotImplementedError("vlm requests are not ported yet "
-                                      "(ROADMAP queue 1, other LM "
-                                      "families)")
+            prefix_embeds = self._prefix_embeds(prefix_embeds)
         if self.encdec:
             if frames is None:
                 raise ValueError("encdec requests need `frames`")
@@ -399,11 +417,13 @@ class Engine:
         prompt = np.asarray(tokens, np.int32).reshape(-1)
         if len(prompt) == 0:
             raise ValueError("empty prompt")
-        if len(prompt) + int(max_new) + self.spec_k > self.max_len:
+        if (len(prompt) + int(max_new) + self.prefix + self.spec_k
+                > self.max_len):
             extra = (f" (+{self.spec_k} speculative headroom)"
                      if self.spec_k else "")
             raise ValueError(f"prompt {len(prompt)} + max_new {max_new}"
-                             f"{extra} exceeds engine max_len {self.max_len}")
+                             f"{extra} exceeds engine max_len "
+                             f"{self.max_len - self.prefix}")
         if self.paged:
             n_need = self.pkv.n_pages_for(
                 len(prompt) + int(max_new) + self.spec_k)
@@ -415,8 +435,21 @@ class Engine:
                                 time.perf_counter())
         if self.encdec:
             req.frames = frames
+        req.prefix_embeds = prefix_embeds
         self.queue.append(req)
         return req.rid
+
+    def _prefix_embeds(self, e) -> torch.Tensor:
+        """A request's image prefix as a tensor, refused unless the
+        engine serves a vlm config and it is (P, d_model)."""
+        if not self.prefix:
+            raise ValueError(f"prefix_embeds are for a vlm config; "
+                             f"{self.cfg.name!r} is {self.cfg.family}")
+        e = torch.as_tensor(e)
+        if tuple(e.shape) != (self.prefix, self.cfg.d_model):
+            raise ValueError(f"prefix_embeds {tuple(e.shape)}, expected "
+                             f"({self.prefix}, {self.cfg.d_model})")
+        return e
 
     # ---------------------------------------------------------- sampling
 
@@ -443,14 +476,15 @@ class Engine:
         exactness allows it: attention-only families batch ragged prompts
         freely (per-stream ``lengths`` keep them exact); MoE routing
         couples real tokens to padding (capacity), so MoE groups by exact
-        prompt length, and encdec by source width (padded frames would
-        reach the real positions' memory), as the reference's engine
-        does."""
+        prompt length, encdec by source width (padded frames would reach
+        the real positions' memory), and prefixed and text-only vlm
+        requests apart (their caches start at other widths), as the
+        reference's engine does."""
         if self.cfg.n_experts:
             return ("exact", len(req.tokens))
         if self.encdec:
             return ("src", req.frames.shape[0])
-        return ("any", False)
+        return ("any", req.prefix_embeds is not None)
 
     def _admit_group(self, slots: List[int], reqs: List[Request]):
         """Prefill a group of requests with ONE batched call and write
@@ -466,7 +500,17 @@ class Engine:
         batch = {"tokens": torch.from_numpy(toks).to(dev)}
         if self.encdec:  # one source width a group
             batch["frames"] = torch.stack([r.frames for r in reqs]).to(dev)
+        # a prefix occupies cache slots only where the group brings one
+        # (the group key keeps prefixed and text-only requests apart)
+        pfx = 0
+        if reqs[0].prefix_embeds is not None:
+            batch["prefix_embeds"] = torch.stack(
+                [r.prefix_embeds for r in reqs]).to(dev)
+            pfx = self.prefix
+        # the prefill takes text lengths; the cache's len counts the
+        # prefix's slots too
         logits, pcache = api.prefill(self.model, cfg, batch, lengths=lengths)
+        lengths = lengths + pfx
         grp = adapt_prefill_cache(cfg, pcache, m, self.max_len,
                                   src_len=self.src_len, lengths=lengths)
         idx = torch.tensor(slots, device=dev)
@@ -585,6 +629,8 @@ class Engine:
         plan: List[Request] = []
         c_tot = base = 0
         for req in list(self.queue)[:len(free)]:
+            if req.prefix_embeds is not None:
+                break  # a prefix is never packed (vlm stays unpaged)
             L = len(req.tokens)
             tail = L - self.pkv.peek(req.tokens)
             if (c_tot + tail > self.max_chunk
@@ -853,7 +899,9 @@ class Engine:
         """Admit a whole padded batch with ONE batched prefill: the
         static-batch path of ``serving.generate``. The engine must be
         idle and ``batch["tokens"]`` must have ``capacity`` rows; row i
-        becomes request i, as a solo ``submit`` of it would."""
+        becomes request i, as a solo ``submit`` of it would; with
+        ``batch["prefix_embeds"]`` (B, P, D) (a vlm batch) row i's prefix
+        too."""
         if self.queue or any(s is not None for s in self.slots):
             raise RuntimeError("preload requires an idle engine")
         if self.paged:
@@ -875,6 +923,9 @@ class Engine:
                                  f"src_len {self.src_len}")
             for req, f in zip(reqs, frames):
                 req.frames = f
+        if batch.get("prefix_embeds") is not None:
+            for req, e in zip(reqs, torch.as_tensor(batch["prefix_embeds"])):
+                req.prefix_embeds = self._prefix_embeds(e)
         self._admit_group(list(range(B)), reqs)
 
     # ------------------------------------------------------- decode step

@@ -74,8 +74,9 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
                         *, src_len: int = 0, lengths=None):
     """Convert a prefill cache into a decode-ready cache of max_len.
 
-    ``lengths``: per-stream (B,) prompt lengths for right-padded batches;
-    defaults to the prefill cache's own ``len`` vector. The int8 KV
+    ``lengths``: per-stream (B,) cache lengths for right-padded batches
+    (a vlm prefix's positions included); defaults to the prefill cache's
+    own ``len`` vector. The int8 KV
     quantization and the SWA ring apply to the decoder-only families' GQA
     K/V only: MLA latents are grown as they are, as the reference's
     ``attn_kv`` guard leaves them, and so are an encdec cache's leaves,
@@ -89,7 +90,7 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
     lengths = torch.as_tensor(lengths, device=dev).reshape(-1)
     lengths = lengths.expand(batch).to(torch.int32)
     layers = [dict(c) for c in cache["layers"]]
-    attn_kv = cfg.family in ("dense", "moe") and not cfg.use_mla
+    attn_kv = cfg.family in ("dense", "moe", "vlm") and not cfg.use_mla
     if attn_kv and cfg.kv_cache_bits == 8:
         # prefill emits float K/V; the decode cache holds int8 + scales
         from repro_torch.models.lm import _kv_quant
@@ -189,7 +190,10 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     of headroom, and the stats also hold ``spec_rounds``,
     ``acceptance_rate``, ``spec_tokens_per_round`` and the draft view's
     bytes (``_SPEC_STATS``). An encdec batch carries ``frames`` (B,
-    S_src, D); the engine's source width is ``S_src``.
+    S_src, D); the engine's source width is ``S_src``. A vlm batch may
+    carry ``prefix_embeds`` (B, P, D): the engine widens its cache by
+    the config's P (``max_len`` counts text tokens), and ``lengths``
+    count text tokens.
     """
     from repro_torch.runtime.engine import Engine
 

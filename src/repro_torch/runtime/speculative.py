@@ -20,7 +20,8 @@ verify position attends target K/V only and greedy tokens are the bits
 of non-speculative decoding. Rejected positions' K/V stay past ``len``,
 masked, and are overwritten by the next round. An encdec cache's cross
 K/V and ``src_len`` are only read by a round, so nothing of them is
-rolled back.
+rolled back; a vlm cache's ``len`` counts its P image-prefix slots, and
+a round starts there as at any other length.
 
 A sliding-window ring needs one more move: the k + 1 ring columns of a
 round may hold entries from ``window`` positions back that are still

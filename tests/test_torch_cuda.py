@@ -49,7 +49,13 @@ two calls, NaN dead pages and a graph replay giving the same bits; the
 encdec paged decode step replayed from a CUDA graph equals the eager
 step bit for bit, and the paged engine (plain and speculative, graph
 and eager) gives lone generates' tokens; reduced seamless on the card
-gives the CPU's greedy tokens in each view.
+gives the CPU's greedy tokens in each view. paligemma-3b:
+``kmeans_stats`` over its 526.8 M-weight tied table (2.107 GB of f32,
+byte offsets past 2^31) with the tolerances above; kernel 1 and
+``lutq_shift`` on its transposed head (N = 257216); a vlm decode step
+(the cache's length counting the prefix) replayed from a CUDA graph
+equal to the eager step bit for bit; reduced paligemma on the card
+gives the CPU's greedy tokens after its image prefix.
 """
 import contextlib
 
@@ -2503,6 +2509,179 @@ def test_cuda_seamless_serves_the_cpu_tokens(cuda_device, view):
         delta = ops.count_delta(before)
         assert torch.equal(got.cpu(), want)
         body = 7 * 2 + 11 * 2 + 5 * 9 * 2
+        head = 0 if view == "pow2" else 6
+        assert delta[idx]["launches"] == body + (head if view == "int8"
+                                                 else 0)
+        assert delta[0]["launches"] == (body if view == "int8" else 0) + head
+        assert sum(c.get("plain", 0) for c in delta) == 0
+
+
+# ---------------------------------------------------------------------------
+# paligemma-3b: the vlm family (the 526.8 M-entry tied table)
+# ---------------------------------------------------------------------------
+
+#: paligemma's tied table: 257216 x 2048 f32 weights, 2.107 GB (its byte
+#: offsets pass 2^31); the int8 view's head reads it transposed, N = 257216
+PG_TABLE = (257216, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 3])
+def test_cuda_kmeans_stats_past_2_31_bytes(cuda_device, offset):
+    """kmeans_stats over paligemma's 526.8 M-weight table (aligned, and 3
+    elements into a buffer: a scalar head), one launch: assignments and
+    counts equal to the plain version's, each entry's sum within 1e-5 of
+    its sum|w|; the last weights (past 2^31 bytes) assigned too."""
+    g = torch.Generator(device=cuda_device).manual_seed(offset)
+    n = PG_TABLE[0] * PG_TABLE[1]
+    buf = torch.randn(n + offset, generator=g, device=cuda_device) * 0.02
+    w = buf[offset:]
+    d = torch.sort(torch.randn(16, generator=g, device=cuda_device)
+                   * 0.02).values
+    before = dict(kmeans_stats.COUNTS)
+    a1, s1, c1 = kmeans_stats.kmeans_stats(w, d)
+    assert kmeans_stats.COUNTS["launches"] == before["launches"] + 1
+    a0, s0, c0 = kmeans_stats_ref(w, d)
+    assert torch.equal(a1, a0) and torch.equal(c1, c0)
+    assert int(c0.sum()) == n
+    mag = torch.zeros(16, dtype=torch.float64, device=cuda_device).index_add_(
+        0, a0.view(torch.uint8).long(), w.abs().double()).float()
+    assert ((s1 - s0).abs() <= 1e-5 * mag).all()
+    tail = slice(n - 4099, n)
+    assert torch.equal(a1[tail], a0[tail])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 9])
+@pytest.mark.parametrize("kernel,dtype", [
+    ("lutq_matmul", "float32"), ("lutq_matmul", "bfloat16"),
+    ("lutq_shift", "int8")])
+def test_cuda_kernels_on_the_paligemma_head(cuda_device, kernel, dtype, M):
+    """Kernel 1 within its tolerance of the plain version and lutq_shift
+    bit for bit on the transposed tied head (Kin 2048, N = 257216: a
+    partial n tile of 64 at 128), a second call giving the first call's
+    bits."""
+    Kin, N = PG_TABLE[1], PG_TABLE[0]
+    g = torch.Generator(device=cuda_device).manual_seed(M)
+    if kernel == "lutq_shift":
+        xq, a, wsh = (t.to(cuda_device) for t in _shift_operands(
+            M, Kin, N, 16, torch.Generator().manual_seed(M)))
+        got = lutq_shift.lutq_shift(xq, a, wsh)
+        assert torch.equal(got, lutq_shift_ref(xq, a, wsh))
+        assert torch.equal(lutq_shift.lutq_shift(xq, a, wsh), got)
+        return
+    x = torch.randn(M, Kin, generator=g, device=cuda_device).to(
+        getattr(torch, dtype))
+    a = torch.randint(0, 16, (Kin, N), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    d = torch.sort(torch.randn(16, generator=g, device=cuda_device)).values
+    got = lutq_matmul.lutq_matmul(x, a, d)
+    want = lutq_matmul_ref(x, a, d)
+    tol = 1e-4 if dtype == "float32" else 1e-3
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() / want.abs().max() <= tol
+    assert torch.equal(lutq_matmul.lutq_matmul(x, a, d), got)
+
+
+def _paligemma_serve(view, act_bits=32):
+    """Reduced paligemma (2 layers, 4 / 1 heads of 16, vocab 211, a
+    prefix of 8) at ``act_bits``: the config, its serve view (int8,
+    packed4 or calibrated serving_pow2) on the CPU, and a batch of 3 x
+    12 tokens after a seeded prefix."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    cfg = reduced(get_config("paligemma-3b")).replace(act_bits=act_bits)
+    if view == "pow2":
+        cfg = cfg.replace(quant=serving_pow2())
+    g = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (3, 12), generator=g),
+             "prefix_embeds": torch.randn((3, cfg.n_prefix_tokens,
+                                           cfg.d_model), generator=g)}
+    model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+    if view == "pow2":
+        model = api.calibrate(model, cfg, {k: v[:2] for k, v in batch.items()})
+    return cfg, serve_view(model, pack4=view == "packed4",
+                           policy=api.resolved_policy(cfg)), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_vlm_decode_step_replays_as_eager(cuda_device, view):
+    """A vlm decode step (the cache's len counting the 8 prefix slots)
+    captured as a CUDA graph and replayed equals the eager step bit for
+    bit: logits and every layer's K/V; a second replay at the next
+    length too."""
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    cfg, serve, batch = _paligemma_serve(view)
+    card = serve.to(cuda_device)
+    width = cfg.n_prefix_tokens + 12 + 4
+
+    def clone(c):
+        return {"layers": [{k: v.clone() for k, v in layer.items()}
+                           for layer in c["layers"]],
+                "len": c["len"].clone()}
+
+    with torch.inference_mode():
+        _, cache = api.prefill(card, cfg, {k: v.to(cuda_device)
+                                           for k, v in batch.items()})
+        cache = serving.adapt_prefill_cache(cfg, cache, 3, width)
+        assert cache["len"].tolist() == [cfg.n_prefix_tokens + 12] * 3
+        eager, graphed, warm = clone(cache), clone(cache), clone(cache)
+        tok = torch.randint(0, cfg.vocab, (3, 1), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(8)
+                            ).to(cuda_device)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            api.decode_step(card, cfg, tok, warm)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, nxt = api.decode_step(card, cfg, tok, graphed)
+        for step in range(2):
+            graph.replay()
+            want, after = api.decode_step(card, cfg, tok, eager)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), step
+            for g, e in zip(graphed["layers"], eager["layers"]):
+                for k in ("k", "v"):
+                    assert torch.equal(g[k], e[k]), (step, k)
+            assert torch.equal(nxt["len"], after["len"])
+            graphed["len"].copy_(nxt["len"])
+            eager["len"] = after["len"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_paligemma_serves_the_cpu_tokens(cuda_device, view):
+    """Reduced paligemma served on the card (graph-replayed and eager)
+    after its image prefix gives the CPU's greedy tokens: 10 body
+    launches a forward of the view's kernel (the config's size floor,
+    4096, leaves the reduced k and v float), the tied head on kernel 1
+    (int8, and packed4 at the reduced odd vocab), no plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import disable_graphs
+    from repro_torch.runtime.serving import generate
+
+    cfg, serve, batch = _paligemma_serve(view)
+    want = generate(serve, cfg, batch, steps=6, device="cpu")
+    card = serve.to(cuda_device)
+    idx = {"int8": 0, "packed4": 1, "pow2": 2}[view]
+    for graphs in (True, False):
+        before = ops.read_counts()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            got = generate(card, cfg, batch, steps=6, device="cuda")
+        delta = ops.count_delta(before)
+        assert torch.equal(got.cpu(), want)
+        body = 5 * 2 * 6
         head = 0 if view == "pow2" else 6
         assert delta[idx]["launches"] == body + (head if view == "int8"
                                                  else 0)

@@ -151,13 +151,16 @@ def test_full_width_config_is_the_reference(arch):
 
 
 def test_check_family_still_refuses_what_remains():
-    """A modality prefix and the other families stay refused; MLA and
-    leading dense layers are admitted (tests/test_torch_deepseek.py)."""
+    """The hybrid and ssm families stay refused; a vlm config's modality
+    prefix is admitted (tests/test_torch_vlm.py), as are MLA and leading
+    dense layers (tests/test_torch_deepseek.py)."""
     cfg = tconfigs.get_config(LARGE)
-    for kw in (dict(n_prefix_tokens=4), dict(family="hybrid")):
+    for kw in (dict(family="hybrid"), dict(family="ssm")):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 1, other LM families"):
             tlm._check_family(cfg.replace(**kw))
+    tlm._check_family(cfg.replace(family="vlm", n_prefix_tokens=4))
+    tlm._check_family(tconfigs.get_config("paligemma-3b"))
 
 
 # ---------------------------------------------------------------------------

@@ -296,8 +296,8 @@ def test_engine_ragged_parity(sv, kind):
 def test_engine_refusals_and_switches(sv):
     """An encdec request needs frames no wider than the engine's
     src_len; a paged encdec engine keeps its prefix cache and packed
-    prefill off (its K/V depends on the frames); a vlm prefix still
-    raises; speculation is refused at act_bits 8 with the reference's
+    prefill off (its K/V depends on the frames); a vlm prefix is refused
+    (the config is not vlm); speculation is refused at act_bits 8 with the reference's
     reason."""
     _, tcfg, _, model = _views(sv, "int8", act_bits=32)
     eng = Engine(model, tcfg, capacity=2, max_len=16, src_len=8,
@@ -306,7 +306,7 @@ def test_engine_refusals_and_switches(sv):
         eng.submit(np.arange(4), max_new=2)
     with pytest.raises(ValueError, match="exceed engine src_len 8"):
         eng.submit(np.arange(4), max_new=2, frames=np.zeros((9, 64)))
-    with pytest.raises(NotImplementedError, match="other LM families"):
+    with pytest.raises(ValueError, match="prefix_embeds are for a vlm"):
         eng.submit(np.arange(4), max_new=2, frames=np.zeros((3, 64)),
                    prefix_embeds=np.zeros((2, 64)))
     paged = Engine(model, tcfg, capacity=2, max_len=16, src_len=8,

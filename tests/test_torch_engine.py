@@ -266,10 +266,9 @@ def test_engine_refuses_unported_options(fp):
     assert Engine(model, tcfg, kv_pages=8, page_size=8,
                   device="cpu").prefill_pack
     eng = Engine(model, tcfg, device="cpu")
-    # encdec frames are ported (tests/test_torch_encdec.py); a vlm
-    # modality prefix is not
-    with pytest.raises(NotImplementedError,
-                       match="queue 1, other LM families"):
+    # encdec frames and vlm prefixes are ported (tests/test_torch_encdec
+    # .py, tests/test_torch_vlm.py); a dense engine refuses a prefix
+    with pytest.raises(ValueError, match="prefix_embeds are for a vlm"):
         eng.submit(np.arange(4), max_new=2,
                    prefix_embeds=np.zeros((3, 64)))
     with pytest.raises(ValueError):

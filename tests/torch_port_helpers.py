@@ -112,3 +112,136 @@ def port_teacher_forced(tcfg, model, toks, ref_tokens):
         logits, cache = tapi.decode_step(model, tcfg, tok, cache)
         outs.append(logits[:, -1].float().numpy())
     return outs
+
+
+# ---------------------------------------------------------------------------
+# paligemma-3b (the vlm family): tests/test_torch_vlm*.py
+# ---------------------------------------------------------------------------
+
+VLM = "paligemma-3b"
+#: reduced paligemma's prefix (``reduce.reduced``) and d_model
+VLM_PFX, VLM_D = 8, 64
+VLM_CALIB = {"tokens": np.random.RandomState(1).randint(
+    0, 211, (2, 12)).astype(np.int32),
+    "prefix_embeds": np.random.RandomState(2).randn(
+        2, VLM_PFX, VLM_D).astype(np.float32)}
+
+
+def vlm_cfgs(view="int8", dtype="float32", **kw):
+    """(JAX config, port config) of reduced paligemma (the config's
+    act_bits 8 unless given): 4-bit pow2 LUT-Q, or under ``view="pow2"``
+    the serving_pow2 policy."""
+    from repro.core.rules import serving_pow2 as j_serving_pow2
+    from repro_torch.core.rules import serving_pow2 as t_serving_pow2
+
+    jcfg, tcfg = cfg_pair(dtype, arch=VLM, constraint="pow2", remat=False,
+                          **kw)
+    if view == "pow2":
+        return (jcfg.replace(quant=j_serving_pow2()),
+                tcfg.replace(quant=t_serving_pow2()))
+    return jcfg, tcfg
+
+
+def vlm_trees():
+    """The JAX float params of reduced paligemma (seed 0), their axes,
+    the quantized tree and the calibrated serving_pow2 tree (calibrated
+    on a prefixed batch)."""
+    from repro.models import api as japi
+
+    jcfg, _ = vlm_cfgs()
+    params, axes = japi.init(jax.random.PRNGKey(0), jcfg)
+    pcfg, _ = vlm_cfgs("pow2")
+    pq = japi.quantize(params, pcfg, axes)
+    jcal = japi.calibrate(pq, pcfg, jax.tree.map(jnp.asarray, VLM_CALIB))
+    return dict(params=params, axes=axes,
+                jq=japi.quantize(params, jcfg, axes), jcal=jcal)
+
+
+def vlm_views(trees, view, dtype="float32", **kw):
+    """(JAX config, port config, JAX tree, port model) of ``view``: the
+    train form, int8, packed4 or the calibrated serving_pow2 view."""
+    from repro.core.policy import serve_view as j_serve_view
+    from repro.models import api as japi
+    from repro_torch import interop
+    from repro_torch.core.policy import serve_view as t_serve_view
+    from repro_torch.models import api as tapi
+
+    jcfg, tcfg = vlm_cfgs(view, dtype, **kw)
+    if view == "train":
+        return jcfg, tcfg, trees["jq"], interop.from_jax(to_np(trees["jq"]),
+                                                         tcfg)
+    src = trees["jcal"] if view == "pow2" else trees["jq"]
+    pack4 = view == "packed4"
+    js = j_serve_view(src, pack4=pack4, policy=japi.resolved_policy(jcfg))
+    model = t_serve_view(interop.from_jax(to_np(src), tcfg), pack4=pack4,
+                         policy=tapi.resolved_policy(tcfg))
+    return jcfg, tcfg, js, model
+
+
+def vlm_batch(seed, b=2, t=10, vocab=211, prefix=True):
+    """{"tokens": (b, t)[, "prefix_embeds": (b, 8, 64) float32]}, numpy
+    from ``seed``."""
+    out = {"tokens": np.random.RandomState(seed).randint(
+        0, vocab, (b, t)).astype(np.int32)}
+    if prefix:
+        out["prefix_embeds"] = np.random.RandomState(seed + 100).randn(
+            b, VLM_PFX, VLM_D).astype(np.float32)
+    return out
+
+
+def jax_prefixed_loop(jcfg, tree, batch, steps, lengths=None):
+    """The reference's prefill (a batch with or without
+    ``prefix_embeds``) -> adapt_prefill_cache -> argmax -> decode loop,
+    each step jitted with ``STRICT``: per-step logits (B, V) as float32
+    numpy and the greedy tokens (B, steps)."""
+    from repro.models import api as japi
+    from repro.runtime import serving as jserving
+
+    prefill = jax.jit(lambda p, b, n: japi.prefill(p, jcfg, b, lengths=n),
+                      compiler_options=STRICT)
+    decode = jax.jit(lambda p, t, c: japi.decode_step(p, jcfg, t, c),
+                     compiler_options=STRICT)
+    n, width = batch["tokens"].shape
+    pfx = jcfg.n_prefix_tokens if "prefix_embeds" in batch else 0
+    lens = np.full(n, width, np.int32) if lengths is None else lengths
+    logits, cache = prefill(tree, jax.tree.map(jnp.asarray, batch),
+                            jnp.asarray(lens))
+    cache = jserving.adapt_prefill_cache(jcfg, cache, n,
+                                         width + steps + pfx)
+    outs, toks = [], []
+    for t in range(steps):
+        if t:
+            logits, cache = decode(tree, tok, cache)
+        lg = logits[:, -1].astype(jnp.float32)
+        outs.append(np.asarray(lg))
+        tok = jnp.argmax(lg, -1)[:, None].astype(jnp.int32)
+        toks.append(np.asarray(tok))
+    jax.clear_caches()
+    return outs, np.concatenate(toks, axis=1)
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    elif hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield prefix + (f,), getattr(tree, f)
+    else:
+        yield prefix, tree
+
+
+def assert_trees_equal(a, b):
+    """Two numpy trees (dicts, namedtuples) with the same paths, dtypes,
+    shapes and bytes."""
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    assert sorted(la) == sorted(lb) and la
+    for k in la:
+        if la[k] is None or lb[k] is None:
+            assert la[k] is None and lb[k] is None, k
+            continue
+        x, y = np.asarray(la[k]), np.asarray(lb[k])
+        assert x.dtype == y.dtype and x.shape == y.shape, (k, x.dtype, y.dtype)
+        np.testing.assert_array_equal(x.reshape(-1).view(np.uint8),
+                                      y.reshape(-1).view(np.uint8),
+                                      err_msg="/".join(k))
