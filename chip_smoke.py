@@ -340,23 +340,65 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    copy), 14 of kernel 2 and one decode-backend call in packed4; the
    head's share of a replayed decode step and the graph pools' MiB; a
    replayed decode step is the eager step's bits and lies within
-   _pg_tol (2e-3 a layer at act_bits 32, twice that at 8) of a prefill
-   one token longer, a zeroed prefix moves it by PG_PREFIX_APART times
-   that or more, a W = 4 window equals 4 chained steps. The calibrated
-   serving_pow2 view the same on lutq_shift (14, the head float); (c)
-   its audit (the prefix and 20 tokens, one decode step: 14 integer
-   dots each); (d) at act_bits 32, synthetic_requests(seed=0) (12
-   requests, every third text-only, prompts up to 128, up to 32 new)
+   _logit_tol (2e-3 a layer at act_bits 32, twice that at 8) of a
+   prefill one token longer, a zeroed prefix moves it by CONTROL_APART
+   times that or more, a W = 4 window equals 4 chained
+   steps. The calibrated serving_pow2 view the same on lutq_shift (14,
+   the head float); (c) its audit (the prefix and 20 tokens, one decode
+   step: 14 integer dots each); (d) at act_bits 32,
+   synthetic_requests(seed=0) (12 requests, every third text-only,
+   prompts up to 128, up to 32 new)
    through a 4-slot engine asked for pages (a vlm engine keeps its slot
    pool: paged False) and its speculative twin (k = 3): each request's
    tokens equal its lone generate, each first decode step's logits lie
-   within _pg_tol of its lone first step's and SM_LOGIT_APART from the
-   next request's; (e) 3 steps of the trainer (train.build at 2 layers,
+   within _logit_tol of its lone first step's and SM_LOGIT_APART from
+   the next request's; (e) 3 steps of the trainer (train.build at 2 layers,
    the vocab kept, B = 2 x (256 + 128) prefixed batches): finite losses,
    30 kmeans_stats launches a step (the table among the leaves), no
    plain version, ms a step and peak memory; (f) reduced paligemma on
    the card gives the CPU's tokens in the three views. Its launches go
    into the kernels' record as "paligemma_launches".
+2r. zamba2-2.7b's shapes: kernels 1, 2 and 4 at its products (Kin x N
+   2560 x 10448, in_proj, whose N is no multiple of the 64-wide n tile;
+   5120 x 2560, out_proj; 2560 x 10240 and 10240 x 2560, the shared
+   block's MLP) and M = 1, 4, 9, 128, 256 against their plain versions
+   (phase 2's tolerances, bf16 and f32 x; lutq_shift bit for bit);
+   second-call and graph bits.
+3r. zamba2-2.7b at full width, ZB_LAYERS (6) of its 54 layers: one
+   super-block of 6 Mamba2 layers (d_inner 5120, 80 SSM heads of 64,
+   ssm_state 64) followed by the shared attention block (32 heads of
+   80, d_ff 10240; the reduced tests and the card tests hold it applied
+   twice, over two K/V caches), vocab 32000 with a tied readout, its
+   4-bit pow2 LUT-Q, 8-bit activations, random weights from seed 0. (a)
+   int8 and packed4 generate (B=4, 16 tokens) after a 128-token prompt
+   (one SSD chunk; int8's graph run profiled) and a 300-token one
+   (three, the last padded), graph and eager: equal
+   tokens and counts, no plain version, 20 kernel-1 launches a forward in
+   int8 (12 Mamba products, the shared block's 7, the head on a
+   transposed copy), 19 of kernel 2 and one decode-backend head call in
+   packed4; a decode step captured as a CUDA graph and replayed three
+   times equals three eager steps bit for bit (logits, every SSM state,
+   conv window and K/V), each replay advancing the state, and the first
+   lies within _logit_tol (1e-3 a layer at act_bits 32, twice that at
+   8) of a prefill one token longer, while the same step from a copy of
+   the cache with every SSM state and conv window zeroed lands
+   CONTROL_APART times that tolerance or more from it (a step that lost
+   or froze its recurrent state fails); the head's share of a replayed
+   step, the graph pools' MiB and the state bytes a step read and
+   written are logged. (b) The calibrated serving_pow2 view the same
+   on lutq_shift (19 a forward, the head float, conv_w pow2-encoded and
+   decoded by materialize), then its audit (a 160-token prefill and one
+   decode step: 19 integer dots each; the SSD's float einsums are
+   counted beside the head's). (c) At act_bits 32,
+   synthetic_requests(seed=0) (12 requests, prompts up to 128, up to 32
+   new) through a 4-slot engine asked for pages (a hybrid engine keeps
+   its slot pool: paged False, one prefill group a prompt length): each
+   request's tokens equal its lone generate, each first decode step's
+   logits lie within _logit_tol of its lone first step's and
+   SM_LOGIT_APART from the next request's; speculative=3 raises the
+   reference's reason. (d) Reduced zamba on the card gives the CPU's
+   tokens in the three views (conv_w quantized: floors at 1024). Its
+   launches go into the kernels' record as "zamba_launches".
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -2213,7 +2255,7 @@ def _per_generate(n):
 
 
 def _family_serve(label, name, view, cfg, toks, expect, frames=None,
-                  prefix=None):
+                  prefix=None, profile=True):
     """One view's generate (B=4, prompt 128, 16 tokens; an encdec config
     over ``frames``, a vlm config after ``prefix``, its image embeddings)
     replaying the decode step it captured and eagerly
@@ -2222,8 +2264,8 @@ def _family_serve(label, name, view, cfg, toks, expect, frames=None,
     a forward (or a (prefill, decode step) pair, ``_per_generate``), no
     other kernel (paged attention aside) and no plain version; prefill
     ms, decode tok/s, capture ms, peak memory and a profiled generate's
-    heaviest kernels are logged. Returns the graph serve's (tokens,
-    counts)."""
+    heaviest kernels are logged (``profile=False`` skips the profiled
+    generate). Returns the graph serve's (tokens, counts)."""
     import torch
 
     from repro_torch.models import api
@@ -2250,7 +2292,8 @@ def _family_serve(label, name, view, cfg, toks, expect, frames=None,
                      if k not in expect and k not in (
                          "paged_attention", "paged_attention_multipass")}
             log(f"{label} serve [{name}] {cfg.name} x{cfg.n_layers} layers "
-                f"B={BATCH} P={PROMPT} gen={STEPS_GEN} ({mode}): prefill "
+                f"B={BATCH} P={toks.shape[1]} gen={STEPS_GEN} ({mode}): "
+                f"prefill "
                 f"{stats['t_prefill_s'] * 1e3:.1f} ms | decode "
                 f"{stats['decode_tok_s']:.1f} tok/s | capture "
                 f"{stats['t_warmup_s'] * 1e3:.1f} ms | peak {peak:.2f} GiB |"
@@ -2265,7 +2308,7 @@ def _family_serve(label, name, view, cfg, toks, expect, frames=None,
             check(out.shape == (BATCH, STEPS_GEN)
                   and bool(((out >= 0) & (out < cfg.vocab)).all()),
                   f"{label} {name}: tokens out of shape or range")
-            if mode == "graph":
+            if mode == "graph" and profile:
                 def run():
                     generate(view, cfg, batch, steps=STEPS_GEN,
                              device="cuda")
@@ -2958,11 +3001,12 @@ def seamless_kernel_checks():
     return worst
 
 
-def _head_share(name, view, cfg, toks, frames):
-    """Phase 3p: the tied readout (its product on B=4 normed rows) beside
-    one whole decode step, both replayed from CUDA graphs against a
-    130-column cache over 128 frames; returns (head ms, step ms, the
-    step graph's pool MiB, the head graph's)."""
+def _head_share(label, name, view, cfg, batch, width, **adapt):
+    """Phases 3p, 3q and 3r: the tied readout (its product on B=4 normed
+    rows) beside one whole decode step, both replayed from CUDA graphs
+    against the cache of ``batch``'s prefill grown to ``width`` columns
+    (``adapt``: ``adapt_prefill_cache``'s other arguments); returns (head
+    ms, step ms, the step graph's pool MiB, the head graph's)."""
     import torch
 
     from repro_torch.kernels.build import ROW_STABLE_M
@@ -2971,17 +3015,17 @@ def _head_share(name, view, cfg, toks, frames):
     from repro_torch.runtime import serving
 
     with torch.inference_mode():
-        _, cache = api.prefill(view, cfg, {"tokens": toks.cuda(),
-                                           "frames": frames.cuda()})
-        cache = serving.adapt_prefill_cache(cfg, cache, BATCH, PROMPT + 2,
-                                            src_len=SM_SRC)
+        _, cache = api.prefill(view, cfg, {k: v.cuda()
+                                           for k, v in batch.items()})
+        cache = serving.adapt_prefill_cache(cfg, cache, BATCH, width,
+                                            **adapt)
         tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
         x = torch.randn((BATCH, 1, cfg.d_model), device="cuda").to(cfg.dtype)
         head, head_mib = _graph_ms(
             lambda: _head(view, cfg, x, ROW_STABLE_M), pool=True)
         step, step_mib = _graph_ms(
             lambda: api.decode_step(view, cfg, tok, cache), pool=True)
-    log(f"  seamless [{name}] tied head {head * 1e3:.1f} us of a "
+    log(f"  {label} [{name}] tied head {head * 1e3:.1f} us of a "
         f"{step * 1e3:.1f} us decode step ({head / step * 100:.1f}%), graph "
         f"replay | graph pools: step {step_mib:.1f} MiB, head alone "
         f"{head_mib:.1f} MiB | {CARD}")
@@ -3077,22 +3121,24 @@ def _decode_logits_checks(name, view, cfg, toks, frames):
           f"{werr:.3e} from 4 chained steps' (tol {SM_LOGIT_TOL:g})")
 
 
-def _first_step_logits(view, cfg, r, max_len):
+def _first_step_logits(view, cfg, r, width):
     """A request's first decode step alone (B = 1, eagerly, as its lone
-    generate runs it): the prefill over its own frames, its greedy first
-    token, one step. Returns the step's logits (V,)."""
+    generate runs it): the prefill over its tokens and its frames or
+    image prefix where it has them, the cache grown to the engine's slot
+    ``width``, its greedy first token, one step. Returns the step's
+    logits (V,)."""
     import torch
 
     from repro_torch.models import api
     from repro_torch.runtime import serving
 
-    frames = torch.as_tensor(r["frames"])[None].cuda()
+    batch = {k: torch.as_tensor(r[k])[None].cuda()
+             for k in ("tokens", "frames", "prefix_embeds") if k in r}
+    adapt = ({"src_len": batch["frames"].shape[1]} if "frames" in batch
+             else {})
     with torch.inference_mode():
-        logits, cache = api.prefill(
-            view, cfg, {"tokens": torch.as_tensor(r["tokens"])[None].cuda(),
-                        "frames": frames})
-        cache = serving.adapt_prefill_cache(cfg, cache, 1, max_len,
-                                            src_len=frames.shape[1])
+        logits, cache = api.prefill(view, cfg, batch)
+        cache = serving.adapt_prefill_cache(cfg, cache, 1, width, **adapt)
         first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return api.decode_step(view, cfg, first, cache)[0][0, -1]
 
@@ -3309,7 +3355,9 @@ def seamless_full_width():
         for kname in expect:
             if kname != "decode":
                 launches[kname] += counts[kname]
-        shares[name] = _head_share(name, views[name], base, toks, frames)
+        shares[name] = _head_share("seamless", name, views[name], base,
+                                   {"tokens": toks, "frames": frames},
+                                   PROMPT + 2, src_len=SM_SRC)
         _decode_logits_checks(name, views[name], base, toks, frames)
     parts["int8 + packed4"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3339,8 +3387,9 @@ def seamless_full_width():
     _, counts = _family_serve("seamless", "serving_pow2", view, cfg, toks,
                               {"lutq_shift": (p, d)}, frames=frames)
     launches["lutq_shift"] += counts["lutq_shift"]
-    shares["serving_pow2"] = _head_share("serving_pow2", view, cfg, toks,
-                                         frames)
+    shares["serving_pow2"] = _head_share(
+        "seamless", "serving_pow2", view, cfg,
+        {"tokens": toks, "frames": frames}, PROMPT + 2, src_len=SM_SRC)
     _decode_logits_checks("serving_pow2", view, cfg, toks, frames)
     _family_audit("seamless", view, cfg, toks, SM_AUDIT, {"lutq_shift": p},
                   {"lutq_shift": d}, frames=frames)
@@ -3388,27 +3437,39 @@ PG_LAYERS = 2
 PG_PFX, PG_QUEUE, PG_MAX_NEW, PG_AUDIT = 256, 12, 32, 20
 #: phase 3q (e): the trainer's batch, sequence and steps (the vocab kept)
 PG_TRAIN_BATCH, PG_TRAIN_SEQ, PG_TRAIN_STEPS = 2, 128, 3
-#: phase 3q's logits checks at act_bits 32, max |a - b| over the
-#: reference row's max |logit| (a decode step against a prefill one
+#: phases 3q's and 3r's logits checks at act_bits 32, max |a - b| over
+#: the reference row's max |logit| (a decode step against a prefill one
 #: token longer, an engine row's first step against its request's alone,
-#: a W = 4 window against chained steps), a layer: bf16 activations and
-#: f32 sums in other orders put the two apart by an amount that grows
-#: with depth (5.0e-4 at 2 layers, 4.7e-3 at 18 on an H100); twice that
-#: at serving_pow2's frozen 8-bit scales (1.5e-3 at 2 layers)
-PG_LOGIT_TOL_LAYER = 2e-3
-#: the least distance, over the tolerance, that zeroing the image
-#: prefix must put between a decode step's logits and the same step's
-#: after the true prefix (through one path, so nothing else moves them):
-#: above the tolerance, so that a decode step that lost the prefix's
-#: cache slots fails the check against the prefill. The random model's
-#: last token leans on its own residual: an H100 measured 1.3e-2 at 2
-#: layers, 0.12 at 18
-PG_PREFIX_APART = 1.25
+#: a W = 4 window against chained steps), a layer, by family: bf16
+#: activations and f32 sums in other orders (other GEMM tiles; zamba's
+#: chunked scan beside its recurrence) put the two apart by an amount
+#: that grows with depth. On an H100: paligemma 5.0e-4 at 2 layers,
+#: 4.7e-3 at 18; zamba 3.8e-4 at 6, 9.5e-4 at 12, 4.9e-3 at 54. Twice
+#: that at serving_pow2's frozen 8-bit scales (paligemma 1.5e-3 at 2
+#: layers; zamba 0 at 6 and 12, 1.1e-2 at 54). zamba's rate is set
+#: by its control (CONTROL_APART): zeroing the recurrent state moved
+#: serving_pow2's step by only 2.2e-2 at 6 layers, inside 2e-3 a
+#: layer's 8-bit tolerance (2.4e-2). The depth counted stops at
+#: LOGIT_TOL_DEPTH, the deepest run measured against paligemma's rate:
+#: deeper runs keep 18 layers' tolerance (zamba at 54: 1.8e-2, 3.7x
+#: what it measured)
+LOGIT_TOL_LAYER = {"vlm": 2e-3, "hybrid": 1e-3}
+LOGIT_TOL_DEPTH = 18
+#: the least distance, over the tolerance, that a control must put
+#: between a decode step's logits and the same step's on the true cache
+#: (through one path, so nothing else moves them), so that a step that
+#: lost what the control takes away fails the check against the
+#: prefill: phase 3q zeroes the image prefix (the random model's last
+#: token leans on its own residual: an H100 measured 1.3e-2 at 2 layers,
+#: 0.12 at 18), phase 3r every SSM state and conv window (2.6e-2 at 6
+#: layers, 2.2e-2 in serving_pow2; 0.14 at 54)
+CONTROL_APART = 1.25
 
 
-def _pg_tol(cfg) -> float:
-    """Phase 3q's logits tolerance at ``cfg``'s depth and act_bits."""
-    tol = PG_LOGIT_TOL_LAYER * cfg.n_layers
+def _logit_tol(cfg) -> float:
+    """Phases 3q's and 3r's logits tolerance at ``cfg``'s family, depth
+    and act_bits."""
+    tol = LOGIT_TOL_LAYER[cfg.family] * min(cfg.n_layers, LOGIT_TOL_DEPTH)
     return tol if cfg.act_bits == 32 else 2 * tol
 
 
@@ -3562,40 +3623,11 @@ def _pg_batch(toks, prefix):
     return batch
 
 
-def _pg_head_share(name, view, cfg, toks, prefix):
-    """Phase 3q: the tied readout (its product on B=4 normed rows) beside
-    one whole decode step, both replayed from CUDA graphs against a
-    cache of the 256-position prefix and 128 tokens; returns (head ms,
-    step ms, the step graph's pool MiB, the head graph's)."""
-    import torch
-
-    from repro_torch.kernels.build import ROW_STABLE_M
-    from repro_torch.models import api
-    from repro_torch.models.lm import _head
-    from repro_torch.runtime import serving
-
-    with torch.inference_mode():
-        _, cache = api.prefill(view, cfg, _pg_batch(toks, prefix))
-        cache = serving.adapt_prefill_cache(cfg, cache, BATCH,
-                                            PG_PFX + PROMPT + 2)
-        tok = torch.zeros((BATCH, 1), dtype=torch.int32, device="cuda")
-        x = torch.randn((BATCH, 1, cfg.d_model), device="cuda").to(cfg.dtype)
-        head, head_mib = _graph_ms(
-            lambda: _head(view, cfg, x, ROW_STABLE_M), pool=True)
-        step, step_mib = _graph_ms(
-            lambda: api.decode_step(view, cfg, tok, cache), pool=True)
-    log(f"  paligemma [{name}] tied head {head * 1e3:.1f} us of a "
-        f"{step * 1e3:.1f} us decode step ({head / step * 100:.1f}%), graph "
-        f"replay | graph pools: step {step_mib:.1f} MiB, head alone "
-        f"{head_mib:.1f} MiB | {CARD}")
-    return head, step, step_mib, head_mib
-
-
 def _pg_logits_checks(name, view, cfg, toks, prefix):
     """Phase 3q (b): one decode step's logits (B=4, after the prefix and
     a 127-token prefill) replayed from a CUDA graph are the eager step's
-    bits and lie within ``_pg_tol`` of a 128-token prefill's last
-    logits; the same step after a zeroed prefix lies PG_PREFIX_APART
+    bits and lie within ``_logit_tol`` of a 128-token prefill's last
+    logits; the same step after a zeroed prefix lies CONTROL_APART
     times the act_bits-32 tolerance or more from the step's; a W = 4
     window equals 4 chained steps within the tolerance. int8 and
     packed4 at act_bits 32 (8-bit dynamic scales couple a batch's rows),
@@ -3607,8 +3639,8 @@ def _pg_logits_checks(name, view, cfg, toks, prefix):
 
     if name != "serving_pow2":
         cfg = cfg.replace(act_bits=32)
-    tol = _pg_tol(cfg)
-    apart = PG_PREFIX_APART * _pg_tol(cfg.replace(act_bits=32))
+    tol = _logit_tol(cfg)
+    apart = CONTROL_APART * _logit_tol(cfg.replace(act_bits=32))
     toks, prefix = toks.cuda(), prefix.cuda()
     P = toks.shape[1] - 1
     width = PG_PFX + P + 5
@@ -3667,34 +3699,13 @@ def _pg_logits_checks(name, view, cfg, toks, prefix):
           f"{werr:.3e} from 4 chained steps' (tol {tol:g})")
 
 
-def _pg_first_step_logits(view, cfg, r, max_len):
-    """A request's first decode step alone (B = 1, eagerly, as its lone
-    generate runs it): the prefill after its prefix (if it has one), its
-    greedy first token, one step. Returns the step's logits (V,)."""
-    import torch
-
-    from repro_torch.models import api
-    from repro_torch.runtime import serving
-
-    batch = {"tokens": torch.as_tensor(r["tokens"])[None].cuda()}
-    if "prefix_embeds" in r:
-        batch["prefix_embeds"] = torch.as_tensor(r["prefix_embeds"])[None]
-        batch["prefix_embeds"] = batch["prefix_embeds"].cuda()
-    with torch.inference_mode():
-        logits, cache = api.prefill(view, cfg, batch)
-        # the engine's slot width, prefixed or not
-        cache = serving.adapt_prefill_cache(cfg, cache, 1, max_len + PG_PFX)
-        first = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        return api.decode_step(view, cfg, first, cache)[0][0, -1]
-
-
 def _pg_engines(view, cfg):
     """Phase 3q (d): at act_bits 32, synthetic_requests(seed=0) (12
     requests, every third text-only) through a 4-slot engine asked for
     pages (a vlm engine keeps its slot pool: ``paged`` False) and its
     speculative twin (k = 3, draft_bits 3): every request's tokens equal
     its lone generate; in the plain engine each request's first decode
-    step's logits row lies within ``_pg_tol`` of its lone first step's
+    step's logits row lies within ``_logit_tol`` of its lone first step's
     and SM_LOGIT_APART from the next request's; no plain version.
     Returns {kernel: launches}."""
     from collections import Counter
@@ -3717,7 +3728,7 @@ def _pg_engines(view, cfg):
             batch["prefix_embeds"] = torch.as_tensor(r["prefix_embeds"])[None]
         lone.append(generate(view, cfg, batch, steps=r["max_new"],
                              max_len=max_len, device="cuda")[0].cpu())
-        lone_rows.append(_pg_first_step_logits(view, cfg, r, max_len))
+        lone_rows.append(_first_step_logits(view, cfg, r, max_len + PG_PFX))
     log(f"paligemma: {len(reqs)} lone generates "
         f"{time.perf_counter() - t0:.1f} s (prompts "
         f"{sorted(len(r['tokens']) for r in reqs)}, "
@@ -3775,9 +3786,9 @@ def _pg_engines(view, cfg):
         check(counts["plain"] == 0, f"paligemma engine ran plain versions: "
               f"{counts}")
         if not k:
-            check(len(rows) == n and max(errs) <= _pg_tol(cfg),
+            check(len(rows) == n and max(errs) <= _logit_tol(cfg),
                   f"paligemma engine: {len(rows)} first-step rows of {n}, "
-                  f"max {max(errs):.3e} from alone (tol {_pg_tol(cfg):g})")
+                  f"max {max(errs):.3e} from alone (tol {_logit_tol(cfg):g})")
             check(min(apart) >= SM_LOGIT_APART, f"paligemma engine: a "
                   f"request's first-step logits lie within "
                   f"{min(apart):.3e} of another's")
@@ -3926,7 +3937,9 @@ def paligemma_full_width():
         for kname in expect:
             if kname != "decode":
                 launches[kname] += counts[kname]
-        shares[name] = _pg_head_share(name, views[name], base, toks, prefix)
+        shares[name] = _head_share(
+            "paligemma", name, views[name], base,
+            {"tokens": toks, "prefix_embeds": prefix}, PG_PFX + PROMPT + 2)
         _pg_logits_checks(name, views[name], base, toks, prefix)
     del views["packed4"]
     torch.cuda.empty_cache()
@@ -3957,8 +3970,9 @@ def paligemma_full_width():
     _, counts = _family_serve("paligemma", "serving_pow2", view, cfg, toks,
                               {"lutq_shift": p}, prefix=prefix)
     launches["lutq_shift"] += counts["lutq_shift"]
-    shares["serving_pow2"] = _pg_head_share("serving_pow2", view, cfg, toks,
-                                            prefix)
+    shares["serving_pow2"] = _head_share(
+        "paligemma", "serving_pow2", view, cfg,
+        {"tokens": toks, "prefix_embeds": prefix}, PG_PFX + PROMPT + 2)
     _pg_logits_checks("serving_pow2", view, cfg, toks, prefix)
     _family_audit("paligemma", view, cfg, toks, PG_AUDIT, {"lutq_shift": p},
                   prefix=prefix)
@@ -3976,6 +3990,419 @@ def paligemma_full_width():
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
         + ") | launches "
         f"{dict(launches)} | head ms, step ms, step / head graph pool MiB "
+        f"{ {k: tuple(round(x, 4) for x in v) for k, v in shares.items()} }")
+    return dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# phases 2r and 3r: zamba2-2.7b, the hybrid family (Mamba2 state updated
+# in place under the slot engine's CUDA graphs)
+# ---------------------------------------------------------------------------
+
+ZB_ARCH = "zamba2-2.7b"
+#: zamba's (Kin, N) products: in_proj (2 x 5120 + 2 x 64 + 80 = 10448,
+#: no multiple of the 64-wide n tile), out_proj, the shared block's MLP
+#: (its q, k, v and o are danube's q's 2560 x 2560, phase 2)
+ZB_LEAF_SHAPES = {"in_proj": (2560, 10448), "out_proj": (5120, 2560),
+                  "wi/wg": (2560, 10240), "wo": (10240, 2560)}
+ZB_CHECK_M = (1, 4, 9, 128, 256)
+ZB_REPEAT_CASES = [(4, 2560, 10448), (256, 2560, 10448), (4, 5120, 2560)]
+#: phase 3r's depth: 6 of zamba's 54 layers, one super-block (the width
+#: whole). 12 layers (two super-blocks, the shared block twice over two
+#: caches) took phase 3r 26.3 s and the script 1178.7 s of its 1200 on a
+#: slow host; the reduced tests hold two applications
+ZB_LAYERS = 6
+#: phase 3r's second prompt: three SSD chunks of 128, the last padded
+ZB_LONG = 300
+#: the engine queue (synthetic_requests, seed 0) and its budget, and the
+#: audited prefill's tokens (two chunks; no activation of a quantized
+#: leaf's rows: 2560, 5120, 10240 or conv_w's 4)
+ZB_QUEUE, ZB_MAX_NEW, ZB_AUDIT = 12, 32, 160
+
+
+def zamba_kernel_checks():
+    """Phase 2r: kernels 1, 2 and 4 at zamba's product shapes and M in
+    ZB_CHECK_M against their plain versions (bf16 and f32 x, phase 2's
+    tolerances; lutq_shift bit for bit), second-call and graph bits.
+    Returns {kernel: max abs err}."""
+    import torch
+
+    from repro_torch.kernels.lutq_shift import lutq_shift
+    from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(44)
+    worst = {}
+    for kname, (fn, plain) in _gemm_fns().items():
+        packed = KERNELS[kname]["packed"]
+        worst[kname] = 0.0
+        for label, (Kin, N) in ZB_LEAF_SHAPES.items():
+            for M in ZB_CHECK_M:
+                for dtype in (torch.bfloat16, torch.float32):
+                    x, a, d = _operands(M, Kin, N, 16, dtype, gen, dev,
+                                        packed)
+                    got = fn(x, a, d)
+                    want = plain(x, a, d)
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    rel = err / max(want.abs().max().item(), 1e-30)
+                    dname = str(dtype).split(".")[-1]
+                    log(f"check {kname} zamba {label} M={M} Kin={Kin} "
+                        f"N={N} {dname}: max_abs_err {err:.3e} rel "
+                        f"{rel:.2e} (tol {TOL[dname]:.0e})")
+                    check(bool(torch.isfinite(got).all()),
+                          f"{kname} produced non-finite values")
+                    check(rel <= TOL[dname], f"{kname} disagrees with its "
+                          f"plain version at zamba {label} M={M} {dname}")
+                    worst[kname] = max(worst[kname], err)
+                    del x, a, d, got, want
+        _gemm_repeats(kname, fn, gen, dev, ZB_REPEAT_CASES)
+    worst["lutq_shift"] = 0.0
+    for label, (Kin, N) in ZB_LEAF_SHAPES.items():
+        for M in ZB_CHECK_M:
+            xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=9)
+            planes = shift_planes(wsh)
+            got = lutq_shift(xq, a, wsh, planes)
+            again = lutq_shift(xq, a, wsh, planes)
+            want = lutq_shift_ref(xq, a, wsh)
+            graph_same = True
+            if M in (4, 256):
+                stream = torch.cuda.Stream()
+                stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(stream):
+                    lutq_shift(xq, a, wsh, planes)
+                torch.cuda.current_stream().wait_stream(stream)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    captured = lutq_shift(xq, a, wsh, planes)
+                for _ in range(2):
+                    captured.zero_()
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    graph_same &= torch.equal(captured, want)
+                del graph
+            torch.cuda.synchronize()
+            log(f"check lutq_shift zamba {label} M={M} Kin={Kin} N={N}: "
+                f"equal {bool(torch.equal(got, want))}, second call "
+                f"{'same' if torch.equal(got, again) else 'DIFFERENT'} "
+                f"bits" + (f", graph replays "
+                           f"{'same' if graph_same else 'DIFFERENT'} bits"
+                           if M in (4, 256) else ""))
+            check(torch.equal(got, want) and torch.equal(got, again)
+                  and graph_same, f"lutq_shift differs from its plain "
+                  f"version or itself at zamba {label} M={M}")
+            del xq, a, got, again, want
+    log(f"phase 2r (kernels 1, 2, 4 at zamba's products) "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def _zb_serves(name, view, cfg, prompts, expect):
+    """Phase 3r (a), (b): ``_family_serve`` of one view after each prompt,
+    each timed; the int8 view's 128-token graph serve is profiled (a
+    profiled generate costs ~7 s at 12 layers, ~4 at 6). Returns {kernel:
+    launches} of the graph serves."""
+    from collections import Counter
+
+    launches = Counter()
+    for label, toks in prompts.items():
+        t0 = time.perf_counter()
+        _, counts = _family_serve(f"zamba {label}", name, view, cfg, toks,
+                                  expect, profile=(name, label) == (
+                                      "int8", "P128"))
+        launches.update({k: counts[k] for k in expect if k != "decode"})
+        log(f"  zamba {label} [{name}] serves {time.perf_counter() - t0:.1f}"
+            f" s")
+    return launches
+
+
+def _zb_head_share(name, view, cfg, toks):
+    """Phase 3r: ``_head_share`` against a cache of a 128-token prompt,
+    and the bytes of recurrent state (f32 SSM states, conv windows in
+    the working dtype) a decode step of B=4 reads and writes back; returns
+    (head ms, step ms, the step graph's pool MiB, the head graph's,
+    state bytes a step)."""
+    from repro_torch.nn.mamba2 import CONV_K
+
+    out = _head_share("zamba", name, view, cfg, {"tokens": toks},
+                      PROMPT + 64)
+    d_in = cfg.resolved_d_inner
+    row = (d_in * cfg.ssm_state * 4
+           + (CONV_K - 1) * (d_in + 2 * cfg.ssm_state) * cfg.dtype.itemsize)
+    state = 2 * BATCH * cfg.n_layers * row
+    log(f"  zamba [{name}] recurrent state read + written a step "
+        f"{state / 1e6:.1f} MB ({state / 1e6 / (out[1] * 1e-3) / 1e6:.3f} "
+        f"TB/s of the step) | {CARD}")
+    return out + (state,)
+
+
+def _zb_logits_checks(name, view, cfg, toks):
+    """Phase 3r (a), (b): a decode step (B=4, after a prefill of all but
+    the last 3 tokens) captured as a CUDA graph and replayed three times
+    equals three eager steps bit for bit (logits and every cache leaf:
+    the SSM states and conv windows it overwrites in place, the K/V
+    columns it writes), each replay moving the first layer's SSM state;
+    the first step lies within ``_logit_tol`` of a prefill one token
+    longer, and the same step from a copy of the cache with every SSM
+    state and conv window zeroed (the K/V kept) lies CONTROL_APART times
+    that tolerance or more from it, so that a step that lost or froze
+    its recurrent state fails the check against the prefill. int8 and
+    packed4 at act_bits 32 (8-bit dynamic scales couple a batch's rows),
+    serving_pow2 at its frozen scales."""
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    if name != "serving_pow2":
+        cfg = cfg.replace(act_bits=32)
+    tol = _logit_tol(cfg)
+    apart = CONTROL_APART * tol
+    toks = toks.cuda()
+    P = toks.shape[1] - 3
+    with torch.inference_mode():
+        want, _ = api.prefill(view, cfg, {"tokens": toks[:, :P + 1]})
+        _, cache = api.prefill(view, cfg, {"tokens": toks[:, :P]})
+        cache = serving.adapt_prefill_cache(cfg, cache, BATCH, P + 5)
+        eager, graphed, warm, zeroed = (_clone_tree(cache) for _ in range(4))
+        for c in zeroed["layers"]:
+            for k in c.keys() & {"ssm", "conv"}:
+                c[k].zero_()
+        tok = toks[:, P:P + 1].to(torch.int32).contiguous()
+        masked = api.decode_step(view, cfg, tok, zeroed)[0]
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            api.decode_step(view, cfg, tok, warm)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, nxt = api.decode_step(view, cfg, tok, graphed)
+        same, moved, first = [], [], None
+        prev = graphed["layers"][0]["ssm"].clone()
+        for _ in range(3):
+            graph.replay()
+            step, after = api.decode_step(view, cfg, tok, eager)
+            torch.cuda.synchronize()
+            if first is None:
+                first = step.clone()
+            same.append(torch.equal(out, step) and all(
+                torch.equal(g[k], e[k])
+                for g, e in zip(graphed["layers"], eager["layers"])
+                for k in g))
+            moved.append(not torch.equal(graphed["layers"][0]["ssm"], prev))
+            prev = graphed["layers"][0]["ssm"].clone()
+            graphed["len"].copy_(nxt["len"])
+            eager["len"] = after["len"]
+        del graph
+    err, lost = _rel(first, want), _rel(masked, first)
+    log(f"  zamba [{name}] logits (act_bits {cfg.act_bits}): 3 graph "
+        f"replays = 3 eager steps bits (logits and state) {same}, state "
+        f"moved by each replay {moved}; decode step vs prefill {err:.3e}, "
+        f"from a zeroed recurrent state {lost:.3e} (tol {tol:g}, apart >= "
+        f"{apart:g}); greedy tokens {want[:, -1].argmax(-1).tolist()} | "
+        f"{CARD}")
+    check(all(same), f"zamba {name}: a replayed decode step's logits or "
+          f"state are not the eager step's")
+    check(all(moved), f"zamba {name}: a replay did not advance the state")
+    check(err <= tol, f"zamba {name}: decode step logits {err:.3e} from "
+          f"the prefill's (tol {tol:g})")
+    check(lost >= apart, f"zamba {name}: zeroing the recurrent state moved "
+          f"the logits by only {lost:.3e}")
+
+
+def _zb_engine(view, cfg):
+    """Phase 3r (c): at act_bits 32, synthetic_requests(seed=0) through
+    a 4-slot engine asked for pages (a hybrid engine keeps its slot
+    pool): every request's tokens equal its lone generate, each request's
+    first decode step's logits row lies within ``_logit_tol`` of its lone
+    first step's and SM_LOGIT_APART from the next request's, no plain
+    version; speculative=3 raises the reference's reason. Returns
+    {kernel: launches}."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.runtime.engine import Engine, synthetic_requests
+    from repro_torch.runtime.serving import generate
+
+    reqs = synthetic_requests(cfg, ZB_QUEUE, max_prompt=PROMPT,
+                              max_new=ZB_MAX_NEW, seed=0)
+    max_len = PROMPT + ZB_MAX_NEW
+    t0 = time.perf_counter()
+    lone, lone_rows = [], []
+    for r in reqs:
+        lone.append(generate(view, cfg, {"tokens": torch.as_tensor(
+            r["tokens"])[None]}, steps=r["max_new"], max_len=max_len,
+            device="cuda")[0].cpu())
+        lone_rows.append(_first_step_logits(view, cfg, r, max_len))
+    log(f"zamba: {len(reqs)} lone generates {time.perf_counter() - t0:.1f} "
+        f"s (prompts {sorted(len(r['tokens']) for r in reqs)})")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(view, cfg, capacity=4, max_len=max_len, kv_pages=16,
+                 page_size=ENGINE_PAGE, device="cuda")
+    _reset_counts()
+    for r in reqs:
+        eng.submit(r["tokens"], max_new=r["max_new"])
+    rows = {}
+    while not eng.idle:  # run(), a step at a time
+        held = {q.rid for q in eng.slots if q is not None}
+        eng.step()
+        for i, q in enumerate(eng.slots):
+            if q is not None and q.rid not in held:
+                # admitted this step: the step decoded its first token
+                rows[q.rid] = eng.logits[i, -1].clone()
+    res = [eng.results[rid] for rid in sorted(eng.results)]
+    torch.cuda.synchronize()
+    st, counts = eng.stats(), _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = [torch.equal(torch.as_tensor(r["tokens"]), want)
+            for r, want in zip(res, lone)]
+    n = len(reqs)
+    errs = [_rel(rows[i], lone_rows[i]) for i in sorted(rows)]
+    apart = [_rel(rows[i], lone_rows[(i + 1) % n]) for i in sorted(rows)]
+    log(f"zamba slot engine (kv_pages asked, paged {st['paged']}): "
+        f"{st['completed']} requests, {st['decode_steps']} steps, decode "
+        f"{st['decode_tok_s']:.1f} tok/s, goodput "
+        f"{st['goodput_tok_s']:.1f} tok/s, prefill {st['t_prefill_s']:.2f} "
+        f"s, wall {time.perf_counter() - t0:.2f} s, peak {peak:.2f} GiB | "
+        f"launches { {k: v for k, v in counts.items() if v} } | equal to "
+        f"lone generates {same} | first-step logits vs alone max "
+        f"{max(errs):.3e}, vs the next request's min {min(apart):.3e} | "
+        f"{CARD}")
+    check(st["paged"] is False and len(res) == n,
+          f"zamba engine: paged {st['paged']}, {len(res)} results")
+    check(all(same), "zamba engine: a request's tokens differ from its lone "
+          "generate")
+    check(counts["plain"] == 0, f"zamba engine ran plain versions: {counts}")
+    check(len(rows) == n and max(errs) <= _logit_tol(cfg),
+          f"zamba engine: {len(rows)} first-step rows of {n}, max "
+          f"{max(errs):.3e} from alone (tol {_logit_tol(cfg):g})")
+    check(min(apart) >= SM_LOGIT_APART, f"zamba engine: a request's "
+          f"first-step logits lie within {min(apart):.3e} of another's")
+    launches = Counter({k: v for k, v in counts.items() if v})
+    del eng
+    torch.cuda.empty_cache()
+    try:
+        Engine(view, cfg, capacity=4, max_len=max_len, speculative=3,
+               device="cuda")
+    except ValueError as exc:
+        log(f"zamba speculative=3 refused: {exc}")
+        check("cannot rewind" in str(exc), f"zamba speculative=3 refused "
+              f"for another reason: {exc}")
+    else:
+        die("zamba: speculative=3 was not refused")
+    return launches
+
+
+def zamba_full_width():
+    """Phase 3r: zamba2-2.7b at full width (ZB_LAYERS of its 54 layers,
+    d_model 2560, d_inner 5120, 32 / 32 heads of 80 in the shared block,
+    d_ff 10240, vocab 32000 tied, its 4-bit pow2 LUT-Q, 8-bit
+    activations; random weights from seed 0): (a) int8 and packed4
+    generate (B=4, prompts 128 and 300, 16 tokens), graph and eager,
+    each kernel's launches a forward, the logits and state checks, the
+    head's share of a replayed step; (b) the calibrated serving_pow2 view
+    the same on lutq_shift, then its audit; (c) the slot engine at
+    act_bits 32; (d) reduced zamba card vs CPU. Returns {kernel:
+    launches} of (a)'s and (b)'s graph-mode generates and (c)."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2, with_size_floor
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+    from repro_torch.models.zamba import n_super
+
+    t_phase = time.perf_counter()
+    base = get_config(ZB_ARCH).replace(n_layers=ZB_LAYERS)
+    p = 2 * base.n_layers + 7 * n_super(base)  # body products a forward
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, base.vocab, (BATCH, ZB_LONG), generator=gen)
+    prompts = {"P128": toks[:, :PROMPT], "P300": toks}
+    launches, shares, parts = Counter(), {}, {}
+    t0 = time.perf_counter()
+    model = api.quantize(api.init(base, seed=0, device="cuda"), base)
+    policy = api.resolved_policy(base)
+    torch.cuda.synchronize()
+    log(f"zamba {base.name} ({base.n_layers} layers in {n_super(base)} "
+        f"super-blocks, d_model {base.d_model}, d_inner "
+        f"{base.resolved_d_inner}, ssm_state {base.ssm_state}, "
+        f"{base.n_heads} / {base.n_kv_heads} heads of "
+        f"{base.resolved_head_dim}, d_ff {base.d_ff}, vocab {base.vocab} "
+        f"tied): init + quantize {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | "
+        f"{CARD}")
+    views = {"int8": serve_view(model, policy=policy),
+             "packed4": serve_view(model, pack4=True, policy=policy)}
+    del model
+    torch.cuda.empty_cache()
+    conv8 = views["int8"].mamba_layers[-1][-1].mamba.conv_w.state
+    conv4 = views["packed4"].mamba_layers[0][0].mamba.conv_w.state
+    check(conv8.a.shape == (4, 5248) and conv8.a.dtype == torch.int8
+          and conv4.a.shape == (2, 5248) and conv4.a.dtype == torch.uint8
+          and views["packed4"].embed.table.state.a.dtype == torch.uint8
+          and len(views["int8"].mamba_layers) == n_super(base),
+          "zamba: conv_w, the tied table or the stack is not as expected")
+    for name, expect in (("int8", {"lutq_matmul": p + 1}),
+                         ("packed4", {"lutq_gemv_packed": p, "decode": 1})):
+        launches.update(_zb_serves(name, views[name], base, prompts, expect))
+        shares[name] = _zb_head_share(name, views[name], base,
+                                      toks[:, :PROMPT])
+        _zb_logits_checks(name, views[name], base, toks[:, :PROMPT])
+    _zb_logits_checks("int8 P300", views["int8"], base, toks)
+    del views["packed4"]
+    torch.cuda.empty_cache()
+    parts["int8 + packed4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(_zb_engine(views["int8"], base.replace(act_bits=32)))
+    parts["engine"] = time.perf_counter() - t0
+    del views
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = base.replace(quant=serving_pow2())
+    cgen = torch.Generator().manual_seed(2)
+    calib = {"tokens": torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                                     generator=cgen).cuda()}
+    view = api.serve_state(cfg, seed=0, device="cuda", calib_batch=calib)
+    torch.cuda.synchronize()
+    inq = view.mamba_layers[0][0].mamba.in_proj.kernel.state
+    conv = view.mamba_layers[0][0].mamba.conv_w.state
+    check(inq.d.dtype == torch.int8 and inq.act is not None
+          and conv.d.dtype == torch.int8
+          and view.embed.table.dtype == torch.float32,
+          "serving_pow2: in_proj is not pow2-encoded with frozen pairs, "
+          "conv_w not pow2-encoded, or the tied table is not float")
+    log(f"zamba serving_pow2: serve_state (init, quantize, calibrate on "
+        f"{CALIB_BATCH} x {CALIB_LEN}, serve_view) "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches.update(_zb_serves("serving_pow2", view, cfg, prompts,
+                               {"lutq_shift": p}))
+    shares["serving_pow2"] = _zb_head_share("serving_pow2", view, cfg,
+                                            toks[:, :PROMPT])
+    _zb_logits_checks("serving_pow2", view, cfg, toks[:, :PROMPT])
+    _family_audit("zamba", view, cfg, toks, ZB_AUDIT, {"lutq_shift": p})
+    del view
+    torch.cuda.empty_cache()
+    parts["serving_pow2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    red = reduced(get_config(ZB_ARCH)).replace(
+        act_bits=32, quant=QuantSpec(bits=4, constraint="pow2",
+                                     min_size=1024))
+    _reduced_card_vs_cpu("zamba", red, with_size_floor(serving_pow2(), 1024))
+    parts["reduced"] = time.perf_counter() - t0
+    log(f"phase 3r {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + ") | launches "
+        f"{dict(launches)} | head ms, step ms, step / head graph pool MiB, "
+        f"state bytes a step "
         f"{ {k: tuple(round(x, 4) for x in v) for k, v in shares.items()} }")
     return dict(launches)
 
@@ -6946,6 +7373,8 @@ def main() -> int:
         worst[kname] = max(worst[kname], err)
     for kname, err in paligemma_kernel_checks().items():
         worst[kname] = max(worst[kname], err)
+    for kname, err in zamba_kernel_checks().items():
+        worst[kname] = max(worst[kname], err)
     quant_divide_checks()
     adamw_checks()
     launches, _, views, cfg = serve_full_width()
@@ -6963,6 +7392,7 @@ def main() -> int:
     deepseek = deepseek_full_width()
     seamless = seamless_full_width()
     paligemma = paligemma_full_width()
+    zamba = zamba_full_width()
     dense = dense_families_full_width()
     pow2 = serve_pow2_full_width()
     launches["lutq_shift"] = pow2["launches"]
@@ -7069,6 +7499,9 @@ def main() -> int:
         # phase 3q: paligemma-3b's graph-mode generates, engines, training
         if kname in paligemma:
             records[-1]["paligemma_launches"] = paligemma[kname]
+        # phase 3r: zamba2-2.7b's graph-mode generates and engine
+        if kname in zamba:
+            records[-1]["zamba_launches"] = zamba[kname]
         if kname in MOE_KERNELS:  # phase 2m's timing at C = 40
             p = prefill[kname]
             records[-1]["prefill"] = {

@@ -6,8 +6,10 @@ GQA group of 12) and ``qwen1.5-110b`` (a bias on q, k and v), the MoE
 ``qwen3-moe-235b-a22b`` and ``deepseek-v2-lite-16b`` (MLA with a latent
 cache, one leading dense layer, shared experts), the encoder-decoder
 ``seamless-m4t-medium`` (cross-attention over a per-request memory, a
-tied readout), and the vlm ``paligemma-3b`` (a bidirectional prefix of
-precomputed image embeddings before the text, MQA, a tied readout).
+tied readout), the vlm ``paligemma-3b`` (a bidirectional prefix of
+precomputed image embeddings before the text, MQA, a tied readout), and
+the hybrid ``zamba2-2.7b`` (Mamba2 layers with one shared attention
+block every ``attn_every`` of them, a tied readout).
 """
 from __future__ import annotations
 
@@ -47,4 +49,5 @@ def _ensure_loaded():
         qwen1_5_110b,
         qwen3_moe_235b_a22b,
         seamless_m4t_medium,
+        zamba2_2_7b,
     )

@@ -8,8 +8,10 @@ the port's modules, splitting each ``(L, ...)`` stack per layer (L =
 ``n_layers - first_dense``; a config's leading dense layers are the
 reference's unstacked ``prefix_layers/<i>`` dicts, the port's
 ``prefix_layers.<i>`` modules; an encoder-decoder's ``encoder`` and
-``decoder`` stacks split the same way, a layer at a time);
-:func:`to_numpy` goes the other way.
+``decoder`` stacks split the same way, a layer at a time; a hybrid's
+``mamba_layers`` stack (n_super, attn_every, ...) splits over both axes
+into ``mamba_layers.<s>.<i>``, and its unstacked ``shared`` block loads
+once); :func:`to_numpy` goes the other way.
 
 A slot decode cache crosses with :func:`cache_from_jax` /
 :func:`cache_to_numpy`: the reference stacks each leaf over the
@@ -17,7 +19,11 @@ stacked layers (``{"layers": {...: (L, B, S, ...)}, "len"[,
 "prefix_layers": {"<i>": {...}}]}``); the port keeps one dict per layer
 in execution order, the prefix layers first. An encdec cache's layers
 hold ``xk`` / ``xv`` (the cross K/V) beside ``k`` / ``v``, and its
-``src_len`` (B,) crosses as ``len`` does.
+``src_len`` (B,) crosses as ``len`` does. A hybrid cache crosses from
+the reference's ``{"mamba": {"ssm", "conv": (n_super, attn_every, B,
+...)}, "attn": {"k", "v": (n_super, B, S, Hkv, dh)}, "len"}`` to one
+dict an entry in execution order: a super-block's ``attn_every`` Mamba
+states, then its application of the shared block's K/V.
 
 A paged KV cache crosses with :func:`paged_cache_from_jax` /
 :func:`paged_cache_to_numpy`: the reference stacks each pool leaf over
@@ -62,8 +68,9 @@ from repro_torch.core.policy import merge_trainable
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import init_encdec, n_encoder
 from repro_torch.models.lm import init_lm, n_stacked
-from repro_torch.nn.tree import (QuantKernel, layer_split, logical_path,
-                                 set_leaf, tree_paths)
+from repro_torch.models.zamba import init_zamba, n_super
+from repro_torch.nn.tree import (QuantKernel, layer_split, set_leaf,
+                                 tree_paths)
 
 
 def _is_state(x) -> bool:
@@ -109,25 +116,54 @@ def _convert(leaf, device, i=None):
     return one(leaf)
 
 
-def _stacks(cfg: ModelConfig) -> Dict[str, int]:
-    """{stacked top-level key: its number of layers} of a config's tree."""
+def _stacks(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """{stacked top-level key: its stack shape} of a config's tree."""
     if cfg.family == "encdec":
-        return {"encoder": n_encoder(cfg), "decoder": cfg.n_layers}
-    return {"layers": n_stacked(cfg)}
+        return {"encoder": (n_encoder(cfg),), "decoder": (cfg.n_layers,)}
+    if cfg.family == "hybrid":
+        return {"mamba_layers": (n_super(cfg), cfg.attn_every)}
+    return {"layers": (n_stacked(cfg),)}
+
+
+def _skeleton(cfg: ModelConfig) -> nn.Module:
+    """The config's model on the meta device, to load weights into."""
+    if cfg.family == "encdec":
+        return init_encdec(None, cfg, device="meta")
+    if cfg.family == "hybrid":
+        return init_zamba(None, cfg, device="meta")
+    return init_lm(None, cfg, device="meta")
+
+
+def _slices(key: str, stacks) -> List[Optional[Tuple[int, ...]]]:
+    """The stack indices of a top-level key (None where unstacked)."""
+    return list(np.ndindex(stacks[key])) if key in stacks else [None]
+
+
+def _layer_path(lpath: Tuple[str, ...], idx) -> Tuple[str, ...]:
+    """The per-layer path of slice ``idx`` of a reference path."""
+    if idx is None:
+        return lpath
+    return lpath[:1] + tuple(str(i) for i in idx) + lpath[1:]
+
+
+def _restack(entries) -> np.ndarray:
+    """(stack indices, array) pairs as one array of shape (*stack,
+    *array), in index order."""
+    entries = sorted(entries, key=lambda e: e[0])
+    dims = tuple(max(e[0][k] for e in entries) + 1
+                 for k in range(len(entries[0][0])))
+    arr = np.stack([a for _, a in entries])
+    return arr.reshape(dims + arr.shape[1:])
 
 
 def from_jax(tree, cfg: ModelConfig, *, device="cpu") -> nn.Module:
     """The port's model holding the parameters of a reference tree."""
-    model = (init_encdec(None, cfg, device="meta") if cfg.family == "encdec"
-             else init_lm(None, cfg, device="meta"))
+    model = _skeleton(cfg)
     stacks = _stacks(cfg)
     for path, leaf in walk(tree):
-        if path[0] in stacks:
-            for i in range(stacks[path[0]]):
-                set_leaf(model, (path[0], str(i)) + path[1:],
-                         _convert(leaf, device, i))
-        else:
-            set_leaf(model, path, _convert(leaf, device))
+        for idx in _slices(path[0], stacks):
+            set_leaf(model, _layer_path(path, idx),
+                     _convert(leaf, device, idx))
     missing = [".".join(p) for p, v in tree_paths(model)
                if v is not None and not isinstance(v, LutqState)
                and v.is_meta]
@@ -138,30 +174,29 @@ def from_jax(tree, cfg: ModelConfig, *, device="cpu") -> nn.Module:
 
 def to_numpy(model: nn.Module) -> Dict[str, Any]:
     """The reference's tree layout as numpy: nested dicts, per-layer
-    leaves restacked along a leading axis, LutqState leaves as the
-    port's LutqState of numpy arrays."""
+    leaves restacked along their leading stack axes, LutqState leaves as
+    the port's LutqState of numpy arrays."""
     groups: Dict[Tuple[str, ...], List] = defaultdict(list)
-    stacked: Dict[Tuple[str, ...], int] = {}
     for path, leaf in tree_paths(model):
-        lpath, nstack = logical_path(path)
-        groups[lpath].append(leaf)
-        stacked[lpath] = nstack
+        lpath, idx = layer_split(path)
+        groups[lpath].append((idx, leaf))
 
-    def merge(leaves, nstack):
-        if _is_state(leaves[0]):
+    def merge(entries):
+        if _is_state(entries[0][1]):
             return LutqState(*(
-                None if getattr(leaves[0], f) is None
-                else merge([getattr(x, f) for x in leaves], nstack)
+                None if getattr(entries[0][1], f) is None
+                else merge([(i, getattr(x, f)) for i, x in entries])
                 for f in LutqState._fields))
-        arrs = [_numpy(t) for t in leaves]
-        return np.stack(arrs) if nstack else arrs[0]
+        if entries[0][0] is None:
+            return _numpy(entries[0][1])
+        return _restack([(i, _numpy(t)) for i, t in entries])
 
     out: Dict[str, Any] = {}
-    for lpath, leaves in groups.items():
+    for lpath, entries in groups.items():
         node = out
         for k in lpath[:-1]:
             node = node.setdefault(k, {})
-        node[lpath[-1]] = merge(leaves, stacked[lpath])
+        node[lpath[-1]] = merge(entries)
     return out
 
 
@@ -187,14 +222,25 @@ def paged_cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
 def cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
                    ) -> Dict[str, Any]:
     """A reference slot cache (as numpy) in the port's layout: the
-    prefix layers' dicts, then the stacked leaves split per layer."""
-    prefix = [{key: _tensor(leaf, device) for key, leaf in
-               cache["prefix_layers"][str(i)].items()}
-              for i in range(cfg.first_dense)]
-    layers = [{key: _tensor(np.asarray(leaf)[i], device)
-               for key, leaf in cache["layers"].items()}
-              for i in range(n_stacked(cfg))]
-    out = {"layers": prefix + layers}
+    prefix layers' dicts, then the stacked leaves split per layer (a
+    hybrid's Mamba states and shared-block K/V interleaved in execution
+    order)."""
+    if cfg.family == "hybrid":
+        layers = []
+        for s in range(n_super(cfg)):
+            layers += [{key: _tensor(np.asarray(leaf)[s, i], device)
+                        for key, leaf in cache["mamba"].items()}
+                       for i in range(cfg.attn_every)]
+            layers.append({key: _tensor(np.asarray(leaf)[s], device)
+                           for key, leaf in cache["attn"].items()})
+    else:
+        prefix = [{key: _tensor(leaf, device) for key, leaf in
+                   cache["prefix_layers"][str(i)].items()}
+                  for i in range(cfg.first_dense)]
+        layers = prefix + [{key: _tensor(np.asarray(leaf)[i], device)
+                            for key, leaf in cache["layers"].items()}
+                           for i in range(n_stacked(cfg))]
+    out = {"layers": layers}
     for key in ("len", "src_len"):
         if key in cache:
             out[key] = _tensor(np.asarray(cache[key], np.int32), device)
@@ -204,11 +250,23 @@ def cache_from_jax(cache, cfg: ModelConfig, *, device="cpu"
 def cache_to_numpy(cache, cfg: ModelConfig) -> Dict[str, Any]:
     """The port's slot cache in the reference's layout, as numpy: the
     first ``first_dense`` layers under ``prefix_layers``, the others
-    restacked."""
+    restacked (a hybrid's under ``mamba`` and ``attn``)."""
+    def restack(entries):
+        return {k: np.stack([_numpy(c[k]) for c in entries])
+                for k in entries[0]}
+
+    if cfg.family == "hybrid":
+        per = cfg.attn_every + 1
+        entries = cache["layers"]
+        mamba = restack([c for j, c in enumerate(entries)
+                         if j % per != per - 1])
+        return {"mamba": {k: v.reshape((n_super(cfg), cfg.attn_every)
+                                       + v.shape[1:])
+                          for k, v in mamba.items()},
+                "attn": restack(entries[per - 1::per]),
+                "len": _numpy(cache["len"])}
     n = cfg.first_dense
-    stack = cache["layers"][n:]
-    out = {"layers": {k: np.stack([_numpy(c[k]) for c in stack])
-                      for k in stack[0]},
+    out = {"layers": restack(cache["layers"][n:]),
            "len": _numpy(cache["len"])}
     if "src_len" in cache:
         out["src_len"] = _numpy(cache["src_len"])
@@ -240,12 +298,12 @@ def paged_cache_to_numpy(cache) -> Dict[str, Any]:
 _STATIC_KEYS = {"d": "__lutq_d", "a": "__lutq_a", "sid": "__lutq_sid",
                 "act": "__lutq_act"}
 
-Key = Tuple[str, Tuple[str, ...], Optional[int]]
+Key = Tuple[str, Tuple[str, ...], Optional[Tuple[int, ...]]]
 
 
 def _ref_keys(model: nn.Module) -> Dict[str, Key]:
-    """{state-dict name: ("trainable" | "static", reference path, layer
-    index)} for every parameter and buffer of ``model``; plus, under
+    """{state-dict name: ("trainable" | "static", reference path, stack
+    indices)} for every parameter and buffer of ``model``; plus, under
     ``"static"``, a None-valued entry for each plain float leaf."""
     quant = {n for n, m in model.named_modules()
              if isinstance(m, QuantKernel)}
@@ -263,8 +321,8 @@ def _ref_keys(model: nn.Module) -> Dict[str, Key]:
 
 
 def _nest(items) -> Dict[str, Any]:
-    """Nested dicts from (reference path, layer index, array or None)
-    items; per-layer arrays of one path are stacked in layer order (a
+    """Nested dicts from (reference path, stack indices, array or None)
+    items; per-layer arrays of one path are stacked in index order (a
     None stays one None)."""
     groups: Dict[Tuple[str, ...], List] = defaultdict(list)
     for path, i, arr in items:
@@ -278,8 +336,7 @@ def _nest(items) -> Dict[str, Any]:
         if i0 is None or a0 is None:
             node[path[-1]] = a0
         else:
-            node[path[-1]] = np.stack([a for _, a in sorted(
-                entries, key=lambda e: e[0])])
+            node[path[-1]] = _restack(entries)
     return out
 
 
@@ -303,7 +360,8 @@ def train_state_to_numpy(state) -> Dict[str, Any]:
             "opt_state": opt, "step": np.asarray(state.step, np.int32)}
 
 
-def _fetch(tree, path: Tuple[str, ...], i: Optional[int]) -> np.ndarray:
+def _fetch(tree, path: Tuple[str, ...], i: Optional[Tuple[int, ...]]
+           ) -> np.ndarray:
     node = tree
     for k in path:
         node = node[k]
@@ -352,13 +410,14 @@ def trainable_shapes(cfg: ModelConfig) -> Dict[Tuple[str, ...], Tuple]:
     checkpoint of ``cfg`` holds. Built on the meta device; a LUT-Q master
     sits at its kernel's own path with its kernel's shape, so the
     quantization policy changes neither the keys nor the shapes."""
-    model = init_lm(None, cfg, device="meta")
+    model = _skeleton(cfg)
+    stacks = _stacks(cfg)
     named = dict(model.named_parameters())
     out: Dict[Tuple[str, ...], Tuple] = {}
     for name, (sec, path, i) in _ref_keys(model).items():
         if sec == "trainable":
             shape = tuple(named[name].shape)
-            out[path] = shape if i is None else (n_stacked(cfg),) + shape
+            out[path] = shape if i is None else stacks[path[0]] + shape
     return out
 
 
@@ -379,12 +438,13 @@ def _param_leaves(trainable, static, prefix=()):
         yield prefix, trainable, None
 
 
-def _meta_like(arr, i: Optional[int]) -> Optional[torch.Tensor]:
+def _meta_like(arr, i: Optional[Tuple[int, ...]]
+               ) -> Optional[torch.Tensor]:
     """An unmaterialised tensor of the shape and dtype of ``arr`` (or of
-    its i-th stack slice): nothing is read."""
+    its stack slice ``i``): nothing is read."""
     if arr is None:
         return None
-    shape = arr.shape if i is None else arr.shape[1:]
+    shape = arr.shape if i is None else arr.shape[len(i):]
     dtype = _tensor(np.zeros(0, arr.dtype), "cpu").dtype
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -411,12 +471,12 @@ def from_train_params(params, cfg: ModelConfig, *, pack4: bool = False,
     from repro_torch.kernels.ref import pack4_kin
 
     pol = as_policy(policy)
-    model = init_lm(None, cfg, device="meta")
+    model = _skeleton(cfg)
+    stacks = _stacks(cfg)
     for lpath, tr, st in _param_leaves(params["trainable"],
                                        params["static"]):
-        stacked = lpath[0] == "layers"
-        for i in (range(n_stacked(cfg)) if stacked else (None,)):
-            path = (("layers", str(i)) + lpath[1:]) if stacked else lpath
+        for i in _slices(lpath[0], stacks):
+            path = _layer_path(lpath, i)
             if st is None:
                 set_leaf(model, path, _convert(tr, device, i))
             elif "__static" in st:

@@ -41,6 +41,14 @@ its slot pool, as the reference does):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch paligemma-3b --batch 4 --prompt-len 128 --gen 16
 
+The hybrid family (zamba2-2.7b: Mamba2 layers whose state a decode step
+overwrites in place, one shared attention block every 6 layers; an
+--engine prefills one prompt length a group and serves through its slot
+pool, as the reference does):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2-2.7b --batch 4 --prompt-len 128 --gen 16
+
 On the CPU, through the kernels' plain versions, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
@@ -54,6 +62,8 @@ On the CPU, through the kernels' plain versions, at the reduced size:
         --kv-pages 24 --page-size 16]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \
         --reduced --device cpu [--pack4 | --engine]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --reduced --device cpu [--engine] [--pack4]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
         --queue 4 --prompt-len 30 --gen 8 --device cpu

@@ -1,10 +1,11 @@
-"""Model API (counterpart of ``repro.models.api``), dense, MoE, vlm and
-encoder-decoder families: GQA attention or MLA (deepseek's latent
-cache, on the slot path only), leading dense layers
+"""Model API (counterpart of ``repro.models.api``), dense, MoE, vlm,
+encoder-decoder and hybrid families: GQA attention or MLA (deepseek's
+latent cache, on the slot path only), leading dense layers
 (``cfg.first_dense``), the vlm family's bidirectional prefix of image
-embeddings (``prefix_embeds``, on the slot path only), and the encdec
+embeddings (``prefix_embeds``, on the slot path only), the encdec
 family's encoder over ``frames`` and cross-attending decoder
-(``models/encdec.py``).
+(``models/encdec.py``), and the hybrid family's Mamba2 layers with a
+shared attention block (``models/zamba.py``, on the slot path only).
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)
@@ -16,6 +17,7 @@ family's encoder over ``frames`` and cross-attending decoder
     prefill(model, cfg, batch, lengths=)       -> (logits, cache)
     decode_step(model, cfg, token, cache)      -> (logits, cache)
     init_cache(cfg, batch, max_len, src_len=, device=) -> cache
+    exact_length_prefill(cfg)                  -> bool
     paged_supported(cfg)                       -> bool
     init_paged_cache(cfg, batch, n_pages, page_size, n_blocks, src_len=,
                      device=)
@@ -27,8 +29,12 @@ family's encoder over ``frames`` and cross-attending decoder
 An encdec batch carries ``frames`` (B, S_src, D) beside ``tokens``; its
 caches hold each decoder layer's cross K/V of ``src_len`` source
 positions. A vlm batch may carry ``prefix_embeds`` (B, P, D); its
-cache's ``len`` then counts the P prefix positions too. Training an
-encdec model is not ported yet (``loss_fn`` raises).
+cache's ``len`` then counts the P prefix positions too. A hybrid cache
+holds a fixed-size recurrent state that a decode step overwrites in
+place; its prompts are prefilled at their exact length (the state
+integrates padding), it decodes one token a step and never speculates.
+Training an encdec or a hybrid model is not ported yet (``loss_fn``
+raises).
 
 Every entry point that creates tensors runs on ``device="cuda"`` unless
 the caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -45,11 +51,12 @@ from repro_torch.core.policy import draft_view, quantize_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as m_encdec
 from repro_torch.models import lm as m_lm
+from repro_torch.models import zamba as m_zamba
 from repro_torch.models.config import ModelConfig
 
 
 #: the model families the port serves
-FAMILIES = ("dense", "moe", "vlm", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid")
 
 
 def _ported(cfg: ModelConfig):
@@ -66,6 +73,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
     gen = torch.Generator(device=dev).manual_seed(seed)
     if cfg.family == "encdec":
         return m_encdec.init_encdec(gen, cfg, device=dev)
+    if cfg.family == "hybrid":
+        return m_zamba.init_zamba(gen, cfg, device=dev)
     return m_lm.init_lm(gen, cfg, device=dev)
 
 
@@ -141,6 +150,10 @@ def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
         raise NotImplementedError(
             "the encdec loss is not ported yet (ROADMAP queue 1, encdec "
             "training); the port serves encdec models")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "the hybrid loss is not ported yet (ROADMAP queue 1, hybrid "
+            "training); the port serves hybrid models")
     return m_lm.lm_loss(model, cfg, batch)
 
 
@@ -148,11 +161,15 @@ def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):
     """Run the prompt, return (last_logits (B, 1, V), cache). An encdec
     batch encodes ``batch["frames"]`` first; a vlm batch's
     ``prefix_embeds`` go in front of the text (``lengths`` count text
-    tokens)."""
+    tokens). A hybrid prompt batch should be of one length: its state
+    integrates the padding (``models/zamba.zamba_prefill``)."""
     _ported(cfg)
     if cfg.family == "encdec":
         return m_encdec.encdec_prefill(model, cfg, batch["frames"],
                                        batch["tokens"], lengths=lengths)
+    if cfg.family == "hybrid":
+        return m_zamba.zamba_prefill(model, cfg, batch["tokens"],
+                                     lengths=lengths)
     return m_lm.lm_prefill(model, cfg, batch["tokens"],
                            prefix_embeds=batch.get("prefix_embeds"),
                            lengths=lengths)
@@ -162,10 +179,14 @@ def decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
     """(B, W) tokens against a cache at length n -> (logits (B, W, V),
     cache at n + W). W = 1 is a decode step; a wider W is a speculative
     verify window, each row the bits of W chained steps
-    (``models/lm.lm_decode``, ``models/encdec.encdec_decode``)."""
+    (``models/lm.lm_decode``, ``models/encdec.encdec_decode``); a hybrid
+    config takes W = 1 only and updates its cache in place
+    (``models/zamba.zamba_decode``)."""
     _ported(cfg)
     if cfg.family == "encdec":
         return m_encdec.encdec_decode(model, cfg, token, cache)
+    if cfg.family == "hybrid":
+        return m_zamba.zamba_decode(model, cfg, token, cache)
     return m_lm.lm_decode(model, cfg, token, cache)
 
 
@@ -178,15 +199,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if cfg.family == "encdec":
         return m_encdec.init_encdec_cache(cfg, batch, max_len,
                                           src_len or max_len, device=dev)
+    if cfg.family == "hybrid":
+        return m_zamba.init_zamba_cache(cfg, batch, max_len, device=dev)
     return m_lm.init_cache(cfg, batch, max_len, device=dev)
+
+
+def exact_length_prefill(cfg: ModelConfig) -> bool:
+    """Whether a batched prefill must hold prompts of one length: MoE
+    routing capacity couples real tokens to padding, and a recurrent
+    state (ssm, hybrid) integrates it (the engine groups such requests
+    by prompt length, ``generate`` prefills padded streams alone)."""
+    return bool(cfg.n_experts) or cfg.family in ("ssm", "hybrid")
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
     """Configs the paged KV cache serves: dense attention without MLA,
     experts, prefix layers or a modality prefix, and encdec (its growing
-    self-attention K/V paged, its cross K/V a slab a slot). MoE and vlm
-    stay on the slot path, as in the reference (an ``Engine(kv_pages=...)``
-    of such a config silently serves through its slot pool)."""
+    self-attention K/V paged, its cross K/V a slab a slot). MoE, vlm and
+    hybrid (a fixed-size recurrent state) stay on the slot path, as in
+    the reference (an ``Engine(kv_pages=...)`` of such a config silently
+    serves through its slot pool)."""
     if cfg.family == "encdec":
         return True
     return (cfg.family == "dense" and not cfg.use_mla and cfg.n_experts == 0

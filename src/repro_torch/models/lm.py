@@ -119,12 +119,18 @@ def all_layers(model: LM):
 def _check_family(cfg: ModelConfig):
     """The decoder-only entry points serve the dense, MoE and vlm
     families; an encoder-decoder config goes through ``models/encdec.py``
-    (which reuses this module's blocks, never these entry points)."""
+    and a hybrid one through ``models/zamba.py`` (which reuse this
+    module's blocks, never these entry points)."""
     if cfg.family == "encdec":
         raise ValueError(f"config {cfg.name!r} is an encoder-decoder: the "
                          f"decoder-only LM entry points refuse it (serve it "
                          f"through models/api, which dispatches it to "
                          f"models/encdec)")
+    if cfg.family == "hybrid":
+        raise ValueError(f"config {cfg.name!r} is a hybrid: the "
+                         f"decoder-only LM entry points refuse it (serve it "
+                         f"through models/api, which dispatches it to "
+                         f"models/zamba)")
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"the port serves the dense, MoE and vlm LM families so far "

@@ -12,9 +12,12 @@ Float leaves are trainable parameters, as the reference's
 (``w`` None) holds no parameter.
 
 The reference stacks the layers along a leading axis; the port keeps one
-module per layer in an ``nn.ModuleList``. :func:`logical_path` maps a
-per-layer path back to the reference's stacked path, which is what
-policy rules, size floors and backend manifests are resolved against.
+module per layer in an ``nn.ModuleList``. A hybrid's Mamba layers are
+stacked over two axes there, (super-block, layer in it); the port keeps
+them as an ``nn.ModuleList`` of ``nn.ModuleList``s
+(``mamba_layers.<s>.<i>``). :func:`logical_path` maps a per-layer path
+back to the reference's stacked path, which is what policy rules, size
+floors and backend manifests are resolved against.
 A MoE layer's expert kernels (``moe/wi``, ``moe/wg``, ``moe/wo``) keep
 the expert axis in front, as the reference's ``"expert"`` stack axis:
 one (E, Din, Dout) leaf a layer with one dictionary an expert.
@@ -32,8 +35,9 @@ from repro_torch.core.lutq import LutqState
 Path = Tuple[str, ...]
 
 #: Module-list names whose children are the reference's stacked layers
-#: (an encoder-decoder stacks its ``encoder`` and ``decoder`` layers).
-STACKS = frozenset({"layers", "encoder", "decoder"})
+#: (an encoder-decoder stacks its ``encoder`` and ``decoder`` layers; a
+#: hybrid its ``mamba_layers`` over two axes, one index each).
+STACKS = frozenset({"layers", "encoder", "decoder", "mamba_layers"})
 #: Leaves of a ``moe`` module stacked over the experts (the reference's
 #: ``("expert", ...)`` logical axes); the shared experts are not.
 EXPERT_LEAVES = frozenset({"wi", "wg", "wo"})
@@ -115,15 +119,21 @@ def clone_structure(module: nn.Module) -> nn.Module:
     return copy.deepcopy(module, memo)
 
 
-def layer_split(path: Path) -> Tuple[Path, Optional[int]]:
-    """(reference path, layer index or None) of a per-layer path.
+def layer_split(path: Path) -> Tuple[Path, Optional[Tuple[int, ...]]]:
+    """(reference path, stack indices or None) of a per-layer path.
 
-    ``("layers", "3", "attn", "q", "kernel")`` is slice 3 of the
-    reference's stacked leaf ``("layers", "attn", "q", "kernel")``.
+    ``("layers", "3", "attn", "q", "kernel")`` is slice (3,) of the
+    reference's stacked leaf ``("layers", "attn", "q", "kernel")``;
+    ``("mamba_layers", "1", "0", "mamba", "conv_w")`` is slice (1, 0) of
+    ``("mamba_layers", "mamba", "conv_w")``.
     """
     for i, k in enumerate(path[:-1]):
         if k in STACKS and path[i + 1].isdigit():
-            return path[:i + 1] + path[i + 2:], int(path[i + 1])
+            j = i + 1
+            while j < len(path) and path[j].isdigit():
+                j += 1
+            return (path[:i + 1] + path[j:],
+                    tuple(int(x) for x in path[i + 1:j]))
     return path, None
 
 
@@ -136,9 +146,10 @@ def expert_dims(path: Path) -> int:
 
 def logical_path(path: Path) -> Tuple[Path, int]:
     """(reference path, number of stack axes) of a per-layer path: the
-    layer axis the port splits off, plus the expert axis a leaf keeps."""
-    lpath, i = layer_split(path)
-    return lpath, int(i is not None) + expert_dims(lpath)
+    layer axes the port splits off (two for a hybrid's Mamba layers),
+    plus the expert axis a leaf keeps."""
+    lpath, idx = layer_split(path)
+    return lpath, len(idx or ()) + expert_dims(lpath)
 
 
 def module_device(module: nn.Module) -> Optional[torch.device]:

@@ -84,6 +84,13 @@ runs; its decode step and greedy round are captured as graphs that read
 ``len`` and ``src_len`` on the device. Its prefix cache and packed
 prefill are off: the K/V depends on the frames.
 
+A hybrid engine (zamba2) keeps each slot's Mamba state (the SSM state
+and the conv window a layer) beside its shared block's K/V; the captured
+decode step overwrites that state in place, so every replay advances
+it. Its requests are prefilled in groups of one prompt length (the
+state integrates padding), and it stays on the slot path, as in the
+reference.
+
 A vlm engine (paligemma) serves requests with or without
 ``prefix_embeds`` (P, D), the config's P precomputed image embeddings
 in front of the prompt. Its slots are ``max_len + P`` wide (``max_len``
@@ -475,12 +482,13 @@ class Engine:
         """Requests admitted in one step share one batched prefill where
         exactness allows it: attention-only families batch ragged prompts
         freely (per-stream ``lengths`` keep them exact); MoE routing
-        couples real tokens to padding (capacity), so MoE groups by exact
-        prompt length, encdec by source width (padded frames would reach
-        the real positions' memory), and prefixed and text-only vlm
-        requests apart (their caches start at other widths), as the
-        reference's engine does."""
-        if self.cfg.n_experts:
+        couples real tokens to padding (capacity) and a recurrent state
+        integrates it, so MoE, ssm and hybrid group by exact prompt
+        length, encdec by source width (padded frames would reach the
+        real positions' memory), and prefixed and text-only vlm requests
+        apart (their caches start at other widths), as the reference's
+        engine does."""
+        if api.exact_length_prefill(self.cfg):
             return ("exact", len(req.tokens))
         if self.encdec:
             return ("src", req.frames.shape[0])

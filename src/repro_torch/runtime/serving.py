@@ -81,7 +81,9 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
     K/V only: MLA latents are grown as they are, as the reference's
     ``attn_kv`` guard leaves them, and so are an encdec cache's leaves,
     its cross K/V right-padded to ``src_len`` (the target cache's width:
-    ``src_len`` or ``max_len``) and its ``src_len`` vector kept.
+    ``src_len`` or ``max_len``) and its ``src_len`` vector kept. A
+    hybrid cache's shared-block K/V are grown to ``max_len`` and its SSM
+    states and conv windows, already of their decode shapes, kept.
     """
     dev = cache["len"].device
     target = api.init_cache(cfg, batch, max_len, src_len=src_len, device=dev)
@@ -174,10 +176,11 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     prefill, then decoded by the engine's loop. ``device`` is where the
     run happens ("cuda" unless asked for "cpu"); the model must already
     live there. ``lengths``: per-stream prompt lengths for right-padded
-    batches (a MoE config prefills each padded stream alone, at its
-    exact length, as the reference does). ``eos_id``: streams retire at
-    their EOS and are right-padded with it. ``temperature`` > 0 samples stream i from the generator
-    that a solo ``Engine(seed=seed)`` gives its request i. The kernel
+    batches (where ``api.exact_length_prefill``, each padded stream is
+    prefilled alone, at its exact length, as the reference does).
+    ``eos_id``: streams retire at their EOS and are right-padded with
+    it. ``temperature`` > 0 samples stream i from the generator that a
+    solo ``Engine(seed=seed)`` gives its request i. The kernel
     backend is ``cfg.kernel_backend``. ``return_stats=True`` also
     returns {"t_prefill_s", "t_decode_s", "t_warmup_s", "decode_tok_s",
     "backend"}, timed on the host clock (each ends in a device read). On
@@ -210,9 +213,9 @@ def generate(model: nn.Module, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         (B,)))
     padded = lens is not None and (int(lens.min()) != int(lens.max())
                                    or int(lens.max()) != P)
-    if padded and cfg.n_experts:
-        # MoE capacity couples real tokens to padding: every stream is
-        # prefilled at its exact length through the admission path
+    if padded and api.exact_length_prefill(cfg):
+        # every stream is prefilled at its exact length through the
+        # admission path
         toks = torch.as_tensor(batch["tokens"]).cpu().numpy()
         for i in range(B):
             eng.submit(toks[i, :int(lens[i])], max_new=steps, eos_id=eos_id)

@@ -55,7 +55,14 @@ byte offsets past 2^31) with the tolerances above; kernel 1 and
 ``lutq_shift`` on its transposed head (N = 257216); a vlm decode step
 (the cache's length counting the prefix) replayed from a CUDA graph
 equal to the eager step bit for bit; reduced paligemma on the card
-gives the CPU's greedy tokens after its image prefix.
+gives the CPU's greedy tokens after its image prefix. zamba2-2.7b:
+kernels 1, 2 and 4 at its product shapes (in_proj's N = 10448, not a
+multiple of the 64-wide n tile; out_proj; the shared MLP) with the
+tolerances above; the hybrid decode step, which overwrites its SSM
+state and conv window in place, replayed from a CUDA graph three times
+equals three eager steps bit for bit (logits, every state and K/V), each
+replay advancing the state; reduced zamba on the card (graph-replayed
+and eager) gives the CPU's greedy tokens in each view.
 """
 import contextlib
 
@@ -2687,3 +2694,158 @@ def test_cuda_paligemma_serves_the_cpu_tokens(cuda_device, view):
                                                  else 0)
         assert delta[0]["launches"] == (body if view == "int8" else 0) + head
         assert sum(c.get("plain", 0) for c in delta) == 0
+
+
+# ---------------------------------------------------------------------------
+# zamba2-2.7b: the hybrid family (Mamba2 state updated in place)
+# ---------------------------------------------------------------------------
+
+#: zamba's (Kin, N) products: in_proj (2 x 5120 + 2 x 64 + 80 = 10448:
+#: a partial n tile of 64), out_proj, the shared block's MLP
+ZB_SHAPES = [(2560, 10448), (5120, 2560), (2560, 10240), (10240, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 9, 128])
+@pytest.mark.parametrize("Kin,N", ZB_SHAPES)
+@pytest.mark.parametrize("kernel,dtype", [
+    ("lutq_matmul", "float32"), ("lutq_matmul", "bfloat16"),
+    ("lutq_gemv_packed", "bfloat16"), ("lutq_shift", "int8")])
+def test_cuda_kernels_at_zamba_shapes(cuda_device, kernel, dtype, Kin, N, M):
+    """Kernels 1 and 2 within their tolerance of the plain version and
+    lutq_shift bit for bit at zamba's product shapes, a second call
+    giving the first call's bits."""
+    if kernel == "lutq_shift":
+        xq, a, wsh = (t.to(cuda_device) for t in _shift_operands(
+            M, Kin, N, 16, torch.Generator().manual_seed(M)))
+        got = lutq_shift.lutq_shift(xq, a, wsh)
+        assert torch.equal(got, lutq_shift_ref(xq, a, wsh))
+        assert torch.equal(lutq_shift.lutq_shift(xq, a, wsh), got)
+        return
+    fn, plain, _, args = _gemm_operands(kernel, M, Kin, N,
+                                        getattr(torch, dtype), cuda_device)
+    got, want = fn(*args), plain(*args)
+    tol = 1e-4 if dtype == "float32" else 1e-3
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() / want.abs().max() <= tol
+    assert torch.equal(fn(*args), got)
+
+
+def _zamba_serve(view, act_bits=32):
+    """Reduced zamba (4 Mamba2 layers in 2 super-blocks, d_inner 128,
+    vocab 211) at ``act_bits``: the config, its serve view (int8, packed4
+    or calibrated serving_pow2 with its floor at 1024, so that conv_w is
+    pow2-encoded) on the CPU, and a batch of 3 x 13 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2, with_size_floor
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    cfg = reduced(get_config("zamba2-2.7b")).replace(
+        act_bits=act_bits, quant=QuantSpec(bits=4, constraint="pow2",
+                                           min_size=1024))
+    if view == "pow2":
+        cfg = cfg.replace(quant=with_size_floor(serving_pow2(), 1024))
+    g = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (3, 13), generator=g)}
+    model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+    if view == "pow2":
+        model = api.calibrate(model, cfg, {"tokens": batch["tokens"][:2]})
+    return cfg, serve_view(model, pack4=view == "packed4",
+                           policy=api.resolved_policy(cfg)), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_hybrid_decode_step_replays_and_advances(cuda_device, view):
+    """The hybrid decode step captured once as a CUDA graph and replayed
+    three times equals three eager steps bit for bit: logits, every SSM
+    state, conv window and K/V after each; each replay moves the state
+    (a replay that re-read the captured state would repeat itself)."""
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    cfg, serve, batch = _zamba_serve(view)
+    card = serve.to(cuda_device)
+
+    def clone(c):
+        return {"layers": [{k: v.clone() for k, v in layer.items()}
+                           for layer in c["layers"]],
+                "len": c["len"].clone()}
+
+    with torch.inference_mode():
+        _, cache = api.prefill(card, cfg, {"tokens": batch["tokens"].to(
+            cuda_device)})
+        cache = serving.adapt_prefill_cache(cfg, cache, 3, 13 + 6)
+        eager, graphed, warm = clone(cache), clone(cache), clone(cache)
+        tok = torch.randint(0, cfg.vocab, (3, 1), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(8)
+                            ).to(cuda_device)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            api.decode_step(card, cfg, tok, warm)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, nxt = api.decode_step(card, cfg, tok, graphed)
+        prev = graphed["layers"][0]["ssm"].clone()
+        for step in range(3):
+            graph.replay()
+            want, after = api.decode_step(card, cfg, tok, eager)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), step
+            for g, e in zip(graphed["layers"], eager["layers"]):
+                for k in g:
+                    assert torch.equal(g[k], e[k]), (step, k)
+            assert not torch.equal(graphed["layers"][0]["ssm"], prev), step
+            prev = graphed["layers"][0]["ssm"].clone()
+            graphed["len"].copy_(nxt["len"])
+            eager["len"] = after["len"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_zamba_serves_the_cpu_tokens(cuda_device, view):
+    """Reduced zamba served on the card (graph-replayed and eager) gives
+    the CPU's greedy tokens: 22 body launches a forward of the view's
+    kernel (in_proj and out_proj a Mamba layer, the shared block's 7
+    twice), the tied head on kernel 1 (int8, and packed4 at the reduced
+    odd vocab), no plain version; and a 2-slot engine over prompts of 5,
+    13 and 8 tokens the CPU engine's."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import Engine, disable_graphs
+    from repro_torch.runtime.serving import generate
+
+    cfg, serve, batch = _zamba_serve(view)
+    want = generate(serve, cfg, batch, steps=6, device="cpu")
+
+    def engine(model, dev):
+        eng = Engine(model, cfg, capacity=2, max_len=20, device=dev)
+        for i, L in enumerate((5, 13, 8)):
+            eng.submit(batch["tokens"][i, :L].numpy(), max_new=5)
+        return [r["tokens"].tolist() for r in eng.run()]
+
+    want_eng = engine(serve, "cpu")
+    card = serve.to(cuda_device)
+    idx = {"int8": 0, "packed4": 1, "pow2": 2}[view]
+    for graphs in (True, False):
+        before = ops.read_counts()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            got = generate(card, cfg, batch, steps=6, device="cuda")
+        delta = ops.count_delta(before)
+        assert torch.equal(got.cpu(), want)
+        body = 22 * 6
+        head = 0 if view == "pow2" else 6
+        assert delta[idx]["launches"] == body + (head if view == "int8"
+                                                 else 0)
+        assert delta[0]["launches"] == (body if view == "int8" else 0) + head
+        assert sum(c.get("plain", 0) for c in delta) == 0
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            assert engine(card, "cuda") == want_eng

@@ -151,14 +151,17 @@ def test_full_width_config_is_the_reference(arch):
 
 
 def test_check_family_still_refuses_what_remains():
-    """The hybrid and ssm families stay refused; a vlm config's modality
+    """The ssm family stays refused (ROADMAP queue 1); a hybrid config is
+    refused by the decoder-only entry points and pointed at
+    models/zamba.py (tests/test_torch_zamba.py); a vlm config's modality
     prefix is admitted (tests/test_torch_vlm.py), as are MLA and leading
     dense layers (tests/test_torch_deepseek.py)."""
     cfg = tconfigs.get_config(LARGE)
-    for kw in (dict(family="hybrid"), dict(family="ssm")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, other LM families"):
-            tlm._check_family(cfg.replace(**kw))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1, other LM families"):
+        tlm._check_family(cfg.replace(family="ssm"))
+    with pytest.raises(ValueError, match="models/zamba"):
+        tlm._check_family(cfg.replace(family="hybrid"))
     tlm._check_family(cfg.replace(family="vlm", n_prefix_tokens=4))
     tlm._check_family(tconfigs.get_config("paligemma-3b"))
 

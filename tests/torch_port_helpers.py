@@ -87,6 +87,17 @@ def jax_reference(jcfg, serve, toks, steps):
     return outs, np.concatenate(toks_out, axis=1)
 
 
+def pow2_floor(policy, min_size):
+    """``policy`` (either package's QuantPolicy) with its last rule's
+    size floor at ``min_size``."""
+    import dataclasses
+
+    last = policy.rules[-1]
+    last = dataclasses.replace(last, spec=dataclasses.replace(
+        last.spec, min_size=min_size))
+    return dataclasses.replace(policy, rules=policy.rules[:-1] + (last,))
+
+
 def one_thread():
     """Keep each xdist worker's torch on one thread."""
     n = torch.get_num_threads()
