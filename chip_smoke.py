@@ -399,6 +399,43 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    reference's reason. (d) Reduced zamba on the card gives the CPU's
    tokens in the three views (conv_w quantized: floors at 1024). Its
    launches go into the kernels' record as "zamba_launches".
+2s. rwkv6-1.6b's shapes: kernels 1, 2 and 4 at its products that no
+   earlier phase holds (w1 2048 x 64: N = 64, a quarter or a half of
+   one tile's width; w2 64 x 2048: Kin = 64, one BK = 64 stage, nothing
+   to split; cm_k 2048 x 7168 and cm_v 7168 x 2048) and M = 1, 4, 9,
+   128, 256 against their plain versions (phase 2's tolerances, bf16 and
+   f32 x: rwkv's products take f32 activations; lutq_shift bit for bit);
+   second-call and graph bits.
+3s. rwkv6-1.6b at full width, RW_LAYERS (4) of its 24 layers: d_model
+   2048 = 32 WKV heads of 64, d_ff 7168, the decay LoRA 64 wide, vocab
+   65536 with a tied readout, its 4-bit pow2 LUT-Q, 8-bit activations,
+   random weights from seed 0, an f32 residual stream. (a) int8 and
+   packed4 generate (B=4, prompt 128, 16 tokens; int8's graph run
+   profiled), graph and eager: equal tokens and counts, no plain
+   version, 10 x RW_LAYERS + 1 kernel-1 launches a forward in int8 (r,
+   k, v, g, o, w1, w2, cm_k, cm_v, cm_r a layer, the head on a
+   transposed copy), 10 x RW_LAYERS of kernel 2 and one decode-backend
+   head call in packed4 (w1 and w2 packed, the table packed along its
+   rows); the decode step replayed three times from a CUDA graph equals
+   three eager steps bit for bit (logits, every WKV state and
+   token-shift row), each replay advancing the state; the first lies
+   within _logit_tol (one bf16 ulp of the logits' row, 2^-7, at any
+   depth: the body runs in f32; twice that at act_bits 8) of a prefill
+   one token longer, and the same step from a cache whose WKV
+   states and shift rows are zeroed CONTROL_APART times that or more
+   from it; the head's share of a replayed step, the graph pools' MiB
+   and the state bytes a step read and written are logged. (b) The
+   calibrated serving_pow2 view the same on lutq_shift (10 x RW_LAYERS a
+   forward, the head float, w1 and w2 pow2-encoded with frozen pairs),
+   then its audit (a 96-token prefill and one decode step: 10 x
+   RW_LAYERS integer dots each; the WKV einsums are float dots, the
+   lerps, gates, decay and state updates float multiplies, outside the
+   multiplier-less claim as zamba's scan). (c) At act_bits 32,
+   synthetic_requests(seed=0) through a 4-slot engine asked for pages
+   (an ssm engine keeps its slot pool: paged False, one prefill group a
+   prompt length), checked as phase 3r (c). (d) Reduced rwkv on the card
+   gives the CPU's tokens in the three views. Its launches go into the
+   kernels' record as "rwkv_launches".
 3e. serving_pow2: full-width h2o-danube-1.8b (24 layers, seed 0) through
    api.serve_state: init, quantize (4-bit pow2 body, float embeddings
    and head), calibrate the frozen activation scales on 2 x 64 tokens,
@@ -448,8 +485,11 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    and not: the same tokens request by request, its graphs (decode,
    spec, hydrate, splice 1 each, chunk one a width) after the warmup
    and unchanged by the serve, paged attention 24 x (2k + 1) launches a
-   round; the speculative engine serves the queue again inside
-   disable_graphs(), with the same tokens and counts. Each run logs decode tok/s,
+   round; the speculative engine serves the queue's first
+   SPEC_EAGER_LEAD (8) requests again inside disable_graphs(), with the
+   graph pass's tokens request by request (at act_bits 32 a request's
+   tokens do not depend on its neighbours) and its own rounds' launch
+   counts. Each run logs decode tok/s,
    the round's (or step's) ms, acceptance, tokens a round and peak
    memory, the engine also goodput, one profiled round (or step: wall,
    device busy, the heaviest kernels) and the next one without the
@@ -575,7 +615,10 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    heads over bf16 pages at run (a)'s lengths (the record's "shapes",
    "G1_dh64_bf16").
 
-The line before the last is the kernels' JSON record; the last line is
+A log line near the end gives each phase's seconds ("seconds a phase":
+1 the build, 2 every kernel check of phase 2, then the phases of 3 and
+4 by the names above). The line before the last is the kernels' JSON
+record; the last line is
 {"ok": true, "device": {...}}. Without a card, or outside a checkout,
 it exits non-zero and prints no result.
 """
@@ -2057,15 +2100,21 @@ def profile_run(fn, what: str):
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts, acc_events=True) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: an aten op's row repeats its kernels' device time
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    # the device's activities (kernels, memsets, copies) read from the
+    # trace's events, summed by name: the rows key_averages() gives for
+    # them, without building every host op's event tree first (seconds
+    # for an eager generate's trace)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    rows = [(ns / 1e6, n, name) for name, (ns, n) in by_name.items()
+            if ns > 0]
     busy_ms = sum(r[0] for r in rows)
     check(busy_ms > 0, f"profile of {what}: no device time recorded")
     log(f"  profile {what}: wall {wall_ms:.1f} ms, device busy "
@@ -3437,7 +3486,7 @@ PG_LAYERS = 2
 PG_PFX, PG_QUEUE, PG_MAX_NEW, PG_AUDIT = 256, 12, 32, 20
 #: phase 3q (e): the trainer's batch, sequence and steps (the vocab kept)
 PG_TRAIN_BATCH, PG_TRAIN_SEQ, PG_TRAIN_STEPS = 2, 128, 3
-#: phases 3q's and 3r's logits checks at act_bits 32, max |a - b| over
+#: phases 3q's, 3r's and 3s's logits checks at act_bits 32, max |a - b| over
 #: the reference row's max |logit| (a decode step against a prefill one
 #: token longer, an engine row's first step against its request's alone,
 #: a W = 4 window against chained steps), a layer, by family: bf16
@@ -3455,6 +3504,12 @@ PG_TRAIN_BATCH, PG_TRAIN_SEQ, PG_TRAIN_STEPS = 2, 128, 3
 #: what it measured)
 LOGIT_TOL_LAYER = {"vlm": 2e-3, "hybrid": 1e-3}
 LOGIT_TOL_DEPTH = 18
+#: the same for a family whose body runs in f32 (ssm: the residual
+#: stream and every product's activations), whatever its depth: its step
+#: and prefill part where the bf16 logits round, by one bf16 ulp of the
+#: row's largest logit at most (2^-7 of it). On an H100: rwkv 4.2e-3 at
+#: 4 layers, 3.6e-3 at 24 (int8 and packed4 alike), 0 in serving_pow2
+LOGIT_TOL_FLAT = {"ssm": 2.0 ** -7}
 #: the least distance, over the tolerance, that a control must put
 #: between a decode step's logits and the same step's on the true cache
 #: (through one path, so nothing else moves them), so that a step that
@@ -3462,14 +3517,17 @@ LOGIT_TOL_DEPTH = 18
 #: prefill: phase 3q zeroes the image prefix (the random model's last
 #: token leans on its own residual: an H100 measured 1.3e-2 at 2 layers,
 #: 0.12 at 18), phase 3r every SSM state and conv window (2.6e-2 at 6
-#: layers, 2.2e-2 in serving_pow2; 0.14 at 54)
+#: layers, 2.2e-2 in serving_pow2; 0.14 at 54), phase 3s every WKV state
+#: and token-shift row (1.46 at 4 layers, 1.25 at 24; 1.38 in
+#: serving_pow2 at 24)
 CONTROL_APART = 1.25
 
 
 def _logit_tol(cfg) -> float:
-    """Phases 3q's and 3r's logits tolerance at ``cfg``'s family, depth
-    and act_bits."""
-    tol = LOGIT_TOL_LAYER[cfg.family] * min(cfg.n_layers, LOGIT_TOL_DEPTH)
+    """Phases 3q's, 3r's and 3s's logits tolerance at ``cfg``'s family,
+    depth and act_bits."""
+    tol = LOGIT_TOL_FLAT.get(cfg.family) or LOGIT_TOL_LAYER[cfg.family] \
+        * min(cfg.n_layers, LOGIT_TOL_DEPTH)
     return tol if cfg.act_bits == 32 else 2 * tol
 
 
@@ -4014,31 +4072,34 @@ ZB_REPEAT_CASES = [(4, 2560, 10448), (256, 2560, 10448), (4, 5120, 2560)]
 ZB_LAYERS = 6
 #: phase 3r's second prompt: three SSD chunks of 128, the last padded
 ZB_LONG = 300
-#: the engine queue (synthetic_requests, seed 0) and its budget, and the
-#: audited prefill's tokens (two chunks; no activation of a quantized
+#: the audited prefill's tokens (two chunks; no activation of a quantized
 #: leaf's rows: 2560, 5120, 10240 or conv_w's 4)
-ZB_QUEUE, ZB_MAX_NEW, ZB_AUDIT = 12, 32, 160
+ZB_AUDIT = 160
+#: phases 3r's and 3s's engine queue (synthetic_requests, seed 0) and
+#: its budget of new tokens
+RECURRENT_QUEUE, RECURRENT_MAX_NEW = 12, 32
 
 
-def zamba_kernel_checks():
-    """Phase 2r: kernels 1, 2 and 4 at zamba's product shapes and M in
-    ZB_CHECK_M against their plain versions (bf16 and f32 x, phase 2's
-    tolerances; lutq_shift bit for bit), second-call and graph bits.
-    Returns {kernel: max abs err}."""
+def _family_kernel_checks(label, shapes, ms, repeats, seed):
+    """Kernels 1, 2 and 4 at a family's product shapes ({name: (Kin,
+    N)}) and M in ``ms`` against their plain versions (bf16 and f32 x,
+    phase 2's tolerances; lutq_shift bit for bit, with two replays of a
+    captured call at M = 4 and 256), second-call and graph bits of the
+    GEMMs at ``repeats``: phases 2r and 2s. Returns {kernel: max abs
+    err}."""
     import torch
 
     from repro_torch.kernels.lutq_shift import lutq_shift
     from repro_torch.kernels.ref import lutq_shift_ref, shift_planes
 
-    t0 = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
-    gen = torch.Generator(device=dev).manual_seed(44)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {}
     for kname, (fn, plain) in _gemm_fns().items():
         packed = KERNELS[kname]["packed"]
         worst[kname] = 0.0
-        for label, (Kin, N) in ZB_LEAF_SHAPES.items():
-            for M in ZB_CHECK_M:
+        for name, (Kin, N) in shapes.items():
+            for M in ms:
                 for dtype in (torch.bfloat16, torch.float32):
                     x, a, d = _operands(M, Kin, N, 16, dtype, gen, dev,
                                         packed)
@@ -4048,19 +4109,19 @@ def zamba_kernel_checks():
                     err = (got - want).abs().max().item()
                     rel = err / max(want.abs().max().item(), 1e-30)
                     dname = str(dtype).split(".")[-1]
-                    log(f"check {kname} zamba {label} M={M} Kin={Kin} "
+                    log(f"check {kname} {label} {name} M={M} Kin={Kin} "
                         f"N={N} {dname}: max_abs_err {err:.3e} rel "
                         f"{rel:.2e} (tol {TOL[dname]:.0e})")
                     check(bool(torch.isfinite(got).all()),
                           f"{kname} produced non-finite values")
                     check(rel <= TOL[dname], f"{kname} disagrees with its "
-                          f"plain version at zamba {label} M={M} {dname}")
+                          f"plain version at {label} {name} M={M} {dname}")
                     worst[kname] = max(worst[kname], err)
                     del x, a, d, got, want
-        _gemm_repeats(kname, fn, gen, dev, ZB_REPEAT_CASES)
+        _gemm_repeats(kname, fn, gen, dev, repeats)
     worst["lutq_shift"] = 0.0
-    for label, (Kin, N) in ZB_LEAF_SHAPES.items():
-        for M in ZB_CHECK_M:
+    for name, (Kin, N) in shapes.items():
+        for M in ms:
             xq, a, wsh = _shift_operands(M, Kin, N, 16, gen, dev, span=9)
             planes = shift_planes(wsh)
             got = lutq_shift(xq, a, wsh, planes)
@@ -4083,7 +4144,7 @@ def zamba_kernel_checks():
                     graph_same &= torch.equal(captured, want)
                 del graph
             torch.cuda.synchronize()
-            log(f"check lutq_shift zamba {label} M={M} Kin={Kin} N={N}: "
+            log(f"check lutq_shift {label} {name} M={M} Kin={Kin} N={N}: "
                 f"equal {bool(torch.equal(got, want))}, second call "
                 f"{'same' if torch.equal(got, again) else 'DIFFERENT'} "
                 f"bits" + (f", graph replays "
@@ -4091,65 +4152,79 @@ def zamba_kernel_checks():
                            if M in (4, 256) else ""))
             check(torch.equal(got, want) and torch.equal(got, again)
                   and graph_same, f"lutq_shift differs from its plain "
-                  f"version or itself at zamba {label} M={M}")
+                  f"version or itself at {label} {name} M={M}")
             del xq, a, got, again, want
+    return worst
+
+
+def zamba_kernel_checks():
+    """Phase 2r: kernels 1, 2 and 4 at zamba's product shapes
+    (``_family_kernel_checks``). Returns {kernel: max abs err}."""
+    t0 = time.perf_counter()
+    worst = _family_kernel_checks("zamba", ZB_LEAF_SHAPES, ZB_CHECK_M,
+                                  ZB_REPEAT_CASES, 44)
     log(f"phase 2r (kernels 1, 2, 4 at zamba's products) "
         f"{time.perf_counter() - t0:.1f} s")
     return worst
 
 
-def _zb_serves(name, view, cfg, prompts, expect):
-    """Phase 3r (a), (b): ``_family_serve`` of one view after each prompt,
-    each timed; the int8 view's 128-token graph serve is profiled (a
-    profiled generate costs ~7 s at 12 layers, ~4 at 6). Returns {kernel:
-    launches} of the graph serves."""
+#: the recurrent leaves of a hybrid's (zamba: SSM state, conv window)
+#: and an ssm's (rwkv: WKV state, token-shift rows) slot cache, which a
+#: decode step overwrites in place
+RECURRENT_KEYS = frozenset({"ssm", "conv", "wkv", "shift_t", "shift_c"})
+
+
+def _recurrent_serves(label, name, view, cfg, prompts, expect):
+    """Phases 3r and 3s (a), (b): ``_family_serve`` of one view after each
+    prompt, each timed; the int8 view's 128-token graph serve is
+    profiled (a profiled generate costs ~7 s at zamba's 12 layers, ~4 at
+    6). Returns {kernel: launches} of the graph serves."""
     from collections import Counter
 
     launches = Counter()
-    for label, toks in prompts.items():
+    for plabel, toks in prompts.items():
         t0 = time.perf_counter()
-        _, counts = _family_serve(f"zamba {label}", name, view, cfg, toks,
-                                  expect, profile=(name, label) == (
+        _, counts = _family_serve(f"{label} {plabel}", name, view, cfg,
+                                  toks, expect, profile=(name, plabel) == (
                                       "int8", "P128"))
         launches.update({k: counts[k] for k in expect if k != "decode"})
-        log(f"  zamba {label} [{name}] serves {time.perf_counter() - t0:.1f}"
-            f" s")
+        log(f"  {label} {plabel} [{name}] serves "
+            f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
-def _zb_head_share(name, view, cfg, toks):
-    """Phase 3r: ``_head_share`` against a cache of a 128-token prompt,
-    and the bytes of recurrent state (f32 SSM states, conv windows in
-    the working dtype) a decode step of B=4 reads and writes back; returns
-    (head ms, step ms, the step graph's pool MiB, the head graph's,
-    state bytes a step)."""
-    from repro_torch.nn.mamba2 import CONV_K
+def _recurrent_head_share(label, name, view, cfg, toks):
+    """Phases 3r and 3s: ``_head_share`` against a cache of a 128-token
+    prompt, and the bytes of recurrent state (every RECURRENT_KEYS leaf
+    of a B=4 cache) a decode step reads and writes back; returns (head
+    ms, step ms, the step graph's pool MiB, the head graph's, state
+    bytes a step)."""
+    from repro_torch.models import api
 
-    out = _head_share("zamba", name, view, cfg, {"tokens": toks},
-                      PROMPT + 64)
-    d_in = cfg.resolved_d_inner
-    row = (d_in * cfg.ssm_state * 4
-           + (CONV_K - 1) * (d_in + 2 * cfg.ssm_state) * cfg.dtype.itemsize)
-    state = 2 * BATCH * cfg.n_layers * row
-    log(f"  zamba [{name}] recurrent state read + written a step "
+    out = _head_share(label, name, view, cfg, {"tokens": toks}, PROMPT + 64)
+    cache = api.init_cache(cfg, BATCH, 1, device="meta")
+    state = 2 * sum(t.numel() * t.element_size() for c in cache["layers"]
+                    for k, t in c.items() if k in RECURRENT_KEYS)
+    log(f"  {label} [{name}] recurrent state read + written a step "
         f"{state / 1e6:.1f} MB ({state / 1e6 / (out[1] * 1e-3) / 1e6:.3f} "
         f"TB/s of the step) | {CARD}")
     return out + (state,)
 
 
-def _zb_logits_checks(name, view, cfg, toks):
-    """Phase 3r (a), (b): a decode step (B=4, after a prefill of all but
-    the last 3 tokens) captured as a CUDA graph and replayed three times
-    equals three eager steps bit for bit (logits and every cache leaf:
-    the SSM states and conv windows it overwrites in place, the K/V
-    columns it writes), each replay moving the first layer's SSM state;
-    the first step lies within ``_logit_tol`` of a prefill one token
-    longer, and the same step from a copy of the cache with every SSM
-    state and conv window zeroed (the K/V kept) lies CONTROL_APART times
-    that tolerance or more from it, so that a step that lost or froze
-    its recurrent state fails the check against the prefill. int8 and
-    packed4 at act_bits 32 (8-bit dynamic scales couple a batch's rows),
-    serving_pow2 at its frozen scales."""
+def _recurrent_logits_checks(label, name, view, cfg, toks):
+    """Phases 3r and 3s (a), (b): a decode step (B=4, after a prefill of
+    all but the last 3 tokens) captured as a CUDA graph and replayed
+    three times equals three eager steps bit for bit (logits and every
+    cache leaf: the recurrent state it overwrites in place, any K/V
+    columns it writes), each replay moving the first layer's state (an
+    SSM or WKV matrix); the first step lies within ``_logit_tol`` of a
+    prefill one token longer, and the same step from a copy of the cache
+    with every RECURRENT_KEYS leaf zeroed (any K/V kept) lies
+    CONTROL_APART times that tolerance or more from it, so that a step
+    that lost or froze its recurrent state fails the check against the
+    prefill. int8 and packed4 at act_bits 32 (8-bit dynamic scales couple
+    a batch's rows), serving_pow2 at its frozen scales. Returns (step
+    against prefill, zeroed-state control), each over max |logit|."""
     import torch
 
     from repro_torch.models import api
@@ -4167,8 +4242,9 @@ def _zb_logits_checks(name, view, cfg, toks):
         cache = serving.adapt_prefill_cache(cfg, cache, BATCH, P + 5)
         eager, graphed, warm, zeroed = (_clone_tree(cache) for _ in range(4))
         for c in zeroed["layers"]:
-            for k in c.keys() & {"ssm", "conv"}:
+            for k in c.keys() & RECURRENT_KEYS:
                 c[k].zero_()
+        watch = "ssm" if "ssm" in cache["layers"][0] else "wkv"
         tok = toks[:, P:P + 1].to(torch.int32).contiguous()
         masked = api.decode_step(view, cfg, tok, zeroed)[0]
         stream = torch.cuda.Stream()
@@ -4180,7 +4256,7 @@ def _zb_logits_checks(name, view, cfg, toks):
         with torch.cuda.graph(graph):
             out, nxt = api.decode_step(view, cfg, tok, graphed)
         same, moved, first = [], [], None
-        prev = graphed["layers"][0]["ssm"].clone()
+        prev = graphed["layers"][0][watch].clone()
         for _ in range(3):
             graph.replay()
             step, after = api.decode_step(view, cfg, tok, eager)
@@ -4191,32 +4267,35 @@ def _zb_logits_checks(name, view, cfg, toks):
                 torch.equal(g[k], e[k])
                 for g, e in zip(graphed["layers"], eager["layers"])
                 for k in g))
-            moved.append(not torch.equal(graphed["layers"][0]["ssm"], prev))
-            prev = graphed["layers"][0]["ssm"].clone()
+            moved.append(not torch.equal(graphed["layers"][0][watch], prev))
+            prev = graphed["layers"][0][watch].clone()
             graphed["len"].copy_(nxt["len"])
             eager["len"] = after["len"]
         del graph
     err, lost = _rel(first, want), _rel(masked, first)
-    log(f"  zamba [{name}] logits (act_bits {cfg.act_bits}): 3 graph "
+    log(f"  {label} [{name}] logits (act_bits {cfg.act_bits}): 3 graph "
         f"replays = 3 eager steps bits (logits and state) {same}, state "
         f"moved by each replay {moved}; decode step vs prefill {err:.3e}, "
         f"from a zeroed recurrent state {lost:.3e} (tol {tol:g}, apart >= "
         f"{apart:g}); greedy tokens {want[:, -1].argmax(-1).tolist()} | "
         f"{CARD}")
-    check(all(same), f"zamba {name}: a replayed decode step's logits or "
+    check(all(same), f"{label} {name}: a replayed decode step's logits or "
           f"state are not the eager step's")
-    check(all(moved), f"zamba {name}: a replay did not advance the state")
-    check(err <= tol, f"zamba {name}: decode step logits {err:.3e} from "
+    check(all(moved), f"{label} {name}: a replay did not advance the state")
+    check(err <= tol, f"{label} {name}: decode step logits {err:.3e} from "
           f"the prefill's (tol {tol:g})")
-    check(lost >= apart, f"zamba {name}: zeroing the recurrent state moved "
-          f"the logits by only {lost:.3e}")
+    check(lost >= apart, f"{label} {name}: zeroing the recurrent state "
+          f"moved the logits by only {lost:.3e}")
+    return err, lost
 
 
-def _zb_engine(view, cfg):
-    """Phase 3r (c): at act_bits 32, synthetic_requests(seed=0) through
-    a 4-slot engine asked for pages (a hybrid engine keeps its slot
-    pool): every request's tokens equal its lone generate, each request's
-    first decode step's logits row lies within ``_logit_tol`` of its lone
+def _recurrent_engine(label, view, cfg):
+    """Phases 3r and 3s (c): at act_bits 32, synthetic_requests(seed=0)
+    (RECURRENT_QUEUE requests, prompts up to 128, up to RECURRENT_MAX_NEW
+    new) through a 4-slot engine asked for pages (a hybrid or ssm engine
+    keeps its slot pool and prefills one prompt length a group): every
+    request's tokens equal its lone generate, each request's first
+    decode step's logits row lies within ``_logit_tol`` of its lone
     first step's and SM_LOGIT_APART from the next request's, no plain
     version; speculative=3 raises the reference's reason. Returns
     {kernel: launches}."""
@@ -4227,9 +4306,9 @@ def _zb_engine(view, cfg):
     from repro_torch.runtime.engine import Engine, synthetic_requests
     from repro_torch.runtime.serving import generate
 
-    reqs = synthetic_requests(cfg, ZB_QUEUE, max_prompt=PROMPT,
-                              max_new=ZB_MAX_NEW, seed=0)
-    max_len = PROMPT + ZB_MAX_NEW
+    reqs = synthetic_requests(cfg, RECURRENT_QUEUE, max_prompt=PROMPT,
+                              max_new=RECURRENT_MAX_NEW, seed=0)
+    max_len = PROMPT + RECURRENT_MAX_NEW
     t0 = time.perf_counter()
     lone, lone_rows = [], []
     for r in reqs:
@@ -4237,8 +4316,9 @@ def _zb_engine(view, cfg):
             r["tokens"])[None]}, steps=r["max_new"], max_len=max_len,
             device="cuda")[0].cpu())
         lone_rows.append(_first_step_logits(view, cfg, r, max_len))
-    log(f"zamba: {len(reqs)} lone generates {time.perf_counter() - t0:.1f} "
-        f"s (prompts {sorted(len(r['tokens']) for r in reqs)})")
+    log(f"{label}: {len(reqs)} lone generates "
+        f"{time.perf_counter() - t0:.1f} s (prompts "
+        f"{sorted(len(r['tokens']) for r in reqs)})")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(view, cfg, capacity=4, max_len=max_len, kv_pages=16,
@@ -4263,7 +4343,7 @@ def _zb_engine(view, cfg):
     n = len(reqs)
     errs = [_rel(rows[i], lone_rows[i]) for i in sorted(rows)]
     apart = [_rel(rows[i], lone_rows[(i + 1) % n]) for i in sorted(rows)]
-    log(f"zamba slot engine (kv_pages asked, paged {st['paged']}): "
+    log(f"{label} slot engine (kv_pages asked, paged {st['paged']}): "
         f"{st['completed']} requests, {st['decode_steps']} steps, decode "
         f"{st['decode_tok_s']:.1f} tok/s, goodput "
         f"{st['goodput_tok_s']:.1f} tok/s, prefill {st['t_prefill_s']:.2f} "
@@ -4273,14 +4353,15 @@ def _zb_engine(view, cfg):
         f"{max(errs):.3e}, vs the next request's min {min(apart):.3e} | "
         f"{CARD}")
     check(st["paged"] is False and len(res) == n,
-          f"zamba engine: paged {st['paged']}, {len(res)} results")
-    check(all(same), "zamba engine: a request's tokens differ from its lone "
-          "generate")
-    check(counts["plain"] == 0, f"zamba engine ran plain versions: {counts}")
+          f"{label} engine: paged {st['paged']}, {len(res)} results")
+    check(all(same), f"{label} engine: a request's tokens differ from its "
+          f"lone generate")
+    check(counts["plain"] == 0, f"{label} engine ran plain versions: "
+          f"{counts}")
     check(len(rows) == n and max(errs) <= _logit_tol(cfg),
-          f"zamba engine: {len(rows)} first-step rows of {n}, max "
+          f"{label} engine: {len(rows)} first-step rows of {n}, max "
           f"{max(errs):.3e} from alone (tol {_logit_tol(cfg):g})")
-    check(min(apart) >= SM_LOGIT_APART, f"zamba engine: a request's "
+    check(min(apart) >= SM_LOGIT_APART, f"{label} engine: a request's "
           f"first-step logits lie within {min(apart):.3e} of another's")
     launches = Counter({k: v for k, v in counts.items() if v})
     del eng
@@ -4289,11 +4370,11 @@ def _zb_engine(view, cfg):
         Engine(view, cfg, capacity=4, max_len=max_len, speculative=3,
                device="cuda")
     except ValueError as exc:
-        log(f"zamba speculative=3 refused: {exc}")
-        check("cannot rewind" in str(exc), f"zamba speculative=3 refused "
+        log(f"{label} speculative=3 refused: {exc}")
+        check("cannot rewind" in str(exc), f"{label} speculative=3 refused "
               f"for another reason: {exc}")
     else:
-        die("zamba: speculative=3 was not refused")
+        die(f"{label}: speculative=3 was not refused")
     return launches
 
 
@@ -4352,16 +4433,20 @@ def zamba_full_width():
           "zamba: conv_w, the tied table or the stack is not as expected")
     for name, expect in (("int8", {"lutq_matmul": p + 1}),
                          ("packed4", {"lutq_gemv_packed": p, "decode": 1})):
-        launches.update(_zb_serves(name, views[name], base, prompts, expect))
-        shares[name] = _zb_head_share(name, views[name], base,
-                                      toks[:, :PROMPT])
-        _zb_logits_checks(name, views[name], base, toks[:, :PROMPT])
-    _zb_logits_checks("int8 P300", views["int8"], base, toks)
+        launches.update(_recurrent_serves("zamba", name, views[name], base,
+                                           prompts, expect))
+        shares[name] = _recurrent_head_share("zamba", name, views[name],
+                                             base, toks[:, :PROMPT])
+        _recurrent_logits_checks("zamba", name, views[name], base,
+                                 toks[:, :PROMPT])
+    _recurrent_logits_checks("zamba", "int8 P300", views["int8"], base,
+                             toks)
     del views["packed4"]
     torch.cuda.empty_cache()
     parts["int8 + packed4"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches.update(_zb_engine(views["int8"], base.replace(act_bits=32)))
+    launches.update(_recurrent_engine("zamba", views["int8"],
+                                       base.replace(act_bits=32)))
     parts["engine"] = time.perf_counter() - t0
     del views
     torch.cuda.empty_cache()
@@ -4383,11 +4468,12 @@ def zamba_full_width():
     log(f"zamba serving_pow2: serve_state (init, quantize, calibrate on "
         f"{CALIB_BATCH} x {CALIB_LEN}, serve_view) "
         f"{time.perf_counter() - t0:.1f} s")
-    launches.update(_zb_serves("serving_pow2", view, cfg, prompts,
-                               {"lutq_shift": p}))
-    shares["serving_pow2"] = _zb_head_share("serving_pow2", view, cfg,
-                                            toks[:, :PROMPT])
-    _zb_logits_checks("serving_pow2", view, cfg, toks[:, :PROMPT])
+    launches.update(_recurrent_serves("zamba", "serving_pow2", view, cfg,
+                                       prompts, {"lutq_shift": p}))
+    shares["serving_pow2"] = _recurrent_head_share(
+        "zamba", "serving_pow2", view, cfg, toks[:, :PROMPT])
+    _recurrent_logits_checks("zamba", "serving_pow2", view, cfg,
+                             toks[:, :PROMPT])
     _family_audit("zamba", view, cfg, toks, ZB_AUDIT, {"lutq_shift": p})
     del view
     torch.cuda.empty_cache()
@@ -4404,6 +4490,184 @@ def zamba_full_width():
         f"{dict(launches)} | head ms, step ms, step / head graph pool MiB, "
         f"state bytes a step "
         f"{ {k: tuple(round(x, 4) for x in v) for k, v in shares.items()} }")
+    return dict(launches)
+
+
+# ---------------------------------------------------------------------------
+# phases 2s and 3s: rwkv6-1.6b (the ssm family)
+# ---------------------------------------------------------------------------
+
+RW_ARCH = "rwkv6-1.6b"
+#: rwkv's (Kin, N) products that no earlier phase holds: the decay
+#: LoRA's w1 (N = 64: a quarter or a half of one GEMM tile's width) and
+#: w2 (Kin = 64: one BK = 64 pipeline stage, nothing for the split plans
+#: to split), the channel-mix's cm_k and cm_v (r, k, v, g, o and cm_r are
+#: 2048 x 2048, paligemma's q / o of phase 2q)
+RW_LEAF_SHAPES = {"w1": (2048, 64), "w2": (64, 2048), "cm_k": (2048, 7168),
+                  "cm_v": (7168, 2048)}
+RW_CHECK_M = (1, 4, 9, 128, 256)
+RW_REPEAT_CASES = [(4, 2048, 64), (256, 2048, 64), (4, 64, 2048),
+                   (256, 64, 2048), (4, 7168, 2048)]
+#: phase 3s's depth: RW_LAYERS of rwkv's 24 layers (the width whole)
+RW_LAYERS = 4
+#: the audited prefill's tokens (4 x 96 = 384 rows: no quantized leaf
+#: has 384 rows or columns)
+RW_AUDIT = 96
+
+
+def rwkv_kernel_checks():
+    """Phase 2s: kernels 1, 2 and 4 at rwkv's product shapes
+    (``_family_kernel_checks``). Returns {kernel: max abs err}."""
+    t0 = time.perf_counter()
+    worst = _family_kernel_checks("rwkv", RW_LEAF_SHAPES, RW_CHECK_M,
+                                  RW_REPEAT_CASES, 45)
+    log(f"phase 2s (kernels 1, 2, 4 at rwkv's products) "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def _rw_leaves(name, view, manifest, table_backend):
+    """Phase 3s: each view's decay-LoRA leaves and tied table as the
+    reference's serve_view makes them (the backends checked on the CPU
+    against its manifest): int8 assignments (w1 (2048, 64), w2 (64,
+    2048)) on kernel 1, packed pairs (w1 (1024, 64), w2 (32, 2048)) on
+    kernel 2 and the table packed along its rows (so its transposed
+    product takes the decode backend), or pow2-encoded with frozen pairs
+    and a float table."""
+    import torch
+
+    mix = view.layers[0].mix
+    w1, w2 = mix.w1.state, mix.w2.state
+    body = {"int8": "fused", "packed4": "packed4", "serving_pow2": "pow2"}
+    backends = {k: manifest[f"layers/mix/{k}"]["backend"]
+                for k in ("w1", "w2", "r/kernel", "cm_v/kernel")}
+    log(f"  rwkv [{name}] w1 a {tuple(w1.a.shape)} {w1.a.dtype}, w2 a "
+        f"{tuple(w2.a.shape)} {w2.a.dtype}, backends {backends}, table "
+        f"{manifest.get('embed/table', {}).get('backend', 'float')}")
+    check(set(backends.values()) == {body[name]},
+          f"rwkv {name}: body backends {backends}")
+    check(manifest.get("embed/table", {}).get("backend") == table_backend,
+          f"rwkv {name}: the tied table's backend is not {table_backend}")
+    if name == "serving_pow2":
+        check(w1.d.dtype == torch.int8 and w2.d.dtype == torch.int8
+              and w1.act is not None and w2.act is not None
+              and view.embed.table.dtype == torch.float32,
+              "rwkv serving_pow2: w1 / w2 not pow2-encoded with frozen "
+              "pairs, or the tied table is not float")
+        return
+    packed = name == "packed4"
+    dt = torch.uint8 if packed else torch.int8
+    check(w1.a.dtype == dt and w2.a.dtype == dt
+          and view.embed.table.state.a.dtype == dt
+          and tuple(w1.a.shape) == (2048 // (1 + packed), 64)
+          and tuple(w2.a.shape) == (64 // (1 + packed), 2048),
+          f"rwkv {name}: w1, w2 or the table's assignments are not as "
+          f"expected")
+
+
+def rwkv_full_width():
+    """Phase 3s: rwkv6-1.6b at full width (RW_LAYERS of its 24 layers,
+    d_model 2048 = 32 WKV heads of 64, d_ff 7168, vocab 65536 tied, its
+    4-bit pow2 LUT-Q, 8-bit activations; random weights from seed 0; the
+    residual stream f32): (a) int8 and packed4 generate (B=4, prompt
+    128, 16 tokens), graph and eager, each kernel's launches a forward,
+    the logits and state checks, the head's share of a replayed step;
+    (b) the calibrated serving_pow2 view the same on lutq_shift, then
+    its audit; (c) the slot engine at act_bits 32; (d) reduced rwkv card
+    vs CPU. Returns {kernel: launches} of (a)'s and (b)'s graph-mode
+    generates and (c)."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    t_phase = time.perf_counter()
+    base = get_config(RW_ARCH).replace(n_layers=RW_LAYERS)
+    p = 10 * base.n_layers  # body products a forward, w1 and w2 among them
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, base.vocab, (BATCH, PROMPT), generator=gen)
+    prompts = {"P128": toks}
+    launches, shares, errs, parts = Counter(), {}, {}, {}
+    t0 = time.perf_counter()
+    model = api.quantize(api.init(base, seed=0, device="cuda"), base)
+    policy = api.resolved_policy(base)
+    torch.cuda.synchronize()
+    log(f"rwkv {base.name} ({base.n_layers} layers, d_model {base.d_model} "
+        f"= {base.d_model // base.ssm_head_dim} WKV heads of "
+        f"{base.ssm_head_dim}, d_ff {base.d_ff}, vocab {base.vocab} tied): "
+        f"init + quantize {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | "
+        f"{CARD}")
+    views, mans = {}, {}
+    for name, pack4 in (("int8", False), ("packed4", True)):
+        views[name], mans[name] = serve_view(model, pack4=pack4,
+                                             policy=policy,
+                                             with_manifest=True)
+    del model
+    torch.cuda.empty_cache()
+    for name, expect, table in (
+            ("int8", {"lutq_matmul": p + 1}, "fused"),
+            ("packed4", {"lutq_gemv_packed": p, "decode": 1}, "packed4")):
+        _rw_leaves(name, views[name], mans[name], table)
+        launches.update(_recurrent_serves("rwkv", name, views[name], base,
+                                          prompts, expect))
+        shares[name] = _recurrent_head_share("rwkv", name, views[name],
+                                             base, toks)
+        errs[name] = _recurrent_logits_checks("rwkv", name, views[name],
+                                              base, toks)
+    del views["packed4"]
+    torch.cuda.empty_cache()
+    parts["int8 + packed4"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(_recurrent_engine("rwkv", views["int8"],
+                                      base.replace(act_bits=32)))
+    parts["engine"] = time.perf_counter() - t0
+    del views
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg = base.replace(quant=serving_pow2())
+    cgen = torch.Generator().manual_seed(2)
+    calib = {"tokens": torch.randint(0, cfg.vocab, (CALIB_BATCH, CALIB_LEN),
+                                     generator=cgen).cuda()}
+    view, man = api.serve_state(cfg, seed=0, device="cuda",
+                                calib_batch=calib, with_manifest=True)
+    torch.cuda.synchronize()
+    log(f"rwkv serving_pow2: serve_state (init, quantize, calibrate on "
+        f"{CALIB_BATCH} x {CALIB_LEN}, serve_view) "
+        f"{time.perf_counter() - t0:.1f} s")
+    _rw_leaves("serving_pow2", view, man, None)
+    launches.update(_recurrent_serves("rwkv", "serving_pow2", view, cfg,
+                                      prompts, {"lutq_shift": p}))
+    shares["serving_pow2"] = _recurrent_head_share(
+        "rwkv", "serving_pow2", view, cfg, toks)
+    errs["serving_pow2"] = _recurrent_logits_checks("rwkv", "serving_pow2",
+                                                    view, cfg, toks)
+    # the WKV einsums and the head are the float dots; the lerps, gates,
+    # decay and state updates the float multiplies (count_ops)
+    _family_audit("rwkv", view, cfg, toks, RW_AUDIT, {"lutq_shift": p})
+    del view
+    torch.cuda.empty_cache()
+    parts["serving_pow2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    red = reduced(get_config(RW_ARCH)).replace(
+        act_bits=32, quant=QuantSpec(bits=4, constraint="pow2"))
+    _reduced_card_vs_cpu("rwkv", red)
+    parts["reduced"] = time.perf_counter() - t0
+    log(f"phase 3s {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + ") | launches "
+        f"{dict(launches)} | head ms, step ms, step / head graph pool MiB, "
+        f"state bytes a step "
+        f"{ {k: tuple(round(x, 4) for x in v) for k, v in shares.items()} }"
+        f" | step vs prefill, zeroed-state control "
+        f"{ {k: tuple(f'{x:.3e}' for x in v) for k, v in errs.items()} }")
     return dict(launches)
 
 
@@ -5137,6 +5401,10 @@ def packed_runs(views, cfg):
 #: phase 3f: the verify window's draft block, the draft view's bits and
 #: the tokens a generate makes
 SPEC_K, SPEC_DRAFT_BITS, SPEC_GEN = 3, 3, 32
+#: phase 3f: the speculative paged engine's eager pass serves the first
+#: SPEC_EAGER_LEAD requests of the queue (one batch of 8 slots; the whole
+#: 24-request queue took it 50 s on an H100)
+SPEC_EAGER_LEAD = 8
 #: phase 2g: the slots and draft blocks of the windows whose rows it checks
 WINDOW_B, WINDOW_K = (1, 4, 8), (1, 2, 3, 4)
 #: phase 2g: (B, k) of windows wider than ROW_STABLE_M rows, whose
@@ -5433,8 +5701,10 @@ def serve_speculative(views, cfg):
     reqs = synthetic_requests(cfg, ENGINE_QUEUE, max_prompt=512, max_new=64,
                               seed=0)
     tokens, passes = {}, {}
-    # the speculative engine also serves eagerly, inside disable_graphs()
+    # the speculative engine also serves the queue's first
+    # SPEC_EAGER_LEAD requests eagerly, inside disable_graphs()
     for k, mode in ((0, "graph"), (SPEC_K, "graph"), (SPEC_K, "eager")):
+        queue = reqs if mode == "graph" else reqs[:SPEC_EAGER_LEAD]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with _mode(mode):
@@ -5447,7 +5717,7 @@ def serve_speculative(views, cfg):
             check(traces == _paged_traces(eng, mode == "graph"),
                   f"paged speculative engine k={k} ({mode}): {traces} "
                   f"graphs after the warmup")
-            for req in reqs:
+            for req in queue:
                 eng.submit(req["tokens"], max_new=req["max_new"])
             torch.cuda.synchronize()
             _reset_counts()
@@ -5470,7 +5740,7 @@ def serve_speculative(views, cfg):
                "paged": counts["paged_attention"]
                + counts["paged_attention_multipass"]}
         line = (f"speculative paged engine k={k} ({mode}) [fused, int8 KV, "
-                f"8 slots, {len(reqs)} requests]: decode "
+                f"8 slots, {len(queue)} requests]: decode "
                 f"{st['decode_tok_s']:.1f} "
                 f"tok/s | goodput {st['goodput_tok_s']:.1f} tok/s | {steps} "
                 f"{'rounds' if k else 'steps'} of "
@@ -5496,20 +5766,27 @@ def serve_speculative(views, cfg):
         check(counts["plain"] == 0 and counts["decode"] == 0,
               f"paged speculative engine k={k} ran a plain version")
         res = [eng.results[i] for i in sorted(eng.results)]
-        for req, r in zip(reqs, res):
+        check(len(res) == len(queue), f"paged speculative engine k={k}: "
+              f"{len(res)} results of {len(queue)} requests")
+        for req, r in zip(queue, res):
             check(r["n_new"] == req["max_new"] and r["finish"] == "length",
                   f"paged speculative engine k={k} request {r['rid']}: "
                   f"{r['n_new']} of {req['max_new']} tokens")
         toks = [r["tokens"] for r in res]
         passes[k, mode] = (toks, counts)
         if mode == "eager":
-            g_toks, g_counts = passes[k, "graph"]
-            check(all(np.array_equal(a, b) for a, b in zip(toks, g_toks))
-                  and counts == g_counts,
-                  f"paged speculative engine k={k}: graph and eager passes "
-                  f"give other tokens or counts")
-            log(f"speculative paged engine k={k}: graph and eager passes "
-                f"give the same tokens and launch counts")
+            # at act_bits 32 a request's tokens do not depend on the
+            # requests beside it (the graph passes with and without
+            # speculation agree request by request), so the eager pass
+            # over the queue's head is held against the graph pass's
+            g_toks, _ = passes[k, "graph"]
+            check(all(np.array_equal(a, b) for a, b in zip(toks, g_toks)),
+                  f"paged speculative engine k={k}: the eager pass gives "
+                  f"other tokens than the graph pass")
+            log(f"speculative paged engine k={k}: the eager pass over the "
+                f"queue's first {len(queue)} requests gives the graph "
+                f"pass's tokens, request by request, and its launch counts "
+                f"are its rounds' and chunks'")
             del eng
             torch.cuda.empty_cache()
             continue
@@ -7347,6 +7624,18 @@ def ab_timings(parent: str) -> int:
     return 0
 
 
+#: main()'s seconds a phase (a phase's name as the module docstring's)
+PHASE_S = {}
+
+
+def _timed(phase, fn, *args):
+    """``fn(*args)``, its seconds kept under ``phase`` in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[phase] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7358,7 +7647,8 @@ def main() -> int:
         check(len(sys.argv) == 3, "usage: chip_smoke.py --ab-timings DIR")
         return ab_timings(sys.argv[2])
     t_start = time.perf_counter()
-    name, count, card = setup()
+    name, count, card = _timed("1", setup)
+    t0 = time.perf_counter()
     worst = kernel_checks()
     window_row_checks()
     prefill_row_checks()
@@ -7367,55 +7657,53 @@ def main() -> int:
     worst["lutq_shift"] = shift_checks()
     worst["flash_attention"] = flash_checks()
     worst.update(moe_kernel_checks())
-    for kname, err in deepseek_kernel_checks().items():
-        worst[kname] = max(worst[kname], err)
-    for kname, err in seamless_kernel_checks().items():
-        worst[kname] = max(worst[kname], err)
-    for kname, err in paligemma_kernel_checks().items():
-        worst[kname] = max(worst[kname], err)
-    for kname, err in zamba_kernel_checks().items():
-        worst[kname] = max(worst[kname], err)
+    for checks in (deepseek_kernel_checks, seamless_kernel_checks,
+                   paligemma_kernel_checks, zamba_kernel_checks,
+                   rwkv_kernel_checks):
+        for kname, err in checks().items():
+            worst[kname] = max(worst[kname], err)
     quant_divide_checks()
     adamw_checks()
-    launches, _, views, cfg = serve_full_width()
-    reduced_reference()
-    engine = engine_runs(views, cfg)
-    packed_launches = packed_runs(views, cfg)
-    spec_launches = serve_speculative(views, cfg)
+    PHASE_S["2"] = time.perf_counter() - t0
+    launches, _, views, cfg = _timed("3", serve_full_width)
+    _timed("3 reduced", reduced_reference)
+    engine = _timed("3c", engine_runs, views, cfg)
+    packed_launches = _timed("3i", packed_runs, views, cfg)
+    spec_launches = _timed("3f", serve_speculative, views, cfg)
     del views
     torch.cuda.empty_cache()
     for variant in ("paged_attention", "paged_attention_multipass"):
         launches[variant] = sum(r["launches"][variant]
                                 for r in engine.values())
-    reduced_engine_card_vs_cpu()
-    moe = moe_full_width()
-    deepseek = deepseek_full_width()
-    seamless = seamless_full_width()
-    paligemma = paligemma_full_width()
-    zamba = zamba_full_width()
-    dense = dense_families_full_width()
-    pow2 = serve_pow2_full_width()
+    _timed("3d", reduced_engine_card_vs_cpu)
+    moe = _timed("3m", moe_full_width)
+    deepseek = _timed("3o", deepseek_full_width)
+    seamless = _timed("3p", seamless_full_width)
+    paligemma = _timed("3q", paligemma_full_width)
+    zamba = _timed("3r", zamba_full_width)
+    rwkv = _timed("3s", rwkv_full_width)
+    dense = _timed("3n", dense_families_full_width)
+    pow2 = _timed("3e", serve_pow2_full_width)
     launches["lutq_shift"] = pow2["launches"]
-    trained = train_full_width()
+    trained = _timed("3b", train_full_width)
     launches["kmeans_stats"] = trained["launches"]
     handoff = {}
-    t0 = time.perf_counter()
-    handoff_full_width(trained, handoff)
-    t_g = time.perf_counter() - t0
+    _timed("3g", handoff_full_width, trained, handoff)
     del trained
-    reduced_train_card_vs_cpu()
-    t0 = time.perf_counter()
-    text_path_e2e(handoff)
-    reduced_ckpt_card_vs_cpu(handoff)
-    log(f"phase 3g {t_g:.1f} s, phase 3h and the reduced checkpoint "
-        f"{time.perf_counter() - t0:.1f} s (3b' is inside phase 3b) | "
-        f"launches {handoff}")
+    _timed("3b reduced", reduced_train_card_vs_cpu)
+    _timed("3h", text_path_e2e, handoff)
+    _timed("3h reduced", reduced_ckpt_card_vs_cpu, handoff)
+    log(f"phase 3g {PHASE_S['3g']:.1f} s, phase 3h and the reduced "
+        f"checkpoint {PHASE_S['3h'] + PHASE_S['3h reduced']:.1f} s (3b' is "
+        f"inside phase 3b) | launches {handoff}")
     t0 = time.perf_counter()
     vision_reduced_card_vs_cpu()
     vision, vision_worst = vision_full_width(card)
     for kname, err in vision_worst.items():
         worst[kname] = max(worst[kname], err)
-    log(f"phase 3j {time.perf_counter() - t0:.1f} s | launches {vision}")
+    PHASE_S["3j"] = time.perf_counter() - t0
+    log(f"phase 3j {PHASE_S['3j']:.1f} s | launches {vision}")
+    t0 = time.perf_counter()
     # the GEMMs and lutq_shift at decode (M = 4, the record's top level)
     # and at prefill (M = 512, its "prefill" entry)
     table, prefill = {}, {}
@@ -7502,6 +7790,9 @@ def main() -> int:
         # phase 3r: zamba2-2.7b's graph-mode generates and engine
         if kname in zamba:
             records[-1]["zamba_launches"] = zamba[kname]
+        # phase 3s: rwkv6-1.6b's graph-mode generates and engine
+        if kname in rwkv:
+            records[-1]["rwkv_launches"] = rwkv[kname]
         if kname in MOE_KERNELS:  # phase 2m's timing at C = 40
             p = prefill[kname]
             records[-1]["prefill"] = {
@@ -7537,6 +7828,9 @@ def main() -> int:
                 "M": 512, "ms": p["ms"], "plain_ms": p["plain_ms"],
                 "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
                 "library_ms": p["library_ms"]}
+    PHASE_S["4"] = time.perf_counter() - t0
+    log("seconds a phase: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in PHASE_S.items()))
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,9 +7,11 @@ GQA group of 12) and ``qwen1.5-110b`` (a bias on q, k and v), the MoE
 cache, one leading dense layer, shared experts), the encoder-decoder
 ``seamless-m4t-medium`` (cross-attention over a per-request memory, a
 tied readout), the vlm ``paligemma-3b`` (a bidirectional prefix of
-precomputed image embeddings before the text, MQA, a tied readout), and
+precomputed image embeddings before the text, MQA, a tied readout),
 the hybrid ``zamba2-2.7b`` (Mamba2 layers with one shared attention
-block every ``attn_every`` of them, a tied readout).
+block every ``attn_every`` of them, a tied readout), and the ssm
+``rwkv6-1.6b`` (RWKV6 time-mix with a data-dependent decay and
+channel-mix, attention-free, a tied readout).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ def _ensure_loaded():
         paligemma_3b,
         qwen1_5_110b,
         qwen3_moe_235b_a22b,
+        rwkv6_1_6b,
         seamless_m4t_medium,
         zamba2_2_7b,
     )

@@ -11,7 +11,9 @@ reference's unstacked ``prefix_layers/<i>`` dicts, the port's
 ``decoder`` stacks split the same way, a layer at a time; a hybrid's
 ``mamba_layers`` stack (n_super, attn_every, ...) splits over both axes
 into ``mamba_layers.<s>.<i>``, and its unstacked ``shared`` block loads
-once); :func:`to_numpy` goes the other way.
+once; an ssm's ``layers`` stack splits as a dense one, its bare decay
+LoRA leaves ``layers/mix/w1`` and ``w2`` among them);
+:func:`to_numpy` goes the other way.
 
 A slot decode cache crosses with :func:`cache_from_jax` /
 :func:`cache_to_numpy`: the reference stacks each leaf over the
@@ -23,7 +25,9 @@ hold ``xk`` / ``xv`` (the cross K/V) beside ``k`` / ``v``, and its
 the reference's ``{"mamba": {"ssm", "conv": (n_super, attn_every, B,
 ...)}, "attn": {"k", "v": (n_super, B, S, Hkv, dh)}, "len"}`` to one
 dict an entry in execution order: a super-block's ``attn_every`` Mamba
-states, then its application of the shared block's K/V.
+states, then its application of the shared block's K/V. An ssm cache's
+``{"layers": {"shift_t", "shift_c": (L, B, 1, D), "wkv": (L, B, H, dk,
+dv)}, "len"}`` splits a layer at a time, as a dense one.
 
 A paged KV cache crosses with :func:`paged_cache_from_jax` /
 :func:`paged_cache_to_numpy`: the reference stacks each pool leaf over
@@ -68,6 +72,7 @@ from repro_torch.core.policy import merge_trainable
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import init_encdec, n_encoder
 from repro_torch.models.lm import init_lm, n_stacked
+from repro_torch.models.rwkv import init_rwkv
 from repro_torch.models.zamba import init_zamba, n_super
 from repro_torch.nn.tree import (QuantKernel, layer_split, set_leaf,
                                  tree_paths)
@@ -131,6 +136,8 @@ def _skeleton(cfg: ModelConfig) -> nn.Module:
         return init_encdec(None, cfg, device="meta")
     if cfg.family == "hybrid":
         return init_zamba(None, cfg, device="meta")
+    if cfg.family == "ssm":
+        return init_rwkv(None, cfg, device="meta")
     return init_lm(None, cfg, device="meta")
 
 

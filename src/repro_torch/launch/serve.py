@@ -49,6 +49,15 @@ pool, as the reference does):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch zamba2-2.7b --batch 4 --prompt-len 128 --gen 16
 
+The ssm family (rwkv6-1.6b: attention-free RWKV6 layers whose WKV state
+and token-shift rows a decode step overwrites in place, an f32 residual
+stream, a tied 65536-row readout; an --engine prefills one prompt length
+a group and serves through its slot pool, as the reference does):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-1.6b --batch 4 --prompt-len 128 --gen 16 \
+        [--pack4 | --quant-policy serving_pow2 | --engine | --ckpt-dir DIR]
+
 On the CPU, through the kernels' plain versions, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
@@ -64,6 +73,9 @@ On the CPU, through the kernels' plain versions, at the reduced size:
         --reduced --device cpu [--pack4 | --engine]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --reduced --device cpu [--engine] [--pack4]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --reduced --device cpu [--engine] [--pack4 | --quant-policy \
+        serving_pow2]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
         --reduced --engine --kv-pages 24 --page-size 16 --max-batch 2 \
         --queue 4 --prompt-len 30 --gen 8 --device cpu

@@ -20,7 +20,8 @@ and the step, in place of the stubbed image frontend's output; torch
 cannot draw the reference's ``jax.random`` numbers, so the prefixes
 differ from the reference CLI's (the tokens are the same MarkovLM
 batches). The loss drops the prefix's logits. A hybrid config
-(zamba2-2.7b) is refused (ROADMAP queue 1, hybrid training). ``--mesh``,
+(zamba2-2.7b) is refused (ROADMAP queue 1, hybrid training), and so is
+an ssm one (rwkv6-1.6b; ROADMAP queue 1, ssm training). ``--mesh``,
 ``--grad-compress`` and ``--autotune`` other than ``off`` are not
 ported yet and raise. The
 checkpoints are the reference's format, so either package resumes the
@@ -84,10 +85,10 @@ def build(args, *, kmeans_impl=None):
         raise NotImplementedError("--autotune is not ported yet: ROADMAP "
                                   "queue 1, tuning and benches")
     cfg = _train_cfg(args)
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
             f"training {cfg.name} is not ported yet (ROADMAP queue 1, "
-            f"hybrid training); the port serves hybrid models")
+            f"{cfg.family} training); the port serves {cfg.family} models")
     model = api.quantize(api.init(cfg, seed=args.seed, device=args.device),
                          cfg)
     opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))

@@ -1,11 +1,13 @@
-"""Model API (counterpart of ``repro.models.api``), dense, MoE, vlm,
-encoder-decoder and hybrid families: GQA attention or MLA (deepseek's
-latent cache, on the slot path only), leading dense layers
-(``cfg.first_dense``), the vlm family's bidirectional prefix of image
-embeddings (``prefix_embeds``, on the slot path only), the encdec
-family's encoder over ``frames`` and cross-attending decoder
-(``models/encdec.py``), and the hybrid family's Mamba2 layers with a
-shared attention block (``models/zamba.py``, on the slot path only).
+"""Model API (counterpart of ``repro.models.api``), every family of the
+reference: dense, MoE, vlm, encoder-decoder, hybrid and ssm. GQA
+attention or MLA (deepseek's latent cache, on the slot path only),
+leading dense layers (``cfg.first_dense``), the vlm family's
+bidirectional prefix of image embeddings (``prefix_embeds``, on the
+slot path only), the encdec family's encoder over ``frames`` and
+cross-attending decoder (``models/encdec.py``), the hybrid family's
+Mamba2 layers with a shared attention block (``models/zamba.py``, on
+the slot path only), and the ssm family's RWKV6 layers
+(``models/rwkv.py``, attention-free, on the slot path only).
 
     init(cfg, seed=, device=)                  -> model
     quantize(model, cfg)                       -> model (in place)
@@ -29,12 +31,12 @@ shared attention block (``models/zamba.py``, on the slot path only).
 An encdec batch carries ``frames`` (B, S_src, D) beside ``tokens``; its
 caches hold each decoder layer's cross K/V of ``src_len`` source
 positions. A vlm batch may carry ``prefix_embeds`` (B, P, D); its
-cache's ``len`` then counts the P prefix positions too. A hybrid cache
-holds a fixed-size recurrent state that a decode step overwrites in
-place; its prompts are prefilled at their exact length (the state
-integrates padding), it decodes one token a step and never speculates.
-Training an encdec or a hybrid model is not ported yet (``loss_fn``
-raises).
+cache's ``len`` then counts the P prefix positions too. A hybrid or
+ssm cache holds a fixed-size recurrent state that a decode step
+overwrites in place; its prompts are prefilled at their exact length
+(the state integrates padding), it decodes one token a step and never
+speculates. Training an encdec, a hybrid or an ssm model is not ported
+yet (``loss_fn`` raises).
 
 Every entry point that creates tensors runs on ``device="cuda"`` unless
 the caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -51,19 +53,19 @@ from repro_torch.core.policy import draft_view, quantize_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as m_encdec
 from repro_torch.models import lm as m_lm
+from repro_torch.models import rwkv as m_rwkv
 from repro_torch.models import zamba as m_zamba
 from repro_torch.models.config import ModelConfig
 
 
 #: the model families the port serves
-FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid", "ssm")
 
 
 def _ported(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"other LM families); the port serves {FAMILIES}")
+        raise ValueError(f"unknown model family {cfg.family!r} (config "
+                         f"{cfg.name!r}); the port serves {FAMILIES}")
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
@@ -75,6 +77,8 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> nn.Module:
         return m_encdec.init_encdec(gen, cfg, device=dev)
     if cfg.family == "hybrid":
         return m_zamba.init_zamba(gen, cfg, device=dev)
+    if cfg.family == "ssm":
+        return m_rwkv.init_rwkv(gen, cfg, device=dev)
     return m_lm.init_lm(gen, cfg, device=dev)
 
 
@@ -154,6 +158,10 @@ def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
         raise NotImplementedError(
             "the hybrid loss is not ported yet (ROADMAP queue 1, hybrid "
             "training); the port serves hybrid models")
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "the ssm loss is not ported yet (ROADMAP queue 1, ssm "
+            "training); the port serves ssm models")
     return m_lm.lm_loss(model, cfg, batch)
 
 
@@ -161,8 +169,9 @@ def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):
     """Run the prompt, return (last_logits (B, 1, V), cache). An encdec
     batch encodes ``batch["frames"]`` first; a vlm batch's
     ``prefix_embeds`` go in front of the text (``lengths`` count text
-    tokens). A hybrid prompt batch should be of one length: its state
-    integrates the padding (``models/zamba.zamba_prefill``)."""
+    tokens). A hybrid or ssm prompt batch should be of one length: its
+    state integrates the padding (``models/zamba.zamba_prefill``,
+    ``models/rwkv.rwkv_prefill``)."""
     _ported(cfg)
     if cfg.family == "encdec":
         return m_encdec.encdec_prefill(model, cfg, batch["frames"],
@@ -170,6 +179,9 @@ def prefill(model: nn.Module, cfg: ModelConfig, batch, *, lengths=None):
     if cfg.family == "hybrid":
         return m_zamba.zamba_prefill(model, cfg, batch["tokens"],
                                      lengths=lengths)
+    if cfg.family == "ssm":
+        return m_rwkv.rwkv_prefill(model, cfg, batch["tokens"],
+                                   lengths=lengths)
     return m_lm.lm_prefill(model, cfg, batch["tokens"],
                            prefix_embeds=batch.get("prefix_embeds"),
                            lengths=lengths)
@@ -180,20 +192,23 @@ def decode_step(model: nn.Module, cfg: ModelConfig, token, cache):
     cache at n + W). W = 1 is a decode step; a wider W is a speculative
     verify window, each row the bits of W chained steps
     (``models/lm.lm_decode``, ``models/encdec.encdec_decode``); a hybrid
-    config takes W = 1 only and updates its cache in place
-    (``models/zamba.zamba_decode``)."""
+    or ssm config takes W = 1 only and updates its cache in place
+    (``models/zamba.zamba_decode``, ``models/rwkv.rwkv_decode``)."""
     _ported(cfg)
     if cfg.family == "encdec":
         return m_encdec.encdec_decode(model, cfg, token, cache)
     if cfg.family == "hybrid":
         return m_zamba.zamba_decode(model, cfg, token, cache)
+    if cfg.family == "ssm":
+        return m_rwkv.rwkv_decode(model, cfg, token, cache)
     return m_lm.lm_decode(model, cfg, token, cache)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                src_len: int = 0, device="cuda"):
     """An empty slot cache; an encdec one holds ``src_len`` (else
-    ``max_len``) cross positions a row, as the reference's."""
+    ``max_len``) cross positions a row, as the reference's; an ssm one
+    has a fixed size and ignores ``max_len``."""
     _ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "encdec":
@@ -201,6 +216,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                           src_len or max_len, device=dev)
     if cfg.family == "hybrid":
         return m_zamba.init_zamba_cache(cfg, batch, max_len, device=dev)
+    if cfg.family == "ssm":
+        return m_rwkv.init_rwkv_cache(cfg, batch, device=dev)
     return m_lm.init_cache(cfg, batch, max_len, device=dev)
 
 
@@ -215,10 +232,10 @@ def exact_length_prefill(cfg: ModelConfig) -> bool:
 def paged_supported(cfg: ModelConfig) -> bool:
     """Configs the paged KV cache serves: dense attention without MLA,
     experts, prefix layers or a modality prefix, and encdec (its growing
-    self-attention K/V paged, its cross K/V a slab a slot). MoE, vlm and
-    hybrid (a fixed-size recurrent state) stay on the slot path, as in
-    the reference (an ``Engine(kv_pages=...)`` of such a config silently
-    serves through its slot pool)."""
+    self-attention K/V paged, its cross K/V a slab a slot). MoE, vlm,
+    hybrid and ssm (a fixed-size recurrent state) stay on the slot path,
+    as in the reference (an ``Engine(kv_pages=...)`` of such a config
+    silently serves through its slot pool)."""
     if cfg.family == "encdec":
         return True
     return (cfg.family == "dense" and not cfg.use_mla and cfg.n_experts == 0

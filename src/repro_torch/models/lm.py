@@ -116,26 +116,27 @@ def all_layers(model: LM):
         model.layers)
 
 
+#: families the decoder-only entry points refuse, and the module that
+#: serves each (through ``models/api``)
+_ELSEWHERE = {"encdec": ("an encoder-decoder", "models/encdec"),
+              "hybrid": ("a hybrid", "models/zamba"),
+              "ssm": ("an ssm (attention-free)", "models/rwkv")}
+
+
 def _check_family(cfg: ModelConfig):
     """The decoder-only entry points serve the dense, MoE and vlm
-    families; an encoder-decoder config goes through ``models/encdec.py``
-    and a hybrid one through ``models/zamba.py`` (which reuse this
-    module's blocks, never these entry points)."""
-    if cfg.family == "encdec":
-        raise ValueError(f"config {cfg.name!r} is an encoder-decoder: the "
-                         f"decoder-only LM entry points refuse it (serve it "
-                         f"through models/api, which dispatches it to "
-                         f"models/encdec)")
-    if cfg.family == "hybrid":
-        raise ValueError(f"config {cfg.name!r} is a hybrid: the "
-                         f"decoder-only LM entry points refuse it (serve it "
-                         f"through models/api, which dispatches it to "
-                         f"models/zamba)")
+    families; an encoder-decoder config goes through ``models/encdec.py``,
+    a hybrid one through ``models/zamba.py`` and an ssm one through
+    ``models/rwkv.py`` (the first two reuse this module's blocks, none of
+    them these entry points)."""
+    if cfg.family in _ELSEWHERE:
+        what, where = _ELSEWHERE[cfg.family]
+        raise ValueError(f"config {cfg.name!r} is {what}: the decoder-only "
+                         f"LM entry points refuse it (serve it through "
+                         f"models/api, which dispatches it to {where})")
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"the port serves the dense, MoE and vlm LM families so far "
-            f"(config {cfg.name!r}, family {cfg.family!r}); see ROADMAP "
-            f"queue 1, other LM families")
+        raise ValueError(f"unknown model family {cfg.family!r} (config "
+                         f"{cfg.name!r})")
 
 
 def _check_paged(cfg: ModelConfig):

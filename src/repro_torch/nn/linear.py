@@ -86,11 +86,18 @@ def dot_kernel(x: torch.Tensor, kernel, *, dtype=None, backend: str = "auto",
     return torch.matmul(x, k.transpose(-1, -2) if transpose_rhs else k)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x)), each step rounded to the
+    working dtype. ``torch.sigmoid`` rounds once, which moves bf16
+    outputs by an ulp."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu``: x * 1 / (1 + exp(-x)), each step rounded to the
-    working dtype. ``torch.nn.functional.silu`` rounds once, which moves
-    a third of bf16 outputs by an ulp."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """``jax.nn.silu``: x * sigmoid(x), each step rounded to the working
+    dtype. ``torch.nn.functional.silu`` rounds once, which moves a third
+    of bf16 outputs by an ulp."""
+    return x * sigmoid(x)
 
 
 def linear_init(generator: Optional[torch.Generator], in_dim: int,

@@ -89,7 +89,10 @@ and the conv window a layer) beside its shared block's K/V; the captured
 decode step overwrites that state in place, so every replay advances
 it. Its requests are prefilled in groups of one prompt length (the
 state integrates padding), and it stays on the slot path, as in the
-reference.
+reference. An ssm engine (rwkv6) is the same without any K/V: each
+slot's state is a WKV matrix and two token-shift rows a layer, spliced
+into the slot rows in place at admission (``_admit_group``) and
+overwritten in place by every replay of the captured step.
 
 A vlm engine (paligemma) serves requests with or without
 ``prefix_embeds`` (P, D), the config's P precomputed image embeddings

@@ -83,7 +83,9 @@ def adapt_prefill_cache(cfg: ModelConfig, cache, batch: int, max_len: int,
     its cross K/V right-padded to ``src_len`` (the target cache's width:
     ``src_len`` or ``max_len``) and its ``src_len`` vector kept. A
     hybrid cache's shared-block K/V are grown to ``max_len`` and its SSM
-    states and conv windows, already of their decode shapes, kept.
+    states and conv windows, already of their decode shapes, kept; an
+    ssm cache's WKV states and token-shift rows are all of their decode
+    shapes and kept as they are.
     """
     dev = cache["len"].device
     target = api.init_cache(cfg, batch, max_len, src_len=src_len, device=dev)

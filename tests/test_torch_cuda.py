@@ -62,7 +62,15 @@ tolerances above; the hybrid decode step, which overwrites its SSM
 state and conv window in place, replayed from a CUDA graph three times
 equals three eager steps bit for bit (logits, every state and K/V), each
 replay advancing the state; reduced zamba on the card (graph-replayed
-and eager) gives the CPU's greedy tokens in each view.
+and eager) gives the CPU's greedy tokens in each view. rwkv6-1.6b:
+kernels 1 and 2 on f32 x (1e-4) and ``lutq_shift`` (bit for bit) at its
+product shapes (w1's N = 64, w2's Kin = 64, cm_k, cm_v); the ssm decode
+step, which overwrites its WKV state and token-shift rows in place,
+replayed from a CUDA graph three times equals three eager steps bit for
+bit, each replay advancing the state, while the same step from a zeroed
+state lands 1.25 x 1e-3 a layer of max |logit| away or more; reduced
+rwkv on the card (graph-replayed and eager) gives the CPU's greedy
+tokens in each view.
 """
 import contextlib
 
@@ -2840,6 +2848,169 @@ def test_cuda_zamba_serves_the_cpu_tokens(cuda_device, view):
         delta = ops.count_delta(before)
         assert torch.equal(got.cpu(), want)
         body = 22 * 6
+        head = 0 if view == "pow2" else 6
+        assert delta[idx]["launches"] == body + (head if view == "int8"
+                                                 else 0)
+        assert delta[0]["launches"] == (body if view == "int8" else 0) + head
+        assert sum(c.get("plain", 0) for c in delta) == 0
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            assert engine(card, "cuda") == want_eng
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-1.6b: the ssm family (WKV state and token shifts updated in place)
+# ---------------------------------------------------------------------------
+
+#: rwkv's (Kin, N) products no other family has: the decay LoRA's w1 (N =
+#: 64) and w2 (Kin = 64, one pipeline stage), the channel-mix's cm_k and
+#: cm_v
+RW_SHAPES = [(2048, 64), (64, 2048), (2048, 7168), (7168, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 9, 128, 256])
+@pytest.mark.parametrize("Kin,N", RW_SHAPES)
+@pytest.mark.parametrize("kernel,dtype", [
+    ("lutq_matmul", "float32"), ("lutq_gemv_packed", "float32"),
+    ("lutq_shift", "int8")])
+def test_cuda_kernels_at_rwkv_shapes(cuda_device, kernel, dtype, Kin, N, M):
+    """Kernels 1 and 2 on f32 x (rwkv's residual stream is f32, so are
+    its products' activations) within 1e-4 of the plain version, and
+    lutq_shift bit for bit, at rwkv's product shapes; a second call
+    gives the first call's bits."""
+    if kernel == "lutq_shift":
+        xq, a, wsh = (t.to(cuda_device) for t in _shift_operands(
+            M, Kin, N, 16, torch.Generator().manual_seed(M)))
+        got = lutq_shift.lutq_shift(xq, a, wsh)
+        assert torch.equal(got, lutq_shift_ref(xq, a, wsh))
+        assert torch.equal(lutq_shift.lutq_shift(xq, a, wsh), got)
+        return
+    fn, plain, _, args = _gemm_operands(kernel, M, Kin, N,
+                                        getattr(torch, dtype), cuda_device)
+    got, want = fn(*args), plain(*args)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max() / want.abs().max() <= 1e-4
+    assert torch.equal(fn(*args), got)
+
+
+def _rwkv_serve(view, act_bits=32):
+    """Reduced rwkv (2 layers, d_model 64 = 4 WKV heads of 16, vocab 211)
+    at ``act_bits``: the config, its serve view (int8, packed4 or
+    calibrated serving_pow2) on the CPU, and a batch of 3 x 13 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import serve_view
+    from repro_torch.core.rules import serving_pow2
+    from repro_torch.core.spec import QuantSpec
+    from repro_torch.models import api
+    from repro_torch.models.reduce import reduced
+
+    cfg = reduced(get_config("rwkv6-1.6b")).replace(
+        act_bits=act_bits, quant=QuantSpec(bits=4, constraint="pow2"))
+    if view == "pow2":
+        cfg = cfg.replace(quant=serving_pow2())
+    g = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (3, 13), generator=g)}
+    model = api.quantize(api.init(cfg, seed=0, device="cpu"), cfg)
+    if view == "pow2":
+        model = api.calibrate(model, cfg, {"tokens": batch["tokens"][:2]})
+    return cfg, serve_view(model, pack4=view == "packed4",
+                           policy=api.resolved_policy(cfg)), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_ssm_decode_step_replays_and_advances(cuda_device, view):
+    """The ssm decode step captured once as a CUDA graph and replayed
+    three times equals three eager steps bit for bit: logits, every WKV
+    state and token-shift row after each; each replay moves the state (a
+    replay that re-read the captured state would repeat itself). The
+    same step from a copy of the cache whose WKV states and shift rows
+    are zeroed lands at least 1.25 x 1e-3 a layer of max |logit| away
+    from the true step, so that a lost state would show."""
+    from repro_torch.models import api
+    from repro_torch.runtime import serving
+
+    cfg, serve, batch = _rwkv_serve(view)
+    card = serve.to(cuda_device)
+
+    def clone(c):
+        return {"layers": [{k: v.clone() for k, v in layer.items()}
+                           for layer in c["layers"]],
+                "len": c["len"].clone()}
+
+    with torch.inference_mode():
+        _, cache = api.prefill(card, cfg, {"tokens": batch["tokens"].to(
+            cuda_device)})
+        cache = serving.adapt_prefill_cache(cfg, cache, 3, 13 + 6)
+        eager, graphed, warm, zeroed = (clone(cache) for _ in range(4))
+        for layer in zeroed["layers"]:
+            for t in layer.values():
+                t.zero_()
+        tok = torch.randint(0, cfg.vocab, (3, 1), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(8)
+                            ).to(cuda_device)
+        lost = api.decode_step(card, cfg, tok, zeroed)[0]
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            api.decode_step(card, cfg, tok, warm)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, nxt = api.decode_step(card, cfg, tok, graphed)
+        prev = graphed["layers"][0]["wkv"].clone()
+        for step in range(3):
+            graph.replay()
+            want, after = api.decode_step(card, cfg, tok, eager)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), step
+            if step == 0:
+                apart = ((lost - want).abs().max() / want.abs().max())
+                assert apart >= 1.25 * 1e-3 * cfg.n_layers
+            for g, e in zip(graphed["layers"], eager["layers"]):
+                for k in g:
+                    assert torch.equal(g[k], e[k]), (step, k)
+            assert not torch.equal(graphed["layers"][0]["wkv"], prev), step
+            prev = graphed["layers"][0]["wkv"].clone()
+            graphed["len"].copy_(nxt["len"])
+            eager["len"] = after["len"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["int8", "packed4", "pow2"])
+def test_cuda_rwkv_serves_the_cpu_tokens(cuda_device, view):
+    """Reduced rwkv served on the card (graph-replayed and eager) gives
+    the CPU's greedy tokens: 20 body launches a forward of the view's
+    kernel (10 a layer, w1 and w2 among them), the tied head on kernel 1
+    (int8, and packed4 at the reduced odd vocab), no plain version; and a
+    2-slot engine over prompts of 5, 13 and 8 tokens the CPU engine's."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.engine import Engine, disable_graphs
+    from repro_torch.runtime.serving import generate
+
+    cfg, serve, batch = _rwkv_serve(view)
+    want = generate(serve, cfg, batch, steps=6, device="cpu")
+
+    def engine(model, dev):
+        eng = Engine(model, cfg, capacity=2, max_len=20, device=dev)
+        for i, L in enumerate((5, 13, 8)):
+            eng.submit(batch["tokens"][i, :L].numpy(), max_new=5)
+        return [r["tokens"].tolist() for r in eng.run()]
+
+    want_eng = engine(serve, "cpu")
+    card = serve.to(cuda_device)
+    idx = {"int8": 0, "packed4": 1, "pow2": 2}[view]
+    for graphs in (True, False):
+        before = ops.read_counts()
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            got = generate(card, cfg, batch, steps=6, device="cuda")
+        delta = ops.count_delta(before)
+        assert torch.equal(got.cpu(), want)
+        body = 20 * 6
         head = 0 if view == "pow2" else 6
         assert delta[idx]["launches"] == body + (head if view == "int8"
                                                  else 0)

@@ -151,17 +151,19 @@ def test_full_width_config_is_the_reference(arch):
 
 
 def test_check_family_still_refuses_what_remains():
-    """The ssm family stays refused (ROADMAP queue 1); a hybrid config is
-    refused by the decoder-only entry points and pointed at
-    models/zamba.py (tests/test_torch_zamba.py); a vlm config's modality
-    prefix is admitted (tests/test_torch_vlm.py), as are MLA and leading
-    dense layers (tests/test_torch_deepseek.py)."""
+    """The decoder-only entry points refuse an ssm config and point it at
+    models/rwkv.py (tests/test_torch_rwkv.py), a hybrid one at
+    models/zamba.py (tests/test_torch_zamba.py), and an unknown family
+    outright; a vlm config's modality prefix is admitted
+    (tests/test_torch_vlm.py), as are MLA and leading dense layers
+    (tests/test_torch_deepseek.py)."""
     cfg = tconfigs.get_config(LARGE)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, other LM families"):
+    with pytest.raises(ValueError, match="models/rwkv"):
         tlm._check_family(cfg.replace(family="ssm"))
     with pytest.raises(ValueError, match="models/zamba"):
         tlm._check_family(cfg.replace(family="hybrid"))
+    with pytest.raises(ValueError, match="unknown model family"):
+        tlm._check_family(cfg.replace(family="retnet"))
     tlm._check_family(cfg.replace(family="vlm", n_prefix_tokens=4))
     tlm._check_family(tconfigs.get_config("paligemma-3b"))
 
