@@ -546,6 +546,23 @@ Phases, each fatal on failure (nothing here catches a phase's error):
    the same sample, and generate (B=4, 16 tokens) from it on both the
    same tokens. The launches of these phases go into the kernels' record
    as "handoff_launches".
+3t. training of the sequence families: (a) seamless-m4t-medium at 2 + 2
+   of its 12 + 12 layers (its 256206-row tied table), zamba2-2.7b at 6 of
+   54 layers (one super-block and the shared block) and rwkv6-1.6b at 4
+   of 24, full width, the vocab kept, each through the training CLI's
+   build path (4-bit pow2, kmeans_iters=1, min_size=4096, 8-bit
+   activations) and TrainLoop over batch_fn's batches (seamless's with
+   frames) for 3 steps of B=2 x S=128: losses finite, kmeans_stats
+   launched (kmeans_iters + 1) times a step for every leaf of 2^16
+   weights or more (zamba's conv_w, 21 k a layer, runs dense k-means, as
+   in the reference), no plain version; ms a step and peak memory
+   logged, then one more step profiled (device-idle share). (b) each
+   family's reduced config trained 3 steps on the card and on the CPU
+   from one initial state with kmeans_impl="stats" at act_bits 32:
+   losses within 1e-4 relative, dictionaries within 1e-5, every
+   kmeans_stats pass a launch on the card and a plain pass on the CPU.
+   The launches of (a) go into the kmeans_stats record as
+   "sequence_train_launches".
 3j. vision: (a) the reduced ResNet (widths 8/16, one block a stage, 8x8
    images, B=8), seeded, quantized on the CPU under cifar_table's fully
    multiplier-less row and copied to the card: every forward form
@@ -3856,14 +3873,19 @@ def _pg_engines(view, cfg):
     return launches
 
 
-def _pg_train(base):
-    """Phase 3q (e): the trainer (launch/train.build at PG_LAYERS layers,
-    the vocab kept, its CLI's 4-bit pow2 spec; TrainLoop over
-    batch_fn's prefixed batches) for PG_TRAIN_STEPS steps of B =
-    PG_TRAIN_BATCH x (256 + PG_TRAIN_SEQ): finite losses, kmeans_stats
-    (kmeans_iters + 1) times a leaf a step (the 526.8 M-entry table
-    among them), no plain version; ms a step and peak memory. Returns
-    the kmeans_stats launches."""
+def _family_train(arch, cut, steps, batch, seq, *, check_build=None,
+                  check_batch=None, profile=False):
+    """A family's trainer at full width: launch/train.build at ``cut``
+    (config fields replaced, the depth) with the vocab kept and the CLI's
+    4-bit pow2 spec, TrainLoop over batch_fn's batches (a vlm one's with
+    its prefix, an encdec one's with frames) for ``steps`` steps of
+    ``batch`` x ``seq``: finite losses, kmeans_stats (kmeans_iters + 1)
+    times a step for each leaf of 2^16 weights or more (the smaller run
+    dense k-means, as in the reference), no plain version; ms a step and
+    peak memory. ``check_build(cfg, state, leaves)`` and
+    ``check_batch(cfg, batch)`` add a family's checks; ``profile`` runs
+    one more step under the profiler (device-idle share). Returns the
+    kmeans_stats launches of the ``steps`` steps."""
     import torch
 
     from repro_torch.data.synthetic import MarkovLM
@@ -3872,67 +3894,96 @@ def _pg_train(base):
     from repro_torch.models import api
     from repro_torch.runtime.loop import TrainLoop
 
-    args = train_cli.parser().parse_args([
-        "--arch", PG_ARCH, "--steps", str(PG_TRAIN_STEPS), "--batch",
-        str(PG_TRAIN_BATCH), "--seq", str(PG_TRAIN_SEQ), "--vocab", "0"])
-    args.device = torch.device("cuda")
+    args = _train_args("--steps", str(steps + int(profile)), "--batch",
+                       str(batch), "--seq", str(seq), "--vocab", "0",
+                       "--device", "cuda", arch=arch)
     t0 = time.perf_counter()
     full = train_cli._train_cfg
-    train_cli._train_cfg = lambda a: full(a).replace(n_layers=base.n_layers)
+    train_cli._train_cfg = lambda a: full(a).replace(**cut)
     try:
         cfg, state, step_fn = train_cli.build(args)
     finally:
         train_cli._train_cfg = full
     torch.cuda.synchronize()
     leaves = _leaves(state.model)
-    per_step = (cfg.quant.kmeans_iters + 1) * len(leaves)
-    table = state.model.embed.table.w
-    check((cfg.n_layers, cfg.vocab, cfg.n_prefix_tokens, len(leaves),
-           table.numel()) == (base.n_layers, 257216, PG_PFX,
-                              7 * base.n_layers + 1, PG_TABLE),
-          f"paligemma trainer: {cfg.n_layers} layers, vocab {cfg.vocab}, "
-          f"{len(leaves)} leaves, table {table.numel()}")
-    log(f"paligemma train: build (init + quantize, {len(leaves)} leaves, "
-        f"the table {table.numel()} entries) {time.perf_counter() - t0:.1f}"
-        f" s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    big = [n for n, m in leaves if m.w.numel() >= 1 << 16]
+    per_step = (cfg.quant.kmeans_iters + 1) * len(big)
+    if check_build is not None:
+        check_build(cfg, state, leaves)
+    log(f"{arch} train: build (init + quantize; {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, {len(leaves)} leaves, "
+        f"{len(big)} of 2^16 weights or more) "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     launches = []
 
-    def counted_step(st, batch):
+    def counted_step(st, b):
         before = kmeans_stats.COUNTS["launches"]
-        out = step_fn(st, batch)
+        out = step_fn(st, b)
         launches.append(kmeans_stats.COUNTS["launches"] - before)
         return out
 
     make_batch = train_cli.batch_fn(MarkovLM(cfg.vocab, seed=args.data_seed),
                                     args, args.device, cfg)
-    check(make_batch(0)["prefix_embeds"].shape
-          == (PG_TRAIN_BATCH, PG_PFX, cfg.d_model),
-          "paligemma trainer: the batch has no prefix")
+    if check_batch is not None:
+        check_batch(cfg, make_batch(0))
     loop = TrainLoop(counted_step, make_batch, log_every=1, log_fn=log,
                      quant_policy=api.resolved_policy(cfg))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    state, step = loop.run(state, PG_TRAIN_STEPS, handle_signals=False)
+    state, step = loop.run(state, steps, handle_signals=False)
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     ms = [h["dt"] * 1e3 for h in loop.history]
     losses = [h["loss"] for h in loop.history]
-    log(f"paligemma train {cfg.n_layers} layers B={PG_TRAIN_BATCH} x "
-        f"({PG_PFX} + {PG_TRAIN_SEQ}): ms {['%.1f' % t for t in ms]} | loss "
-        f"{['%.4f' % x for x in losses]} | peak {peak:.2f} GiB | "
-        f"kmeans_stats a step {launches} (expected {per_step}), plain "
-        f"{counts['plain']} | {CARD}")
-    check(step == PG_TRAIN_STEPS and all(math.isfinite(x) for x in losses),
-          f"paligemma train: {step} steps, losses {losses}")
-    check(launches == [per_step] * PG_TRAIN_STEPS and counts["plain"] == 0,
-          f"paligemma train: kmeans_stats {launches} a step, plain "
+    log(f"{arch} train {cfg.n_layers} layers B={batch} x {seq}: ms "
+        f"{['%.1f' % t for t in ms]} | loss {['%.4f' % x for x in losses]}"
+        f" | peak {peak:.2f} GiB | kmeans_stats a step {launches} "
+        f"(expected {per_step}), plain {counts['plain']} | {CARD}")
+    check(step == steps and all(math.isfinite(x) for x in losses),
+          f"{arch} train: {step} steps, losses {losses}")
+    check(launches == [per_step] * steps and counts["plain"] == 0,
+          f"{arch} train: kmeans_stats {launches} a step, plain "
           f"{counts['plain']}")
+    if profile:
+        b = make_batch(steps)
+
+        def one_step():
+            step_fn(state, b)
+            torch.cuda.synchronize()
+
+        profile_run(one_step, f"one {arch} training step")
+        del b
     out = counts["kmeans_stats"]
-    del state, loop, step_fn, leaves, table
+    del state, loop, step_fn, leaves
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _pg_train(base):
+    """Phase 3q (e): the trainer at PG_LAYERS layers for PG_TRAIN_STEPS
+    steps of B = PG_TRAIN_BATCH x (256 + PG_TRAIN_SEQ) (``_family_train``),
+    the 526.8 M-entry table among the leaves, each batch with its
+    prefix. Returns the kmeans_stats launches."""
+
+    def check_build(cfg, state, leaves):
+        table = state.model.embed.table.w
+        check((cfg.n_layers, cfg.vocab, cfg.n_prefix_tokens, len(leaves),
+               table.numel()) == (base.n_layers, 257216, PG_PFX,
+                                  7 * base.n_layers + 1, PG_TABLE),
+              f"paligemma trainer: {cfg.n_layers} layers, vocab {cfg.vocab},"
+              f" {len(leaves)} leaves, table {table.numel()}")
+
+    def check_batch(cfg, batch):
+        check(batch["prefix_embeds"].shape
+              == (PG_TRAIN_BATCH, PG_PFX, cfg.d_model),
+              "paligemma trainer: the batch has no prefix")
+
+    return _family_train(PG_ARCH, dict(n_layers=base.n_layers),
+                         PG_TRAIN_STEPS, PG_TRAIN_BATCH, PG_TRAIN_SEQ,
+                         check_build=check_build, check_batch=check_batch)
 
 
 def paligemma_full_width():
@@ -6172,13 +6223,12 @@ def audit_full_width(view, cfg, toks):
 # phase 3b
 # ---------------------------------------------------------------------------
 
-def _train_args(*flags):
+def _train_args(*flags, arch="h2o-danube-1.8b"):
     import torch
 
     from repro_torch.launch import train as train_cli
 
-    args = train_cli.parser().parse_args(["--arch", "h2o-danube-1.8b",
-                                          *flags])
+    args = train_cli.parser().parse_args(["--arch", arch, *flags])
     args.device = torch.device(args.device)
     return args
 
@@ -6673,9 +6723,10 @@ def reduced_ckpt_card_vs_cpu(handoff):
     shutil.rmtree(d)
 
 
-def reduced_train_card_vs_cpu():
-    """The reduced config trained 3 steps on the card and on the CPU from
-    one initial state and the same batches, kmeans_impl="stats" forced.
+def reduced_train_card_vs_cpu(arch="h2o-danube-1.8b", label="reduced"):
+    """The reduced config of ``arch`` trained 3 steps on the card and on
+    the CPU from one initial state and the same batches (an encdec
+    config's with their frames), kmeans_impl="stats" forced.
     Activations stay f32 here: the point is the kernel path, and an
     8-bit activation grid turns a one-ulp matmul difference into a
     ~1e-5 loss difference."""
@@ -6685,7 +6736,8 @@ def reduced_train_card_vs_cpu():
     from repro_torch.launch import train as train_cli
 
     args = _train_args("--reduced", "--steps", "3", "--batch", "4",
-                       "--seq", "32", "--act-bits", "32", "--device", "cpu")
+                       "--seq", "32", "--act-bits", "32", "--device", "cpu",
+                       arch=arch)
     runs = {}
     for dev in ("cpu", "cuda"):
         cfg, state, step_fn = train_cli.build(args, kmeans_impl="stats")
@@ -6693,7 +6745,7 @@ def reduced_train_card_vs_cpu():
         state.opt_state = {k: {n: t.to(dev) for n, t in v.items()}
                            for k, v in state.opt_state.items()}
         make_batch = train_cli.batch_fn(MarkovLM(cfg.vocab, seed=0), args,
-                                        torch.device(dev))
+                                        torch.device(dev), cfg)
         _reset_counts()
         losses = []
         for s in range(3):
@@ -6707,14 +6759,52 @@ def reduced_train_card_vs_cpu():
     rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
     derr = max(float((dg[n] - dc[n]).abs().max() / dc[n].abs().max())
                for n in dc)
-    log(f"reduced train card vs cpu: losses {lg} vs {lc} (max rel "
-        f"{rel:.2e}), dictionaries max rel {derr:.2e} | card {cg} | cpu {cc}")
+    log(f"{label} train card vs cpu ({arch}, {n_leaves} leaves): losses "
+        f"{lg} vs {lc} (max rel {rel:.2e}), dictionaries max rel "
+        f"{derr:.2e} | card {cg} | cpu {cc}")
     check(cg["kmeans_stats"] == want and cg["plain"] == 0,
-          f"card run: {cg}, expected {want} kmeans_stats launches")
+          f"{arch} card run: {cg}, expected {want} kmeans_stats launches")
     check(cc["kmeans_stats"] == 0 and cc["plain"] == want,
-          f"cpu run: {cc}, expected {want} plain passes")
-    check(rel <= 1e-4, "reduced training: card and CPU losses disagree")
-    check(derr <= 1e-5, "reduced training: dictionaries disagree")
+          f"{arch} cpu run: {cc}, expected {want} plain passes")
+    check(rel <= 1e-4, f"{arch} reduced training: card and CPU losses "
+          "disagree")
+    check(derr <= 1e-5, f"{arch} reduced training: dictionaries disagree")
+    return cg["kmeans_stats"]
+
+
+# ---------------------------------------------------------------------------
+# phase 3t
+# ---------------------------------------------------------------------------
+
+#: phase 3t: each sequence family trained at full width, the vocab kept,
+#: its depth cut (seamless 2 + 2 of 12 + 12, zamba one super-block of 6
+#: of 54 layers, rwkv 4 of 24)
+SEQ_TRAIN = {"seamless-m4t-medium": dict(n_layers=2, enc_layers=2),
+             "zamba2-2.7b": dict(n_layers=6),
+             "rwkv6-1.6b": dict(n_layers=4)}
+SEQ_TRAIN_BATCH, SEQ_TRAIN_SEQ, SEQ_TRAIN_STEPS = 2, 128, 3
+
+
+def sequence_train():
+    """Phase 3t: the encdec, hybrid and ssm families trained on the card,
+    (a) at full width (``_family_train``, one step more profiled), (b)
+    reduced, card against CPU
+    (``reduced_train_card_vs_cpu``). Returns {family: kmeans_stats
+    launches of (a)}."""
+    def has_frames(cfg, batch):
+        if cfg.family == "encdec":
+            check(batch["frames"].shape
+                  == (SEQ_TRAIN_BATCH, SEQ_TRAIN_SEQ, cfg.d_model),
+                  f"{cfg.name} trainer: the batch has no frames")
+
+    out = {}
+    for arch, cut in SEQ_TRAIN.items():
+        out[arch] = _family_train(arch, cut, SEQ_TRAIN_STEPS,
+                                  SEQ_TRAIN_BATCH, SEQ_TRAIN_SEQ,
+                                  check_batch=has_frames, profile=True)
+    for arch in SEQ_TRAIN:
+        reduced_train_card_vs_cpu(arch, label="3t reduced")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -7691,6 +7781,7 @@ def main() -> int:
     _timed("3g", handoff_full_width, trained, handoff)
     del trained
     _timed("3b reduced", reduced_train_card_vs_cpu)
+    seq_train = _timed("3t", sequence_train)
     _timed("3h", text_path_e2e, handoff)
     _timed("3h reduced", reduced_ckpt_card_vs_cpu, handoff)
     log(f"phase 3g {PHASE_S['3g']:.1f} s, phase 3h and the reduced "
@@ -7793,6 +7884,9 @@ def main() -> int:
         # phase 3s: rwkv6-1.6b's graph-mode generates and engine
         if kname in rwkv:
             records[-1]["rwkv_launches"] = rwkv[kname]
+        # phase 3t: the sequence families' full-width training steps
+        if kname == "kmeans_stats":
+            records[-1]["sequence_train_launches"] = seq_train
         if kname in MOE_KERNELS:  # phase 2m's timing at C = 40
             p = prefill[kname]
             records[-1]["prefill"] = {

@@ -19,9 +19,11 @@ D), standard normal from a torch generator seeded by ``--data-seed``
 and the step, in place of the stubbed image frontend's output; torch
 cannot draw the reference's ``jax.random`` numbers, so the prefixes
 differ from the reference CLI's (the tokens are the same MarkovLM
-batches). The loss drops the prefix's logits. A hybrid config
-(zamba2-2.7b) is refused (ROADMAP queue 1, hybrid training), and so is
-an ssm one (rwkv6-1.6b; ROADMAP queue 1, ssm training). ``--mesh``,
+batches). The loss drops the prefix's logits. An encdec config
+(seamless-m4t-medium) trains on batches that carry ``frames`` (B, S,
+d_model), the stubbed audio frontend's output, drawn the same way
+(:func:`frames_seed`). The hybrid (zamba2-2.7b) and ssm (rwkv6-1.6b)
+configs train on the plain batches. ``--mesh``,
 ``--grad-compress`` and ``--autotune`` other than ``off`` are not
 ported yet and raise. The
 checkpoints are the reference's format, so either package resumes the
@@ -85,10 +87,6 @@ def build(args, *, kmeans_impl=None):
         raise NotImplementedError("--autotune is not ported yet: ROADMAP "
                                   "queue 1, tuning and benches")
     cfg = _train_cfg(args)
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"training {cfg.name} is not ported yet (ROADMAP queue 1, "
-            f"{cfg.family} training); the port serves {cfg.family} models")
     model = api.quantize(api.init(cfg, seed=args.seed, device=args.device),
                          cfg)
     opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
@@ -105,22 +103,39 @@ def prefix_seed(data_seed: int, step: int) -> int:
         1)[0])
 
 
+def frames_seed(data_seed: int, step: int) -> int:
+    """The seed of step ``step``'s encdec frames generator."""
+    return int(np.random.SeedSequence([data_seed, step, 7]).generate_state(
+        1)[0])
+
+
+def _normal(seed: int, shape, cfg, device) -> torch.Tensor:
+    """Standard normal ``shape`` from a CPU generator seeded by ``seed``,
+    in ``cfg.dtype`` on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(device=device,
+                                                dtype=cfg.dtype)
+
+
 def batch_fn(lm: MarkovLM, args, device, cfg=None):
     """make_batch(step): the MarkovLM batch of that step on ``device``
     (a pure function of the step: a resumed run sees the same data);
-    for a vlm ``cfg`` also ``prefix_embeds`` (batch, P, d_model) in
-    ``cfg.dtype``, standard normal from :func:`prefix_seed`."""
-    vlm = cfg is not None and cfg.family == "vlm"
+    for a vlm ``cfg`` also ``prefix_embeds`` (batch, P, d_model), for an
+    encdec one ``frames`` (batch, seq, d_model), in ``cfg.dtype``,
+    standard normal from :func:`prefix_seed` / :func:`frames_seed`."""
+    family = None if cfg is None else cfg.family
 
     def make_batch(step):
         b = lm.batch(args.data_seed, step, args.batch, args.seq)
         out = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
-        if vlm:
-            gen = torch.Generator().manual_seed(prefix_seed(args.data_seed,
-                                                            step))
-            out["prefix_embeds"] = torch.randn(
-                (args.batch, cfg.n_prefix_tokens, cfg.d_model),
-                generator=gen).to(device=device, dtype=cfg.dtype)
+        if family == "vlm":
+            out["prefix_embeds"] = _normal(
+                prefix_seed(args.data_seed, step),
+                (args.batch, cfg.n_prefix_tokens, cfg.d_model), cfg, device)
+        if family == "encdec":
+            out["frames"] = _normal(frames_seed(args.data_seed, step),
+                                    (args.batch, args.seq, cfg.d_model),
+                                    cfg, device)
         return out
     return make_batch
 

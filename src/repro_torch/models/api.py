@@ -35,8 +35,7 @@ cache's ``len`` then counts the P prefix positions too. A hybrid or
 ssm cache holds a fixed-size recurrent state that a decode step
 overwrites in place; its prompts are prefilled at their exact length
 (the state integrates padding), it decodes one token a step and never
-speculates. Training an encdec, a hybrid or an ssm model is not ported
-yet (``loss_fn`` raises).
+speculates. Every family trains through ``loss_fn``.
 
 Every entry point that creates tensors runs on ``device="cuda"`` unless
 the caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -148,20 +147,16 @@ def serve_state(cfg: ModelConfig, *, seed: int = 0, pack4: bool = False,
 
 def loss_fn(model: nn.Module, cfg: ModelConfig, batch):
     """Training loss of a batch (tokens, labels; a vlm batch's
-    ``prefix_embeds`` too): (loss, metrics)."""
+    ``prefix_embeds`` and an encdec batch's ``frames`` too): (loss,
+    metrics). Each family's loss is the masked CE over f32 logits
+    (``models/lm.masked_ce``) of its training forward."""
     _ported(cfg)
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encdec loss is not ported yet (ROADMAP queue 1, encdec "
-            "training); the port serves encdec models")
+        return m_encdec.encdec_loss(model, cfg, batch)
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "the hybrid loss is not ported yet (ROADMAP queue 1, hybrid "
-            "training); the port serves hybrid models")
+        return m_zamba.zamba_loss(model, cfg, batch)
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            "the ssm loss is not ported yet (ROADMAP queue 1, ssm "
-            "training); the port serves ssm models")
+        return m_rwkv.rwkv_loss(model, cfg, batch)
     return m_lm.lm_loss(model, cfg, batch)
 
 

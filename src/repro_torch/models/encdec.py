@@ -28,9 +28,16 @@ Both hold ``cfg.dtype`` values, never int8: the reference's encdec
 caches never quantize, so the self-attention here runs at 16-bit KV
 whatever ``cfg.kv_cache_bits`` says.
 
+Training (``encdec_loss``) runs the decoder over the whole target with
+the tied readout's logits and the masked CE of ``models/lm.py``; with
+``cfg.remat`` each encoder and decoder layer is recomputed in the
+backward.
+
 Entry points:
   init_encdec          random model from a generator
   encode               frames -> memory (B, S_src, D)
+  encdec_forward       frames + target -> logits (training forward)
+  encdec_loss          the training loss of a batch
   cross_kv             memory -> a layer's cross K/V
   cross_attn_apply     a layer's cross-attention
   encdec_prefill       frames + target prompt -> last logits + slot cache
@@ -53,8 +60,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (Layer, _embed_tokens, _head,
                                    _join, _lin, _norm_rows, _positions,
                                    attn_decode, attn_forward, attn_init,
-                                   last_real_slice, mlp_apply, mlp_init,
-                                   paged_attn_decode)
+                                   last_real_slice, masked_ce, mlp_apply,
+                                   mlp_init, paged_attn_decode, run_layer)
 from repro_torch.nn.attention import decode_attention, flash_attention
 from repro_torch.nn.linear import embedding_init, linear_apply, linear_init
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
@@ -156,16 +163,29 @@ def init_encdec(gen: Optional[torch.Generator], cfg: ModelConfig,
 # encoder and cross-attention
 # ---------------------------------------------------------------------------
 
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether each encoder and decoder layer is recomputed in the
+    backward: under autograd with ``cfg.remat``, whatever the policy,
+    as the reference's ``jax.checkpoint(body) if cfg.remat``."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def _enc_layer(layer: Layer, cfg: ModelConfig, h, positions):
+    h = h + attn_forward(layer.attn, cfg, rmsnorm_apply(layer.ln1, h),
+                         positions)[0]
+    return h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
+
+
 def encode(model: EncDec, cfg: ModelConfig, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames (B, S_src, D), precomputed embeddings -> memory (B, S_src,
-    D) in ``cfg.dtype``."""
+    D) in ``cfg.dtype``. Under autograd the gradient reaches the
+    encoder's masters (and ``frames``, where they require it)."""
     h = frames.to(cfg.dtype)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    remat = _remat(cfg)
     for layer in model.encoder:
-        h = h + attn_forward(layer.attn, cfg, rmsnorm_apply(layer.ln1, h),
-                             positions)[0]
-        h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
+        h = run_layer(_enc_layer, remat, layer, cfg, h, positions)
     return rmsnorm_apply(model.enc_norm, h)
 
 
@@ -216,6 +236,56 @@ def _cross_window(p: CrossAttention, cfg: ModelConfig, x, k, v, src_len):
 # prefill and the slot cache
 # ---------------------------------------------------------------------------
 
+def _dec_layer(layer: DecoderLayer, cfg: ModelConfig, h, positions, memory):
+    """One decoder layer over the whole target: (h, {"k", "v", "xk",
+    "xv"}), the layer's self-attention K/V and its cross K/V."""
+    xk, xv = cross_kv(layer.xattn, cfg, memory)
+    a, c = attn_forward(layer.attn, cfg, rmsnorm_apply(layer.ln1, h),
+                        positions)
+    h = h + a
+    h = h + cross_attn_apply(layer.xattn, cfg, rmsnorm_apply(layer.ln_x, h),
+                             xk, xv)
+    h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
+    return h, {"k": c["k"], "v": c["v"], "xk": xk, "xv": xv}
+
+
+def _dec_layer_train(layer: DecoderLayer, cfg: ModelConfig, h, positions,
+                     memory):
+    return _dec_layer(layer, cfg, h, positions, memory)[0]
+
+
+def encdec_forward(model: EncDec, cfg: ModelConfig, frames, tokens
+                   ) -> torch.Tensor:
+    """The training forward: encode ``frames``, run the decoder over the
+    whole target ``tokens`` (B, St) with causal self-attention and
+    unmasked cross-attention over the memory; logits (B, St, V) of the
+    tied readout. With ``cfg.remat`` each encoder and decoder layer
+    (its cross K/V included) is recomputed in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    of its scan bodies; only the residual stream between layers and the
+    memory are kept."""
+    _check(cfg)
+    memory = encode(model, cfg, frames)
+    h = _embed_tokens(model, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    remat = _remat(cfg)
+    for layer in model.decoder:
+        h = run_layer(_dec_layer_train, remat, layer, cfg, h, positions,
+                      memory)
+    return _head(model, cfg, rmsnorm_apply(model.final_norm, h))
+
+
+def encdec_loss(model: EncDec, cfg: ModelConfig, batch):
+    """batch: frames (B, S_src, D), tokens (B, St), labels (B, St) (-100
+    = ignore) -> (loss, {"loss"}): the masked CE over f32 logits
+    (``lm.masked_ce``), as the reference's ``encdec_loss``. The readout
+    decodes the tied table through the STE and multiplies with
+    ``torch.matmul``, as the reference does outside any kernel."""
+    logits = encdec_forward(model, cfg, batch["frames"], batch["tokens"])
+    loss, _ = masked_ce(logits, batch["labels"])
+    return loss, {"loss": loss}
+
+
 def encdec_prefill(model: EncDec, cfg: ModelConfig, frames, tokens, *,
                    lengths=None):
     """Encode the frames, run the target prompt: (last logits (B, 1, V),
@@ -232,14 +302,8 @@ def encdec_prefill(model: EncDec, cfg: ModelConfig, frames, tokens, *,
     positions = torch.arange(St, device=h.device)[None, :]
     caches = []
     for layer in model.decoder:
-        xk, xv = cross_kv(layer.xattn, cfg, memory)
-        a, c = attn_forward(layer.attn, cfg, rmsnorm_apply(layer.ln1, h),
-                            positions)
-        h = h + a
-        h = h + cross_attn_apply(layer.xattn, cfg,
-                                 rmsnorm_apply(layer.ln_x, h), xk, xv)
-        h = h + mlp_apply(layer.mlp, cfg, rmsnorm_apply(layer.ln2, h))
-        caches.append({"k": c["k"], "v": c["v"], "xk": xk, "xv": xv})
+        h, c = _dec_layer(layer, cfg, h, positions, memory)
+        caches.append(c)
     h_last = h[:, -1:] if lengths is None else last_real_slice(h, lengths)
     logits = _head(model, cfg, rmsnorm_apply(model.final_norm, h_last))
     if lengths is None:

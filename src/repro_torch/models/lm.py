@@ -24,7 +24,8 @@ layer in that order.
 Entry points:
   lm_forward      (B, S) tokens [+ prefix] -> logits (training
                   forward) + aux
-  lm_loss         next-token cross-entropy of a batch
+  lm_loss         next-token cross-entropy of a batch (``masked_ce``,
+                  which every family's loss shares)
   lm_prefill      (B, S) prompt [+ prefix] -> last logits + per-layer K/V
   lm_decode       (B, W) tokens -> logits + updated cache (W = 1: a
                   decode step; W = k + 1: a speculative verify window)
@@ -359,6 +360,28 @@ def _layer_train(p: Layer, cfg: ModelConfig, h, positions, prefix=None):
     return h, aux
 
 
+def remat_layers(cfg: ModelConfig) -> bool:
+    """Whether the training forward recomputes each layer in the
+    backward, as the reference's ``remat_wrap`` decides from
+    ``cfg.remat`` and ``cfg.remat_policy``: only under autograd, and
+    only the reference's ``"full"`` policy is ported."""
+    remat = (cfg.remat and cfg.remat_policy != "none"
+             and torch.is_grad_enabled())
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported yet; the "
+            f"port recomputes whole layers ('full') or none")
+    return remat
+
+
+def run_layer(fn, remat: bool, *args):
+    """``fn(*args)``; under ``remat`` through ``torch.utils.checkpoint``,
+    which keeps only the inputs and recomputes ``fn`` in the backward."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def lm_forward(model: LM, cfg: ModelConfig, tokens, *, prefix_embeds=None):
     """Full forward -> (logits (B, P + S, V), aux). tokens: (B, S);
     ``prefix_embeds`` (B, P, D) a vlm's image prefix (P = 0 without).
@@ -371,38 +394,25 @@ def lm_forward(model: LM, cfg: ModelConfig, tokens, *, prefix_embeds=None):
     the dense family).
     """
     _check_family(cfg)
-    remat = (cfg.remat and cfg.remat_policy != "none"
-             and torch.is_grad_enabled())
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported yet; the "
-            f"port recomputes whole layers ('full') or none")
+    remat = remat_layers(cfg)
     prefix = _prefix(cfg, prefix_embeds)
     h = _embed_tokens(model, cfg, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in all_layers(model):
-        if remat:
-            h, a = checkpoint(_layer_train, layer, cfg, h, positions, prefix,
-                              use_reentrant=False)
-        else:
-            h, a = _layer_train(layer, cfg, h, positions, prefix)
+        h, a = run_layer(_layer_train, remat, layer, cfg, h, positions,
+                         prefix)
         aux = aux + a
     return _readout(model, cfg, h), aux
 
 
-def lm_loss(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            aux_weight: float = 0.01
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE over f32 logits. batch: tokens (B, S), labels (B, S)
-    with -100 (any negative) = ignore, and for a vlm ``prefix_embeds``
-    (B, P, D), whose P positions' logits are dropped. Returns (loss +
-    aux_weight * aux, {"loss", "aux", "ntok"})."""
-    logits, aux = lm_forward(model, cfg, batch["tokens"],
-                             prefix_embeds=batch.get("prefix_embeds"))
-    if cfg.n_prefix_tokens and "prefix_embeds" in batch:
-        logits = logits[:, cfg.n_prefix_tokens:]
-    labels = batch["labels"].long()
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over f32 logits (..., V) of ``labels`` (...),
+    a negative label (-100) ignored: (loss, ntok), ntok the count of
+    labelled positions, at least 1. Every family's loss, as each of the
+    reference's four losses computes it."""
+    labels = labels.long()
     logits = logits.float()
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0)
@@ -410,7 +420,22 @@ def lm_loss(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
     ce = (logz - gold) * mask
     ntok = torch.clamp(mask.sum(), min=1.0)
-    loss = ce.sum() / ntok
+    return ce.sum() / ntok, ntok
+
+
+def lm_loss(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE over f32 logits (:func:`masked_ce`). batch: tokens
+    (B, S), labels (B, S) with -100 (any negative) = ignore, and for a
+    vlm ``prefix_embeds`` (B, P, D), whose P positions' logits are
+    dropped. Returns (loss + aux_weight * aux, {"loss", "aux",
+    "ntok"})."""
+    logits, aux = lm_forward(model, cfg, batch["tokens"],
+                             prefix_embeds=batch.get("prefix_embeds"))
+    if cfg.n_prefix_tokens and "prefix_embeds" in batch:
+        logits = logits[:, cfg.n_prefix_tokens:]
+    loss, ntok = masked_ce(logits, batch["labels"])
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux, "ntok": ntok}
 

@@ -21,8 +21,15 @@ prompts are prefilled at their exact length; the family pages nothing,
 speculates nothing and decodes one token a step (its state cannot
 rewind).
 
+Training (``rwkv_loss``) runs the whole sequence from a zero state to
+the tied readout's logits and the masked CE of ``models/lm.py``; with
+``cfg.remat`` each layer is recomputed in the backward, and the WKV scan
+inside it is checkpointed a chunk of ``cfg.ssm_chunk`` tokens at a time.
+
 Entry points:
   init_rwkv         random model from a generator
+  rwkv_forward      (B, S) tokens -> logits (training forward)
+  rwkv_loss         the training loss of a batch
   rwkv_prefill      (B, S) prompt -> last logits + slot cache
   init_rwkv_cache   an empty slot cache
   rwkv_decode       (B, 1) tokens -> logits + the cache, updated in place
@@ -35,7 +42,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import last_real_slice
+from repro_torch.models.lm import last_real_slice, masked_ce, run_layer
 from repro_torch.nn.linear import (embedding_apply, embedding_init,
                                    embedding_logits)
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
@@ -88,9 +95,14 @@ def init_rwkv(gen: Optional[torch.Generator], cfg: ModelConfig,
                 layers, rmsnorm_init(cfg.d_model, device=device))
 
 
-def _layer(lp: RWKVLayer, cfg: ModelConfig, h, state):
+def _layer(lp: RWKVLayer, cfg: ModelConfig, h, state, chunk=None):
     """(h, the layer's state after the last position) of one layer."""
-    return rwkv6_block(lp.mix, lp.ln1, lp.ln2, h, state, **_kw(cfg))
+    return rwkv6_block(lp.mix, lp.ln1, lp.ln2, h, state, chunk=chunk,
+                       **_kw(cfg))
+
+
+def _layer_train(lp: RWKVLayer, cfg: ModelConfig, h):
+    return _layer(lp, cfg, h, None, chunk=cfg.ssm_chunk)[0]
 
 
 def _embed(model: RWKV, cfg: ModelConfig, tokens) -> torch.Tensor:
@@ -101,6 +113,33 @@ def _embed(model: RWKV, cfg: ModelConfig, tokens) -> torch.Tensor:
 def _readout(model: RWKV, cfg: ModelConfig, h) -> torch.Tensor:
     h = rmsnorm_apply(model.final_norm, h.to(cfg.dtype))
     return embedding_logits(model.embed, h, backend=cfg.kernel_backend)
+
+
+def rwkv_forward(model: RWKV, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """The training forward: (B, S) tokens -> logits (B, S, V) of the
+    tied readout, from a zero state. The f32 residual stream returns to
+    ``cfg.dtype`` before the final norm, as in :func:`rwkv_prefill`.
+    With ``cfg.remat`` each layer is recomputed in the backward
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``
+    of its scan body whatever the policy; inside a layer the WKV scan
+    keeps only its states every ``cfg.ssm_chunk`` tokens in any case
+    (``nn/rwkv6.wkv_scan``)."""
+    _check(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    h = _embed(model, cfg, tokens)
+    for lp in model.layers:
+        h = run_layer(_layer_train, remat, lp, cfg, h)
+    return _readout(model, cfg, h)
+
+
+def rwkv_loss(model: RWKV, cfg: ModelConfig, batch):
+    """batch: tokens (B, S), labels (B, S) (-100 = ignore) -> (loss,
+    {"loss"}): the masked CE over f32 logits (``lm.masked_ce``), as the
+    reference's ``rwkv_loss``. The decay LoRA's ``w1`` / ``w2`` train
+    beside the other leaves."""
+    loss, _ = masked_ce(rwkv_forward(model, cfg, batch["tokens"]),
+                        batch["labels"])
+    return loss, {"loss": loss}
 
 
 def rwkv_prefill(model: RWKV, cfg: ModelConfig, tokens, *, lengths=None):

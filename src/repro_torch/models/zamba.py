@@ -25,8 +25,15 @@ speculates nothing and decodes one token a step (its recurrent state
 cannot rewind), and its prompts are prefilled at their exact length,
 since the state integrates padding.
 
+Training (``zamba_loss``) runs the whole sequence through every layer
+to the tied readout's logits and the masked CE of ``models/lm.py``; with
+``cfg.remat`` each Mamba layer is recomputed in the backward, and the
+SSD scan inside it keeps one chunk's decay at a time.
+
 Entry points:
   init_zamba         random model from a generator
+  zamba_forward      (B, S) tokens -> logits (training forward)
+  zamba_loss         the training loss of a batch
   zamba_prefill      (B, S) prompt -> last logits + slot cache
   init_zamba_cache   an empty slot cache
   zamba_decode       (B, 1) tokens -> logits + the cache, updated in place
@@ -41,7 +48,8 @@ from torch import nn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import (Layer, _embed_tokens, _head, _positions,
                                    attn_decode, attn_forward, attn_init,
-                                   last_real_slice, mlp_apply, mlp_init)
+                                   last_real_slice, masked_ce, mlp_apply,
+                                   mlp_init, remat_layers, run_layer)
 from repro_torch.nn.linear import embedding_init
 from repro_torch.nn.mamba2 import (CONV_K, Mamba2, mamba2_decode,
                                    mamba2_forward, mamba2_init)
@@ -127,6 +135,47 @@ def _shared_block(model: Zamba, cfg: ModelConfig, h, positions):
     return h, cache
 
 
+def _mamba_layer(layer: MambaLayer, cfg: ModelConfig, h):
+    """h + the layer's Mamba2 block over the whole sequence: (h, its
+    {"ssm", "conv"} state after the last position)."""
+    out, st = mamba2_forward(layer.mamba, rmsnorm_apply(layer.ln, h),
+                             chunk=cfg.ssm_chunk, **_kw(cfg))
+    return h + out, st
+
+
+def _mamba_layer_train(layer: MambaLayer, cfg: ModelConfig, h):
+    return _mamba_layer(layer, cfg, h)[0]
+
+
+def zamba_forward(model: Zamba, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """The training forward: (B, S) tokens -> logits (B, S, V) of the
+    tied readout. After each super-block's Mamba layers the shared block
+    runs over its own K/V of the whole sequence. With ``cfg.remat``
+    each Mamba layer is recomputed in the backward
+    (``torch.utils.checkpoint``), as the reference's ``remat_wrap`` of
+    its inner scan body (the shared block is not); inside a layer the
+    SSD scan keeps only its chunk-boundary states in any case
+    (``nn/mamba2.ssd_chunked``)."""
+    _check(cfg)
+    remat = remat_layers(cfg)
+    h = _embed_tokens(model, cfg, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    for row in model.mamba_layers:
+        for layer in row:
+            h = run_layer(_mamba_layer_train, remat, layer, cfg, h)
+        h, _ = _shared_block(model, cfg, h, positions)
+    return _head(model, cfg, rmsnorm_apply(model.final_norm, h))
+
+
+def zamba_loss(model: Zamba, cfg: ModelConfig, batch):
+    """batch: tokens (B, S), labels (B, S) (-100 = ignore) -> (loss,
+    {"loss"}): the masked CE over f32 logits (``lm.masked_ce``), as the
+    reference's ``zamba_loss``."""
+    loss, _ = masked_ce(zamba_forward(model, cfg, batch["tokens"]),
+                        batch["labels"])
+    return loss, {"loss": loss}
+
+
 def zamba_prefill(model: Zamba, cfg: ModelConfig, tokens, *, lengths=None):
     """Run the prompt, return (last_logits (B, 1, V), slot cache).
 
@@ -145,9 +194,7 @@ def zamba_prefill(model: Zamba, cfg: ModelConfig, tokens, *, lengths=None):
     layers = []
     for row in model.mamba_layers:
         for layer in row:
-            out, st = mamba2_forward(layer.mamba, rmsnorm_apply(layer.ln, h),
-                                     chunk=cfg.ssm_chunk, **_kw(cfg))
-            h = h + out
+            h, st = _mamba_layer(layer, cfg, h)
             layers.append(st)
         h, c = _shared_block(model, cfg, h, positions)
         layers.append(c)

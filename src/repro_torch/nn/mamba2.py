@@ -10,7 +10,9 @@ with a_t = exp(-dt_t * exp(A_log)).
 A prefill runs the chunked SSD algorithm: inside a chunk the quadratic
 "attention-like" form through a segment-sum decay matrix, across chunks
 a Python loop carries the f32 state, one chunk's (B, H, L, L) decay at
-a time, as the reference's ``lax.scan`` does. A decode step is one
+a time, as the reference's ``lax.scan`` does; under autograd each
+chunk is recomputed in the backward, as the reference's checkpointed
+chunk body is. A decode step is one
 recurrence step that writes the new SSM state and conv window into the
 cache's tensors in place (the reference returns new arrays), so that a
 captured CUDA graph of the step replays on the same addresses and each
@@ -19,7 +21,8 @@ replay advances the state.
 ``in_proj`` and ``out_proj`` are products (``linear_apply`` ->
 ``kernels.ops.lutq_dot``: kernels 1, 2 and 4); the depthwise conv's
 ``conv_w`` is a LUT-Q leaf too, decoded by ``nn/linear.materialize``
-(int8, packed or pow2-encoded) and applied as four elementwise
+(int8, packed or pow2-encoded; through the STE on a train-form leaf,
+so the gradient reaches its master) and applied as four elementwise
 multiplies. The scan is plain torch, as the reference's is plain
 ``jnp``. The dtypes follow JAX's promotion: at a bf16 working dtype the
 conv's f32 bias lifts the conv output, and with it x, B, C and the
@@ -31,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn.linear import (Linear, linear_apply, linear_init,
                                    materialize, silu)
@@ -122,6 +126,24 @@ def _segsum(logd: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, diff, torch.full_like(diff, float("-inf")))
 
 
+def _ssd_chunk(h, xk, dtk, Bk, Ck, A):
+    """One chunk of the SSD scan: the state h (B, H, N, P) f32 in, its
+    successor and the chunk's y (B, L, H, P) out."""
+    logd = (-dtk * A[None, None, :]).to(torch.float32)       # (B, L, H)
+    # intra-chunk: y[t] = sum_{s<=t} C_t.B_s exp(seg) dt_s x_s
+    decay = torch.exp(_segsum(logd.transpose(1, 2)))         # (B, H, L, L)
+    cb = _einsum("bln,bsn->bls", Ck, Bk)                     # (B, L, L)
+    scores = cb[:, None] * decay * dtk.transpose(1, 2)[:, :, None, :]
+    y = _einsum("bhls,bshp->blhp", scores, xk)
+    # inter-chunk: y[t] += C_t exp(cum_t) h_in
+    cum = torch.cumsum(logd, dim=1)                          # (B, L, H)
+    y = y + _einsum("bln,blh,bhnp->blhp", Ck, torch.exp(cum), h)
+    # h' = (chunk decay) h + sum_s exp(cum_L - cum_s) dt_s B_s x_s^T
+    decay_to_end = torch.exp(cum[:, -1:, :] - cum)
+    state = _einsum("blh,blh,bln,blhp->bhnp", decay_to_end, dtk, Bk, xk)
+    return h * torch.exp(cum[:, -1, :])[..., None, None] + state, y
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
                 h0: Optional[torch.Tensor] = None
@@ -129,7 +151,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD. x (B, S, H, P), dt (B, S, H) after softplus, A (H,)
     positive decay rates, Bm / Cm (B, S, N). Returns (y (B, S, H, P) in
     x's dtype, h_final (B, H, N, P) f32). S pads to a chunk multiple
-    with identity steps (dt = 0: decay 1, no input)."""
+    with identity steps (dt = 0: decay 1, no input). Under autograd each
+    chunk's body is recomputed in the backward
+    (``torch.utils.checkpoint``), as the reference's ``@jax.checkpoint
+    chunk_body``: only the chunk-boundary states are kept, and one
+    chunk's (B, H, L, L) decay and scores live at a time in the backward
+    too."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     chunk = min(chunk, S)
@@ -142,23 +169,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         S += pad
     h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
+    remat = torch.is_grad_enabled()
     ys = []
     for j in range(0, S, chunk):
-        xk, dtk = x[:, j:j + chunk], dt[:, j:j + chunk]
-        Bk, Ck = Bm[:, j:j + chunk], Cm[:, j:j + chunk]
-        logd = (-dtk * A[None, None, :]).to(torch.float32)   # (B, L, H)
-        # intra-chunk: y[t] = sum_{s<=t} C_t.B_s exp(seg) dt_s x_s
-        decay = torch.exp(_segsum(logd.transpose(1, 2)))     # (B, H, L, L)
-        cb = _einsum("bln,bsn->bls", Ck, Bk)                 # (B, L, L)
-        scores = cb[:, None] * decay * dtk.transpose(1, 2)[:, :, None, :]
-        y = _einsum("bhls,bshp->blhp", scores, xk)
-        # inter-chunk: y[t] += C_t exp(cum_t) h_in
-        cum = torch.cumsum(logd, dim=1)                      # (B, L, H)
-        y = y + _einsum("bln,blh,bhnp->blhp", Ck, torch.exp(cum), h)
-        # h' = (chunk decay) h + sum_s exp(cum_L - cum_s) dt_s B_s x_s^T
-        decay_to_end = torch.exp(cum[:, -1:, :] - cum)
-        state = _einsum("blh,blh,bln,blhp->bhnp", decay_to_end, dtk, Bk, xk)
-        h = h * torch.exp(cum[:, -1, :])[..., None, None] + state
+        part = (h, x[:, j:j + chunk], dt[:, j:j + chunk],
+                Bm[:, j:j + chunk], Cm[:, j:j + chunk], A)
+        if remat:
+            h, y = checkpoint(_ssd_chunk, *part, use_reentrant=False)
+        else:
+            h, y = _ssd_chunk(*part)
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S0]
     return y.to(x.dtype), h

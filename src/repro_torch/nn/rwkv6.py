@@ -14,7 +14,9 @@ The scan is the exact recurrence, one step a token in f32 (plain torch,
 as the reference's ``lax.scan`` is plain ``jnp``). The reference runs it
 in chunks only to choose what its backward pass rematerializes; its
 padding steps (w = 1, k = v = r = 0) leave the state bit for bit as it
-was, so serving needs no chunk loop here, and no exp-ratio "chunked
+was, so serving runs one loop over the tokens here, and under autograd
+the loop runs in chunks of ``chunk`` tokens (the config's
+``ssm_chunk``), each recomputed in the backward. No exp-ratio "chunked
 parallel" form (which is not exact for every decay) replaces it.
 
 ``r``, ``k``, ``v``, ``g``, ``o`` and the channel-mix's ``cm_k``,
@@ -33,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn.linear import (Linear, dot_kernel, linear_apply,
                                    linear_init, sigmoid, silu)
@@ -96,19 +99,42 @@ def _mix(x: torch.Tensor, xs: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return x + (xs - x) * m[None, None, :].to(x.dtype)
 
 
-def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The exact WKV recurrence, a step a token. r, k, w (B, S, H, dk);
-    v (B, S, H, dv); u (H, dk); s0 (B, H, dk, dv). Returns (y (B, S, H,
-    dv), the state after the last step)."""
-    s, ys = s0, []
+def _wkv_steps(r, k, v, w, u, s):
+    """The recurrence over the L steps of r, k, w (B, L, H, dk) and v
+    (B, L, H, dv) from the state s: (y (B, L, H, dv), the state after
+    the last step)."""
+    ys = []
     bonus = u[None, :, :, None]
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B, H, dk, dv)
         ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], s + bonus * kv))
         s = w[:, t, :, :, None] * s + kv
     return torch.stack(ys, dim=1), s
+
+
+def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
+             chunk: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact WKV recurrence, a step a token. r, k, w (B, S, H, dk);
+    v (B, S, H, dv); u (H, dk); s0 (B, H, dk, dv). Returns (y (B, S, H,
+    dv), the state after the last step).
+
+    Under autograd, with ``chunk``, the steps run in chunks of ``chunk``
+    tokens, each recomputed in the backward (``torch.utils.checkpoint``),
+    as the reference's ``@jax.checkpoint chunk_fn``: only the
+    chunk-boundary states are kept, not every token's (B, H, dk, dv)
+    state. The chunks change no bit of the forward; without autograd
+    (serving) one loop runs over all S steps."""
+    if chunk is None or not torch.is_grad_enabled():
+        return _wkv_steps(r, k, v, w, u, s0)
+    s, ys = s0, []
+    for j in range(0, r.shape[1], chunk):
+        y, s = checkpoint(_wkv_steps, r[:, j:j + chunk], k[:, j:j + chunk],
+                          v[:, j:j + chunk], w[:, j:j + chunk], u, s,
+                          use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s
 
 
 def _head_norm(y: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -123,12 +149,13 @@ def _head_norm(y: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
 
 def rwkv6_time_mix(p: RWKV6, x: torch.Tensor,
                    state: Optional[Dict[str, torch.Tensor]], *,
-                   head_dim: int = 64, backend: str = "auto",
-                   act_bits: int = 32
+                   head_dim: int = 64, chunk: Optional[int] = None,
+                   backend: str = "auto", act_bits: int = 32
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, D) -> (out (B, S, D), {"shift_t": (B, 1, D), "wkv": (B,
     H, dk, dv) f32}). ``state`` holds the previous ``shift_t`` and
-    ``wkv`` (zeros if None)."""
+    ``wkv`` (zeros if None); ``chunk``: :func:`wkv_scan`'s backward
+    chunk."""
     B, S, D = x.shape
     H = D // head_dim
     xs, new_prev = _shift(x, None if state is None else state["shift_t"])
@@ -145,7 +172,7 @@ def rwkv6_time_mix(p: RWKV6, x: torch.Tensor,
     s0 = (torch.zeros((B, H, head_dim, head_dim), dtype=torch.float32,
                       device=x.device) if state is None else state["wkv"])
     y, sT = wkv_scan(r.float(), k.float(), v.float(), w.float(),
-                     p.u.reshape(H, head_dim), s0)
+                     p.u.reshape(H, head_dim), s0, chunk=chunk)
     # per-head normalization, then the gate
     y = _head_norm(y, p.ln_x.reshape(H, head_dim)).reshape(B, S, D)
     y = y.to(x.dtype)
@@ -181,15 +208,16 @@ def rwkv6_layer(p: RWKV6, x: torch.Tensor,
 
 def rwkv6_block(p: RWKV6, ln1: RMSNorm, ln2: RMSNorm, h: torch.Tensor,
                 state: Optional[Dict[str, torch.Tensor]], *,
-                head_dim: int = 64, backend: str = "auto",
-                act_bits: int = 32
+                head_dim: int = 64, chunk: Optional[int] = None,
+                backend: str = "auto", act_bits: int = 32
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One pre-norm layer over the residual stream h (B, S, D): h +
     time_mix(ln1 h), then + channel_mix(ln2 h). Returns (h, {"shift_t",
-    "wkv", "shift_c"}): the state after the last position."""
+    "wkv", "shift_c"}): the state after the last position. ``chunk``:
+    :func:`wkv_scan`'s backward chunk."""
     kw = dict(backend=backend, act_bits=act_bits)
     t_out, t_state = rwkv6_time_mix(p, rmsnorm_apply(ln1, h), state,
-                                    head_dim=head_dim, **kw)
+                                    head_dim=head_dim, chunk=chunk, **kw)
     h = h + t_out
     c_out, c_state = rwkv6_channel_mix(p, rmsnorm_apply(ln2, h), state, **kw)
     return h + c_out, {**t_state, **c_state}

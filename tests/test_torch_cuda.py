@@ -70,7 +70,10 @@ replayed from a CUDA graph three times equals three eager steps bit for
 bit, each replay advancing the state, while the same step from a zeroed
 state lands 1.25 x 1e-3 a layer of max |logit| away or more; reduced
 rwkv on the card (graph-replayed and eager) gives the CPU's greedy
-tokens in each view.
+tokens in each view. Training of the encdec, hybrid and ssm families:
+one step of each reduced config on the card equals the CPU's (the loss
+within 1e-4 relative, dictionaries within 1e-5), every k-means pass a
+``kmeans_stats`` launch.
 """
 import contextlib
 
@@ -1698,6 +1701,47 @@ def test_cuda_train_checkpoint_serves_the_cpu_tokens(cuda_device, tmp_path,
     kernel = sh if policy else gp
     assert kernel["launches"] > 0
     assert sum(c.get("plain", 0) for c in counts["cuda"]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "zamba2-2.7b",
+                                  "rwkv6-1.6b"])
+def test_cuda_sequence_family_train_step_matches_cpu(cuda_device, arch):
+    """One training step of the reduced encdec, hybrid or ssm config
+    (the training CLI's build, kmeans_impl="stats", act_bits 32) on the
+    card and on the CPU from one initial state and batch (seamless's
+    with its frames): the loss within 1e-4 relative and every
+    dictionary within 1e-5 of its largest entry; every k-means pass a
+    kmeans_stats launch on the card (two a leaf), none a plain pass."""
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.nn.tree import QuantKernel
+
+    args = train_cli.parser().parse_args(
+        ["--arch", arch, "--reduced", "--steps", "1", "--batch", "2",
+         "--seq", "16", "--act-bits", "32", "--device", "cpu"])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, state, step_fn = train_cli.build(args, kmeans_impl="stats")
+        state.model.to(dev)
+        state.opt_state = {k: {n: t.to(dev) for n, t in v.items()}
+                           for k, v in state.opt_state.items()}
+        batch = train_cli.batch_fn(MarkovLM(cfg.vocab, seed=0), args,
+                                   torch.device(dev), cfg)(0)
+        before = dict(kmeans_stats.COUNTS)
+        state, m = step_fn(state, batch)
+        kernels = {n: k for n, k in state.model.named_modules()
+                   if isinstance(k, QuantKernel)}
+        out[dev] = (float(m["loss"]), {n: k.d.cpu() for n, k in
+                                       kernels.items()},
+                    {k: kmeans_stats.COUNTS[k] - before[k] for k in before})
+    (lc, dc, cc), (lg, dg, cg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc), (lg, lc)
+    for n in dc:
+        err = float((dg[n] - dc[n]).abs().max() / dc[n].abs().max())
+        assert err <= 1e-5, (n, err)
+    assert cg == {"launches": 2 * len(dc), "plain": 0}, cg
+    assert cc == {"launches": 0, "plain": 2 * len(dc)}, cc
 
 
 # ---------------------------------------------------------------------------

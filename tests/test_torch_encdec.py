@@ -186,13 +186,6 @@ def test_config_equals_reference(reduce):
         tlm.init_lm(None, cfg, device="meta")
 
 
-def test_loss_fn_names_encdec_training(ed):
-    """Training waits: the loss raises, naming its ROADMAP item."""
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="encdec training"):
-        tapi.loss_fn(_model(ed, tcfg), tcfg, {})
-
-
 def test_interop_round_trip_and_paths(ed):
     """from_jax / to_numpy carry the encoder and decoder stacks (split a
     layer at a time) both ways, bit for bit; state-dict keys and logical

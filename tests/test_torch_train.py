@@ -19,7 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import cfg_pair, jax_quantized, one_thread, to_np
+from torch_port_helpers import (assert_train_states_match, cfg_pair,
+                                jax_quantized, one_thread, to_np)
 
 from repro.checkpoint import ckpt as jckpt
 from repro.data.synthetic import MarkovLM
@@ -116,11 +117,6 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def _near_midpoint(w, d, tol=1e-6):
-    mid = (d[:-1] + d[1:]) * np.float32(0.5)
-    return np.abs(w.reshape(-1)[:, None] - mid[None, :]).min(1) <= tol
-
-
 @pytest.mark.parametrize("impl,microbatches", [(None, 1), ("stats", 1),
                                                (None, 2)])
 def test_three_train_steps_match_reference(jq, jax_run, impl, microbatches):
@@ -132,34 +128,8 @@ def test_three_train_steps_match_reference(jq, jax_run, impl, microbatches):
     assert tks.COUNTS["plain"] - plain == want_plain  # kmeans_iters = 1
     np.testing.assert_allclose(np.array(thist), np.array(jhist), rtol=1e-5)
     ttree = interop.train_state_to_numpy(state)
-    jl, tl = dict(_leaves(jtree)), dict(_leaves(ttree))
-    assert sorted(jl) == sorted(tl)
-    assert int(tl[("step",)]) == STEPS
-    near = 0
-    for k, x in jl.items():
-        y = tl[k]
-        if x is None:
-            assert y is None, k
-            continue
-        assert x.dtype == y.dtype and x.shape == y.shape, k
-        if k[-1] == "__lutq_a":
-            w = jl[("trainable",) + k[1:-1]]
-            d = jl[k[:-1] + ("__lutq_d",)]
-            for i in range(x.shape[0] if x.ndim == 3 else 1):
-                xa, ya = (x[i], y[i]) if x.ndim == 3 else (x, y)
-                wi, di = (w[i], d[i]) if x.ndim == 3 else (w, d)
-                diff = (xa != ya).reshape(-1)
-                assert _near_midpoint(wi[diff.reshape(wi.shape)], di).all(), k
-                near += int(diff.sum())
-        elif k[-1] == "__lutq_d":
-            np.testing.assert_allclose(y, x, rtol=1e-6, atol=1e-6,
-                                       err_msg=str(k))
-        elif k[0] == "trainable":
-            np.testing.assert_allclose(y, x, rtol=0,
-                                       atol=1e-5 * np.abs(x).max(),
-                                       err_msg=str(k))
-        elif k[0] == "static":
-            np.testing.assert_array_equal(y, x, err_msg=str(k))
+    assert int(ttree["step"]) == STEPS
+    near = assert_train_states_match(jtree, ttree)
     print(f"assignments that differ, all within 1e-6 of a midpoint: {near}")
 
 
